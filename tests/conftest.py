@@ -24,6 +24,12 @@ jax.config.update('jax_platforms', 'cpu')
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'cuda: needs a CUDA device (hand-written CUDA kernels have '
+                   'no CPU mode); skips where there is none')
+
+
 def pytest_sessionstart(session):
     """Warn (once, visibly) when the slow quality gates don't vouch for the
     current source tree — the fast suite cannot catch the decision-flip

@@ -10,21 +10,32 @@ result lines):
 
 1. environment: torch/CUDA versions, whether triton imports, the card's name
    and power limit; exits non-zero without CUDA or without the package;
-2. build: compiles ``superdsm_tpu_torch/csrc/gram_grad_hess.cu`` with nvcc
-   for sm_90a and prints the build seconds;
-3. the gram kernel against its plain PyTorch version on the card at the
+2. build: compiles both gram kernels (``superdsm_tpu_torch/csrc/
+   gram_grad_hess.cu`` and ``gram_grad_hess_bf16.cu``) with one nvcc each,
+   started together, for sm_90a; prints the build seconds and ptxas'
+   registers, shared memory and spills;
+3. every gram route against its plain PyTorch version on the card at the
    main path's shapes, with feature matrices built from real row-major disk
-   regions and a quarter of the lanes frozen: rtol = atol = 1e-4, banded
-   mode bitwise equal to dense mode, frozen lanes exactly zero, two runs
-   bitwise equal; times are CUDA-event medians of 10 launches;
+   regions and a quarter of the lanes frozen: the float32 kernel to
+   rtol = atol = 1e-4; the bf16 kernel at 3 passes to rtol = atol = 1e-4,
+   at 1 pass within bf16's unit roundoff elementwise
+   (|dH| <= 2^-7 |Bf|^T diag(kappa) |Bf| + 1e-4) and to 1e-4 on >= 99% of
+   the entries; banded mode bitwise equal to the unbanded mode, frozen lanes
+   exactly zero, two runs bitwise equal; times are CUDA-event medians of 10;
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
    ``tests/data/torch_port/bench-seed0.csv`` (center 3 px, size 10%, at
    most one unmatched object);
-5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` at the
-   JAX estimator's scale (30 sqrt 2 = 42.4264...), all 5 objects matched
-   against ``tests/regression/expected/nih3t3/nih3t3-glare.csv``.
+5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` through
+   the default entry point with no ``AF_scale``: the estimated scale must be
+   the JAX estimator's (30 sqrt 2 = 42.4264...) and all 5 objects must
+   match ``tests/regression/expected/nih3t3/nih3t3-glare.csv``;
+6. the precision knobs: the bench field at ``AF_scale=12`` in one
+   subprocess each with ``SDSM_GRAM_PASSES=3``, ``SDSM_GRAM_PASSES=1`` and
+   ``SDSM_GRAM_HYBRID_ITERS=16``; each must exit 0 and launch its bf16
+   routes. Objects, matches against the golden and seconds are printed, not
+   gated: the TPU lost objects under these knobs.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -42,19 +53,42 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-#: AF_scale of the NIH3T3 crop: the JAX package's blob-detector estimate
-#: (``superdsm_tpu.automation._estimate_scale`` on the CPU), 30 * sqrt(2).
+#: Expected scale of the NIH3T3 crop: the JAX package's blob-detector
+#: estimate (``superdsm_tpu.automation._estimate_scale`` on the CPU),
+#: 30 * sqrt(2); the port's estimate must agree to 1e-9 relative.
 NIH3T3_SCALE = 42.426406871192846
 
 #: Main-path shapes of phase 3: (B, P, n, route) — the n = 128, 256 and
 #: 512 bucket chunks of the bench field.
 KERNEL_SHAPES = [(64, 8192, 128, 'dense'), (32, 12288, 256, 'triangle'),
                  (16, 32768, 512, 'banded')]
-#: The Pallas kernel each route replaces.
-REPLACES = {'dense': 'superdsm_tpu/dsm/pallas_kernels.py:436',
-            'triangle': 'superdsm_tpu/dsm/pallas_kernels.py:292',
-            'banded': 'superdsm_tpu/dsm/pallas_kernels.py:346'}
+_PK = 'superdsm_tpu/dsm/pallas_kernels.py'
+#: The Pallas kernel (or reduced-precision body) each route replaces.
+REPLACES = {'dense': f'{_PK}:436', 'triangle': f'{_PK}:292',
+            'banded': f'{_PK}:346',
+            'dense-3pass': f'{_PK}:50', 'triangle-3pass': f'{_PK}:50',
+            'banded-3pass': f'{_PK}:50',
+            'dense-1pass': f'{_PK}:123', 'triangle-1pass': f'{_PK}:72',
+            'banded-1pass': f'{_PK}:72'}
+
+
+def _source(route):
+    """The kernel source of a route: the reduced-precision routes run the
+    bf16 kernel."""
+    bf16 = '_bf16' if route.endswith('pass') else ''
+    return f'superdsm_tpu_torch/csrc/gram_grad_hess{bf16}.cu'
+
+
+#: Phase 6: the environment of each knob run, and the routes whose launch
+#: counts the kernel table takes from that run.
+KNOB_RUNS = [({'SDSM_GRAM_PASSES': '3'},
+              ('dense-3pass', 'triangle-3pass', 'banded-3pass')),
+             ({'SDSM_GRAM_PASSES': '1'}, ('triangle-1pass', 'banded-1pass')),
+             ({'SDSM_GRAM_HYBRID_ITERS': '16'}, ('dense-1pass',))]
 RTOL = ATOL = 1e-4
+#: 1 pass: least share of H entries within rtol = atol = 1e-4 of the plain
+#: version (single bf16 roundings may flip on a one-ulp kappa difference).
+ONE_PASS_MIN_SHARE = 0.99
 
 
 def fail(msg):
@@ -153,55 +187,88 @@ def _event_ms(fn, reps=10):
     return float(np.median(times))
 
 
+def _check_route(route, passes, Bf, s, yv, w, active, band):
+    """Holds one route against its plain version; returns its table row."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram
+    full = passes != 6 and route.startswith('dense')
+    mirror = passes != 6 and not full
+
+    def kernel(band_=band):
+        return gram.grad_hess_kernel(Bf, s, yv, w, active, band_, passes=passes,
+                                     full=full)
+
+    g, H = kernel()
+    torch.cuda.synchronize()
+    g2, H2 = kernel()
+    torch.cuda.synchronize()
+    if not (torch.equal(g, g2) and torch.equal(H, H2)):
+        fail(f'{route}: two runs differ (not reproducible)')
+    if not (torch.isfinite(g).all() and torch.isfinite(H).all()):
+        fail(f'{route}: non-finite output')
+    frozen = active == 0
+    if g[frozen].any() or H[frozen].any():
+        fail(f'{route}: frozen lanes are not exactly zero')
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
+                                        mirror=mirror)
+    torch.cuda.synchronize()
+    err = max(float((g - g_ref).abs().max()), float((H - H_ref).abs().max()))
+    excess_g = float(((g - g_ref).abs() - RTOL * g_ref.abs()).max())
+    excess = max(excess_g, float(((H - H_ref).abs() - RTOL * H_ref.abs()).max()))
+    B, P, n = Bf.shape
+    if passes == 1:
+        _, kappa = gram._logistic_weights(s, yv, w)
+        absBf = Bf.abs().double()
+        bound = 2.0 ** -7 * (absBf * kappa.double()[..., None]).transpose(1, 2) @ absBf
+        over = float(((H - H_ref).abs().double() - bound).max())
+        share = float(((H - H_ref).abs() <= ATOL + RTOL * H_ref.abs())
+                      .double().mean())
+        del absBf, bound
+        say(f'[kernel] {route} ({B}, {P}, {n}): max_abs_err {err:.3e}, '
+            f'max(|dH| - 2^-7 |Bf|^T k |Bf|) {over:.3e} (<= 1e-4), share '
+            f'within 1e-4 {share:.5f} (>= {ONE_PASS_MIN_SHARE}), '
+            f'max(|dg| - rtol|ref|) {excess_g:.3e} (atol {ATOL})')
+        if over > 1e-4 or share < ONE_PASS_MIN_SHARE or excess_g > ATOL:
+            fail(f'{route}: kernel disagrees with the plain version')
+    else:
+        say(f'[kernel] {route} ({B}, {P}, {n}): max_abs_err {err:.3e}, '
+            f'max(|d| - rtol|ref|) {excess:.3e} (atol {ATOL})')
+        if excess > ATOL:
+            fail(f'{route}: kernel disagrees with the plain version')
+    if band is not None:
+        g_d, H_d = kernel(None)
+        torch.cuda.synchronize()
+        if not (torch.equal(g, g_d) and torch.equal(H, H_d)):
+            fail(f'{route}: banded mode is not bitwise equal to the unbanded mode')
+        unbanded_ms = _event_ms(lambda: kernel(None))
+        say(f'[kernel] {route}: banded mode bitwise equals the unbanded '
+            f'(triangle) mode, which takes {unbanded_ms:.3f} ms at this shape')
+    ms = _event_ms(kernel)
+    plain_ms = _event_ms(lambda: gram.grad_hess_plain(
+        Bf, s, yv, w, active, passes=passes, mirror=mirror))
+    say(f'[kernel] {route}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms '
+        f'(CUDA events, median of 10)')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 def phase_kernels():
     import torch
     from superdsm_tpu_torch.dsm import gram
     dev = torch.device('cuda')
     rows = {}
-    for B, P, n, route in KERNEL_SHAPES:
+    for B, P, n, base in KERNEL_SHAPES:
         rng = np.random.RandomState(n)
         lanes = [_lane_features(rng, P, n - 6) for _ in range(B)]
         Bf, s, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
         del lanes
         active = torch.ones(B, dtype=torch.int32, device=dev)
         active[::4] = 0  # a quarter of the lanes frozen
-        band = gram.band_ranges(Bf, w) if route == 'banded' else None
+        band = gram.band_ranges(Bf, w) if base == 'banded' else None
         torch.cuda.synchronize()
-
-        g, H = gram.grad_hess_kernel(Bf, s, yv, w, active, band)
-        torch.cuda.synchronize()
-        g2, H2 = gram.grad_hess_kernel(Bf, s, yv, w, active, band)
-        torch.cuda.synchronize()
-        if not (torch.equal(g, g2) and torch.equal(H, H2)):
-            fail(f'{route}: two runs differ (not reproducible)')
-        g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active)
-        torch.cuda.synchronize()
-        frozen = active == 0
-        if g[frozen].any() or H[frozen].any():
-            fail(f'{route}: frozen lanes are not exactly zero')
-        err = max(float((g - g_ref).abs().max()), float((H - H_ref).abs().max()))
-        excess = max(float(((g - g_ref).abs() - RTOL * g_ref.abs()).max()),
-                     float(((H - H_ref).abs() - RTOL * H_ref.abs()).max()))
-        say(f'[kernel] {route} ({B}, {P}, {n}): max_abs_err {err:.3e}, '
-            f'max(|d| - rtol|ref|) {excess:.3e} (atol {ATOL})')
-        if not (torch.isfinite(g).all() and torch.isfinite(H).all()):
-            fail(f'{route}: non-finite output')
-        if excess > ATOL:
-            fail(f'{route}: kernel disagrees with the plain version')
-        if band is not None:
-            g_d, H_d = gram.grad_hess_kernel(Bf, s, yv, w, active, None)
-            torch.cuda.synchronize()
-            if not (torch.equal(g, g_d) and torch.equal(H, H_d)):
-                fail('banded mode is not bitwise equal to dense mode')
-            say('[kernel] banded mode bitwise equals dense-triangle mode')
-            dense_ms = _event_ms(lambda: gram.grad_hess_kernel(Bf, s, yv, w, active, None))
-            say(f'[kernel] dense-triangle mode at the same shape: {dense_ms:.3f} ms')
-        ms = _event_ms(lambda: gram.grad_hess_kernel(Bf, s, yv, w, active, band))
-        plain_ms = _event_ms(lambda: gram.grad_hess_plain(Bf, s, yv, w, active))
-        say(f'[kernel] {route}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms '
-            f'(CUDA events, median of 10)')
-        rows[route] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        del Bf, s, yv, w, g, H, g2, H2, g_ref, H_ref
+        for passes in (6, 3, 1):
+            route = gram.route_for(n, band is not None, passes)
+            rows[route] = _check_route(route, passes, Bf, s, yv, w, active, band)
+        del Bf, s, yv, w
         torch.cuda.empty_cache()
     return rows
 
@@ -283,20 +350,24 @@ def read_gray_png(path):
 
 
 def _segment(g, scale):
+    """``automation.process_image`` on the default pipeline; ``scale`` None
+    leaves ``AF_scale`` unset (the entry point estimates it). Returns the
+    data, label map, config, stage timings and wall seconds."""
     import torch
     import superdsm_tpu_torch as T
     from superdsm_tpu_torch.output import get_output
     from superdsm_tpu_torch.render import rasterize_labels
+    base = T.Config() if scale is None else T.Config({'AF_scale': scale})
     t0 = time.time()
-    data, _, timings = T.automation.process_image(
-        T.create_default_pipeline(), T.Config({'AF_scale': scale}), g,
+    data, cfg, timings = T.automation.process_image(
+        T.create_default_pipeline(), base, g,
         out=get_output(None).derive(muted=True))
     torch.cuda.synchronize()
     seconds = time.time() - t0
     seg = rasterize_labels(data)
     if seg.shape != np.asarray(g).shape:
         fail(f'label map shape {seg.shape} != image shape {np.asarray(g).shape}')
-    return data, seg, timings, seconds
+    return data, seg, cfg, timings, seconds
 
 
 def _validate_module():
@@ -310,7 +381,9 @@ def _validate_module():
     return module
 
 
-def _match(seg, expected_csv, max_unmatched):
+def _match(seg, expected_csv, max_unmatched=None):
+    """Matches a label map against a golden CSV; fails when more than
+    ``max_unmatched`` objects are spurious or missing (None: not gated)."""
     validate = _validate_module()
     rows = validate.summarize_label_map(seg)
     expected = validate.load_csv(expected_csv)
@@ -318,41 +391,114 @@ def _match(seg, expected_csv, max_unmatched):
         rows, expected, center_tol=3.0, size_tol=0.1)
     say(f'[match] {matched}/{len(expected)} matched, spurious {spurious}, '
         f'missing {missing}')
-    if len(spurious) > max_unmatched or len(missing) > max_unmatched:
+    if max_unmatched is not None and (len(spurious) > max_unmatched
+                                      or len(missing) > max_unmatched):
         fail(f'label map disagrees with {os.path.relpath(expected_csv, REPO)}')
     return matched, len(expected)
+
+
+BENCH_GOLDEN = os.path.join(REPO, 'tests/data/torch_port/bench-seed0.csv')
 
 
 def phase_main_path():
     from superdsm_tpu_torch.dsm import gram
     g, n = make_image(0)
-    _, _, timings, seconds = _segment(g, 12)
+    _, _, _, timings, seconds = _segment(g, 12)
     say(f'[main] cold run: {seconds:.2f} s '
         f'({ {k: round(v, 3) for k, v in timings.items()} })')
     gram.reset_launch_counts()
-    data, seg, timings, seconds = _segment(g, 12)
+    data, seg, _, timings, seconds = _segment(g, 12)
     launches = dict(gram.LAUNCHES)
     n_obj = len(data['postprocessed_objects'])
     say(f'[main] timed run: {seconds:.2f} s, {n_obj} objects '
         f'(field has {n} nuclei); stage seconds '
         f'{ {k: round(v, 3) for k, v in timings.items()} }')
     say(f'[main] gram launches per route: {launches}')
-    if sum(launches.values()) == 0:
-        fail('the main path launched no gram kernel')
+    if any(launches[r] == 0 for r in ('dense', 'triangle', 'banded')):
+        fail('the main path left a float32 gram route unlaunched')
+    if any(v for r, v in launches.items() if r.endswith('pass')):
+        fail('the default knobs launched a reduced-precision gram')
     if n_obj == 0:
         fail('no objects segmented')
-    _match(seg, os.path.join(REPO, 'tests/data/torch_port/bench-seed0.csv'), 1)
+    _match(seg, BENCH_GOLDEN, 1)
     return launches
 
 
+def _leaves(entries, prefix=''):
+    """``(key/path, value)`` of every leaf of a nested config dict."""
+    for key, value in entries.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f'{prefix}{key}/')
+        else:
+            yield f'{prefix}{key}', value
+
+
 def phase_real_crop():
+    import superdsm_tpu_torch as T
     g = read_gray_png(os.path.join(REPO, 'tests/regression/data/nih3t3-glare.png'))
-    data, seg, timings, seconds = _segment(g.astype(np.float64), NIH3T3_SCALE)
-    say(f'[nih3t3] {seconds:.2f} s, {len(data["postprocessed_objects"])} objects')
+    g = g.astype(np.float64)
+    t0 = time.time()
+    cfg_ref, scale = T.automation.create_config(T.create_default_pipeline(),
+                                                T.Config(), g)
+    say(f'[nih3t3] estimated scale {scale!r} ({time.time() - t0:.2f} s, '
+        f'expected {NIH3T3_SCALE!r})')
+    if not abs(scale / NIH3T3_SCALE - 1.0) <= 1e-9:
+        fail(f'nih3t3: estimated scale {scale!r} != {NIH3T3_SCALE!r}')
+    data, seg, cfg, _, seconds = _segment(g, None)
+    # the stages add their defaults to the config they return; every entry
+    # the estimated scale set must be there unchanged
+    if any(cfg[key] != value for key, value in _leaves(cfg_ref.entries)):
+        fail('nih3t3: the entry point configured another scale')
+    say(f'[nih3t3] {seconds:.2f} s through the default entry point (no '
+        f'AF_scale), {len(data["postprocessed_objects"])} objects')
     matched, total = _match(seg, os.path.join(
         REPO, 'tests/regression/expected/nih3t3/nih3t3-glare.csv'), 0)
     if matched != total:
         fail(f'nih3t3: {matched}/{total} objects matched')
+
+
+def knob_run():
+    """Child of phase 6: the bench field at ``AF_scale=12`` under the
+    precision knobs of this process's environment, cold and then timed;
+    prints one JSON line with the timed run's launches, objects, matches
+    and seconds."""
+    sys.path.insert(0, REPO)
+    import superdsm_tpu_torch as T
+    from superdsm_tpu_torch.dsm import gram
+    T.set_device('cuda')
+    g, _ = make_image(0)
+    _segment(g, 12)
+    gram.reset_launch_counts()
+    data, seg, _, _, seconds = _segment(g, 12)
+    launches = dict(gram.LAUNCHES)
+    matched, total = _match(seg, BENCH_GOLDEN)
+    print(json.dumps(dict(passes=gram.GRAM_PASSES, hybrid=gram.HYBRID_ITERS,
+                          launches=launches, seconds=seconds, matched=matched,
+                          total=total,
+                          objects=len(data['postprocessed_objects']))), flush=True)
+
+
+def phase_knobs():
+    """Phase 6; returns each route's launch count from its knob run."""
+    launches = {}
+    for env, routes in KNOB_RUNS:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               '--knob-run'], env={**os.environ, **env},
+                              capture_output=True, text=True, timeout=400)
+        tag = ' '.join(f'{k}={v}' for k, v in env.items())
+        if proc.returncode != 0:
+            fail(f'knob run {tag} exited {proc.returncode}:\n'
+                 f'{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}')
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        say(f'[knobs] {tag}: {out["objects"]} objects, {out["matched"]}/'
+            f'{out["total"]} matched against the golden (not gated), timed run '
+            f'{out["seconds"]:.2f} s; launches '
+            f'{ {k: v for k, v in out["launches"].items() if v} }')
+        for route in routes:
+            if out['launches'][route] == 0:
+                fail(f'knob run {tag} did not launch route {route}')
+            launches[route] = out['launches'][route]
+    return launches
 
 
 def main():
@@ -362,18 +508,22 @@ def main():
     from superdsm_tpu_torch.dsm import gram
     T.set_device('cuda')
     build_s = gram.build()
-    gram._load()
-    say(f'[build] nvcc sm_90a build of gram_grad_hess.cu: {build_s:.2f} s')
-    for line in gram.BUILD_LOG.splitlines():
-        if 'registers' in line or 'spill' in line or 'smem' in line:
-            say(f'[build] {line.strip()}')
+    for src in gram.BUILD_LOG:
+        gram._load(src)
+    say(f'[build] nvcc sm_90a build of {", ".join(gram.BUILD_LOG)} '
+        f'(one nvcc each, together): {build_s:.2f} s')
+    for src, log in gram.BUILD_LOG.items():
+        for line in log.splitlines():
+            if 'registers' in line or 'spill' in line or 'smem' in line:
+                say(f'[build] {src}: {line.strip()}')
     kernels = phase_kernels()
     launches = phase_main_path()
     phase_real_crop()
-    table = [dict(name=f'gram_grad_hess/{route}', route='cuda',
-                  source='superdsm_tpu_torch/csrc/gram_grad_hess.cu',
-                  replaces=REPLACES[route], launches=launches[route],
-                  **kernels[route]) for route in REPLACES]
+    launches.update(phase_knobs())
+    table = [dict(name=f'{os.path.basename(_source(route))[:-3]}/{route}',
+                  route='cuda', source=_source(route), replaces=REPLACES[route],
+                  launches=launches[route], **kernels[route])
+             for route in REPLACES]
     say(card)  # the card's name and power limit, as nvidia-smi gives them
     say(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {
@@ -382,4 +532,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:] == ['--knob-run']:
+        knob_run()
+    else:
+        main()

@@ -1,24 +1,62 @@
-"""Automatic hyperparameter configuration from the object scale.
+"""Automatic hyperparameter configuration from the estimated object scale.
 
 Port of :mod:`superdsm_tpu.automation` (counterpart of the reference's
-``superdsm/automation.py:41-117``): each stage's
+``superdsm/automation.py:41-117``): the object scale is estimated with the
+masked determinant-of-Hessian blob detector of
+:mod:`superdsm_tpu_torch.ops.blob`, and each stage's
 :meth:`~superdsm_tpu_torch.pipeline.Stage.configure` spec is expanded into
 ``key = factor * AF_key`` config entries with type/min/max clamps.
-
-The scale must be given as ``AF_scale``: automatic scale estimation (the
-determinant-of-Hessian blob detector of ``superdsm_tpu/ops/blob.py``) is
-not ported yet.
 """
 
 import builtins
+import math
+
+import numpy as np
+
+from .image import normalize_image
+from .ops.blob import blob_doh
 
 
-def _estimate_scale(im, *args, **kwargs):
-    """Automatic object-scale estimation — not ported yet."""
-    raise NotImplementedError(
-        'superdsm_tpu_torch: automatic scale estimation '
-        '(automation._estimate_scale, ops/blob.py) is not ported yet — see '
-        'the ROADMAP item "scale estimation"; set AF_scale in the config')
+def _detection_sigmas(min_radius, max_radius, num_radii):
+    """DoH sigma grid for the radius search window, with a half-minimum
+    sentinel sigma prepended: detections landing on the sentinel are
+    below-window responses and get filtered out."""
+    window = np.linspace(min_radius, max_radius, num_radii) / math.sqrt(2)
+    return np.concatenate([[window.min() / 2], window])
+
+
+def _radius_consensus(radii):
+    """(consensus mean radius, inlier mask): inliers lie within one
+    mean-absolute-deviation of the median radius (TPAMI 2023 §3.1)."""
+    center = np.median(radii)
+    spread = np.mean(np.abs(radii - center))
+    inliers = (radii >= center - spread) & (radii <= center + spread)
+    return np.mean(radii[inliers]), inliers
+
+
+def _estimate_scale(im, min_radius=20, max_radius=200, num_radii=10,
+                    thresholds=(0.01,), inlier_tol=np.inf):
+    """Estimates the object scale sigma of an image from the consensus
+    radius of masked determinant-of-Hessian blob detections
+    (``scale = mean radius / sqrt(2)``; TPAMI 2023 §3.1).
+
+    :return: ``(scale, detections, inlier_mask)``; raises
+        :class:`ValueError` when no threshold yields any in-window blob.
+    """
+    sigmas = _detection_sigmas(min_radius, max_radius, num_radii)
+    g = normalize_image(im)
+    g = g / g.max()
+
+    for threshold in sorted(thresholds, reverse=True):
+        detections = blob_doh(g, sigmas, threshold=threshold)
+        in_window = ~np.isclose(detections[:, 2], sigmas.min())
+        detections = detections[in_window]
+        if len(detections):
+            mean_radius, inliers = _radius_consensus(
+                detections[:, 2] * math.sqrt(2))
+            return mean_radius / math.sqrt(2), detections, inliers
+
+    raise ValueError('scale estimation failed')
 
 
 def _create_config_entry(cfg, key, factor, default_user_factor, type=None, min=None, max=None):
@@ -41,8 +79,7 @@ def create_config(pipeline, base_cfg, img):
     """Expands scale-dependent hyperparameter defaults into a new config.
 
     If ``AF_scale`` is set in ``base_cfg``, that scale is used directly;
-    otherwise the scale would be estimated from ``img``, which this port
-    does not do yet (:func:`_estimate_scale` raises). Every stage contributes
+    otherwise the scale is estimated from ``img``. Every stage contributes
     ``(factor, default_user_factor[, kwargs])`` specs via its
     :meth:`~superdsm_tpu_torch.pipeline.Stage.configure` method.
 

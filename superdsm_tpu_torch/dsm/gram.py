@@ -10,23 +10,37 @@ feature matrix ``Bf (P, n)``, the carried surface ``s`` and data ``yv, w``::
 
 Two implementations of the same function live here:
 
-- :func:`grad_hess_kernel`, the hand-written CUDA kernel
-  (``csrc/gram_grad_hess.cu``), compiled with ``nvcc`` for ``sm_90a`` into
-  the build directory on first use and bound with ``ctypes``;
+- :func:`grad_hess_kernel`, the hand-written CUDA kernels, compiled with
+  ``nvcc`` for ``sm_90a`` into the build directory on first use and bound
+  with ``ctypes``: ``csrc/gram_grad_hess.cu`` (float32 products) and
+  ``csrc/gram_grad_hess_bf16.cu`` (bf16 tensor-core products, 1 or 3
+  passes);
 - :func:`grad_hess_plain`, the plain PyTorch version (batched matmuls with
-  float64 sums), which the solver also uses for the sizes the kernel does
+  float64 sums), which the solver also uses for the sizes the kernels do
   not serve (n = 6, 32, 64).
 
 :func:`fused_grad_hess_batched` dispatches: a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises — there is no fallback.
+version; a CUDA tensor launches a kernel or raises — there is no fallback.
 It keeps the JAX package's selection rule (``pallas_kernels.py``): the
-kernel serves n % 128 == 0, in banded mode for n in {512, 1024} when a band
-table is given, in dense (upper-triangle) mode otherwise.
+kernels serve n % 128 == 0, in banded mode for n in {512, 1024} when a band
+table is given, in triangle mode for 256 <= n <= 1024 otherwise and in
+dense mode at n = 128 and 2048; ``cheap`` (the early iterations of the
+hybrid schedule) takes the 1-pass dense gram at every n.
+
+Precision knobs, read from the environment at import as in the JAX package
+and at every call from these module attributes (tests set them):
+
+- :data:`GRAM_PASSES` (``SDSM_GRAM_PASSES``): 6 = float32 products (the
+  default), 3 = the bf16 hi/lo split with the lo*lo term dropped,
+  1 = one bf16 pass;
+- :data:`HYBRID_ITERS` (``SDSM_GRAM_HYBRID_ITERS``): the solver's first
+  this many Newton iterations take ``cheap=True``.
 
 Every launch adds one to :data:`LAUNCHES` under the route it stands for:
 ``'dense'`` (the full dense Pallas kernel, n = 128 and n = 2048),
 ``'triangle'`` (the triangle-blocked one, 256 <= n <= 1024 without a band)
-and ``'banded'``.
+and ``'banded'``, each with a ``-3pass`` or ``-1pass`` suffix for the
+reduced-precision bodies.
 """
 
 import ctypes
@@ -40,12 +54,11 @@ import torch
 
 from ..native import BUILD_DIR
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    'csrc', 'gram_grad_hess.cu')
-_LIB = os.path.join(BUILD_DIR, 'libsdsm_gram.so')
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     'csrc')
 
-#: Column tile and pixel-row chunk of the kernel (checked against the
-#: compiled library on load).
+#: Column tile and pixel-row chunk of both kernels (checked against the
+#: compiled libraries on load).
 TILE = 64
 ROWS = 32
 
@@ -53,15 +66,43 @@ ROWS = 32
 #: ``_NBAND_BY_N`` keys).
 BANDED_N = (512, 1024)
 
-#: Kernel launches per route; only :func:`grad_hess_kernel` adds to them.
-LAUNCHES = {'dense': 0, 'triangle': 0, 'banded': 0}
+#: The triangle and banded modes of the reduced-precision gram mirror whole
+#: blocks of this many columns, as the TPU kernels do (a bf16 product and
+#: its mirror differ: the operand that carries kappa swaps).
+MIRROR_BLOCK = 128
 
-#: The last ``nvcc`` build's output (``-Xptxas -v``: registers, shared
-#: memory, spills).
-BUILD_LOG = ''
+#: MXU passes of the gram product (``SDSM_GRAM_PASSES``): 6 float32, 3 the
+#: bf16 hi/lo split, 1 one bf16 pass. Rejected on the TPU as defaults: the
+#: reduced-precision steps stalled the LM solver and lost objects.
+GRAM_PASSES = int(os.environ.get('SDSM_GRAM_PASSES', '6'))
+if GRAM_PASSES not in (1, 3, 6):
+    raise ValueError(f'SDSM_GRAM_PASSES must be 1, 3 or 6, got {GRAM_PASSES}')
+
+#: Newton iterations of each solve that take the 1-pass dense gram
+#: (``SDSM_GRAM_HYBRID_ITERS``; 0 = off, the default).
+HYBRID_ITERS = int(os.environ.get('SDSM_GRAM_HYBRID_ITERS', '0'))
+
+_ROUTES = ('dense', 'triangle', 'banded')
+
+#: Kernel launches per route; only :func:`grad_hess_kernel` adds to them.
+LAUNCHES = {f'{route}{suffix}': 0 for suffix in ('', '-3pass', '-1pass')
+            for route in _ROUTES}
+
+#: The last ``nvcc`` build's output per source (``-Xptxas -v``: registers,
+#: shared memory, spills).
+BUILD_LOG = {}
+
+#: Shared library, entry point and argument types of each kernel source:
+#: pointers Bf, s, yv, w, active, band, g, H; ints B, P, n (and passes,
+#: mode); the stream.
+_KERNELS = {
+    'gram_grad_hess.cu': ('libsdsm_gram.so', 'sdsm_gram', 3),
+    'gram_grad_hess_bf16.cu': ('libsdsm_gram_bf16.so', 'sdsm_gram_bf16', 5),
+}
+_F32_SRC, _BF16_SRC = _KERNELS
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
 def reset_launch_counts():
@@ -69,11 +110,16 @@ def reset_launch_counts():
         LAUNCHES[key] = 0
 
 
-def route_for(n, banded):
-    """The TPU kernel a launch at size ``n`` stands for."""
+def route_for(n, banded, passes=6, full=False):
+    """The TPU kernel a launch at size ``n`` stands for (``full``: the full
+    dense gram whatever ``n``)."""
     if banded:
-        return 'banded'
-    return 'triangle' if 2 <= n // 128 <= 8 else 'dense'
+        route = 'banded'
+    elif full:
+        route = 'dense'
+    else:
+        route = 'triangle' if 2 <= n // 128 <= 8 else 'dense'
+    return route if passes == 6 else f'{route}-{passes}pass'
 
 
 def _logistic_weights(s, yv, w):
@@ -84,20 +130,55 @@ def _logistic_weights(s, yv, w):
     return term1, kappa
 
 
-def grad_hess_plain(Bf, s, yv, w, active=None):
+def _bf16_parts(x, passes):
+    """The float32 operand ``x`` as the bf16 parts a reduced-precision gram
+    multiplies, widened to float64: ``[hi]`` for 1 pass, ``[hi, lo]`` for 3,
+    with ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (round to nearest even,
+    as ``_dot_rows_3pass`` and ``_gram_dot_1pass`` round)."""
+    hi = x.to(torch.bfloat16)
+    if passes == 1:
+        return [hi.double()]
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return [hi.double(), lo.double()]
+
+
+def _mirror_blocks(H):
+    """Replaces the strictly lower :data:`MIRROR_BLOCK` blocks of ``H`` by
+    the transpose of the upper ones (the triangle and banded modes)."""
+    blk = torch.arange(H.shape[-1], device=H.device) // MIRROR_BLOCK
+    return torch.where(blk[:, None] > blk[None, :], H.transpose(-1, -2), H)
+
+
+def grad_hess_plain(Bf, s, yv, w, active=None, passes=6, mirror=False):
     """Plain PyTorch version: ``(g (..., n), H (..., n, n))`` float32.
 
     The float32 inputs are multiplied and summed over the pixels in float64
     and rounded once: a float32 reduction over 10^4 pixels in the order a
     library picks (cuBLAS sums a long ``k`` almost sequentially, measured
     4e-5 relative error on the n = 6 gram on an H100) is too coarse for the
-    near-singular Newton systems, whose condition reaches ~1e5. The kernel
-    gets the same effect from float64 running sums. Frozen lanes
-    (``active == 0``) give zeros, as the kernel's do."""
+    near-singular Newton systems, whose condition reaches ~1e5. The kernels
+    get the same effect from float64 running sums. Frozen lanes
+    (``active == 0``) give zeros, as the kernels' do.
+
+    ``passes`` (1 or 3) rounds H's operands ``Bf kappa`` (computed in
+    float32) and ``Bf`` to their bf16 parts (:func:`_bf16_parts`) and sums
+    ``hi hi`` (+ ``hi lo + lo hi``); bf16 products are exact in float64, so
+    only the order of the sums differs from the kernel's. ``g`` keeps full
+    precision. ``mirror`` writes the strictly lower blocks as the transpose
+    of the upper ones, as the triangle and banded modes do."""
     term1, kappa = _logistic_weights(s, yv, w)
     Bd = Bf.double()
     g = (Bd.transpose(-1, -2) @ term1.double()[..., None])[..., 0]
-    H = (Bd * kappa.double()[..., None]).transpose(-1, -2) @ Bd
+    if passes == 6:
+        H = (Bd * kappa.double()[..., None]).transpose(-1, -2) @ Bd
+    else:
+        a = _bf16_parts(Bf * kappa[..., None], passes)
+        b = _bf16_parts(Bf, passes)
+        H = a[0].transpose(-1, -2) @ b[0]
+        if passes == 3:
+            H = H + a[0].transpose(-1, -2) @ b[1] + a[1].transpose(-1, -2) @ b[0]
+    if mirror:
+        H = _mirror_blocks(H)
     g, H = g.float(), H.float()
     if active is not None:
         keep = active != 0
@@ -135,51 +216,65 @@ def _nvcc():
     default = '/usr/local/cuda/bin/nvcc'
     if os.path.exists(default):
         return default
-    raise RuntimeError('nvcc not found: the gram kernel is built from '
-                       f'{_SRC} with the CUDA toolkit')
+    raise RuntimeError('nvcc not found: the gram kernels are built from '
+                       f'{_CSRC} with the CUDA toolkit')
+
+
+def _lib_path(src):
+    return os.path.join(BUILD_DIR, _KERNELS[src][0])
 
 
 def build():
-    """Compiles the kernel library (always anew) and returns the seconds
-    the build took."""
-    global BUILD_LOG
+    """Compiles every kernel library anew, one ``nvcc`` per source, all
+    started together; returns the seconds the build took."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{_LIB}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-           '-O3', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC',
-           '-o', tmp, _SRC]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stdout}\n{proc.stderr}')
-    os.replace(tmp, _LIB)
-    BUILD_LOG = proc.stdout + proc.stderr
+    procs = {}
+    for src in _KERNELS:
+        tmp = f'{_lib_path(src)}.{os.getpid()}.tmp'
+        cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+               '-std=c++17', '-O3', '-Xptxas', '-v', '-shared',
+               '-Xcompiler', '-fPIC', '-o', tmp, os.path.join(_CSRC, src)]
+        procs[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for src, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[src] = out
+        if proc.returncode != 0:
+            failed.append(f'{src}: nvcc failed ({proc.returncode}):\n{out}')
+        else:
+            os.replace(tmp, _lib_path(src))
+    if failed:
+        raise RuntimeError('\n'.join(failed))
     return time.time() - t0
 
 
-def _load():
-    """Builds (if missing or stale) and loads the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def _load(src=_F32_SRC):
+    """Builds (if missing or stale) and loads one kernel library."""
+    lib = _libs.get(src)
+    if lib is not None:
+        return lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+        if src in _libs:
+            return _libs[src]
+        path = _lib_path(src)
+        if (not os.path.exists(path) or os.path.getmtime(path)
+                < os.path.getmtime(os.path.join(_CSRC, src))):
             build()
-        lib = ctypes.CDLL(_LIB)
-        lib.sdsm_gram_grad_hess.argtypes = [ctypes.c_void_p] * 8 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.sdsm_gram_grad_hess.restype = ctypes.c_int
-        lib.sdsm_gram_tile.restype = ctypes.c_int
-        lib.sdsm_gram_rows.restype = ctypes.c_int
-        if (lib.sdsm_gram_tile(), lib.sdsm_gram_rows()) != (TILE, ROWS):
-            raise RuntimeError('gram kernel library does not match '
+        lib = ctypes.CDLL(path)
+        _, prefix, n_ints = _KERNELS[src]
+        fn = getattr(lib, f'{prefix}_grad_hess')
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        tile, rows = (getattr(lib, f'{prefix}_{name}') for name in ('tile', 'rows'))
+        tile.restype = rows.restype = ctypes.c_int
+        if (tile(), rows()) != (TILE, ROWS):
+            raise RuntimeError(f'{src}: library does not match '
                                f'TILE={TILE}, ROWS={ROWS}')
-        _lib = lib
-    return _lib
+        _libs[src] = lib
+    return lib
 
 
 def _check(name, t, dtype, shape, device):
@@ -193,15 +288,26 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f'{name}: not contiguous')
 
 
-def grad_hess_kernel(Bf, s, yv, w, active, band=None):
-    """Launches the CUDA kernel on the current stream; ``band`` (from
-    :func:`band_ranges`) selects the banded mode. Returns ``(g, H)``."""
+def grad_hess_kernel(Bf, s, yv, w, active, band=None, passes=6, full=False):
+    """Launches a CUDA kernel on the current stream; returns ``(g, H)``.
+
+    ``passes`` 6 launches the float32 kernel (``band``, from
+    :func:`band_ranges`, selects its banded mode); 1 or 3 the bf16 kernel,
+    in full mode with ``full`` (every tile pair straight), else in triangle
+    mode, or banded mode with a ``band``."""
     B, P, n = Bf.shape
     dev = Bf.device
     if dev.type != 'cuda':
         raise ValueError(f'grad_hess_kernel needs CUDA tensors, got {dev}')
-    if n % TILE or P % ROWS:
-        raise ValueError(f'gram kernel needs n % {TILE} == 0 and '
+    if passes not in (1, 3, 6):
+        raise ValueError(f'passes must be 1, 3 or 6, got {passes}')
+    if passes == 6 and full:
+        raise ValueError('the float32 kernel has no full mode')
+    if full and band is not None:
+        raise ValueError('full mode takes no band table')
+    cols = TILE if passes == 6 or full else MIRROR_BLOCK
+    if n % cols or P % ROWS:
+        raise ValueError(f'gram kernel needs n % {cols} == 0 and '
                          f'P % {ROWS} == 0, got n={n}, P={P}')
     f32 = torch.float32
     _check('Bf', Bf, f32, (B, P, n), dev)
@@ -212,22 +318,27 @@ def grad_hess_kernel(Bf, s, yv, w, active, band=None):
         _check('band', band, torch.int32, (B, P // ROWS, 3), dev)
     if Bf.data_ptr() % 16:
         raise ValueError('Bf must be 16-byte aligned')
-    lib = _load()
+    lib = _load(_F32_SRC if passes == 6 else _BF16_SRC)
     g = torch.empty((B, n), dtype=f32, device=dev)
     H = torch.empty((B, n, n), dtype=f32, device=dev)
+    ptrs = (Bf.data_ptr(), s.data_ptr(), yv.data_ptr(), w.data_ptr(),
+            active.data_ptr(), None if band is None else band.data_ptr(),
+            g.data_ptr(), H.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sdsm_gram_grad_hess(
-            Bf.data_ptr(), s.data_ptr(), yv.data_ptr(), w.data_ptr(),
-            active.data_ptr(), None if band is None else band.data_ptr(),
-            g.data_ptr(), H.data_ptr(), B, P, n, stream)
+        if passes == 6:
+            err = lib.sdsm_gram_grad_hess(*ptrs, B, P, n, stream)
+        else:
+            mode = 0 if full else (1 if band is None else 2)
+            err = lib.sdsm_gram_bf16_grad_hess(*ptrs, B, P, n, passes, mode,
+                                               stream)
     if err != 0:
         raise RuntimeError(f'gram kernel launch failed: CUDA error {err}')
-    LAUNCHES[route_for(n, band is not None)] += 1
+    LAUNCHES[route_for(n, band is not None, passes, full)] += 1
     return g, H
 
 
-def fused_grad_hess_batched(Bf, s, yv, w, active=None, band=None):
+def fused_grad_hess_batched(Bf, s, yv, w, active=None, band=None, cheap=False):
     """Fused logistic gradient and Gauss-Newton Hessian, batched.
 
     :param Bf: (B, P, n) float32 feature matrices, n a multiple of 128.
@@ -236,17 +347,26 @@ def fused_grad_hess_batched(Bf, s, yv, w, active=None, band=None):
         frozen lanes return zeros (the Newton driver discards their g/H).
     :param band: optional band table (:func:`band_ranges`); used for
         n in :data:`BANDED_N`.
-    :return: ``(g (B, n), H (B, n, n))`` float32.
+    :param cheap: the 1-pass bf16 gram, full dense at every n (the early
+        iterations of the hybrid schedule, :data:`HYBRID_ITERS`).
+    :return: ``(g (B, n), H (B, n, n))`` float32. The product precision is
+        :data:`GRAM_PASSES` unless ``cheap``.
     """
     B, P, n = Bf.shape
+    passes = 1 if cheap else GRAM_PASSES
     if active is None:
         active = torch.ones((B,), dtype=torch.int32, device=Bf.device)
     else:
         active = active.to(torch.int32)
+    # B1's reduced-precision bodies compute every block pair straight; B2
+    # and B3 mirror the lower blocks
+    full = cheap or (passes != 6 and route_for(n, False) == 'dense')
     if Bf.device.type == 'cpu':
-        return grad_hess_plain(Bf, s, yv, w, active)
+        return grad_hess_plain(Bf, s, yv, w, active, passes=passes,
+                               mirror=passes != 6 and not full)
     if n % 128:
         raise ValueError(f'the gram kernel serves n % 128 == 0, got n={n}')
-    use_band = band if n in BANDED_N else None
+    use_band = band if n in BANDED_N and not full else None
     return grad_hess_kernel(Bf.contiguous(), s.contiguous(), yv.contiguous(),
-                            w.contiguous(), active.contiguous(), use_band)
+                            w.contiguous(), active.contiguous(), use_band,
+                            passes=passes, full=full)

@@ -296,7 +296,8 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
     :param banded: the feature matrix is band-structured (DSM solves): on the
         card, the gram at n in ``gram.BANDED_N`` runs the kernel's banded
         mode with a band table computed once here (G never changes across
-        Newton iterations).
+        Newton iterations). The gram's precision follows the knobs
+        ``gram.GRAM_PASSES`` and ``gram.HYBRID_ITERS``, read at each call.
     :return: ``(params, energy, conv, iterations, surface, it_lane)``.
     """
     B, n_total = params0.shape
@@ -307,11 +308,16 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
     if use_kernel and banded and Bf.is_cuda and n_total in gram.BANDED_N:
         band = gram.band_ranges(Bf, w)
 
-    def grad_hess_b(s, active):
+    def grad_hess_b(s, active, cheap):
         if use_kernel:
             return gram.fused_grad_hess_batched(Bf, s, yv, w, active=active,
-                                                band=band)
-        return gram.grad_hess_plain(Bf, s, yv, w)
+                                                band=band, cheap=cheap)
+        # the JAX package's XLA path at GRAM_PRECISION (a straight product)
+        return gram.grad_hess_plain(Bf, s, yv, w, passes=gram.GRAM_PASSES)
+
+    # the first HYBRID_ITERS iterations take the 1-pass dense gram, where
+    # the kernel serves the shape (the JAX package's Pallas condition)
+    hybrid_iters = gram.HYBRID_ITERS if use_kernel else 0
 
     params = params0
     s = _bmv(Bf, params0)
@@ -324,7 +330,7 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
     while it < maxiter and not bool(conv.all()):
         # frozen lanes skip the gram work in the kernel; their g/H come back
         # zero and only feed the masked-out step below
-        g_b, H_b = grad_hess_b(s, (~conv).to(torch.int32))
+        g_b, H_b = grad_hess_b(s, (~conv).to(torch.int32), it < hybrid_iters)
         new_params, new_s, new_f, new_conv, new_mu = _newton_step(
             params, mu, s, fval, g_b, H_b, Bf, yv, w, alpha, epsilon, kmask, tol)
         keep = conv[:, None]

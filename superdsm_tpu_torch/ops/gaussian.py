@@ -31,7 +31,9 @@ def gaussian_kernel1d(sigma, truncate=4.0, radius=None, dtype=np.float32):
 
 def _pad_symmetric(x, pad, axis):
     """numpy ``symmetric`` padding (edge repeated), also for pad widths
-    larger than the axis size."""
+    larger than the axis size. An empty axis cannot be padded."""
+    if pad > 0 and x.shape[axis] == 0:
+        raise ValueError(f'cannot pad an empty axis {axis} symmetrically')
     while pad > 0:
         size = x.shape[axis]
         step = min(pad, size)

@@ -1,5 +1,5 @@
-"""The gram kernel (``superdsm_tpu_torch/csrc/gram_grad_hess.cu``) against
-its plain PyTorch version on the card.
+"""The gram kernels (``superdsm_tpu_torch/csrc/gram_grad_hess.cu`` and
+``gram_grad_hess_bf16.cu``) against their plain PyTorch version on the card.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. The file imports neither JAX nor the JAX package, so it also
@@ -11,6 +11,15 @@ Tolerance against the plain version: rtol = atol = 1e-4 (both sum float32
 products in float64, in different orders). The banded mode must equal the
 dense mode bitwise, two runs must be bitwise equal, and frozen lanes give
 exact zeros.
+
+The bf16 kernel is held against ``grad_hess_plain(passes=...)`` with the
+same operand rounding: 3 passes to rtol = atol = 1e-4; 1 pass within
+bf16's unit roundoff elementwise (``|dH| <= 2^-7 (|Bf|^T diag(kappa) |Bf|)
++ 1e-4``: a one-ulp difference in kappa between ``expf`` and
+``torch.sigmoid`` can flip single bf16 roundings) and within
+rtol = atol = 1e-4 on at least 99% of the entries. Its banded mode equals
+its triangle mode bitwise, and its g equals the float32 kernel's bitwise
+(the same code).
 """
 
 import numpy as np
@@ -101,4 +110,96 @@ def test_launch_counts_by_route():
     Bf, s, yv, w = _band_problem(dev)
     gram.fused_grad_hess_batched(Bf, s, yv, w, band=gram.band_ranges(Bf, w))
     torch.cuda.synchronize()
-    assert gram.LAUNCHES == {'dense': 2, 'triangle': 1, 'banded': 1}
+    assert {k: v for k, v in gram.LAUNCHES.items() if v} == \
+        {'dense': 2, 'triangle': 1, 'banded': 1}
+
+
+def _assert_bf16_close(H, H_ref, Bf, s, yv, w, passes):
+    if passes == 3:
+        torch.testing.assert_close(H, H_ref, rtol=RTOL, atol=ATOL)
+        return
+    _, kappa = gram._logistic_weights(s, yv, w)
+    absBf = Bf.abs().double()
+    bound = 2.0 ** -7 * (absBf * kappa.double()[..., None]).transpose(1, 2) @ absBf
+    diff = (H - H_ref).abs().double()
+    assert bool((diff <= bound + 1e-4).all())
+    within = (diff <= ATOL + RTOL * H_ref.abs().double()).double().mean()
+    assert float(within) >= 0.99, float(within)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('passes', [3, 1])
+@pytest.mark.parametrize('n,mode', [(128, 'full'), (256, 'full'),
+                                    (256, 'triangle'), (512, 'triangle')])
+def test_bf16_kernel_matches_plain(n, mode, passes):
+    dev = _cuda()
+    Bf, s, yv, w = _dense_problem(n + passes, 3, 1024, n, dev)
+    active = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    full = mode == 'full'
+    g, H = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=passes, full=full)
+    g2, H2 = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=passes, full=full)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2) and torch.equal(H, H2)
+    assert not g[1].any() and not H[1].any()
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
+                                        mirror=not full)
+    torch.testing.assert_close(g, g_ref, rtol=RTOL, atol=ATOL)
+    _assert_bf16_close(H, H_ref, Bf, s, yv, w, passes)
+    if not full:
+        g32, _ = gram.grad_hess_kernel(Bf, s, yv, w, active)
+        torch.cuda.synchronize()
+        assert torch.equal(g, g32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('passes', [3, 1])
+def test_bf16_banded_bitwise_equals_triangle(passes):
+    dev = _cuda()
+    Bf, s, yv, w = _band_problem(dev)
+    active = torch.ones(2, dtype=torch.int32, device=dev)
+    band = gram.band_ranges(Bf, w)
+    g_b, H_b = gram.grad_hess_kernel(Bf, s, yv, w, active, band, passes=passes)
+    g_t, H_t = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=passes)
+    torch.cuda.synchronize()
+    assert torch.equal(g_b, g_t) and torch.equal(H_b, H_t)
+    _, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
+                                    mirror=True)
+    _assert_bf16_close(H_b, H_ref, Bf, s, yv, w, passes)
+
+
+@pytest.mark.cuda
+def test_knob_routes_launch_the_bf16_kernel(monkeypatch):
+    """Each knob setting reaches its route through the dispatcher, and no
+    knob path falls back to the float32 kernel."""
+    dev = _cuda()
+    Bf, s, yv, w = _band_problem(dev)
+    band = gram.band_ranges(Bf, w)
+    gram.reset_launch_counts()
+    for passes in (3, 1):
+        monkeypatch.setattr(gram, 'GRAM_PASSES', passes)
+        for n in (128, 256, 2048):
+            gram.fused_grad_hess_batched(*_dense_problem(n, 1, 64, n, dev))
+        gram.fused_grad_hess_batched(Bf, s, yv, w, band=band)
+    gram.fused_grad_hess_batched(Bf, s, yv, w, band=band, cheap=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in gram.LAUNCHES.items() if v} == {
+        'dense-3pass': 2, 'triangle-3pass': 1, 'banded-3pass': 1,
+        'dense-1pass': 3, 'triangle-1pass': 1, 'banded-1pass': 1}
+
+
+@pytest.mark.cuda
+def test_bf16_library_refuses_bad_arguments():
+    dev = _cuda()
+    Bf, s, yv, w = _dense_problem(0, 1, 64, 128, dev)
+    active = torch.ones(1, dtype=torch.int32, device=dev)
+    lib = gram._load(gram._BF16_SRC)
+    g = torch.empty((1, 128), device=dev)
+    H = torch.empty((1, 128, 128), device=dev)
+    ptrs = [t.data_ptr() for t in (Bf, s, yv, w, active)] + [None] + \
+        [g.data_ptr(), H.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, 1, 64, 128, 2, 0, stream) != 0
+    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, 1, 64, 128, 3, 2, stream) != 0
+    with pytest.raises(ValueError):
+        gram.grad_hess_kernel(Bf[..., :64].contiguous(), s, yv, w, active,
+                              passes=3)

@@ -155,6 +155,9 @@ def test_cuda_device_is_never_a_silent_fallback():
 
 
 def test_scale_estimation_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
+    """Scale estimation is ported now: without ``AF_scale`` the scale is
+    estimated, and a blob-free image raises the JAX package's error
+    instead of ``NotImplementedError``."""
+    with T.use_device('cpu'), pytest.raises(ValueError, match='scale estimation failed'):
         T.automation.create_config(T.create_default_pipeline(), T.Config(),
                                    np.zeros((8, 8), np.float32))

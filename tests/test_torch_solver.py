@@ -319,3 +319,86 @@ def test_dsm_chunk_sizes_policy():
     assert sizes(5, 16, 16384, 506) == [5]
     assert sizes(19, 32, 2048, 26) == [19]
     assert tbatching._dsm_chunk_sizes(19, 32, 32768, 506, on_cpu_=True) == [19]
+
+
+def _hybrid_problem(B=2, side=22, P=512, K=122, sigma=4.0, cutoff=16):
+    """B lanes of one DSM problem size n = 6 + K = 128 at P = 512: a square
+    region with a noisy disk (non-separable, so lanes can converge)."""
+    from superdsm_tpu.dsm.smooth import build_smooth_matrix as j_smooth
+    from superdsm_tpu.dsm.smooth import subsample_grid
+    mask = np.ones((side, side), bool)
+    pts = np.argwhere(mask).astype(np.float32)
+    sub = np.argwhere(subsample_grid(mask, 2) & mask)[:K]
+    PIX = np.zeros((P, 2), np.float32)
+    PIX[:len(pts)] = pts
+    W = np.zeros(P, np.float32)
+    W[:len(pts)] = 1.0
+    SUB = np.full((K, 2), -10.0 * (cutoff + 1), np.float32)
+    SUB[:len(sub)] = sub
+    KM = np.zeros(K, np.float32)
+    KM[:len(sub)] = 1.0
+    rng = np.random.RandomState(11)
+    rr, cc = np.indices((side, side))
+    yv = np.zeros((B, P), np.float32)
+    for b in range(B):
+        disk = (rr - 10.5 - b) ** 2 + (cc - 11.0) ** 2 <= (6.0 + b) ** 2
+        y = disk - 0.5 + rng.randn(side, side) * 0.4
+        yv[b, :len(pts)] = y.reshape(-1)
+    coords = (PIX + 40.0) / np.float32(199.0)
+    Q = np.asarray(jsolver._poly_basis(jnp.asarray(coords)))
+    G = np.asarray(j_smooth(jnp.asarray(PIX), jnp.asarray(SUB), sigma, cutoff,
+                            jnp.asarray(KM)))
+    tile = lambda a: np.stack([a] * B)
+    return dict(params0=np.zeros((B, 6 + K), np.float32), Q=tile(Q), G=tile(G),
+                yv=yv, w=tile(W), alpha=np.full(B, 0.05, np.float32),
+                kmask=tile(KM))
+
+
+@pytest.fixture
+def jax_hybrid(monkeypatch):
+    """The JAX package's Pallas path in interpret mode with HYBRID_ITERS = 4
+    (all three are read while tracing, so the caches are cleared around)."""
+    from superdsm_tpu.dsm import pallas_kernels as pk
+    monkeypatch.setattr(pk, 'pallas_available', lambda: True)
+    monkeypatch.setattr(pk, '_FORCE_INTERPRET', True)
+    monkeypatch.setattr(pk, 'HYBRID_ITERS', 4)
+    jax.clear_caches()
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+def test_hybrid_solve_matches_jax(jax_hybrid, monkeypatch):
+    """HYBRID_ITERS = 4 at B = 2, P = 512, n = 128: the first 4 Newton
+    iterations take the 1-pass dense gram. Converged lanes agree on the
+    energy to rtol 1e-4; truncated lanes through the foreground they give
+    (>= 99% of pixels)."""
+    from superdsm_tpu_torch.dsm import gram
+    pr = _hybrid_problem()
+    keys = ('params0', 'Q', 'G', 'yv', 'w', 'alpha')
+    out_j = jsolver._solve_batch_impl(
+        *(jnp.asarray(pr[k]) for k in keys), 1.0, jnp.asarray(pr['kmask']),
+        50, 1e-5)
+    monkeypatch.setattr(gram, 'HYBRID_ITERS', 4)
+    cheap_flags = []
+    dispatch = gram.fused_grad_hess_batched
+
+    def spy(*args, cheap=False, **kwargs):
+        cheap_flags.append(cheap)
+        return dispatch(*args, cheap=cheap, **kwargs)
+
+    monkeypatch.setattr(gram, 'fused_grad_hess_batched', spy)
+    out_t = tsolver._solve_batch_impl(
+        *(_t(pr[k]) for k in keys), 1.0, _t(pr['kmask']), 50, 1e-5)
+    assert cheap_flags[:4] == [True] * 4 and not any(cheap_flags[4:])
+    assert len(cheap_flags) > 4
+    _, f_t, conv_t, _, s_t, _ = (t.numpy() if hasattr(t, 'numpy') else t
+                                 for t in out_t)
+    _, f_j, conv_j, _, s_j, _ = (np.asarray(a) for a in out_j)
+    w = pr['w'] > 0
+    for b in range(2):
+        if conv_t[b] and conv_j[b]:
+            np.testing.assert_allclose(f_t[b], f_j[b], rtol=1e-4)
+        agree = ((s_t[b] > 0) == (s_j[b] > 0))[w[b]].mean()
+        assert agree >= 0.99, (b, agree)
+    assert conv_t.any() and conv_j.any()

@@ -35,19 +35,45 @@ result lines):
    subprocess each with ``SDSM_GRAM_PASSES=3``, ``SDSM_GRAM_PASSES=1`` and
    ``SDSM_GRAM_HYBRID_ITERS=16``; each must exit 0 and launch its bf16
    routes. Objects, matches against the golden and seconds are printed, not
-   gated: the TPU lost objects under these knobs.
+   gated: the TPU lost objects under these knobs;
+7. the batch CLI (``superdsm_tpu_torch.batch``) over a task tree in a
+   temporary directory: ``bench/`` (bench seeds 0-3 as 16-bit PNGs written
+   by the port's ``imsave``, ``AF_scale`` 12, seg/overlay/adjacency outputs),
+   ``nih3t3/`` (the repository's NIH3T3 crop, scale estimated) and
+   ``bench/post/`` (a child of ``bench/`` with one ``postprocess`` key
+   changed).
+   (a) in process, ``run_cli([root, '--run', '--no-fork', '--force',
+   '--fresh', '--task', 'bench'])`` serial (``SUPERDSM_TPU_TASK_THREADS=1``)
+   and then with the default 3 threads, each on its own CUDA stream: each
+   threaded seg map within one unmatched object of the serial one (center
+   3 px, size 10%), every float32 gram route launched by the threaded run;
+   images per second of both printed. The deadline fetch of the solve seam
+   on a busy non-default stream: ``SolveTimeout`` under a short deadline,
+   the producer's values under a long one.
+   (b) ``python -m superdsm_tpu_torch.batch <root> --run --task nih3t3 --task
+   bench/post`` in a subprocess, forked per task: exit 0, the NIH3T3 seg map
+   5/5 against its golden, ``bench/post`` picked up at ``postprocess`` (its
+   log starts no stage before it; it writes its seg maps and, by the
+   on-disk contract, no results of its own), and the results
+   (``nih3t3/`` and ``bench/data.dill.gz``, which ``bench/post`` picked up)
+   load with ``pickle`` and hold no ``torch.Tensor``;
+8. the export CLI: ``python -m superdsm_tpu_torch.export <root> nih3t3
+   --mode seg``, then ``--mode adj``, in subprocesses: exit 0, one PNG of the
+   image's height and width per image, and ``ymap_legend.png`` for ``adj``.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import gzip
 import json
 import os
-import struct
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
-import zlib
 
 import numpy as np
 
@@ -116,6 +142,12 @@ def phase_environment():
         say(f'[env] triton {triton.__version__} imports')
     except ImportError:
         say('[env] triton does not import')
+    for lib in ('PIL', 'matplotlib', 'dill'):
+        try:
+            __import__(lib)
+            say(f'[env] {lib} imports (the port does not need it)')
+        except ImportError:
+            say(f'[env] {lib} does not import')
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -301,54 +333,6 @@ def make_image(seed, H=520, W=696, n_nuclei=28, radius=16):
     return g.astype(np.float32), len(centers)
 
 
-def read_gray_png(path):
-    """Decodes an 8-bit grayscale, non-interlaced PNG (no imaging library
-    needed)."""
-    with open(path, 'rb') as fp:
-        data = fp.read()
-    if data[:8] != b'\x89PNG\r\n\x1a\n':
-        raise ValueError(f'{path}: not a PNG')
-    pos, idat, hdr = 8, b'', None
-    while pos < len(data):
-        length, kind = struct.unpack('>I4s', data[pos:pos + 8])
-        chunk = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if kind == b'IHDR':
-            hdr = struct.unpack('>IIBBBBB', chunk)
-        elif kind == b'IDAT':
-            idat += chunk
-        elif kind == b'IEND':
-            break
-    width, height, depth, color, _, _, interlace = hdr
-    if (depth, color, interlace) != (8, 0, 0):
-        raise ValueError(f'{path}: only 8-bit grayscale non-interlaced PNGs')
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, width + 1)
-    out = np.zeros((height, width), np.int32)
-    prev = np.zeros(width, np.int32)
-    for r in range(height):
-        ftype, line = raw[r, 0], raw[r, 1:].astype(np.int32)
-        cur = np.zeros(width, np.int32)
-        for c in range(width):
-            a = cur[c - 1] if c else 0
-            b = prev[c]
-            d = prev[c - 1] if c else 0
-            if ftype == 0:
-                pred = 0
-            elif ftype == 1:
-                pred = a
-            elif ftype == 2:
-                pred = b
-            elif ftype == 3:
-                pred = (a + b) // 2
-            else:
-                p = a + b - d
-                pa, pb, pc = abs(p - a), abs(p - b), abs(p - d)
-                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else d)
-            cur[c] = (line[c] + pred) & 0xFF
-        out[r] = prev = cur
-    return out.astype(np.uint8)
-
-
 def _segment(g, scale):
     """``automation.process_image`` on the default pipeline; ``scale`` None
     leaves ``AF_scale`` unset (the entry point estimates it). Returns the
@@ -398,6 +382,8 @@ def _match(seg, expected_csv, max_unmatched=None):
 
 
 BENCH_GOLDEN = os.path.join(REPO, 'tests/data/torch_port/bench-seed0.csv')
+NIH3T3_PNG = os.path.join(REPO, 'tests/regression/data/nih3t3-glare.png')
+NIH3T3_CSV = os.path.join(REPO, 'tests/regression/expected/nih3t3/nih3t3-glare.csv')
 
 
 def phase_main_path():
@@ -435,8 +421,8 @@ def _leaves(entries, prefix=''):
 
 def phase_real_crop():
     import superdsm_tpu_torch as T
-    g = read_gray_png(os.path.join(REPO, 'tests/regression/data/nih3t3-glare.png'))
-    g = g.astype(np.float64)
+    from superdsm_tpu_torch.io import imread
+    g = imread(NIH3T3_PNG).astype(np.float64)
     t0 = time.time()
     cfg_ref, scale = T.automation.create_config(T.create_default_pipeline(),
                                                 T.Config(), g)
@@ -451,8 +437,7 @@ def phase_real_crop():
         fail('nih3t3: the entry point configured another scale')
     say(f'[nih3t3] {seconds:.2f} s through the default entry point (no '
         f'AF_scale), {len(data["postprocessed_objects"])} objects')
-    matched, total = _match(seg, os.path.join(
-        REPO, 'tests/regression/expected/nih3t3/nih3t3-glare.csv'), 0)
+    matched, total = _match(seg, NIH3T3_CSV, 0)
     if matched != total:
         fail(f'nih3t3: {matched}/{total} objects matched')
 
@@ -501,6 +486,210 @@ def phase_knobs():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8
+# ---------------------------------------------------------------------------
+
+BENCH_SEEDS = (0, 1, 2, 3)
+#: Changed by ``bench/post`` against ``bench`` (a postprocess-only change).
+POST_CHANGE = {'postprocess': {'max_eccentricity': 0.98}}
+
+
+def _write_json(path, value):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, 'w') as fout:
+        json.dump(value, fout)
+
+
+def make_task_tree(root):
+    """The batch tree of phase 7: ``bench/``, ``bench/post/``, ``nih3t3/``."""
+    from superdsm_tpu_torch.io import imsave
+    os.makedirs(os.path.join(root, 'images'))
+    for seed in BENCH_SEEDS:
+        g, _ = make_image(seed)
+        g16 = np.round((g - g.min()) / (g.max() - g.min()) * 65535).astype(np.uint16)
+        imsave(os.path.join(root, 'images', f'bench-{seed}.png'), g16)
+    outputs = dict(seg_pathpattern='seg/%d.png', overlay_pathpattern='overlay/%d.png',
+                   adj_pathpattern='adj/%d.png')
+    _write_json(os.path.join(root, 'bench', 'task.json'), dict(
+        runnable=True, file_ids=list(BENCH_SEEDS),
+        img_pathpattern=os.path.join(root, 'images', 'bench-%d.png'),
+        config={'AF_scale': 12}, **outputs))
+    _write_json(os.path.join(root, 'bench', 'post', 'task.json'), dict(
+        runnable=True, config=POST_CHANGE))
+    _write_json(os.path.join(root, 'nih3t3', 'task.json'), dict(
+        runnable=True, file_ids=['glare'],
+        img_pathpattern=NIH3T3_PNG.replace('glare', '%s'),
+        seg_pathpattern='seg/%s.png'))
+
+
+def _read_seg(path):
+    from superdsm_tpu_torch.io import imread
+    return imread(path)
+
+
+def _holds_tensor(value, seen=None):
+    import torch
+    seen = set() if seen is None else seen
+    if id(value) in seen:
+        return False
+    seen.add(id(value))
+    if isinstance(value, torch.Tensor):
+        return True
+    children = value.values() if isinstance(value, dict) else \
+        value if isinstance(value, (list, tuple, set, frozenset)) else \
+        vars(value).values() if hasattr(value, '__dict__') else ()
+    return any(_holds_tensor(child, seen) for child in children)
+
+
+def _run_batch_in_process(root, threads):
+    """``run_cli`` on ``bench`` in this process; returns the seconds."""
+    import torch
+    from superdsm_tpu_torch.batch import run_cli
+    os.environ['SUPERDSM_TPU_TASK_THREADS'] = str(threads)
+    t0 = time.time()
+    run_cli([root, '--run', '--no-fork', '--force', '--fresh', '--task', 'bench',
+             '--verbosity', '-1', '--report', os.path.join(root, 'status')])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    os.environ.pop('SUPERDSM_TPU_TASK_THREADS')
+    return seconds
+
+
+def phase_deadline_fetch():
+    """The solve seam's deadline copy on a busy non-default stream."""
+    import torch
+    from superdsm_tpu_torch.dsm import batching
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        x = torch.full((1 << 16,), 1.0, device='cuda')
+    stream.synchronize()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(2_000_000_000)  # about a second
+        x.fill_(7.0)
+        t0 = time.time()
+        try:
+            batching._fetch_with_deadline([x], 0.1)
+            fail('deadline fetch: no SolveTimeout while the producer was busy')
+        except batching.SolveTimeout:
+            say(f'[batch] deadline fetch: SolveTimeout after '
+                f'{time.time() - t0:.3f} s while the stream was busy')
+    stream.synchronize()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(1_000_000_000)
+        x.fill_(9.0)
+        t0 = time.time()
+        (host,) = batching._fetch_with_deadline([x], 60)
+    if not (host == 9.0).all():
+        fail(f'deadline fetch returned {np.unique(host)}, not the values the '
+             "caller's stream wrote (9.0)")
+    say(f'[batch] deadline fetch: the caller stream\'s values after '
+        f'{time.time() - t0:.3f} s')
+
+
+def phase_batch(root):
+    """Phase 7; returns the threaded run's launch counts."""
+    from superdsm_tpu_torch.dsm import gram
+    make_task_tree(root)
+    n = len(BENCH_SEEDS)
+    serial_s = _run_batch_in_process(root, 1)
+    serial = {seed: _read_seg(os.path.join(root, 'bench', 'seg', f'{seed}.png'))
+              for seed in BENCH_SEEDS}
+    gram.reset_launch_counts()
+    threaded_s = _run_batch_in_process(root, 3)
+    launches = dict(gram.LAUNCHES)
+    say(f'[batch] bench/ ({n} images of 520x696): serial {serial_s:.2f} s = '
+        f'{n / serial_s:.3f} images/s; 3 threads {threaded_s:.2f} s = '
+        f'{n / threaded_s:.3f} images/s')
+    with open(os.path.join(root, 'bench', '.timings.json')) as fin:
+        timings = json.load(fin)
+    say(f'[batch] stage seconds of image 0 in the threaded run: '
+        f'{ {k: round(v, 3) for k, v in timings["0"].items()} }')
+    say(f'[batch] gram launches of the threaded run: {launches}')
+    if any(launches[r] == 0 for r in ('dense', 'triangle', 'banded')):
+        fail('the threaded batch run left a float32 gram route unlaunched')
+    validate = _validate_module()
+    for seed in BENCH_SEEDS:
+        seg = _read_seg(os.path.join(root, 'bench', 'seg', f'{seed}.png'))
+        if seg.shape != (520, 696):
+            fail(f'bench seg {seed}: shape {seg.shape}')
+        matched, spurious, missing = validate.match_rows(
+            validate.summarize_label_map(seg),
+            validate.summarize_label_map(serial[seed]), center_tol=3.0, size_tol=0.1)
+        say(f'[batch] seed {seed}: threaded vs serial seg map bitwise equal: '
+            f'{bool(np.array_equal(seg, serial[seed]))}; {matched} matched, '
+            f'spurious {spurious}, missing {missing}')
+        if len(spurious) > 1 or len(missing) > 1:
+            fail(f'bench seed {seed}: threaded seg map disagrees with the serial one')
+    phase_deadline_fetch()
+
+    # (b) the CLI as a user runs it: a fresh process, one fork per task
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, '-m', 'superdsm_tpu_torch.batch', root,
+                           '--run', '--task', 'nih3t3', '--task', 'bench/post',
+                           '--report', os.path.join(root, 'status')],
+                          cwd=REPO, capture_output=True, text=True, timeout=400,
+                          # serial, so the log shows every stage each file runs
+                          env={**os.environ, 'SUPERDSM_TPU_TASK_THREADS': '1'})
+    say(f'[batch] forked CLI run (nih3t3, bench/post): exit {proc.returncode}, '
+        f'{time.time() - t0:.2f} s')
+    if proc.returncode != 0:
+        fail(f'forked batch run exited {proc.returncode}:\n{proc.stdout[-4000:]}\n'
+             f'{proc.stderr[-4000:]}')
+    post_log = proc.stdout.split('Entering task: bench/post')[1].split(
+        'Entering task:')[0]
+    pickups = [line.strip() for line in post_log.splitlines()
+               if 'Picking up from' in line]
+    stages = [name for name in ('preprocess', 'c2f-region-analysis',
+                                'global-energy-minimization', 'postprocess')
+              if f'Starting stage "{name}"' in post_log]
+    say(f'[batch] bench/post: {pickups}; stages run: {stages}')
+    if pickups != ['Picking up from: bench/data.dill.gz (postprocess)'] or \
+            stages != ['postprocess']:
+        fail('bench/post did not pick up at postprocess')
+    for seed in BENCH_SEEDS:
+        if _read_seg(os.path.join(root, 'bench', 'post', 'seg',
+                                  f'{seed}.png')).shape != (520, 696):
+            fail(f'bench/post seg {seed}: wrong shape')
+    matched, total = _match(_read_seg(os.path.join(root, 'nih3t3', 'seg', 'glare.png')),
+                            NIH3T3_CSV, 0)
+    if matched != total:
+        fail(f'nih3t3 through the batch CLI: {matched}/{total} objects matched')
+    # a pickup at postprocess writes no results (the on-disk contract), so
+    # bench/post's data is the result it picked up: bench/data.dill.gz
+    for task in ('nih3t3', 'bench'):
+        with gzip.open(os.path.join(root, task, 'data.dill.gz'), 'rb') as fin:
+            data = pickle.load(fin)
+        if _holds_tensor(data):
+            fail(f'{task}/data.dill.gz holds a torch.Tensor')
+        say(f'[batch] {task}/data.dill.gz: {len(data)} entries, no torch.Tensor')
+    return launches
+
+
+def phase_export(root):
+    """Phase 8."""
+    from superdsm_tpu_torch.io import imread
+    shape = imread(NIH3T3_PNG).shape
+    for mode in ('seg', 'adj'):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, '-m', 'superdsm_tpu_torch.export',
+                               root, 'nih3t3', '--mode', mode],
+                              cwd=REPO, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f'export --mode {mode} exited {proc.returncode}:\n'
+                 f'{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}')
+        outdir = os.path.join(root, 'nih3t3', f'export-{mode}')
+        files = sorted(os.listdir(outdir))
+        expected = ['glare.png'] + (['ymap_legend.png'] if mode == 'adj' else [])
+        if files != expected:
+            fail(f'export --mode {mode} wrote {files}, expected {expected}')
+        img = imread(os.path.join(outdir, 'glare.png'), as_gray=False)
+        if img.shape[:2] != shape:
+            fail(f'export --mode {mode}: image {img.shape}, expected {shape}')
+        say(f'[export] --mode {mode}: exit 0, {files}, {img.shape} '
+            f'({time.time() - t0:.2f} s)')
+
+
 def main():
     card = phase_environment()
     import torch
@@ -520,6 +709,16 @@ def main():
     launches = phase_main_path()
     phase_real_crop()
     launches.update(phase_knobs())
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix='sdsm-batch-')
+    try:
+        for route, count in phase_batch(root).items():
+            if not route.endswith('pass'):
+                launches[route] += count
+        phase_export(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f'[batch] phases 7-8: {time.time() - t0:.2f} s wall')
     table = [dict(name=f'{os.path.basename(_source(route))[:-3]}/{route}',
                   route='cuda', source=_source(route), replaces=REPLACES[route],
                   launches=launches[route], **kernels[route])

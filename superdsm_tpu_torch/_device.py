@@ -20,13 +20,25 @@ def set_device(device):
     _DEVICE = torch.device(device)
 
 
+_NO_CUDA = ('superdsm_tpu_torch: the selected device is CUDA but no CUDA '
+            'device is available; select the CPU explicitly with '
+            "superdsm_tpu_torch.set_device('cpu')")
+
+
 def get_device():
     """The selected device; raises if it is CUDA and CUDA is unavailable."""
     if _DEVICE.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(
-            'superdsm_tpu_torch: the selected device is CUDA but no CUDA '
-            'device is available; select the CPU explicitly with '
-            "superdsm_tpu_torch.set_device('cpu')")
+        raise RuntimeError(_NO_CUDA)
+    return _DEVICE
+
+
+def check_device():
+    """:func:`get_device` for a process that forks workers: it counts the
+    devices through NVML (``torch.cuda.device_count``) and leaves CUDA
+    uninitialized, where ``torch.cuda.is_available`` initializes the driver
+    — after which a forked child cannot use the card."""
+    if _DEVICE.type == 'cuda' and torch.cuda.device_count() == 0:
+        raise RuntimeError(_NO_CUDA)
     return _DEVICE
 
 

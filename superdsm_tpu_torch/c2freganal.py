@@ -33,6 +33,7 @@ from .atoms import AtomAdjacencyGraph
 from .ops.watershed import watershed
 from .ops.edt import edt
 from .ops.morphology import disk, binary_erosion, max_filter3
+from ._device import on_cpu
 from .dsm.batching import make_problem, solve_problems
 
 
@@ -573,7 +574,7 @@ _LAZY_SD = object()  # sentinel: root seed-distance EDT not yet materialized
 
 def _drive_cluster_workers(workers, clusters_by_label, img_shape, out,
                            status_line='Analyzing clusters',
-                           newton_maxiter=None):
+                           newton_maxiter=None, timeout=None):
     """Advances all cluster workers in lockstep, batch-solving the pending
     normalized-energy requests of every active cluster each round.
 
@@ -618,7 +619,7 @@ def _drive_cluster_workers(workers, clusters_by_label, img_shape, out,
                              f'{len(results) + len(waiting)} clusters done')
             _t = _time.time()
             solved = solve_problems(problems, out=out, fetch='energy',
-                                    maxiter=newton_maxiter)
+                                    maxiter=newton_maxiter, timeout=timeout)
             _marks.append((f'solve{round_no}', _time.time() - _t))
             _t = _time.time()
             energies_by_label = {}
@@ -732,7 +733,9 @@ class C2F_RegionAnalysis(Stage):
         _phase()  # workers_init: per-cluster region crops + generator setup
         results = _drive_cluster_workers(
             workers, clusters_by_label, y.model.shape, out,
-            newton_maxiter=newton_maxiter)
+            newton_maxiter=newton_maxiter,
+            # wedged-card guard, CUDA only (see objects.compute_objects)
+            timeout=None if on_cpu() else dsm_cfg.get('cp_timeout', 300))
         _phase()  # drive: lockstep worker rounds incl. device solves
 
         max_normalized_energy = -np.inf

@@ -5,21 +5,109 @@ size are packed into batches of fixed shapes (pixel counts and deformation
 dimensions padded to bucket sizes, the batch padded with dummy problems), and
 every bucket group runs the batched Newton solver of
 :mod:`superdsm_tpu_torch.dsm.solver` on the selected device. Every group is
-launched first; the results are copied to the host afterwards. Non-converged
-DSM lanes are re-solved at a frozen canonical shape, so their energies do not
+launched first; the results are copied to the host afterwards, under the
+``cp_timeout`` deadline (:func:`_fetch_with_deadline`). Non-converged DSM
+lanes are re-solved at a frozen canonical shape, so their energies do not
 depend on the runtime bucket ladder or chunking.
+
+Worker threads solve concurrently, each on its own CUDA stream
+(:mod:`superdsm_tpu_torch.parallel.pipelined`): everything here runs on the
+caller's current stream, the deadline's copy thread included.
 """
 
 import math
+import os
+import sys
+import threading
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .._device import on_cpu
 from .solver import (_pack_poly_group, _solve_dsm_packed, unpack_fg,
                      evaluate_foreground, DEFAULT_MAXITER, DEFAULT_TOL)
 from .smooth import prepare_deformation, smooth_matrix_params
+from . import gram
+
+#: Set SDSM_SOLVE_TELEMETRY=1 to print per-round launch/fetch timings to
+#: stderr (read at import; the batch CLI's ``--debug`` sets the attribute).
+_TELEMETRY = os.environ.get('SDSM_SOLVE_TELEMETRY') == '1'
+
+#: Cumulative device-path accounting of :func:`solve_problems`: the wall
+#: time during which at least one solve round was in flight (the union of
+#: the concurrent rounds' intervals, so threads that overlap are not counted
+#: twice), the per-lane Newton iterations executed, an analytic FLOP
+#: estimate (:func:`_estimate_chunk_flops`), the calls and the lanes
+#: re-solved canonically. Snapshot with :func:`device_accounting`.
+_DEVICE_ACCT = {'wall_s': 0.0, 'flop_logical': 0.0, 'flop_hw': 0.0,
+                'lane_iters': 0, 'calls': 0, 'canonical_lanes': 0}
+_DEVICE_ACCT_LOCK = threading.Lock()
+#: solve rounds in flight, and the start of the current busy interval
+_IN_FLIGHT = {'rounds': 0, 'since': 0.0}
+
+
+def device_accounting():
+    """A snapshot (dict copy) of the cumulative device-path accounting; an
+    interval still open counts up to now."""
+    with _DEVICE_ACCT_LOCK:
+        snap = dict(_DEVICE_ACCT)
+        if _IN_FLIGHT['rounds']:
+            snap['wall_s'] += time.perf_counter() - _IN_FLIGHT['since']
+    return snap
+
+
+def _round_started():
+    with _DEVICE_ACCT_LOCK:
+        if _IN_FLIGHT['rounds'] == 0:
+            _IN_FLIGHT['since'] = time.perf_counter()
+        _IN_FLIGHT['rounds'] += 1
+
+
+def _round_ended():
+    with _DEVICE_ACCT_LOCK:
+        _IN_FLIGHT['rounds'] -= 1
+        if _IN_FLIGHT['rounds'] == 0:
+            _DEVICE_ACCT['wall_s'] += time.perf_counter() - _IN_FLIGHT['since']
+
+
+def _account(kind_shapes_iters, canonical_lanes=0):
+    """Adds the FLOPs and iterations of solved chunks: ``(kind, P, K, lane
+    iterations)`` each."""
+    logical = hw = 0.0
+    iters = 0
+    for kind, pb, kb, lane_iters in kind_shapes_iters:
+        fl, fh = _estimate_chunk_flops(kind, pb, kb, lane_iters)
+        logical += fl
+        hw += fh
+        iters += int(np.sum(lane_iters))
+    with _DEVICE_ACCT_LOCK:
+        _DEVICE_ACCT['flop_logical'] += logical
+        _DEVICE_ACCT['flop_hw'] += hw
+        _DEVICE_ACCT['lane_iters'] += iters
+        _DEVICE_ACCT['canonical_lanes'] += canonical_lanes
+
+
+def _estimate_chunk_flops(kind, pb, kb, lane_iters):
+    """(logical, hardware) FLOP estimates for one solved chunk.
+
+    Per lane-iteration the gram dominates — ``2 * P * n^2`` logical FLOPs
+    with ``n = K + 6`` — plus the Newton direction solve ``n^3 / 3``; per
+    lane the deformation-basis build ``~10 * P * K``. The hardware count
+    scales the DSM gram by the products the card executes per logical one:
+    1 for the float32 kernel and the 1-pass bf16 gram, 3 for the 3-pass
+    split (:data:`gram.GRAM_PASSES`).
+    """
+    n = 6 if kind == 'poly' else kb + 6
+    iters = float(np.sum(lane_iters))
+    gram_flops = 2.0 * pb * n * n * iters
+    direction = (n ** 3 / 3.0) * iters
+    per_lane = 10.0 * pb * kb * len(lane_iters)
+    logical = gram_flops + direction + per_lane
+    passes = 3.0 if kind != 'poly' and gram.GRAM_PASSES == 3 else 1.0
+    return logical, passes * gram_flops + direction + per_lane
 
 #: Pixel-count buckets (every value a multiple of 2048, so the gram kernel's
 #: row chunking and the 8-bit foreground packing divide every bucket).
@@ -280,14 +368,188 @@ def _group_problems(problems, smooth_amount):
     return poly_groups, dsm_groups
 
 
-def _host(t):
-    return t.detach().cpu().numpy()
+
+
+def _to_host(tree):
+    """The tensors of a nested list/tuple/dict as numpy arrays."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def _first_tensor(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree
+    values = tree.values() if isinstance(tree, dict) else \
+        tree if isinstance(tree, (list, tuple)) else ()
+    for v in values:
+        t = _first_tensor(v)
+        if t is not None:
+            return t
+    return None
+
+
+class SolveTimeout(Exception):
+    """A solve round exceeded its wall-clock deadline (a wedged device)."""
+
+
+def _fetch_with_deadline(sel, timeout):
+    """The tensors of ``sel`` copied to the host, bounded by ``timeout``
+    seconds.
+
+    The copy runs on a daemon thread, so an expired deadline abandons it
+    (:class:`SolveTimeout`); if the device later recovers, the orphaned
+    result is dropped. ``timeout`` None or ``<= 0`` disables the deadline
+    (the reference arms its SIGALRM only for a positive ``cp_timeout``).
+
+    On CUDA the thread copies on the CALLER's current stream: a new thread
+    starts on the default stream, which does not wait for the work of the
+    caller's stream when that is a worker's non-blocking stream, so the
+    copy would read the results before they are written.
+    """
+    if timeout is None or timeout <= 0:
+        return _to_host(sel)
+    first = _first_tensor(sel)
+    stream = (torch.cuda.current_stream(first.device)
+              if first is not None and first.device.type == 'cuda' else None)
+    box = {}
+
+    def _run():
+        try:
+            if stream is None:
+                box['value'] = _to_host(sel)
+            else:
+                with torch.cuda.stream(stream):
+                    box['value'] = _to_host(sel)
+        except BaseException as error:  # device errors reach the caller
+            box['error'] = error
+
+    thread = threading.Thread(target=_run, daemon=True)
+    thread.start()
+    thread.join(timeout)
+    if thread.is_alive():
+        raise SolveTimeout(f'solve fetch exceeded {timeout:.0f}s deadline')
+    if 'error' in box:
+        raise box['error']
+    return box['value']
+
+
+def _host_energy_fg(p, params, alpha, epsilon, smooth_amount, cutoff):
+    """Numpy evaluation of ψ and the foreground mask at ``params``.
+
+    Used only on the wall-clock fallback path (the device cannot be copied
+    from); mirrors the device energy minus the int16 intensity
+    quantization, which is irrelevant for a fallback estimate."""
+    coords = p.norm_coords()
+    x1, x2 = coords[:, 0].astype(np.float64), coords[:, 1].astype(np.float64)
+    Q = np.stack([x1 * x1, x2 * x2, 2 * x1 * x2, 2 * x1, 2 * x2,
+                  np.ones_like(x1)], axis=-1)
+    params = np.zeros(6 + p.n_deform) if params is None else np.asarray(params, np.float64)
+    s = Q @ params[:6]
+    reg = 0.0
+    k = p.n_deform
+    if k and np.isfinite(smooth_amount) and len(params) >= 6 + k:
+        xi = params[6:6 + k]
+        # chunked over pixels: the dense (P, K) kernel block of an oversized
+        # region would not fit host memory in one piece
+        for lo in range(0, len(p.pts), 65536):
+            hi = lo + 65536
+            dr = p.pts[lo:hi, None, 0].astype(np.float64) - p.sub[None, :, 0]
+            dc = p.pts[lo:hi, None, 1].astype(np.float64) - p.sub[None, :, 1]
+            G = np.exp(-(dr * dr + dc * dc) / (2.0 * smooth_amount ** 2))
+            G[(np.abs(dr) > cutoff) | (np.abs(dc) > cutoff)] = 0.0
+            G /= np.maximum(G.sum(axis=1, keepdims=True), 1e-30)
+            s[lo:hi] += G @ xi
+        reg = alpha * p.alpha_scale * float(
+            np.sum(np.sqrt(xi * xi + epsilon) - np.sqrt(epsilon)))
+    data = float(np.sum(np.logaddexp(0.0, -p.yv.astype(np.float64) * s)))
+    return data + max(reg, 0.0), s > 0
+
+
+def _host_lsq_init(p, margin=2.0, ridge=1e-6):
+    """Numpy mirror of ``solver._lsq_init`` for one problem: ridge
+    regression of the polynomial surface onto ``margin * sign(y)``."""
+    coords = p.norm_coords().astype(np.float64)
+    x1, x2 = coords[:, 0], coords[:, 1]
+    Q = np.stack([x1 * x1, x2 * x2, 2 * x1 * x2, 2 * x1, 2 * x2,
+                  np.ones_like(x1)], axis=-1)
+    z = margin * np.sign(p.yv.astype(np.float64))
+    A = Q.T @ Q
+    A = A + ridge * np.trace(A) * np.eye(6)
+    theta = np.linalg.solve(A, Q.T @ z)
+    return np.where(np.isfinite(theta), theta, 0.0).astype(np.float32)
+
+
+def _fallback_results_after_timeout(problems, oversized, alpha, epsilon,
+                                    smooth_amount, cutoff, fetch):
+    """'fallback' :class:`ProblemResult` rows from the initializations after
+    a :class:`SolveTimeout` — the host-side analog of the reference's
+    SIGALRM fall-back-to-initialization path (``superdsm/dsm.py:478-490``,
+    ``objects.py:394-411``)."""
+    results = []
+    for i, p in enumerate(problems):
+        factor, orig = oversized.get(i, (1.0, p))
+        eval_p = orig if fetch != 'energy' else p
+        params = p.init_params
+        if params is None:
+            # cold problems have no warm start: the device solve would have
+            # started from the closed-form LSQ ellipse (zeros would mean an
+            # empty foreground)
+            params = np.zeros(6 + p.n_deform, np.float32)
+            params[:6] = _host_lsq_init(p)
+        energy, fg = _host_energy_fg(eval_p, params, alpha, epsilon,
+                                     smooth_amount, cutoff)
+        if i in oversized and fetch == 'energy':
+            energy *= factor
+        results.append(ProblemResult(
+            params=None if fetch == 'energy' else np.asarray(params, np.float32),
+            energy=float(energy), status='fallback', surface=None,
+            fg=None if fetch == 'energy' else fg, tag=p.tag))
+    return results
+
+
+#: (kind, P, K, B, statics...) solve shapes that have completed a round in
+#: this process. A round holding any other shape may pay one-time costs
+#: (kernel library build and load, cuBLAS/cuSOLVER and allocator warm-up)
+#: that a deadline cannot tell from a wedge, so ``timeout`` arms only on
+#: rounds whose every shape has run once.
+_WARM_SHAPES = set()
+_WARM_LOCK = threading.Lock()
+
+
+def _all_warm(shapes):
+    with _WARM_LOCK:
+        return all(s in _WARM_SHAPES for s in shapes)
+
+
+def _mark_warm(shapes):
+    with _WARM_LOCK:
+        _WARM_SHAPES.update(shapes)
+
+
+#: output layouts: poly (params, f, conv, bad, fg, it_lane);
+#:                 dsm (params, f, f_ell, conv, bad, fg, it_lane)
+_IDX = {'poly': dict(params=0, f=1, conv=2, bad=3, fg=4, it=5),
+        'dsm': dict(params=0, f=1, conv=3, bad=4, fg=5, it=6)}
+
+
+def _selection(kind, outs, fetch):
+    """The outputs of one chunk the host needs."""
+    ix = _IDX[kind]
+    keys = ('f', 'bad', 'conv', 'it') if fetch == 'energy' else \
+        ('f', 'bad', 'conv', 'it', 'fg', 'params')
+    return {k: outs[ix[k]] for k in keys}
 
 
 def solve_problems(problems, alpha=0.5, epsilon=1.0, smooth_amount=10,
                    gaussian_shape_multiplier=2, init='elliptical',
                    maxiter=DEFAULT_MAXITER, tol=DEFAULT_TOL, out=None,
-                   progress_line='Computing objects', fetch='full'):
+                   progress_line='Computing objects', fetch='full',
+                   timeout=None):
     """Solves a list of :class:`Problem` in padded, bucketed batches.
 
     Problems without deformation dimensions run the packed 6-parameter
@@ -298,12 +560,31 @@ def solve_problems(problems, alpha=0.5, epsilon=1.0, smooth_amount=10,
 
     :param fetch: ``'full'`` copies parameters and foreground masks to the
         host; ``'energy'`` only energies and fallback flags.
+    :param timeout: wall-clock deadline (seconds) for copying a round's
+        results to the host; on expiry every problem of the round falls
+        back to its initialization with status ``'fallback'`` and processing
+        continues (the batched analog of the reference's per-solve SIGALRM
+        ``cp_timeout``). None or ``<= 0`` disables it; it arms only when
+        every solve shape of the round has completed once in this process
+        (``_WARM_SHAPES``).
     :return: list of :class:`ProblemResult`, aligned with ``problems``.
     """
-    results = [None] * len(problems)
     if len(problems) == 0:
-        return results
+        return []
+    _round_started()
+    try:
+        return _solve_problems(problems, alpha, epsilon, smooth_amount,
+                               gaussian_shape_multiplier, maxiter, tol, out,
+                               progress_line, fetch, timeout)
+    finally:
+        _round_ended()
 
+
+def _solve_problems(problems, alpha, epsilon, smooth_amount,
+                    gaussian_shape_multiplier, maxiter, tol, out,
+                    progress_line, fetch, timeout):
+    t_start = time.perf_counter()
+    results = [None] * len(problems)
     _, cutoff = smooth_matrix_params(smooth_amount, gaussian_shape_multiplier)
     img_shape = problems[0].img_shape
     # coordinates are normalized by ONE image shape per call
@@ -330,9 +611,10 @@ def solve_problems(problems, alpha=0.5, epsilon=1.0, smooth_amount=10,
             oversized[i] = (factor, p)
 
     poly_groups, dsm_groups = _group_problems(problems, smooth_amount)
+    statics = (float(tol), float(smooth_amount), int(cutoff))
 
     # launch every bucket group, then copy all results to the host
-    pending = []  # (kind, chunk, device outputs)
+    pending = []  # (kind, chunk, shape, device outputs)
     for pb, idxs in sorted(poly_groups.items()):
         bmax = _b_cap(pb, 'poly')
         for chunk_start in range(0, len(idxs), bmax):
@@ -342,7 +624,8 @@ def solve_problems(problems, alpha=0.5, epsilon=1.0, smooth_amount=10,
             outs = _pack_poly_group([problems[i] for i in chunk], img_shape,
                                     params0=inits, maxiter=maxiter, tol=tol,
                                     pb=pb, Bp=Bp)
-            pending.append(('poly', chunk, outs))
+            pending.append(('poly', chunk, ('poly', pb, 0, Bp, float(tol)),
+                            outs))
 
     def _dsm_chunk_arrays(chunk, pb, kb, Bp, warm_tail_all):
         """Packs one dsm chunk (ONE construction for the production solve
@@ -381,8 +664,7 @@ def solve_problems(problems, alpha=0.5, epsilon=1.0, smooth_amount=10,
         for j, i in enumerate(chunk):
             ALPHA[j] *= problems[i].alpha_scale
         return (PIXa, OFF, CNT, YQ, YS, denom, SUB, KM, WARM, USE_WARM, ALPHA,
-                float(epsilon), int(maxiter), float(tol), float(smooth_amount),
-                int(cutoff))
+                float(epsilon), int(maxiter)) + statics
 
     for (pb, kb), idxs in sorted(dsm_groups.items()):
         # cold problems first: warm-started lanes converge in far fewer
@@ -396,32 +678,48 @@ def solve_problems(problems, alpha=0.5, epsilon=1.0, smooth_amount=10,
             Bp = _batch_shape(len(chunk), pb)
             outs = _solve_dsm_packed(*_dsm_chunk_arrays(chunk, pb, kb, Bp,
                                                         warm_tail_all=True))
-            pending.append(('dsm', chunk, outs))
+            pending.append(('dsm', chunk, ('dsm', pb, kb, Bp) + statics, outs))
             if out is not None:
                 out.intermediate(
                     f'{progress_line}... dispatched '
-                    f'{sum(len(c) for _, c, _ in pending)} / {len(problems)}')
+                    f'{sum(len(c) for _, c, _, _ in pending)} / {len(problems)}')
 
-    # output layouts: poly (params, f, conv, bad, fg, it_lane);
-    #                 dsm (params, f, f_ell, conv, bad, fg, it_lane)
-    _idx = {'poly': dict(f=1, conv=2, bad=3, fg=4, it=5),
-            'dsm': dict(f=1, conv=3, bad=4, fg=5, it=6)}
-    fetched = []
-    for kind, _, outs in pending:
-        ix = _idx[kind]
-        keys = ['f', 'bad', 'conv'] if fetch == 'energy' else \
-            ['f', 'bad', 'conv', 'fg']
-        row = {k: _host(outs[ix[k]]) for k in keys}
-        if fetch != 'energy':
-            row['params'] = _host(outs[0])
-        fetched.append(row)
+    shapes = [shape for _, _, shape, _ in pending]
+    t_fetch = time.perf_counter()
+    try:
+        fetched = _fetch_with_deadline(
+            [_selection(kind, outs, fetch) for kind, _, _, outs in pending],
+            timeout if _all_warm(shapes) else None)
+    except SolveTimeout:
+        if out is not None:
+            out.write(f'{progress_line}: deadline ({timeout:.0f}s) expired — '
+                      f'{len(problems)} solve(s) fall back to initialization')
+        return _fallback_results_after_timeout(
+            problems, oversized, alpha, epsilon, smooth_amount, cutoff, fetch)
+    _mark_warm(shapes)
+    t_done = time.perf_counter()
+    _account([(kind, shape[1], shape[2], row['it'][:len(chunk)])
+              for (kind, chunk, shape, _), row in zip(pending, fetched)])
+    with _DEVICE_ACCT_LOCK:
+        _DEVICE_ACCT['calls'] += 1
+    if _TELEMETRY:
+        # per-lane iterations: (kind, n_real, max and mean over real lanes)
+        groups = [(kind, len(chunk), int(np.max(row['it'][:len(chunk)])),
+                   round(float(np.mean(row['it'][:len(chunk)])), 1))
+                  for (kind, chunk, _, _), row in zip(pending, fetched)]
+        print(f'[solve_problems] n={len(problems)} calls={len(pending)} '
+              f'dispatch={t_fetch - t_start:.3f}s fetch={t_done - t_fetch:.3f}s '
+              f'groups(kind,n,itmax,itmean)={groups} '
+              f'poly={sorted((pb, len(v)) for pb, v in poly_groups.items())} '
+              f'dsm={sorted((k, len(v)) for k, v in dsm_groups.items())}',
+              file=sys.stderr, flush=True)
 
-    for (kind, chunk, _), row in zip(pending, fetched):
+    for (kind, chunk, _, _), row in zip(pending, fetched):
         _store_results(results, problems, kind, chunk, row, fetch)
 
     # canonical re-solve of non-converged DSM lanes (see _CANONICAL_P_LADDER)
     flagged = []
-    for (kind, chunk, _), row in zip(pending, fetched):
+    for (kind, chunk, _, _), row in zip(pending, fetched):
         if kind != 'dsm':
             continue  # truncated poly lanes are batch-shape invariant
         flagged += [i for j, i in enumerate(chunk)
@@ -430,26 +728,44 @@ def solve_problems(problems, alpha=0.5, epsilon=1.0, smooth_amount=10,
     _LAST_FLAGGED = [problems[i].tag for i in flagged]
     if flagged:
         flagged.sort()
+        t_canon = time.perf_counter()
         groups = {}
         for i in flagged:
             p = problems[i]
             pc = _bucket(p.n_pixels, list(_CANONICAL_P_LADDER))
             kc = _bucket(max(p.n_deform, 1), list(_CANONICAL_K_LADDER))
             groups.setdefault((pc, kc), []).append(i)
-        canon_pending = []
+        canon = []  # (chunk, shape, device outputs)
         for (pc, kc), idxs in sorted(groups.items()):
             for cs in range(0, len(idxs), _CANONICAL_B):
                 chunk = idxs[cs:cs + _CANONICAL_B]
                 outs = _solve_dsm_packed(*_dsm_chunk_arrays(
                     chunk, pc, kc, _CANONICAL_B, warm_tail_all=False))
-                canon_pending.append((chunk, outs))
-        ix = _idx['dsm']
-        for chunk, outs in canon_pending:
-            row = {'f': _host(outs[ix['f']]), 'bad': _host(outs[ix['bad']])}
-            if fetch != 'energy':
-                row['params'] = _host(outs[0])
-                row['fg'] = _host(outs[ix['fg']])
-            _store_results(results, problems, 'dsm', chunk, row, fetch)
+                canon.append((chunk, ('dsm', pc, kc, _CANONICAL_B) + statics,
+                              outs))
+        canon_shapes = [shape for _, shape, _ in canon]
+        try:
+            fetched2 = _fetch_with_deadline(
+                [_selection('dsm', outs, fetch) for _, _, outs in canon],
+                timeout if _all_warm(canon_shapes) else None)
+        except SolveTimeout:
+            fetched2 = None
+            if out is not None:
+                out.write(f'{progress_line}: canonical re-solve deadline '
+                          f'expired — {len(flagged)} lane(s) keep their '
+                          f'batch-shape energies this round')
+        if fetched2 is not None:
+            _mark_warm(canon_shapes)
+            for (chunk, _, _), row in zip(canon, fetched2):
+                _store_results(results, problems, 'dsm', chunk, row, fetch)
+            _account([('dsm', shape[1], shape[2], row['it'][:len(chunk)])
+                      for (chunk, shape, _), row in zip(canon, fetched2)],
+                     canonical_lanes=len(flagged))
+            if _TELEMETRY:
+                print(f'[canonical] n={len(flagged)} calls={len(canon)} '
+                      f'groups={sorted((pc, kc, len(v)) for (pc, kc), v in groups.items())} '
+                      f'wall={time.perf_counter() - t_canon:.3f}s',
+                      file=sys.stderr, flush=True)
 
     for i, (factor, orig) in oversized.items():
         res = results[i]

@@ -84,7 +84,8 @@ HYBRID_ITERS = int(os.environ.get('SDSM_GRAM_HYBRID_ITERS', '0'))
 
 _ROUTES = ('dense', 'triangle', 'banded')
 
-#: Kernel launches per route; only :func:`grad_hess_kernel` adds to them.
+#: Kernel launches per route; only :func:`grad_hess_kernel` adds to them,
+#: through :func:`_count_launch` (worker threads launch concurrently).
 LAUNCHES = {f'{route}{suffix}': 0 for suffix in ('', '-3pass', '-1pass')
             for route in _ROUTES}
 
@@ -103,11 +104,20 @@ _F32_SRC, _BF16_SRC = _KERNELS
 
 _lock = threading.Lock()
 _libs = {}
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts():
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _count_lock:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+
+def _count_launch(route):
+    """Adds one launch of ``route``; the read-modify-write is locked, so
+    launches from concurrent threads are never lost."""
+    with _count_lock:
+        LAUNCHES[route] += 1
 
 
 def route_for(n, banded, passes=6, full=False):
@@ -334,7 +344,7 @@ def grad_hess_kernel(Bf, s, yv, w, active, band=None, passes=6, full=False):
                                                stream)
     if err != 0:
         raise RuntimeError(f'gram kernel launch failed: CUDA error {err}')
-    LAUNCHES[route_for(n, band is not None, passes, full)] += 1
+    _count_launch(route_for(n, band is not None, passes, full))
     return g, H
 
 

@@ -8,9 +8,11 @@ Notes on design differences: ``cachesize``/``cachetest`` (cvxopt callback
 caching), ``smooth_mat_dtype`` and ``smooth_mat_max_allocations`` (POSIX
 semaphore throttling) are accepted for config compatibility but have no
 effect — the batched solver has a static iteration bound
-(``dsm/newton_maxiter``). ``cp_timeout`` is accepted but has no effect in
-this port yet: the wall-clock fallback of the JAX package is still to be
-ported.
+(``dsm/newton_maxiter``). ``cp_timeout`` bounds the wall clock of copying
+each batched solve round's results to the host on the card; on expiry the
+round's problems fall back to their initializations, the batched analog of
+the reference's per-solve SIGALRM (``superdsm/dsm.py:478-490``). It is off
+on the CPU, where large rounds legitimately take minutes.
 """
 
 import numpy as np

@@ -18,6 +18,7 @@ from .output import get_output
 from ._aux import copy_dict
 from .image import bbox as _bbox
 from .dsm.model import DeformableShapeModel, polynomial_basis
+from ._device import on_cpu
 from .dsm.batching import make_problem, solve_problems
 
 
@@ -295,7 +296,10 @@ def compute_objects(objects, y, atoms, dsm_cfg, log_root_dir=None,
         init=dsm_cfg.get('init', 'elliptical'),
         maxiter=dsm_cfg.get('newton_maxiter', 50),
         tol=dsm_cfg.get('newton_tol', 1e-5), out=out,
-        progress_line=status_line[0])
+        progress_line=status_line[0],
+        # the deadline detects a wedged card (a round runs in seconds there);
+        # on the CPU big rounds legitimately take minutes, so it is off
+        timeout=None if on_cpu() else dsm_cfg.get('cp_timeout', 300))
 
     dt = time.time() - t0
     _t_solved = time.time()

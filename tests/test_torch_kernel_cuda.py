@@ -203,3 +203,32 @@ def test_bf16_library_refuses_bad_arguments():
     with pytest.raises(ValueError):
         gram.grad_hess_kernel(Bf[..., :64].contiguous(), s, yv, w, active,
                               passes=3)
+
+
+#: GPU clock cycles of about a second on an H100 (1.98 GHz boost clock)
+_SECOND_OF_CYCLES = 2_000_000_000
+
+
+@pytest.mark.cuda
+def test_fetch_with_deadline_waits_for_the_callers_stream():
+    """The deadline's copy thread copies on the caller's (non-blocking)
+    stream: it waits for a producer still busy there — and times out under
+    a short deadline — instead of reading the buffer before it is written."""
+    from superdsm_tpu_torch.dsm import batching
+    dev = _cuda()
+    stream = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(stream):
+        x = torch.full((1 << 16,), 1.0, device=dev)
+    stream.synchronize()
+    cycles = _SECOND_OF_CYCLES
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(cycles)  # about a second of a busy producer
+        x.fill_(7.0)
+        with pytest.raises(batching.SolveTimeout):
+            batching._fetch_with_deadline([x], 0.1)
+    stream.synchronize()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(cycles // 2)
+        x.fill_(9.0)
+        (host,) = batching._fetch_with_deadline([x], 60)
+    assert (host == 9.0).all()

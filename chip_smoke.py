@@ -16,17 +16,29 @@ result lines):
    registers, shared memory and spills;
 3. every gram route against its plain PyTorch version on the card at the
    main path's shapes, with feature matrices built from real row-major disk
-   regions and a quarter of the lanes frozen: the float32 kernel to
+   regions and a quarter of the lanes frozen, and the float32 routes also
+   at few-lane shapes the main path launches ((1, 8192, 128) dense,
+   (1, 32768, 512) banded, (64, 8192, 128) with 4 lanes active; the kernel
+   splits their pixel loop across blocks): the float32 kernel to
    rtol = atol = 1e-4; the bf16 kernel at 3 passes to rtol = atol = 1e-4,
    at 1 pass within bf16's unit roundoff elementwise
    (|dH| <= 2^-7 |Bf|^T diag(kappa) |Bf| + 1e-4) and to 1e-4 on >= 99% of
    the entries; banded mode bitwise equal to the unbanded mode, frozen lanes
-   exactly zero, two runs bitwise equal; times are CUDA-event medians of 10;
+   exactly zero, two runs bitwise equal. Times are device ms per call (one
+   call captured in a CUDA graph, replayed 10 times between CUDA events,
+   median of 3; a single call with its host overhead is printed beside the
+   kernel's), beside each launch's bound (the larger of its operations
+   over the card's published peak and its bytes over the memory rate,
+   counted from this run's inputs) and the time of ``torch.bmm`` of the
+   kappa-scaled active lanes against Bf in float32 (TF32 off);
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
    ``tests/data/torch_port/bench-seed0.csv`` (center 3 px, size 10%, at
-   most one unmatched object);
+   most one unmatched object); then one more run under ``torch.profiler``:
+   the float32 gram's device ms per image against the first kernel's
+   208 ms, the device's idle share of the wall, and the gram launches by
+   (B, active lanes, P, n, route, pixel segments);
 5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` through
    the default entry point with no ``AF_scale``: the estimated scale must be
    the JAX estimator's (30 sqrt 2 = 42.4264...) and all 5 objects must
@@ -61,8 +73,22 @@ result lines):
    --mode seg``, then ``--mode adj``, in subprocesses: exit 0, one PNG of the
    image's height and width per image, and ``ymap_legend.png`` for ``adj``.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as JSON (``launches``: the
+float32 routes' counts from phase 4's timed run, the bf16 routes' from
+their knob run of phase 6); the last line is ``{"ok": true, "device":
+{...}}``.
+
+``python3 chip_smoke.py --ab ROOT_A ROOT_B`` compares the port of two
+checkouts instead (for example the parent commit unpacked with ``git
+archive`` into the gitignored ``scratch/``, against ``.``): one fresh
+process per turn, in the order A, B, B, A, each building its own
+checkout's kernels and printing one JSON line: the float32 gram's device
+ms at every phase-3 shape (checked to rtol = atol = 1e-4 against the plain
+version first), then bench seeds 0-3 at ``AF_scale=12`` (after one cold
+run of seed 0), :data:`AB_REPS` times each, with each run's seconds, its
+global-energy-minimization seconds, lane Newton iterations, solve calls
+and canonically re-solved lanes (``batching.device_accounting``), gram
+launches per route and objects, and seed 0's match against the golden.
 """
 
 import gzip
@@ -84,10 +110,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 #: 30 * sqrt(2); the port's estimate must agree to 1e-9 relative.
 NIH3T3_SCALE = 42.426406871192846
 
-#: Main-path shapes of phase 3: (B, P, n, route) — the n = 128, 256 and
-#: 512 bucket chunks of the bench field.
-KERNEL_SHAPES = [(64, 8192, 128, 'dense'), (32, 12288, 256, 'triangle'),
-                 (16, 32768, 512, 'banded')]
+#: Main-path shapes of phase 3: (B, P, n, route, active lanes) — the
+#: n = 128, 256 and 512 bucket chunks of the bench field with a quarter of
+#: the lanes frozen (every precision) ...
+KERNEL_SHAPES = [(64, 8192, 128, 'dense', 48), (32, 12288, 256, 'triangle', 24),
+                 (16, 32768, 512, 'banded', 12)]
+#: ... and few-lane launches the main path makes (the B = 1 canonical
+#: re-solves, a batch with most lanes converged), float32 only: the kernel
+#: splits their pixel loop across blocks.
+FEW_LANE_SHAPES = [(1, 8192, 128, 'dense', 1), (1, 32768, 512, 'banded', 1),
+                   (64, 8192, 128, 'dense', 4)]
+#: Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+#: float32 outside the tensor cores, bf16 tensor cores, HBM3 bytes per second.
+PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
 _PK = 'superdsm_tpu/dsm/pallas_kernels.py'
 #: The Pallas kernel (or reduced-precision body) each route replaces.
 REPLACES = {'dense': f'{_PK}:436', 'triangle': f'{_PK}:292',
@@ -205,7 +242,10 @@ def _lane_features(rng, P, K, img_shape=(520, 696), sigma=4.0, cutoff=16,
         torch.from_numpy(W).to(dev)
 
 
-def _event_ms(fn, reps=10):
+def _call_ms(fn, reps=10):
+    """Median ms of single calls of ``fn`` between two CUDA events: the
+    device's time plus the host's time to issue the call (its argument
+    checks, allocations and launches), while the card waits."""
     import torch
     times = []
     for _ in range(reps):
@@ -219,6 +259,94 @@ def _event_ms(fn, reps=10):
     return float(np.median(times))
 
 
+def _event_ms(fn, reps=10):
+    """Device ms per call of ``fn``: after a warm-up call, one call captured
+    in a CUDA graph and replayed ``reps`` times back to back between two
+    CUDA events; the median of 3 such runs."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def _bound(route, passes, Bf, active, band):
+    """Least time (ms) the card could take for one launch, and what bounds
+    it (``'operations'`` or ``'bytes'``).
+
+    Operations: the products of the active lanes' H and g. H counts its
+    upper triangle (H is symmetric); the reduced-precision triangle mode
+    also the lower half of each diagonal 128-column block (its blocks are
+    mirrored, not its entries), the full mode all n x n; a banded route only
+    the (chunk, 64-column tile pair) cells that the band table leaves, as
+    the kernel's granularity sees the data. Float32 products at the float32
+    peak, bf16 ones at the tensor cores' bf16 peak times the passes. Bytes:
+    each input read once (Bf of the active lanes, of a banded route only the
+    band's tiles; s, yv, w; active and the band table) and g and H written
+    once."""
+    from superdsm_tpu_torch.dsm import gram
+    B, P, n = Bf.shape
+    T, R = gram.TILE, gram.ROWS
+    on = active != 0
+    act = int(on.sum())
+    if band is None:
+        tiles = act * (P // R) * (n // T)
+        if passes != 6 and route.startswith('dense'):
+            per_row = n * n
+        else:
+            per_row = n * (n + 1) // 2
+            if passes != 6:
+                mb = gram.MIRROR_BLOCK
+                per_row += (n // mb) * mb * (mb - 1) // 2
+        h_ops = 2.0 * act * P * per_row
+        g_ops = 2.0 * act * P * n
+    else:
+        bt = band[on].cpu().numpy().astype(np.int64)
+        m = (bt[..., 0] != 0) + np.maximum(bt[..., 2] - bt[..., 1] + 1, 0)
+        tiles = int(m.sum())
+        h_ops = 2.0 * R * float((m * (m - 1) // 2).sum() * T * T
+                                + m.sum() * (T * (T + 1) // 2))
+        g_ops = 2.0 * R * T * float(m.sum())
+    ops_s = (h_ops / PEAK_FP32 if passes == 6 else passes * h_ops / PEAK_BF16) \
+        + g_ops / PEAK_FP32
+    nbytes = 4.0 * (tiles * R * T + 3 * act * P + B + B * (n + n * n))
+    if band is not None:
+        nbytes += 4.0 * band.numel()
+    bytes_s = nbytes / PEAK_BYTES
+    return max(ops_s, bytes_s) * 1e3, 'operations' if ops_s >= bytes_s else 'bytes'
+
+
+def _library_ms(Bf, s, yv, w, active):
+    """The one PyTorch call that carries the gram's work: ``torch.bmm`` of
+    the kappa-scaled active lanes, transposed, against their Bf, in float32
+    with TF32 off (a yardstick; the port never calls it)."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram
+    keep = (active != 0).nonzero()[:, 0]
+    A = Bf[keep]
+    _, kappa = gram._logistic_weights(s[keep], yv[keep], w[keep])
+    Ak = (A * kappa[..., None]).transpose(1, 2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _event_ms(lambda: torch.bmm(Ak, A))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def _check_route(route, passes, Bf, s, yv, w, active, band):
     """Holds one route against its plain version; returns its table row."""
     import torch
@@ -230,24 +358,26 @@ def _check_route(route, passes, Bf, s, yv, w, active, band):
         return gram.grad_hess_kernel(Bf, s, yv, w, active, band_, passes=passes,
                                      full=full)
 
+    B, P, n = Bf.shape
+    act = int((active != 0).sum())
+    tag = f'{route} ({B}, {P}, {n}), {act} active'
     g, H = kernel()
     torch.cuda.synchronize()
     g2, H2 = kernel()
     torch.cuda.synchronize()
     if not (torch.equal(g, g2) and torch.equal(H, H2)):
-        fail(f'{route}: two runs differ (not reproducible)')
+        fail(f'{tag}: two runs differ (not reproducible)')
     if not (torch.isfinite(g).all() and torch.isfinite(H).all()):
-        fail(f'{route}: non-finite output')
+        fail(f'{tag}: non-finite output')
     frozen = active == 0
     if g[frozen].any() or H[frozen].any():
-        fail(f'{route}: frozen lanes are not exactly zero')
+        fail(f'{tag}: frozen lanes are not exactly zero')
     g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
                                         mirror=mirror)
     torch.cuda.synchronize()
     err = max(float((g - g_ref).abs().max()), float((H - H_ref).abs().max()))
     excess_g = float(((g - g_ref).abs() - RTOL * g_ref.abs()).max())
     excess = max(excess_g, float(((H - H_ref).abs() - RTOL * H_ref.abs()).max()))
-    B, P, n = Bf.shape
     if passes == 1:
         _, kappa = gram._logistic_weights(s, yv, w)
         absBf = Bf.abs().double()
@@ -256,50 +386,82 @@ def _check_route(route, passes, Bf, s, yv, w, active, band):
         share = float(((H - H_ref).abs() <= ATOL + RTOL * H_ref.abs())
                       .double().mean())
         del absBf, bound
-        say(f'[kernel] {route} ({B}, {P}, {n}): max_abs_err {err:.3e}, '
+        say(f'[kernel] {tag}: max_abs_err {err:.3e}, '
             f'max(|dH| - 2^-7 |Bf|^T k |Bf|) {over:.3e} (<= 1e-4), share '
             f'within 1e-4 {share:.5f} (>= {ONE_PASS_MIN_SHARE}), '
             f'max(|dg| - rtol|ref|) {excess_g:.3e} (atol {ATOL})')
         if over > 1e-4 or share < ONE_PASS_MIN_SHARE or excess_g > ATOL:
-            fail(f'{route}: kernel disagrees with the plain version')
+            fail(f'{tag}: kernel disagrees with the plain version')
     else:
-        say(f'[kernel] {route} ({B}, {P}, {n}): max_abs_err {err:.3e}, '
+        say(f'[kernel] {tag}: max_abs_err {err:.3e}, '
             f'max(|d| - rtol|ref|) {excess:.3e} (atol {ATOL})')
         if excess > ATOL:
-            fail(f'{route}: kernel disagrees with the plain version')
+            fail(f'{tag}: kernel disagrees with the plain version')
     if band is not None:
         g_d, H_d = kernel(None)
         torch.cuda.synchronize()
         if not (torch.equal(g, g_d) and torch.equal(H, H_d)):
-            fail(f'{route}: banded mode is not bitwise equal to the unbanded mode')
+            fail(f'{tag}: banded mode is not bitwise equal to the unbanded mode')
         unbanded_ms = _event_ms(lambda: kernel(None))
-        say(f'[kernel] {route}: banded mode bitwise equals the unbanded '
+        say(f'[kernel] {tag}: banded mode bitwise equals the unbanded '
             f'(triangle) mode, which takes {unbanded_ms:.3f} ms at this shape')
+    del g2, H2, g_ref, H_ref
     ms = _event_ms(kernel)
+    call_ms = _call_ms(kernel)
     plain_ms = _event_ms(lambda: gram.grad_hess_plain(
         Bf, s, yv, w, active, passes=passes, mirror=mirror))
-    say(f'[kernel] {route}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms '
-        f'(CUDA events, median of 10)')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    library_ms = _library_ms(Bf, s, yv, w, active)
+    bound_ms, bound_by = _bound(route, passes, Bf, active, band)
+    segments = gram.split_plan(B, P, n)[1] if passes == 6 else 1
+    say(f'[kernel] {tag}: kernel {ms:.3f} ms ({segments} pixel segment'
+        f'{"s" if segments > 1 else ""}; {call_ms:.3f} ms a single call with '
+        f'its host overhead), plain {plain_ms:.3f} ms, library (float32 bmm) '
+        f'{library_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}: '
+        f'{bound_ms / ms:.1%} of the bound (device ms per call: CUDA graph '
+        f'replays between CUDA events)')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / ms,
+                library_ms=library_ms, call_ms=call_ms, shape=[B, P, n],
+                active=act)
+
+
+def _active(B, n_active):
+    """The active lanes of a phase-3 launch: every fourth lane frozen at the
+    table shapes, ``n_active`` evenly spread ones at the few-lane shapes."""
+    import torch
+    if n_active == B - (B + 3) // 4:
+        active = torch.ones(B, dtype=torch.int32)
+        active[::4] = 0
+    else:
+        active = torch.zeros(B, dtype=torch.int32)
+        active[::B // n_active] = 1
+    if int(active.sum()) != n_active:
+        fail(f'phase 3: cannot spread {n_active} active lanes over {B}')
+    return active.cuda()
 
 
 def phase_kernels():
+    """Phase 3: every route at the table shapes, and the float32 routes at
+    the few-lane shapes (listed under their route's row as ``few_lane``)."""
     import torch
     from superdsm_tpu_torch.dsm import gram
-    dev = torch.device('cuda')
     rows = {}
-    for B, P, n, base in KERNEL_SHAPES:
+    for B, P, n, base, n_active in KERNEL_SHAPES + FEW_LANE_SHAPES:
+        few = (B, P, n, base, n_active) in FEW_LANE_SHAPES
         rng = np.random.RandomState(n)
         lanes = [_lane_features(rng, P, n - 6) for _ in range(B)]
         Bf, s, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
         del lanes
-        active = torch.ones(B, dtype=torch.int32, device=dev)
-        active[::4] = 0  # a quarter of the lanes frozen
+        active = _active(B, n_active)
         band = gram.band_ranges(Bf, w) if base == 'banded' else None
         torch.cuda.synchronize()
-        for passes in (6, 3, 1):
+        for passes in ((6,) if few else (6, 3, 1)):
             route = gram.route_for(n, band is not None, passes)
-            rows[route] = _check_route(route, passes, Bf, s, yv, w, active, band)
+            row = _check_route(route, passes, Bf, s, yv, w, active, band)
+            if few:
+                rows[route]['few_lane'].append(row)
+            else:
+                rows[route] = dict(row, few_lane=[])
         del Bf, s, yv, w
         torch.cuda.empty_cache()
     return rows
@@ -386,6 +548,85 @@ NIH3T3_PNG = os.path.join(REPO, 'tests/regression/data/nih3t3-glare.png')
 NIH3T3_CSV = os.path.join(REPO, 'tests/regression/expected/nih3t3/nih3t3-glare.csv')
 
 
+#: Device ms per bench image of the first float32 gram kernel (one block
+#: per lane and tile pair, no pixel split) in its profile of the main path
+#: on an H100 80GB HBM3 at 700 W (213 launches; ``PERF.md`` section 5).
+FIRST_GRAM_MS = 208.0
+#: Substrings of the float32 gram's kernel names.
+GRAM_KERNELS = ('gram_grad_hess_kernel', 'gram_reduce_kernel')
+
+
+def _merged_ms(intervals):
+    """Length of the union of ``(start, end)`` intervals in microseconds, in
+    ms."""
+    busy, end = 0.0, float('-inf')
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def phase_profile(g):
+    """Phase 4's profile: one ``torch.profiler`` pass over the bench image.
+    A wrapper installed here only records each gram launch's shape and
+    active lanes (a device copy of ``active``, read after the run, so the
+    pass adds no host sync); prints the gram's device ms against the first
+    kernel's,
+    the device's idle share of the wall and the launch histogram."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from superdsm_tpu_torch.dsm import gram
+    kernel = gram.grad_hess_kernel
+    records = []
+
+    def recording(Bf, s, yv, w, active, band=None, passes=6, full=False):
+        records.append((tuple(Bf.shape), active.clone(), band is not None,
+                        passes, full))
+        return kernel(Bf, s, yv, w, active, band, passes=passes, full=full)
+
+    gram.grad_hess_kernel = recording
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, _, _, seconds = _segment(g, 12)
+    finally:
+        gram.grad_hess_kernel = kernel
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == cuda]
+    if not spans:
+        fail('profile: torch.profiler recorded no device time')
+    busy_ms = _merged_ms([(a, b) for _, a, b in spans])
+    gram_ms = sum(b - a for name, a, b in spans
+                  if any(k in name for k in GRAM_KERNELS)) / 1e3
+    span_ms = (max(b for _, _, b in spans) - min(a for _, a, _ in spans)) / 1e3
+    say(f'[profile] bench image under torch.profiler: wall {seconds:.2f} s, '
+        f'device busy {busy_ms:.1f} ms ({len(spans)} device activities): idle '
+        f'{1 - busy_ms / (seconds * 1e3):.1%} of the wall, '
+        f'{1 - busy_ms / span_ms:.1%} of the span from the first to the last '
+        f'device activity')
+    say(f'[profile] float32 gram kernels: {gram_ms:.1f} ms device time per '
+        f'image ({len(records)} launches; first kernel: '
+        f'{FIRST_GRAM_MS:.0f} ms, 213 '
+        f'launches), {gram_ms / busy_ms:.1%} of the device busy time')
+    hist = collections.Counter()
+    for (B, P, n), active, banded, passes, full in records:
+        route = gram.route_for(n, banded, passes, full)
+        segments = gram.split_plan(B, P, n)[1] if passes == 6 else 1
+        hist[(B, int((active != 0).sum()), P, n, route, segments)] += 1
+    say('[profile] gram launches by (B, active lanes, P, n, route, pixel '
+        'segments), most frequent first:')
+    for key, count in hist.most_common():
+        say(f'[profile]   {key}: {count}')
+    by_segments = collections.Counter()
+    for key, count in hist.items():
+        by_segments[key[-1]] += count
+    say(f'[profile] launches by pixel segments: {dict(sorted(by_segments.items()))}')
+    if not records or gram_ms <= 0:
+        fail('profile: no gram kernel in the profiled run')
+
+
 def phase_main_path():
     from superdsm_tpu_torch.dsm import gram
     g, n = make_image(0)
@@ -407,6 +648,7 @@ def phase_main_path():
     if n_obj == 0:
         fail('no objects segmented')
     _match(seg, BENCH_GOLDEN, 1)
+    phase_profile(g)
     return launches
 
 
@@ -588,7 +830,8 @@ def phase_deadline_fetch():
 
 
 def phase_batch(root):
-    """Phase 7; returns the threaded run's launch counts."""
+    """Phase 7 (its launch counts are printed, not put in the kernel
+    table)."""
     from superdsm_tpu_torch.dsm import gram
     make_task_tree(root)
     n = len(BENCH_SEEDS)
@@ -663,7 +906,6 @@ def phase_batch(root):
         if _holds_tensor(data):
             fail(f'{task}/data.dill.gz holds a torch.Tensor')
         say(f'[batch] {task}/data.dill.gz: {len(data)} entries, no torch.Tensor')
-    return launches
 
 
 def phase_export(root):
@@ -690,6 +932,108 @@ def phase_export(root):
             f'({time.time() - t0:.2f} s)')
 
 
+# ---------------------------------------------------------------------------
+# --ab: two checkouts compared on one card
+# ---------------------------------------------------------------------------
+
+#: Timed runs of each bench seed in each ``--ab`` turn (after one cold
+#: run of seed 0).
+AB_REPS = 2
+
+
+def ab_run(root):
+    """One ``--ab`` turn: the port of the checkout at ``root``; prints one
+    JSON line last."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+    import superdsm_tpu_torch as T
+    from superdsm_tpu_torch.dsm import batching, gram
+    if not T.__file__.startswith(os.path.join(root, 'superdsm_tpu_torch')):
+        fail(f'--ab-run imported {T.__file__}, not the package under {root}')
+    T.set_device('cuda')
+    gram.build()
+    kernel_ms = {}
+    for B, P, n, base, n_active in KERNEL_SHAPES + FEW_LANE_SHAPES:
+        rng = np.random.RandomState(n)
+        lanes = [_lane_features(rng, P, n - 6) for _ in range(B)]
+        Bf, s, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
+        del lanes
+        active = _active(B, n_active)
+        band = gram.band_ranges(Bf, w) if base == 'banded' else None
+        tag = f'{base} ({B}, {P}, {n}), {n_active} active'
+        g, H = gram.grad_hess_kernel(Bf, s, yv, w, active, band)
+        g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active)
+        excess = max(float(((x - r).abs() - RTOL * r.abs()).max())
+                     for x, r in ((g, g_ref), (H, H_ref)))
+        if excess > ATOL:
+            fail(f'{root}: {tag}: kernel disagrees with the plain version')
+        kernel_ms[tag] = _event_ms(
+            lambda: gram.grad_hess_kernel(Bf, s, yv, w, active, band))
+        del Bf, s, yv, w, g, H, g_ref, H_ref
+        torch.cuda.empty_cache()
+    images = {seed: make_image(seed)[0] for seed in BENCH_SEEDS}
+    _segment(images[0], 12)
+    runs = []
+    for rep in range(AB_REPS):
+        for seed, image in images.items():
+            # marks the run in SDSM_SOLVE_TELEMETRY's per-round lines
+            print(f'[ab-run] seed {seed} rep {rep}', file=sys.stderr, flush=True)
+            gram.reset_launch_counts()
+            acct = batching.device_accounting()
+            data, seg, _, timings, seconds = _segment(image, 12)
+            after = batching.device_accounting()
+            runs.append(dict(
+                seed=seed, seconds=seconds,
+                gem=timings['global-energy-minimization'],
+                **{k: after[k] - acct[k] for k in ('lane_iters', 'calls',
+                                                   'canonical_lanes')},
+                launches={k: v for k, v in gram.LAUNCHES.items() if v},
+                objects=len(data['postprocessed_objects'])))
+            if seed == 0:
+                matched, total = _match(seg, BENCH_GOLDEN)
+    print(json.dumps(dict(root=root, kernel_ms=kernel_ms, runs=runs,
+                          matched=matched, total=total)), flush=True)
+
+
+def ab(roots):
+    """``--ab ROOT_A ROOT_B``: the turns A, B, B, A, one process each."""
+    card = phase_environment()
+    turns = {root: [] for root in roots}
+    for root in roots + roots[::-1]:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               '--ab-run', root], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f'--ab-run {root} exited {proc.returncode}:\n'
+                 f'{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}')
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        turns[root].append(out)
+        say(f'[ab] {root}: kernel ms '
+            f'{ {k: round(v, 4) for k, v in out["kernel_ms"].items()} }')
+        for run in out['runs']:
+            say(f'[ab] {root}: seed {run["seed"]}: {run["seconds"]:.3f} s '
+                f'(gem {run["gem"]:.3f}), {run["lane_iters"]} lane iterations, '
+                f'{run["calls"]} solve calls, {run["canonical_lanes"]} lanes '
+                f're-solved canonically, gram launches {run["launches"]}, '
+                f'{run["objects"]} objects')
+        say(f'[ab] {root}: seed 0 {out["matched"]}/{out["total"]} matched the '
+            f'golden')
+    for root, outs in turns.items():
+        for seed in BENCH_SEEDS:
+            runs = [run for out in outs for run in out['runs'] if run['seed'] == seed]
+            seconds = [run['seconds'] for run in runs]
+            iters = sorted({run['lane_iters'] for run in runs})
+            say(f'[ab] {root}: seed {seed}: s/image median '
+                f'{np.median(seconds):.3f}, min {min(seconds):.3f}, max '
+                f'{max(seconds):.3f} over {len(seconds)} runs; lane iterations '
+                f'{iters}')
+        for tag in outs[0]['kernel_ms']:
+            say(f'[ab] {root}: {tag}: kernel ms mean of the turns '
+                f'{np.mean([out["kernel_ms"][tag] for out in outs]):.4f}')
+    say(card)
+
+
 def main():
     card = phase_environment()
     import torch
@@ -712,9 +1056,7 @@ def main():
     t0 = time.time()
     root = tempfile.mkdtemp(prefix='sdsm-batch-')
     try:
-        for route, count in phase_batch(root).items():
-            if not route.endswith('pass'):
-                launches[route] += count
+        phase_batch(root)
         phase_export(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -733,5 +1075,9 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:] == ['--knob-run']:
         knob_run()
+    elif sys.argv[1:2] == ['--ab-run'] and len(sys.argv) == 3:
+        ab_run(sys.argv[2])
+    elif sys.argv[1:2] == ['--ab'] and len(sys.argv) == 4:
+        ab(sys.argv[2:])
     else:
         main()

@@ -36,6 +36,14 @@ and at every call from these module attributes (tests set them):
 - :data:`HYBRID_ITERS` (``SDSM_GRAM_HYBRID_ITERS``): the solver's first
   this many Newton iterations take ``cheap=True``.
 
+The float32 kernel splits the pixel loop across blocks when a launch has
+too few (lane, tile pair) work items to fill the card (split-P,
+:func:`split_plan`). Each pixel segment (one, when the launch fills the
+card) sums its float64 partial into scratch that :func:`grad_hess_kernel`
+allocates, and a second kernel sums the segments in a fixed order and
+writes ``H`` and ``g``. The plan depends on the launch's static shape
+``(B, P, n)`` only, never on how many lanes are active.
+
 Every launch adds one to :data:`LAUNCHES` under the route it stands for:
 ``'dense'`` (the full dense Pallas kernel, n = 128 and n = 2048),
 ``'triangle'`` (the triangle-blocked one, 256 <= n <= 1024 without a band)
@@ -61,6 +69,27 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: compiled libraries on load).
 TILE = 64
 ROWS = 32
+#: Chunks a float32 partial of the float32 kernel covers before it goes
+#: into its float64 running sum (64 pixel rows; checked on load).
+FLUSH_CHUNKS = 2
+
+#: Split-P rule of the float32 kernel (:func:`split_plan`): a launch with
+#: fewer than this many (lane, tile pair) work items splits its pixels into
+#: segments until it has about this many, some 5 waves of the kernel's 3
+#: resident 128-thread blocks on each of an H100's 132 SMs (with fewer
+#: waves, the last one leaves most SMs idle) ...
+TARGET_ITEMS = 2048
+#: ... with segments of at least this many chunks (128 pixel rows), so that
+#: a segment keeps the copy ring busy and the reduction stays small.
+MIN_SEG_CHUNKS = 4
+#: Bound of a split launch's float64 scratch: it has fewer than
+#: 2 * TARGET_ITEMS work items, each with one 64 x 64 tile and at most 64
+#: entries of g (136 MB). A launch of one segment needs B x tile pairs
+#: tiles, at most 1.5 times the bytes of the ``H`` it returns (n >= 128;
+#: 1.1 GB at the largest bucket's cap, (64, 2048, 2048), whose ``Bf`` and
+#: ``H`` take 1.07 GB each). ``tests/test_torch_gram.py`` checks every
+#: (P, K) bucket at every batch size up to its GPU cap.
+SCRATCH_CAP_BYTES = 2 * TARGET_ITEMS * (TILE * TILE + TILE) * 8
 
 #: Problem sizes n = 6 + K that take the banded mode (the JAX package's
 #: ``_NBAND_BY_N`` keys).
@@ -93,12 +122,15 @@ LAUNCHES = {f'{route}{suffix}': 0 for suffix in ('', '-3pass', '-1pass')
 #: shared memory, spills).
 BUILD_LOG = {}
 
-#: Shared library, entry point and argument types of each kernel source:
-#: pointers Bf, s, yv, w, active, band, g, H; ints B, P, n (and passes,
-#: mode); the stream.
+#: Shared library, entry point, argument counts and compiled constants of
+#: each kernel source. Arguments: pointers Bf, s, yv, w, active, band, g, H
+#: (and the float32 kernel's scratch); ints B, P, n (and seg_chunks, or
+#: passes and mode); the stream.
 _KERNELS = {
-    'gram_grad_hess.cu': ('libsdsm_gram.so', 'sdsm_gram', 3),
-    'gram_grad_hess_bf16.cu': ('libsdsm_gram_bf16.so', 'sdsm_gram_bf16', 5),
+    'gram_grad_hess.cu': ('libsdsm_gram.so', 'sdsm_gram', 9, 4,
+                          dict(tile=TILE, rows=ROWS, flush=FLUSH_CHUNKS)),
+    'gram_grad_hess_bf16.cu': ('libsdsm_gram_bf16.so', 'sdsm_gram_bf16', 8, 5,
+                               dict(tile=TILE, rows=ROWS)),
 }
 _F32_SRC, _BF16_SRC = _KERNELS
 
@@ -219,6 +251,43 @@ def band_ranges(Bf, w):
                         hi.to(torch.int32)], dim=-1).contiguous()
 
 
+def tile_pairs(n):
+    """Upper-triangle pairs (u <= v) of the float32 kernel's column tiles."""
+    nt = n // TILE
+    return nt * (nt + 1) // 2
+
+
+def split_plan(B, P, n):
+    """The float32 kernel's split of the pixel loop: ``(seg_chunks,
+    n_segments)``.
+
+    A launch of ``B x tile_pairs(n)`` work items that reaches
+    :data:`TARGET_ITEMS` runs one segment (the whole pixel loop in each
+    block). A smaller one splits its
+    ``P / ROWS`` chunks into segments of ``seg_chunks`` chunks, at least
+    :data:`MIN_SEG_CHUNKS` and a multiple of :data:`FLUSH_CHUNKS` (so the
+    float32 partials do not depend on the split), as few as bring the work
+    items up to about :data:`TARGET_ITEMS`. Only the static shape counts:
+    frozen lanes are not known on the host without a sync."""
+    nchunks = P // ROWS
+    items = B * tile_pairs(n)
+    if items >= TARGET_ITEMS or nchunks <= MIN_SEG_CHUNKS:
+        return nchunks, 1
+    want = -(-TARGET_ITEMS // items)
+    seg = max(MIN_SEG_CHUNKS, -(-nchunks // want))
+    seg = -(-seg // FLUSH_CHUNKS) * FLUSH_CHUNKS
+    if seg >= nchunks:
+        return nchunks, 1
+    return seg, -(-nchunks // seg)
+
+
+def scratch_entries(B, P, n):
+    """float64 entries of the float32 kernel's scratch: each segment's
+    partial tile of every (lane, tile pair), then its g."""
+    _, nsegs = split_plan(B, P, n)
+    return nsegs * B * (tile_pairs(n) * TILE * TILE + n)
+
+
 def _nvcc():
     found = shutil.which('nvcc')
     if found:
@@ -273,16 +342,17 @@ def _load(src=_F32_SRC):
                 < os.path.getmtime(os.path.join(_CSRC, src))):
             build()
         lib = ctypes.CDLL(path)
-        _, prefix, n_ints = _KERNELS[src]
+        _, prefix, n_ptrs, n_ints, constants = _KERNELS[src]
         fn = getattr(lib, f'{prefix}_grad_hess')
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints + \
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        tile, rows = (getattr(lib, f'{prefix}_{name}') for name in ('tile', 'rows'))
-        tile.restype = rows.restype = ctypes.c_int
-        if (tile(), rows()) != (TILE, ROWS):
-            raise RuntimeError(f'{src}: library does not match '
-                               f'TILE={TILE}, ROWS={ROWS}')
+        for name, value in constants.items():
+            const = getattr(lib, f'{prefix}_{name}')
+            const.restype = ctypes.c_int
+            if const() != value:
+                raise RuntimeError(f'{src}: library has {name}={const()}, '
+                                   f'expected {value}')
         _libs[src] = lib
     return lib
 
@@ -326,8 +396,9 @@ def grad_hess_kernel(Bf, s, yv, w, active, band=None, passes=6, full=False):
     _check('active', active, torch.int32, (B,), dev)
     if band is not None:
         _check('band', band, torch.int32, (B, P // ROWS, 3), dev)
-    if Bf.data_ptr() % 16:
-        raise ValueError('Bf must be 16-byte aligned')
+    for name, t in (('Bf', Bf), ('s', s), ('yv', yv), ('w', w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned')
     lib = _load(_F32_SRC if passes == 6 else _BF16_SRC)
     g = torch.empty((B, n), dtype=f32, device=dev)
     H = torch.empty((B, n, n), dtype=f32, device=dev)
@@ -337,7 +408,11 @@ def grad_hess_kernel(Bf, s, yv, w, active, band=None, passes=6, full=False):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if passes == 6:
-            err = lib.sdsm_gram_grad_hess(*ptrs, B, P, n, stream)
+            seg_chunks, _ = split_plan(B, P, n)
+            part = torch.empty((scratch_entries(B, P, n),),
+                               dtype=torch.float64, device=dev)
+            err = lib.sdsm_gram_grad_hess(*ptrs, part.data_ptr(), B, P, n,
+                                          seg_chunks, stream)
         else:
             mode = 0 if full else (1 if band is None else 2)
             err = lib.sdsm_gram_bf16_grad_hess(*ptrs, B, P, n, passes, mode,

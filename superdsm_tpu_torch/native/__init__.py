@@ -1,8 +1,8 @@
 """Native (C++) host runtime ops, loaded via ctypes.
 
-The C++ source is shared with the JAX package
-(``superdsm_tpu/native/watershed.cpp``) and compiled by file path, with the
-same ``g++`` line, into the port's build directory
+The C++ source is the port's own, ``superdsm_tpu_torch/csrc/watershed.cpp``
+(a copy of the JAX package's native source, kept equal in behaviour), and is
+compiled with the JAX package's ``g++`` line into the port's build directory
 (``build/superdsm_tpu_torch/`` at the repository root) the first time it is
 needed. Every entry point has a pure-Python fallback in the
 :mod:`superdsm_tpu_torch.ops` modules, so the port works without a C++
@@ -17,8 +17,9 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_REPO = os.path.dirname(os.path.dirname(_HERE))
-_SRC = os.path.join(_REPO, 'superdsm_tpu', 'native', 'watershed.cpp')
+_PKG = os.path.dirname(_HERE)
+_REPO = os.path.dirname(_PKG)
+_SRC = os.path.join(_PKG, 'csrc', 'watershed.cpp')
 #: Build directory of the port's compiled artifacts (gitignored).
 BUILD_DIR = os.path.join(_REPO, 'build', 'superdsm_tpu_torch')
 _LIB = os.path.join(BUILD_DIR, '_sdsm_native.so')

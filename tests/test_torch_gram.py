@@ -41,7 +41,7 @@ from superdsm_tpu.dsm import pallas_kernels as pk
 from superdsm_tpu.dsm.smooth import build_smooth_matrix, subsample_grid
 from superdsm_tpu.dsm.solver import _poly_basis
 
-from superdsm_tpu_torch.dsm import gram
+from superdsm_tpu_torch.dsm import batching, gram
 
 torch.set_num_threads(1)
 
@@ -327,3 +327,118 @@ def test_knobs_read_from_environment():
         for p in ('', '-3pass', '-1pass')))
     proc = run(SDSM_GRAM_PASSES='2')
     assert proc.returncode != 0 and 'SDSM_GRAM_PASSES' in proc.stderr
+
+
+# The float32 kernel's split of the pixel loop across blocks (split-P). The
+# plan is Python in gram.py; the kernel takes it as it is.
+
+#: (B, P, n, splits): launches that fill the card in one segment, the
+#: table shapes and few-lane launches the main path makes (B = 1 re-solves,
+#: small tail chunks), and an odd chunk count (1056 = 33 x 32 rows: a short
+#: last segment).
+SPLIT_SHAPES = [(64, 8192, 512, False), (8, 2048, 2048, False),
+                (64, 8192, 128, True), (16, 32768, 512, True),
+                (1, 8192, 128, True), (1, 32768, 512, True),
+                (3, 1056, 128, True), (1, 2048, 1024, True)]
+
+
+@pytest.mark.parametrize('B,P,n,splits', SPLIT_SHAPES)
+def test_split_plan_covers_every_chunk_once_in_pixel_order(B, P, n, splits):
+    """The plan as the kernel reads it: segment ``seg`` (``blockIdx.y``)
+    walks chunks ``[seg * seg_chunks, min(seg * seg_chunks + seg_chunks,
+    nchunks))`` in order, and ``nsegs = ceil(nchunks / seg_chunks)``. The
+    segments tile the chunks with none empty. The kernel's own mapping is
+    held on the card (``tests/test_torch_kernel_cuda.py``)."""
+    seg_chunks, nsegs = gram.split_plan(B, P, n)
+    nchunks = P // gram.ROWS
+    assert (nsegs > 1) == splits
+    assert nsegs == -(-nchunks // seg_chunks)
+    if splits:
+        # a few items split until they fill the card; segments start on a
+        # float32 partial's first chunk
+        assert B * gram.tile_pairs(n) < gram.TARGET_ITEMS
+        assert seg_chunks % gram.FLUSH_CHUNKS == 0
+        assert seg_chunks >= gram.MIN_SEG_CHUNKS
+        # the bound of the scratch (SCRATCH_CAP_BYTES)
+        assert B * gram.tile_pairs(n) * nsegs < 2 * gram.TARGET_ITEMS
+    else:
+        assert seg_chunks == nchunks
+    chunks = [c for seg in range(nsegs)
+              for c in range(seg * seg_chunks, min(seg * seg_chunks + seg_chunks,
+                                                   nchunks))]
+    assert chunks == list(range(nchunks))
+    assert (nsegs - 1) * seg_chunks < nchunks
+    assert gram.scratch_entries(B, P, n) == \
+        nsegs * B * (gram.tile_pairs(n) * gram.TILE ** 2 + n)
+
+
+@pytest.mark.parametrize('flush', [2, 3, 4])
+def test_split_segments_are_whole_flush_groups(monkeypatch, flush):
+    """A split segment is a multiple of FLUSH_CHUNKS chunks at any flush
+    length, so the float32 partials do not depend on the split."""
+    monkeypatch.setattr(gram, 'FLUSH_CHUNKS', flush)
+    for B, P, n in [(1, 8192, 128), (1, 32768, 512), (3, 1056, 128),
+                    (16, 8192, 256), (1, 2048, 1024)]:
+        seg_chunks, nsegs = gram.split_plan(B, P, n)
+        assert nsegs > 1 and seg_chunks % flush == 0, (B, P, n, seg_chunks)
+
+
+def _segmented_grad_hess(Bf, s, yv, w, active):
+    """Plain-torch emulation of the float32 kernel's sums: float32 products
+    summed in float32 over each partial of FLUSH_CHUNKS chunks, the
+    partials in float64 per pixel segment, the segments in order."""
+    B, P, n = Bf.shape
+    term1, kappa = gram._logistic_weights(s, yv, w)
+    seg_chunks, nsegs = gram.split_plan(B, P, n)
+    rows = gram.ROWS * gram.FLUSH_CHUNKS
+    g = torch.zeros((B, n), dtype=torch.float64)
+    H = torch.zeros((B, n, n), dtype=torch.float64)
+    for seg in range(nsegs):
+        lo, hi = seg * seg_chunks * gram.ROWS, min(P, (seg + 1) * seg_chunks * gram.ROWS)
+        g_seg, H_seg = torch.zeros_like(g), torch.zeros_like(H)
+        for p0 in range(lo, hi, rows):
+            A = Bf[:, p0:min(p0 + rows, hi)]
+            k, t = kappa[:, p0:p0 + A.shape[1]], term1[:, p0:p0 + A.shape[1]]
+            H_seg += ((A * k[..., None]).transpose(1, 2) @ A).double()
+            g_seg += (A.transpose(1, 2) @ t[..., None])[..., 0].double()
+        g, H = g + g_seg, H + H_seg
+    keep = (active != 0).double()
+    return (g * keep[:, None]).float(), (H * keep[:, None, None]).float()
+
+
+@pytest.mark.parametrize('B,P,n', [(1, 8192, 128), (3, 1056, 128), (2, 4096, 256)])
+def test_segmented_sums_agree_with_plain(B, P, n):
+    """The split changes only the grouping of the float64 sums: the
+    emulation agrees with the plain version to 1e-6 relative (max norm)."""
+    assert gram.split_plan(B, P, n)[1] > 1
+    Bf, s, yv, w = (torch.from_numpy(a) for a in _dense_problem(B + n, B, P, n))
+    active = torch.ones(B, dtype=torch.int32)
+    active[-1] = 0 if B > 1 else 1
+    g, H = _segmented_grad_hess(Bf, s, yv, w, active)
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active)
+    assert float((H - H_ref).abs().max()) <= 1e-6 * float(H_ref.abs().max())
+    assert float((g - g_ref).abs().max()) <= 1e-6 * float(g_ref.abs().max())
+    assert not H[active == 0].any() and H_ref.abs().max() > 0
+
+
+def test_split_scratch_stays_under_its_cap():
+    """Every (P, K) bucket the kernel serves, at every batch size up to its
+    GPU cap: a split launch needs at most SCRATCH_CAP_BYTES of float64
+    scratch, a launch of one segment at most 1.5 times the bytes of its
+    float32 H."""
+    worst = (0, None)
+    worst_ratio = (0, None)
+    for P in batching.P_BUCKETS:
+        for K in batching.K_BUCKETS[1:]:
+            n = 6 + K
+            if n % 128:
+                continue
+            for B in range(1, batching.B_CAP_GPU[P] + 1):
+                nbytes = gram.scratch_entries(B, P, n) * 8
+                if gram.split_plan(B, P, n)[1] > 1:
+                    worst = max(worst, (nbytes, (B, P, n)))
+                else:
+                    worst_ratio = max(worst_ratio, (nbytes / (B * n * n * 4), (B, P, n)))
+    assert 0 < worst[0] <= gram.SCRATCH_CAP_BYTES, worst
+    assert gram.SCRATCH_CAP_BYTES <= 2 ** 28
+    assert 0 < worst_ratio[0] <= 1.5, worst_ratio

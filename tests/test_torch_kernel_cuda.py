@@ -18,8 +18,15 @@ bf16's unit roundoff elementwise (``|dH| <= 2^-7 (|Bf|^T diag(kappa) |Bf|)
 + 1e-4``: a one-ulp difference in kappa between ``expf`` and
 ``torch.sigmoid`` can flip single bf16 roundings) and within
 rtol = atol = 1e-4 on at least 99% of the entries. Its banded mode equals
-its triangle mode bitwise, and its g equals the float32 kernel's bitwise
-(the same code).
+its triangle mode bitwise, and its g equals the float32 kernel's to 1e-6
+relative (the same float32 products; the float32 kernel groups its float64
+sums by 64 rows and pixel segment).
+
+The float32 kernel splits the pixel loop of few-lane launches across
+blocks (split-P); those launches are held to the same checks, and one
+launch at two segment counts agrees to 1e-6 relative. A Bf with one
+nonzero row per chunk holds the kernel's own mapping of segments to chunks
+(every chunk counted once) at one segment and at many.
 """
 
 import numpy as np
@@ -46,8 +53,10 @@ def _dense_problem(seed, B, P, n, dev):
     return tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in arrays)
 
 
-def _band_problem(dev, P=2048, K=506, side=94, stride=4, sigma=2.0, cutoff=8):
-    """Two lanes over a real band-structured G (row-major disk mask)."""
+def _band_problem(dev, P=2048, K=506, side=94, stride=4, sigma=2.0, cutoff=8,
+                  lanes=2):
+    """Two lanes (or one) over a real band-structured G (row-major disk
+    mask)."""
     rr, cc = np.mgrid[:side, :side]
     mask = (rr - side // 2) ** 2 + (cc - side // 2) ** 2 <= (side // 2 - 1) ** 2
     pts = np.argwhere(mask)[:P]
@@ -64,10 +73,10 @@ def _band_problem(dev, P=2048, K=506, side=94, stride=4, sigma=2.0, cutoff=8):
     Bf1 = torch.cat([_poly_basis(t(PIX / np.float32(side))),
                      build_smooth_matrix(t(PIX), t(SUB), sigma, cutoff, t(KM))], dim=1)
     rng = np.random.RandomState(0)
-    Bf = torch.stack([Bf1, Bf1 * 0.5]).contiguous()
-    w = t(np.stack([W, W]))
-    yv = t((rng.randn(2, P) * W).astype(np.float32))
-    s = t((rng.randn(2, P) * 0.5).astype(np.float32))
+    Bf = torch.stack([Bf1, Bf1 * 0.5][:lanes]).contiguous()
+    w = t(np.stack([W] * lanes))
+    yv = t((rng.randn(lanes, P) * W).astype(np.float32))
+    s = t((rng.randn(lanes, P) * 0.5).astype(np.float32))
     return Bf, s, yv, w
 
 
@@ -114,6 +123,134 @@ def test_launch_counts_by_route():
         {'dense': 2, 'triangle': 1, 'banded': 1}
 
 
+def _check_f32(Bf, s, yv, w, active, band=None):
+    """The float32 kernel against the plain version: reproducible, frozen
+    lanes zero, within rtol = atol = 1e-4; banded equal to unbanded."""
+    g, H = gram.grad_hess_kernel(Bf, s, yv, w, active, band)
+    g2, H2 = gram.grad_hess_kernel(Bf, s, yv, w, active, band)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2) and torch.equal(H, H2)
+    frozen = active == 0
+    assert not g[frozen].any() and not H[frozen].any()
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active)
+    torch.testing.assert_close(g, g_ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(H, H_ref, rtol=RTOL, atol=ATOL)
+    if band is not None:
+        g_d, H_d = gram.grad_hess_kernel(Bf, s, yv, w, active)
+        torch.cuda.synchronize()
+        assert torch.equal(g, g_d) and torch.equal(H, H_d)
+    return g, H
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P,n,n_active', [(1, 8192, 128, 1), (1, 4096, 256, 1),
+                                             (64, 8192, 128, 4), (3, 1056, 128, 2)])
+def test_kernel_few_lanes_split_p(B, P, n, n_active):
+    """Few-lane launches split the pixel loop (two passes); the odd chunk
+    count (1056 = 33 x 32) ends in a short segment."""
+    dev = _cuda()
+    assert gram.split_plan(B, P, n)[1] > 1
+    Bf, s, yv, w = _dense_problem(B + P + n, B, P, n, dev)
+    active = torch.zeros(B, dtype=torch.int32, device=dev)
+    active[torch.randperm(B, generator=torch.Generator().manual_seed(B))[:n_active]
+           .to(dev)] = 1
+    _check_f32(Bf, s, yv, w, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [512, 1024])
+def test_banded_single_lane_split_p(n):
+    """B = 1 banded launches (the canonical re-solve) at n = 512 and 1024:
+    split across segments, banded still equal to unbanded bitwise."""
+    dev = _cuda()
+    if n == 512:
+        Bf, s, yv, w = _band_problem(dev, P=8192, K=506, side=98, lanes=1)
+    else:
+        Bf, s, yv, w = _band_problem(dev, P=16384, K=1018, side=140, lanes=1)
+    assert gram.split_plan(*Bf.shape)[1] > 1
+    band = gram.band_ranges(Bf, w)
+    _check_f32(Bf, s, yv, w, torch.ones(1, dtype=torch.int32, device=dev), band)
+
+
+@pytest.mark.cuda
+def test_segment_count_changes_only_the_last_bits(monkeypatch):
+    """The same launch with one segment and with many agrees to 1e-6
+    relative (only the float64 sums split)."""
+    dev = _cuda()
+    Bf, s, yv, w = _dense_problem(5, 2, 8192, 256, dev)
+    active = torch.ones(2, dtype=torch.int32, device=dev)
+    assert gram.split_plan(2, 8192, 256)[1] > 1
+    g_split, H_split = gram.grad_hess_kernel(Bf, s, yv, w, active)
+    monkeypatch.setattr(gram, 'TARGET_ITEMS', 1)
+    assert gram.split_plan(2, 8192, 256)[1] == 1
+    g_one, H_one = gram.grad_hess_kernel(Bf, s, yv, w, active)
+    torch.cuda.synchronize()
+    scale = float(H_one.abs().max())
+    torch.testing.assert_close(H_split, H_one, rtol=1e-6, atol=1e-6 * scale)
+    torch.testing.assert_close(g_split, g_one, rtol=1e-6,
+                               atol=1e-6 * float(g_one.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P,n', [(1, 8192, 128), (3, 1056, 128), (2, 4096, 256)])
+def test_every_chunk_counted_once_at_any_segment_count(monkeypatch, B, P, n):
+    """Bf is zero but for one row per 32-row chunk, with positive entries:
+    every chunk adds about 1 / nchunks of each entry of H, so a chunk that
+    the kernel's own segment mapping skips or counts twice moves H far
+    beyond the 1e-6 relative the check allows (and g too). Held at one
+    segment, at the default plan and at the shortest segments."""
+    dev = _cuda()
+    rng = np.random.RandomState(B + P + n)
+    nchunks = P // gram.ROWS
+    rows = np.arange(nchunks) * gram.ROWS + (np.arange(nchunks) * 7) % gram.ROWS
+    Bf_np = np.zeros((B, P, n), np.float32)
+    Bf_np[:, rows] = rng.uniform(1.0, 2.0, (B, nchunks, n))
+    Bf = torch.as_tensor(Bf_np, device=dev)
+    s = torch.as_tensor(rng.randn(B, P).astype(np.float32), device=dev)
+    yv = torch.as_tensor(np.sign(rng.randn(B, P)).astype(np.float32), device=dev)
+    w = torch.ones((B, P), device=dev)
+    active = torch.ones(B, dtype=torch.int32, device=dev)
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active)
+    segments = []
+    for target in (1, gram.TARGET_ITEMS, 10 ** 9):
+        monkeypatch.setattr(gram, 'TARGET_ITEMS', target)
+        segments.append(gram.split_plan(B, P, n)[1])
+        g, H = gram.grad_hess_kernel(Bf, s, yv, w, active)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(H, H_ref, rtol=1e-6,
+                                   atol=1e-6 * float(H_ref.abs().max()))
+        torch.testing.assert_close(g, g_ref, rtol=1e-6,
+                                   atol=1e-6 * float(g_ref.abs().max()))
+    assert segments[0] == 1 and segments[0] < segments[1] <= segments[2], segments
+
+
+@pytest.mark.cuda
+def test_f32_library_refuses_bad_arguments():
+    dev = _cuda()
+    Bf, s, yv, w = _dense_problem(0, 1, 8192, 128, dev)
+    active = torch.ones(1, dtype=torch.int32, device=dev)
+    lib = gram._load(gram._F32_SRC)
+    g = torch.empty((1, 128), device=dev)
+    H = torch.empty((1, 128, 128), device=dev)
+    ptrs = [t.data_ptr() for t in (Bf, s, yv, w, active)] + [None] + \
+        [g.data_ptr(), H.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    # every launch needs scratch, and several segments an even length
+    assert lib.sdsm_gram_grad_hess(*ptrs, None, 1, 8192, 128, 8, stream) != 0
+    assert lib.sdsm_gram_grad_hess(*ptrs, None, 1, 8192, 128, 256, stream) != 0
+    part = torch.empty(gram.scratch_entries(1, 8192, 128), dtype=torch.float64,
+                       device=dev)
+    assert lib.sdsm_gram_grad_hess(*ptrs, part.data_ptr(), 1, 8192, 128, 7,
+                                   stream) != 0
+    assert lib.sdsm_gram_grad_hess(*ptrs, part.data_ptr(), 1, 8192, 96, 256,
+                                   stream) != 0
+    buf = torch.zeros(8192 + 4, device=dev)
+    s_misaligned = buf[1:8193].view(1, 8192)
+    assert s_misaligned.is_contiguous()
+    with pytest.raises(ValueError, match='aligned'):
+        gram.grad_hess_kernel(Bf, s_misaligned, yv, w, active)
+
+
 def _assert_bf16_close(H, H_ref, Bf, s, yv, w, passes):
     if passes == 3:
         torch.testing.assert_close(H, H_ref, rtol=RTOL, atol=ATOL)
@@ -146,9 +283,11 @@ def test_bf16_kernel_matches_plain(n, mode, passes):
     torch.testing.assert_close(g, g_ref, rtol=RTOL, atol=ATOL)
     _assert_bf16_close(H, H_ref, Bf, s, yv, w, passes)
     if not full:
+        # the same float32 products of g, summed in other float64 groupings
         g32, _ = gram.grad_hess_kernel(Bf, s, yv, w, active)
         torch.cuda.synchronize()
-        assert torch.equal(g, g32)
+        torch.testing.assert_close(g, g32, rtol=1e-6,
+                                   atol=1e-6 * float(g32.abs().max()))
 
 
 @pytest.mark.cuda

@@ -16,10 +16,13 @@ result lines):
    registers, shared memory and spills;
 3. every gram route against its plain PyTorch version on the card at the
    main path's shapes, with feature matrices built from real row-major disk
-   regions and a quarter of the lanes frozen, and the float32 routes also
-   at few-lane shapes the main path launches ((1, 8192, 128) dense,
-   (1, 32768, 512) banded, (64, 8192, 128) with 4 lanes active; the kernel
-   splits their pixel loop across blocks): the float32 kernel to
+   regions and a quarter of the lanes frozen; the float32 routes and the
+   hybrid schedule's 1-pass full gram (``dense-1pass``) also at few-lane
+   shapes the main path launches ((1, 8192, 128), (1, 32768, 512) banded
+   for float32, (64, 8192, 128) with 4 lanes active; the kernels split
+   their pixel loop across blocks), and ``dense-1pass`` at (8, 16384, 1024),
+   a launch that fills the card in one segment, where the bf16 kernel
+   writes H itself: the float32 kernel to
    rtol = atol = 1e-4; the bf16 kernel at 3 passes to rtol = atol = 1e-4,
    at 1 pass within bf16's unit roundoff elementwise
    (|dH| <= 2^-7 |Bf|^T diag(kappa) |Bf| + 1e-4) and to 1e-4 on >= 99% of
@@ -82,10 +85,11 @@ their knob run of phase 6); the last line is ``{"ok": true, "device":
 checkouts instead (for example the parent commit unpacked with ``git
 archive`` into the gitignored ``scratch/``, against ``.``): one fresh
 process per turn, in the order A, B, B, A, each building its own
-checkout's kernels and printing one JSON line: the float32 gram's device
-ms at every phase-3 shape (checked to rtol = atol = 1e-4 against the plain
-version first), then bench seeds 0-3 at ``AF_scale=12`` (after one cold
-run of seed 0), :data:`AB_REPS` times each, with each run's seconds, its
+checkout's kernels and printing one JSON line: the device ms of every
+phase-3 launch, the float32 routes' first and then the bf16 routes' (each
+checked against the plain version first, as phase 3 checks it), then bench
+seeds 0-3 at ``AF_scale=12`` (after one cold run of seed 0),
+:data:`AB_REPS` times each, with each run's seconds, its
 global-energy-minimization seconds, lane Newton iterations, solve calls
 and canonically re-solved lanes (``batching.device_accounting``), gram
 launches per route and objects, and seed 0's match against the golden.
@@ -120,6 +124,39 @@ KERNEL_SHAPES = [(64, 8192, 128, 'dense', 48), (32, 12288, 256, 'triangle', 24),
 #: splits their pixel loop across blocks.
 FEW_LANE_SHAPES = [(1, 8192, 128, 'dense', 1), (1, 32768, 512, 'banded', 1),
                    (64, 8192, 128, 'dense', 4)]
+#: A 1-pass full launch that fills the card in one segment (the hybrid
+#: schedule's cheap gram at n = 1024): the bf16 kernel's direct write of H.
+ONE_SEGMENT_SHAPES = [(8, 16384, 1024, 'dense', 8)]
+
+
+def _cases():
+    """Phase 3's launches: each shape with the ``(passes, full)`` of every
+    route it runs: all routes at the table shapes (the bf16 kernel in full
+    mode where the base route is dense), the float32 route and the 1-pass
+    full gram at the few-lane shapes, the 1-pass full gram at the
+    one-segment shape."""
+    for shape in KERNEL_SHAPES:
+        full = shape[3] == 'dense'
+        yield shape, [(6, False), (3, full), (1, full)]
+    for shape in FEW_LANE_SHAPES:
+        yield shape, [(6, False), (1, True)]
+    for shape in ONE_SEGMENT_SHAPES:
+        yield shape, [(1, True)]
+
+
+def _phase3_inputs(B, P, n, base, n_active):
+    """The inputs of a phase-3 shape, made from the seed ``n`` on the card:
+    ``(Bf, s, yv, w, active, band)``, band None unless ``base`` is
+    banded."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram
+    rng = np.random.RandomState(n)
+    lanes = [_lane_features(rng, P, n - 6) for _ in range(B)]
+    Bf, s, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
+    del lanes
+    band = gram.band_ranges(Bf, w) if base == 'banded' else None
+    torch.cuda.synchronize()
+    return Bf, s, yv, w, _active(B, n_active), band
 #: Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 #: float32 outside the tensor cores, bf16 tensor cores, HBM3 bytes per second.
 PEAK_FP32 = 67e12
@@ -347,6 +384,30 @@ def _library_ms(Bf, s, yv, w, active):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def _agreement(passes, mirror, Bf, s, yv, w, active, g, H):
+    """Holds a kernel's ``(g, H)`` against the plain version with the
+    route's tolerance; returns ``(max_abs_err, report, ok)``."""
+    from superdsm_tpu_torch.dsm import gram
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
+                                        mirror=mirror)
+    err = max(float((g - g_ref).abs().max()), float((H - H_ref).abs().max()))
+    excess_g = float(((g - g_ref).abs() - RTOL * g_ref.abs()).max())
+    excess = max(excess_g, float(((H - H_ref).abs() - RTOL * H_ref.abs()).max()))
+    if passes != 1:
+        return err, (f'max_abs_err {err:.3e}, max(|d| - rtol|ref|) '
+                     f'{excess:.3e} (atol {ATOL})'), excess <= ATOL
+    _, kappa = gram._logistic_weights(s, yv, w)
+    absBf = Bf.abs().double()
+    bound = 2.0 ** -7 * (absBf * kappa.double()[..., None]).transpose(1, 2) @ absBf
+    over = float(((H - H_ref).abs().double() - bound).max())
+    share = float(((H - H_ref).abs() <= ATOL + RTOL * H_ref.abs()).double().mean())
+    ok = over <= 1e-4 and share >= ONE_PASS_MIN_SHARE and excess_g <= ATOL
+    return err, (f'max_abs_err {err:.3e}, max(|dH| - 2^-7 |Bf|^T k |Bf|) '
+                 f'{over:.3e} (<= 1e-4), share within 1e-4 {share:.5f} '
+                 f'(>= {ONE_PASS_MIN_SHARE}), max(|dg| - rtol|ref|) '
+                 f'{excess_g:.3e} (atol {ATOL})'), ok
+
+
 def _check_route(route, passes, Bf, s, yv, w, active, band):
     """Holds one route against its plain version; returns its table row."""
     import torch
@@ -372,31 +433,10 @@ def _check_route(route, passes, Bf, s, yv, w, active, band):
     frozen = active == 0
     if g[frozen].any() or H[frozen].any():
         fail(f'{tag}: frozen lanes are not exactly zero')
-    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
-                                        mirror=mirror)
-    torch.cuda.synchronize()
-    err = max(float((g - g_ref).abs().max()), float((H - H_ref).abs().max()))
-    excess_g = float(((g - g_ref).abs() - RTOL * g_ref.abs()).max())
-    excess = max(excess_g, float(((H - H_ref).abs() - RTOL * H_ref.abs()).max()))
-    if passes == 1:
-        _, kappa = gram._logistic_weights(s, yv, w)
-        absBf = Bf.abs().double()
-        bound = 2.0 ** -7 * (absBf * kappa.double()[..., None]).transpose(1, 2) @ absBf
-        over = float(((H - H_ref).abs().double() - bound).max())
-        share = float(((H - H_ref).abs() <= ATOL + RTOL * H_ref.abs())
-                      .double().mean())
-        del absBf, bound
-        say(f'[kernel] {tag}: max_abs_err {err:.3e}, '
-            f'max(|dH| - 2^-7 |Bf|^T k |Bf|) {over:.3e} (<= 1e-4), share '
-            f'within 1e-4 {share:.5f} (>= {ONE_PASS_MIN_SHARE}), '
-            f'max(|dg| - rtol|ref|) {excess_g:.3e} (atol {ATOL})')
-        if over > 1e-4 or share < ONE_PASS_MIN_SHARE or excess_g > ATOL:
-            fail(f'{tag}: kernel disagrees with the plain version')
-    else:
-        say(f'[kernel] {tag}: max_abs_err {err:.3e}, '
-            f'max(|d| - rtol|ref|) {excess:.3e} (atol {ATOL})')
-        if excess > ATOL:
-            fail(f'{tag}: kernel disagrees with the plain version')
+    err, report, ok = _agreement(passes, mirror, Bf, s, yv, w, active, g, H)
+    say(f'[kernel] {tag}: {report}')
+    if not ok:
+        fail(f'{tag}: kernel disagrees with the plain version')
     if band is not None:
         g_d, H_d = kernel(None)
         torch.cuda.synchronize()
@@ -405,14 +445,14 @@ def _check_route(route, passes, Bf, s, yv, w, active, band):
         unbanded_ms = _event_ms(lambda: kernel(None))
         say(f'[kernel] {tag}: banded mode bitwise equals the unbanded '
             f'(triangle) mode, which takes {unbanded_ms:.3f} ms at this shape')
-    del g2, H2, g_ref, H_ref
+    del g2, H2
     ms = _event_ms(kernel)
     call_ms = _call_ms(kernel)
     plain_ms = _event_ms(lambda: gram.grad_hess_plain(
         Bf, s, yv, w, active, passes=passes, mirror=mirror))
     library_ms = _library_ms(Bf, s, yv, w, active)
     bound_ms, bound_by = _bound(route, passes, Bf, active, band)
-    segments = gram.split_plan(B, P, n)[1] if passes == 6 else 1
+    segments = gram.split_plan(B, P, n, passes, full)[1]
     say(f'[kernel] {tag}: kernel {ms:.3f} ms ({segments} pixel segment'
         f'{"s" if segments > 1 else ""}; {call_ms:.3f} ms a single call with '
         f'its host overhead), plain {plain_ms:.3f} ms, library (float32 bmm) '
@@ -422,7 +462,7 @@ def _check_route(route, passes, Bf, s, yv, w, active, band):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_share=bound_ms / ms,
                 library_ms=library_ms, call_ms=call_ms, shape=[B, P, n],
-                active=act)
+                active=act, segments=segments)
 
 
 def _active(B, n_active):
@@ -441,28 +481,23 @@ def _active(B, n_active):
 
 
 def phase_kernels():
-    """Phase 3: every route at the table shapes, and the float32 routes at
-    the few-lane shapes (listed under their route's row as ``few_lane``)."""
+    """Phase 3: every launch of :func:`_cases`; a route's row is its table
+    shape's, and its launches at the other shapes are listed under it as
+    ``other_shapes``."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
-    for B, P, n, base, n_active in KERNEL_SHAPES + FEW_LANE_SHAPES:
-        few = (B, P, n, base, n_active) in FEW_LANE_SHAPES
-        rng = np.random.RandomState(n)
-        lanes = [_lane_features(rng, P, n - 6) for _ in range(B)]
-        Bf, s, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
-        del lanes
-        active = _active(B, n_active)
-        band = gram.band_ranges(Bf, w) if base == 'banded' else None
-        torch.cuda.synchronize()
-        for passes in ((6,) if few else (6, 3, 1)):
-            route = gram.route_for(n, band is not None, passes)
-            row = _check_route(route, passes, Bf, s, yv, w, active, band)
-            if few:
-                rows[route]['few_lane'].append(row)
+    for shape, launches in _cases():
+        Bf, s, yv, w, active, band = _phase3_inputs(*shape)
+        for passes, full in launches:
+            band_ = None if full else band
+            route = gram.route_for(shape[2], band_ is not None, passes, full)
+            row = _check_route(route, passes, Bf, s, yv, w, active, band_)
+            if shape in KERNEL_SHAPES:
+                rows[route] = dict(row, other_shapes=[])
             else:
-                rows[route] = dict(row, few_lane=[])
-        del Bf, s, yv, w
+                rows[route]['other_shapes'].append(row)
+        del Bf, s, yv, w, active, band
         torch.cuda.empty_cache()
     return rows
 
@@ -613,7 +648,7 @@ def phase_profile(g):
     hist = collections.Counter()
     for (B, P, n), active, banded, passes, full in records:
         route = gram.route_for(n, banded, passes, full)
-        segments = gram.split_plan(B, P, n)[1] if passes == 6 else 1
+        segments = gram.split_plan(B, P, n, passes, full)[1]
         hist[(B, int((active != 0).sum()), P, n, route, segments)] += 1
     say('[profile] gram launches by (B, active lanes, P, n, route, pixel '
         'segments), most frequent first:')
@@ -941,6 +976,33 @@ def phase_export(root):
 AB_REPS = 2
 
 
+def _ab_kernel_ms(root, shape, launches):
+    """Device ms of each ``(passes, full)`` launch at a phase-3 shape, each
+    held against the plain version first; keyed by route, shape and active
+    lanes."""
+    from superdsm_tpu_torch.dsm import gram
+    Bf, s, yv, w, active, band = _phase3_inputs(*shape)
+    B, P, n, _, n_active = shape
+    kernel_ms = {}
+    for passes, full in launches:
+        band_ = None if full else band
+        route = gram.route_for(n, band_ is not None, passes, full)
+        tag = f'{route} ({B}, {P}, {n}), {n_active} active'
+
+        def kernel():
+            return gram.grad_hess_kernel(Bf, s, yv, w, active, band_,
+                                         passes=passes, full=full)
+
+        g, H = kernel()
+        _, _, ok = _agreement(passes, passes != 6 and not full, Bf, s, yv, w,
+                              active, g, H)
+        if not ok:
+            fail(f'{root}: {tag}: kernel disagrees with the plain version')
+        del g, H
+        kernel_ms[tag] = _event_ms(kernel)
+    return kernel_ms
+
+
 def ab_run(root):
     """One ``--ab`` turn: the port of the checkout at ``root``; prints one
     JSON line last."""
@@ -953,25 +1015,15 @@ def ab_run(root):
         fail(f'--ab-run imported {T.__file__}, not the package under {root}')
     T.set_device('cuda')
     gram.build()
+    # the float32 launches first, so that no bf16 launch (whose scratch
+    # differs between checkouts) has touched the allocator before them
     kernel_ms = {}
-    for B, P, n, base, n_active in KERNEL_SHAPES + FEW_LANE_SHAPES:
-        rng = np.random.RandomState(n)
-        lanes = [_lane_features(rng, P, n - 6) for _ in range(B)]
-        Bf, s, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
-        del lanes
-        active = _active(B, n_active)
-        band = gram.band_ranges(Bf, w) if base == 'banded' else None
-        tag = f'{base} ({B}, {P}, {n}), {n_active} active'
-        g, H = gram.grad_hess_kernel(Bf, s, yv, w, active, band)
-        g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active)
-        excess = max(float(((x - r).abs() - RTOL * r.abs()).max())
-                     for x, r in ((g, g_ref), (H, H_ref)))
-        if excess > ATOL:
-            fail(f'{root}: {tag}: kernel disagrees with the plain version')
-        kernel_ms[tag] = _event_ms(
-            lambda: gram.grad_hess_kernel(Bf, s, yv, w, active, band))
-        del Bf, s, yv, w, g, H, g_ref, H_ref
-        torch.cuda.empty_cache()
+    for f32 in (True, False):
+        for shape, launches in _cases():
+            launches = [(p, f) for p, f in launches if (p == 6) == f32]
+            if launches:
+                kernel_ms.update(_ab_kernel_ms(root, shape, launches))
+                torch.cuda.empty_cache()
     images = {seed: make_image(seed)[0] for seed in BENCH_SEEDS}
     _segment(images[0], 12)
     runs = []
@@ -1029,8 +1081,14 @@ def ab(roots):
                 f'{max(seconds):.3f} over {len(seconds)} runs; lane iterations '
                 f'{iters}')
         for tag in outs[0]['kernel_ms']:
+            turns_ms = [out['kernel_ms'][tag] for out in outs]
             say(f'[ab] {root}: {tag}: kernel ms mean of the turns '
-                f'{np.mean([out["kernel_ms"][tag] for out in outs]):.4f}')
+                f'{np.mean(turns_ms):.4f} (turns {[round(t, 4) for t in turns_ms]})')
+    a, b = roots
+    for tag in turns[a][0]['kernel_ms']:
+        ms_a = np.mean([out['kernel_ms'][tag] for out in turns[a]])
+        ms_b = np.mean([out['kernel_ms'][tag] for out in turns[b]])
+        say(f'[ab] {tag}: {ms_a:.4f} -> {ms_b:.4f} ms ({ms_a / ms_b:.2f}x)')
     say(card)
 
 

@@ -5,13 +5,19 @@ pruning/selection thresholds, min-set-cover greedy selection, postprocess
 filters) whose inputs are solver energies. Those energies are *trajectory
 snapshots*: near-separable solves truncate on the logistic creep, so any
 recompile-class change (gram kernel variant, transfer format, bucket
-ladder/packing) shifts them — measured on the bench image
-(``tools/ab_decision_drift.py``, 2026-08-20):
+ladder/packing) shifts them. The measurements below were taken on the JAX
+package, with its tools (``tools/ab_decision_drift.py``,
+``tools/ab_bbbc033.py``, ``tools/probe_packing_invariance.py``, none of
+them ported), on the bench image, 2026-08-20:
 
 * same config, two runs: bitwise identical (the pipeline is deterministic);
-* ``SDSM_GRAM_BANDED`` / ``SDSM_MASK_TRANSFERS`` A/B: bitwise identical
-  (those paths are exact by construction);
-* a forced bucket-ladder change (``SDSM_DROP_BUCKETS``): converged-class
+* the JAX package's ``SDSM_GRAM_BANDED`` / ``SDSM_MASK_TRANSFERS`` A/B:
+  bitwise identical (those paths are exact by construction). The port has
+  neither knob: its gram takes the banded mode whenever it is given a band
+  table, and the card tests hold that mode bitwise equal to the unbanded
+  one; the bit-packed mask transfers have no port;
+* a forced bucket-ladder change (``SDSM_DROP_BUCKETS``, which the port
+  reads too): converged-class
   energies drift ~1e-3 relative, while truncated (LM-stalling) solves are
   chaotic — up to 27% on one singleton — because the packing perturbs the
   reduction rounding and the LM accept/reject branches amplify it.
@@ -43,22 +49,25 @@ keep full precision; only comparisons are quantized. The reference has no
 equivalent mechanism (it pins BLAS versions and keeps per-hostname goldens
 instead, ``README.rst:25-31``).
 
-**What is and is not guaranteed** (measured, tools/ab_decision_drift.py +
-tools/ab_bbbc033.py, bench seed 0 + BBBC033, 2026-08-20):
+**What is and is not guaranteed** (measured on the JAX package with the
+tools above, bench seed 0 + BBBC033, 2026-08-20):
 
 * Same configuration, repeated runs: bitwise identical (incl. label maps).
-* ``SDSM_GRAM_BANDED`` / ``SDSM_MASK_TRANSFERS`` / quantization-knob A/B:
-  identical decisions on both images; label maps bitwise on the bench
-  image, one object's boundary +-0.5% area on BBBC033 (kernel rounding).
-* Bucket-ladder / batch-shape changes (``SDSM_DROP_BUCKETS``, mesh
-  ``min_batch`` padding): SEPARABLE (junk/ambiguous) solves truncate
+* The JAX package's ``SDSM_GRAM_BANDED`` / ``SDSM_MASK_TRANSFERS`` /
+  quantization-knob A/B (of these the port reads only
+  ``SDSM_DECISION_QUANT_BITS``): identical decisions on both images; label
+  maps bitwise on the bench image, one object's boundary +-0.5% area on
+  BBBC033 (kernel rounding).
+* Bucket-ladder / batch-shape changes (``SDSM_DROP_BUCKETS``; the JAX
+  package's mesh ``min_batch`` padding, whose mesh has no port): SEPARABLE (junk/ambiguous) solves truncate
   CHAOTICALLY on the logistic creep (measured 43.9 vs 1174 on one junk
   singleton; see the scale-sweep note in ``dsm/solver.py``), so their
   energies used to depend on the packing and ``P_BUCKETS``/chunking had
   to be declared part of the pinned numerical contract (rounds 3-4).
   **Round 5 removed that pin**: every non-converged DSM lane is re-solved
   at a FROZEN canonical shape (``dsm/batching.py``,
-  ``_CANONICAL_P_LADDER`` — measured basis: a lane's trajectory is bitwise
+  ``_CANONICAL_P_LADDER``; ``SDSM_CANONICAL_RESOLVE=0`` turns it off in
+  both packages — measured basis: a lane's trajectory is bitwise
   independent of the other lanes and of lane order, and depends only on
   the program shape; ``tools/probe_packing_invariance.py``). Flagged-lane
   energies are therefore a pure function of the problem; the remaining
@@ -67,9 +76,10 @@ tools/ab_bbbc033.py, bench seed 0 + BBBC033, 2026-08-20):
   (atoms, cover, postprocess, object count) identical on bench seeds 0-3
   AND BBBC033 (the round-4 16<->17 flip is gone: 16/16 matched at
   (3 px, 10%), Dice 0.9997). Ladder and
-  chunking changes are now ordinary perf knobs, re-validated by
-  ``tests/test_canonical_resolve.py`` and the decision A/Bs
-  (``tools/ab_decision_drift.py``). Residual caveat: a flagged lane whose
+  chunking changes are now ordinary perf knobs, re-validated in the JAX
+  package by ``tests/test_canonical_resolve.py`` and the decision A/Bs
+  (``tools/ab_decision_drift.py``); the port's knobs are held to the JAX
+  package's by ``tests/test_torch_knobs.py``. Residual caveat: a flagged lane whose
   WARM START came from a converged parent inherits that parent's ~1e-5
   parameter drift, which chaos can amplify — not observed to flip a
   decision, and the zero-flip gate guards it.

@@ -113,6 +113,13 @@ def _estimate_chunk_flops(kind, pb, kb, lane_iters):
 #: row chunking and the 8-bit foreground packing divide every bucket).
 P_BUCKETS = [2048, 6144, 8192, 12288, 16384, 24576, 32768, 131072, 524288,
              2097152]
+# SDSM_DROP_BUCKETS (comma list) drops buckets from the ladder, as in the
+# JAX package: the A/B knob that forces repacks; the frozen canonical
+# ladders below stay as they are.
+if os.environ.get('SDSM_DROP_BUCKETS'):
+    _dropped = {int(x) for x in os.environ['SDSM_DROP_BUCKETS'].split(',')
+                if x.strip()}
+    P_BUCKETS = [b for b in P_BUCKETS if b not in _dropped]
 #: Deformation-dimension buckets (6 + K = powers of two).
 K_BUCKETS = [0, 26, 58, 122, 250, 506, 1018, 2042]
 
@@ -120,6 +127,8 @@ K_BUCKETS = [0, 26, 58, 122, 250, 506, 1018, 2042]
 #: near-separable) lane's energy is a trajectory snapshot that depends on
 #: the batch shape; re-solving exactly those lanes in a FROZEN canonical
 #: shape makes their energies a function of the problem alone.
+#: ``SDSM_CANONICAL_RESOLVE=0`` turns it off (the JAX package's A/B knob).
+_CANONICAL_RESOLVE = os.environ.get('SDSM_CANONICAL_RESOLVE', '1') == '1'
 #: FROZEN: never derive these from the runtime P_BUCKETS/K_BUCKETS.
 _CANONICAL_P_LADDER = (2048, 6144, 8192, 12288, 16384, 24576, 32768,
                        131072, 524288, 2097152)
@@ -631,10 +640,15 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         """Packs one dsm chunk (ONE construction for the production solve
         and the canonical re-solve).
 
-        ``warm_tail_all``: padding rows' USE_WARM value. Production passes
-        True semantics (all-of-real — preserves the all-warm elliptical
-        skip); the canonical re-solve passes False so the
-        better-of(elliptical, warm) init path always runs.
+        ``warm_tail_all`` sets only the padding rows' USE_WARM: True gives
+        them the all-of-real value (production: an all-warm chunk keeps
+        the elliptical skip), False leaves them cold (the canonical
+        re-solve). It does not make the better-of(elliptical, warm) init
+        run: at ``_CANONICAL_B = 1`` a canonical chunk has no padding row,
+        so a warm-started lane has ``use_warm.all()`` true and
+        ``solver._solve_dsm_core`` skips the elliptical phase. A canonical
+        chunk at B > 1 holding warm lanes would need USE_WARM forced to
+        False to stay independent of how the lanes are grouped.
         """
         PIXa = np.zeros((Bp, pb, 2), np.int16)
         OFF = np.zeros((Bp, 2), np.int32)
@@ -720,7 +734,7 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
     # canonical re-solve of non-converged DSM lanes (see _CANONICAL_P_LADDER)
     flagged = []
     for (kind, chunk, _, _), row in zip(pending, fetched):
-        if kind != 'dsm':
+        if kind != 'dsm' or not _CANONICAL_RESOLVE:
             continue  # truncated poly lanes are batch-shape invariant
         flagged += [i for j, i in enumerate(chunk)
                     if not row['conv'][j] and i not in oversized]

@@ -36,13 +36,16 @@ and at every call from these module attributes (tests set them):
 - :data:`HYBRID_ITERS` (``SDSM_GRAM_HYBRID_ITERS``): the solver's first
   this many Newton iterations take ``cheap=True``.
 
-The float32 kernel splits the pixel loop across blocks when a launch has
-too few (lane, tile pair) work items to fill the card (split-P,
-:func:`split_plan`). Each pixel segment (one, when the launch fills the
-card) sums its float64 partial into scratch that :func:`grad_hess_kernel`
-allocates, and a second kernel sums the segments in a fixed order and
-writes ``H`` and ``g``. The plan depends on the launch's static shape
-``(B, P, n)`` only, never on how many lanes are active.
+Both kernels split the pixel loop across blocks when a launch has too
+few (lane, tile pair) work items to fill the card (split-P,
+:func:`split_plan`). Each pixel segment sums its float64 partial into
+scratch that :func:`grad_hess_kernel` allocates, and a second kernel sums
+the segments in a fixed order and writes ``H`` and ``g``. The float32
+kernel takes that path at one segment too; the bf16 kernel writes ``H`` and
+``g`` itself when it runs one segment (in its full mode the partials would
+take twice the bytes of ``H``). The plan depends on the launch's static
+shape ``(B, P, n)`` and the kernel's tile pairs only, never on how many
+lanes are active.
 
 Every launch adds one to :data:`LAUNCHES` under the route it stands for:
 ``'dense'`` (the full dense Pallas kernel, n = 128 and n = 2048),
@@ -69,13 +72,13 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: compiled libraries on load).
 TILE = 64
 ROWS = 32
-#: Chunks a float32 partial of the float32 kernel covers before it goes
-#: into its float64 running sum (64 pixel rows; checked on load).
+#: Chunks a float32 partial of either kernel covers before it goes into
+#: its float64 running sum (64 pixel rows; checked on load).
 FLUSH_CHUNKS = 2
 
-#: Split-P rule of the float32 kernel (:func:`split_plan`): a launch with
-#: fewer than this many (lane, tile pair) work items splits its pixels into
-#: segments until it has about this many, some 5 waves of the kernel's 3
+#: Split-P rule of both kernels (:func:`split_plan`): a launch with fewer
+#: than this many (lane, tile pair) work items splits its pixels into
+#: segments until it has about this many, some 5 waves of the kernels' 3
 #: resident 128-thread blocks on each of an H100's 132 SMs (with fewer
 #: waves, the last one leaves most SMs idle) ...
 TARGET_ITEMS = 2048
@@ -84,11 +87,13 @@ TARGET_ITEMS = 2048
 MIN_SEG_CHUNKS = 4
 #: Bound of a split launch's float64 scratch: it has fewer than
 #: 2 * TARGET_ITEMS work items, each with one 64 x 64 tile and at most 64
-#: entries of g (136 MB). A launch of one segment needs B x tile pairs
-#: tiles, at most 1.5 times the bytes of the ``H`` it returns (n >= 128;
-#: 1.1 GB at the largest bucket's cap, (64, 2048, 2048), whose ``Bf`` and
-#: ``H`` take 1.07 GB each). ``tests/test_torch_gram.py`` checks every
-#: (P, K) bucket at every batch size up to its GPU cap.
+#: entries of g (136 MB). A float32 launch of one segment needs B x tile
+#: pairs tiles, at most 1.5 times the bytes of the ``H`` it returns
+#: (n >= 128; 1.1 GB at the largest bucket's cap, (64, 2048, 2048), whose
+#: ``Bf`` and ``H`` take 1.07 GB each); a bf16 launch of one segment needs
+#: none (its full mode would need twice the bytes of ``H``).
+#: ``tests/test_torch_gram.py`` checks every (P, K) bucket at every batch
+#: size up to its GPU cap, for both kernels.
 SCRATCH_CAP_BYTES = 2 * TARGET_ITEMS * (TILE * TILE + TILE) * 8
 
 #: Problem sizes n = 6 + K that take the banded mode (the JAX package's
@@ -123,14 +128,14 @@ LAUNCHES = {f'{route}{suffix}': 0 for suffix in ('', '-3pass', '-1pass')
 BUILD_LOG = {}
 
 #: Shared library, entry point, argument counts and compiled constants of
-#: each kernel source. Arguments: pointers Bf, s, yv, w, active, band, g, H
-#: (and the float32 kernel's scratch); ints B, P, n (and seg_chunks, or
-#: passes and mode); the stream.
+#: each kernel source. Arguments: pointers Bf, s, yv, w, active, band, g,
+#: H, scratch; ints B, P, n, seg_chunks (and the bf16 kernel's passes and
+#: mode); the stream.
 _KERNELS = {
     'gram_grad_hess.cu': ('libsdsm_gram.so', 'sdsm_gram', 9, 4,
                           dict(tile=TILE, rows=ROWS, flush=FLUSH_CHUNKS)),
-    'gram_grad_hess_bf16.cu': ('libsdsm_gram_bf16.so', 'sdsm_gram_bf16', 8, 5,
-                               dict(tile=TILE, rows=ROWS)),
+    'gram_grad_hess_bf16.cu': ('libsdsm_gram_bf16.so', 'sdsm_gram_bf16', 9, 6,
+                               dict(tile=TILE, rows=ROWS, flush=FLUSH_CHUNKS)),
 }
 _F32_SRC, _BF16_SRC = _KERNELS
 
@@ -251,17 +256,23 @@ def band_ranges(Bf, w):
                         hi.to(torch.int32)], dim=-1).contiguous()
 
 
-def tile_pairs(n):
-    """Upper-triangle pairs (u <= v) of the float32 kernel's column tiles."""
+def tile_pairs(n, passes=6, full=False):
+    """Column-tile pairs a launch computes: the upper triangle (u <= v) of
+    the float32 kernel's tiles; the bf16 kernel's every pair in full mode,
+    else four per upper-triangle :data:`MIRROR_BLOCK` block pair."""
     nt = n // TILE
-    return nt * (nt + 1) // 2
+    if passes == 6:
+        return nt * (nt + 1) // 2
+    if full:
+        return nt * nt
+    nb = n // MIRROR_BLOCK
+    return nb * (nb + 1) // 2 * (MIRROR_BLOCK // TILE) ** 2
 
 
-def split_plan(B, P, n):
-    """The float32 kernel's split of the pixel loop: ``(seg_chunks,
-    n_segments)``.
+def split_plan(B, P, n, passes=6, full=False):
+    """A kernel's split of the pixel loop: ``(seg_chunks, n_segments)``.
 
-    A launch of ``B x tile_pairs(n)`` work items that reaches
+    A launch of ``B x tile_pairs(n, passes, full)`` work items that reaches
     :data:`TARGET_ITEMS` runs one segment (the whole pixel loop in each
     block). A smaller one splits its
     ``P / ROWS`` chunks into segments of ``seg_chunks`` chunks, at least
@@ -270,7 +281,7 @@ def split_plan(B, P, n):
     items up to about :data:`TARGET_ITEMS`. Only the static shape counts:
     frozen lanes are not known on the host without a sync."""
     nchunks = P // ROWS
-    items = B * tile_pairs(n)
+    items = B * tile_pairs(n, passes, full)
     if items >= TARGET_ITEMS or nchunks <= MIN_SEG_CHUNKS:
         return nchunks, 1
     want = -(-TARGET_ITEMS // items)
@@ -281,11 +292,14 @@ def split_plan(B, P, n):
     return seg, -(-nchunks // seg)
 
 
-def scratch_entries(B, P, n):
-    """float64 entries of the float32 kernel's scratch: each segment's
-    partial tile of every (lane, tile pair), then its g."""
-    _, nsegs = split_plan(B, P, n)
-    return nsegs * B * (tile_pairs(n) * TILE * TILE + n)
+def scratch_entries(B, P, n, passes=6, full=False):
+    """float64 entries of a launch's scratch: each segment's partial tile
+    of every (lane, tile pair), then its g; none for a bf16 launch of one
+    segment, which writes ``H`` and ``g`` itself."""
+    _, nsegs = split_plan(B, P, n, passes, full)
+    if passes != 6 and nsegs == 1:
+        return 0
+    return nsegs * B * (tile_pairs(n, passes, full) * TILE * TILE + n)
 
 
 def _nvcc():
@@ -405,18 +419,19 @@ def grad_hess_kernel(Bf, s, yv, w, active, band=None, passes=6, full=False):
     ptrs = (Bf.data_ptr(), s.data_ptr(), yv.data_ptr(), w.data_ptr(),
             active.data_ptr(), None if band is None else band.data_ptr(),
             g.data_ptr(), H.data_ptr())
+    seg_chunks, _ = split_plan(B, P, n, passes, full)
+    entries = scratch_entries(B, P, n, passes, full)
+    part = torch.empty((entries,), dtype=torch.float64, device=dev) \
+        if entries else None
+    args = ptrs + (None if part is None else part.data_ptr(), B, P, n,
+                   seg_chunks)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if passes == 6:
-            seg_chunks, _ = split_plan(B, P, n)
-            part = torch.empty((scratch_entries(B, P, n),),
-                               dtype=torch.float64, device=dev)
-            err = lib.sdsm_gram_grad_hess(*ptrs, part.data_ptr(), B, P, n,
-                                          seg_chunks, stream)
+            err = lib.sdsm_gram_grad_hess(*args, stream)
         else:
             mode = 0 if full else (1 if band is None else 2)
-            err = lib.sdsm_gram_bf16_grad_hess(*ptrs, B, P, n, passes, mode,
-                                               stream)
+            err = lib.sdsm_gram_bf16_grad_hess(*args, passes, mode, stream)
     if err != 0:
         raise RuntimeError(f'gram kernel launch failed: CUDA error {err}')
     _count_launch(route_for(n, band is not None, passes, full))

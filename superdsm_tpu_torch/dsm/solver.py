@@ -19,6 +19,7 @@ on the card).
 """
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,8 +40,8 @@ MU_MAX = 1e6
 
 #: Newton systems larger than this solve by Jacobi-preconditioned CG
 #: instead of Cholesky (the JAX package's cutover, kept for parity of the
-#: Newton trajectories).
-CHOLESKY_MAX_N = 300
+#: Newton trajectories; ``SDSM_CHOL_MAX_N`` moves it, as there).
+CHOLESKY_MAX_N = int(os.environ.get('SDSM_CHOL_MAX_N', '300'))
 CG_MAX_ITERS = 64
 CG_RTOL = 1e-5
 #: PCG lanes are frozen individually; the loop checks for "all lanes done"

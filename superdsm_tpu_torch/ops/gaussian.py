@@ -11,12 +11,15 @@ Both stay plain PyTorch, as the JAX package left them to XLA. The package
 turns TF32 off for convolutions and matmuls at import.
 """
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-#: Kernels with at least this many taps run as banded-Toeplitz matmuls.
-TOEPLITZ_MIN_TAPS = 64
+#: Kernels with at least this many taps run as banded-Toeplitz matmuls
+#: (``SDSM_GAUSS_TOEPLITZ_TAPS``, as in the JAX package).
+TOEPLITZ_MIN_TAPS = int(os.environ.get('SDSM_GAUSS_TOEPLITZ_TAPS', '64'))
 
 
 def gaussian_kernel1d(sigma, truncate=4.0, radius=None, dtype=np.float32):

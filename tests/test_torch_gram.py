@@ -422,23 +422,75 @@ def test_segmented_sums_agree_with_plain(B, P, n):
 
 
 def test_split_scratch_stays_under_its_cap():
-    """Every (P, K) bucket the kernel serves, at every batch size up to its
+    """Every (P, K) bucket the kernels serve, at every batch size up to its
     GPU cap: a split launch needs at most SCRATCH_CAP_BYTES of float64
-    scratch, a launch of one segment at most 1.5 times the bytes of its
-    float32 H."""
-    worst = (0, None)
+    scratch, a float32 launch of one segment at most 1.5 times the bytes of
+    its float32 H, and a bf16 launch of one segment none (in full mode its
+    partials would take twice the bytes of H: the kernel writes H itself).
+    The bf16 kernel is planned in full mode and, at n >= 256, in triangle
+    mode."""
+    worst = {}
     worst_ratio = (0, None)
     for P in batching.P_BUCKETS:
         for K in batching.K_BUCKETS[1:]:
             n = 6 + K
             if n % 128:
                 continue
+            plans = [(6, False), (1, True)] + ([(1, False)] if n >= 256 else [])
             for B in range(1, batching.B_CAP_GPU[P] + 1):
-                nbytes = gram.scratch_entries(B, P, n) * 8
-                if gram.split_plan(B, P, n)[1] > 1:
-                    worst = max(worst, (nbytes, (B, P, n)))
-                else:
-                    worst_ratio = max(worst_ratio, (nbytes / (B * n * n * 4), (B, P, n)))
-    assert 0 < worst[0] <= gram.SCRATCH_CAP_BYTES, worst
+                for passes, full in plans:
+                    nbytes = gram.scratch_entries(B, P, n, passes, full) * 8
+                    if gram.split_plan(B, P, n, passes, full)[1] > 1:
+                        worst[passes] = max(worst.get(passes, (0, None)),
+                                            (nbytes, (B, P, n, full)))
+                    elif passes == 6:
+                        worst_ratio = max(worst_ratio,
+                                          (nbytes / (B * n * n * 4), (B, P, n)))
+                    else:
+                        assert nbytes == 0, (B, P, n, full)
+    for passes in (6, 1):
+        assert 0 < worst[passes][0] <= gram.SCRATCH_CAP_BYTES, worst
     assert gram.SCRATCH_CAP_BYTES <= 2 ** 28
     assert 0 < worst_ratio[0] <= 1.5, worst_ratio
+    # the one-segment traffic the bf16 kernel's direct write avoids
+    assert gram.tile_pairs(2048, 1, True) * gram.TILE ** 2 * 8 == 2 * 2048 ** 2 * 4
+
+
+#: (B, P, n, full, splits) of the bf16 kernel's plan: the phase-3 table
+#: shapes (full at n = 128, triangle and banded above), the few-lane launches
+#: of the hybrid schedule's 1-pass full gram (B = 1 re-solves), and
+#: launches that fill the card in one segment.
+BF16_SPLIT_SHAPES = [(64, 8192, 128, True, True), (32, 12288, 256, False, True),
+                     (16, 32768, 512, False, True), (1, 8192, 128, True, True),
+                     (1, 32768, 512, True, True), (32, 12288, 256, True, True),
+                     (8, 16384, 1024, True, False), (64, 2048, 2048, True, False),
+                     (8, 131072, 2048, False, False)]
+
+
+@pytest.mark.parametrize('B,P,n,full,splits', BF16_SPLIT_SHAPES)
+def test_bf16_split_plan_counts_its_own_tile_pairs(B, P, n, full, splits):
+    """The bf16 kernel's plan counts its own work items (every tile pair in
+    full mode, four per upper-triangle 128-block pair otherwise); its
+    segments tile the chunks in order, start on a flush group and fit the
+    scratch cap, as the float32 kernel's do."""
+    nt, nb = n // gram.TILE, n // gram.MIRROR_BLOCK
+    pairs = gram.tile_pairs(n, 1, full)
+    assert pairs == (nt * nt if full else 4 * nb * (nb + 1) // 2)
+    assert gram.tile_pairs(n, 3, full) == pairs
+    seg_chunks, nsegs = gram.split_plan(B, P, n, 1, full)
+    assert gram.split_plan(B, P, n, 3, full) == (seg_chunks, nsegs)
+    nchunks = P // gram.ROWS
+    assert (nsegs > 1) == splits
+    assert (B * pairs < gram.TARGET_ITEMS) == splits
+    assert nsegs == -(-nchunks // seg_chunks)
+    chunks = [c for seg in range(nsegs)
+              for c in range(seg * seg_chunks, min((seg + 1) * seg_chunks, nchunks))]
+    assert chunks == list(range(nchunks))
+    if splits:
+        assert seg_chunks % gram.FLUSH_CHUNKS == 0
+        assert seg_chunks >= gram.MIN_SEG_CHUNKS
+        assert gram.scratch_entries(B, P, n, 1, full) == \
+            nsegs * B * (pairs * gram.TILE ** 2 + n)
+        assert gram.scratch_entries(B, P, n, 1, full) * 8 <= gram.SCRATCH_CAP_BYTES
+    else:
+        assert gram.scratch_entries(B, P, n, 1, full) == 0

@@ -19,8 +19,11 @@ bf16's unit roundoff elementwise (``|dH| <= 2^-7 (|Bf|^T diag(kappa) |Bf|)
 ``torch.sigmoid`` can flip single bf16 roundings) and within
 rtol = atol = 1e-4 on at least 99% of the entries. Its banded mode equals
 its triangle mode bitwise, and its g equals the float32 kernel's to 1e-6
-relative (the same float32 products; the float32 kernel groups its float64
-sums by 64 rows and pixel segment).
+relative (the same float32 products; the two kernels may split the pixels
+into other segments). The bf16 kernel splits the pixel loop as the float32
+one does (its own tile pairs counted) and writes H itself at one segment:
+both paths, and few-lane launches of the hybrid schedule's 1-pass full
+gram, are held to the same checks.
 
 The float32 kernel splits the pixel loop of few-lane launches across
 blocks (split-P); those launches are held to the same checks, and one
@@ -292,18 +295,96 @@ def test_bf16_kernel_matches_plain(n, mode, passes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('passes', [3, 1])
-def test_bf16_banded_bitwise_equals_triangle(passes):
+def test_bf16_banded_bitwise_equals_triangle(passes, monkeypatch):
+    """At the default plan (16 segments) and at one segment (the direct
+    write)."""
     dev = _cuda()
     Bf, s, yv, w = _band_problem(dev)
     active = torch.ones(2, dtype=torch.int32, device=dev)
     band = gram.band_ranges(Bf, w)
-    g_b, H_b = gram.grad_hess_kernel(Bf, s, yv, w, active, band, passes=passes)
-    g_t, H_t = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=passes)
-    torch.cuda.synchronize()
-    assert torch.equal(g_b, g_t) and torch.equal(H_b, H_t)
     _, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
                                     mirror=True)
-    _assert_bf16_close(H_b, H_ref, Bf, s, yv, w, passes)
+    segments = []
+    for target in (gram.TARGET_ITEMS, 1):
+        monkeypatch.setattr(gram, 'TARGET_ITEMS', target)
+        segments.append(gram.split_plan(*Bf.shape, passes)[1])
+        g_b, H_b = gram.grad_hess_kernel(Bf, s, yv, w, active, band, passes=passes)
+        g_t, H_t = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=passes)
+        torch.cuda.synchronize()
+        assert torch.equal(g_b, g_t) and torch.equal(H_b, H_t)
+        _assert_bf16_close(H_b, H_ref, Bf, s, yv, w, passes)
+    assert segments[0] > 1 and segments[1] == 1, segments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P,n', [(1, 8192, 128), (1, 32768, 512),
+                                   (64, 8192, 128)])
+def test_bf16_few_lanes_full_1pass(B, P, n, monkeypatch):
+    """The hybrid schedule's cheap gram (1 pass, full mode) at few-lane
+    launches: B = 1 re-solves and a batch with 4 lanes left, split across
+    many segments; reproducible, frozen lanes zero, within the 1-pass
+    tolerance of the plain version, and within 1e-6 relative of the same
+    launch at one segment (only the float64 sums regroup)."""
+    dev = _cuda()
+    assert gram.split_plan(B, P, n, 1, True)[1] > 1
+    Bf, s, yv, w = _dense_problem(B + P + n, B, P, n, dev)
+    active = torch.zeros(B, dtype=torch.int32, device=dev)
+    active[::max(1, B // 4)] = 1
+    g, H = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=1, full=True)
+    g2, H2 = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=1, full=True)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2) and torch.equal(H, H2)
+    frozen = active == 0
+    assert not g[frozen].any() and not H[frozen].any()
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=1)
+    torch.testing.assert_close(g, g_ref, rtol=RTOL, atol=ATOL)
+    _assert_bf16_close(H, H_ref, Bf, s, yv, w, 1)
+    monkeypatch.setattr(gram, 'TARGET_ITEMS', 1)
+    g1, H1 = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=1, full=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(H, H1, rtol=1e-6, atol=1e-6 * float(H1.abs().max()))
+    torch.testing.assert_close(g, g1, rtol=1e-6, atol=1e-6 * float(g1.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('passes', [3, 1])
+@pytest.mark.parametrize('B,P,n,full', [(1, 8192, 128, True), (3, 1056, 256, False),
+                                        (2, 4096, 256, True)])
+def test_bf16_every_chunk_counted_once_at_any_segment_count(monkeypatch, B, P,
+                                                            n, full, passes):
+    """The float32 kernel's coverage test for the bf16 kernel: Bf is zero
+    but for one row per 32-row chunk, with entries in [1, 2], and s = 0,
+    y = +-1, w = 1, so that kappa = 1/4 and term1 = -+1/2 are exact and the
+    bf16 operands round alike in the kernel and the plain version. Every
+    chunk adds about 1 / nchunks of each entry of H, so a chunk that the
+    kernel's segment mapping skips or counts twice, or a fragment that
+    lands on a wrong entry, moves H far beyond the 1e-6 relative allowed.
+    Held at one segment (the direct write), at the default plan and at the
+    shortest segments, in full and triangle mode (mirrored blocks)."""
+    dev = _cuda()
+    rng = np.random.RandomState(B + P + n + passes)
+    nchunks = P // gram.ROWS
+    rows = np.arange(nchunks) * gram.ROWS + (np.arange(nchunks) * 7) % gram.ROWS
+    Bf_np = np.zeros((B, P, n), np.float32)
+    Bf_np[:, rows] = rng.uniform(1.0, 2.0, (B, nchunks, n))
+    Bf = torch.as_tensor(Bf_np, device=dev)
+    s = torch.zeros((B, P), device=dev)
+    yv = torch.as_tensor(np.sign(rng.randn(B, P)).astype(np.float32), device=dev)
+    w = torch.ones((B, P), device=dev)
+    active = torch.ones(B, dtype=torch.int32, device=dev)
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
+                                        mirror=not full)
+    segments = []
+    for target in (1, gram.TARGET_ITEMS, 10 ** 9):
+        monkeypatch.setattr(gram, 'TARGET_ITEMS', target)
+        segments.append(gram.split_plan(B, P, n, passes, full)[1])
+        g, H = gram.grad_hess_kernel(Bf, s, yv, w, active, passes=passes, full=full)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(H, H_ref, rtol=1e-6,
+                                   atol=1e-6 * float(H_ref.abs().max()))
+        torch.testing.assert_close(g, g_ref, rtol=1e-6,
+                                   atol=1e-6 * float(g_ref.abs().max()))
+    assert segments[0] == 1 and segments[0] < segments[1] <= segments[2], segments
 
 
 @pytest.mark.cuda
@@ -329,7 +410,7 @@ def test_knob_routes_launch_the_bf16_kernel(monkeypatch):
 @pytest.mark.cuda
 def test_bf16_library_refuses_bad_arguments():
     dev = _cuda()
-    Bf, s, yv, w = _dense_problem(0, 1, 64, 128, dev)
+    Bf, s, yv, w = _dense_problem(0, 1, 8192, 128, dev)
     active = torch.ones(1, dtype=torch.int32, device=dev)
     lib = gram._load(gram._BF16_SRC)
     g = torch.empty((1, 128), device=dev)
@@ -337,8 +418,26 @@ def test_bf16_library_refuses_bad_arguments():
     ptrs = [t.data_ptr() for t in (Bf, s, yv, w, active)] + [None] + \
         [g.data_ptr(), H.data_ptr()]
     stream = torch.cuda.current_stream().cuda_stream
-    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, 1, 64, 128, 2, 0, stream) != 0
-    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, 1, 64, 128, 3, 2, stream) != 0
+    part = torch.empty(gram.scratch_entries(1, 8192, 128, 1, True),
+                       dtype=torch.float64, device=dev)
+    # passes 1 or 3; banded mode needs a band table
+    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, part.data_ptr(), 1, 8192, 128,
+                                        8, 2, 0, stream) != 0
+    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, part.data_ptr(), 1, 8192, 128,
+                                        8, 3, 2, stream) != 0
+    # several segments need scratch and an even length; triangle mode n % 128
+    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, None, 1, 8192, 128, 8, 1, 0,
+                                        stream) != 0
+    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, part.data_ptr(), 1, 8192, 128,
+                                        7, 1, 0, stream) != 0
+    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, part.data_ptr(), 1, 8192, 64,
+                                        8, 1, 1, stream) != 0
+    # one segment takes no scratch (the direct write)
+    assert lib.sdsm_gram_bf16_grad_hess(*ptrs, None, 1, 8192, 128, 256, 1, 0,
+                                        stream) == 0
+    torch.cuda.synchronize()
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active, passes=1)
+    _assert_bf16_close(H, H_ref, Bf, s, yv, w, 1)
     with pytest.raises(ValueError):
         gram.grad_hess_kernel(Bf[..., :64].contiguous(), s, yv, w, active,
                               passes=3)

@@ -38,7 +38,13 @@ result lines):
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
    ``tests/data/torch_port/bench-seed0.csv`` (center 3 px, size 10%, at
-   most one unmatched object); then one more run under ``torch.profiler``:
+   most one unmatched object), bench seeds 1-3 once each against their
+   goldens ``bench-seed{1,2,3}.csv`` the same way (seed 3 leaves its golden
+   at the five rows of :data:`SEED3_ROWS`, two objects where the
+   reference's own solves stall; each is excused by its energy witness,
+   and any other row fails), seed 3 once more with the plain version's
+   float64 gram instead of the kernels, which must leave the golden at the
+   same rows (center 3 px, size 10%); then one more run of seed 0 under ``torch.profiler``:
    the float32 gram's device ms per image against the first kernel's
    208 ms, the device's idle share of the wall, and the gram launches by
    (B, active lanes, P, n, route, pixel segments);
@@ -52,7 +58,7 @@ result lines):
    routes. Objects, matches against the golden and seconds are printed, not
    gated: the TPU lost objects under these knobs;
 7. the batch CLI (``superdsm_tpu_torch.batch``) over a task tree in a
-   temporary directory: ``bench/`` (bench seeds 0-3 as 16-bit PNGs written
+   temporary directory: ``bench/`` (bench seeds 0-2 as 16-bit PNGs written
    by the port's ``imsave``, ``AF_scale`` 12, seg/overlay/adjacency outputs),
    ``nih3t3/`` (the repository's NIH3T3 crop, scale estimated) and
    ``bench/post/`` (a child of ``bench/`` with one ``postprocess`` key
@@ -74,7 +80,45 @@ result lines):
    load with ``pickle`` and hold no ``torch.Tensor``;
 8. the export CLI: ``python -m superdsm_tpu_torch.export <root> nih3t3
    --mode seg``, then ``--mode adj``, in subprocesses: exit 0, one PNG of the
-   image's height and width per image, and ``ymap_legend.png`` for ``adj``.
+   image's height and width per image, and ``ymap_legend.png`` for ``adj``;
+9. the synthetic dataset's regression gates (the counterpart of
+   ``tests/regression/run_synthetic.py``): the three datasets of
+   ``examples/synthetic/generate.py`` (this file's copies of its makers)
+   written by the port's ``imsave(normalize=True)`` into a temporary copy of
+   the task trees, each of the four tasks run by ``python -m
+   superdsm_tpu_torch.batch <tmp>/examples --task-dir <task> --run --force``
+   (forked), every label map matched against ``tests/regression/expected/
+   <task>`` at center 3 px, size 10% and no unmatched object, the three
+   reference tasks also against ``expected/reference-*`` with a mean Dice
+   of at least 0.97 against the reference's label maps;
+10. the mosaic at full width: ``parallel.process_mosaic`` on this file's
+   copy of ``tools/mosaic_bench.make_mosaic`` at 2048x2048 (seed 0, 441
+   nuclei), ``AF_scale=12`` with speculation off, the default tile
+   (1024, 1024) and halo 160 (4 tiles), with 1 thread and then 2 threads on
+   CUDA streams: objects, wall seconds, seconds per tile and gram launches
+   per route of each, and how many planted nuclei it and the JAX-CPU
+   golden ``tests/data/torch_port/mosaic-2048-seed0.csv`` find; a float32
+   gram route must launch; the 1-thread label map (written to
+   ``chiprun_out/``) is matched against the golden at 3 px / 10%, the rows
+   it leaves unmatched are held against the energy witnesses of
+   ``tests/data/torch_port/mosaic-2048-seed0-witness.csv``, and whether at
+   most 4 (one per tile) are left without one is printed: that gate is not
+   met yet (ROADMAP section C); a row that file does not list fails the
+   phase. The 2-thread label map must be bitwise equal to the 1-thread one;
+11. meshes on one card: the sharded DSM solver at (B, P, n) = (8, 16384,
+   128) over a (1, 2) mesh of ``[cuda:0, cuda:0]`` (lanes built as phase 3
+   builds them): finite energies, one float32 ``dense`` launch per shard per
+   Newton iteration, converged energies within rtol 1e-4 of a 1x1 mesh and
+   1e-3 of the unsharded Newton loop; the sharded poly solver at (8, 8192,
+   6) the same way; the sharded DSM solver over a (2, 1) mesh (each row's
+   Newton loop in its own thread and stream) within rtol 1e-4 of the 1x1
+   mesh; the bench field under the pipeline mesh ``'1'`` bitwise equal to
+   phase 4's label map, and under a (2, 1) pipeline mesh of the card twice
+   (each half of every chunk's lanes in its own thread and stream) within
+   one unmatched object of its golden; ``parse_mesh_spec('2')`` raises on a
+   one-card machine.
+
+Every phase prints its wall seconds (``[phase]`` lines).
 
 The line before the last is the kernel table as JSON (``launches``: the
 float32 routes' counts from phase 4's timed run, the bf16 routes' from
@@ -95,6 +139,7 @@ and canonically re-solved lanes (``batching.device_accounting``), gram
 launches per route and objects, and seed 0's match against the golden.
 """
 
+import contextlib
 import gzip
 import json
 import os
@@ -239,13 +284,13 @@ def phase_environment():
 # phase 3 helpers
 # ---------------------------------------------------------------------------
 
-def _lane_features(rng, P, K, img_shape=(520, 696), sigma=4.0, cutoff=16,
-                   stride=8):
-    """One lane of a DSM chunk from a real row-major disk region: pixels in
-    argwhere order, the greedy subsample grid, padding to (P, 6 + K)."""
-    import torch
-    from superdsm_tpu_torch.dsm.smooth import build_smooth_matrix, subsample_grid
-    from superdsm_tpu_torch.dsm.solver import _poly_basis
+def _lane_arrays(rng, P, K, img_shape=(520, 696), cutoff=16, stride=8):
+    """One lane of a DSM chunk from a real row-major disk region, as host
+    arrays: normalized coordinates (P, 2), pixels (P, 2), subsample points
+    (K, 2), their mask (K,), intensities and pixel weights (P,) and a
+    surface (P,); pixels in argwhere order, the greedy subsample grid,
+    padding to P and K."""
+    from superdsm_tpu_torch.dsm.smooth import subsample_grid
     npix_target = int(P * rng.uniform(0.8, 0.98))
     radius = int(np.sqrt(npix_target / np.pi))
     side = 2 * radius + 3
@@ -267,14 +312,23 @@ def _lane_features(rng, P, K, img_shape=(520, 696), sigma=4.0, cutoff=16,
     SUB[:k] = sub
     KM = np.zeros(K, np.float32)
     KM[:k] = 1.0
-    dev = torch.device('cuda')
-    coords = torch.from_numpy(((PIX + off) / (np.asarray(img_shape) - 1.0))
-                              .astype(np.float32)).to(dev)
-    G = build_smooth_matrix(torch.from_numpy(PIX).to(dev), torch.from_numpy(SUB).to(dev),
-                            sigma, cutoff, torch.from_numpy(KM).to(dev))
-    Bf = torch.cat([_poly_basis(coords), G], dim=1)
+    coords = ((PIX + off) / (np.asarray(img_shape) - 1.0)).astype(np.float32)
     yv = (np.sign(rng.randn(P)) * rng.uniform(0.05, 1.0, P) * W).astype(np.float32)
     s = (rng.randn(P) * 2.0).astype(np.float32)
+    return coords, PIX, SUB, KM, yv, W, s
+
+
+def _lane_features(rng, P, K, sigma=4.0, cutoff=16):
+    """One lane of :func:`_lane_arrays` on the card: ``(Bf (P, 6 + K), s,
+    yv, w)``."""
+    import torch
+    from superdsm_tpu_torch.dsm.smooth import build_smooth_matrix
+    from superdsm_tpu_torch.dsm.solver import _poly_basis
+    coords, PIX, SUB, KM, yv, W, s = _lane_arrays(rng, P, K, cutoff=cutoff)
+    dev = torch.device('cuda')
+    G = build_smooth_matrix(torch.from_numpy(PIX).to(dev), torch.from_numpy(SUB).to(dev),
+                            sigma, cutoff, torch.from_numpy(KM).to(dev))
+    Bf = torch.cat([_poly_basis(torch.from_numpy(coords).to(dev)), G], dim=1)
     return Bf, torch.from_numpy(s).to(dev), torch.from_numpy(yv).to(dev), \
         torch.from_numpy(W).to(dev)
 
@@ -530,6 +584,110 @@ def make_image(seed, H=520, W=696, n_nuclei=28, radius=16):
     return g.astype(np.float32), len(centers)
 
 
+def make_synthetic(seed, H=360, W=480, n_nuclei=12, radius=16):
+    """The synthetic example dataset's image and ground truth
+    (``examples/synthetic/generate.py``'s ``make_image``; that file
+    imports the JAX package)."""
+    rng = np.random.RandomState(seed)
+    g = np.zeros((H, W), np.float32)
+    rr, cc = np.indices((H, W))
+    centers = []
+    attempts = 0
+    while len(centers) < n_nuclei and attempts < 2000:
+        attempts += 1
+        r0 = rng.randint(radius, H - radius)
+        c0 = rng.randint(radius, W - radius)
+        if all((r0 - r) ** 2 + (c0 - c) ** 2 > (1.4 * radius) ** 2 for r, c in centers):
+            centers.append((r0, c0))
+    contrib = np.zeros((len(centers), H, W), np.float32)
+    for k, (r0, c0) in enumerate(centers):
+        rad = radius * rng.uniform(0.8, 1.2)
+        ecc = rng.uniform(0.85, 1.2)
+        contrib[k] = rng.uniform(0.6, 1.0) * np.exp(
+            -(((rr - r0) / ecc) ** 2 + ((cc - c0) * ecc) ** 2) / (2 * (rad * 0.55) ** 2))
+        g += contrib[k]
+    g += rng.randn(H, W).astype(np.float32) * 0.02
+    if len(centers):
+        best = contrib.max(axis=0)
+        labels = np.where(best > 0.1, contrib.argmax(axis=0) + 1, 0).astype(np.uint16)
+    else:
+        labels = np.zeros((H, W), np.uint16)
+    return g, labels
+
+
+def make_synthetic_glare(seed, H=360, W=480, n_nuclei=9, radius=16, n_glare=3):
+    """``generate.py``'s ``make_image_glare``: nuclei plus saturated glare
+    spots and an illumination gradient."""
+    g, labels = make_synthetic(seed, H=H, W=W, n_nuclei=n_nuclei, radius=radius)
+    rng = np.random.RandomState(seed + 1000)
+    rr, cc = np.indices((H, W))
+    g = g + 0.2 * (cc / float(W)) * 0.5
+    for _ in range(n_glare):
+        r0 = rng.randint(10, H - 10)
+        c0 = rng.randint(10, W - 10)
+        srad = rng.uniform(2.5, 4.5)
+        spot = np.exp(-(((rr - r0) ** 2 + (cc - c0) ** 2) / (2 * srad ** 2)))
+        g = g + 2.5 * np.minimum(spot * 1.5, 1.0)
+    return g.astype(np.float32), labels
+
+
+def make_synthetic_dim(seed, H=360, W=480, n_nuclei=10, radius=15):
+    """``generate.py``'s ``make_image_dim``: dim, low-contrast nuclei."""
+    rng = np.random.RandomState(seed + 2000)
+    g = np.zeros((H, W), np.float32)
+    rr, cc = np.indices((H, W))
+    centers = []
+    attempts = 0
+    while len(centers) < n_nuclei and attempts < 2000:
+        attempts += 1
+        r0 = rng.randint(radius, H - radius)
+        c0 = rng.randint(radius, W - radius)
+        if all((r0 - r) ** 2 + (c0 - c) ** 2 > (1.6 * radius) ** 2 for r, c in centers):
+            centers.append((r0, c0))
+    contrib = np.zeros((len(centers), H, W), np.float32)
+    for k, (r0, c0) in enumerate(centers):
+        rad = radius * rng.uniform(0.85, 1.15)
+        amp = rng.uniform(0.12, 0.7)
+        contrib[k] = amp * np.exp(
+            -(((rr - r0) ** 2 + (cc - c0) ** 2)) / (2 * (rad * 0.55) ** 2))
+        g += contrib[k]
+    g += rng.randn(H, W).astype(np.float32) * 0.02
+    if len(centers):
+        best = contrib.max(axis=0)
+        labels = np.where(best > 0.05, contrib.argmax(axis=0) + 1, 0).astype(np.uint16)
+    else:
+        labels = np.zeros((H, W), np.uint16)
+    return g.astype(np.float32), labels
+
+
+def make_mosaic(size=4096, cell=96, radius=16, seed=0, centers=None):
+    """Dense mosaic field, one nucleus per jittered grid cell
+    (``tools/mosaic_bench.py``'s ``make_mosaic``); each planted nucleus's
+    center (X, Y) is appended to ``centers`` when a list is given."""
+    rng = np.random.RandomState(seed)
+    g = np.zeros((size, size), np.float32)
+    rr, cc = np.indices((size, size))
+    n = 0
+    for r0 in range(cell // 2, size - cell // 2, cell):
+        for c0 in range(cell // 2, size - cell // 2, cell):
+            r = r0 + rng.randint(-cell // 4, cell // 4 + 1)
+            c = c0 + rng.randint(-cell // 4, cell // 4 + 1)
+            if centers is not None:
+                centers.append((c, r))
+            rad = radius * rng.uniform(0.8, 1.2)
+            ecc = rng.uniform(0.8, 1.25)
+            lo_r, hi_r = max(0, r - 3 * radius), min(size, r + 3 * radius)
+            lo_c, hi_c = max(0, c - 3 * radius), min(size, c + 3 * radius)
+            block_r = rr[lo_r:hi_r, lo_c:hi_c]
+            block_c = cc[lo_r:hi_r, lo_c:hi_c]
+            g[lo_r:hi_r, lo_c:hi_c] += rng.uniform(0.7, 1.0) * np.exp(
+                -(((block_r - r) / ecc) ** 2 + ((block_c - c) * ecc) ** 2)
+                / (2 * (rad * 0.55) ** 2)).astype(np.float32)
+            n += 1
+    g += rng.randn(size, size).astype(np.float32) * 0.02
+    return g, n
+
+
 def _segment(g, scale):
     """``automation.process_image`` on the default pipeline; ``scale`` None
     leaves ``AF_scale`` unset (the entry point estimates it). Returns the
@@ -562,23 +720,119 @@ def _validate_module():
     return module
 
 
-def _match(seg, expected_csv, max_unmatched=None):
+#: A row of a golden or a label map is excused only with an energy witness:
+#: the JAX package's own energy function at the port's solution of the atom
+#: under the row is at most this share of its value at the reference's
+#: (``tests/data/torch_port/diverge.py``). The problem is convex, so that
+#: shows a reference solve that stalled far from its optimum.
+WITNESS_RATIO = 0.5
+#: A recorded row is the same row when its size is equal and its center
+#: within this many pixels (``summarize_label_map`` prints 0.1 px).
+ROW_TOL = 0.5
+
+#: Rows where the port's label map of bench seed 3 leaves its golden, each
+#: ``(kind, (size, X, Y), e_ref, e_port)``: ``kind`` 'spurious' for a row of
+#: the label map, 'missing' for a golden row; ``e_ref`` and ``e_port`` the
+#: energies of the reference's and the port's solution of the problem
+#: beneath. Atom 17: the JAX package's energy function at each solution
+#: (``diverge.py --seed 3 --footprint 17``). The nuclei at (406.7, 430.1),
+#: which the port splits in two: each package's own energy at the end of
+#: the atom-split solve at offset (414, 370) (``diverge.py --seed 3 --near
+#: 430 407``).
+SEED3_ROWS = [
+    ('spurious', (733, 398.7, 418.6), 127.34, 56.16),
+    ('spurious', (737, 414.8, 441.6), 127.34, 56.16),
+    ('missing', (1424, 406.7, 430.1), 127.34, 56.16),
+    ('spurious', (1099, 577.1, 366.5), 657.73, 74.74),
+    ('missing', (1229, 577.0, 367.1), 657.73, 74.74),
+]
+
+
+def _witness_rows(path):
+    """The rows of a ``diverge.py --mosaic-witness`` CSV in the form of
+    :data:`SEED3_ROWS`."""
+    import csv
+    with open(path) as fin:
+        return [(r['kind'], (int(r['size']), float(r['x']), float(r['y'])),
+                 float(r['e_ref']), float(r['e_port'])) for r in csv.DictReader(fin)]
+
+
+#: A label-map row belongs to a planted nucleus within this many pixels.
+PLANTED_RADIUS = 8.0
+
+
+def _rows(rows, shown=8):
+    """A list of label-map rows for a log line, cut after ``shown``."""
+    return f'{rows}' if len(rows) <= shown else \
+        f'{len(rows)} rows, the first {shown}: {rows[:shown]}'
+
+
+def _excuse(spurious, missing, recorded):
+    """Sorts the unmatched rows against ``recorded`` (rows in the form of
+    :data:`SEED3_ROWS`) into ``(witnessed, left, new)``, each a dict of
+    ``kind`` to rows: rows recorded with an energy witness
+    (:data:`WITNESS_RATIO`), rows recorded without one, and rows not
+    recorded at all."""
+    def record(kind, row):
+        for k, r, e_ref, e_port in recorded:
+            if k == kind and r[0] == row[0] and \
+                    np.hypot(r[1] - row[1], r[2] - row[2]) <= ROW_TOL:
+                return e_ref, e_port
+        return None
+
+    witnessed, left, new = ({'spurious': [], 'missing': []} for _ in range(3))
+    for kind, rows in (('spurious', spurious), ('missing', missing)):
+        for row in rows:
+            energies = record(kind, row)
+            if energies is None:
+                new[kind].append(row)
+            elif energies[1] <= WITNESS_RATIO * energies[0]:
+                witnessed[kind].append(row)
+            else:
+                left[kind].append(row)
+    return witnessed, left, new
+
+
+def _match(seg, expected_csv, max_unmatched=None, recorded=None):
     """Matches a label map against a golden CSV; fails when more than
-    ``max_unmatched`` objects are spurious or missing (None: not gated)."""
+    ``max_unmatched`` objects are spurious or missing (None: not gated).
+
+    With ``recorded``, the rows where this label map is known to leave its
+    golden (the form of :data:`SEED3_ROWS`), a row recorded with an energy
+    witness does not count (:func:`_excuse`); the gate's outcome is printed,
+    and the phase fails only on a row that is not recorded, a new
+    disagreement. Returns ``(matched, golden rows, gate met)``."""
     validate = _validate_module()
-    rows = validate.summarize_label_map(seg)
+    name = os.path.relpath(expected_csv, REPO)
     expected = validate.load_csv(expected_csv)
     matched, spurious, missing = validate.match_rows(
-        rows, expected, center_tol=3.0, size_tol=0.1)
-    say(f'[match] {matched}/{len(expected)} matched, spurious {spurious}, '
-        f'missing {missing}')
-    if max_unmatched is not None and (len(spurious) > max_unmatched
-                                      or len(missing) > max_unmatched):
-        fail(f'label map disagrees with {os.path.relpath(expected_csv, REPO)}')
-    return matched, len(expected)
+        validate.summarize_label_map(seg), expected, center_tol=3.0, size_tol=0.1)
+    say(f'[match] {matched}/{len(expected)} matched, spurious {_rows(spurious)}, '
+        f'missing {_rows(missing)}')
+    if recorded is not None:
+        witnessed, spurious_missing, new = _excuse(spurious, missing, recorded)
+        spurious, missing = (spurious_missing[k] + new[k] for k in ('spurious', 'missing'))
+        say(f'[match] {name}: excused by their energy witness (the JAX energy at '
+            f"the port's solution at most {WITNESS_RATIO:g} of the reference's): "
+            f"{len(witnessed['spurious'])} spurious, {len(witnessed['missing'])} "
+            f'missing; left: spurious {_rows(spurious)}, missing {_rows(missing)}')
+    met = max_unmatched is None or (len(spurious) <= max_unmatched
+                                    and len(missing) <= max_unmatched)
+    if recorded is None:
+        if not met:
+            fail(f'label map disagrees with {name}')
+        return matched, len(expected), met
+    say(f'[match] {name}: the gate (at most {max_unmatched} spurious and '
+        f'{max_unmatched} missing) is {"met" if met else "NOT met"}')
+    if new['spurious'] or new['missing']:
+        fail(f'label map leaves {name} at rows not recorded: {new}')
+    return matched, len(expected), met
 
 
 BENCH_GOLDEN = os.path.join(REPO, 'tests/data/torch_port/bench-seed0.csv')
+#: Bench seeds whose label maps phase 4 holds against their JAX-CPU goldens
+#: ``tests/data/torch_port/bench-seed{N}.csv`` (seed 0 is the timed run).
+GOLDEN_SEEDS = (0, 1, 2, 3)
 NIH3T3_PNG = os.path.join(REPO, 'tests/regression/data/nih3t3-glare.png')
 NIH3T3_CSV = os.path.join(REPO, 'tests/regression/expected/nih3t3/nih3t3-glare.csv')
 
@@ -627,9 +881,11 @@ def phase_profile(g):
             _, _, _, _, seconds = _segment(g, 12)
     finally:
         gram.grad_hess_kernel = kernel
+    # the profiler's raw events: ``prof.events()`` would first build the
+    # tree of every host and device event, minutes for one image
     cuda = torch.autograd.DeviceType.CUDA
-    spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == cuda]
+    spans = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+             for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
     if not spans:
         fail('profile: torch.profiler recorded no device time')
     busy_ms = _merged_ms([(a, b) for _, a, b in spans])
@@ -662,7 +918,12 @@ def phase_profile(g):
         fail('profile: no gram kernel in the profiled run')
 
 
+def _bench_golden(seed):
+    return os.path.join(REPO, f'tests/data/torch_port/bench-seed{seed}.csv')
+
+
 def phase_main_path():
+    """Phase 4; returns the timed run's launches and seed 0's label map."""
     from superdsm_tpu_torch.dsm import gram
     g, n = make_image(0)
     _, _, _, timings, seconds = _segment(g, 12)
@@ -683,8 +944,52 @@ def phase_main_path():
     if n_obj == 0:
         fail('no objects segmented')
     _match(seg, BENCH_GOLDEN, 1)
+    for seed in GOLDEN_SEEDS[1:]:
+        data_s, seg_s, _, _, seconds_s = _segment(make_image(seed)[0], 12)
+        say(f'[main] seed {seed}: {seconds_s:.2f} s, '
+            f'{len(data_s["postprocessed_objects"])} objects')
+        _match(seg_s, _bench_golden(seed), 1, SEED3_ROWS if seed == 3 else None)
+        if seed == 3:
+            seg_3 = seg_s
+    # the witness that seed 3's rows are no rounding of the kernel's: the
+    # same image with the plain version's float64 pixel sums on the card
+    # (its masks may differ by a few pixels: the same rows at 3 px / 10%)
+    with _plain_gram():
+        _, seg_p, _, _, seconds_p = _segment(make_image(3)[0], 12)
+    validate = _validate_module()
+    _, spurious, missing = validate.match_rows(
+        validate.summarize_label_map(seg_p), validate.load_csv(_bench_golden(3)),
+        center_tol=3.0, size_tol=0.1)
+    same = all(not any(validate.match_rows(
+        rows, [r for k, r, _, _ in SEED3_ROWS if k == kind],
+        center_tol=3.0, size_tol=0.1)[1:])
+        for kind, rows in (('spurious', spurious), ('missing', missing)))
+    say(f'[main] seed 3 with the plain float64 gram on the card: {seconds_p:.2f} s, '
+        f'label map bitwise equal to the kernel\'s: {bool(np.array_equal(seg_p, seg_3))}; '
+        f'it leaves the golden at spurious {spurious}, missing {missing}: the '
+        f'rows of SEED3_ROWS at 3 px / 10%: {same}')
+    if not same:
+        fail('seed 3 with the plain float64 gram leaves its golden at other rows')
     phase_profile(g)
-    return launches
+    return launches, seg
+
+
+@contextlib.contextmanager
+def _plain_gram():
+    """Routes every gram of the enclosed block through the plain version
+    (:func:`superdsm_tpu_torch.dsm.gram.grad_hess_plain`, float64 pixel
+    sums) instead of a kernel."""
+    from superdsm_tpu_torch.dsm import gram
+    kernel = gram.grad_hess_kernel
+
+    def plain(Bf, s, yv, w, active, band=None, passes=6, full=False):
+        return gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
+                                    mirror=passes != 6 and not full)
+    gram.grad_hess_kernel = plain
+    try:
+        yield
+    finally:
+        gram.grad_hess_kernel = kernel
 
 
 def _leaves(entries, prefix=''):
@@ -714,7 +1019,7 @@ def phase_real_crop():
         fail('nih3t3: the entry point configured another scale')
     say(f'[nih3t3] {seconds:.2f} s through the default entry point (no '
         f'AF_scale), {len(data["postprocessed_objects"])} objects')
-    matched, total = _match(seg, NIH3T3_CSV, 0)
+    matched, total, _ = _match(seg, NIH3T3_CSV, 0)
     if matched != total:
         fail(f'nih3t3: {matched}/{total} objects matched')
 
@@ -733,7 +1038,7 @@ def knob_run():
     gram.reset_launch_counts()
     data, seg, _, _, seconds = _segment(g, 12)
     launches = dict(gram.LAUNCHES)
-    matched, total = _match(seg, BENCH_GOLDEN)
+    matched, total, _ = _match(seg, BENCH_GOLDEN)
     print(json.dumps(dict(passes=gram.GRAM_PASSES, hybrid=gram.HYBRID_ITERS,
                           launches=launches, seconds=seconds, matched=matched,
                           total=total,
@@ -768,6 +1073,8 @@ def phase_knobs():
 # ---------------------------------------------------------------------------
 
 BENCH_SEEDS = (0, 1, 2, 3)
+#: Bench seeds of phase 7's batch task tree.
+BATCH_SEEDS = (0, 1, 2)
 #: Changed by ``bench/post`` against ``bench`` (a postprocess-only change).
 POST_CHANGE = {'postprocess': {'max_eccentricity': 0.98}}
 
@@ -782,14 +1089,14 @@ def make_task_tree(root):
     """The batch tree of phase 7: ``bench/``, ``bench/post/``, ``nih3t3/``."""
     from superdsm_tpu_torch.io import imsave
     os.makedirs(os.path.join(root, 'images'))
-    for seed in BENCH_SEEDS:
+    for seed in BATCH_SEEDS:
         g, _ = make_image(seed)
         g16 = np.round((g - g.min()) / (g.max() - g.min()) * 65535).astype(np.uint16)
         imsave(os.path.join(root, 'images', f'bench-{seed}.png'), g16)
     outputs = dict(seg_pathpattern='seg/%d.png', overlay_pathpattern='overlay/%d.png',
                    adj_pathpattern='adj/%d.png')
     _write_json(os.path.join(root, 'bench', 'task.json'), dict(
-        runnable=True, file_ids=list(BENCH_SEEDS),
+        runnable=True, file_ids=list(BATCH_SEEDS),
         img_pathpattern=os.path.join(root, 'images', 'bench-%d.png'),
         config={'AF_scale': 12}, **outputs))
     _write_json(os.path.join(root, 'bench', 'post', 'task.json'), dict(
@@ -869,10 +1176,10 @@ def phase_batch(root):
     table)."""
     from superdsm_tpu_torch.dsm import gram
     make_task_tree(root)
-    n = len(BENCH_SEEDS)
+    n = len(BATCH_SEEDS)
     serial_s = _run_batch_in_process(root, 1)
     serial = {seed: _read_seg(os.path.join(root, 'bench', 'seg', f'{seed}.png'))
-              for seed in BENCH_SEEDS}
+              for seed in BATCH_SEEDS}
     gram.reset_launch_counts()
     threaded_s = _run_batch_in_process(root, 3)
     launches = dict(gram.LAUNCHES)
@@ -887,7 +1194,7 @@ def phase_batch(root):
     if any(launches[r] == 0 for r in ('dense', 'triangle', 'banded')):
         fail('the threaded batch run left a float32 gram route unlaunched')
     validate = _validate_module()
-    for seed in BENCH_SEEDS:
+    for seed in BATCH_SEEDS:
         seg = _read_seg(os.path.join(root, 'bench', 'seg', f'{seed}.png'))
         if seg.shape != (520, 696):
             fail(f'bench seg {seed}: shape {seg.shape}')
@@ -925,11 +1232,11 @@ def phase_batch(root):
     if pickups != ['Picking up from: bench/data.dill.gz (postprocess)'] or \
             stages != ['postprocess']:
         fail('bench/post did not pick up at postprocess')
-    for seed in BENCH_SEEDS:
+    for seed in BATCH_SEEDS:
         if _read_seg(os.path.join(root, 'bench', 'post', 'seg',
                                   f'{seed}.png')).shape != (520, 696):
             fail(f'bench/post seg {seed}: wrong shape')
-    matched, total = _match(_read_seg(os.path.join(root, 'nih3t3', 'seg', 'glare.png')),
+    matched, total, _ = _match(_read_seg(os.path.join(root, 'nih3t3', 'seg', 'glare.png')),
                             NIH3T3_CSV, 0)
     if matched != total:
         fail(f'nih3t3 through the batch CLI: {matched}/{total} objects matched')
@@ -965,6 +1272,337 @@ def phase_export(root):
             fail(f'export --mode {mode}: image {img.shape}, expected {shape}')
         say(f'[export] --mode {mode}: exit 0, {files}, {img.shape} '
             f'({time.time() - t0:.2f} s)')
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the synthetic dataset's regression gates
+# ---------------------------------------------------------------------------
+
+#: ``tests/regression/run_synthetic.py``'s tasks: (task dir, own goldens,
+#: reference goldens or None) under ``tests/regression/expected``.
+SYNTHETIC_TASKS = [
+    ('synthetic/default', 'synthetic', 'reference-synthetic'),
+    ('synthetic-glare/default', 'synthetic-glare', 'reference-synthetic-glare'),
+    ('synthetic-dim/default', 'synthetic-dim', 'reference-synthetic-dim'),
+    ('synthetic/isbi24', 'synthetic-isbi24', None),
+]
+#: ``examples/synthetic/generate.py``'s datasets: maker and image count.
+SYNTHETIC_DATASETS = {'synthetic': (make_synthetic, 4),
+                      'synthetic-glare': (make_synthetic_glare, 3),
+                      'synthetic-dim': (make_synthetic_dim, 3)}
+#: Least mean Dice against the actual reference's label maps.
+MIN_REFERENCE_DICE = 0.97
+EXPECTED = os.path.join(REPO, 'tests', 'regression', 'expected')
+
+
+def make_synthetic_tree(root):
+    """``<root>/examples``: the synthetic datasets' ``task.json`` files,
+    copied from the repository's ``examples/``, and their images written by
+    the port's ``imsave(normalize=True)`` into ``<root>/examples/data/``,
+    where the tasks' ``{ROOTDIR}/../data/{DIRNAME}`` points."""
+    from superdsm_tpu_torch.io import imsave
+    for name, (maker, count) in SYNTHETIC_DATASETS.items():
+        src = os.path.join(REPO, 'examples', name)
+        for dirpath, _, files in os.walk(src):
+            if 'task.json' in files:
+                dst = os.path.join(root, 'examples', name,
+                                   os.path.relpath(dirpath, src))
+                os.makedirs(dst, exist_ok=True)
+                shutil.copy(os.path.join(dirpath, 'task.json'), dst)
+        data_dir = os.path.join(root, 'examples', 'data', name)
+        os.makedirs(data_dir)
+        for seed in range(count):
+            imsave(os.path.join(data_dir, f'img-{seed}.png'), maker(seed)[0],
+                   normalize=True)
+
+
+def _gate_seg_dir(seg_dir, expected_dir, tag):
+    """``validate.validate``'s matching at 3 px, 10% and no unmatched
+    object, with the port's ``imread``; returns the errors."""
+    validate = _validate_module()
+    actual = {name: validate.summarize_label_map(_read_seg(os.path.join(seg_dir, name)))
+              for name in sorted(os.listdir(seg_dir)) if name.endswith('.png')}
+    errors = []
+    for csv_name in sorted(os.listdir(expected_dir)):
+        if not csv_name.endswith('.csv'):
+            continue
+        name = csv_name[:-4]
+        if name not in actual:
+            errors.append(f'{tag}: missing label map {name}')
+            continue
+        expected = validate.load_csv(os.path.join(expected_dir, csv_name))
+        matched, spurious, missing = validate.match_rows(
+            actual.pop(name), expected, center_tol=3.0, size_tol=0.1)
+        say(f'[synthetic] {tag} {name}: {matched}/{len(expected)} matched, '
+            f'spurious {spurious}, missing {missing}')
+        if spurious or missing:
+            errors.append(f'{tag} {name}: {len(spurious)} spurious, '
+                          f'{len(missing)} missing')
+    errors += [f'{tag}: spurious label map {name}' for name in actual]
+    return errors
+
+
+def _reference_dice(seg_dir, ref_seg_dir):
+    """Mean Dice of the label maps against the actual reference's."""
+    from superdsm_tpu_torch.metrics import dice
+    scores = [dice(_read_seg(os.path.join(seg_dir, name)),
+                   _read_seg(os.path.join(ref_seg_dir, name)))
+              for name in sorted(os.listdir(ref_seg_dir)) if name.endswith('.png')]
+    return float(np.mean(scores)), len(scores)
+
+
+def phase_synthetic(root):
+    """Phase 9: the port's counterpart of ``tests/regression/run_synthetic.py``
+    on the card; every task must pass its gates."""
+    make_synthetic_tree(root)
+    examples = os.path.join(root, 'examples')
+    errors = []
+    for task, own, ref in SYNTHETIC_TASKS:
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, '-m', 'superdsm_tpu_torch.batch',
+                               examples, '--task-dir', task, '--run', '--force',
+                               '--report', os.path.join(root, 'status')],
+                              cwd=REPO, capture_output=True, text=True, timeout=400)
+        seconds = time.time() - t0
+        if proc.returncode != 0:
+            fail(f'synthetic {task}: batch exited {proc.returncode}:\n'
+                 f'{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}')
+        seg_dir = os.path.join(examples, task, 'seg')
+        names = sorted(os.listdir(seg_dir))
+        n_obj = sum(len(np.unique(_read_seg(os.path.join(seg_dir, name)))) - 1
+                    for name in names)
+        say(f'[synthetic] {task}: {seconds:.2f} s (forked batch run), '
+            f'{n_obj} objects over {len(names)} images')
+        errors += _gate_seg_dir(seg_dir, os.path.join(EXPECTED, own), task)
+        if ref is not None:
+            errors += _gate_seg_dir(seg_dir, os.path.join(EXPECTED, ref),
+                                    f'{task} vs reference')
+            mean_dice, count = _reference_dice(seg_dir, os.path.join(EXPECTED, ref, 'seg'))
+            say(f'[synthetic] {task} vs reference: mean Dice {mean_dice:.4f} over '
+                f'{count} images (>= {MIN_REFERENCE_DICE})')
+            if mean_dice < MIN_REFERENCE_DICE:
+                errors.append(f'{task} vs reference: mean Dice {mean_dice:.4f}')
+    if errors:
+        fail('synthetic gates: ' + '; '.join(errors))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: a mosaic at full width
+# ---------------------------------------------------------------------------
+
+MOSAIC_SIZE = 2048
+MOSAIC_GOLDEN = os.path.join(REPO, f'tests/data/torch_port/mosaic-{MOSAIC_SIZE}-seed0.csv')
+#: Every row where the port's label map leaves the golden, with its energy
+#: witness: ``diverge.py --mosaic-witness`` on the label map that phase 10
+#: writes to :data:`MOSAIC_LABELS`.
+MOSAIC_WITNESS = os.path.join(REPO, f'tests/data/torch_port/mosaic-{MOSAIC_SIZE}-seed0-witness.csv')
+MOSAIC_LABELS = os.path.join(REPO, 'chiprun_out', f'mosaic-{MOSAIC_SIZE}-seed0-labels.npz')
+
+
+def phase_mosaic():
+    """Phase 10: ``parallel.process_mosaic`` on the 2048x2048 dense mosaic
+    at the default tile (1024, 1024) and halo 160, with 1 and then 2
+    threads; returns the 1-thread run's launches."""
+    import torch
+    import superdsm_tpu_torch as T
+    from superdsm_tpu_torch.dsm import gram
+    from superdsm_tpu_torch.output import get_output
+    from superdsm_tpu_torch.parallel import process_mosaic, rasterize_mosaic_labels
+    centers = []
+    g, n = make_mosaic(MOSAIC_SIZE, centers=centers)
+    cfg = T.Config({'AF_scale': 12})
+    cfg['c2f-region-analysis/speculate'] = False
+    labels, launches = {}, {}
+    for threads in (1, 2):
+        gram.reset_launch_counts()
+        t0 = time.time()
+        objects, n_tiles = process_mosaic(T.create_default_pipeline, cfg, g,
+                                          out=get_output(None).derive(muted=True),
+                                          threads_per_device=threads)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches[threads] = {k: v for k, v in gram.LAUNCHES.items() if v}
+        labels[threads] = rasterize_mosaic_labels(g.shape, objects)
+        say(f'[mosaic] {MOSAIC_SIZE}x{MOSAIC_SIZE} ({n} planted nuclei), '
+            f'{threads} thread(s): {len(objects)} objects, {seconds:.2f} s wall, '
+            f'{seconds / n_tiles:.2f} s per tile ({n_tiles} tiles of 1024x1024 '
+            f'with halo 160); gram launches per route {launches[threads]}')
+    if not any(launches[1].get(r) for r in ('dense', 'triangle', 'banded')):
+        fail('mosaic: no float32 gram route launched')
+    validate = _validate_module()
+    for tag, rows in (('port', validate.summarize_label_map(labels[1])),
+                      ('JAX-CPU golden', validate.load_csv(MOSAIC_GOLDEN))):
+        found = sum(any(np.hypot(r[1] - x, r[2] - y) <= PLANTED_RADIUS for r in rows)
+                    for x, y in centers)
+        say(f'[mosaic] {tag}: {len(rows)} objects, {found} of the {n} planted '
+            f'nuclei have one within {PLANTED_RADIUS:g} px')
+    os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
+    np.savez_compressed(MOSAIC_LABELS, labels=labels[1])
+    say(f'[mosaic] 1-thread label map written to {os.path.relpath(MOSAIC_LABELS, REPO)}')
+    _match(labels[1], MOSAIC_GOLDEN, n_tiles, _witness_rows(MOSAIC_WITNESS))
+    equal = bool(np.array_equal(labels[1], labels[2]))
+    say(f'[mosaic] 2-thread label map bitwise equal to the 1-thread one: {equal}')
+    if not equal:
+        fail('mosaic: the 2-thread label map differs from the 1-thread one '
+             f'({int((labels[1] != labels[2]).sum())} pixels)')
+    return launches[1]
+
+
+# ---------------------------------------------------------------------------
+# phase 11: meshes and sharded solves on one card
+# ---------------------------------------------------------------------------
+
+#: (B, P, n) of the sharded DSM dry run and (B, P) of the poly one.
+MESH_DSM_SHAPE = (8, 16384, 128)
+MESH_POLY_SHAPE = (8, 8192)
+MESH_SIGMA, MESH_CUTOFF, MESH_ALPHA = 4.0, 16, 0.5
+
+
+def _mesh_problems(B, P, K):
+    """``B`` lanes built as phase 3 builds its lanes, as host arrays."""
+    rng = np.random.RandomState(P + K)
+    return [np.stack(a) for a in zip(*(_lane_arrays(rng, P, K) for _ in range(B)))]
+
+
+def _counting_contribs():
+    """Wraps ``newton._Shard.contribs`` (one call per shard per Newton
+    iteration) with a counter; returns the counter and the original."""
+    from superdsm_tpu_torch.parallel import newton
+    original = newton._Shard.contribs
+    calls = [0]
+
+    def counted(self, params, active):
+        calls[0] += 1
+        return original(self, params, active)
+
+    newton._Shard.contribs = counted
+    return calls, original
+
+
+def _compare(tag, f, conv, f_ref, conv_ref, rtol):
+    both = conv & conv_ref
+    if not both.any():
+        fail(f'{tag}: no lane converged in both solves')
+    rel = np.abs(f[both] - f_ref[both]) / np.abs(f_ref[both])
+    say(f'[mesh] {tag}: {int(both.sum())} lanes converged in both, max rel '
+        f'energy difference {rel.max():.3e} (rtol {rtol})')
+    if not (rel <= rtol).all():
+        fail(f'{tag}: energies disagree')
+
+
+def phase_mesh(bench_seg):
+    """Phase 11: the sharded DSM and poly solvers over a (1, 2) mesh of the
+    card twice, against a 1x1 mesh and the unsharded Newton loop, and the
+    DSM one over a (2, 1) mesh; the bench field under a 1-device pipeline
+    mesh and under a 2-device one of the card twice; a spec for more cards
+    than there are."""
+    import torch
+    from superdsm_tpu_torch.dsm import batching, gram, solver
+    from superdsm_tpu_torch.dsm.smooth import build_smooth_matrix
+    from superdsm_tpu_torch.parallel import mesh as pm, newton
+    dev = torch.device('cuda:0')
+    mesh2 = pm.make_mesh(n_batch=1, n_pixel=2, devices=[dev, dev])
+    mesh1 = pm.make_mesh(n_batch=1, n_pixel=1, devices=[dev])
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    B, P, n = MESH_DSM_SHAPE
+    K = n - 6
+    coords, pix, sub, km, yv, w, _ = _mesh_problems(B, P, K)
+    alpha = np.full(B, MESH_ALPHA, np.float32)
+    p0 = np.zeros((B, n), np.float32)
+    dsm_args = (p0, coords, pix, sub, km, yv, w, alpha)
+    calls, original = _counting_contribs()
+    try:
+        gram.reset_launch_counts()
+        t0 = time.time()
+        _, f2, c2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)(*dsm_args)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = dict(gram.LAUNCHES)
+    finally:
+        newton._Shard.contribs = original
+    f2, c2 = f2.cpu().numpy(), c2.cpu().numpy()
+    say(f'[mesh] sharded DSM {MESH_DSM_SHAPE} over {mesh2.shape} on [{dev}, {dev}]: '
+        f'{seconds:.2f} s, {calls[0]} shard iterations, gram launches '
+        f'{ {k: v for k, v in launches.items() if v} }, {int(c2.sum())}/{B} '
+        f'lanes converged')
+    if not np.isfinite(f2).all():
+        fail('sharded DSM: non-finite energy')
+    if calls[0] == 0 or launches['dense'] != calls[0] or calls[0] % 2 or \
+            sum(launches.values()) != launches['dense']:
+        fail(f'sharded DSM: {launches} float32 launches for {calls[0]} shard '
+             'iterations (one dense launch per shard per iteration expected)')
+    _, f1, c1 = (t.cpu().numpy() for t in newton.make_sharded_dsm_solver(
+        mesh1, MESH_SIGMA, MESH_CUTOFF)(*dsm_args))
+    _compare('sharded DSM vs the 1x1 mesh', f2, c2, f1, c1, 1e-4)
+    # two mesh rows: each row's Newton loop in a thread of its own, on its
+    # own stream of the card
+    t0 = time.time()
+    _, fr, cr = (t.cpu().numpy() for t in newton.make_sharded_dsm_solver(
+        pm.make_mesh(n_batch=2, n_pixel=1, devices=[dev, dev]),
+        MESH_SIGMA, MESH_CUTOFF)(*dsm_args))
+    say(f'[mesh] sharded DSM {MESH_DSM_SHAPE} over a (2, 1) mesh on [{dev}, {dev}]: '
+        f'{time.time() - t0:.2f} s')
+    _compare('sharded DSM over two rows vs the 1x1 mesh', fr, cr, f1, c1, 1e-4)
+    Q = solver._poly_basis(cuda(coords))
+    G = build_smooth_matrix(cuda(pix), cuda(sub), MESH_SIGMA, MESH_CUTOFF, cuda(km))
+    _, fu, cu, _, _, _ = solver._solve_batch_impl(
+        cuda(p0), Q, G, cuda(yv), cuda(w), cuda(alpha), 1.0, cuda(km),
+        solver.DEFAULT_MAXITER, solver.DEFAULT_TOL, banded=True)
+    _compare('sharded DSM vs the unsharded Newton loop', f2, c2,
+             fu.cpu().numpy(), cu.cpu().numpy(), 1e-3)
+
+    B, P = MESH_POLY_SHAPE
+    coords, _, _, _, yv, w, _ = _mesh_problems(B, P, 0)
+    p0 = np.zeros((B, 6), np.float32)
+    t0 = time.time()
+    _, f2, c2 = (t.cpu().numpy() for t in newton.make_sharded_poly_solver(mesh2)(
+        p0, coords, yv, w))
+    say(f'[mesh] sharded poly {MESH_POLY_SHAPE + (6,)} over {mesh2.shape}: '
+        f'{time.time() - t0:.2f} s, {int(c2.sum())}/{B} lanes converged')
+    if not np.isfinite(f2).all():
+        fail('sharded poly: non-finite energy')
+    _, f1, c1 = (t.cpu().numpy() for t in newton.make_sharded_poly_solver(mesh1)(
+        p0, coords, yv, w))
+    _compare('sharded poly vs the 1x1 mesh', f2, c2, f1, c1, 1e-4)
+    _, fu, cu, _, _, _ = solver._solve_batch_impl(
+        cuda(p0), solver._poly_basis(cuda(coords)), None, cuda(yv), cuda(w),
+        torch.zeros(B, device=dev), 1.0, torch.zeros((B, 0), device=dev),
+        solver.DEFAULT_MAXITER, solver.DEFAULT_TOL)
+    _compare('sharded poly vs the unsharded Newton loop', f2, c2,
+             fu.cpu().numpy(), cu.cpu().numpy(), 1e-3)
+
+    mesh = pm.parse_mesh_spec('1')
+    batching.set_pipeline_mesh(mesh)
+    try:
+        _, seg, _, _, seconds = _segment(make_image(0)[0], 12)
+    finally:
+        batching.set_pipeline_mesh(None)
+    equal = bool(np.array_equal(seg, bench_seg))
+    say(f'[mesh] bench seed 0 under the pipeline mesh {mesh.shape}: {seconds:.2f} s, '
+        f'label map bitwise equal to phase 4\'s: {equal}')
+    if not equal:
+        fail('the bench field under a 1-device pipeline mesh differs from phase 4')
+    # lanes split over two batch-axis devices: one thread and stream each
+    mesh = pm.make_mesh(n_batch=2, n_pixel=1, devices=[dev, dev])
+    batching.set_pipeline_mesh(mesh)
+    try:
+        _, seg, _, _, seconds = _segment(make_image(0)[0], 12)
+    finally:
+        batching.set_pipeline_mesh(None)
+    say(f'[mesh] bench seed 0 under the pipeline mesh {mesh.shape} on [{dev}, {dev}]: '
+        f'{seconds:.2f} s, label map bitwise equal to phase 4\'s: '
+        f'{bool(np.array_equal(seg, bench_seg))}')
+    _match(seg, BENCH_GOLDEN, 1)
+    if torch.cuda.device_count() == 1:
+        try:
+            pm.parse_mesh_spec('2')
+        except ValueError as error:
+            say(f'[mesh] parse_mesh_spec(\'2\') on one card raises: {error}')
+        else:
+            fail("parse_mesh_spec('2') did not raise on a one-card machine")
 
 
 # ---------------------------------------------------------------------------
@@ -1043,7 +1681,7 @@ def ab_run(root):
                 launches={k: v for k, v in gram.LAUNCHES.items() if v},
                 objects=len(data['postprocessed_objects'])))
             if seed == 0:
-                matched, total = _match(seg, BENCH_GOLDEN)
+                matched, total, _ = _match(seg, BENCH_GOLDEN)
     print(json.dumps(dict(root=root, kernel_ms=kernel_ms, runs=runs,
                           matched=matched, total=total)), flush=True)
 
@@ -1092,8 +1730,20 @@ def ab(roots):
     say(card)
 
 
+def _timed(number, fn, *args):
+    """Runs phase ``number`` and prints its wall seconds."""
+    t0 = time.time()
+    result = fn(*args)
+    say(f'[phase] {number} ({fn.__name__}): {time.time() - t0:.2f} s wall')
+    return result
+
+
+#: The script's start, for the total wall seconds.
+T0 = time.time()
+
+
 def main():
-    card = phase_environment()
+    card = _timed(1, phase_environment)
     import torch
     import superdsm_tpu_torch as T
     from superdsm_tpu_torch.dsm import gram
@@ -1107,18 +1757,24 @@ def main():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'smem' in line:
                 say(f'[build] {src}: {line.strip()}')
-    kernels = phase_kernels()
-    launches = phase_main_path()
-    phase_real_crop()
-    launches.update(phase_knobs())
-    t0 = time.time()
+    kernels = _timed(3, phase_kernels)
+    launches, bench_seg = _timed(4, phase_main_path)
+    _timed(5, phase_real_crop)
+    launches.update(_timed(6, phase_knobs))
     root = tempfile.mkdtemp(prefix='sdsm-batch-')
     try:
-        phase_batch(root)
-        phase_export(root)
+        _timed(7, phase_batch, root)
+        _timed(8, phase_export, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    say(f'[batch] phases 7-8: {time.time() - t0:.2f} s wall')
+    root = tempfile.mkdtemp(prefix='sdsm-synthetic-')
+    try:
+        _timed(9, phase_synthetic, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _timed(10, phase_mosaic)
+    _timed(11, phase_mesh, bench_seg)
+    say(f'[phase] all phases: {time.time() - T0:.2f} s wall')
     table = [dict(name=f'{os.path.basename(_source(route))[:-3]}/{route}',
                   route='cuda', source=_source(route), replaces=REPLACES[route],
                   launches=launches[route], **kernels[route])

@@ -25,7 +25,10 @@ What differs, because of the card:
   card): the loader, the digests and the reports stay on the host, the
   device check asks NVML (:func:`superdsm_tpu_torch._device.check_device`),
   and a parent that has touched CUDA already refuses to fork;
-- ``--mesh`` belongs to the multi-GPU slice of the port and is refused;
+- ``--mesh`` (or ``SUPERDSM_TPU_MESH`` in a task's ``environ``) splits
+  every solver batch over the mesh's batch axis
+  (:func:`superdsm_tpu_torch.parallel.mesh.apply_env_mesh`); a spec that
+  needs more devices than the machine has is a parser error;
 - ``--debug`` restores the solver telemetry whichever way the task ends.
 
 Without CUDA the CLI raises; on the CPU, select the device and call
@@ -356,6 +359,10 @@ class Task:
 
     def _initialize(self):
         os.environ.update({k: str(v) for k, v in self.environ.items()})
+        # multi-device surface: task.json "environ" or the --mesh flag set
+        # SUPERDSM_TPU_MESH; solves then split over the mesh batch axis
+        from .parallel.mesh import apply_env_mesh
+        apply_env_mesh()
         return create_default_pipeline()
 
     def _load_timings(self):
@@ -914,9 +921,9 @@ def _build_arg_parser():
                         'run --merge-shards N afterwards)', type=str, default=None)
     parser.add_argument('--merge-shards', help='merge N per-shard results into the '
                         'standard task artifacts', type=int, default=None)
-    parser.add_argument('--mesh', help='not available: sharding solver batches '
-                        'over several GPUs belongs to the multi-GPU slice of the '
-                        'port, which is not ported yet', type=str, default=None)
+    parser.add_argument('--mesh', help='split every solver batch over a device '
+                        "mesh, e.g. '8', 'batch:4', or 'batch:4,pixel:2' "
+                        '(sets SUPERDSM_TPU_MESH)', type=str, default=None)
     return parser
 
 
@@ -970,12 +977,19 @@ def run_cli(args=None):
     if args.shard is not None and args.merge_shards is not None:
         parser.error('"--shard" and "--merge-shards" are mutually exclusive')
     shard = parse_shard(args.shard) if args.shard is not None else None
-    if args.mesh is not None:
-        parser.error('"--mesh" needs the multi-GPU slice of superdsm_tpu_torch, '
-                     'which is not ported yet')
     # every entry point needs the selected device; the check asks NVML, so
     # this process stays free to fork
     check_device()
+    if args.mesh is not None:
+        # validated eagerly for a clean CLI error (devices counted through
+        # NVML); installed per task by Task._initialize (forked children
+        # inherit the variable)
+        from .parallel.mesh import parse_mesh_spec
+        try:
+            parse_mesh_spec(args.mesh)
+        except (ValueError, RuntimeError) as error:
+            parser.error(str(error))
+        os.environ['SUPERDSM_TPU_MESH'] = args.mesh
 
     override_cfg = ({} if args.last_stage is None
                     else {'last_stage': args.last_stage})

@@ -13,8 +13,14 @@ depend on the runtime bucket ladder or chunking.
 Worker threads solve concurrently, each on its own CUDA stream
 (:mod:`superdsm_tpu_torch.parallel.pipelined`): everything here runs on the
 caller's current stream, the deadline's copy thread included.
+
+Two mechanisms route solves to other devices, as in the JAX package: a
+thread's :func:`device_scope` pins that thread's solves to one device, and
+a pipeline mesh (:func:`set_pipeline_mesh`) splits every bucket chunk's
+lanes over the mesh's batch axis. A scope takes precedence over the mesh.
 """
 
+import contextlib
 import math
 import os
 import sys
@@ -26,9 +32,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._device import on_cpu
-from .solver import (_pack_poly_group, _solve_dsm_packed, unpack_fg,
-                     evaluate_foreground, DEFAULT_MAXITER, DEFAULT_TOL)
+from .._device import on_cpu, scoped_device, thread_device
+from .solver import (_pack_poly_group, _solve_dsm_packed, solve_on_devices,
+                     unpack_fg, evaluate_foreground, DEFAULT_MAXITER,
+                     DEFAULT_TOL)
 from .smooth import prepare_deformation, smooth_matrix_params
 from . import gram
 
@@ -172,6 +179,72 @@ def _b_cap(pb, kind='dsm'):
     return (B_CAP_POLY_GPU if kind == 'poly' else B_CAP_GPU)[pb]
 
 
+# ---------------------------------------------------------------------------
+# Multi-device routing. Two composable mechanisms (the JAX package's):
+#  * a process-wide pipeline mesh: every bucket chunk's lanes are split over
+#    the mesh 'batch' axis, each device solving its share
+#    (solver.solve_on_devices) — candidate problems are independent;
+#  * a per-thread device scope: a host thread (one mosaic tile per device,
+#    say) pins its solves to one device, so independent tiles run
+#    concurrently across cards.
+# ---------------------------------------------------------------------------
+
+_PIPELINE_MESH = None
+
+
+def set_pipeline_mesh(mesh):
+    """Splits the lanes of every subsequent :func:`solve_problems` chunk
+    over ``mesh``'s 'batch' axis (``None`` restores single-device
+    operation)."""
+    global _PIPELINE_MESH
+    if mesh is not None and 'batch' not in mesh.axis_names:
+        raise ValueError("pipeline mesh needs a 'batch' axis")
+    _PIPELINE_MESH = mesh
+
+
+def get_pipeline_mesh():
+    return _PIPELINE_MESH
+
+
+def device_scope(device):
+    """Context manager pinning this thread's solves to one device (None:
+    no pin). A device that is not present raises on entry."""
+    return contextlib.nullcontext() if device is None else thread_device(device)
+
+
+class thread_device_assigner:
+    """Round-robins ``devices`` onto EXECUTING THREADS (not job indices):
+    thread pools pull jobs at different rates, so an index-based mapping can
+    pin two in-flight jobs to the same card while another sits idle. Each
+    thread gets a sticky device on its first call; combine with
+    :func:`device_scope` to pin that thread's solves."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+        self._lock = threading.Lock()
+        self._next = 0
+        self._tls = threading.local()
+
+    def __call__(self):
+        dev = getattr(self._tls, 'device', None)
+        if dev is None:
+            with self._lock:
+                dev = self.devices[self._next % len(self.devices)]
+                self._next += 1
+            self._tls.device = dev
+        return dev
+
+
+def _batch_devices():
+    """The devices a chunk's lanes are split over: the pipeline mesh's
+    batch-axis devices when its batch axis is larger than 1 and this thread
+    has no device scope, else None (the selected device)."""
+    mesh = _PIPELINE_MESH
+    if mesh is None or scoped_device() is not None or mesh.shape['batch'] <= 1:
+        return None
+    return list(mesh.devices[:, 0])
+
+
 def _bucket(value, buckets):
     for b in buckets:
         if value <= b:
@@ -199,13 +272,14 @@ def _pow2_ceil(m):
 _SPLIT_MIN_WORK = 6e8
 
 
-def _dsm_chunk_sizes(n, cap, pb, kb, on_cpu_=None):
+def _dsm_chunk_sizes(n, cap, pb, kb, on_cpu_=None, min_b=1):
     """Chunk sizes for an ``n``-problem ``(pb, kb)`` DSM group: full-cap
     chunks, then the remainder — split into the largest power of two below
     it plus the padded rest when the group is compute-bound and that saves
     material padding (lanes freeze individually, so batch composition never
     changes a problem's iterates). Never split on the CPU, which pins the
-    CPU results to one chunking."""
+    CPU results to one chunking, nor under a pipeline mesh (``min_b > 1``:
+    every chunk pads to the mesh batch anyway)."""
     sizes = []
     while n > cap:
         sizes.append(cap)
@@ -215,7 +289,8 @@ def _dsm_chunk_sizes(n, cap, pb, kb, on_cpu_=None):
     padded = _pow2_ceil(n)
     if on_cpu_ is None:
         on_cpu_ = on_cpu()
-    if (not on_cpu_ and pb * (6 + kb) ** 2 >= _SPLIT_MIN_WORK and padded > n):
+    if (min_b == 1 and not on_cpu_ and pb * (6 + kb) ** 2 >= _SPLIT_MIN_WORK
+            and padded > n):
         lo = padded // 2
         rest = n - lo
         saved = padded - (lo + _pow2_ceil(rest))
@@ -621,6 +696,10 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
 
     poly_groups, dsm_groups = _group_problems(problems, smooth_amount)
     statics = (float(tol), float(smooth_amount), int(cutoff))
+    # a pipeline mesh splits each chunk's lanes over its batch axis, and
+    # every chunk pads to at least one lane per device
+    devices = _batch_devices()
+    min_b = 1 if devices is None else len(devices)
 
     # launch every bucket group, then copy all results to the host
     pending = []  # (kind, chunk, shape, device outputs)
@@ -628,11 +707,11 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         bmax = _b_cap(pb, 'poly')
         for chunk_start in range(0, len(idxs), bmax):
             chunk = idxs[chunk_start: chunk_start + bmax]
-            Bp = _batch_shape(len(chunk), pb, 'poly')
+            Bp = max(_batch_shape(len(chunk), pb, 'poly'), min_b)
             inits = [problems[i].init_params for i in chunk]
             outs = _pack_poly_group([problems[i] for i in chunk], img_shape,
                                     params0=inits, maxiter=maxiter, tol=tol,
-                                    pb=pb, Bp=Bp)
+                                    pb=pb, Bp=Bp, devices=devices)
             pending.append(('poly', chunk, ('poly', pb, 0, Bp, float(tol)),
                             outs))
 
@@ -686,12 +765,15 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         idxs.sort(key=lambda i: (problems[i].init_params is not None,
                                  problems[i].n_pixels))
         chunk_start = 0
-        for size in _dsm_chunk_sizes(len(idxs), _b_cap(pb), pb, kb):
+        for size in _dsm_chunk_sizes(len(idxs), _b_cap(pb), pb, kb,
+                                     min_b=min_b):
             chunk = idxs[chunk_start: chunk_start + size]
             chunk_start += size
-            Bp = _batch_shape(len(chunk), pb)
-            outs = _solve_dsm_packed(*_dsm_chunk_arrays(chunk, pb, kb, Bp,
-                                                        warm_tail_all=True))
+            Bp = max(_batch_shape(len(chunk), pb), min_b)
+            arrays = _dsm_chunk_arrays(chunk, pb, kb, Bp, warm_tail_all=True)
+            # a split keeps the whole chunk's elliptical skip (USE_WARM.all())
+            split = {} if devices is None else {'all_warm': bool(arrays[9].all())}
+            outs = solve_on_devices(_solve_dsm_packed, arrays, devices, **split)
             pending.append(('dsm', chunk, ('dsm', pb, kb, Bp) + statics, outs))
             if out is not None:
                 out.intermediate(

@@ -20,12 +20,14 @@ on the card).
 
 import math
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .._device import to_device
+from .._device import thread_device, to_device
 from . import gram
 
 #: Hard iteration caps (the reference instead relies on a 300 s SIGALRM
@@ -50,6 +52,27 @@ CG_RTOL = 1e-5
 _CG_SYNC_EVERY = 8
 
 _F32 = torch.float32
+
+_LINALG_LOCK = threading.Lock()
+_LINALG_LOADED = False
+
+
+def _load_linalg(device):
+    """Makes this process's first CUDA linear-algebra call under a lock.
+
+    PyTorch loads its CUDA linear-algebra library on the first such call of
+    the process, and that load is not thread-safe: threads whose first calls
+    meet fail with "lazy wrapper should be called at most once" (worker
+    threads of a fresh process, such as the batch CLI's forked task with its
+    threaded file stream). Every solve calls this before its own linalg
+    calls; after the first, it is one check of a flag."""
+    global _LINALG_LOADED
+    if _LINALG_LOADED or device.type != 'cuda':
+        return
+    with _LINALG_LOCK:
+        if not _LINALG_LOADED:
+            torch.linalg.cholesky_ex(torch.ones((1, 1), device=device))
+            _LINALG_LOADED = True
 
 
 def _softplus(x):
@@ -268,6 +291,7 @@ def _lsq_init(Q, yv, w, margin=2.0, ridge=1e-6):
     polynomial surface onto ``margin * sign(y)`` (one batched 6x6 solve).
     A singular system (e.g. an empty padding lane) gives zeros, as the JAX
     package's non-finite guard does — never a raise."""
+    _load_linalg(Q.device)
     z = margin * torch.sign(yv) * w
     # the pixel sums accumulate in float64, as the gram's do (see
     # gram.grad_hess_plain); the 6x6 solve stays float32
@@ -302,6 +326,7 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
     :return: ``(params, energy, conv, iterations, surface, it_lane)``.
     """
     B, n_total = params0.shape
+    _load_linalg(Q.device)
     Bf = _features(Q, G)
     P = Bf.shape[1]
     use_kernel = n_total % 128 == 0 and P % 256 == 0
@@ -466,7 +491,7 @@ def _solve_poly_packed(pix, off, cnt, yq, yscale, denom, params0, maxiter, tol):
 
 
 def _solve_dsm_core(pixf, coords, yv, w, sub, kmask, warm, use_warm,
-                    alpha, epsilon, maxiter, tol, sigma, cutoff):
+                    alpha, epsilon, maxiter, tol, sigma, cutoff, all_warm=None):
     """Combined elliptical + DSM solve of one packed batch.
 
     The full solve starts from the better of the elliptical solution and the
@@ -474,6 +499,10 @@ def _solve_dsm_core(pixf, coords, yv, w, sub, kmask, warm, use_warm,
     bad, fg uint8, per-lane convergence iterations), where ``bad`` rows are
     restored to their initialization (reference fallback semantics,
     ``superdsm/objects.py:394-411``).
+
+    ``all_warm`` (None: ``use_warm.all()``) skips the elliptical phase; a
+    batch split over devices passes the whole chunk's value, so that each
+    part takes the branch the whole chunk takes (:func:`solve_on_devices`).
     """
     from .smooth import build_smooth_matrix
     B, P = pixf.shape[:2]
@@ -482,7 +511,7 @@ def _solve_dsm_core(pixf, coords, yv, w, sub, kmask, warm, use_warm,
     Q = _poly_basis(coords)
 
     # all-warm batches skip the elliptical phase (one host sync per solve)
-    if bool(use_warm.all()):
+    if bool(use_warm.all()) if all_warm is None else all_warm:
         p_ell = torch.zeros((B, 6), dtype=_F32, device=dev)
         f_ell = torch.full((B,), float('inf'), dtype=_F32, device=dev)
     else:
@@ -515,7 +544,7 @@ def _solve_dsm_core(pixf, coords, yv, w, sub, kmask, warm, use_warm,
 
 
 def _solve_dsm_packed(pix, off, cnt, yq, yscale, denom, sub, kmask, warm, use_warm,
-                      alpha, epsilon, maxiter, tol, sigma, cutoff):
+                      alpha, epsilon, maxiter, tol, sigma, cutoff, all_warm=None):
     """Packed combined elliptical + DSM solve (numpy in, device tensors
     out); see :func:`_solve_dsm_core`."""
     pixf, coords, yv, w = _unpack_inputs(
@@ -526,13 +555,56 @@ def _solve_dsm_packed(pix, off, cnt, yq, yscale, denom, sub, kmask, warm, use_wa
         pixf, coords, yv, w, to_device(sub, torch.int32), to_device(kmask, _F32),
         to_device(warm, _F32), to_device(use_warm, torch.bool),
         to_device(alpha, _F32), float(epsilon), int(maxiter), float(tol),
-        float(sigma), int(cutoff))
+        float(sigma), int(cutoff), all_warm)
+
+
+def solve_on_devices(solve, args, devices, **kwargs):
+    """Runs a packed solve (:func:`_solve_poly_packed`,
+    :func:`_solve_dsm_packed`) with its lanes split over ``devices``: each
+    device solves its contiguous share of the lanes (``np.array_split``
+    order) in a thread of its own, on that thread's stream of the device
+    (:func:`superdsm_tpu_torch.parallel.worker_stream`), so the shares'
+    Newton loops, which each wait on the host every iteration, run at the
+    same time; the outputs come back concatenated in lane order on the
+    first device. ``None`` solves on the selected device in this thread.
+    Every array argument but ``denom`` (position 5) has the lane axis
+    first; the rest are scalars. Lanes freeze one by one in the Newton
+    loop, so a lane's iterates do not depend on which others share its
+    batch."""
+    from ..parallel.pipelined import worker_stream
+    if devices is None:
+        return solve(*args, **kwargs)
+    B = len(args[0])
+    if B < len(devices):
+        raise ValueError(f'{B} lanes cannot be split over {len(devices)} devices')
+
+    def share(device, lanes):
+        sub = tuple(a[lanes[0]:lanes[-1] + 1]
+                    if i != 5 and isinstance(a, np.ndarray) else a
+                    for i, a in enumerate(args))
+        with thread_device(device), worker_stream() as stream:
+            outs = solve(*sub, **kwargs)
+            if stream is not None:
+                stream.synchronize()  # read below on the caller's stream
+        return outs
+
+    with ThreadPoolExecutor(max_workers=len(devices)) as pool:
+        parts = list(pool.map(share, devices,
+                              np.array_split(np.arange(B), len(devices))))
+    home = parts[0][0].device
+    for t in (t for p in parts for t in p if t.is_cuda):
+        # freed after the caller's stream has read them, not before
+        t.record_stream(torch.cuda.current_stream(t.device))
+    return tuple(torch.cat([p[k].to(home) for p in parts])
+                 for k in range(len(parts[0])))
 
 
 def _pack_poly_group(problems, img_shape, params0=None,
-                     maxiter=DEFAULT_MAXITER, tol=DEFAULT_TOL, pb=None, Bp=None):
-    """Packs one bucket batch and runs the packed 6-parameter solve; returns
-    the device outputs (the caller copies them to the host)."""
+                     maxiter=DEFAULT_MAXITER, tol=DEFAULT_TOL, pb=None, Bp=None,
+                     devices=None):
+    """Packs one bucket batch and runs the packed 6-parameter solve, its
+    lanes split over ``devices`` (:func:`solve_on_devices`); returns the
+    device outputs (the caller copies them to the host)."""
     PIX = np.zeros((Bp, pb, 2), np.int16)
     OFF = np.zeros((Bp, 2), np.int32)
     CNT = np.zeros((Bp,), np.int32)
@@ -549,7 +621,9 @@ def _pack_poly_group(problems, img_shape, params0=None,
         if params0 is not None and params0[j] is not None:
             P0[j] = params0[j][:6]
     denom = np.maximum(np.asarray(img_shape, np.float32) - 1.0, 1.0)
-    return _solve_poly_packed(PIX, OFF, CNT, YQ, YS, denom, P0, maxiter, tol)
+    return solve_on_devices(_solve_poly_packed,
+                            (PIX, OFF, CNT, YQ, YS, denom, P0, maxiter, tol),
+                            devices)
 
 
 def pack_and_solve_poly(problems, img_shape, params0=None,
@@ -618,3 +692,33 @@ def evaluate_foreground(problem, params, sigma, cutoff, chunk=524288):
         fg[start:start + n] = _host(chunk_fg)[:n].astype(bool)
     return fg
 
+
+
+def solve_problem_traced(problem, alpha=0.5, epsilon=1.0, smooth_amount=10,
+                         gaussian_shape_multiplier=2,
+                         maxiter=DEFAULT_MAXITER, tol=DEFAULT_TOL):
+    """Debug re-solve of ONE problem recording the energy after every few
+    Newton iterations (the replacement for the reference's per-object Ray
+    worker logs, ``superdsm/objects.py:220-233``). Runs the batch solver at
+    increasing iteration caps and returns a dict with the energy trace, the
+    status and the solution, with the JAX package's keys."""
+    from .batching import solve_problems
+
+    trace = []
+    last = None
+    for it in range(0, maxiter + 1, max(1, maxiter // 16)):
+        res = solve_problems([problem], alpha=alpha, epsilon=epsilon,
+                             smooth_amount=smooth_amount,
+                             gaussian_shape_multiplier=gaussian_shape_multiplier,
+                             maxiter=max(it, 1), tol=tol)[0]
+        trace.append({'iterations': max(it, 1), 'energy': float(res.energy)})
+        last = res
+    return {
+        'n_pixels': int(problem.n_pixels),
+        'n_deform': int(problem.n_deform),
+        'status': last.status,
+        'energy': float(last.energy),
+        'params': np.asarray(last.params).tolist(),
+        'energy_trace': trace,
+        'warm_started': problem.init_params is not None,
+    }

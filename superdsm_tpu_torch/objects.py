@@ -342,6 +342,15 @@ def compute_objects(objects, y, atoms, dsm_cfg, log_root_dir=None,
               f'unpack={time.time() - _t_solved:.3f}s',
               file=sys.stderr, flush=True)
 
+    # per-object debug dump: SDSM_DEBUG_FOOTPRINT="3" (or "2,7") re-solves
+    # the object with that exact footprint recording the energy after every
+    # few Newton iterations — the replacement for the reference's per-object
+    # Ray worker logs (superdsm/objects.py:220-233)
+    debug_fp = os.environ.get('SDSM_DEBUG_FOOTPRINT')
+    if debug_fp:
+        _dump_debug_footprint(debug_fp, problems, results, objects, dsm_cfg,
+                              smooth_amount, log_root_dir)
+
     if log_root_dir is not None:
         # per-solve telemetry (the reference redirects each Ray worker's
         # stdout to log/<img>/genN/<cidx>.txt, objects.py:220-233; the
@@ -359,3 +368,111 @@ def compute_objects(objects, y, atoms, dsm_cfg, log_root_dir=None,
     out.write(f'{status_line[1]}: {len(objects)} ({fallbacks}x fallback)')
     return objects
 
+
+
+def _dump_debug_footprint(debug_fp, problems, results, objects, dsm_cfg,
+                          smooth_amount, log_root_dir):
+    """Writes the :func:`~superdsm_tpu_torch.dsm.solver.solve_problem_traced`
+    record of the object whose footprint is ``debug_fp`` (comma list) to
+    ``debug_object_<labels>.json`` in ``log_root_dir``, or to stderr."""
+    import json
+    from .dsm.solver import solve_problem_traced
+    wanted = frozenset(int(x) for x in debug_fp.split(',') if x.strip())
+    for prob, res in zip(problems, results):
+        obj = objects[prob.tag]
+        if frozenset(obj.footprint) != wanted:
+            continue
+        record = solve_problem_traced(
+            prob, alpha=dsm_cfg.get('alpha', 0.5),
+            epsilon=dsm_cfg.get('epsilon', 1.0),
+            smooth_amount=smooth_amount,
+            gaussian_shape_multiplier=dsm_cfg.get('gaussian_shape_multiplier', 2),
+            maxiter=dsm_cfg.get('newton_maxiter', 50),
+            tol=dsm_cfg.get('newton_tol', 1e-5))
+        record['footprint'] = sorted(obj.footprint)
+        record['batched_energy'] = float(res.energy)
+        record['batched_status'] = res.status
+        if log_root_dir is not None:
+            from ._aux import mkdir
+            mkdir(log_root_dir)
+            path = os.path.join(log_root_dir,
+                                f'debug_object_{"_".join(map(str, sorted(wanted)))}.json')
+            with open(path, 'w') as fout:
+                json.dump(record, fout, indent=2)
+        else:
+            print(f'[SDSM_DEBUG_FOOTPRINT] {json.dumps(record)}', file=sys.stderr)
+
+
+class Energy:
+    """Host-side evaluator of the convex energy psi for one region.
+
+    API-parity counterpart of the reference's ``Energy``
+    (``superdsm/dsm.py:253-385``): callable on a parameter vector, exposing
+    the region and the deformation dimensionality. The batched device
+    solver does not use this class; it exists so code written against the
+    reference's ``cvxprog``/``Energy`` interface keeps working. Evaluates in
+    numpy on the host (the smooth matrix is built once, on the CPU).
+    """
+
+    def __init__(self, region, epsilon, alpha, smooth_amount=np.inf,
+                 gaussian_shape_multiplier=2, smooth_subsample=20):
+        import torch
+        from .dsm.smooth import build_smooth_matrix, smooth_matrix_params
+        self.roi = region
+        self.epsilon = float(epsilon)
+        self.alpha = float(alpha)
+        self.p = make_problem(region, smooth_amount=smooth_amount,
+                              gaussian_shape_multiplier=gaussian_shape_multiplier,
+                              smooth_subsample=smooth_subsample)
+        if self.p.n_deform:
+            _, cutoff = smooth_matrix_params(smooth_amount, gaussian_shape_multiplier)
+            self.smooth_mat = build_smooth_matrix(
+                torch.from_numpy(self.p.pts.astype(np.float32)),
+                torch.from_numpy(self.p.sub.astype(np.float32)),
+                float(smooth_amount), int(cutoff)).numpy()
+        else:
+            self.smooth_mat = np.zeros((self.p.n_pixels, 0), np.float32)
+
+    def __call__(self, params):
+        params = params.array if hasattr(params, 'array') else np.asarray(params, float)
+        theta = params[:6]
+        xi = params[6:6 + self.p.n_deform]
+        s = polynomial_basis(self.p.norm_coords().astype(float)) @ theta
+        if len(xi):
+            s = s + self.smooth_mat @ xi
+        data = np.logaddexp(0.0, -self.p.yv.astype(float) * s).sum()
+        reg = self.alpha * (np.sqrt(xi ** 2 + self.epsilon).sum()
+                            - len(xi) * np.sqrt(self.epsilon)) if len(xi) else 0.0
+        return data + max(reg, 0.0)
+
+
+def cvxprog(region, scale=1000, epsilon=1.0, alpha=0.5, smooth_amount=10,
+            smooth_subsample=20, gaussian_shape_multiplier=2,
+            smooth_mat_allocation_lock=None, smooth_mat_dtype='float32',
+            sparsity_tol=0, hessian_sparsity_tol=0, init='elliptical',
+            cachesize=0, cachetest=None, cp_timeout=None,
+            newton_maxiter=None, newton_tol=None):
+    """Fits a deformable shape model to one image region.
+
+    Drop-in counterpart of the reference's ``cvxprog``
+    (``superdsm/objects.py:361-412``): returns ``(J, model, status)`` where
+    ``J`` is an :class:`Energy` evaluator, ``model`` a
+    :class:`~superdsm_tpu_torch.dsm.model.DeformableShapeModel`, and
+    ``status`` ``'optimal'`` or ``'fallback'``. The solve runs through
+    :func:`~superdsm_tpu_torch.dsm.batching.solve_problems` on the selected
+    device (the gram kernel where the problem's (P, n) serve it); the
+    cvxopt-era arguments (``scale``, ``cachesize``, ``cp_timeout``, locks,
+    sparsity tolerances) are accepted and ignored.
+    """
+    from .dsm.solver import DEFAULT_MAXITER, DEFAULT_TOL
+    problem = make_problem(region, smooth_amount=smooth_amount,
+                           gaussian_shape_multiplier=gaussian_shape_multiplier,
+                           smooth_subsample=smooth_subsample)
+    result = solve_problems(
+        [problem], alpha=alpha, epsilon=epsilon, smooth_amount=smooth_amount,
+        gaussian_shape_multiplier=gaussian_shape_multiplier, init=init,
+        maxiter=newton_maxiter or DEFAULT_MAXITER,
+        tol=newton_tol or DEFAULT_TOL)[0]
+    J = Energy(region, epsilon, alpha, smooth_amount,
+               gaussian_shape_multiplier, smooth_subsample)
+    return J, DeformableShapeModel(np.asarray(result.params, float)), result.status

@@ -10,7 +10,9 @@ while it waits for the card. Each thread uses its own pipeline instance
 
 On the card every worker thread runs its images on a CUDA stream of its own
 (:func:`worker_stream`): threads that all issued to the default stream
-would serialize there and the overlap would be lost. Those streams do not
+would serialize there and the overlap would be lost. Over several devices
+each worker thread also pins its solves to one of them
+(:func:`~superdsm_tpu_torch.dsm.batching.device_scope`). Those streams do not
 synchronize with the default stream, so nothing a worker launches may be
 read from another stream; the solve seam copies its results on the
 worker's stream (:func:`superdsm_tpu_torch.dsm.batching._fetch_with_deadline`).
@@ -22,7 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from .._device import get_device
+from .._device import check_present, get_device
 from ..output import get_output
 
 _LOCAL = threading.local()
@@ -30,16 +32,21 @@ _LOCAL = threading.local()
 
 @contextlib.contextmanager
 def worker_stream():
-    """Runs the enclosed block on this thread's own CUDA stream, created on
-    the thread's first call, when the selected device is CUDA; a no-op on
-    the CPU. Yields the stream (or None)."""
+    """Runs the enclosed block on this thread's own CUDA stream of the
+    selected device (the thread's device scope, if any), created on the
+    thread's first call for that device, when it is CUDA; a no-op on the
+    CPU. Yields the stream (or None)."""
     device = get_device()
     if device.type != 'cuda':
         yield None
         return
-    stream = getattr(_LOCAL, 'stream', None)
+    streams = getattr(_LOCAL, 'streams', None)
+    if streams is None:
+        streams = _LOCAL.streams = {}
+    key = torch.cuda._get_device_index(device, optional=True)
+    stream = streams.get(key)
     if stream is None:
-        stream = _LOCAL.stream = torch.cuda.Stream(device=device)
+        stream = streams[key] = torch.cuda.Stream(device=key)
     with torch.cuda.stream(stream):
         yield stream
 
@@ -56,20 +63,21 @@ def process_images_pipelined(pipeline_factory, base_cfg, images, threads=2,
         contention).
     :param process_image: Override for the per-image entry point; defaults to
         :func:`superdsm_tpu_torch.automation.process_image`.
-    :param devices: Optional list of devices. One GPU is the selected device
-        (``None`` or a list holding just it); more than one raises until the
-        multi-GPU slice of the port.
+    :param devices: Optional list of devices; worker threads round-robin
+        over them (:class:`~superdsm_tpu_torch.dsm.batching.
+        thread_device_assigner`), each pinning its solves to its device.
+        ``None`` is the selected device. A device that is not present
+        raises.
     :return: List of pipeline ``data`` dicts, aligned with ``images``.
     """
     from ..automation import process_image as _process_image
-    device = get_device()
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            'process_images_pipelined over several devices belongs to the '
-            'multi-GPU slice of the port, which is not ported yet')
-    if devices and torch.device(devices[0]).type != device.type:
-        raise ValueError(f'devices={devices}: the selected device is {device} '
-                         '(superdsm_tpu_torch.set_device)')
+    from ..dsm.batching import device_scope, thread_device_assigner
+    if devices is None:
+        get_device()  # raises when the selected device is absent
+        devices = [None]  # no scope: the selected device
+    else:
+        devices = [check_present(torch.device(d)) for d in devices]
+    assign = thread_device_assigner(devices)
     run_one = process_image or _process_image
     out = get_output(out)
     images = list(images)
@@ -84,7 +92,7 @@ def process_images_pipelined(pipeline_factory, base_cfg, images, threads=2,
         # compute; with several images overlapping the device is already
         # busy, so it is off unless the caller pinned it
         cfg.set_default('c2f-region-analysis/speculate', False)
-        with worker_stream():
+        with device_scope(assign()), worker_stream():
             data, _, _ = run_one(local.pipeline, cfg, img,
                                  out=out.derive(muted=True))
         return idx, data

@@ -227,9 +227,11 @@ def test_debug_prints_telemetry(trees, tmp_path, monkeypatch, capsys):
 
 
 def test_mesh_is_refused(trees, capsys):
+    """A mesh needing more devices than the machine has is a parser error
+    (the CPU is one device)."""
     with pytest.raises(SystemExit):
         B.run_cli([str(trees['port']), '--run', '--mesh', 'batch:4'])
-    assert 'multi-GPU' in capsys.readouterr().err
+    assert 'mesh 4x1 needs more than 1 devices' in capsys.readouterr().err
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason='checks the CPU-only case')

@@ -470,3 +470,42 @@ def test_fetch_with_deadline_waits_for_the_callers_stream():
         x.fill_(9.0)
         (host,) = batching._fetch_with_deadline([x], 60)
     assert (host == 9.0).all()
+
+
+_FIRST_LINALG_FROM_THREADS = '''
+import threading, torch
+from superdsm_tpu_torch.dsm import solver
+barrier = threading.Barrier(8)
+errors = []
+def first_solve():
+    Q = torch.rand((2, 64, 6), device='cuda')
+    yv = torch.randn((2, 64), device='cuda')
+    w = torch.ones((2, 64), device='cuda')
+    barrier.wait(timeout=60)
+    try:
+        solver._lsq_init(Q, yv, w)
+        torch.cuda.synchronize()
+    except RuntimeError as error:
+        errors.append(str(error))
+threads = [threading.Thread(target=first_solve) for _ in range(8)]
+for t in threads: t.start()
+for t in threads: t.join(timeout=120)
+assert not any(t.is_alive() for t in threads)
+assert not errors, errors
+'''
+
+
+@pytest.mark.cuda
+def test_first_linalg_calls_from_threads():
+    """A fresh process whose first CUDA linear-algebra calls come from 8
+    threads at once (a forked batch task's file stream) solves in every
+    thread: PyTorch's lazy load of its linalg library is serialized."""
+    import os
+    import subprocess
+    import sys
+    _cuda()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, '-c', _FIRST_LINALG_FROM_THREADS],
+                          cwd=repo, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, 'PYTHONPATH': repo})
+    assert proc.returncode == 0, proc.stderr[-2000:]

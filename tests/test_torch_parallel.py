@@ -1,7 +1,8 @@
 """The port's threaded image stream and solve-seam guards, on the CPU.
 
 - ``process_images_pipelined`` with 2 threads gives the serial results
-  (equal label maps and energies).
+  (equal label maps and energies), also with its workers spread over a
+  device list; a list naming absent cards raises.
 - The ``cp_timeout`` fallback rows equal the JAX package's
   ``_fallback_results_after_timeout`` on the same problems (energies to
   rtol 1e-6, masks and parameters equal), and ``solve_problems`` arms the
@@ -62,9 +63,24 @@ def test_pipelined_equals_serial():
 
 
 def test_pipelined_refuses_several_devices():
-    with pytest.raises(NotImplementedError, match='multi-GPU'):
+    """A device list naming cards that are not present raises before any
+    image is processed."""
+    with pytest.raises(RuntimeError, match='no CUDA device|not present'):
         process_images_pipelined(T.create_default_pipeline, T.Config(), [],
-                                 devices=['cuda:0', 'cuda:1'])
+                                 devices=['cuda:0', 'cuda:99'])
+
+
+def test_pipelined_stream_across_devices():
+    """Workers round-robin over a device list, each pinned to its device,
+    with the shared-device stream's results."""
+    cfg = T.Config({'AF_scale': 10, 'global-energy-minimization': {'beta': 0.5}})
+    images = [_field(seed) for seed in (0, 1)]
+    shared = process_images_pipelined(T.create_default_pipeline, cfg, images,
+                                      threads=2)
+    per_device = process_images_pipelined(T.create_default_pipeline, cfg, images,
+                                          threads=2, devices=['cpu', 'cpu'])
+    for a, b in zip(shared, per_device):
+        assert np.array_equal(rasterize_labels(a), rasterize_labels(b))
 
 
 def test_worker_stream_is_a_no_op_on_the_cpu():

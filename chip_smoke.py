@@ -20,8 +20,11 @@ result lines):
    hybrid schedule's 1-pass full gram (``dense-1pass``) also at few-lane
    shapes the main path launches ((1, 8192, 128), (1, 32768, 512) banded
    for float32, (64, 8192, 128) with 4 lanes active; the kernels split
-   their pixel loop across blocks), and ``dense-1pass`` at (8, 16384, 1024),
-   a launch that fills the card in one segment, where the bf16 kernel
+   their pixel loop across blocks), the float32 route also at the banded
+   B = 1 and B = 2 re-solves at (16384, 512), the main path's most
+   frequent launches (their launches per bench image from phase 4's
+   profile go into the table's ``other_shapes``), and ``dense-1pass`` at
+   (8, 16384, 1024), a launch that fills the card in one segment, where the bf16 kernel
    writes H itself: the float32 kernel to
    rtol = atol = 1e-4; the bf16 kernel at 3 passes to rtol = atol = 1e-4,
    at 1 pass within bf16's unit roundoff elementwise
@@ -44,8 +47,15 @@ result lines):
    reference's own solves stall; each is excused by its energy witness,
    and any other row fails), seed 3 once more with the plain version's
    float64 gram instead of the kernels, which must leave the golden at the
-   same rows (center 3 px, size 10%); then one more run of seed 0 under ``torch.profiler``:
-   the float32 gram's device ms per image against the first kernel's
+   same rows (center 3 px, size 10%); then the strict gate: each seed's
+   label map against the float64-sum golden ``bench-seed{N}-f64sums.csv``
+   (the JAX package with its Newton systems' pixel sums in float64, as the
+   port sums them) at center 3 px, size 10%, at most one spurious and one
+   missing row and no row excused: a miss fails the phase, except on seed
+   3, which does not meet the gate (its split, at a six-parameter c2f
+   solve that stalls in both packages; ROADMAP section C 1) and whose
+   outcome is printed NOT met (``--strict`` fails on it too); then one
+   more run of seed 0 under ``torch.profiler``: the float32 gram's device ms per image against the first kernel's
    208 ms, the device's idle share of the wall, and the gram launches by
    (B, active lanes, P, n, route, pixel segments);
 5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` through
@@ -104,7 +114,11 @@ result lines):
    ``tests/data/torch_port/mosaic-2048-seed0-witness.csv``, and whether at
    most 4 (one per tile) are left without one is printed: that gate is not
    met yet (ROADMAP section C); a row that file does not list fails the
-   phase. The 2-thread label map must be bitwise equal to the 1-thread one;
+   phase. The strict gate: the same label map against the float64-sum
+   golden ``mosaic-2048-seed0-f64sums.csv``, at most 4 spurious and 4
+   missing rows (one per tile), no row excused: not met (ROADMAP section
+   C 1), printed NOT met, enforced only under ``--strict``.
+   The 2-thread label map must be bitwise equal to the 1-thread one;
 11. meshes on one card: the sharded DSM solver at (B, P, n) = (8, 16384,
    128) over a (1, 2) mesh of ``[cuda:0, cuda:0]`` (lanes built as phase 3
    builds them): finite energies, one float32 ``dense`` launch per shard per
@@ -137,6 +151,10 @@ seeds 0-3 at ``AF_scale=12`` (after one cold run of seed 0),
 global-energy-minimization seconds, lane Newton iterations, solve calls
 and canonically re-solved lanes (``batching.device_accounting``), gram
 launches per route and objects, and seed 0's match against the golden.
+
+``python3 chip_smoke.py --strict`` is the run above with the float64-sum
+gate enforced on every image (:data:`F64_NOT_MET` included): it fails
+today, at bench seed 3 in phase 4.
 """
 
 import contextlib
@@ -165,10 +183,14 @@ NIH3T3_SCALE = 42.426406871192846
 KERNEL_SHAPES = [(64, 8192, 128, 'dense', 48), (32, 12288, 256, 'triangle', 24),
                  (16, 32768, 512, 'banded', 12)]
 #: ... and few-lane launches the main path makes (the B = 1 canonical
-#: re-solves, a batch with most lanes converged), float32 only: the kernel
-#: splits their pixel loop across blocks.
+#: re-solves, a batch with most lanes converged), where the kernel splits
+#: their pixel loop across blocks: these with the float32 route and the
+#: 1-pass full gram (the hybrid schedule's cheap gram) ...
 FEW_LANE_SHAPES = [(1, 8192, 128, 'dense', 1), (1, 32768, 512, 'banded', 1),
                    (64, 8192, 128, 'dense', 4)]
+#: ... and these with the float32 route only: the banded B = 1 and B = 2
+#: re-solves at (16384, 512), the main path's most frequent launches.
+FEW_LANE_F32_SHAPES = [(1, 16384, 512, 'banded', 1), (2, 16384, 512, 'banded', 2)]
 #: A 1-pass full launch that fills the card in one segment (the hybrid
 #: schedule's cheap gram at n = 1024): the bf16 kernel's direct write of H.
 ONE_SEGMENT_SHAPES = [(8, 16384, 1024, 'dense', 8)]
@@ -178,13 +200,16 @@ def _cases():
     """Phase 3's launches: each shape with the ``(passes, full)`` of every
     route it runs: all routes at the table shapes (the bf16 kernel in full
     mode where the base route is dense), the float32 route and the 1-pass
-    full gram at the few-lane shapes, the 1-pass full gram at the
-    one-segment shape."""
+    full gram at the few-lane shapes, the float32 route alone at the banded
+    few-lane re-solve shapes, the 1-pass full gram at the one-segment
+    shape."""
     for shape in KERNEL_SHAPES:
         full = shape[3] == 'dense'
         yield shape, [(6, False), (3, full), (1, full)]
     for shape in FEW_LANE_SHAPES:
         yield shape, [(6, False), (1, True)]
+    for shape in FEW_LANE_F32_SHAPES:
+        yield shape, [(6, False)]
     for shape in ONE_SEGMENT_SHAPES:
         yield shape, [(1, True)]
 
@@ -793,9 +818,11 @@ def _excuse(spurious, missing, recorded):
     return witnessed, left, new
 
 
-def _match(seg, expected_csv, max_unmatched=None, recorded=None):
+def _match(seg, expected_csv, max_unmatched=None, recorded=None, enforce=True):
     """Matches a label map against a golden CSV; fails when more than
     ``max_unmatched`` objects are spurious or missing (None: not gated).
+    With ``enforce`` false the gate's outcome is printed and does not fail
+    the run (the float64-sum gate of an image in :data:`F64_NOT_MET`).
 
     With ``recorded``, the rows where this label map is known to leave its
     golden (the form of :data:`SEED3_ROWS`), a row recorded with an energy
@@ -819,7 +846,12 @@ def _match(seg, expected_csv, max_unmatched=None, recorded=None):
     met = max_unmatched is None or (len(spurious) <= max_unmatched
                                     and len(missing) <= max_unmatched)
     if recorded is None:
-        if not met:
+        if not enforce:
+            say(f'[match] {name}: the gate (at most {max_unmatched} spurious and '
+                f'{max_unmatched} missing) is {"met" if met else "NOT met"}; not '
+                'enforced in this run (ROADMAP section C 1): chip_smoke.py --strict '
+                'enforces it')
+        elif not met:
             fail(f'label map disagrees with {name}')
         return matched, len(expected), met
     say(f'[match] {name}: the gate (at most {max_unmatched} spurious and '
@@ -916,10 +948,49 @@ def phase_profile(g):
     say(f'[profile] launches by pixel segments: {dict(sorted(by_segments.items()))}')
     if not records or gram_ms <= 0:
         fail('profile: no gram kernel in the profiled run')
+    return hist
 
 
-def _bench_golden(seed):
-    return os.path.join(REPO, f'tests/data/torch_port/bench-seed{seed}.csv')
+def _profiled_launches(rows, hist):
+    """Writes into each few-lane row of phase 3 (a route's
+    ``other_shapes``) how often the profiled bench image launched that
+    route at its (B, active lanes, P, n), any pixel segments."""
+    for route, row in rows.items():
+        for other in row['other_shapes']:
+            B, P, n = other['shape']
+            other['launches'] = sum(
+                count for (b, act, p, n_, r, _), count in hist.items()
+                if (b, act, p, n_, r) == (B, other['active'], P, n, route))
+            say(f'[profile] {route} ({B}, {P}, {n}), {other["active"]} active: '
+                f'{other["launches"]} launches in the profiled bench image')
+
+
+#: Suffix of the float64-sum goldens: the JAX package with its Newton
+#: systems' pixel sums in float64, as the port sums them
+#: (``tests/data/torch_port/f64sums.py``, ``make_golden.py --f64-sums``).
+#: The port's agreement gate with the reference: at most one spurious and
+#: one missing row per image (one per tile of a mosaic), no row excused.
+F64 = '-f64sums'
+#: The goldens whose gate the port does not meet (ROADMAP section C 1):
+#: bench seed 3 (2 spurious rows, at a c2f solve that stalls in both
+#: packages) and the mosaic. A run matches them and prints the gate NOT met; only
+#: ``chip_smoke.py --strict``, which holds every image to the gate, fails on
+#: them. Every other float64-sum gate fails the run on a miss.
+F64_NOT_MET = ('bench-seed3-f64sums.csv', 'mosaic-2048-seed0-f64sums.csv')
+#: ``--strict``: the float64-sum gate enforced on every image.
+STRICT = False
+
+
+def _bench_golden(seed, suffix=''):
+    return os.path.join(REPO, f'tests/data/torch_port/bench-seed{seed}{suffix}.csv')
+
+
+def _f64_gate(seg, golden, max_unmatched):
+    """The float64-sum golden's gate: :func:`_match` with no row excused,
+    enforced unless the golden is in :data:`F64_NOT_MET` (and not
+    :data:`STRICT`)."""
+    _match(seg, golden, max_unmatched,
+           enforce=STRICT or os.path.basename(golden) not in F64_NOT_MET)
 
 
 def phase_main_path():
@@ -944,13 +1015,12 @@ def phase_main_path():
     if n_obj == 0:
         fail('no objects segmented')
     _match(seg, BENCH_GOLDEN, 1)
+    segs = {0: seg}
     for seed in GOLDEN_SEEDS[1:]:
-        data_s, seg_s, _, _, seconds_s = _segment(make_image(seed)[0], 12)
+        data_s, segs[seed], _, _, seconds_s = _segment(make_image(seed)[0], 12)
         say(f'[main] seed {seed}: {seconds_s:.2f} s, '
             f'{len(data_s["postprocessed_objects"])} objects')
-        _match(seg_s, _bench_golden(seed), 1, SEED3_ROWS if seed == 3 else None)
-        if seed == 3:
-            seg_3 = seg_s
+        _match(segs[seed], _bench_golden(seed), 1, SEED3_ROWS if seed == 3 else None)
     # the witness that seed 3's rows are no rounding of the kernel's: the
     # same image with the plain version's float64 pixel sums on the card
     # (its masks may differ by a few pixels: the same rows at 3 px / 10%)
@@ -965,13 +1035,14 @@ def phase_main_path():
         center_tol=3.0, size_tol=0.1)[1:])
         for kind, rows in (('spurious', spurious), ('missing', missing)))
     say(f'[main] seed 3 with the plain float64 gram on the card: {seconds_p:.2f} s, '
-        f'label map bitwise equal to the kernel\'s: {bool(np.array_equal(seg_p, seg_3))}; '
+        f'label map bitwise equal to the kernel\'s: {bool(np.array_equal(seg_p, segs[3]))}; '
         f'it leaves the golden at spurious {spurious}, missing {missing}: the '
         f'rows of SEED3_ROWS at 3 px / 10%: {same}')
     if not same:
         fail('seed 3 with the plain float64 gram leaves its golden at other rows')
-    phase_profile(g)
-    return launches, seg
+    for seed in GOLDEN_SEEDS:
+        _f64_gate(segs[seed], _bench_golden(seed, F64), 1)
+    return launches, seg, phase_profile(g)
 
 
 @contextlib.contextmanager
@@ -1392,6 +1463,7 @@ def phase_synthetic(root):
 
 MOSAIC_SIZE = 2048
 MOSAIC_GOLDEN = os.path.join(REPO, f'tests/data/torch_port/mosaic-{MOSAIC_SIZE}-seed0.csv')
+MOSAIC_F64_GOLDEN = MOSAIC_GOLDEN.replace('.csv', f'{F64}.csv')
 #: Every row where the port's label map leaves the golden, with its energy
 #: witness: ``diverge.py --mosaic-witness`` on the label map that phase 10
 #: writes to :data:`MOSAIC_LABELS`.
@@ -1440,6 +1512,7 @@ def phase_mosaic():
     np.savez_compressed(MOSAIC_LABELS, labels=labels[1])
     say(f'[mosaic] 1-thread label map written to {os.path.relpath(MOSAIC_LABELS, REPO)}')
     _match(labels[1], MOSAIC_GOLDEN, n_tiles, _witness_rows(MOSAIC_WITNESS))
+    _f64_gate(labels[1], MOSAIC_F64_GOLDEN, n_tiles)
     equal = bool(np.array_equal(labels[1], labels[2]))
     say(f'[mosaic] 2-thread label map bitwise equal to the 1-thread one: {equal}')
     if not equal:
@@ -1758,7 +1831,8 @@ def main():
             if 'registers' in line or 'spill' in line or 'smem' in line:
                 say(f'[build] {src}: {line.strip()}')
     kernels = _timed(3, phase_kernels)
-    launches, bench_seg = _timed(4, phase_main_path)
+    launches, bench_seg, hist = _timed(4, phase_main_path)
+    _profiled_launches(kernels, hist)
     _timed(5, phase_real_crop)
     launches.update(_timed(6, phase_knobs))
     root = tempfile.mkdtemp(prefix='sdsm-batch-')
@@ -1793,5 +1867,8 @@ if __name__ == '__main__':
         ab_run(sys.argv[2])
     elif sys.argv[1:2] == ['--ab'] and len(sys.argv) == 4:
         ab(sys.argv[2:])
+    elif sys.argv[1:] == ['--strict']:
+        STRICT = True
+        main()
     else:
         main()

@@ -19,6 +19,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .version import VERSION as __version__  # noqa: E402,F401
 from ._device import get_device, set_device, use_device  # noqa: E402,F401
 from .pipeline import (Pipeline, Stage, create_pipeline,  # noqa: E402,F401
                        create_default_pipeline)

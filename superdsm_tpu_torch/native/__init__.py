@@ -59,6 +59,10 @@ def get_lib():
                 ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int32,
                 ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)]
             lib.sdsm_watershed.restype = None
+            lib.sdsm_chessboard_edt.argtypes = [
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int32)]
+            lib.sdsm_chessboard_edt.restype = None
             lib.sdsm_subsample_grid.argtypes = [
                 ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int32,
                 ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
@@ -98,6 +102,19 @@ def watershed_native(image, markers, mask=None, connectivity=4):
         mask_ptr = _ptr(mask_arr, ctypes.c_uint8)
     lib.sdsm_watershed(_ptr(image, ctypes.c_float), _ptr(markers, ctypes.c_int32),
                        mask_ptr, H, W, int(connectivity), _ptr(out, ctypes.c_int32))
+    return out
+
+
+def chessboard_edt_native(sources):
+    """Chessboard distance of every pixel to the nearest nonzero pixel of
+    ``sources`` (two-pass chamfer, exact); ``None`` if unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    sources = np.ascontiguousarray(sources, dtype=np.uint8)
+    H, W = sources.shape
+    out = np.zeros((H, W), dtype=np.int32)
+    lib.sdsm_chessboard_edt(_ptr(sources, ctypes.c_uint8), H, W, _ptr(out, ctypes.c_int32))
     return out
 
 

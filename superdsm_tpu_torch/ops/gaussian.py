@@ -92,3 +92,24 @@ def gaussian_filter(img, sigma, truncate=4.0):
     else:
         sigma = tuple(float(s) for s in sigma)
     return _gaussian_filter_2d(img, sigma, float(truncate))
+
+
+def gaussian_filter_host(img, sigma, truncate=4.0):
+    """Host (scipy) Gaussian filter with identical semantics."""
+    import scipy.ndimage as ndi
+    return ndi.gaussian_filter(np.asarray(img, dtype=np.float32), sigma, truncate=truncate)
+
+
+def gaussian_filter_multi(img, sigmas, truncate=4.0):
+    """Filters one image at several sigmas on the selected device (one
+    upload of ``img``, one fetch of all results) and returns the filtered
+    images as float32 numpy arrays, in the order of ``sigmas``. Duplicate
+    sigmas are computed and fetched once."""
+    from .._device import to_device
+    x = to_device(img, torch.float32)
+    sigmas = tuple(float(s) for s in sigmas)
+    unique = tuple(sorted(set(sigmas)))
+    outs = torch.stack([_gaussian_filter_2d(x, (s, s), float(truncate))
+                        for s in unique]).cpu().numpy()
+    by_sigma = dict(zip(unique, outs))
+    return tuple(by_sigma[s] for s in sigmas)

@@ -17,9 +17,14 @@ same inputs against them.
   thread; the rows are those of ``rasterize_mosaic_labels``. About five
   minutes on an 8-core CPU.
 
+``--f64-sums`` writes the same goldens of the JAX package under the port's
+numerics contract, its Newton-system pixel sums in float64
+(``f64sums.install``), to ``bench-seed{N}-f64sums.csv`` and
+``mosaic-2048-seed0-f64sums.csv``: the same inputs and configurations.
+
 Usage::
 
-    JAX_PLATFORMS=cpu python tests/data/torch_port/make_golden.py [--seeds 0 1 2 3] [--mosaic]
+    JAX_PLATFORMS=cpu python tests/data/torch_port/make_golden.py [--seeds 0 1 2 3] [--mosaic] [--f64-sums]
 
 With no option it writes seed 0.
 """
@@ -38,7 +43,7 @@ sys.path.insert(0, str(REPO))
 MOSAIC_SIZE = 2048
 
 
-def bench_golden(seed):
+def bench_golden(seed, suffix=''):
     from bench import make_image
     from superdsm_tpu.automation import process_image
     from superdsm_tpu.config import Config
@@ -52,12 +57,12 @@ def bench_golden(seed):
                                Config({'AF_scale': 12}), g,
                                out=get_output(None).derive(muted=True))
     rows = summarize_label_map(rasterize_labels(data))
-    path = HERE / f'bench-seed{seed}.csv'
+    path = HERE / f'bench-seed{seed}{suffix}.csv'
     save_csv(path, rows)
     print(f'wrote {path}: {len(rows)} objects')
 
 
-def mosaic_golden():
+def mosaic_golden(suffix=''):
     from tools.mosaic_bench import make_mosaic
     from superdsm_tpu.config import Config
     from superdsm_tpu.output import get_output
@@ -72,7 +77,7 @@ def mosaic_golden():
                                       out=get_output(None).derive(muted=True),
                                       threads_per_device=1)
     rows = summarize_label_map(rasterize_mosaic_labels(g.shape, objects))
-    path = HERE / f'mosaic-{MOSAIC_SIZE}-seed0.csv'
+    path = HERE / f'mosaic-{MOSAIC_SIZE}-seed0{suffix}.csv'
     save_csv(path, rows)
     print(f'wrote {path}: {len(rows)} objects from {n_tiles} tiles '
           f'({n} planted nuclei)')
@@ -84,12 +89,20 @@ def main():
                         help='bench seeds to write (default: 0, unless --mosaic)')
     parser.add_argument('--mosaic', action='store_true',
                         help=f'write mosaic-{MOSAIC_SIZE}-seed0.csv')
+    parser.add_argument('--f64-sums', action='store_true',
+                        help='the JAX package with float64 Newton-system pixel '
+                             'sums (f64sums.py), into *-f64sums.csv')
     args = parser.parse_args()
+    suffix = ''
+    if args.f64_sums:
+        from tests.data.torch_port import f64sums
+        f64sums.install()
+        suffix = '-f64sums'
     seeds = args.seeds if args.seeds is not None else ([] if args.mosaic else [0])
     for seed in seeds:
-        bench_golden(seed)
+        bench_golden(seed, suffix)
     if args.mosaic:
-        mosaic_golden()
+        mosaic_golden(suffix)
 
 
 if __name__ == '__main__':

@@ -117,6 +117,37 @@ def test_bench_seed3_rows_are_witnessed():
     assert not any(left.values()) and not any(new.values())
 
 
+@pytest.mark.parametrize('golden,max_unmatched', [
+    *((chip_smoke._bench_golden(seed, chip_smoke.F64), 1)
+      for seed in chip_smoke.GOLDEN_SEEDS),
+    (chip_smoke.MOSAIC_F64_GOLDEN, 4)])
+def test_float64_sum_gate_fails_on_a_miss(golden, max_unmatched, monkeypatch, capsys):
+    """The float64-sum gate excuses no row: a label map with one row more
+    missing than the gate allows fails the run, except on a golden of
+    ``F64_NOT_MET``, where the gate is printed NOT met, and ``--strict``
+    fails it there too. The golden's own rows pass, and so do rows with as
+    many missing as allowed."""
+    import types
+    validate = chip_smoke._validate_module()
+    monkeypatch.setattr(chip_smoke, '_validate_module', lambda: types.SimpleNamespace(
+        load_csv=validate.load_csv, match_rows=validate.match_rows,
+        summarize_label_map=lambda rows: rows))
+    rows = validate.load_csv(golden)
+    chip_smoke._f64_gate(rows, golden, max_unmatched)
+    chip_smoke._f64_gate(rows[max_unmatched:], golden, max_unmatched)
+    short = rows[max_unmatched + 1:]
+    if os.path.basename(golden) in chip_smoke.F64_NOT_MET:
+        capsys.readouterr()
+        chip_smoke._f64_gate(short, golden, max_unmatched)
+        assert 'is NOT met; not enforced' in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke._f64_gate(short, golden, max_unmatched)
+    monkeypatch.setattr(chip_smoke, 'STRICT', True)
+    with pytest.raises(SystemExit):
+        chip_smoke._f64_gate(short, golden, max_unmatched)
+
+
 def test_bench_field_equals_bench_py():
     from bench import make_image
     for seed in chip_smoke.GOLDEN_SEEDS:

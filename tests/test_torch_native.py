@@ -131,3 +131,13 @@ def test_subsample_grid_equals_jax_native(libs, stride, offset):
     ref = jax_native.subsample_grid_native(mask, stride, offset)
     assert ours.dtype == ref.dtype and np.array_equal(ours, ref)
     assert ours.any()
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_chessboard_edt_equals_jax_native(libs, seed):
+    rng = np.random.RandomState(seed)
+    sources = rng.rand(53, 71) < 0.02
+    ours = port_native.chessboard_edt_native(sources)
+    ref = jax_native.chessboard_edt_native(sources)
+    assert ours.dtype == ref.dtype and np.array_equal(ours, ref)
+    assert ours.max() > 2 and (ours[sources] == 0).all()

@@ -115,6 +115,39 @@ def test_gaussian_filter_matches_scipy():
         np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
+def test_gaussian_filter_host_equals_jax():
+    from superdsm_tpu.ops.gaussian import gaussian_filter_host as jax_host
+    from superdsm_tpu_torch.ops.gaussian import gaussian_filter_host
+    img = np.random.RandomState(5).rand(40, 57)
+    for sigma in (1.5, (2.0, 0.0)):
+        ours, ref = gaussian_filter_host(img, sigma), jax_host(img, sigma)
+        assert ours.dtype == ref.dtype == np.float32
+        np.testing.assert_array_equal(ours, ref)
+
+
+def test_gaussian_filter_multi_equals_jax():
+    """Each sigma's image, in the order asked (a duplicate too), against the
+    JAX package's at the tolerance of the port's ``gaussian_filter``."""
+    from superdsm_tpu.ops.gaussian import gaussian_filter_multi as jax_multi
+    from superdsm_tpu_torch.ops.gaussian import gaussian_filter_multi
+    img = np.random.RandomState(6).rand(70, 90).astype(np.float32)
+    sigmas = (12.0, np.sqrt(2), 40.0, 12.0)  # Toeplitz, conv, pad > size
+    with T.use_device('cpu'):
+        ours = gaussian_filter_multi(img, sigmas)
+    ref = jax_multi(img, sigmas)
+    assert len(ours) == len(sigmas)
+    for o, r in zip(ours, ref):
+        assert isinstance(o, np.ndarray) and o.dtype == np.float32
+        np.testing.assert_allclose(o, np.asarray(r), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(ours[0], ours[3])
+
+
+def test_version_equals_jax():
+    import superdsm_tpu
+    from superdsm_tpu_torch.version import VERSION
+    assert T.__version__ == VERSION == superdsm_tpu.__version__
+
+
 def test_resume_from_jax_c2f_stage(field):
     """The batch pickup contract across packages: the JAX run's data after
     c2f-region-analysis, carried over with ``interop.from_jax``, resumes in

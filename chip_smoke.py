@@ -10,10 +10,11 @@ result lines):
 
 1. environment: torch/CUDA versions, whether triton imports, the card's name
    and power limit; exits non-zero without CUDA or without the package;
-2. build: compiles both gram kernels (``superdsm_tpu_torch/csrc/
-   gram_grad_hess.cu`` and ``gram_grad_hess_bf16.cu``) with one nvcc each,
-   started together, for sm_90a; prints the build seconds and ptxas'
-   registers, shared memory and spills;
+2. build: compiles the gram kernels (``superdsm_tpu_torch/csrc/
+   gram_grad_hess.cu`` and ``gram_grad_hess_bf16.cu``) and the solver's lane
+   kernels (``lane_ops.cu``) with one nvcc each, started together, for
+   sm_90a; prints the build seconds and ptxas' registers, shared memory and
+   spills;
 3. every gram route against its plain PyTorch version on the card at the
    main path's shapes, with feature matrices built from real row-major disk
    regions and a quarter of the lanes frozen; the float32 routes and the
@@ -36,7 +37,12 @@ result lines):
    kernel's), beside each launch's bound (the larger of its operations
    over the card's published peak and its bytes over the memory rate,
    counted from this run's inputs) and the time of ``torch.bmm`` of the
-   kappa-scaled active lanes against Bf in float32 (TF32 off);
+   kappa-scaled active lanes against Bf in float32 (TF32 off); then the lane
+   kernels (``lane_matvec``, ``lane_sum``) at the shapes of
+   :data:`LANE_SHAPES`, against their plain versions and an exact float64
+   sum within the float32 bound L u sum|terms|, a lane alone bitwise equal
+   to the same lane in the batch, with ``torch.bmm`` and ``torch.sum`` as
+   the library calls;
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
@@ -55,9 +61,11 @@ result lines):
    3, which does not meet the gate (its split, at a six-parameter c2f
    solve that stalls in both packages; ROADMAP section C 1) and whose
    outcome is printed NOT met (``--strict`` fails on it too); then one
-   more run of seed 0 under ``torch.profiler``: the float32 gram's device ms per image against the first kernel's
-   208 ms, the device's idle share of the wall, and the gram launches by
-   (B, active lanes, P, n, route, pixel segments);
+   more run of seed 0 under ``torch.profiler``: the float32 gram's device
+   ms per image against the first kernel's 208 ms, the device's idle share
+   of the wall, the host's syncs and kernel and graph launches, the Newton
+   loops' captures and replays, and the gram launches by (B, active lanes,
+   P, n, route, pixel segments), counted at each replay;
 5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` through
    the default entry point with no ``AF_scale``: the estimated scale must be
    the JAX estimator's (30 sqrt 2 = 42.4264...) and all 5 objects must
@@ -76,8 +84,8 @@ result lines):
    (a) in process, ``run_cli([root, '--run', '--no-fork', '--force',
    '--fresh', '--task', 'bench'])`` serial (``SUPERDSM_TPU_TASK_THREADS=1``)
    and then with the default 3 threads, each on its own CUDA stream: each
-   threaded seg map within one unmatched object of the serial one (center
-   3 px, size 10%), every float32 gram route launched by the threaded run;
+   threaded seg map bitwise equal to the serial one, every float32 gram
+   route launched by the threaded run;
    images per second of both printed. The deadline fetch of the solve seam
    on a busy non-default stream: ``SolveTimeout`` under a short deadline,
    the producer's values under a long one.
@@ -130,14 +138,24 @@ result lines):
    phase 4's label map, and under a (2, 1) pipeline mesh of the card twice
    (each half of every chunk's lanes in its own thread and stream) within
    one unmatched object of its golden; ``parse_mesh_spec('2')`` raises on a
-   one-card machine.
+   one-card machine;
+12. a lane's batch and the device loop: the two stall fixtures of bench
+   seed 3 (:data:`STALL_FIXTURES`) as B copies at B = 1, 2, 4 and 16, on the
+   device loop and under ``solver.eager_loop()``: every lane's params,
+   energy and per-loop iterations bitwise those of B = 1; bench seeds 0-3
+   on both loops: label maps, flagged lanes, every Newton loop's energies
+   and lane iterations bitwise equal; ``torch.profiler`` over seeds 1-3 on
+   the device loop and seed 0 on the eager one (host syncs, host launches,
+   idle share, captures, replays, graph memory); seconds per image of seeds
+   0-3 at each ``SYNC_EVERY`` of :data:`SYNC_CHOICES` (label maps
+   unchanged); PCG's full run against its early exit at n = 512 and 1024.
 
 Every phase prints its wall seconds (``[phase]`` lines).
 
 The line before the last is the kernel table as JSON (``launches``: the
-float32 routes' counts from phase 4's timed run, the bf16 routes' from
-their knob run of phase 6); the last line is ``{"ok": true, "device":
-{...}}``.
+float32 routes' and the lane kernels' counts from phase 4's timed run, the
+bf16 routes' from their knob run of phase 6); the last line is
+``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --ab ROOT_A ROOT_B`` compares the port of two
 checkouts instead (for example the parent commit unpacked with ``git
@@ -150,7 +168,9 @@ seeds 0-3 at ``AF_scale=12`` (after one cold run of seed 0),
 :data:`AB_REPS` times each, with each run's seconds, its
 global-energy-minimization seconds, lane Newton iterations, solve calls
 and canonically re-solved lanes (``batching.device_accounting``), gram
-launches per route and objects, and seed 0's match against the golden.
+launches per route and objects, and seed 0's match against the golden;
+then one more run of seed 0 under ``torch.profiler``: host syncs, kernel
+and graph launches issued by the host, device busy ms and idle share.
 
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
 gate enforced on every image (:data:`F64_NOT_MET` included): it fails
@@ -160,6 +180,7 @@ today, at bench seed 3 in phase 4.
 import contextlib
 import gzip
 import json
+import math
 import os
 import pickle
 import shutil
@@ -559,10 +580,122 @@ def _active(B, n_active):
     return active.cuda()
 
 
+#: Main-path shapes of the lane kernels (``csrc/lane_ops.cu``), the table's
+#: row first: ``lane_matvec`` (B, P, n) at the banded table chunk's line
+#: search (u = Bf delta), a poly chunk and a B = 1 re-solve; ``lane_sum``
+#: (B, S, P) summed over P at the same chunk's 12 line-search candidates,
+#: a B = 1 re-solve's, and (B, P) one energy per lane.
+LANE_SHAPES = {'lane_matvec': [(16, 32768, 512), (64, 8192, 6), (1, 16384, 512)],
+               'lane_sum': [(16, 12, 32768), (1, 12, 16384), (64, 8192),
+                            (3, 12, 5000)]}
+#: Lane-sum shapes whose terms are positive, as the solver's softplus terms
+#: are (the others are normal: sums that cancel).
+LANE_SUM_POSITIVE = {(3, 12, 5000)}
+#: The products and reductions of the JAX package's jitted Newton step that
+#: the lane kernels stand for (XLA's, not Pallas kernels): ``u = Bf delta``
+#: and the line-search candidates' pixel sums.
+LANE_REPLACES = {'lane_matvec': 'superdsm_tpu/dsm/solver.py:213',
+                 'lane_sum': 'superdsm_tpu/dsm/solver.py:217'}
+LANE_SOURCE = 'superdsm_tpu_torch/csrc/lane_ops.cu'
+
+
+def _check_lane(name, shape):
+    """Holds one lane kernel against its plain version (float32, summed in
+    another order) and an exact float64 sum; checks that a lane alone gives
+    bitwise its result in the batch and that two runs agree bitwise.
+    Returns its table row.
+
+    ``lane_matvec``: within the float32 bound of a sum of n terms (n u
+    sum|terms|, u = 2^-24) of the exact sum; at n <= 8 (one thread a row)
+    bitwise equal to the warp-per-row kernel. ``lane_sum``: bitwise equal
+    to its order replayed on the host (``lane.lane_sum_in_kernel_order``),
+    and within sqrt(L) u sum|terms| of the plain version and of the exact
+    sum (a statistical bound: one term dropped or counted twice exceeds it
+    unless it is below that share of the sum)."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    rng = np.random.RandomState(sum(shape))
+    if name == 'lane_matvec':
+        B, P, n = shape
+        args = (torch.tensor(rng.randn(B, P, n).astype(np.float32), device='cuda'),
+                torch.tensor(rng.randn(B, n).astype(np.float32), device='cuda'))
+        kernel = lambda: lane.matvec_kernel(*args)
+        plain = lambda: lane.matvec_plain(*args)
+        library = lambda: torch.bmm(args[0], args[1][..., None])
+        A, x = (a.double() for a in args)
+        exact = (A @ x[..., None])[..., 0]
+        magnitude = (A.abs() @ x.abs()[..., None])[..., 0]
+        terms = n
+        nbytes = 4.0 * (B * P * n + B * n + B * P)
+        ops = 2.0 * B * P * n
+        alone = lambda b: lane.matvec_kernel(args[0][b:b + 1], args[1][b:b + 1])
+        order_equal = n > 8 or torch.equal(
+            lane.matvec_kernel(*args).view(torch.int32),
+            lane.matvec_kernel(*args, warp_rows=True).view(torch.int32))
+        bound_terms = terms
+    else:
+        dim = 2 if len(shape) == 3 else 1
+        B, L = shape[0], shape[-1]
+        x = rng.randn(*shape).astype(np.float32)
+        if shape in LANE_SUM_POSITIVE:
+            x = np.logaddexp(x, 0.0).astype(np.float32)  # softplus terms
+        ordered = lane.lane_sum_in_kernel_order(x.reshape(-1, L)).reshape(shape[:-1])
+        x = torch.tensor(x, device='cuda')
+        xt = x.transpose(1, 2).contiguous() if dim == 2 else x  # the solver's (B, P, S)
+        kernel = lambda: lane.lane_sum_kernel(xt, 1)
+        plain = lambda: lane.lane_sum_plain(xt, 1)
+        library = lambda: xt.sum(1)
+        exact = x.double().sum(-1)
+        magnitude = x.double().abs().sum(-1)
+        terms = L
+        nbytes = 4.0 * (x.numel() + x.numel() // L)
+        ops = float(x.numel())
+        alone = lambda b: lane.lane_sum_kernel(xt[b:b + 1], 1)
+        order_equal = np.array_equal(kernel().cpu().numpy().view(np.int32),
+                                     ordered.view(np.int32))
+        bound_terms = math.sqrt(L)
+    tag = f'{name} {shape}'
+    out = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(out, kernel()):
+        fail(f'{tag}: two runs differ (not reproducible)')
+    if not all(torch.equal(alone(b)[0], out[b]) for b in (0, B - 1)):
+        fail(f'{tag}: a lane alone differs from the same lane in the batch')
+    ref = plain()
+    err = float((out - ref).abs().max())
+    bound = bound_terms * 2.0 ** -24 * magnitude
+    excess = float(((out.double() - exact).abs() - bound).max())
+    excess_plain = float(((out.double() - ref.double()).abs() - bound).max())
+    say(f'[kernel] {tag}: max_abs_err {err:.3e} against the plain version; '
+        f'max(|d| - {"n" if name == "lane_matvec" else "sqrt(L)"} u sum|terms|) '
+        f'against the float64 sum {excess:.3e}, against the plain version '
+        f'{excess_plain:.3e} (each <= 0); bitwise its order '
+        f'{"(the warp-per-row kernel) " if name == "lane_matvec" else "(replayed on the host) "}'
+        f'{order_equal}; a lane alone bitwise equals it in the batch')
+    if excess > 0:
+        fail(f'{tag}: kernel outside the float32 bound of the exact sum')
+    if name == 'lane_sum' and excess_plain > 0:
+        fail(f'{tag}: kernel outside the float32 bound of the plain version')
+    if not order_equal:
+        fail(f'{tag}: kernel not bitwise equal to its order')
+    ms = _event_ms(kernel)
+    plain_ms = _event_ms(plain)
+    library_ms = _event_ms(library)
+    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
+    say(f'[kernel] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library '
+        f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: '
+        f'{bound_ms / ms:.1%} of the bound')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / ms,
+                library_ms=library_ms, shape=list(shape))
+
+
 def phase_kernels():
     """Phase 3: every launch of :func:`_cases`; a route's row is its table
     shape's, and its launches at the other shapes are listed under it as
-    ``other_shapes``."""
+    ``other_shapes``; then the lane kernels at :data:`LANE_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
@@ -577,6 +710,11 @@ def phase_kernels():
             else:
                 rows[route]['other_shapes'].append(row)
         del Bf, s, yv, w, active, band
+        torch.cuda.empty_cache()
+    for name, shapes in LANE_SHAPES.items():
+        row = _check_lane(name, shapes[0])
+        rows[name] = dict(row, other_shapes=[_check_lane(name, shape)
+                                             for shape in shapes[1:]])
         torch.cuda.empty_cache()
     return rows
 
@@ -763,23 +901,27 @@ ROW_TOL = 0.5
 #: (``diverge.py --seed 3 --footprint 17``). The nuclei at (406.7, 430.1),
 #: which the port splits in two: each package's own energy at the end of
 #: the atom-split solve at offset (414, 370) (``diverge.py --seed 3 --near
-#: 430 407``).
+#: 430 407``). The label map's rows as the card gives them since a lane's
+#: solve stopped depending on its batch (the same objects, a pixel larger
+#: or smaller than before).
 SEED3_ROWS = [
-    ('spurious', (733, 398.7, 418.6), 127.34, 56.16),
-    ('spurious', (737, 414.8, 441.6), 127.34, 56.16),
+    ('spurious', (732, 398.7, 418.6), 127.34, 56.16),
+    ('spurious', (736, 414.8, 441.6), 127.34, 56.16),
     ('missing', (1424, 406.7, 430.1), 127.34, 56.16),
-    ('spurious', (1099, 577.1, 366.5), 657.73, 74.74),
-    ('missing', (1229, 577.0, 367.1), 657.73, 74.74),
+    ('spurious', (1100, 577.0, 366.5), 657.73, 74.37),
+    ('missing', (1229, 577.0, 367.1), 657.73, 74.37),
 ]
 
 
 def _witness_rows(path):
     """The rows of a ``diverge.py --mosaic-witness`` CSV in the form of
-    :data:`SEED3_ROWS`."""
+    :data:`SEED3_ROWS`, each with its recorded cause (empty where the row
+    has its energy witness)."""
     import csv
     with open(path) as fin:
         return [(r['kind'], (int(r['size']), float(r['x']), float(r['y'])),
-                 float(r['e_ref']), float(r['e_port'])) for r in csv.DictReader(fin)]
+                 float(r['e_ref']), float(r['e_port']), r['cause'])
+                for r in csv.DictReader(fin)]
 
 
 #: A label-map row belongs to a planted nucleus within this many pixels.
@@ -792,17 +934,24 @@ def _rows(rows, shown=8):
         f'{len(rows)} rows, the first {shown}: {rows[:shown]}'
 
 
+#: Causes that ``diverge.py --mosaic-witness`` records for a row without an
+#: energy witness from the exact minimum of the atom's energy; its
+#: ``not isolated`` (neither solve stalls) is none.
+STALL_CAUSES = ('both solves stall', 'reference solve stalls', 'port solve stalls')
+
+
 def _excuse(spurious, missing, recorded):
     """Sorts the unmatched rows against ``recorded`` (rows in the form of
-    :data:`SEED3_ROWS`) into ``(witnessed, left, new)``, each a dict of
-    ``kind`` to rows: rows recorded with an energy witness
-    (:data:`WITNESS_RATIO`), rows recorded without one, and rows not
-    recorded at all."""
+    :data:`SEED3_ROWS`, or of :func:`_witness_rows` with a cause) into
+    ``(witnessed, left, new)``, each a dict of ``kind`` to rows: rows
+    recorded with an energy witness (:data:`WITNESS_RATIO`), rows recorded
+    without one but with a cause of :data:`STALL_CAUSES`, and the others: a
+    row not recorded, or recorded with neither."""
     def record(kind, row):
-        for k, r, e_ref, e_port in recorded:
+        for k, r, e_ref, e_port, *cause in recorded:
             if k == kind and r[0] == row[0] and \
                     np.hypot(r[1] - row[1], r[2] - row[2]) <= ROW_TOL:
-                return e_ref, e_port
+                return e_ref, e_port, cause[0] if cause else ''
         return None
 
     witnessed, left, new = ({'spurious': [], 'missing': []} for _ in range(3))
@@ -813,8 +962,10 @@ def _excuse(spurious, missing, recorded):
                 new[kind].append(row)
             elif energies[1] <= WITNESS_RATIO * energies[0]:
                 witnessed[kind].append(row)
-            else:
+            elif energies[2] in STALL_CAUSES:
                 left[kind].append(row)
+            else:
+                new[kind].append(row)
     return witnessed, left, new
 
 
@@ -827,8 +978,9 @@ def _match(seg, expected_csv, max_unmatched=None, recorded=None, enforce=True):
     With ``recorded``, the rows where this label map is known to leave its
     golden (the form of :data:`SEED3_ROWS`), a row recorded with an energy
     witness does not count (:func:`_excuse`); the gate's outcome is printed,
-    and the phase fails only on a row that is not recorded, a new
-    disagreement. Returns ``(matched, golden rows, gate met)``."""
+    and the phase fails on a row that is not recorded, a new disagreement,
+    or recorded with neither a witness nor a cause. Returns ``(matched,
+    golden rows, gate met)``."""
     validate = _validate_module()
     name = os.path.relpath(expected_csv, REPO)
     expected = validate.load_csv(expected_csv)
@@ -857,7 +1009,8 @@ def _match(seg, expected_csv, max_unmatched=None, recorded=None, enforce=True):
     say(f'[match] {name}: the gate (at most {max_unmatched} spurious and '
         f'{max_unmatched} missing) is {"met" if met else "NOT met"}')
     if new['spurious'] or new['missing']:
-        fail(f'label map leaves {name} at rows not recorded: {new}')
+        fail(f'label map leaves {name} at rows not recorded, or recorded with '
+             f'neither an energy witness nor a cause: {new}')
     return matched, len(expected), met
 
 
@@ -888,47 +1041,142 @@ def _merged_ms(intervals):
     return busy / 1e3
 
 
-def phase_profile(g):
-    """Phase 4's profile: one ``torch.profiler`` pass over the bench image.
-    A wrapper installed here only records each gram launch's shape and
-    active lanes (a device copy of ``active``, read after the run, so the
-    pass adds no host sync); prints the gram's device ms against the first
-    kernel's,
-    the device's idle share of the wall and the launch histogram."""
+#: CUDA API calls (runtime and cu*) that make the host wait for the card, and
+#: those that launch a kernel or a CUDA graph, as ``torch.profiler`` records
+#: them on the host.
+HOST_SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
+                   'cudaEventSynchronize', 'cuStreamSynchronize',
+                   'cuCtxSynchronize', 'cudaMemcpy')
+HOST_LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+                     'cuLaunchKernelEx', 'cudaLaunchCooperativeKernel')
+GRAPH_LAUNCH_CALLS = ('cudaGraphLaunch', 'cuGraphLaunch')
+
+
+def _profiled(fn):
+    """Runs ``fn`` under ``torch.profiler``; returns its result and the
+    run's counts: host syncs, kernel and graph launches issued by the host
+    (with the host ms the graph launches took), and the device's busy ms
+    (the union of its activities) with the device spans."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from superdsm_tpu_torch.dsm import gram
-    kernel = gram.grad_hess_kernel
-    records = []
-
-    def recording(Bf, s, yv, w, active, band=None, passes=6, full=False):
-        records.append((tuple(Bf.shape), active.clone(), band is not None,
-                        passes, full))
-        return kernel(Bf, s, yv, w, active, band, passes=passes, full=full)
-
-    gram.grad_hess_kernel = recording
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, _, _, _, seconds = _segment(g, 12)
-    finally:
-        gram.grad_hess_kernel = kernel
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
     # the profiler's raw events: ``prof.events()`` would first build the
     # tree of every host and device event, minutes for one image
     cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
     spans = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
-             for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+             for e in events if e.device_type() == cuda]
     if not spans:
         fail('profile: torch.profiler recorded no device time')
-    busy_ms = _merged_ms([(a, b) for _, a, b in spans])
+    host = [e for e in events if e.device_type() != cuda]
+    names = collections.Counter(e.name() for e in host)
+    return result, dict(
+        syncs=sum(names[n] for n in HOST_SYNC_CALLS),
+        launches=sum(names[n] for n in HOST_LAUNCH_CALLS),
+        graph_launches=sum(names[n] for n in GRAPH_LAUNCH_CALLS),
+        graph_launch_ms=sum(e.duration_ns() for e in host
+                            if e.name() in GRAPH_LAUNCH_CALLS) / 1e6,
+        busy_ms=_merged_ms([(a, b) for _, a, b in spans]),
+        span_ms=(max(b for _, _, b in spans) - min(a for _, a, _ in spans)) / 1e3,
+        spans=spans)
+
+
+#: Kernel families of a profile, by substrings of the kernels' names (the
+#: first that matches; else 'elementwise and reductions').
+KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce')),
+                   ('lane_matvec', ('lane_matvec',)),
+                   ('lane_sum', ('row_sum',)),
+                   ('cuSOLVER/MAGMA', ('potr', 'getr', 'trsm', 'trsv', 'magma',
+                                       'cusolver', 'laswp', 'chol', 'syrk', 'getf',
+                                       'lu_', 'trtri')),
+                   ('cuBLAS products', ('gemm', 'gemv', 'dot_kernel', 'cublas', 'xmma',
+                                        'cutlass', 'splitk', 'reduce_1block')),
+                   ('copies', ('memcpy', 'memset')))
+
+
+def _kernel_family(name):
+    low = name.lower()
+    for family, keys in KERNEL_FAMILIES:
+        if any(k in low for k in keys):
+            return family
+    return 'elementwise and reductions'
+
+
+def _family_split(spans, iterations):
+    """Device ms and activities per Newton iteration by kernel family
+    (:data:`KERNEL_FAMILIES`), largest first: ``[(family, ms, count)]``."""
+    import collections
+    ms, count = collections.Counter(), collections.Counter()
+    for name, a, b in spans:
+        family = _kernel_family(name)
+        ms[family] += (b - a) / 1e3
+        count[family] += 1
+    it = max(iterations, 1)
+    return [(f, t / it, count[f] / it) for f, t in ms.most_common()]
+
+
+def _profile_line(tag, seconds, counts, loop=None):
+    """Prints one profiled image's counts (and its Newton loops' counters,
+    ``solver.LOOP_STATS``, with the device time per iteration by kernel
+    family); returns them as a dict without the spans."""
+    busy = counts['busy_ms']
+    out = dict({k: v for k, v in counts.items() if k != 'spans'}, seconds=seconds,
+               idle=1 - busy / (seconds * 1e3))
+    say(f'[profile] {tag}: wall {seconds:.2f} s, device busy {busy:.1f} ms '
+        f'({len(counts["spans"])} device activities): idle {out["idle"]:.1%} of '
+        f'the wall, {1 - busy / counts["span_ms"]:.1%} of the span from the '
+        f'first to the last device activity; host syncs {counts["syncs"]}, '
+        f'kernel launches issued by the host {counts["launches"]}, graph '
+        f'launches {counts["graph_launches"]} ({counts["graph_launch_ms"]:.1f} '
+        f'ms of host time)')
+    if loop is not None:
+        out['loop'] = dict(loop)
+        iters = max(loop['iterations'], 1)
+        say(f'[profile] {tag}: Newton loops: {loop["solves"]} solves, '
+            f'{loop["iterations"]} iterations, {loop["syncs"]} convergence '
+            f'reads, {loop["graphs"]} graphs captured '
+            f'({1e3 * loop["capture_s"]:.1f} ms capturing, '
+            f'{1e3 * loop["instantiate_s"]:.1f} ms instantiating, graph memory '
+            f'{loop["graph_bytes"] / 2**20:.1f} MiB reserved while capturing), '
+            f'{loop["replays"]} replays; device busy {busy / iters:.3f} ms per '
+            f'iteration')
+        out['families'] = _family_split(counts['spans'], loop['iterations'])
+        say(f'[profile] {tag}: device ms (activities) per Newton iteration by '
+            'kernel family: ' + ', '.join(f'{f} {t:.4f} ({c:.1f})'
+                                          for f, t, c in out['families']))
+    return out
+
+
+def phase_profile(g):
+    """Phase 4's profile: one ``torch.profiler`` pass over the bench image.
+    A launch hook (``gram.LAUNCH_HOOKS``) records each gram launch's shape
+    and active lanes (a device copy of ``active``, read after the run, so
+    the pass adds no host sync; under a replayed CUDA graph the hook runs at
+    each replay, on the graph's own ``active``); prints the gram's device
+    ms against the first kernel's, the device's idle share of the wall, the
+    host's syncs and launches, the Newton loops' counters and the launch
+    histogram. Returns the histogram and the image's counts."""
+    import collections
+    from superdsm_tpu_torch.dsm import gram, solver
+    records = []
+
+    def recording(shape, active, banded, passes, full):
+        records.append((shape, active.clone(), banded, passes, full))
+
+    gram.LAUNCH_HOOKS.append(recording)
+    solver.reset_loop_stats()
+    try:
+        (_, _, _, _, seconds), counts = _profiled(lambda: _segment(g, 12))
+    finally:
+        gram.LAUNCH_HOOKS.remove(recording)
+    spans = counts['spans']
+    busy_ms = counts['busy_ms']
     gram_ms = sum(b - a for name, a, b in spans
                   if any(k in name for k in GRAM_KERNELS)) / 1e3
-    span_ms = (max(b for _, _, b in spans) - min(a for _, a, _ in spans)) / 1e3
-    say(f'[profile] bench image under torch.profiler: wall {seconds:.2f} s, '
-        f'device busy {busy_ms:.1f} ms ({len(spans)} device activities): idle '
-        f'{1 - busy_ms / (seconds * 1e3):.1%} of the wall, '
-        f'{1 - busy_ms / span_ms:.1%} of the span from the first to the last '
-        f'device activity')
+    profile0 = _profile_line('bench seed 0 (device loop)', seconds, counts,
+                             solver.LOOP_STATS)
     say(f'[profile] float32 gram kernels: {gram_ms:.1f} ms device time per '
         f'image ({len(records)} launches; first kernel: '
         f'{FIRST_GRAM_MS:.0f} ms, 213 '
@@ -948,7 +1196,7 @@ def phase_profile(g):
     say(f'[profile] launches by pixel segments: {dict(sorted(by_segments.items()))}')
     if not records or gram_ms <= 0:
         fail('profile: no gram kernel in the profiled run')
-    return hist
+    return hist, profile0
 
 
 def _profiled_launches(rows, hist):
@@ -956,6 +1204,8 @@ def _profiled_launches(rows, hist):
     ``other_shapes``) how often the profiled bench image launched that
     route at its (B, active lanes, P, n), any pixel segments."""
     for route, row in rows.items():
+        if route in LANE_SHAPES:
+            continue
         for other in row['other_shapes']:
             B, P, n = other['shape']
             other['launches'] = sum(
@@ -994,20 +1244,24 @@ def _f64_gate(seg, golden, max_unmatched):
 
 
 def phase_main_path():
-    """Phase 4; returns the timed run's launches and seed 0's label map."""
-    from superdsm_tpu_torch.dsm import gram
+    """Phase 4; returns the timed run's launches (the gram routes' and the
+    lane kernels'), seed 0's label map, the profile's launch histogram and
+    the profiled image's counts."""
+    from superdsm_tpu_torch.dsm import gram, lane
     g, n = make_image(0)
     _, _, _, timings, seconds = _segment(g, 12)
     say(f'[main] cold run: {seconds:.2f} s '
         f'({ {k: round(v, 3) for k, v in timings.items()} })')
     gram.reset_launch_counts()
+    lane.reset_launch_counts()
     data, seg, _, timings, seconds = _segment(g, 12)
-    launches = dict(gram.LAUNCHES)
+    launches = dict(gram.LAUNCHES, **lane.LAUNCHES)
     n_obj = len(data['postprocessed_objects'])
     say(f'[main] timed run: {seconds:.2f} s, {n_obj} objects '
         f'(field has {n} nuclei); stage seconds '
         f'{ {k: round(v, 3) for k, v in timings.items()} }')
-    say(f'[main] gram launches per route: {launches}')
+    say(f'[main] gram launches per route: {dict(gram.LAUNCHES)}; lane '
+        f'kernels: {dict(lane.LAUNCHES)}')
     if any(launches[r] == 0 for r in ('dense', 'triangle', 'banded')):
         fail('the main path left a float32 gram route unlaunched')
     if any(v for r, v in launches.items() if r.endswith('pass')):
@@ -1042,7 +1296,8 @@ def phase_main_path():
         fail('seed 3 with the plain float64 gram leaves its golden at other rows')
     for seed in GOLDEN_SEEDS:
         _f64_gate(segs[seed], _bench_golden(seed, F64), 1)
-    return launches, seg, phase_profile(g)
+    hist, profile0 = phase_profile(g)
+    return launches, seg, hist, profile0
 
 
 @contextlib.contextmanager
@@ -1272,11 +1527,13 @@ def phase_batch(root):
         matched, spurious, missing = validate.match_rows(
             validate.summarize_label_map(seg),
             validate.summarize_label_map(serial[seed]), center_tol=3.0, size_tol=0.1)
+        equal = bool(np.array_equal(seg, serial[seed]))
         say(f'[batch] seed {seed}: threaded vs serial seg map bitwise equal: '
-            f'{bool(np.array_equal(seg, serial[seed]))}; {matched} matched, '
-            f'spurious {spurious}, missing {missing}')
-        if len(spurious) > 1 or len(missing) > 1:
-            fail(f'bench seed {seed}: threaded seg map disagrees with the serial one')
+            f'{equal}; {matched} matched, spurious {spurious}, missing {missing}')
+        if not equal:
+            # a lane's solve depends neither on its batch nor on other
+            # threads' work
+            fail(f'bench seed {seed}: threaded seg map differs from the serial one')
     phase_deadline_fetch()
 
     # (b) the CLI as a user runs it: a fresh process, one fork per task
@@ -1477,7 +1734,7 @@ def phase_mosaic():
     threads; returns the 1-thread run's launches."""
     import torch
     import superdsm_tpu_torch as T
-    from superdsm_tpu_torch.dsm import gram
+    from superdsm_tpu_torch.dsm import gram, solver
     from superdsm_tpu_torch.output import get_output
     from superdsm_tpu_torch.parallel import process_mosaic, rasterize_mosaic_labels
     centers = []
@@ -1487,6 +1744,7 @@ def phase_mosaic():
     labels, launches = {}, {}
     for threads in (1, 2):
         gram.reset_launch_counts()
+        solver.reset_loop_stats()
         t0 = time.time()
         objects, n_tiles = process_mosaic(T.create_default_pipeline, cfg, g,
                                           out=get_output(None).derive(muted=True),
@@ -1498,7 +1756,8 @@ def phase_mosaic():
         say(f'[mosaic] {MOSAIC_SIZE}x{MOSAIC_SIZE} ({n} planted nuclei), '
             f'{threads} thread(s): {len(objects)} objects, {seconds:.2f} s wall, '
             f'{seconds / n_tiles:.2f} s per tile ({n_tiles} tiles of 1024x1024 '
-            f'with halo 160); gram launches per route {launches[threads]}')
+            f'with halo 160); gram launches per route {launches[threads]}; '
+            f'Newton loops {dict(solver.LOOP_STATS)}')
     if not any(launches[1].get(r) for r in ('dense', 'triangle', 'banded')):
         fail('mosaic: no float32 gram route launched')
     validate = _validate_module()
@@ -1679,6 +1938,252 @@ def phase_mesh(bench_seg):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: a lane's batch, and the Newton loop as a device program
+# ---------------------------------------------------------------------------
+
+#: The two stall fixtures of bench seed 3 (``make_stall_fixture.py``): its
+#: c2f solve at crop offset (279, 380) (six parameters) and atom 17 (n =
+#: 128, the gram kernel's dense route), each solved at these batch sizes.
+STALL_FIXTURES = {'c2f': 'tests/data/torch_port/stall-seed3-c2f-279-380.npz',
+                  'atom17': 'tests/data/torch_port/stall-seed3-atom17.npz'}
+FIXTURE_BATCHES = (1, 2, 4, 16)
+#: Newton iterations between two convergence reads that phase 12 times
+#: (``solver.SYNC_EVERY``).
+SYNC_CHOICES = (1, 2, 4, 8)
+
+
+def _fixture(path):
+    """A stall fixture as ``(solve_problems keywords, Problem)``."""
+    from superdsm_tpu_torch.dsm import batching
+    fx = np.load(os.path.join(REPO, path))
+    if 'sub' in fx.files:
+        kw = dict(alpha=float(fx['alpha']), epsilon=float(fx['epsilon']),
+                  smooth_amount=float(fx['smooth_amount']),
+                  gaussian_shape_multiplier=int(fx['gaussian_shape_multiplier']))
+        sub = fx['sub']
+    else:
+        kw, sub = dict(smooth_amount=np.inf), np.zeros((0, 2), np.int32)
+    return kw, batching.Problem(pts=fx['pts'], offset=fx['offset'],
+                                img_shape=tuple(int(v) for v in fx['img_shape']),
+                                yv=fx['yv'], sub=sub)
+
+
+@contextlib.contextmanager
+def _solve_log():
+    """Records every Newton loop's energies and per-lane iterations (device
+    copies, in call order) while the block runs."""
+    from superdsm_tpu_torch.dsm import solver
+    impl = solver._solve_batch_impl
+    log = []
+
+    def logged(*args, **kwargs):
+        out = impl(*args, **kwargs)
+        log.append((out[1].clone(), out[5].clone()))
+        return out
+
+    solver._solve_batch_impl = logged
+    try:
+        yield log
+    finally:
+        solver._solve_batch_impl = impl
+
+
+def _fixtures_across_batches():
+    """Each stall fixture as B copies at every B of
+    :data:`FIXTURE_BATCHES`, on the device loop and on the eager one: every
+    lane's params, energy and per-loop iterations bitwise those of B = 1 on
+    the device loop."""
+    from superdsm_tpu_torch.dsm import batching, solver
+    for name, path in STALL_FIXTURES.items():
+        kw, problem = _fixture(path)
+        ref = None
+        for eager in (False, True):
+            for B in FIXTURE_BATCHES:
+                with _solve_log() as log, \
+                        (solver.eager_loop() if eager else contextlib.nullcontext()):
+                    res = batching.solve_problems([problem] * B, **kw)
+                its = [it.cpu() for _, it in log]
+                if ref is None:
+                    ref = (res[0].params, res[0].energy, [it[0] for it in its])
+                same = (len(its) == len(ref[2]) and all(
+                    np.array_equal(r.params, ref[0]) and r.energy == ref[1]
+                    for r in res) and all(bool((it[:B] == it0).all())
+                                          for it, it0 in zip(its, ref[2])))
+                say(f'[loop] {name} fixture, B = {B}, '
+                    f'{"eager" if eager else "device"} loop: energy '
+                    f'{res[0].energy!r}, lane iterations per loop '
+                    f'{[int(it[0]) for it in its]}; every lane bitwise equal to '
+                    f'B = 1 on the device loop: {same}')
+                if not same:
+                    fail(f'{name} fixture: a lane at B = {B} differs from B = 1')
+
+
+#: (P, batch sizes) at which phase 12 holds the solver's batched library
+#: calls to each lane's bits alone.
+LIBRARY_ROUTE_CASES = [(2048, (2, 3, 5, 64, 256)), (32768, (2, 5, 64, 256)),
+                       (131072, (2, 5, 16))]
+
+
+def _library_routes_across_batches():
+    """The calls that the solver makes on the card for a whole batch (a
+    batch of one as the same lane twice): the n = 6 float64 gram of
+    ``gram.grad_hess_plain`` and ``solver._lsq_init``'s float64 products and
+    6x6 ``solve_ex``. Every lane of a batch bitwise equal to that lane
+    alone, at each of :data:`LIBRARY_ROUTE_CASES`."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram, solver
+    rng = np.random.RandomState(5)
+    for P, batches in LIBRARY_ROUTE_CASES:
+        for B in batches:
+            t = lambda a: torch.tensor(a.astype(np.float32), device='cuda')
+            Bf = t(rng.randn(B, P, 6))
+            s, yv = t(rng.randn(B, P)), t(np.sign(rng.randn(B, P)))
+            w = t(rng.rand(B, P) < 0.9)
+            g, H = gram.grad_hess_plain(Bf, s, yv, w)
+            theta = solver._lsq_init(Bf, yv, w)
+            same = True
+            for b in sorted({0, B // 2, B - 1}):
+                one = lambda a: a[b:b + 1]
+                g1, H1 = gram.grad_hess_plain(one(Bf), one(s), one(yv), one(w))
+                theta1 = solver._lsq_init(one(Bf), one(yv), one(w))
+                same &= bool(torch.equal(g1, one(g)) and torch.equal(H1, one(H))
+                             and torch.equal(theta1, one(theta)))
+            say(f'[loop] batched library calls at (B, P) = ({B}, {P}): n = 6 '
+                f'float64 gram and _lsq_init of a lane alone bitwise equal to '
+                f'the lane in the batch: {same}')
+            if not same:
+                fail(f'batched library calls at (B, P) = ({B}, {P}): a lane '
+                     'alone differs from the lane in the batch')
+            del Bf, s, yv, w, g, H
+    torch.cuda.empty_cache()
+
+
+def _loop_run(image, eager):
+    """One bench image on the device loop or the eager one: label map,
+    flagged lanes, each Newton loop's energies and lane iterations, lane
+    iterations in all, seconds and the loops' counters."""
+    from superdsm_tpu_torch.dsm import batching, solver
+    acct = batching.device_accounting()['lane_iters']
+    solver.reset_loop_stats()
+    with _solve_log() as log, \
+            (solver.eager_loop() if eager else contextlib.nullcontext()):
+        _, seg, _, _, seconds = _segment(image, 12)
+    return dict(seg=seg, flagged=list(batching._LAST_FLAGGED),
+                log=[(f.cpu(), it.cpu()) for f, it in log],
+                lane_iters=batching.device_accounting()['lane_iters'] - acct,
+                seconds=seconds, loop=dict(solver.LOOP_STATS))
+
+
+def _same_run(a, b):
+    import torch
+    return (np.array_equal(a['seg'], b['seg']) and a['flagged'] == b['flagged']
+            and a['lane_iters'] == b['lane_iters'] and len(a['log']) == len(b['log'])
+            and all(torch.equal(fa, fb) and torch.equal(ia, ib)
+                    for (fa, ia), (fb, ib) in zip(a['log'], b['log'])))
+
+
+def _pcg_cost():
+    """PCG run to ``CG_MAX_ITERS`` (as in the graph) against its early exit
+    on Newton systems of the bench chunk shapes at n = 512 and 1024 (the
+    phase-3 inputs' H with the loop's first damping): bitwise equal, and the
+    device ms of each (graph replays between CUDA events; the early exit as
+    the steps it runs, without its host syncs)."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram, lane, solver
+    for shape in (KERNEL_SHAPES[2], ONE_SEGMENT_SHAPES[0]):
+        Bf, s, yv, w, _, _ = _phase3_inputs(*shape)
+        B = Bf.shape[0]
+        g, H = gram.grad_hess_kernel(Bf, s, yv, w, torch.ones(B, dtype=torch.int32,
+                                                              device='cuda'))
+        del Bf, s, yv, w
+        n = H.shape[-1]
+        scale = lane.lane_sum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
+        Hd = H + (1e-6 * scale)[:, None, None] * torch.eye(n, device='cuda')
+        early = solver._pcg_solve(Hd, g)
+        full = solver._pcg_solve(Hd, g, early_exit=False)
+        if not torch.equal(early, full):
+            fail(f'PCG at n = {n}: the full run differs from the early exit')
+        steps = next(i for i in range(solver._CG_SYNC_EVERY, solver.CG_MAX_ITERS + 1,
+                                      solver._CG_SYNC_EVERY)
+                     if torch.equal(solver._pcg_solve(Hd, g, iters=i, early_exit=False),
+                                    full))
+        full_ms = _event_ms(lambda: solver._pcg_solve(Hd, g, early_exit=False))
+        exit_ms = _event_ms(lambda: solver._pcg_solve(Hd, g, iters=steps,
+                                                      early_exit=False))
+        say(f'[loop] PCG at (B, n) = ({B}, {n}): the full run of '
+            f'{solver.CG_MAX_ITERS} steps bitwise equals the early exit, which '
+            f'stops after {steps}; device {full_ms:.3f} ms against '
+            f'{exit_ms:.3f} ms: {full_ms - exit_ms:.3f} ms more per Newton '
+            f'iteration')
+        del H, Hd, g
+        torch.cuda.empty_cache()
+
+
+def phase_device_loop(profile0):
+    """Phase 12. (a) The stall fixtures across batch sizes, and the
+    solver's batched library calls lane by lane. (b) Bench seeds
+    0-3 on the device loop and under ``solver.eager_loop()``: label maps,
+    flagged lanes, every Newton loop's energies and lane iterations bitwise
+    equal. (c) ``torch.profiler`` over seeds 1-3 on the device loop (seed 0:
+    phase 4's profile) and seed 0 on the eager loop: host syncs, host
+    launches, idle share, the loops' captures, replays and graph memory.
+    (d) Seconds per image of seeds 0-3 at each of :data:`SYNC_CHOICES`.
+    (e) PCG's full run against its early exit."""
+    from superdsm_tpu_torch.dsm import solver
+    _fixtures_across_batches()
+    _library_routes_across_batches()
+    images = {seed: make_image(seed)[0] for seed in BENCH_SEEDS}
+    device = {}
+    for seed, image in images.items():
+        device[seed] = _loop_run(image, eager=False)
+        eager = _loop_run(image, eager=True)
+        same = _same_run(device[seed], eager)
+        say(f'[loop] bench seed {seed}: device loop {device[seed]["seconds"]:.3f} s, '
+            f'eager loop {eager["seconds"]:.3f} s; {len(eager["log"])} Newton '
+            f'loops, {eager["lane_iters"]} lane iterations, flagged '
+            f'{eager["flagged"]}; label map, flagged lanes, energies and lane '
+            f'iterations bitwise equal: {same}; device loop {device[seed]["loop"]}')
+        if not same:
+            fail(f'bench seed {seed}: the device loop differs from the eager loop')
+    profiles = {0: profile0}
+    for seed in BENCH_SEEDS[1:]:
+        solver.reset_loop_stats()
+        (_, _, _, _, seconds), counts = _profiled(lambda: _segment(images[seed], 12))
+        profiles[seed] = _profile_line(f'bench seed {seed} (device loop)', seconds,
+                                       counts, solver.LOOP_STATS)
+    solver.reset_loop_stats()
+    with solver.eager_loop():
+        (_, _, _, _, seconds), counts = _profiled(lambda: _segment(images[0], 12))
+    _profile_line('bench seed 0 (eager loop)', seconds, counts, solver.LOOP_STATS)
+    say(f'[loop] device loop, seeds 0-3: host syncs {[profiles[k]["syncs"] for k in BENCH_SEEDS]}, '
+        f'host kernel launches {[profiles[k]["launches"] for k in BENCH_SEEDS]}, '
+        f'idle {[round(profiles[k]["idle"], 4) for k in BENCH_SEEDS]}')
+    chosen = solver.SYNC_EVERY
+    seconds = {k: [] for k in SYNC_CHOICES}
+    try:
+        for order in (SYNC_CHOICES, SYNC_CHOICES[::-1]):
+            for k in order:
+                solver.SYNC_EVERY = k
+                runs = {seed: _loop_run(image, eager=False)
+                        for seed, image in images.items()}
+                if not all(np.array_equal(runs[seed]['seg'], device[seed]['seg'])
+                           for seed in BENCH_SEEDS):
+                    fail(f'SYNC_EVERY = {k} changed a label map')
+                seconds[k].append(sum(run['seconds'] for run in runs.values()))
+                say(f'[loop] SYNC_EVERY = {k}: s/image '
+                    f'{[round(runs[seed]["seconds"], 3) for seed in BENCH_SEEDS]}, '
+                    f'convergence reads {[runs[seed]["loop"]["syncs"] for seed in BENCH_SEEDS]}, '
+                    f'iterations {[runs[seed]["loop"]["iterations"] for seed in BENCH_SEEDS]}')
+    finally:
+        solver.SYNC_EVERY = chosen
+    say(f'[loop] seeds 0-3 in all, s per round at each SYNC_EVERY (the rounds '
+        f'in the orders {list(SYNC_CHOICES)} and back): '
+        f'{ {k: [round(t, 3) for t in v] for k, v in seconds.items()} }; '
+        f'the loop runs at SYNC_EVERY = {chosen}')
+    _pcg_cost()
+
+
+# ---------------------------------------------------------------------------
 # --ab: two checkouts compared on one card
 # ---------------------------------------------------------------------------
 
@@ -1755,8 +2260,12 @@ def ab_run(root):
                 objects=len(data['postprocessed_objects'])))
             if seed == 0:
                 matched, total, _ = _match(seg, BENCH_GOLDEN)
+    # the host's syncs and launches over one more run of seed 0
+    (_, _, _, _, seconds), counts = _profiled(lambda: _segment(images[0], 12))
+    profile = dict(seconds=seconds, idle=1 - counts['busy_ms'] / (seconds * 1e3),
+                   **{k: v for k, v in counts.items() if k != 'spans'})
     print(json.dumps(dict(root=root, kernel_ms=kernel_ms, runs=runs,
-                          matched=matched, total=total)), flush=True)
+                          matched=matched, total=total, profile=profile)), flush=True)
 
 
 def ab(roots):
@@ -1782,6 +2291,11 @@ def ab(roots):
                 f'{run["objects"]} objects')
         say(f'[ab] {root}: seed 0 {out["matched"]}/{out["total"]} matched the '
             f'golden')
+        prof = out['profile']
+        say(f'[ab] {root}: seed 0 under torch.profiler: {prof["seconds"]:.3f} s, '
+            f'host syncs {prof["syncs"]}, kernel launches issued by the host '
+            f'{prof["launches"]}, graph launches {prof["graph_launches"]}, device '
+            f'busy {prof["busy_ms"]:.1f} ms, idle {prof["idle"]:.1%}')
     for root, outs in turns.items():
         for seed in BENCH_SEEDS:
             runs = [run for out in outs for run in out['runs'] if run['seed'] == seed]
@@ -1831,7 +2345,7 @@ def main():
             if 'registers' in line or 'spill' in line or 'smem' in line:
                 say(f'[build] {src}: {line.strip()}')
     kernels = _timed(3, phase_kernels)
-    launches, bench_seg, hist = _timed(4, phase_main_path)
+    launches, bench_seg, hist, profile0 = _timed(4, phase_main_path)
     _profiled_launches(kernels, hist)
     _timed(5, phase_real_crop)
     launches.update(_timed(6, phase_knobs))
@@ -1848,11 +2362,16 @@ def main():
         shutil.rmtree(root, ignore_errors=True)
     _timed(10, phase_mosaic)
     _timed(11, phase_mesh, bench_seg)
+    _timed(12, phase_device_loop, profile0)
     say(f'[phase] all phases: {time.time() - T0:.2f} s wall')
     table = [dict(name=f'{os.path.basename(_source(route))[:-3]}/{route}',
                   route='cuda', source=_source(route), replaces=REPLACES[route],
                   launches=launches[route], **kernels[route])
              for route in REPLACES]
+    table += [dict(name=f'lane_ops/{name}', route='cuda', source=LANE_SOURCE,
+                   replaces=LANE_REPLACES[name], launches=launches[name],
+                   **kernels[name])
+              for name in LANE_SHAPES]
     say(card)  # the card's name and power limit, as nvidia-smi gives them
     say(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

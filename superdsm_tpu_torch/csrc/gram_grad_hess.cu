@@ -50,11 +50,13 @@
 // * split-P: a work item is (lane, tile pair, pixel segment of seg_chunks
 //   chunks). Few-lane launches (B = 1 re-solves, converged batches, the
 //   small tail chunks) would otherwise run a handful of blocks on 132 SMs.
-//   gram.split_plan picks seg_chunks from the launch's static shape
-//   (B, P, n) alone, never from the count of active lanes (that would need
-//   a host sync): one segment when B x pairs already reaches
-//   gram.TARGET_ITEMS work items, else enough segments of at least
-//   gram.MIN_SEG_CHUNKS chunks to reach it. seg_chunks is a multiple of
+//   gram.split_plan picks seg_chunks from (P, n) alone, as for one lane,
+//   never from B (a lane's sums would then depend on its batch) nor from
+//   the count of active lanes (that would need a host sync): one segment
+//   when pairs already reaches gram.TARGET_ITEMS work items, else enough
+//   segments of at least gram.MIN_SEG_CHUNKS chunks to reach it, at most
+//   gram.MAX_SEGMENTS; the wrapper launches lanes in groups whose scratch
+//   fits its cap. seg_chunks is a multiple of
 //   FLUSH, so the float32 partials are the same whatever the segment
 //   count; only the float64 sums split. Each item writes its float64
 //   partial tile (and g) to scratch that the wrapper allocates, and

@@ -135,14 +135,18 @@ K_BUCKETS = [0, 26, 58, 122, 250, 506, 1018, 2042]
 #: the batch shape; re-solving exactly those lanes in a FROZEN canonical
 #: shape makes their energies a function of the problem alone.
 #: ``SDSM_CANONICAL_RESOLVE=0`` turns it off (the JAX package's A/B knob).
+#: A lane's result does not depend on the lanes beside it, so a flagged lane
+#: whose chunk already had its canonical buckets and its start
+#: (:func:`_batch_was_canonical`) keeps its batch result, which the re-solve
+#: would give again bitwise.
 _CANONICAL_RESOLVE = os.environ.get('SDSM_CANONICAL_RESOLVE', '1') == '1'
 #: FROZEN: never derive these from the runtime P_BUCKETS/K_BUCKETS.
 _CANONICAL_P_LADDER = (2048, 6144, 8192, 12288, 16384, 24576, 32768,
                        131072, 524288, 2097152)
 _CANONICAL_K_LADDER = (26, 58, 122, 250, 506, 1018, 2042)
 _CANONICAL_B = 1
-#: Tags of the lanes the last solve_problems call re-solved canonically
-#: (test/debug aid).
+#: Tags of the lanes the last solve_problems call flagged for the
+#: canonical re-solve, re-solved or kept (test/debug aid).
 _LAST_FLAGGED = []
 
 #: Pixel count beyond which a region is solved on a uniform pixel subsample
@@ -814,23 +818,24 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         _store_results(results, problems, kind, chunk, row, fetch)
 
     # canonical re-solve of non-converged DSM lanes (see _CANONICAL_P_LADDER)
-    flagged = []
-    for (kind, chunk, _, _), row in zip(pending, fetched):
+    flagged, resolve = [], []
+    for (kind, chunk, shape, _), row in zip(pending, fetched):
         if kind != 'dsm' or not _CANONICAL_RESOLVE:
             continue  # truncated poly lanes are batch-shape invariant
-        flagged += [i for j, i in enumerate(chunk)
-                    if not row['conv'][j] and i not in oversized]
+        lanes = [i for j, i in enumerate(chunk)
+                 if not row['conv'][j] and i not in oversized]
+        all_warm = all(problems[i].init_params is not None for i in chunk)
+        flagged += lanes
+        resolve += [i for i in lanes if not _batch_was_canonical(
+            problems[i], shape[1], shape[2], all_warm)]
     global _LAST_FLAGGED
     _LAST_FLAGGED = [problems[i].tag for i in flagged]
-    if flagged:
-        flagged.sort()
+    if resolve:
+        resolve.sort()
         t_canon = time.perf_counter()
         groups = {}
-        for i in flagged:
-            p = problems[i]
-            pc = _bucket(p.n_pixels, list(_CANONICAL_P_LADDER))
-            kc = _bucket(max(p.n_deform, 1), list(_CANONICAL_K_LADDER))
-            groups.setdefault((pc, kc), []).append(i)
+        for i in resolve:
+            groups.setdefault(_canonical_buckets(problems[i]), []).append(i)
         canon = []  # (chunk, shape, device outputs)
         for (pc, kc), idxs in sorted(groups.items()):
             for cs in range(0, len(idxs), _CANONICAL_B):
@@ -848,7 +853,7 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
             fetched2 = None
             if out is not None:
                 out.write(f'{progress_line}: canonical re-solve deadline '
-                          f'expired — {len(flagged)} lane(s) keep their '
+                          f'expired — {len(resolve)} lane(s) keep their '
                           f'batch-shape energies this round')
         if fetched2 is not None:
             _mark_warm(canon_shapes)
@@ -856,9 +861,10 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
                 _store_results(results, problems, 'dsm', chunk, row, fetch)
             _account([('dsm', shape[1], shape[2], row['it'][:len(chunk)])
                       for (chunk, shape, _), row in zip(canon, fetched2)],
-                     canonical_lanes=len(flagged))
+                     canonical_lanes=len(resolve))
             if _TELEMETRY:
-                print(f'[canonical] n={len(flagged)} calls={len(canon)} '
+                print(f'[canonical] n={len(resolve)} of {len(flagged)} flagged '
+                      f'calls={len(canon)} '
                       f'groups={sorted((pc, kc, len(v)) for (pc, kc), v in groups.items())} '
                       f'wall={time.perf_counter() - t_canon:.3f}s',
                       file=sys.stderr, flush=True)
@@ -870,6 +876,23 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
             res.fg = evaluate_foreground(orig, res.params, float(smooth_amount),
                                          int(cutoff))
     return results
+
+
+def _canonical_buckets(p):
+    """The (P, K) buckets of the canonical re-solve of problem ``p``."""
+    return (_bucket(p.n_pixels, list(_CANONICAL_P_LADDER)),
+            _bucket(max(p.n_deform, 1), list(_CANONICAL_K_LADDER)))
+
+
+def _batch_was_canonical(p, pb, kb, all_warm):
+    """Whether problem ``p``, solved in a chunk of buckets ``(pb, kb)``
+    whose real lanes were all warm-started (``all_warm``) or not, already
+    computed what its canonical re-solve computes: the same buckets, and the
+    same start — a cold lane, or a warm one in an all-warm chunk (a warm
+    lane beside cold ones starts from the better of its warm start and the
+    elliptical solve, which a re-solve of the warm lane alone skips)."""
+    return ((pb, kb) == _canonical_buckets(p)
+            and (p.init_params is None or all_warm))
 
 
 def _store_results(results, problems, kind, chunk, row, fetch):

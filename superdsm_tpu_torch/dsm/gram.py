@@ -43,17 +43,22 @@ scratch that :func:`grad_hess_kernel` allocates, and a second kernel sums
 the segments in a fixed order and writes ``H`` and ``g``. The float32
 kernel takes that path at one segment too; the bf16 kernel writes ``H`` and
 ``g`` itself when it runs one segment (in its full mode the partials would
-take twice the bytes of ``H``). The plan depends on the launch's static
-shape ``(B, P, n)`` and the kernel's tile pairs only, never on how many
-lanes are active.
+take twice the bytes of ``H``). The float32 kernel's plan depends on
+``(P, n)`` only, so a lane's sums are the same in every batch; its lanes
+launch in groups when the scratch would pass its cap. The bf16 kernel's
+plan depends on the launch's static shape ``(B, P, n)``. Neither depends on
+how many lanes are active.
 
-Every launch adds one to :data:`LAUNCHES` under the route it stands for:
+Every launch adds one to :data:`LAUNCHES` under the route it stands for
+(:func:`count_replayed` adds a captured CUDA graph's launches at each
+replay):
 ``'dense'`` (the full dense Pallas kernel, n = 128 and n = 2048),
 ``'triangle'`` (the triangle-blocked one, 256 <= n <= 1024 without a band)
 and ``'banded'``, each with a ``-3pass`` or ``-1pass`` suffix for the
 reduced-precision bodies.
 """
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -85,16 +90,20 @@ TARGET_ITEMS = 2048
 #: ... with segments of at least this many chunks (128 pixel rows), so that
 #: a segment keeps the copy ring busy and the reduction stays small.
 MIN_SEG_CHUNKS = 4
-#: Bound of a split launch's float64 scratch: it has fewer than
-#: 2 * TARGET_ITEMS work items, each with one 64 x 64 tile and at most 64
-#: entries of g (136 MB). A float32 launch of one segment needs B x tile
-#: pairs tiles, at most 1.5 times the bytes of the ``H`` it returns
-#: (n >= 128; 1.1 GB at the largest bucket's cap, (64, 2048, 2048), whose
-#: ``Bf`` and ``H`` take 1.07 GB each); a bf16 launch of one segment needs
-#: none (its full mode would need twice the bytes of ``H``).
-#: ``tests/test_torch_gram.py`` checks every (P, K) bucket at every batch
-#: size up to its GPU cap, for both kernels.
-SCRATCH_CAP_BYTES = 2 * TARGET_ITEMS * (TILE * TILE + TILE) * 8
+#: Most pixel segments of a float32 launch. Its plan is that of one lane
+#: (:func:`split_plan`), so a launch of many lanes splits as finely as one
+#: of a single lane; this bounds the scratch traffic that costs it.
+MAX_SEGMENTS = 16
+#: Bound of a split launch's float64 scratch. The bf16 kernel's plan keeps
+#: a launch under it (fewer than 2 * TARGET_ITEMS work items, each with one
+#: 64 x 64 tile and at most 64 entries of g: 136 MB); a float32 gram whose
+#: lanes would need more launches in groups of lanes that fit
+#: (:func:`lanes_per_launch`). A float32 launch of one segment needs
+#: B x tile pairs tiles, at most 1.5 times the bytes of the ``H`` it
+#: returns; a bf16 launch of one segment needs none (its full mode would
+#: need twice the bytes of ``H``). ``tests/test_torch_gram.py`` checks every
+#: (P, K) bucket at every batch size up to its GPU cap, for both kernels.
+SCRATCH_CAP_BYTES = 2 ** 28
 
 #: Problem sizes n = 6 + K that take the banded mode (the JAX package's
 #: ``_NBAND_BY_N`` keys).
@@ -127,34 +136,84 @@ LAUNCHES = {f'{route}{suffix}': 0 for suffix in ('', '-3pass', '-1pass')
 #: shared memory, spills).
 BUILD_LOG = {}
 
-#: Shared library, entry point, argument counts and compiled constants of
-#: each kernel source. Arguments: pointers Bf, s, yv, w, active, band, g,
-#: H, scratch; ints B, P, n, seg_chunks (and the bf16 kernel's passes and
-#: mode); the stream.
+#: Shared library, symbol prefix, entry points (name: pointer and int
+#: argument counts; every entry point ends with the stream) and compiled
+#: constants of each kernel source. The gram entry points take the pointers
+#: Bf, s, yv, w, active, band, g, H, scratch; the ints B, P, n, seg_chunks
+#: (and the bf16 kernel's passes and mode).
 _KERNELS = {
-    'gram_grad_hess.cu': ('libsdsm_gram.so', 'sdsm_gram', 9, 4,
+    'gram_grad_hess.cu': ('libsdsm_gram.so', 'sdsm_gram', {'grad_hess': (9, 4)},
                           dict(tile=TILE, rows=ROWS, flush=FLUSH_CHUNKS)),
-    'gram_grad_hess_bf16.cu': ('libsdsm_gram_bf16.so', 'sdsm_gram_bf16', 9, 6,
+    'gram_grad_hess_bf16.cu': ('libsdsm_gram_bf16.so', 'sdsm_gram_bf16',
+                               {'grad_hess': (9, 6)},
                                dict(tile=TILE, rows=ROWS, flush=FLUSH_CHUNKS)),
+    # the solver's per-lane products and sums (superdsm_tpu_torch.dsm.lane)
+    'lane_ops.cu': ('libsdsm_lane.so', 'sdsm_lane',
+                    {'matvec': (3, 4), 'row_sum': (2, 2)},
+                    dict(warp=32, small_n=8, row_threads=256)),
 }
-_F32_SRC, _BF16_SRC = _KERNELS
+_F32_SRC, _BF16_SRC, LANE_SRC = _KERNELS
+LANE_CONSTANTS = _KERNELS[LANE_SRC][3]
 
 _lock = threading.Lock()
 _libs = {}
 _count_lock = threading.Lock()
+_capture = threading.local()
+
+#: Callables told of every gram launch, with the launch's
+#: ``(Bf shape, active, banded, passes, full)``: under a replayed CUDA graph
+#: (:func:`count_replayed`) ``active`` is the graph's own tensor, holding
+#: that replay's values once the replay's work before it has run.
+LAUNCH_HOOKS = []
 
 
-def reset_launch_counts():
+def reset_launch_counts(table=None):
+    table = LAUNCHES if table is None else table
     with _count_lock:
-        for key in LAUNCHES:
-            LAUNCHES[key] = 0
+        for key in table:
+            table[key] = 0
 
 
-def _count_launch(route):
-    """Adds one launch of ``route``; the read-modify-write is locked, so
-    launches from concurrent threads are never lost."""
+def _add_launch(table, route, info):
     with _count_lock:
-        LAUNCHES[route] += 1
+        table[route] += 1
+    if info is not None:
+        for hook in LAUNCH_HOOKS:
+            hook(*info)
+
+
+def _count_launch(route, info=None, table=None):
+    """Adds one launch of ``route`` to ``table`` (:data:`LAUNCHES` by
+    default); the read-modify-write is locked, so launches from concurrent
+    threads are never lost. While this thread captures a CUDA graph
+    (:func:`recording_launches`) the launch is recorded instead: a capture
+    launches nothing, and each replay counts it."""
+    table = LAUNCHES if table is None else table
+    records = getattr(_capture, 'records', None)
+    if records is not None:
+        records.append((table, route, info))
+    else:
+        _add_launch(table, route, info)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Records, instead of counting, the kernel launches this thread makes
+    in the block (a CUDA graph capture); yields the list that
+    :func:`count_replayed` counts once per replay of the graph."""
+    if getattr(_capture, 'records', None) is not None:
+        raise RuntimeError('launches are already being recorded in this thread')
+    _capture.records = records = []
+    try:
+        yield records
+    finally:
+        _capture.records = None
+
+
+def count_replayed(records):
+    """Counts the launches of one replay of a captured graph."""
+    for table, route, info in records:
+        _add_launch(table, route, info)
 
 
 def route_for(n, banded, passes=6, full=False):
@@ -204,7 +263,8 @@ def grad_hess_plain(Bf, s, yv, w, active=None, passes=6, mirror=False):
     library picks (cuBLAS sums a long ``k`` almost sequentially, measured
     4e-5 relative error on the n = 6 gram on an H100) is too coarse for the
     near-singular Newton systems, whose condition reaches ~1e5. The kernels
-    get the same effect from float64 running sums. Frozen lanes
+    get the same effect from float64 running sums. A lane's sums do not
+    depend on its batch (see the comment in the body). Frozen lanes
     (``active == 0``) give zeros, as the kernels' do.
 
     ``passes`` (1 or 3) rounds H's operands ``Bf kappa`` (computed in
@@ -214,16 +274,37 @@ def grad_hess_plain(Bf, s, yv, w, active=None, passes=6, mirror=False):
     precision. ``mirror`` writes the strictly lower blocks as the transpose
     of the upper ones, as the triangle and banded modes do."""
     term1, kappa = _logistic_weights(s, yv, w)
-    Bd = Bf.double()
-    g = (Bd.transpose(-1, -2) @ term1.double()[..., None])[..., 0]
-    if passes == 6:
-        H = (Bd * kappa.double()[..., None]).transpose(-1, -2) @ Bd
-    else:
+
+    def lane(Bf, term1, kappa):
+        Bd = Bf.double()
+        g = (Bd.transpose(-1, -2) @ term1.double()[..., None])[..., 0]
+        if passes == 6:
+            return g, (Bd * kappa.double()[..., None]).transpose(-1, -2) @ Bd
         a = _bf16_parts(Bf * kappa[..., None], passes)
         b = _bf16_parts(Bf, passes)
         H = a[0].transpose(-1, -2) @ b[0]
         if passes == 3:
             H = H + a[0].transpose(-1, -2) @ b[1] + a[1].transpose(-1, -2) @ b[0]
+        return g, H
+
+    # on the CPU one product per lane: MKL splits a batched product's long
+    # pixel sum over its threads by the batch, so a lane's sums would
+    # depend on the lanes beside it. On the card cuBLAS's batched float64
+    # product gives each lane the bits of that lane alone at every batch
+    # size from two (tests/data/torch_port/linalg_routes.py, held by
+    # chip_smoke.py phase 12); a batch of one, which takes another route,
+    # goes in as the same lane twice.
+    B = Bf.shape[0] if Bf.dim() == 3 else 1
+    if Bf.is_cuda and B == 1 and Bf.dim() == 3:
+        g, H = lane(*(t.expand((2,) + tuple(t.shape[1:])).contiguous()
+                      for t in (Bf, term1, kappa)))
+        g, H = g[:1], H[:1]
+    elif Bf.is_cuda or B == 1:
+        g, H = lane(Bf, term1, kappa)
+    else:
+        lanes = [lane(Bf[b:b + 1], term1[b:b + 1], kappa[b:b + 1]) for b in range(B)]
+        g = torch.cat([gl for gl, _ in lanes])
+        H = torch.cat([Hl for _, Hl in lanes])
     if mirror:
         H = _mirror_blocks(H)
     g, H = g.float(), H.float()
@@ -272,19 +353,28 @@ def tile_pairs(n, passes=6, full=False):
 def split_plan(B, P, n, passes=6, full=False):
     """A kernel's split of the pixel loop: ``(seg_chunks, n_segments)``.
 
-    A launch of ``B x tile_pairs(n, passes, full)`` work items that reaches
-    :data:`TARGET_ITEMS` runs one segment (the whole pixel loop in each
-    block). A smaller one splits its
+    The float32 kernel (``passes`` 6) plans from ``(P, n)`` alone, as for
+    one lane, and ``B`` is not read: every lane's float64 partials are then
+    summed over the same segments in the same order whatever its batch (a
+    plan from ``B`` made a lane's H differ between a batch of one and of
+    two). The bf16 kernel plans from the launch's static ``(B, P, n)``.
+
+    A launch of ``B x tile_pairs(n, passes, full)`` work items (``B`` = 1
+    for the float32 kernel) that reaches :data:`TARGET_ITEMS` runs one
+    segment (the whole pixel loop in each block). A smaller one splits its
     ``P / ROWS`` chunks into segments of ``seg_chunks`` chunks, at least
     :data:`MIN_SEG_CHUNKS` and a multiple of :data:`FLUSH_CHUNKS` (so the
     float32 partials do not depend on the split), as few as bring the work
-    items up to about :data:`TARGET_ITEMS`. Only the static shape counts:
-    frozen lanes are not known on the host without a sync."""
+    items up to about :data:`TARGET_ITEMS`; the float32 kernel at most
+    :data:`MAX_SEGMENTS`. Only static shapes count: frozen lanes are not
+    known on the host without a sync."""
     nchunks = P // ROWS
-    items = B * tile_pairs(n, passes, full)
+    items = (1 if passes == 6 else B) * tile_pairs(n, passes, full)
     if items >= TARGET_ITEMS or nchunks <= MIN_SEG_CHUNKS:
         return nchunks, 1
     want = -(-TARGET_ITEMS // items)
+    if passes == 6:
+        want = min(want, MAX_SEGMENTS)
     seg = max(MIN_SEG_CHUNKS, -(-nchunks // want))
     seg = -(-seg // FLUSH_CHUNKS) * FLUSH_CHUNKS
     if seg >= nchunks:
@@ -293,13 +383,23 @@ def split_plan(B, P, n, passes=6, full=False):
 
 
 def scratch_entries(B, P, n, passes=6, full=False):
-    """float64 entries of a launch's scratch: each segment's partial tile
-    of every (lane, tile pair), then its g; none for a bf16 launch of one
-    segment, which writes ``H`` and ``g`` itself."""
+    """float64 entries of the scratch of one launch of ``B`` lanes: each
+    segment's partial tile of every (lane, tile pair), then its g; none for
+    a bf16 launch of one segment, which writes ``H`` and ``g`` itself."""
     _, nsegs = split_plan(B, P, n, passes, full)
     if passes != 6 and nsegs == 1:
         return 0
     return nsegs * B * (tile_pairs(n, passes, full) * TILE * TILE + n)
+
+
+def lanes_per_launch(B, P, n, passes=6, full=False):
+    """Lanes of one kernel launch: a float32 gram of ``B`` lanes split over
+    pixel segments launches in groups of lanes whose scratch stays within
+    :data:`SCRATCH_CAP_BYTES` (its plan does not shrink with ``B``); every
+    other launch takes all ``B``."""
+    if passes != 6 or split_plan(B, P, n)[1] == 1:
+        return B
+    return max(1, min(B, SCRATCH_CAP_BYTES // (8 * scratch_entries(1, P, n))))
 
 
 def _nvcc():
@@ -356,11 +456,12 @@ def _load(src=_F32_SRC):
                 < os.path.getmtime(os.path.join(_CSRC, src))):
             build()
         lib = ctypes.CDLL(path)
-        _, prefix, n_ptrs, n_ints, constants = _KERNELS[src]
-        fn = getattr(lib, f'{prefix}_grad_hess')
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        _, prefix, entries, constants = _KERNELS[src]
+        for name, (n_ptrs, n_ints) in entries.items():
+            fn = getattr(lib, f'{prefix}_{name}')
+            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
+                [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         for name, value in constants.items():
             const = getattr(lib, f'{prefix}_{name}')
             const.restype = ctypes.c_int
@@ -416,25 +517,30 @@ def grad_hess_kernel(Bf, s, yv, w, active, band=None, passes=6, full=False):
     lib = _load(_F32_SRC if passes == 6 else _BF16_SRC)
     g = torch.empty((B, n), dtype=f32, device=dev)
     H = torch.empty((B, n, n), dtype=f32, device=dev)
-    ptrs = (Bf.data_ptr(), s.data_ptr(), yv.data_ptr(), w.data_ptr(),
-            active.data_ptr(), None if band is None else band.data_ptr(),
-            g.data_ptr(), H.data_ptr())
     seg_chunks, _ = split_plan(B, P, n, passes, full)
-    entries = scratch_entries(B, P, n, passes, full)
-    part = torch.empty((entries,), dtype=torch.float64, device=dev) \
-        if entries else None
-    args = ptrs + (None if part is None else part.data_ptr(), B, P, n,
-                   seg_chunks)
+    group = lanes_per_launch(B, P, n, passes, full)
+    route = route_for(n, band is not None, passes, full)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if passes == 6:
-            err = lib.sdsm_gram_grad_hess(*args, stream)
-        else:
-            mode = 0 if full else (1 if band is None else 2)
-            err = lib.sdsm_gram_bf16_grad_hess(*args, passes, mode, stream)
-    if err != 0:
-        raise RuntimeError(f'gram kernel launch failed: CUDA error {err}')
-    _count_launch(route_for(n, band is not None, passes, full))
+        for b0 in range(0, B, group):
+            lanes = slice(b0, min(B, b0 + group))
+            nb = lanes.stop - b0
+            entries = scratch_entries(nb, P, n, passes, full)
+            part = torch.empty((entries,), dtype=torch.float64, device=dev) \
+                if entries else None
+            args = tuple(t[lanes].data_ptr() for t in (Bf, s, yv, w, active)) + (
+                None if band is None else band[lanes].data_ptr(),
+                g[lanes].data_ptr(), H[lanes].data_ptr(),
+                None if part is None else part.data_ptr(), nb, P, n, seg_chunks)
+            if passes == 6:
+                err = lib.sdsm_gram_grad_hess(*args, stream)
+            else:
+                mode = 0 if full else (1 if band is None else 2)
+                err = lib.sdsm_gram_bf16_grad_hess(*args, passes, mode, stream)
+            if err != 0:
+                raise RuntimeError(f'gram kernel launch failed: CUDA error {err}')
+            _count_launch(route, ((nb, P, n), active[lanes], band is not None,
+                                  passes, full))
     return g, H
 
 

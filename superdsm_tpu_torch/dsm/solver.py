@@ -10,17 +10,32 @@ Every function works on a batch of padded problems (leading dimension B):
 pixels carry a weight ``w ∈ {0,1}`` and deformation dimensions a mask
 ``kmask ∈ {0,1}``; padded dimensions get a unit diagonal in the Hessian so
 the batched Cholesky stays positive definite. Problems are solved together
-with a per-problem convergence freeze and a whole-batch early exit (one host
-sync per Newton iteration). Where the JAX package used ``vmap`` the batch
-dimension is written out; ``lax.while_loop``/``lax.cond`` are Python loops
-and branches. The Newton gram at n % 128 == 0 goes through
+with a per-problem convergence freeze and a whole-batch early exit. Where
+the JAX package used ``vmap`` the batch dimension is written out.
+
+The JAX package jits each solve into one device program whose Newton loop
+is a ``lax.while_loop``. On the card the port captures one Newton iteration
+(gram, step, freeze updates) as a CUDA graph per solve and replays it
+:data:`SYNC_EVERY` iterations at a time, reading the convergence flags (one
+host sync) between chunks only; PCG runs its :data:`CG_MAX_ITERS` steps
+inside the graph. Lanes freeze one by one, so iterations after the last
+lane converged change nothing. :func:`eager_loop` runs the loop op by op
+instead, syncing every iteration (the counterpart of
+``jax.disable_jit()``); on the CPU the chunked loop runs eagerly.
+
+Every product and sum of a lane goes through
+:mod:`superdsm_tpu_torch.dsm.lane` (fixed order) or a library call on that
+lane alone, so a lane's result does not depend on its batch. The Newton
+gram at n % 128 == 0 goes through
 :func:`superdsm_tpu_torch.dsm.gram.fused_grad_hess_batched` (the CUDA kernel
 on the card).
 """
 
+import contextlib
 import math
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -28,7 +43,7 @@ import numpy as np
 import torch
 
 from .._device import thread_device, to_device
-from . import gram
+from . import gram, lane
 
 #: Hard iteration caps (the reference instead relies on a 300 s SIGALRM
 #: timeout per solve, ``superdsm/dsm.py:478-490``).
@@ -39,6 +54,8 @@ ARMIJO_C = 1e-4
 
 MU_MIN = 1e-10
 MU_MAX = 1e6
+#: Multipliers of the scale sweep against the near-separable "creep".
+SCALES = (0.7, 1.0, 1.4, 2.0, 3.0, 4.5, 6.5, 9.0)
 
 #: Newton systems larger than this solve by Jacobi-preconditioned CG
 #: instead of Cholesky (the JAX package's cutover, kept for parity of the
@@ -46,10 +63,58 @@ MU_MAX = 1e6
 CHOLESKY_MAX_N = int(os.environ.get('SDSM_CHOL_MAX_N', '300'))
 CG_MAX_ITERS = 64
 CG_RTOL = 1e-5
-#: PCG lanes are frozen individually; the loop checks for "all lanes done"
-#: (a host sync) every this many iterations — the results do not depend on
-#: it, since frozen lanes stay frozen.
+#: PCG lanes are frozen individually; run op by op, the loop checks for
+#: "all lanes done" (a host sync) every this many iterations — the results
+#: do not depend on it, since frozen lanes stay frozen.
 _CG_SYNC_EVERY = 8
+
+#: Newton iterations between two reads of the convergence flags (one host
+#: sync each): on the card, replays of the captured iteration. The results
+#: do not depend on it (frozen lanes stay frozen); chosen on an H100 by
+#: ``chip_smoke.py`` (PERF.md).
+SYNC_EVERY = 4
+
+#: Counters of the Newton loops since :func:`reset_loop_stats`: solves,
+#: iterations run (eager or replayed), host syncs of the convergence check,
+#: CUDA graphs captured, their capture and instantiation seconds, their
+#: replays and the device memory reserved while capturing (the graphs'
+#: pools growing; other threads' allocations count too).
+LOOP_STATS = {}
+_LOOP_KEYS = ('solves', 'iterations', 'syncs', 'graphs', 'capture_s',
+              'instantiate_s', 'replays', 'graph_bytes')
+_stats_lock = threading.Lock()
+_eager = {'depth': 0}
+_capture_local = threading.local()
+
+
+def reset_loop_stats():
+    with _stats_lock:
+        LOOP_STATS.update({k: 0 for k in _LOOP_KEYS})
+
+
+reset_loop_stats()
+
+
+def _note(**counts):
+    with _stats_lock:
+        for k, v in counts.items():
+            LOOP_STATS[k] += v
+
+
+@contextlib.contextmanager
+def eager_loop():
+    """Runs every Newton loop of the block op by op, with a host sync every
+    iteration and PCG's early exit, instead of replaying a captured CUDA
+    graph: the counterpart of ``jax.disable_jit()``. It holds for every
+    thread of the process while the block runs. The results are bitwise
+    those of the graph."""
+    with _stats_lock:
+        _eager['depth'] += 1
+    try:
+        yield
+    finally:
+        with _stats_lock:
+            _eager['depth'] -= 1
 
 _F32 = torch.float32
 
@@ -92,10 +157,10 @@ def _energy_from_surface(s, xi, yv, w, alpha, epsilon, kmask):
     """ψ given precomputed surface values ``s``. Shapes: s, yv, w: (..., P);
     xi, kmask: (..., K); alpha: scalar or (...,)."""
     t = yv * s
-    data = (w * _softplus(-t)).sum(dim=-1)
+    data = lane.lane_sum(w * _softplus(-t))
     if xi.shape[-1] > 0:
         term2 = torch.sqrt(xi * xi + epsilon)
-        reg = alpha * (kmask * (term2 - math.sqrt(epsilon))).sum(dim=-1)
+        reg = alpha * lane.lane_sum(kmask * (term2 - math.sqrt(epsilon)))
         reg = reg.clamp_min(0.0)
         return data + reg
     return data
@@ -128,7 +193,7 @@ def _reg_terms(params, alpha, epsilon, kmask):
     xi = params[..., 6:]
     a = torch.as_tensor(alpha, dtype=params.dtype, device=params.device)[..., None]
     term2 = torch.sqrt(xi * xi + epsilon)
-    val = (a[..., 0] * (kmask * (term2 - math.sqrt(epsilon))).sum(dim=-1)).clamp_min(0.0)
+    val = (a[..., 0] * lane.lane_sum(kmask * (term2 - math.sqrt(epsilon)))).clamp_min(0.0)
     zeros6 = torch.zeros(params.shape[:-1] + (6,), dtype=params.dtype,
                          device=params.device)
     grad = torch.cat([zeros6, a * (xi / term2) * kmask], dim=-1)
@@ -153,35 +218,76 @@ def _grad_hess(params, s, Q, G, yv, w, alpha, epsilon, kmask):
     return g, H
 
 
-def _bmv(A, x):
-    return (A @ x[..., None])[..., 0]
+_bmv = lane.matvec
+_lsum = lane.lane_sum
 
 
-def _pcg_solve(H, b, iters=CG_MAX_ITERS, rtol=CG_RTOL):
+def _concat(outs):
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def _per_lane(fn, *args):
+    """``fn`` on each lane alone (a batch of one) on the card, the outputs
+    concatenated: the Cholesky factor and solve, whose batched routes give
+    a lane other bits than a batch of one does, and at n >= 64 bits that
+    depend on the batch (``tests/data/torch_port/linalg_routes.py``). On
+    the CPU ``fn`` takes the whole batch (LAPACK factors each matrix by
+    itself)."""
+    B = args[0].shape[0]
+    if B <= 1 or not args[0].is_cuda:
+        return fn(*args)
+    return _concat([fn(*(a[b:b + 1] for a in args)) for b in range(B)])
+
+
+def _batched(fn, *args, split_on_cpu=True):
+    """``fn`` on the whole batch, for calls whose batched route gives each
+    lane the bits of that lane alone at every batch size (the float64
+    products of ``_lsq_init``, ``solve_ex`` at n = 6; held on the card by
+    ``chip_smoke.py`` phase 12): on the card a batch of one goes in as the
+    same lane twice, since cuBLAS and cuSOLVER take another route for a
+    batch of one. On the CPU each lane alone if ``split_on_cpu`` (MKL splits
+    a batched product's long sums over its threads by the batch), else the
+    whole batch (LAPACK solves each matrix by itself)."""
+    B = args[0].shape[0]
+    if args[0].is_cuda:
+        if B != 1:
+            return fn(*args)
+        out = fn(*(lane.lanes2(a).contiguous() for a in args))
+        return tuple(o[:1] for o in out) if isinstance(out, tuple) else out[:1]
+    if B <= 1 or not split_on_cpu:
+        return fn(*args)
+    return _concat([fn(*(a[b:b + 1] for a in args)) for b in range(B)])
+
+
+def _pcg_solve(H, b, iters=CG_MAX_ITERS, rtol=CG_RTOL, early_exit=True):
     """Jacobi-preconditioned conjugate gradients for a batch of SPD systems.
 
     Residual-based: a lane iterates until ``||r|| <= rtol * ||b||`` or
     ``iters`` steps. Lanes that are done are frozen (their state is kept
-    exactly), as the JAX package's vmapped ``while_loop`` freezes them; the
-    loop ends when every lane is done.
+    exactly), as the JAX package's vmapped ``while_loop`` freezes them; with
+    ``early_exit`` the loop ends when every lane is done (a host sync every
+    :data:`_CG_SYNC_EVERY` steps), else it runs all ``iters`` steps (inside
+    a CUDA graph), with the same result.
     """
     dinv = 1.0 / torch.diagonal(H, dim1=-2, dim2=-1)
     x = b * dinv
     r = b - _bmv(H, x)
     z = r * dinv
     p = z
-    rz = (r * z).sum(-1)
-    r2_stop = (rtol * rtol) * (b * b).sum(-1) + 1e-30
-    live = (r * r).sum(-1) > r2_stop
+    rz = _lsum(r * z)
+    r2_stop = (rtol * rtol) * _lsum(b * b) + 1e-30
+    live = _lsum(r * r) > r2_stop
     for i in range(iters):
-        if i % _CG_SYNC_EVERY == 0 and not bool(live.any()):
+        if early_exit and i % _CG_SYNC_EVERY == 0 and not bool(live.any()):
             break
         Hp = _bmv(H, p)
-        a = rz / ((p * Hp).sum(-1) + 1e-30)
+        a = rz / (_lsum(p * Hp) + 1e-30)
         x_new = x + a[:, None] * p
         r_new = r - a[:, None] * Hp
         z = r_new * dinv
-        rz_new = (r_new * z).sum(-1)
+        rz_new = _lsum(r_new * z)
         beta = rz_new / (rz + 1e-30)
         p_new = z + beta[:, None] * p
         keep = live[:, None]
@@ -189,16 +295,30 @@ def _pcg_solve(H, b, iters=CG_MAX_ITERS, rtol=CG_RTOL):
         r = torch.where(keep, r_new, r)
         p = torch.where(keep, p_new, p)
         rz = torch.where(live, rz_new, rz)
-        live = live & ((r * r).sum(-1) > r2_stop)
+        live = live & (_lsum(r * r) > r2_stop)
     return x
 
 
-def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol):
+def _cholesky_direction(Hd, g):
+    """``-Hd^-1 g`` by Cholesky; NaN in the lanes whose factorization fails
+    (cholesky_ex reports failure instead of raising; the guard of
+    :func:`_newton_step` turns them into gradient steps, as the JAX
+    ``cho_factor`` returns NaNs there)."""
+    L, info = torch.linalg.cholesky_ex(Hd)
+    delta = -torch.cholesky_solve(g[..., None], L)[..., 0]
+    return torch.where((info != 0)[:, None],
+                       torch.full((), float('nan'), dtype=g.dtype, device=g.device),
+                       delta)
+
+
+def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
+                 cg_early_exit=True):
     """One Levenberg-Marquardt-damped Newton iteration for a batch of lanes
     (see the JAX package's ``_newton_step`` for the rationale of the LM
     damping, the Armijo line search over one matvec and the multiplicative
     scale sweep). Shapes: params (B, n), mu/f0/alpha (B,), s/yv/w (B, P),
-    g (B, n), H (B, n, n), Bf (B, P, n), kmask (B, K)."""
+    g (B, n), H (B, n, n), Bf (B, P, n), kmask (B, K). It makes no host sync
+    unless ``cg_early_exit`` (PCG's early exit, :func:`_pcg_solve`)."""
     B, n = params.shape
     dt, dev = params.dtype, params.device
     if n > 6:
@@ -207,35 +327,28 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol)
             [torch.ones((B, 6), dtype=dt, device=dev), kmask], dim=1)
         H = H + torch.diag_embed(reg_h)
 
-    scale_h = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1) / n + 1e-12
+    scale_h = _lsum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
     Hd = H + (mu * scale_h)[:, None, None] * torch.eye(n, dtype=dt, device=dev)
     if n > CHOLESKY_MAX_N:
-        delta = -_pcg_solve(Hd, g)
+        delta = -_pcg_solve(Hd, g, early_exit=cg_early_exit)
     else:
-        # cholesky_ex reports failure instead of raising; failed lanes get a
-        # NaN direction, which the guard below turns into a gradient step
-        # (the JAX cho_factor returns NaNs there)
-        L, info = torch.linalg.cholesky_ex(Hd)
-        delta = -torch.cholesky_solve(g[..., None], L)[..., 0]
-        delta = torch.where((info != 0)[:, None],
-                            torch.full((), float('nan'), dtype=dt, device=dev),
-                            delta)
+        delta = _per_lane(_cholesky_direction, Hd, g)
     bad = ~torch.isfinite(delta).all(dim=1)
     delta = torch.where(bad[:, None],
-                        -g / (torch.sqrt((g * g).sum(1)) + 1.0)[:, None], delta)
-    decrement = -(g * delta).sum(1)  # lambda^2 >= 0 for the Newton step
+                        -g / (torch.sqrt(_lsum(g * g)) + 1.0)[:, None], delta)
+    decrement = -_lsum(g * delta)  # lambda^2 >= 0 for the Newton step
 
     # line search: s is affine in params, so one matvec covers all steps
     u = _bmv(Bf, delta)
     steps = 0.5 ** torch.arange(LS_STEPS, dtype=dt, device=dev)    # (S,)
     s_cand = s[:, :, None] + u[:, :, None] * steps                # (B, P, S)
     t_cand = yv[:, :, None] * s_cand
-    data_cand = (w[:, :, None] * _softplus(-t_cand)).sum(1)        # (B, S)
+    data_cand = _lsum(w[:, :, None] * _softplus(-t_cand), 1)       # (B, S)
     sq_eps = math.sqrt(epsilon)
     if n > 6:
         xi_cand = params[:, 6:, None] + delta[:, 6:, None] * steps  # (B, K, S)
         term2c = torch.sqrt(xi_cand * xi_cand + epsilon)
-        reg_cand = alpha[:, None] * (kmask[:, :, None] * (term2c - sq_eps)).sum(1)
+        reg_cand = alpha[:, None] * _lsum(kmask[:, :, None] * (term2c - sq_eps), 1)
         f_cand = data_cand + reg_cand.clamp_min(0.0)
     else:
         f_cand = data_cand
@@ -257,14 +370,13 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol)
     new_f = torch.where(improved, f_pick, f0)
 
     # multiplicative scale sweep against the near-separable "creep"
-    scales = torch.tensor([0.7, 1.0, 1.4, 2.0, 3.0, 4.5, 6.5, 9.0],
-                          dtype=dt, device=dev)
+    scales = _scales(dt, dev)
     t_sc = yv * new_s
-    data_sc = (w[:, :, None] * _softplus(-t_sc[:, :, None] * scales)).sum(1)
+    data_sc = _lsum(w[:, :, None] * _softplus(-t_sc[:, :, None] * scales), 1)
     if n > 6:
         xi_sc = new_params[:, 6:, None] * scales
         term2sc = torch.sqrt(xi_sc * xi_sc + epsilon)
-        reg_sc = (alpha[:, None] * (kmask[:, :, None] * (term2sc - sq_eps)).sum(1)
+        reg_sc = (alpha[:, None] * _lsum(kmask[:, :, None] * (term2sc - sq_eps), 1)
                   ).clamp_min(0.0)
         f_sc = data_sc + reg_sc
     else:
@@ -294,13 +406,17 @@ def _lsq_init(Q, yv, w, margin=2.0, ridge=1e-6):
     _load_linalg(Q.device)
     z = margin * torch.sign(yv) * w
     # the pixel sums accumulate in float64, as the gram's do (see
-    # gram.grad_hess_plain); the 6x6 solve stays float32
+    # gram.grad_hess_plain), one lane at a time as there; the 6x6 solve
+    # stays float32
     Qd = Q.double()
-    A = torch.einsum('bpi,bpj->bij', Qd * w.double()[..., None], Qd).float()
-    tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
+    A, b = _batched(lambda Qw, Qd, z: (torch.einsum('bpi,bpj->bij', Qw, Qd),
+                                       torch.einsum('bpi,bp->bi', Qd, z)),
+                    Qd * w.double()[..., None], Qd, z.double())
+    A, b = A.float(), b.float()
+    tr = _lsum(torch.diagonal(A, dim1=-2, dim2=-1))
     A = A + ridge * tr[:, None, None] * torch.eye(6, dtype=Q.dtype, device=Q.device)
-    b = torch.einsum('bpi,bp->bi', Qd, z.double()).float()
-    theta, info = torch.linalg.solve_ex(A, b[..., None])
+    theta, info = _batched(lambda A, b: torch.linalg.solve_ex(A, b), A, b[..., None],
+                           split_on_cpu=False)
     theta = theta[..., 0]
     ok = torch.isfinite(theta) & (info == 0)[:, None]
     return torch.where(ok, theta, torch.zeros((), dtype=Q.dtype, device=Q.device))
@@ -310,23 +426,102 @@ def _better_of(Q, yv, w, theta_a, theta_b):
     """Per-problem pick of the lower-logistic-energy 6-parameter start."""
     def f_of(theta):
         s = _bmv(Q, theta)
-        return (w * _softplus(-yv * s)).sum(1)
+        return _lsum(w * _softplus(-yv * s))
     return torch.where((f_of(theta_b) < f_of(theta_a))[:, None], theta_b, theta_a)
+
+
+_SCALES_ON = {}
+
+
+def _scales(dtype, device):
+    """:data:`SCALES` on ``device``, copied from the host once (such a copy
+    waits for the card, and a CUDA graph capture cannot make it: each solve
+    runs its first iteration before it captures one)."""
+    key = (dtype, device)
+    if key not in _SCALES_ON:
+        _SCALES_ON[key] = torch.tensor(SCALES, dtype=dtype, device=device)
+    return _SCALES_ON[key]
+
+
+def _capture_context(device):
+    """This thread's capture context on ``device``: a dict with its capture
+    stream, its graph memory pool and the last graph captured into it. A
+    graph is captured on a stream of its own and replayed on the current
+    one. The graphs of one thread share a pool, each replayed only before
+    the next one is captured (a solve's ``cheap`` graph before its full
+    one; a solve's graphs are done before the next solve captures); the
+    last graph is kept, since a pool that no graph holds is freed and its
+    handle cannot be used again."""
+    by_device = getattr(_capture_local, 'by_device', None)
+    if by_device is None:
+        by_device = _capture_local.by_device = {}
+    if device not in by_device:
+        by_device[device] = dict(stream=torch.cuda.Stream(device),
+                                 pool=torch.cuda.graph_pool_handle(), last=None)
+    return by_device[device]
+
+
+class _Graph:
+    """One Newton iteration captured as a CUDA graph, replayed on the
+    current stream; each replay counts the kernel launches the capture
+    recorded (:func:`gram.count_replayed`). A failed capture raises."""
+
+    def __init__(self, iteration, device):
+        cur = torch.cuda.current_stream(device)
+        ctx = _capture_context(device)
+        side = ctx['stream']
+        side.wait_stream(cur)
+        self.graph = torch.cuda.CUDAGraph()
+        mem0 = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side), gram.recording_launches() as records:
+            # thread_local: other threads' streams run on while this one
+            # captures (the batch CLI's and the mosaic's worker threads)
+            self.graph.capture_begin(pool=ctx['pool'],
+                                     capture_error_mode='thread_local')
+            try:
+                iteration()
+            finally:
+                t1 = time.perf_counter()
+                self.graph.capture_end()
+        t2 = time.perf_counter()
+        ctx['last'] = self.graph
+        cur.wait_stream(side)
+        self.records = records
+        _note(graphs=1, capture_s=t1 - t0, instantiate_s=t2 - t1,
+              graph_bytes=torch.cuda.memory_reserved(device) - mem0)
+
+    def __call__(self):
+        self.graph.replay()
+        gram.count_replayed(self.records)
+        _note(replays=1)
 
 
 def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
                       banded=False):
     """Batch Newton driver with per-problem freeze.
 
+    One iteration (the gram, :func:`_newton_step` and the freeze updates)
+    updates the loop state in place and makes no host sync. On the card it
+    runs eagerly once per solve (which loads every library it calls), is
+    then captured as a CUDA graph and replayed; the host reads ``conv.all()``
+    every :data:`SYNC_EVERY` iterations and never lets a chunk cross
+    ``maxiter`` or the end of the hybrid schedule (whose ``cheap`` gram is a
+    graph of its own). Under :func:`eager_loop`, or on the CPU, the same
+    iteration runs op by op (on the card with a sync every iteration).
+
     :param banded: the feature matrix is band-structured (DSM solves): on the
         card, the gram at n in ``gram.BANDED_N`` runs the kernel's banded
         mode with a band table computed once here (G never changes across
         Newton iterations). The gram's precision follows the knobs
         ``gram.GRAM_PASSES`` and ``gram.HYBRID_ITERS``, read at each call.
-    :return: ``(params, energy, conv, iterations, surface, it_lane)``.
+    :return: ``(params, energy, conv, iterations, surface, it_lane)``;
+        ``iterations`` is the 0-dim device tensor ``it_lane.max()``, the
+        iterations until the last lane converged (or ``maxiter``).
     """
     B, n_total = params0.shape
-    _load_linalg(Q.device)
+    dev = Q.device
+    _load_linalg(dev)
     Bf = _features(Q, G)
     P = Bf.shape[1]
     use_kernel = n_total % 128 == 0 and P % 256 == 0
@@ -344,35 +539,63 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
     # the first HYBRID_ITERS iterations take the 1-pass dense gram, where
     # the kernel serves the shape (the JAX package's Pallas condition)
     hybrid_iters = gram.HYBRID_ITERS if use_kernel else 0
+    graphed = Bf.is_cuda and _eager['depth'] == 0
 
-    params = params0
+    # the loop state, updated in place by each iteration
+    params = params0.clone()
     s = _bmv(Bf, params0)
     fval = _energy_from_surface(s, params0[:, 6:], yv, w, alpha, epsilon, kmask)
-    conv = torch.zeros(B, dtype=torch.bool, device=Q.device)
-    mu = torch.full((B,), 1e-6, dtype=params0.dtype, device=Q.device)
-    it_lane = torch.zeros(B, dtype=torch.int32, device=Q.device)
-    it = 0
-    # whole-batch early exit: one host sync per iteration
-    while it < maxiter and not bool(conv.all()):
+    conv = torch.zeros(B, dtype=torch.bool, device=dev)
+    mu = torch.full((B,), 1e-6, dtype=params0.dtype, device=dev)
+    it_lane = torch.zeros(B, dtype=torch.int32, device=dev)
+    it_dev = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def iteration(cheap):
         # frozen lanes skip the gram work in the kernel; their g/H come back
         # zero and only feed the masked-out step below
-        g_b, H_b = grad_hess_b(s, (~conv).to(torch.int32), it < hybrid_iters)
+        g_b, H_b = grad_hess_b(s, (~conv).to(torch.int32), cheap)
         new_params, new_s, new_f, new_conv, new_mu = _newton_step(
-            params, mu, s, fval, g_b, H_b, Bf, yv, w, alpha, epsilon, kmask, tol)
+            params, mu, s, fval, g_b, H_b, Bf, yv, w, alpha, epsilon, kmask, tol,
+            cg_early_exit=not graphed)
         keep = conv[:, None]
-        params = torch.where(keep, params, new_params)
-        s = torch.where(keep, s, new_s)
-        fval = torch.where(conv, fval, new_f)
-        mu = torch.where(conv, mu, new_mu)
-        it_lane = torch.where(conv, it_lane, torch.full_like(it_lane, it + 1))
-        conv = conv | new_conv
-        it += 1
+        it_dev.add_(1)
+        params.copy_(torch.where(keep, params, new_params))
+        s.copy_(torch.where(keep, s, new_s))
+        fval.copy_(torch.where(conv, fval, new_f))
+        mu.copy_(torch.where(conv, mu, new_mu))
+        it_lane.copy_(torch.where(conv, it_lane, it_dev))
+        conv.logical_or_(new_conv)
+
+    graphs = {}  # cheap -> its captured iteration, after one eager run
+
+    def run(cheap):
+        if cheap in graphs:
+            graphs[cheap]()
+            return
+        iteration(cheap)
+        if graphed:
+            graphs[cheap] = _Graph(lambda: iteration(cheap), dev)
+
+    chunk = SYNC_EVERY if graphed or not Bf.is_cuda else 1
+    it = 0
+    while it < maxiter and B > 0:
+        cheap = it < hybrid_iters
+        steps = min(chunk, maxiter - it, hybrid_iters - it if cheap else maxiter)
+        for _ in range(steps):
+            run(cheap)
+        it += steps
+        _note(iterations=steps, syncs=1)
+        if bool(conv.all()):
+            break
+    _note(solves=1)
+    graphs.clear()
 
     # exact final energies and surfaces at the solution
     s_final = _bmv(Bf, params)
     f_final = _energy_from_surface(s_final, params[:, 6:], yv, w, alpha,
                                    epsilon, kmask)
-    return params, f_final, conv, it, s_final, it_lane
+    iterations = it_lane.max() if B > 0 else it_dev
+    return params, f_final, conv, iterations, s_final, it_lane
 
 
 @dataclass
@@ -468,7 +691,7 @@ def _solve_poly_core(coords, yv, w, params0, maxiter, tol):
     kmask0 = torch.zeros((B, 0), dtype=_F32, device=dev)
     alpha = torch.zeros(B, dtype=_F32, device=dev)
     s_init = _bmv(Q, params0)
-    f_init = (w * _softplus(-yv * s_init)).sum(1)
+    f_init = _lsum(w * _softplus(-yv * s_init))
     start = _better_of(Q, yv, w, params0, _lsq_init(Q, yv, w))
     params, f, conv, it, s, it_lane = _solve_batch_impl(
         start, Q, None, yv, w, alpha, 1.0, kmask0, maxiter, tol)
@@ -564,8 +787,8 @@ def solve_on_devices(solve, args, devices, **kwargs):
     device solves its contiguous share of the lanes (``np.array_split``
     order) in a thread of its own, on that thread's stream of the device
     (:func:`superdsm_tpu_torch.parallel.worker_stream`), so the shares'
-    Newton loops, which each wait on the host every iteration, run at the
-    same time; the outputs come back concatenated in lane order on the
+    Newton loops, which each wait on the host every few iterations, run at
+    the same time; the outputs come back concatenated in lane order on the
     first device. ``None`` solves on the selected device in this thread.
     Every array argument but ``denom`` (position 5) has the lane axis
     first; the rest are scalars. Lanes freeze one by one in the Newton

@@ -27,7 +27,12 @@ every row left unmatched, re-solves the atom under the row's center in the
 tile whose core holds it, in each package, as step 3 does. It writes one
 witness row per unmatched row to ``mosaic-2048-seed0-witness.csv``: the
 row, its tile and atom, and the JAX package's energy function at the
-reference's solution (``e_ref``) and at the port's (``e_port``).
+reference's solution (``e_ref``) and at the port's (``e_port``). A row
+without an energy witness (``e_port > WITNESS_RATIO * e_ref``) also gets
+the exact float64 minimum of the atom's energy (``e_min``,
+``exact_min.exact_minimum``; about a minute each) and the cause that it
+shows (:func:`stall_cause`); ``chip_smoke.py`` fails on such a row without
+a cause or with ``not isolated``.
 
 ``--c2f-exact ROW COL``: the c2f solves whose region holds pixel (ROW,
 COL), in each package (resumed from the JAX state after ``dsm``), each with
@@ -76,7 +81,27 @@ MOSAIC = dict(size=2048, tile=1024, halo=160)
 #: Suffix of the goldens matched against: ``'-f64sums'`` under ``--f64-sums``.
 SUFFIX = ''
 WITNESS_COLUMNS = ['kind', 'size', 'x', 'y', 'tile_row', 'tile_col', 'atom',
-                   'n_pixels', 'e_ref', 'e_port']
+                   'n_pixels', 'e_ref', 'e_port', 'e_min', 'cause']
+#: A row has its energy witness when ``e_port <= WITNESS_RATIO * e_ref``
+#: (``chip_smoke.WITNESS_RATIO``).
+WITNESS_RATIO = 0.5
+#: A solve stalls when it ends above this multiple of the exact minimum.
+STALL_RATIO = 1.5
+
+
+def stall_cause(e_ref, e_port, e_min):
+    """What the exact minimum ``e_min`` of the atom's energy says of a row
+    without an energy witness: which package's solve of the atom alone
+    stops above :data:`STALL_RATIO` times it."""
+    ref, port = e_ref > STALL_RATIO * e_min, e_port > STALL_RATIO * e_min
+    if ref and port:
+        return 'both solves stall'
+    if ref:
+        return 'reference solve stalls'
+    if port:
+        return 'port solve stalls'
+    return 'not isolated'
+
 
 
 def _match(tag, seg, seed):
@@ -148,7 +173,9 @@ def mosaic_witness(labels_path):
     from superdsm_tpu.config import Config
     from superdsm_tpu.image import Image
     from superdsm_tpu.output import get_output as jget_output
+    from superdsm_tpu.dsm.smooth import smooth_matrix_params
     from superdsm_tpu.pipeline import create_default_pipeline
+    from tests.data.torch_port.exact_min import exact_minimum
     from tests.regression.validate import load_csv, match_rows, summarize_label_map
 
     golden = HERE / f'mosaic-{MOSAIC["size"]}-seed0{SUFFIX}.csv'
@@ -184,12 +211,22 @@ def mosaic_witness(labels_path):
                  for _, row in rows]
         labels = sorted({a for a in under if a})
         energies = dict(zip(labels, _energies([[a] for a in labels], data)))
+        dsm_cfg = data['dsm_cfg']
+        _, cutoff = smooth_matrix_params(dsm_cfg['smooth_amount'], 2)
         for (kind, row), atom in zip(rows, under):
             n_pixels, e_ref, e_port = energies.get(atom, (0, float('nan'), float('nan')))
+            e_min, cause = '', ''
+            if atom and not e_port <= WITNESS_RATIO * e_ref:
+                e_min = exact_minimum(footprint_problem([atom], data), dsm_cfg['alpha'],
+                                      dsm_cfg['epsilon'], dsm_cfg['smooth_amount'],
+                                      cutoff)
+                cause = stall_cause(e_ref, e_port, e_min)
+                e_min = f'{e_min:.4f}'
             out_rows.append([kind, row[0], row[1], row[2], r0, c0, atom, n_pixels,
-                             f'{e_ref:.4f}', f'{e_port:.4f}'])
+                             f'{e_ref:.4f}', f'{e_port:.4f}', e_min, cause])
             print(f'tile ({r0}, {c0}) {kind} {row}: atom {atom}, {n_pixels} pixels, '
-                  f'e_ref {e_ref:.4f}, e_port {e_port:.4f}', flush=True)
+                  f'e_ref {e_ref:.4f}, e_port {e_port:.4f}'
+                  + (f', exact minimum {e_min}: {cause}' if cause else ''), flush=True)
     path = HERE / f'mosaic-{size}-seed0{SUFFIX}-witness.csv'
     with open(path, 'w', newline='') as f:
         writer = csv.writer(f)

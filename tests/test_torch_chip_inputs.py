@@ -74,18 +74,22 @@ def test_mosaic_equals_mosaic_bench():
 def test_unmatched_rows_excused_only_with_an_energy_witness():
     """A recorded row is excused when the JAX energy at the port's solution
     is at most half the reference's; a recorded row without that witness
-    stays unmatched, and a row not recorded (another size, or a center more
-    than half a pixel away) is new."""
+    stays unmatched when it has a recorded stall cause, and is new without
+    one (or with ``not isolated``), as is a row not recorded (another size,
+    or a center more than half a pixel away)."""
     recorded = [('spurious', (100, 10.0, 10.0), 100.0, 50.0),
-                ('spurious', (100, 20.0, 20.0), 100.0, 50.1),
+                ('spurious', (100, 20.0, 20.0), 100.0, 50.1, 'both solves stall'),
+                ('spurious', (100, 40.0, 40.0), 100.0, 50.1),
+                ('spurious', (100, 50.0, 50.0), 100.0, 50.1, 'not isolated'),
                 ('missing', (100, 30.0, 30.0), 100.0, 10.0)]
     spurious = [(100, 10.3, 9.8), (100, 20.0, 20.0), (101, 10.0, 10.0),
-                (100, 30.0, 30.0)]
+                (100, 30.0, 30.0), (100, 40.0, 40.0), (100, 50.0, 50.0)]
     missing = [(100, 30.0, 30.4), (100, 10.0, 10.0), (100, 30.0, 30.6)]
     witnessed, left, new = chip_smoke._excuse(spurious, missing, recorded)
     assert witnessed == {'spurious': [(100, 10.3, 9.8)], 'missing': [(100, 30.0, 30.4)]}
     assert left == {'spurious': [(100, 20.0, 20.0)], 'missing': []}
-    assert new == {'spurious': [(101, 10.0, 10.0), (100, 30.0, 30.0)],
+    assert new == {'spurious': [(101, 10.0, 10.0), (100, 30.0, 30.0),
+                                (100, 40.0, 40.0), (100, 50.0, 50.0)],
                    'missing': [(100, 10.0, 10.0), (100, 30.0, 30.6)]}
 
 
@@ -99,12 +103,15 @@ def _golden(name):
     ('mosaic-2048-seed0.csv', chip_smoke._witness_rows(chip_smoke.MOSAIC_WITNESS))])
 def test_recorded_rows_are_rows_of_the_golden(name, rows):
     """Each recorded 'missing' row is a row of its golden and no 'spurious'
-    one is; each row is recorded once, with finite positive energies."""
+    one is; each row is recorded once, with finite positive energies, and
+    each without an energy witness with a stall cause."""
     golden = _golden(name)
-    assert len({(kind, row) for kind, row, _, _ in rows}) == len(rows)
-    for kind, row, e_ref, e_port in rows:
+    assert len({(kind, row) for kind, row, *_ in rows}) == len(rows)
+    for kind, row, e_ref, e_port, *cause in rows:
         assert (tuple(row) in golden) == (kind == 'missing'), (kind, row)
         assert np.isfinite([e_ref, e_port]).all() and min(e_ref, e_port) > 0
+        if e_port > chip_smoke.WITNESS_RATIO * e_ref:
+            assert cause and cause[0] in chip_smoke.STALL_CAUSES, (kind, row)
 
 
 def test_bench_seed3_rows_are_witnessed():

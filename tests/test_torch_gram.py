@@ -332,14 +332,15 @@ def test_knobs_read_from_environment():
 # The float32 kernel's split of the pixel loop across blocks (split-P). The
 # plan is Python in gram.py; the kernel takes it as it is.
 
-#: (B, P, n, splits): launches that fill the card in one segment, the
-#: table shapes and few-lane launches the main path makes (B = 1 re-solves,
-#: small tail chunks), and an odd chunk count (1056 = 33 x 32 rows: a short
-#: last segment).
-SPLIT_SHAPES = [(64, 8192, 512, False), (8, 2048, 2048, False),
+#: (B, P, n, splits): launches of many lanes (which split as one lane does),
+#: the table shapes and few-lane launches the main path makes (B = 1
+#: re-solves, small tail chunks), an odd chunk count (1056 = 33 x 32 rows: a
+#: short last segment), and a pixel loop too short to split.
+SPLIT_SHAPES = [(64, 8192, 512, True), (8, 2048, 2048, True),
                 (64, 8192, 128, True), (16, 32768, 512, True),
                 (1, 8192, 128, True), (1, 32768, 512, True),
-                (3, 1056, 128, True), (1, 2048, 1024, True)]
+                (3, 1056, 128, True), (1, 2048, 1024, True),
+                (4, 128, 128, False)]
 
 
 @pytest.mark.parametrize('B,P,n,splits', SPLIT_SHAPES)
@@ -353,16 +354,25 @@ def test_split_plan_covers_every_chunk_once_in_pixel_order(B, P, n, splits):
     nchunks = P // gram.ROWS
     assert (nsegs > 1) == splits
     assert nsegs == -(-nchunks // seg_chunks)
+    # planned as for one lane: a lane's sums split alike in every batch
+    assert all(gram.split_plan(b, P, n) == (seg_chunks, nsegs) for b in (1, 2, 5, 64))
     if splits:
-        # a few items split until they fill the card; segments start on a
-        # float32 partial's first chunk
-        assert B * gram.tile_pairs(n) < gram.TARGET_ITEMS
+        # one lane's items split until they fill the card, in at most
+        # MAX_SEGMENTS segments; segments start on a float32 partial's
+        # first chunk
+        assert gram.tile_pairs(n) < gram.TARGET_ITEMS
+        assert nsegs <= gram.MAX_SEGMENTS
         assert seg_chunks % gram.FLUSH_CHUNKS == 0
         assert seg_chunks >= gram.MIN_SEG_CHUNKS
-        # the bound of the scratch (SCRATCH_CAP_BYTES)
-        assert B * gram.tile_pairs(n) * nsegs < 2 * gram.TARGET_ITEMS
+        # the bound of the scratch (SCRATCH_CAP_BYTES): lanes launch in
+        # groups, the largest that fit
+        group = gram.lanes_per_launch(B, P, n)
+        assert 1 <= group <= B
+        assert group == 1 or gram.scratch_entries(group, P, n) * 8 <= gram.SCRATCH_CAP_BYTES
+        assert group == B or gram.scratch_entries(group + 1, P, n) * 8 > gram.SCRATCH_CAP_BYTES
     else:
         assert seg_chunks == nchunks
+        assert gram.lanes_per_launch(B, P, n) == B
     chunks = [c for seg in range(nsegs)
               for c in range(seg * seg_chunks, min(seg * seg_chunks + seg_chunks,
                                                    nchunks))]
@@ -423,12 +433,13 @@ def test_segmented_sums_agree_with_plain(B, P, n):
 
 def test_split_scratch_stays_under_its_cap():
     """Every (P, K) bucket the kernels serve, at every batch size up to its
-    GPU cap: a split launch needs at most SCRATCH_CAP_BYTES of float64
-    scratch, a float32 launch of one segment at most 1.5 times the bytes of
-    its float32 H, and a bf16 launch of one segment none (in full mode its
-    partials would take twice the bytes of H: the kernel writes H itself).
-    The bf16 kernel is planned in full mode and, at n >= 256, in triangle
-    mode."""
+    GPU cap: a split launch (a float32 gram's group of lanes) needs at most
+    SCRATCH_CAP_BYTES of float64 scratch, a float32 launch of one segment
+    at most 1.5 times the bytes of its float32 H (none at these buckets:
+    every float32 gram splits, as one lane does), and a bf16 launch of one
+    segment none (in full mode its partials would take twice the bytes of
+    H: the kernel writes H itself). The bf16 kernel is planned in full mode
+    and, at n >= 256, in triangle mode."""
     worst = {}
     worst_ratio = (0, None)
     for P in batching.P_BUCKETS:
@@ -439,7 +450,8 @@ def test_split_scratch_stays_under_its_cap():
             plans = [(6, False), (1, True)] + ([(1, False)] if n >= 256 else [])
             for B in range(1, batching.B_CAP_GPU[P] + 1):
                 for passes, full in plans:
-                    nbytes = gram.scratch_entries(B, P, n, passes, full) * 8
+                    group = gram.lanes_per_launch(B, P, n, passes, full)
+                    nbytes = gram.scratch_entries(group, P, n, passes, full) * 8
                     if gram.split_plan(B, P, n, passes, full)[1] > 1:
                         worst[passes] = max(worst.get(passes, (0, None)),
                                             (nbytes, (B, P, n, full)))
@@ -451,7 +463,7 @@ def test_split_scratch_stays_under_its_cap():
     for passes in (6, 1):
         assert 0 < worst[passes][0] <= gram.SCRATCH_CAP_BYTES, worst
     assert gram.SCRATCH_CAP_BYTES <= 2 ** 28
-    assert 0 < worst_ratio[0] <= 1.5, worst_ratio
+    assert worst_ratio[0] <= 1.5, worst_ratio
     # the one-segment traffic the bf16 kernel's direct write avoids
     assert gram.tile_pairs(2048, 1, True) * gram.TILE ** 2 * 8 == 2 * 2048 ** 2 * 4
 

@@ -30,6 +30,11 @@ blocks (split-P); those launches are held to the same checks, and one
 launch at two segment counts agrees to 1e-6 relative. A Bf with one
 nonzero row per chunk holds the kernel's own mapping of segments to chunks
 (every chunk counted once) at one segment and at many.
+
+The solver's lane kernels (``csrc/lane_ops.cu``) are held within the
+float32 bound of an exact sum of their L terms (L u sum|terms|, u =
+2^-24), with a lane alone bitwise equal to the same lane in the batch; a
+solve replayed as a CUDA graph equals the eager loop bitwise.
 """
 
 import numpy as np
@@ -217,6 +222,8 @@ def test_every_chunk_counted_once_at_any_segment_count(monkeypatch, B, P, n):
     segments = []
     for target in (1, gram.TARGET_ITEMS, 10 ** 9):
         monkeypatch.setattr(gram, 'TARGET_ITEMS', target)
+        if target == 10 ** 9:
+            monkeypatch.setattr(gram, 'MAX_SEGMENTS', 10 ** 9)
         segments.append(gram.split_plan(B, P, n)[1])
         g, H = gram.grad_hess_kernel(Bf, s, yv, w, active)
         torch.cuda.synchronize()
@@ -509,3 +516,100 @@ def test_first_linalg_calls_from_threads():
                           cwd=repo, capture_output=True, text=True, timeout=300,
                           env={**os.environ, 'PYTHONPATH': repo})
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P,n', [(5, 8192, 6), (3, 2048, 512), (2, 16384, 1024),
+                                   (4, 2048, 8), (4, 2048, 32), (3, 4099, 1)])
+def test_lane_matvec_kernel(B, P, n):
+    """The lane product (``csrc/lane_ops.cu``) within the float32 bound of
+    an exact sum of n terms (n u sum|terms|, u = 2^-24), a lane alone
+    bitwise equal to the same lane in the batch, and at n <= 8 (one thread
+    a row) bitwise equal to the warp-per-row kernel."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    rng = np.random.RandomState(B + P + n)
+    A = torch.as_tensor(rng.randn(B, P, n).astype(np.float32), device=dev)
+    x = torch.as_tensor(rng.randn(B, n).astype(np.float32), device=dev)
+    out = lane.matvec(A, x)
+    exact = (A.double() @ x.double()[..., None])[..., 0]
+    bound = n * 2.0 ** -24 * (A.double().abs() @ x.double().abs()[..., None])[..., 0]
+    assert bool(((out.double() - exact).abs() <= bound).all())
+    for b in range(B):
+        assert torch.equal(lane.matvec(A[b:b + 1], x[b:b + 1])[0], out[b])
+    if n <= 8:
+        warp = lane.matvec_kernel(A, x, warp_rows=True)
+        assert torch.equal(out.view(torch.int32), warp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,dim,positive', [
+    ((16, 32768, 12), 1, False), ((3, 524288), -1, False), ((5, 6), -1, False),
+    ((3, 5000, 12), 1, True), ((4, 32767), -1, True)])
+def test_lane_sum_kernel(shape, dim, positive):
+    """The lane sum bitwise equal to its order replayed on the host
+    (``lane.lane_sum_in_kernel_order``), within sqrt(L) u sum|terms| of the
+    exact sum and of the plain version (one term dropped or counted twice
+    exceeds that, on the positive softplus terms the solver sums), and a
+    lane alone bitwise equal to the same lane in the batch."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    rng = np.random.RandomState(len(shape))
+    host = rng.randn(*shape).astype(np.float32)
+    if positive:
+        host = np.logaddexp(host, 0.0).astype(np.float32)
+    x = torch.as_tensor(host, device=dev)
+    out = lane.lane_sum(x, dim)
+    L = shape[dim]
+    rows = np.moveaxis(host, dim, -1)
+    ordered = lane.lane_sum_in_kernel_order(rows.reshape(-1, L)).reshape(rows.shape[:-1])
+    assert np.array_equal(out.cpu().numpy().view(np.int32), ordered.view(np.int32))
+    bound = np.sqrt(L) * 2.0 ** -24 * x.double().abs().sum(dim)
+    assert bool(((out.double() - x.double().sum(dim)).abs() <= bound).all())
+    assert bool(((out.double() - lane.lane_sum_plain(x, dim).double()).abs()
+                 <= bound).all())
+    for b in (0, shape[0] - 1):
+        assert torch.equal(lane.lane_sum(x[b:b + 1], dim)[0], out[b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [0, 122])
+def test_device_loop_equals_eager_loop(K):
+    """A solve replayed as a CUDA graph equals the same solve run op by op
+    (``solver.eager_loop``) bitwise, and each lane alone equals it in the
+    batch."""
+    from superdsm_tpu_torch.dsm import solver
+    dev = _cuda()
+    B, P = 4, 2048
+    rng = np.random.RandomState(K)
+    pts = np.argwhere(np.ones((40, 40), bool)).astype(np.float32)
+    PIX = np.zeros((P, 2), np.float32)
+    PIX[:len(pts)] = pts
+    W = np.zeros((B, P), np.float32)
+    W[:, :len(pts)] = 1.0
+    yv = np.zeros((B, P), np.float32)
+    rr, cc = np.indices((40, 40))
+    for b in range(B):
+        disk = (rr - 20 - b) ** 2 + (cc - 19) ** 2 <= (8 + 2 * b) ** 2
+        yv[b, :len(pts)] = (disk - 0.5 + rng.randn(40, 40) * 0.4).ravel()
+    t = lambda a: torch.as_tensor(a, device=dev)
+    pix = t(np.stack([PIX] * B))
+    Q = _poly_basis((pix + 40.0) / 199.0)
+    kmask = torch.ones((B, K), device=dev)
+    G = build_smooth_matrix(pix, t(np.stack([pts[::len(pts) // K][:K]] * B)),
+                            4.0, 16, kmask) if K else None
+    args = (torch.zeros((B, 6 + K), device=dev), Q, G, t(yv), t(W),
+            torch.full((B,), 0.05, device=dev), 1.0, kmask, 30, 1e-5)
+    solver.reset_loop_stats()
+    graph = solver._solve_batch_impl(*args)
+    assert solver.LOOP_STATS['graphs'] == 1 and solver.LOOP_STATS['replays'] > 0
+    with solver.eager_loop():
+        eager = solver._solve_batch_impl(*args)
+    for x, y in zip(graph, eager):
+        assert torch.equal(x, y)
+    for b in range(B):
+        alone = solver._solve_batch_impl(*(a[b:b + 1] if isinstance(a, torch.Tensor)
+                                          else a for a in args))
+        assert torch.equal(alone[1][0], graph[1][b])
+        assert torch.equal(alone[0][0], graph[0][b])
+        assert torch.equal(alone[5][0], graph[5][b])

@@ -101,15 +101,60 @@ def test_knob_defaults_agree():
     assert tbatching._CANONICAL_K_LADDER == jbatching._CANONICAL_K_LADDER
 
 
+@pytest.mark.parametrize('case', ['cold', 'warm', 'dropped bucket'])
+def test_canonical_resolve_kept_lanes_are_bitwise_resolved(monkeypatch, case):
+    """A flagged lane whose chunk already had its canonical buckets and
+    start keeps its batch result: re-solving it anyway (as before the skip)
+    gives every lane the same bits. The lanes of the truncated six-problem
+    solve, cold, all warm-started from a short cold solve, and cold with
+    their canonical pixel buckets dropped from the ladder (as
+    ``SDSM_DROP_BUCKETS`` does), where every flagged lane is re-solved."""
+    images = _blob_images(7, 6)
+    kw = dict(smooth_amount=4, smooth_subsample=6)
+    solve = dict(alpha=0.05, smooth_amount=4, maxiter=4)
+    with T.use_device('cpu'):
+        tp = [tbatching.make_problem(TImage(model=y), tag=i, **kw)
+              for i, y in enumerate(images)]
+        if case == 'warm':
+            starts = tbatching.solve_problems(tp, **dict(solve, maxiter=2))
+            for p, r in zip(tp, starts):
+                p.init_params = r.params
+        if case == 'dropped bucket':
+            drop = {tbatching._canonical_buckets(p)[0] for p in tp}
+            monkeypatch.setattr(tbatching, 'P_BUCKETS',
+                                [b for b in tbatching.P_BUCKETS if b not in drop])
+        canonical = tbatching._batch_was_canonical
+        decided = []
+
+        def recording(p, *args):
+            decided.append(canonical(p, *args))
+            return decided[-1]
+        monkeypatch.setattr(tbatching, '_batch_was_canonical', recording)
+        kept = tbatching.solve_problems(tp, **solve)
+        assert decided, 'the fixture must leave a lane unconverged'
+        assert any(decided) == (case != 'dropped bucket')
+        monkeypatch.setattr(tbatching, '_batch_was_canonical', lambda *a: False)
+        before = tbatching.device_accounting()['canonical_lanes']
+        forced = tbatching.solve_problems(tp, **solve)
+        assert (tbatching.device_accounting()['canonical_lanes'] - before
+                == len(tbatching._LAST_FLAGGED))
+    for a, b in zip(kept, forced):
+        assert a.energy == b.energy and a.status == b.status
+        np.testing.assert_array_equal(a.params, b.params)
+        np.testing.assert_array_equal(a.fg, b.fg)
+
+
 def test_canonical_resolve_off_keeps_truncated_lanes(monkeypatch):
     """The six DSM problems of ``tests/test_torch_solver.py``'s lane-by-lane
     test, cut to 4 Newton iterations so that four lanes stay unconverged
     (at its 25 every lane converges). With the re-solve on, those lanes are
-    flagged and solved again; with it off (the constant
+    flagged, and each whose chunk was not already canonical is solved again
+    (alone, giving its batch result bitwise: a lane's result does not
+    depend on its batch); with it off (the constant
     ``SDSM_CANONICAL_RESOLVE=0`` sets), neither package flags or re-solves
-    any lane, the converged lanes keep their results bitwise, and the port
-    matches the JAX package: the same status, foregrounds on >= 99% of the
-    pixels, converged energies to rtol 1e-4."""
+    any lane, every lane keeps its result bitwise, and the port matches the
+    JAX package: the same status, foregrounds on >= 99% of the pixels,
+    converged energies to rtol 1e-4."""
     images = _blob_images(7, 6)
     kw = dict(smooth_amount=4, smooth_subsample=6)
     jp = [jbatching.make_problem(JImage(model=y), tag=i, **kw)
@@ -117,22 +162,39 @@ def test_canonical_resolve_off_keeps_truncated_lanes(monkeypatch):
     tp = [tbatching.make_problem(TImage(model=y), tag=i, **kw)
           for i, y in enumerate(images)]
     solve = dict(alpha=0.05, smooth_amount=4, maxiter=4)
+    resolved = lambda: tbatching.device_accounting()['canonical_lanes']
+    canonical = tbatching._batch_was_canonical
+    kept = {}  # tag -> the lane's chunk was canonical (no re-solve)
+
+    def recording(p, *args):
+        kept[p.tag] = canonical(p, *args)
+        return kept[p.tag]
+    monkeypatch.setattr(tbatching, '_batch_was_canonical', recording)
     with T.use_device('cpu'):
+        before = resolved()
         on_t = tbatching.solve_problems(tp, **solve)
         flagged = list(tbatching._LAST_FLAGGED)
         assert flagged, 'the fixture must leave a lane unconverged'
+        assert sorted(kept) == sorted(flagged)
+        assert resolved() - before == sum(not k for k in kept.values())
         monkeypatch.setattr(tbatching, '_CANONICAL_RESOLVE', False)
         monkeypatch.setattr(jbatching, '_CANONICAL_RESOLVE', False)
+        before = resolved()
         off_t = tbatching.solve_problems(tp, **solve)
         assert tbatching._LAST_FLAGGED == []
+        assert resolved() == before
     off_j = jbatching.solve_problems(jp, **solve)
     assert jbatching._LAST_FLAGGED == []
     for i, (a, b, on) in enumerate(zip(off_t, off_j, on_t)):
         assert a.status == b.status
         assert (a.fg == b.fg).mean() >= 0.99
         if i in flagged:
-            # the batch solve's result, not the canonical re-solve's
-            assert a.energy != on.energy
+            # the batch solve's result (no lane was re-solved, counted
+            # above); the canonical re-solve, a batch of one in these
+            # buckets, gave it bitwise again: a lane's result does not
+            # depend on its batch
+            assert a.energy == on.energy
+            np.testing.assert_allclose(a.params, on.params, rtol=0, atol=0)
         else:
             assert a.energy == on.energy
             np.testing.assert_allclose(a.params, on.params, rtol=0, atol=0)

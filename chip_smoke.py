@@ -37,12 +37,17 @@ result lines):
    kernel's), beside each launch's bound (the larger of its operations
    over the card's published peak and its bytes over the memory rate,
    counted from this run's inputs) and the time of ``torch.bmm`` of the
-   kappa-scaled active lanes against Bf in float32 (TF32 off); then the lane
-   kernels (``lane_matvec``, ``lane_sum``) at the shapes of
-   :data:`LANE_SHAPES`, against their plain versions and an exact float64
-   sum within the float32 bound L u sum|terms|, a lane alone bitwise equal
-   to the same lane in the batch, with ``torch.bmm`` and ``torch.sum`` as
-   the library calls;
+   kappa-scaled active lanes against Bf in float32 (TF32 off); then the
+   softplus device function of the fused sums against ``torch.logaddexp(x,
+   0)`` over all 2^32 float32 bit patterns, bitwise; then the lane kernels
+   (``lane_matvec``, ``lane_sum``, ``lane_dot``, ``softplus_energies``) at
+   the shapes of :data:`LANE_SHAPES`, against their plain versions and an
+   exact float64 sum within the float32 bound, a lane alone bitwise equal
+   to the same lane in the batch, each bitwise equal to its order (the
+   warp-per-row product, the lane sum replayed on the host, the unfused
+   chains the fused sums replace, timed beside them), with
+   ``torch.bmm``, ``torch.sum`` and ``torch.linalg.vecdot`` as the library
+   calls (none for the softplus sums);
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
@@ -170,7 +175,14 @@ global-energy-minimization seconds, lane Newton iterations, solve calls
 and canonically re-solved lanes (``batching.device_accounting``), gram
 launches per route and objects, and seed 0's match against the golden;
 then one more run of seed 0 under ``torch.profiler``: host syncs, kernel
-and graph launches issued by the host, device busy ms and idle share.
+and graph launches issued by the host, device busy ms, idle share and the
+device ms per replayed Newton iteration by kernel family; seed 0 on the
+eager loop with its device time split by section (PCG's steps, the line
+search, the scale sweep, the rest); the 2048x2048 mosaic (1 thread) and
+the stall fixtures at B = 1, 2, 4, 16. Every turn's label maps of bench
+seeds 0-3 and the mosaic and its fixtures' params and energies must be
+bitwise those of every other turn (each result printed; a difference
+fails the run, after the timings).
 
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
 gate enforced on every image (:data:`F64_NOT_MET` included): it fails
@@ -582,21 +594,77 @@ def _active(B, n_active):
 
 #: Main-path shapes of the lane kernels (``csrc/lane_ops.cu``), the table's
 #: row first: ``lane_matvec`` (B, P, n) at the banded table chunk's line
-#: search (u = Bf delta), a poly chunk and a B = 1 re-solve; ``lane_sum``
-#: (B, S, P) summed over P at the same chunk's 12 line-search candidates,
-#: a B = 1 re-solve's, and (B, P) one energy per lane.
-LANE_SHAPES = {'lane_matvec': [(16, 32768, 512), (64, 8192, 6), (1, 16384, 512)],
-               'lane_sum': [(16, 12, 32768), (1, 12, 16384), (64, 8192),
-                            (3, 12, 5000)]}
+#: search (u = Bf delta), a poly chunk, a B = 1 re-solve, the smallest DSM
+#: bucket (n = 32) and PCG's H p at n = 512 and 1024 (B = 2: the bench's
+#: banded chunks, 16: the table chunk, 1: a re-solve); ``lane_sum`` (B, S,
+#: K) summed over K (the solver's (B, K, S) layout, read in place) at the
+#: bench field's regularizer candidates and (B, K) energy sums, the shapes
+#: it launches most, then at shapes the main path no longer gives it since
+#: the softplus sums are fused: a (16, 32768) chunk's 12 line-search
+#: candidates, a B = 1 re-solve's, (B, P) one energy per lane and positive
+#: terms; ``lane_dot`` (B, n): PCG's dot products at the table chunk, a
+#: B = 1 re-solve and the bench's B = 2; and ``softplus_energies`` (mode,
+#: B, P): the line search, the scale sweep and one energy at the table
+#: chunk and a B = 1 re-solve. The lists of the other kernels end with the
+#: bench field's frequent shapes (phase 4's lane histogram): a triangle
+#: chunk's u = Bf delta and a poly chunk's surface, the step guard's dot
+#: products at n = 256 and the line search and scale sweep of (8, 12288).
+LANE_SHAPES = {'lane_matvec': [(16, 32768, 512), (64, 8192, 6), (1, 16384, 512),
+                               (64, 8192, 32), (2, 512, 512), (16, 512, 512),
+                               (1, 512, 512), (2, 1024, 1024), (8, 12288, 256),
+                               (32, 16384, 6)],
+               'lane_sum': [(2, 12, 506), (16, 12, 250), (16, 250), (16, 12, 32768),
+                            (1, 12, 16384), (64, 8192), (3, 12, 5000)],
+               'lane_dot': [(16, 512), (1, 512), (2, 512), (8, 1024), (16, 256)],
+               'softplus_energies': [('line_search', 16, 32768),
+                                     ('line_search', 1, 16384),
+                                     ('scale_sweep', 16, 32768),
+                                     ('scale_sweep', 1, 16384),
+                                     ('energy', 16, 32768), ('energy', 1, 16384),
+                                     ('line_search', 8, 12288),
+                                     ('scale_sweep', 8, 12288)]}
 #: Lane-sum shapes whose terms are positive, as the solver's softplus terms
 #: are (the others are normal: sums that cancel).
 LANE_SUM_POSITIVE = {(3, 12, 5000)}
 #: The products and reductions of the JAX package's jitted Newton step that
-#: the lane kernels stand for (XLA's, not Pallas kernels): ``u = Bf delta``
-#: and the line-search candidates' pixel sums.
+#: the lane kernels stand for (XLA's, not Pallas kernels): ``u = Bf delta``,
+#: the regularizer's candidate sums, PCG's ``jnp.dot`` and the line search's
+#: softplus terms with their sum (one XLA fusion there, one kernel here).
 LANE_REPLACES = {'lane_matvec': 'superdsm_tpu/dsm/solver.py:213',
-                 'lane_sum': 'superdsm_tpu/dsm/solver.py:217'}
+                 'lane_sum': 'superdsm_tpu/dsm/solver.py:221',
+                 'lane_dot': 'superdsm_tpu/dsm/solver.py:152',
+                 'softplus_energies': 'superdsm_tpu/dsm/solver.py:217'}
 LANE_SOURCE = 'superdsm_tpu_torch/csrc/lane_ops.cu'
+#: float32 operations of one softplus-energy term: the candidate's x (line
+#: search: u c, s +, y *, negation; scale sweep: c *, negation, with y s once
+#: a pixel; one energy: y *, negation), logaddexp(x, 0) (the isinf test,
+#: max, subtraction, fabs, negation, exp, log1p, addition: exp and log1p
+#: counted one each), w * and the running sum's addition.
+SOFTPLUS_OPS = {'line_search': 14, 'scale_sweep': 12, 'energy': 12}
+
+
+def _bits(t):
+    import torch
+    return t.contiguous().view(torch.int32)
+
+
+def _softplus_case(mode, B, P):
+    """The inputs of a softplus-energy launch, from a seed, on the card:
+    ``(s, y, w, c, u)`` as the solver passes them (surfaces and steps of a
+    few units, labels of either sign, weights in [0, 1] with 10% padding
+    zeros; ``c`` the line search's steps or the scale sweep's scales)."""
+    import torch
+    from superdsm_tpu_torch.dsm import solver
+    rng = np.random.RandomState(B + P + len(mode))
+    t = lambda a: torch.tensor(a.astype(np.float32), device='cuda')
+    s, u, y = t(rng.randn(B, P) * 3), t(rng.randn(B, P) * 2), t(rng.randn(B, P))
+    w = t((rng.rand(B, P) < 0.9) * rng.rand(B, P))
+    if mode == 'line_search':
+        return s, y, w, 0.5 ** torch.arange(solver.LS_STEPS, dtype=torch.float32,
+                                            device='cuda'), u
+    if mode == 'scale_sweep':
+        return s, y, w, torch.tensor(solver.SCALES, dtype=torch.float32, device='cuda'), None
+    return s, y, w, None, None
 
 
 def _check_lane(name, shape):
@@ -606,15 +674,21 @@ def _check_lane(name, shape):
     Returns its table row.
 
     ``lane_matvec``: within the float32 bound of a sum of n terms (n u
-    sum|terms|, u = 2^-24) of the exact sum; at n <= 8 (one thread a row)
+    sum|terms|, u = 2^-24) of the exact sum; at n <= 32 (one thread a row)
     bitwise equal to the warp-per-row kernel. ``lane_sum``: bitwise equal
     to its order replayed on the host (``lane.lane_sum_in_kernel_order``),
-    and within sqrt(L) u sum|terms| of the plain version and of the exact
-    sum (a statistical bound: one term dropped or counted twice exceeds it
-    unless it is below that share of the sum)."""
+    and within sqrt(L) u
+    sum|terms| of the plain version and of the exact sum (a statistical
+    bound: one term dropped or counted twice exceeds it unless it is below
+    that share of the sum). ``lane_dot`` and ``softplus_energies``: bitwise
+    equal to the unfused chain they replace (the op-by-op terms,
+    their transposed copy, the lane sum), within sqrt(L) u sum|terms| of
+    the plain version and of the exact sum of the chain's terms; the
+    chain's time is printed beside theirs (``chain_ms``)."""
     import torch
     from superdsm_tpu_torch.dsm import lane
-    rng = np.random.RandomState(sum(shape))
+    rng = np.random.RandomState(sum(x for x in shape if isinstance(x, int)))
+    chain = None
     if name == 'lane_matvec':
         B, P, n = shape
         args = (torch.tensor(rng.randn(B, P, n).astype(np.float32), device='cuda'),
@@ -625,15 +699,14 @@ def _check_lane(name, shape):
         A, x = (a.double() for a in args)
         exact = (A @ x[..., None])[..., 0]
         magnitude = (A.abs() @ x.abs()[..., None])[..., 0]
-        terms = n
         nbytes = 4.0 * (B * P * n + B * n + B * P)
         ops = 2.0 * B * P * n
         alone = lambda b: lane.matvec_kernel(args[0][b:b + 1], args[1][b:b + 1])
-        order_equal = n > 8 or torch.equal(
-            lane.matvec_kernel(*args).view(torch.int32),
-            lane.matvec_kernel(*args, warp_rows=True).view(torch.int32))
-        bound_terms = terms
-    else:
+        order_equal = n > 32 or torch.equal(
+            _bits(lane.matvec_kernel(*args)),
+            _bits(lane.matvec_kernel(*args, warp_rows=True)))
+        bound_terms = n
+    elif name == 'lane_sum':
         dim = 2 if len(shape) == 3 else 1
         B, L = shape[0], shape[-1]
         x = rng.randn(*shape).astype(np.float32)
@@ -647,55 +720,127 @@ def _check_lane(name, shape):
         library = lambda: xt.sum(1)
         exact = x.double().sum(-1)
         magnitude = x.double().abs().sum(-1)
-        terms = L
         nbytes = 4.0 * (x.numel() + x.numel() // L)
         ops = float(x.numel())
         alone = lambda b: lane.lane_sum_kernel(xt[b:b + 1], 1)
         order_equal = np.array_equal(kernel().cpu().numpy().view(np.int32),
                                      ordered.view(np.int32))
         bound_terms = math.sqrt(L)
+    elif name == 'lane_dot':
+        B, L = shape
+        a, b = (torch.tensor(rng.randn(B, L).astype(np.float32), device='cuda')
+                for _ in range(2))
+        kernel = lambda: lane.lane_dot_kernel(a, b)
+        plain = lambda: lane.lane_dot_plain(a, b)
+        chain = lambda: lane.lane_sum_kernel(a * b)
+        library = lambda: torch.linalg.vecdot(a, b)
+        exact = (a.double() * b.double()).sum(-1)
+        magnitude = (a.double() * b.double()).abs().sum(-1)
+        nbytes = 4.0 * (2 * B * L + B)
+        ops = 2.0 * B * L
+        alone = lambda i: lane.lane_dot_kernel(a[i:i + 1], b[i:i + 1])
+        order_equal = torch.equal(_bits(kernel()), _bits(chain()))
+        bound_terms = math.sqrt(L)
+    else:
+        mode, B, L = shape
+        s, y, w, c, u = _softplus_case(mode, B, L)
+        kernel = lambda: lane.softplus_energies_kernel(s, y, w, c, u)
+        plain = lambda: lane.softplus_energies_plain(s, y, w, c, u)
+
+        def chain():  # the terms, op by op; a transposed copy; the sum
+            terms, dim = lane.softplus_terms(s, y, w, c, u)
+            return lane.lane_sum_kernel(terms.movedim(dim, -1).contiguous(), -1)
+        library = None
+        terms = lane.softplus_terms(s, y, w, c, u)[0].double()
+        exact = terms.sum(1)
+        magnitude = terms.abs().sum(1)
+        S = 1 if c is None else c.numel()
+        nbytes = 4.0 * ((3 if u is None else 4) * B * L + B * S + S)
+        ops = float(SOFTPLUS_OPS[mode] * B * L * S + (B * L if mode == 'scale_sweep' else 0))
+        alone = lambda i: lane.softplus_energies_kernel(
+            s[i:i + 1], y[i:i + 1], w[i:i + 1], c, None if u is None else u[i:i + 1])
+        order_equal = torch.equal(_bits(kernel()), _bits(chain()))
+        bound_terms = math.sqrt(L)
     tag = f'{name} {shape}'
     out = kernel()
     torch.cuda.synchronize()
     if not torch.equal(out, kernel()):
         fail(f'{tag}: two runs differ (not reproducible)')
-    if not all(torch.equal(alone(b)[0], out[b]) for b in (0, B - 1)):
+    if not all(torch.equal(_bits(alone(b)[0]), _bits(out[b])) for b in (0, out.shape[0] - 1)):
         fail(f'{tag}: a lane alone differs from the same lane in the batch')
     ref = plain()
     err = float((out - ref).abs().max())
     bound = bound_terms * 2.0 ** -24 * magnitude
     excess = float(((out.double() - exact).abs() - bound).max())
     excess_plain = float(((out.double() - ref.double()).abs() - bound).max())
+    order = {'lane_matvec': '(the warp-per-row kernel)',
+             'lane_sum': '(replayed on the host)'}.get(
+                 name, '(the unfused chain)')
     say(f'[kernel] {tag}: max_abs_err {err:.3e} against the plain version; '
         f'max(|d| - {"n" if name == "lane_matvec" else "sqrt(L)"} u sum|terms|) '
         f'against the float64 sum {excess:.3e}, against the plain version '
-        f'{excess_plain:.3e} (each <= 0); bitwise its order '
-        f'{"(the warp-per-row kernel) " if name == "lane_matvec" else "(replayed on the host) "}'
+        f'{excess_plain:.3e} (each <= 0); bitwise its order {order} '
         f'{order_equal}; a lane alone bitwise equals it in the batch')
     if excess > 0:
         fail(f'{tag}: kernel outside the float32 bound of the exact sum')
-    if name == 'lane_sum' and excess_plain > 0:
+    if name != 'lane_matvec' and excess_plain > 0:
         fail(f'{tag}: kernel outside the float32 bound of the plain version')
     if not order_equal:
         fail(f'{tag}: kernel not bitwise equal to its order')
     ms = _event_ms(kernel)
     plain_ms = _event_ms(plain)
-    library_ms = _event_ms(library)
+    library_ms = None if library is None else _event_ms(library)
+    chain_ms = None if chain is None else _event_ms(chain)
     ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
     say(f'[kernel] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library '
-        f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: '
-        f'{bound_ms / ms:.1%} of the bound')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_share=bound_ms / ms,
-                library_ms=library_ms, shape=list(shape))
+        f'{"none" if library_ms is None else f"{library_ms:.4f} ms"}'
+        f'{"" if chain_ms is None else f", unfused chain {chain_ms:.4f} ms"}, bound '
+        f'{bound_ms:.4f} ms by {bound_by}: {bound_ms / ms:.1%} of the bound')
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bound_share=bound_ms / ms,
+               library_ms=library_ms, shape=list(shape))
+    if chain_ms is not None:
+        row['chain_ms'] = chain_ms
+    return row
+
+
+def _check_logaddexp(chunk=1 << 28):
+    """The softplus device function of the fused sums (``lane.softplus_kernel``)
+    against ``torch.logaddexp(x, 0)`` on the card over all 2^32 float32
+    bit patterns, in chunks: bitwise equal (a NaN against a NaN of another
+    payload is counted apart). Fails on any other difference."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    t0 = time.time()
+    differ = nan_payload = 0
+    shown = []
+    for k in range(2 ** 32 // chunk):
+        bits = torch.arange(k * chunk, (k + 1) * chunk, dtype=torch.int64, device='cuda')
+        x = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+        ref, got = lane.softplus_plain(x), lane.softplus_kernel(x)
+        bad = _bits(ref) != _bits(got)
+        both_nan = bad & torch.isnan(ref) & torch.isnan(got)
+        nan_payload += int(both_nan.sum())
+        real = bad & ~both_nan
+        differ += int(real.sum())
+        for i in torch.nonzero(real)[:4, 0].tolist():
+            shown.append((float(x[i]), float(ref[i]), float(got[i])))
+        del bits, x, ref, got, bad, both_nan, real
+    torch.cuda.synchronize()
+    say(f'[kernel] softplus device function against torch.logaddexp(x, 0) over '
+        f'all 2^32 float32 bit patterns: {differ} differ, {nan_payload} NaNs of '
+        f'another payload ({time.time() - t0:.1f} s)')
+    if differ:
+        fail(f'softplus device function differs from torch.logaddexp: {shown[:8]}')
 
 
 def phase_kernels():
     """Phase 3: every launch of :func:`_cases`; a route's row is its table
     shape's, and its launches at the other shapes are listed under it as
-    ``other_shapes``; then the lane kernels at :data:`LANE_SHAPES`."""
+    ``other_shapes``; then the softplus device function over all 2^32
+    inputs and the lane kernels at :data:`LANE_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
@@ -711,6 +856,7 @@ def phase_kernels():
                 rows[route]['other_shapes'].append(row)
         del Bf, s, yv, w, active, band
         torch.cuda.empty_cache()
+    _check_logaddexp()
     for name, shapes in LANE_SHAPES.items():
         row = _check_lane(name, shapes[0])
         rows[name] = dict(row, other_shapes=[_check_lane(name, shape)
@@ -1087,7 +1233,9 @@ def _profiled(fn):
 #: first that matches; else 'elementwise and reductions').
 KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce')),
                    ('lane_matvec', ('lane_matvec',)),
-                   ('lane_sum', ('row_sum',)),
+                   ('lane_dot', ('dotterm',)),
+                   ('softplus_energies', ('lane_softplus',)),
+                   ('lane_sum', ('lane_sum', 'row_sum')),
                    ('cuSOLVER/MAGMA', ('potr', 'getr', 'trsm', 'trsv', 'magma',
                                        'cusolver', 'laswp', 'chol', 'syrk', 'getf',
                                        'lu_', 'trtri')),
@@ -1115,6 +1263,135 @@ def _family_split(spans, iterations):
         count[family] += 1
     it = max(iterations, 1)
     return [(f, t / it, count[f] / it) for f, t in ms.most_common()]
+
+
+#: Sections of a Newton iteration whose device time ``--ab`` splits out:
+#: PCG's steps (``solver._pcg_solve``), and within ``solver._newton_step``
+#: the line search and the scale sweep, from the source lines that open
+#: them (found by their text, so in either checkout of ``--ab``) to the
+#: one after.
+SECTION_MARKS = ('# line search: s is affine', '# multiplicative scale sweep',
+                 'new_mu = torch.where(')
+
+
+def _solver_sections(path):
+    """The first lines of the line search, the scale sweep and what follows
+    it in ``_newton_step`` of the solver source at ``path``."""
+    lines = open(path).read().splitlines()
+    at, marks = 0, []
+    for text in ('def _newton_step(',) + SECTION_MARKS:
+        at = next((i for i in range(at, len(lines)) if text in lines[i]), None)
+        if at is None:
+            fail(f'--ab: no line holding {text!r} in {path} (after the marks '
+                 f'before it): the split by section needs SECTION_MARKS to '
+                 f'name lines of that solver')
+        marks.append(at + 1)
+    return tuple(marks[1:])
+
+
+@contextlib.contextmanager
+def _section_ranges(marks):
+    """While the block runs, each section of the solver's Newton iterations
+    is a ``torch.profiler.record_function`` range named ``sdsm.<section>``:
+    a call of ``_pcg_solve`` is 'PCG steps'; the lines of ``_newton_step``
+    from ``marks[0]`` and from ``marks[1]`` up to ``marks[2]`` are 'line
+    search' and 'scale sweep' (a line tracer on this and new threads,
+    ``sys.settrace``; only those two functions' frames are traced line by
+    line)."""
+    import threading
+    from torch.profiler import record_function
+    from superdsm_tpu_torch.dsm import solver
+    newton, pcg = solver._newton_step.__code__, solver._pcg_solve.__code__
+
+    def section(line):
+        if marks[0] <= line < marks[1]:
+            return 'line search'
+        return 'scale sweep' if marks[1] <= line < marks[2] else None
+
+    def local(frame, event, arg, state):
+        name = section(frame.f_lineno) if event == 'line' else None
+        if event == 'return' or (event == 'line' and name != state[0]):
+            if state[1] is not None:
+                state[1].__exit__(None, None, None)
+            state[:] = [None, None]
+            if name is not None:
+                state[:] = [name, record_function(f'sdsm.{name}')]
+                state[1].__enter__()
+        return lambda f, e, a: local(f, e, a, state)
+
+    def tracer(frame, event, arg):
+        if event != 'call':
+            return None
+        if frame.f_code is pcg:
+            rf = record_function('sdsm.PCG steps')
+            rf.__enter__()
+
+            def pcg_local(f, e, a):
+                if e == 'return':
+                    rf.__exit__(None, None, None)
+                return pcg_local
+            return pcg_local
+        if frame.f_code is newton:
+            return lambda f, e, a: local(f, e, a, [None, None])
+        return None
+
+    sys.settrace(tracer)
+    threading.settrace(tracer)
+    try:
+        yield
+    finally:
+        sys.settrace(None)
+        threading.settrace(None)
+
+
+def _section_split(fn):
+    """Runs ``fn`` (a solve on the eager loop, whose kernels are those a
+    replayed iteration launches) under ``torch.profiler`` with its sections
+    marked (:func:`_section_ranges`); attributes every device activity to
+    the section whose range holds the host call that launched it (the
+    runtime call of the same correlation id, on the same thread). Returns
+    the device ms per Newton iteration by (kernel family, section) and the
+    iterations run."""
+    import bisect
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from superdsm_tpu_torch.dsm import solver
+    marks = _solver_sections(solver.__file__)
+    solver.reset_loop_stats()
+    with solver.eager_loop(), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof, \
+            _section_ranges(marks):
+        fn()
+    iterations = max(solver.LOOP_STATS['iterations'], 1)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    ranges = collections.defaultdict(list)  # thread -> [(start, end, section)]
+    launched = {}  # correlation id -> (thread, host start) of the runtime call
+    for e in events:
+        if e.device_type() == cuda:
+            continue
+        if e.name().startswith('sdsm.'):
+            ranges[e.start_thread_id()].append((e.start_ns(), e.end_ns(), e.name()[5:]))
+        elif e.name().startswith(('cuda', 'cu')) and e.correlation_id() > 0:
+            launched[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+    starts = {}
+    for thread, spans in ranges.items():
+        spans.sort()
+        starts[thread] = [a for a, _, _ in spans]
+    ms = collections.Counter()
+    for e in events:
+        # the ranges' own device-side spans are no device work
+        if e.device_type() != cuda or e.name().startswith('sdsm.'):
+            continue
+        where = 'rest'
+        thread, t = launched.get(e.correlation_id(), (None, None))
+        if thread in starts:
+            i = bisect.bisect_right(starts[thread], t) - 1
+            if i >= 0 and ranges[thread][i][1] >= t:
+                where = ranges[thread][i][2]
+        ms[(_kernel_family(e.name()), where)] += e.duration_ns() / 1e6 / iterations
+    return ms, iterations
 
 
 def _profile_line(tag, seconds, counts, loop=None):
@@ -1157,20 +1434,28 @@ def phase_profile(g):
     each replay, on the graph's own ``active``); prints the gram's device
     ms against the first kernel's, the device's idle share of the wall, the
     host's syncs and launches, the Newton loops' counters and the launch
-    histogram. Returns the histogram and the image's counts."""
+    histogram; a second hook (``lane.LAUNCH_HOOKS``) counts the lane
+    kernels' launches by shape. Returns both histograms and the image's
+    counts."""
     import collections
-    from superdsm_tpu_torch.dsm import gram, solver
+    from superdsm_tpu_torch.dsm import gram, lane, solver
     records = []
+    lane_hist = collections.Counter()
 
     def recording(shape, active, banded, passes, full):
         records.append((shape, active.clone(), banded, passes, full))
 
+    def lane_recording(name, shape):
+        lane_hist[(name, tuple(shape))] += 1
+
     gram.LAUNCH_HOOKS.append(recording)
+    lane.LAUNCH_HOOKS.append(lane_recording)
     solver.reset_loop_stats()
     try:
         (_, _, _, _, seconds), counts = _profiled(lambda: _segment(g, 12))
     finally:
         gram.LAUNCH_HOOKS.remove(recording)
+        lane.LAUNCH_HOOKS.remove(lane_recording)
     spans = counts['spans']
     busy_ms = counts['busy_ms']
     gram_ms = sum(b - a for name, a, b in spans
@@ -1196,15 +1481,27 @@ def phase_profile(g):
     say(f'[profile] launches by pixel segments: {dict(sorted(by_segments.items()))}')
     if not records or gram_ms <= 0:
         fail('profile: no gram kernel in the profiled run')
-    return hist, profile0
+    say('[profile] lane-kernel launches by (kernel, shape), most frequent first:')
+    for key, count in lane_hist.most_common(40):
+        say(f'[profile]   {key}: {count}')
+    for name in LANE_SHAPES:
+        say(f'[profile] {name}: {sum(c for (k, _), c in lane_hist.items() if k == name)} '
+            f'launches in {len([1 for k, _ in lane_hist if k == name])} shapes')
+    return hist, lane_hist, profile0
 
 
-def _profiled_launches(rows, hist):
+def _profiled_launches(rows, hist, lane_hist):
     """Writes into each few-lane row of phase 3 (a route's
     ``other_shapes``) how often the profiled bench image launched that
-    route at its (B, active lanes, P, n), any pixel segments."""
+    route at its (B, active lanes, P, n), any pixel segments, and into each
+    lane-kernel row (``launches_at_shape``) how often it launched that
+    kernel at the row's shape."""
     for route, row in rows.items():
         if route in LANE_SHAPES:
+            for one in [row] + row['other_shapes']:
+                one['launches_at_shape'] = lane_hist[(route, tuple(one['shape']))]
+                say(f'[profile] {route} {tuple(one["shape"])}: '
+                    f'{one["launches_at_shape"]} launches in the profiled bench image')
             continue
         for other in row['other_shapes']:
             B, P, n = other['shape']
@@ -1245,8 +1542,8 @@ def _f64_gate(seg, golden, max_unmatched):
 
 def phase_main_path():
     """Phase 4; returns the timed run's launches (the gram routes' and the
-    lane kernels'), seed 0's label map, the profile's launch histogram and
-    the profiled image's counts."""
+    lane kernels'), seed 0's label map, the profile's launch histograms
+    (gram, lane kernels) and the profiled image's counts."""
     from superdsm_tpu_torch.dsm import gram, lane
     g, n = make_image(0)
     _, _, _, timings, seconds = _segment(g, 12)
@@ -1264,6 +1561,8 @@ def phase_main_path():
         f'kernels: {dict(lane.LAUNCHES)}')
     if any(launches[r] == 0 for r in ('dense', 'triangle', 'banded')):
         fail('the main path left a float32 gram route unlaunched')
+    if any(launches[name] == 0 for name in LANE_SHAPES):
+        fail('the main path left a lane kernel unlaunched')
     if any(v for r, v in launches.items() if r.endswith('pass')):
         fail('the default knobs launched a reduced-precision gram')
     if n_obj == 0:
@@ -1296,8 +1595,8 @@ def phase_main_path():
         fail('seed 3 with the plain float64 gram leaves its golden at other rows')
     for seed in GOLDEN_SEEDS:
         _f64_gate(segs[seed], _bench_golden(seed, F64), 1)
-    hist, profile0 = phase_profile(g)
-    return launches, seg, hist, profile0
+    hist, lane_hist, profile0 = phase_profile(g)
+    return launches, seg, hist, lane_hist, profile0
 
 
 @contextlib.contextmanager
@@ -2219,14 +2518,70 @@ def _ab_kernel_ms(root, shape, launches):
     return kernel_ms
 
 
-def ab_run(root):
-    """One ``--ab`` turn: the port of the checkout at ``root``; prints one
-    JSON line last."""
+def _ab_lane_ms():
+    """Device ms of ``lane_matvec`` and ``lane_sum`` (the solver's (B, K,
+    S) layout summed over K, as each checkout's wrapper reads it) at their
+    phase-3 shapes: the lane kernels both checkouts have."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    out = {}
+    for shape in LANE_SHAPES['lane_matvec']:
+        rng = np.random.RandomState(sum(shape))
+        B, P, n = shape
+        A = torch.tensor(rng.randn(B, P, n).astype(np.float32), device='cuda')
+        x = torch.tensor(rng.randn(B, n).astype(np.float32), device='cuda')
+        out[f'lane_matvec {shape}'] = _event_ms(lambda: lane.matvec_kernel(A, x))
+        del A
+    for shape in LANE_SHAPES['lane_sum']:
+        x = torch.tensor(np.random.RandomState(sum(shape)).randn(*shape)
+                         .astype(np.float32), device='cuda')
+        xt = x.transpose(1, 2).contiguous() if len(shape) == 3 else x
+        out[f'lane_sum {shape}'] = _event_ms(lambda: lane.lane_sum_kernel(xt, 1))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ab_results(out_dir, segs):
+    """The results ``--ab`` holds bitwise across checkouts, written to
+    ``out_dir``: bench seeds 0-3's label maps (given), the 2048x2048
+    mosaic's (1 thread, as phase 10 runs it) and the stall fixtures' params
+    and energies at every B of :data:`FIXTURE_BATCHES` (device loop)."""
+    import torch
+    import superdsm_tpu_torch as T
+    from superdsm_tpu_torch.dsm import batching
+    from superdsm_tpu_torch.output import get_output
+    from superdsm_tpu_torch.parallel import process_mosaic, rasterize_mosaic_labels
+    os.makedirs(out_dir, exist_ok=True)
+    arrays = {f'seed{seed}': seg for seed, seg in segs.items()}
+    g, _ = make_mosaic(MOSAIC_SIZE)
+    cfg = T.Config({'AF_scale': 12})
+    cfg['c2f-region-analysis/speculate'] = False
+    t0 = time.time()
+    objects, _ = process_mosaic(T.create_default_pipeline, cfg, g,
+                                out=get_output(None).derive(muted=True),
+                                threads_per_device=1)
+    torch.cuda.synchronize()
+    mosaic_s = time.time() - t0
+    arrays['mosaic'] = rasterize_mosaic_labels(g.shape, objects)
+    for name, path in STALL_FIXTURES.items():
+        kw, problem = _fixture(path)
+        for B in FIXTURE_BATCHES:
+            res = batching.solve_problems([problem] * B, **kw)
+            arrays[f'{name}-B{B}-params'] = np.stack([r.params for r in res])
+            arrays[f'{name}-B{B}-energy'] = np.array([r.energy for r in res])
+    np.savez_compressed(os.path.join(out_dir, 'results.npz'), **arrays)
+    return mosaic_s
+
+
+def ab_run(root, out_dir):
+    """One ``--ab`` turn: the port of the checkout at ``root``; writes its
+    label maps and fixture results to ``out_dir`` (:func:`_ab_results`);
+    prints one JSON line last."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
     import superdsm_tpu_torch as T
-    from superdsm_tpu_torch.dsm import batching, gram
+    from superdsm_tpu_torch.dsm import batching, gram, solver
     if not T.__file__.startswith(os.path.join(root, 'superdsm_tpu_torch')):
         fail(f'--ab-run imported {T.__file__}, not the package under {root}')
     T.set_device('cuda')
@@ -2240,9 +2595,10 @@ def ab_run(root):
             if launches:
                 kernel_ms.update(_ab_kernel_ms(root, shape, launches))
                 torch.cuda.empty_cache()
+    kernel_ms.update(_ab_lane_ms())
     images = {seed: make_image(seed)[0] for seed in BENCH_SEEDS}
     _segment(images[0], 12)
-    runs = []
+    runs, segs = [], {}
     for rep in range(AB_REPS):
         for seed, image in images.items():
             # marks the run in SDSM_SOLVE_TELEMETRY's per-round lines
@@ -2251,6 +2607,7 @@ def ab_run(root):
             acct = batching.device_accounting()
             data, seg, _, timings, seconds = _segment(image, 12)
             after = batching.device_accounting()
+            segs.setdefault(seed, seg)
             runs.append(dict(
                 seed=seed, seconds=seconds,
                 gem=timings['global-energy-minimization'],
@@ -2260,42 +2617,64 @@ def ab_run(root):
                 objects=len(data['postprocessed_objects'])))
             if seed == 0:
                 matched, total, _ = _match(seg, BENCH_GOLDEN)
-    # the host's syncs and launches over one more run of seed 0
+    # the host's syncs and launches, and the device ms per replayed Newton
+    # iteration by kernel family, over one more run of seed 0
+    solver.reset_loop_stats()
     (_, _, _, _, seconds), counts = _profiled(lambda: _segment(images[0], 12))
+    iterations = solver.LOOP_STATS['iterations']
     profile = dict(seconds=seconds, idle=1 - counts['busy_ms'] / (seconds * 1e3),
+                   iterations=iterations,
+                   families=_family_split(counts['spans'], iterations),
                    **{k: v for k, v in counts.items() if k != 'spans'})
+    # seed 0 on the eager loop, its device time split by section
+    sections, eager_iterations = _section_split(lambda: _segment(images[0], 12))
+    mosaic_s = _ab_results(out_dir, segs)
     print(json.dumps(dict(root=root, kernel_ms=kernel_ms, runs=runs,
-                          matched=matched, total=total, profile=profile)), flush=True)
+                          matched=matched, total=total, profile=profile,
+                          sections=[[f, w, ms] for (f, w), ms in sections.items()],
+                          eager_iterations=eager_iterations,
+                          mosaic_s=mosaic_s)), flush=True)
+
+
+def _ab_compare(turn_dirs, roots):
+    """Whether each result of :func:`_ab_results` is bitwise the same in
+    every turn (both checkouts, both turns each); prints one line per
+    result and returns the keys that differ."""
+    results = [np.load(os.path.join(d, 'results.npz')) for d in turn_dirs]
+    differ = []
+    for key in results[0].files:
+        same = all(np.array_equal(results[0][key], r[key]) for r in results[1:])
+        by_root = {root: all(np.array_equal(results[i][key], results[j][key])
+                             for i, ri in enumerate(roots) for j, rj in enumerate(roots)
+                             if ri == rj == root) for root in set(roots)}
+        say(f'[ab] {key}: bitwise equal across the checkouts: {same} (each '
+            f'checkout against its own other turn: {by_root})')
+        if not same:
+            differ.append(key)
+    return differ
 
 
 def ab(roots):
     """``--ab ROOT_A ROOT_B``: the turns A, B, B, A, one process each."""
     card = phase_environment()
     turns = {root: [] for root in roots}
-    for root in roots + roots[::-1]:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               '--ab-run', root], capture_output=True,
-                              text=True, timeout=600)
-        if proc.returncode != 0:
-            fail(f'--ab-run {root} exited {proc.returncode}:\n'
-                 f'{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}')
-        out = json.loads(proc.stdout.strip().splitlines()[-1])
-        turns[root].append(out)
-        say(f'[ab] {root}: kernel ms '
-            f'{ {k: round(v, 4) for k, v in out["kernel_ms"].items()} }')
-        for run in out['runs']:
-            say(f'[ab] {root}: seed {run["seed"]}: {run["seconds"]:.3f} s '
-                f'(gem {run["gem"]:.3f}), {run["lane_iters"]} lane iterations, '
-                f'{run["calls"]} solve calls, {run["canonical_lanes"]} lanes '
-                f're-solved canonically, gram launches {run["launches"]}, '
-                f'{run["objects"]} objects')
-        say(f'[ab] {root}: seed 0 {out["matched"]}/{out["total"]} matched the '
-            f'golden')
-        prof = out['profile']
-        say(f'[ab] {root}: seed 0 under torch.profiler: {prof["seconds"]:.3f} s, '
-            f'host syncs {prof["syncs"]}, kernel launches issued by the host '
-            f'{prof["launches"]}, graph launches {prof["graph_launches"]}, device '
-            f'busy {prof["busy_ms"]:.1f} ms, idle {prof["idle"]:.1%}')
+    order = roots + roots[::-1]
+    work = tempfile.mkdtemp(prefix='sdsm-ab-')
+    turn_dirs = [os.path.join(work, f'turn{i}') for i in range(len(order))]
+    try:
+        for root, turn_dir in zip(order, turn_dirs):
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   '--ab-run', root, turn_dir], capture_output=True,
+                                  text=True, timeout=900)
+            if proc.returncode != 0:
+                fail(f'--ab-run {root} exited {proc.returncode}:\n'
+                     f'{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}')
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            turns[root].append(out)
+            _ab_turn_lines(root, out)
+        differ = _ab_compare(turn_dirs, order)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     for root, outs in turns.items():
         for seed in BENCH_SEEDS:
             runs = [run for out in outs for run in out['runs'] if run['seed'] == seed]
@@ -2309,12 +2688,56 @@ def ab(roots):
             turns_ms = [out['kernel_ms'][tag] for out in outs]
             say(f'[ab] {root}: {tag}: kernel ms mean of the turns '
                 f'{np.mean(turns_ms):.4f} (turns {[round(t, 4) for t in turns_ms]})')
+        fams = {}
+        for out in outs:
+            for f, t, c in out['profile']['families']:
+                fams.setdefault(f, []).append((t, c))
+        say(f'[ab] {root}: seed 0, device ms (activities) per replayed Newton '
+            'iteration by kernel family, mean of the turns: ' + ', '.join(
+                f'{f} {np.mean([t for t, _ in v]):.4f} ({np.mean([c for _, c in v]):.1f})'
+                for f, v in sorted(fams.items(), key=lambda kv: -np.mean(
+                    [t for t, _ in kv[1]]))))
+        split = {}
+        for out in outs:
+            for f, w, ms in out['sections']:
+                split.setdefault((f, w), []).append(ms)
+        say(f'[ab] {root}: seed 0 on the eager loop, device ms per Newton '
+            'iteration by (kernel family, section), mean of the turns: ' + ', '.join(
+                f'{f} / {w} {np.mean(v):.4f}' for (f, w), v in sorted(
+                    split.items(), key=lambda kv: -np.mean(kv[1]))))
     a, b = roots
     for tag in turns[a][0]['kernel_ms']:
+        if tag not in turns[b][0]['kernel_ms']:
+            continue
         ms_a = np.mean([out['kernel_ms'][tag] for out in turns[a]])
         ms_b = np.mean([out['kernel_ms'][tag] for out in turns[b]])
         say(f'[ab] {tag}: {ms_a:.4f} -> {ms_b:.4f} ms ({ms_a / ms_b:.2f}x)')
     say(card)
+    if differ:
+        fail(f'--ab: results differ between the checkouts: {differ}')
+
+
+def _ab_turn_lines(root, out):
+    """Prints one ``--ab`` turn's JSON as lines."""
+    say(f'[ab] {root}: kernel ms '
+        f'{ {k: round(v, 4) for k, v in out["kernel_ms"].items()} }')
+    for run in out['runs']:
+        say(f'[ab] {root}: seed {run["seed"]}: {run["seconds"]:.3f} s '
+            f'(gem {run["gem"]:.3f}), {run["lane_iters"]} lane iterations, '
+            f'{run["calls"]} solve calls, {run["canonical_lanes"]} lanes '
+            f're-solved canonically, gram launches {run["launches"]}, '
+            f'{run["objects"]} objects')
+    say(f'[ab] {root}: seed 0 {out["matched"]}/{out["total"]} matched the '
+        f'golden')
+    prof = out['profile']
+    say(f'[ab] {root}: seed 0 under torch.profiler: {prof["seconds"]:.3f} s, '
+        f'host syncs {prof["syncs"]}, kernel launches issued by the host '
+        f'{prof["launches"]}, graph launches {prof["graph_launches"]}, device '
+        f'busy {prof["busy_ms"]:.1f} ms ({prof["busy_ms"] / max(prof["iterations"], 1):.4f} '
+        f'ms per Newton iteration, {prof["iterations"]} iterations), idle '
+        f'{prof["idle"]:.1%}')
+    say(f'[ab] {root}: mosaic 2048x2048 (1 thread) {out["mosaic_s"]:.2f} s; seed 0 '
+        f'eager loop {out["eager_iterations"]} iterations')
 
 
 def _timed(number, fn, *args):
@@ -2345,8 +2768,8 @@ def main():
             if 'registers' in line or 'spill' in line or 'smem' in line:
                 say(f'[build] {src}: {line.strip()}')
     kernels = _timed(3, phase_kernels)
-    launches, bench_seg, hist, profile0 = _timed(4, phase_main_path)
-    _profiled_launches(kernels, hist)
+    launches, bench_seg, hist, lane_hist, profile0 = _timed(4, phase_main_path)
+    _profiled_launches(kernels, hist, lane_hist)
     _timed(5, phase_real_crop)
     launches.update(_timed(6, phase_knobs))
     root = tempfile.mkdtemp(prefix='sdsm-batch-')
@@ -2382,8 +2805,8 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:] == ['--knob-run']:
         knob_run()
-    elif sys.argv[1:2] == ['--ab-run'] and len(sys.argv) == 3:
-        ab_run(sys.argv[2])
+    elif sys.argv[1:2] == ['--ab-run'] and len(sys.argv) == 4:
+        ab_run(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ['--ab'] and len(sys.argv) == 4:
         ab(sys.argv[2:])
     elif sys.argv[1:] == ['--strict']:

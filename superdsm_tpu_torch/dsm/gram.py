@@ -149,7 +149,8 @@ _KERNELS = {
                                dict(tile=TILE, rows=ROWS, flush=FLUSH_CHUNKS)),
     # the solver's per-lane products and sums (superdsm_tpu_torch.dsm.lane)
     'lane_ops.cu': ('libsdsm_lane.so', 'sdsm_lane',
-                    {'matvec': (3, 4), 'row_sum': (2, 2)},
+                    {'matvec': (3, 4), 'strided_sum': (2, 6), 'dot': (3, 2),
+                     'softplus_energies': (6, 4), 'softplus': (2, 1)},
                     dict(warp=32, small_n=8, row_threads=256)),
 }
 _F32_SRC, _BF16_SRC, LANE_SRC = _KERNELS
@@ -174,26 +175,28 @@ def reset_launch_counts(table=None):
             table[key] = 0
 
 
-def _add_launch(table, route, info):
+def _add_launch(table, route, info, hooks):
     with _count_lock:
         table[route] += 1
     if info is not None:
-        for hook in LAUNCH_HOOKS:
+        for hook in hooks:
             hook(*info)
 
 
-def _count_launch(route, info=None, table=None):
+def _count_launch(route, info=None, table=None, hooks=None):
     """Adds one launch of ``route`` to ``table`` (:data:`LAUNCHES` by
-    default); the read-modify-write is locked, so launches from concurrent
+    default) and tells ``hooks`` (:data:`LAUNCH_HOOKS` by default) of its
+    ``info``; the read-modify-write is locked, so launches from concurrent
     threads are never lost. While this thread captures a CUDA graph
     (:func:`recording_launches`) the launch is recorded instead: a capture
     launches nothing, and each replay counts it."""
     table = LAUNCHES if table is None else table
+    hooks = LAUNCH_HOOKS if hooks is None else hooks
     records = getattr(_capture, 'records', None)
     if records is not None:
-        records.append((table, route, info))
+        records.append((table, route, info, hooks))
     else:
-        _add_launch(table, route, info)
+        _add_launch(table, route, info, hooks)
 
 
 @contextlib.contextmanager
@@ -212,8 +215,8 @@ def recording_launches():
 
 def count_replayed(records):
     """Counts the launches of one replay of a captured graph."""
-    for table, route, info in records:
-        _add_launch(table, route, info)
+    for table, route, info, hooks in records:
+        _add_launch(table, route, info, hooks)
 
 
 def route_for(n, banded, passes=6, full=False):

@@ -1,21 +1,28 @@
 """Per-lane products and sums of the batched Newton solver.
 
-Each output of :func:`matvec` and :func:`lane_sum` belongs to one lane (the
-leading axis) and is summed in an order fixed by the reduced length alone,
-so a lane's result does not depend on which lanes share its batch. A
-library's batched product or reduction does not promise that: cuBLAS picks
-its kernel and PyTorch's CUDA reductions split a sum across threads and
-blocks from the whole launch, and on the CPU a batch of one takes BLAS's
-matrix-vector route while a batch of two takes its matrix-matrix one.
+Each output of :func:`matvec`, :func:`lane_sum`, :func:`lane_dot` and
+:func:`softplus_energies` belongs to one lane (the leading axis) and is
+summed in an order fixed by the reduced length alone, so a lane's result
+does not depend on which lanes share its batch. A library's batched product
+or reduction does not promise that: cuBLAS picks its kernel and PyTorch's
+CUDA reductions split a sum across threads and blocks from the whole
+launch, and on the CPU a batch of one takes BLAS's matrix-vector route while
+a batch of two takes its matrix-matrix one.
 
 Two implementations of each function live here:
 
 - the hand-written CUDA kernels of ``csrc/lane_ops.cu`` (built and loaded
   as the gram kernels are, :mod:`superdsm_tpu_torch.dsm.gram`), for CUDA
   tensors;
-- the plain PyTorch versions :func:`matvec_plain` and :func:`lane_sum_plain`,
-  for CPU tensors, where a batch of one computes what a batch of two
-  computes.
+- the plain PyTorch versions (``*_plain``), for CPU tensors, where a batch
+  of one computes what a batch of two computes.
+
+:func:`lane_dot` and :func:`softplus_energies` are sums of terms that the
+solver used to build op by op into a tensor before :func:`lane_sum` read
+it back; their kernels build each term in registers, rounding every
+intermediate as that op-by-op expression does (their plain versions are
+the expression), and sum the terms in :func:`lane_sum`'s order, so they
+give its bits without the tensor.
 
 Every kernel launch adds one to :data:`LAUNCHES` (through
 :func:`gram._count_launch`, so a captured CUDA graph counts its launches at
@@ -27,26 +34,40 @@ import torch
 
 from . import gram
 
-#: Kernel launches per kernel.
-LAUNCHES = {'lane_matvec': 0, 'lane_sum': 0}
+#: Kernel launches per kernel (``softplus``: the elementwise check of
+#: :func:`softplus_kernel`, which no solver path launches).
+LAUNCHES = {'lane_matvec': 0, 'lane_sum': 0, 'lane_dot': 0,
+            'softplus_energies': 0, 'softplus': 0}
 
 
 def reset_launch_counts():
     gram.reset_launch_counts(LAUNCHES)
 
 
-#: Threads of the row-sum kernel (``csrc/lane_ops.cu``, ``ROW_THREADS``;
-#: checked against the library when it loads).
+#: Callables told of every lane-kernel launch with its kernel's name and
+#: shape (``lane_matvec`` (B, P, n), ``lane_sum`` (B, S, L) or (B, L)
+#: summed over L, ``lane_dot`` (B, n), ``softplus_energies`` (mode, B, P));
+#: under a replayed CUDA graph at each replay, as
+#: :func:`gram._count_launch` counts.
+LAUNCH_HOOKS = []
+
+
+#: Slots of a lane sum (``csrc/lane_ops.cu``, ``ROW_THREADS``; checked
+#: against the library when it loads).
 ROW_THREADS = gram.LANE_CONSTANTS['row_threads']
 
+#: :func:`softplus_energies` modes of the C entry point.
+_LINE_SEARCH, _SCALE_SWEEP, _SINGLE = 0, 1, 2
+_MODE_NAMES = {_LINE_SEARCH: 'line_search', _SCALE_SWEEP: 'scale_sweep',
+               _SINGLE: 'energy'}
 
 def lane_sum_in_kernel_order(x):
-    """The row sums of ``x`` (R, L) in the order of the row-sum kernel, on
-    the host in float32 (numpy), to hold the kernel to its order bitwise:
-    thread t of :data:`ROW_THREADS` adds x[t], x[t + ROW_THREADS], ... in
+    """The row sums of ``x`` (R, L) in the order of the lane-sum kernels, on
+    the host in float32 (numpy), to hold the kernels to their order bitwise:
+    slot t of :data:`ROW_THREADS` adds x[t], x[t + ROW_THREADS], ... in
     turn, from 0; then a tree adds slot t + m into slot t for m =
     ROW_THREADS / 2, ..., 1. Each float32 addition rounds as the card's
-    does, and a thread's sum is never -0, so the zeros that pad L to a
+    does, and a slot's sum is never -0, so the zeros that pad L to a
     multiple of ROW_THREADS change nothing."""
     x = np.asarray(x, np.float32)
     R, L = x.shape
@@ -84,21 +105,68 @@ def lane_sum_plain(x, dim=-1):
     return x.sum(dim)
 
 
-def _launch(name, fn, *args):
+def lane_dot_plain(a, b):
+    """``sum_i a_i b_i`` per lane: the product, then :func:`lane_sum_plain`."""
+    return lane_sum_plain(a * b)
+
+
+def softplus_plain(x):
+    """``jax.nn.softplus``: log(1 + exp(x)) as ``torch.logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def softplus_terms(s, y, w, c=None, u=None):
+    """The terms of :func:`softplus_energies`, op by op as the solver built
+    them, and the axis they are summed over: ``s, y, w`` (B, P);
+
+    - ``u`` and ``c`` (S,) given, the line search's candidates
+      ``w softplus(-(y (s + u c_k)))`` (B, P, S), summed over P;
+    - ``c`` alone, the scale sweep's ``w softplus((-(y s)) c_k)`` (B, P, S);
+    - neither, one energy's ``w softplus(-(y s))`` (B, P) (also for ``s`` of
+      shape (..., P)), summed over its last axis.
+    """
+    if u is not None:
+        t = y[:, :, None] * (s[:, :, None] + u[:, :, None] * c)
+        return w[:, :, None] * softplus_plain(-t), 1
+    t = y * s
+    if c is not None:
+        return w[:, :, None] * softplus_plain(-t[:, :, None] * c), 1
+    return w * softplus_plain(-t), -1
+
+
+def softplus_energies_plain(s, y, w, c=None, u=None):
+    """:func:`softplus_terms` summed by :func:`lane_sum_plain`."""
+    return lane_sum_plain(*softplus_terms(s, y, w, c, u))
+
+
+def _launch(name, shape, fn, *args):
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f'{name} launch failed: CUDA error {err}')
-    gram._count_launch(name, table=LAUNCHES)
+    gram._count_launch(name, (name, shape), table=LAUNCHES, hooks=LAUNCH_HOOKS)
+
+
+def _check_cuda(name, *tensors):
+    for t in tensors:
+        if t.device.type != 'cuda':
+            raise ValueError(f'{name} needs CUDA tensors, got {t.device}')
+        if t.dtype != torch.float32:
+            raise ValueError(f'{name} takes float32, got {t.dtype}')
+
+
+def _int32(name, *values):
+    if any(not 0 <= v < 2 ** 31 for v in values):
+        raise ValueError(f'{name}: sizes or strides {values} do not fit in '
+                         'int32')
 
 
 def matvec_kernel(A, x, warp_rows=False):
-    """The CUDA kernel of :func:`matvec` on the current stream. At n <= 8
+    """The CUDA kernel of :func:`matvec` on the current stream. At n <= 32
     one thread computes a row; ``warp_rows`` takes the warp-per-row kernel
     there too (the same bits, to hold the two against each other)."""
     B, P, n = A.shape
-    if A.device.type != 'cuda':
-        raise ValueError(f'matvec_kernel needs CUDA tensors, got {A.device}')
+    _check_cuda('matvec_kernel', A, x)
     A = A.contiguous()
     x = x.contiguous()
     gram._check('x', x, torch.float32, (B, n), A.device)
@@ -106,26 +174,129 @@ def matvec_kernel(A, x, warp_rows=False):
     out = torch.empty((B, P), dtype=torch.float32, device=A.device)
     lib = gram._load(gram.LANE_SRC)
     with torch.cuda.device(A.device):
-        _launch('lane_matvec', lib.sdsm_lane_matvec, A.data_ptr(), x.data_ptr(),
-                out.data_ptr(), B, P, n, int(warp_rows))
+        _launch('lane_matvec', (B, P, n), lib.sdsm_lane_matvec, A.data_ptr(),
+                x.data_ptr(), out.data_ptr(), B, P, n, int(warp_rows))
     return out
 
 
+def _collapse(sizes, strides):
+    """``(size, stride)`` of consecutive axes read as one, or None where
+    their strides do not allow it (axes of size 1 left out)."""
+    size, stride = 1, 0
+    for n, st in zip(reversed(sizes), reversed(strides)):
+        if n == 1:
+            continue
+        if size == 1:
+            size, stride = n, st
+        elif st != stride * size:
+            return None
+        else:
+            size *= n
+    return size, stride
+
+
+def _as_ols(x, dim):
+    """``x`` read as (O, L, S), L its axis ``dim``: ``((O, L, S), (sO, sL,
+    sS))`` in elements, or None where its strides do not allow it."""
+    shape, strides = tuple(x.shape), x.stride()
+    outer = _collapse(shape[:dim], strides[:dim])
+    inner = _collapse(shape[dim + 1:], strides[dim + 1:])
+    if outer is None or inner is None:
+        return None
+    return (outer[0], shape[dim], inner[0]), (outer[1], strides[dim], inner[1])
+
+
 def lane_sum_kernel(x, dim=-1):
-    """The CUDA kernel of :func:`lane_sum` on the current stream."""
-    if x.device.type != 'cuda':
-        raise ValueError(f'lane_sum_kernel needs CUDA tensors, got {x.device}')
-    if x.dtype != torch.float32:
-        raise ValueError(f'lane_sum_kernel sums float32, got {x.dtype}')
-    rows = x.movedim(dim, -1)
-    shape = rows.shape[:-1]
-    rows = rows.reshape(-1, rows.shape[-1]).contiguous()
-    out = torch.empty((rows.shape[0],), dtype=torch.float32, device=x.device)
+    """The CUDA kernel of :func:`lane_sum` on the current stream. It reads
+    ``x`` with its strides (a (B, K, S) tensor summed over K, a diagonal
+    view); only a layout whose leading or trailing axes cannot be read as
+    one is copied first."""
+    _check_cuda('lane_sum_kernel', x)
+    dim = dim % x.dim()
+    shape = tuple(x.shape[:dim]) + tuple(x.shape[dim + 1:])
+    ols = _as_ols(x, dim)
+    if ols is None:
+        x = x.contiguous()
+        ols = _as_ols(x, dim)
+    (O, L, S), (sO, sL, sS) = ols
+    _int32('lane_sum_kernel', O, L, S, sO, sL, sS)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
     lib = gram._load(gram.LANE_SRC)
     with torch.cuda.device(x.device):
-        _launch('lane_sum', lib.sdsm_lane_row_sum, rows.data_ptr(),
-                out.data_ptr(), rows.shape[0], rows.shape[1])
-    return out.reshape(shape)
+        _launch('lane_sum', (O, L) if S == 1 else (O, S, L),
+                lib.sdsm_lane_strided_sum, x.data_ptr(),
+                out.data_ptr(), O, L, S, sO, sL, sS)
+    return out
+
+
+def lane_dot_kernel(a, b):
+    """The CUDA kernel of :func:`lane_dot` on the current stream."""
+    _check_cuda('lane_dot_kernel', a, b)
+    a = a.contiguous()
+    b = b.contiguous()
+    gram._check('b', b, torch.float32, tuple(a.shape), a.device)
+    if a.dim() != 2:
+        raise ValueError(f'lane_dot_kernel takes (B, n), got {tuple(a.shape)}')
+    O, L = a.shape
+    _int32('lane_dot_kernel', O, L)
+    out = torch.empty((O,), dtype=torch.float32, device=a.device)
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(a.device):
+        _launch('lane_dot', (O, L), lib.sdsm_lane_dot, a.data_ptr(),
+                b.data_ptr(), out.data_ptr(), O, L)
+    return out
+
+
+def softplus_energies_kernel(s, y, w, c=None, u=None):
+    """The CUDA kernel of :func:`softplus_energies` on the current stream
+    (one launch, the terms built in registers)."""
+    _check_cuda('softplus_energies_kernel', s, y, w)
+    if u is not None and c is None:
+        raise ValueError('softplus_energies: the line search needs c with u')
+    lead = tuple(s.shape[:-1])
+    P = s.shape[-1]
+    s, y, w = (t.reshape(-1, P).contiguous() for t in (s, y, w))
+    O = s.shape[0]
+    for name, t in (('y', y), ('w', w)):
+        gram._check(name, t, torch.float32, (O, P), s.device)
+    mode, S, ptrs = _SINGLE, 1, [0, 0]
+    if c is not None:
+        _check_cuda('softplus_energies_kernel', c)
+        c = c.contiguous()
+        if c.dim() != 1:
+            raise ValueError('softplus_energies: c must be (S,), got '
+                             f'{tuple(c.shape)}')
+        S = c.shape[0]
+        mode, ptrs = _SCALE_SWEEP, [0, c.data_ptr()]
+        if u is not None:
+            _check_cuda('softplus_energies_kernel', u)
+            u = u.reshape(-1, P).contiguous()
+            gram._check('u', u, torch.float32, (O, P), s.device)
+            mode, ptrs = _LINE_SEARCH, [u.data_ptr(), c.data_ptr()]
+    _int32('softplus_energies_kernel', O, P, S)
+    out = torch.empty((O, S), dtype=torch.float32, device=s.device)
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(s.device):
+        _launch('softplus_energies', (_MODE_NAMES[mode], O, P),
+                lib.sdsm_lane_softplus_energies,
+                s.data_ptr(), ptrs[0], y.data_ptr(), w.data_ptr(), ptrs[1],
+                out.data_ptr(), O, P, S, mode)
+    return out.reshape(lead + ((S,) if c is not None else ()))
+
+
+def softplus_kernel(x):
+    """``logaddexp(x, 0)`` elementwise with the device function of the
+    softplus sums, to hold it bitwise against :func:`softplus_plain` on the
+    card; no solver path calls it."""
+    _check_cuda('softplus_kernel', x)
+    x = x.contiguous()
+    _int32('softplus_kernel', x.numel())
+    out = torch.empty_like(x)
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(x.device):
+        _launch('softplus', (x.numel(),), lib.sdsm_lane_softplus, x.data_ptr(),
+                out.data_ptr(), x.numel())
+    return out
 
 
 def matvec(A, x):
@@ -142,3 +313,20 @@ def lane_sum(x, dim=-1):
     if x.device.type == 'cpu':
         return lane_sum_plain(x, dim)
     return lane_sum_kernel(x, dim)
+
+
+def lane_dot(a, b):
+    """Per-lane dot product ``sum_i a_i b_i`` of two (B, n) float32 tensors
+    -> (B,): :func:`lane_sum` of ``a * b``, bitwise."""
+    if a.device.type == 'cpu':
+        return lane_dot_plain(a, b)
+    return lane_dot_kernel(a, b)
+
+
+def softplus_energies(s, y, w, c=None, u=None):
+    """The solver's logistic energies (see :func:`softplus_energies_plain`
+    for the modes), float32: bitwise the op-by-op expression followed by
+    :func:`lane_sum`."""
+    if s.device.type == 'cpu':
+        return softplus_energies_plain(s, y, w, c, u)
+    return softplus_energies_kernel(s, y, w, c, u)

@@ -140,9 +140,8 @@ def _load_linalg(device):
             _LINALG_LOADED = True
 
 
-def _softplus(x):
-    """``jax.nn.softplus``: log(1 + exp(x)) as logaddexp(x, 0)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+#: ``jax.nn.softplus``: log(1 + exp(x)) as logaddexp(x, 0).
+_softplus = lane.softplus_plain
 
 
 def _poly_basis(coords):
@@ -156,8 +155,7 @@ def _poly_basis(coords):
 def _energy_from_surface(s, xi, yv, w, alpha, epsilon, kmask):
     """ψ given precomputed surface values ``s``. Shapes: s, yv, w: (..., P);
     xi, kmask: (..., K); alpha: scalar or (...,)."""
-    t = yv * s
-    data = lane.lane_sum(w * _softplus(-t))
+    data = lane.softplus_energies(s, yv, w)
     if xi.shape[-1] > 0:
         term2 = torch.sqrt(xi * xi + epsilon)
         reg = alpha * lane.lane_sum(kmask * (term2 - math.sqrt(epsilon)))
@@ -220,6 +218,7 @@ def _grad_hess(params, s, Q, G, yv, w, alpha, epsilon, kmask):
 
 _bmv = lane.matvec
 _lsum = lane.lane_sum
+_dot = lane.lane_dot
 
 
 def _concat(outs):
@@ -276,18 +275,18 @@ def _pcg_solve(H, b, iters=CG_MAX_ITERS, rtol=CG_RTOL, early_exit=True):
     r = b - _bmv(H, x)
     z = r * dinv
     p = z
-    rz = _lsum(r * z)
-    r2_stop = (rtol * rtol) * _lsum(b * b) + 1e-30
-    live = _lsum(r * r) > r2_stop
+    rz = _dot(r, z)
+    r2_stop = (rtol * rtol) * _dot(b, b) + 1e-30
+    live = _dot(r, r) > r2_stop
     for i in range(iters):
         if early_exit and i % _CG_SYNC_EVERY == 0 and not bool(live.any()):
             break
         Hp = _bmv(H, p)
-        a = rz / (_lsum(p * Hp) + 1e-30)
+        a = rz / (_dot(p, Hp) + 1e-30)
         x_new = x + a[:, None] * p
         r_new = r - a[:, None] * Hp
         z = r_new * dinv
-        rz_new = _lsum(r_new * z)
+        rz_new = _dot(r_new, z)
         beta = rz_new / (rz + 1e-30)
         p_new = z + beta[:, None] * p
         keep = live[:, None]
@@ -295,7 +294,7 @@ def _pcg_solve(H, b, iters=CG_MAX_ITERS, rtol=CG_RTOL, early_exit=True):
         r = torch.where(keep, r_new, r)
         p = torch.where(keep, p_new, p)
         rz = torch.where(live, rz_new, rz)
-        live = live & (_lsum(r * r) > r2_stop)
+        live = live & (_dot(r, r) > r2_stop)
     return x
 
 
@@ -335,15 +334,15 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
         delta = _per_lane(_cholesky_direction, Hd, g)
     bad = ~torch.isfinite(delta).all(dim=1)
     delta = torch.where(bad[:, None],
-                        -g / (torch.sqrt(_lsum(g * g)) + 1.0)[:, None], delta)
-    decrement = -_lsum(g * delta)  # lambda^2 >= 0 for the Newton step
+                        -g / (torch.sqrt(_dot(g, g)) + 1.0)[:, None], delta)
+    decrement = -_dot(g, delta)  # lambda^2 >= 0 for the Newton step
 
     # line search: s is affine in params, so one matvec covers all steps
     u = _bmv(Bf, delta)
     steps = 0.5 ** torch.arange(LS_STEPS, dtype=dt, device=dev)    # (S,)
-    s_cand = s[:, :, None] + u[:, :, None] * steps                # (B, P, S)
-    t_cand = yv[:, :, None] * s_cand
-    data_cand = _lsum(w[:, :, None] * _softplus(-t_cand), 1)       # (B, S)
+    # sum_p w softplus(-(y (s + u steps))): one kernel on the card, no
+    # (B, P, S) tensor
+    data_cand = lane.softplus_energies(s, yv, w, steps, u)         # (B, S)
     sq_eps = math.sqrt(epsilon)
     if n > 6:
         xi_cand = params[:, 6:, None] + delta[:, 6:, None] * steps  # (B, K, S)
@@ -371,8 +370,7 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
 
     # multiplicative scale sweep against the near-separable "creep"
     scales = _scales(dt, dev)
-    t_sc = yv * new_s
-    data_sc = _lsum(w[:, :, None] * _softplus(-t_sc[:, :, None] * scales), 1)
+    data_sc = lane.softplus_energies(new_s, yv, w, scales)         # (B, S)
     if n > 6:
         xi_sc = new_params[:, 6:, None] * scales
         term2sc = torch.sqrt(xi_sc * xi_sc + epsilon)
@@ -426,7 +424,7 @@ def _better_of(Q, yv, w, theta_a, theta_b):
     """Per-problem pick of the lower-logistic-energy 6-parameter start."""
     def f_of(theta):
         s = _bmv(Q, theta)
-        return _lsum(w * _softplus(-yv * s))
+        return lane.softplus_energies(s, yv, w)
     return torch.where((f_of(theta_b) < f_of(theta_a))[:, None], theta_b, theta_a)
 
 
@@ -691,7 +689,7 @@ def _solve_poly_core(coords, yv, w, params0, maxiter, tol):
     kmask0 = torch.zeros((B, 0), dtype=_F32, device=dev)
     alpha = torch.zeros(B, dtype=_F32, device=dev)
     s_init = _bmv(Q, params0)
-    f_init = _lsum(w * _softplus(-yv * s_init))
+    f_init = lane.softplus_energies(s_init, yv, w)
     start = _better_of(Q, yv, w, params0, _lsq_init(Q, yv, w))
     params, f, conv, it, s, it_lane = _solve_batch_impl(
         start, Q, None, yv, w, alpha, 1.0, kmask0, maxiter, tol)

@@ -34,7 +34,12 @@ nonzero row per chunk holds the kernel's own mapping of segments to chunks
 The solver's lane kernels (``csrc/lane_ops.cu``) are held within the
 float32 bound of an exact sum of their L terms (L u sum|terms|, u =
 2^-24), with a lane alone bitwise equal to the same lane in the batch; a
-solve replayed as a CUDA graph equals the eager loop bitwise.
+solve replayed as a CUDA graph equals the eager loop bitwise. Their
+variants compute the same order and are held to each other bitwise: the
+one-thread-a-row product (n <= 32) to the warp-per-row one, a strided sum
+read in place to its order replayed on the host, and each fused sum (``lane_dot``,
+``softplus_energies``) to the op-by-op chain it replaces; the softplus
+device function equals ``torch.logaddexp(x, 0)`` bitwise.
 """
 
 import numpy as np
@@ -524,7 +529,7 @@ def test_first_linalg_calls_from_threads():
 def test_lane_matvec_kernel(B, P, n):
     """The lane product (``csrc/lane_ops.cu``) within the float32 bound of
     an exact sum of n terms (n u sum|terms|, u = 2^-24), a lane alone
-    bitwise equal to the same lane in the batch, and at n <= 8 (one thread
+    bitwise equal to the same lane in the batch, and at n <= 32 (one thread
     a row) bitwise equal to the warp-per-row kernel."""
     from superdsm_tpu_torch.dsm import lane
     dev = _cuda()
@@ -537,7 +542,7 @@ def test_lane_matvec_kernel(B, P, n):
     assert bool(((out.double() - exact).abs() <= bound).all())
     for b in range(B):
         assert torch.equal(lane.matvec(A[b:b + 1], x[b:b + 1])[0], out[b])
-    if n <= 8:
+    if n <= 32:
         warp = lane.matvec_kernel(A, x, warp_rows=True)
         assert torch.equal(out.view(torch.int32), warp.view(torch.int32))
 
@@ -613,3 +618,138 @@ def test_device_loop_equals_eager_loop(K):
         assert torch.equal(alone[1][0], graph[1][b])
         assert torch.equal(alone[0][0], graph[0][b])
         assert torch.equal(alone[5][0], graph[5][b])
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['n=6 table', 'n=1', 'n=8', 'n=9', 'n=17', 'n=32',
+                                  'n=30 unaligned', 'n=6 unaligned', 'underflow n=6',
+                                  'underflow n=20'])
+def test_lane_matvec_row_kernel_equals_warp_kernel(case):
+    """The one-thread-a-row product (rows staged in shared memory) bitwise
+    equal to the warp-per-row kernel: P not a multiple of 256 (a block's
+    rows in two lanes), A not 16-byte aligned (scalar staging), products
+    that underflow to -0 (the slots' +0 adds)."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    rng = np.random.RandomState(len(case))
+    n = int(case.split('n=')[1].split()[0])
+    B, P = (64, 8192) if 'table' in case else (3, 1000 + 7 * n)
+    if 'unaligned' in case:
+        flat = torch.as_tensor(rng.randn(B * P * n + 1).astype(np.float32), device=dev)
+        A = flat[1:].view(B, P, n)
+        assert A.data_ptr() % 16 != 0
+    elif 'underflow' in case:
+        A = torch.full((B, P, n), -1e-30, device=dev)
+        A[:, :, 1] = 0.0
+        A[:, ::3, 2] = 1e-30
+    else:
+        A = torch.as_tensor(rng.randn(B, P, n).astype(np.float32), device=dev)
+    x = torch.as_tensor((rng.randn(B, n) * (1e-30 if 'underflow' in case else 1))
+                        .astype(np.float32), device=dev)
+    out = lane.matvec_kernel(A, x)
+    assert torch.equal(_bits(out), _bits(lane.matvec_kernel(A, x, warp_rows=True)))
+    for b in (0, B - 1):
+        assert torch.equal(_bits(lane.matvec_kernel(A[b:b + 1], x[b:b + 1])[0]),
+                           _bits(out[b]))
+
+
+def _strided_sum_cases():
+    return {
+        'candidates (B, P, S) over P': ((16, 12, 32768), lambda x: x.transpose(1, 2), 1),
+        'B = 1 re-solve': ((1, 12, 16384), lambda x: x.transpose(1, 2), 1),
+        'L not a multiple of 256': ((3, 12, 5001), lambda x: x.transpose(1, 2), 1),
+        'regularizer (B, K, S)': ((16, 506, 12), lambda x: x, 1),
+        'rows (B, S, P)': ((4, 12, 32767), lambda x: x, 2),
+        'one long row': ((1, 32768), lambda x: x, 1),
+        'diagonal view': ((6, 300, 300), lambda x: torch.diagonal(x, dim1=-2, dim2=-1), 1),
+        'positive terms': ((3, 12, 5000), lambda x: torch.logaddexp(x, torch.zeros(())
+                                                                      .to(x)).transpose(1, 2), 1),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(_strided_sum_cases()))
+def test_lane_sum_strided_in_place(case):
+    """A strided lane sum, read in place, bitwise equal to its order
+    replayed on the host on the moved-axis copy; a lane alone bitwise equal
+    to it in the batch."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    shape, view, dim = _strided_sum_cases()[case]
+    rng = np.random.RandomState(sum(shape))
+    x = view(torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev))
+    out = lane.lane_sum(x, dim)
+    rows = x.movedim(dim, -1).reshape(-1, x.shape[dim]).cpu().numpy()
+    ordered = lane.lane_sum_in_kernel_order(rows).reshape(tuple(out.shape))
+    assert np.array_equal(out.cpu().numpy().view(np.int32), ordered.view(np.int32))
+    for b in (0, x.shape[0] - 1):
+        assert torch.equal(_bits(lane.lane_sum(x[b:b + 1], dim)[0]), _bits(out[b]))
+
+
+def _fused_inputs(B, P, dev, seed=0):
+    rng = np.random.RandomState(seed + B + P)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    return (t(rng.randn(B, P) * 3), t(rng.randn(B, P) * 2), t(rng.randn(B, P)),
+            t((rng.rand(B, P) < 0.9) * rng.rand(B, P)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P', [(16, 32768), (1, 16384), (2, 16384), (3, 5001), (64, 8192)])
+@pytest.mark.parametrize('mode', ['line_search', 'scale_sweep', 'energy', 'dot'])
+def test_fused_lane_sums_equal_the_unfused_chain(mode, B, P):
+    """Each fused entry point bitwise equal to the chain it replaces on the
+    card (the op-by-op terms, then ``lane_sum``), its ``*_plain`` version
+    within sqrt(L) u sum|terms| (the CPU's order), and a lane alone bitwise
+    equal to it in the batch."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    s, u, y, w = _fused_inputs(B, P, dev)
+    if mode == 'dot':
+        fused = lambda s, u, y, w: lane.lane_dot(s, u)
+        chain = lambda s, u, y, w: lane.lane_sum(s * u)
+        plain = lane.lane_dot_plain(s.cpu(), u.cpu())
+        magnitude = (s * u).double().abs().sum(-1)
+    else:
+        c = {'line_search': 0.5 ** torch.arange(solver.LS_STEPS, dtype=torch.float32),
+             'scale_sweep': torch.tensor(solver.SCALES)}.get(mode)
+        c = None if c is None else c.to(dev)
+        uu = u if mode == 'line_search' else None
+        fused = lambda s, u, y, w: lane.softplus_energies(
+            s, y, w, c, u if mode == 'line_search' else None)
+        chain = lambda s, u, y, w: lane.lane_sum(*lane.softplus_terms(
+            s, y, w, c, u if mode == 'line_search' else None))
+        plain = lane.softplus_energies_plain(s.cpu(), y.cpu(), w.cpu(),
+                                             None if c is None else c.cpu(),
+                                             None if uu is None else uu.cpu())
+        terms, dim = lane.softplus_terms(s, y, w, c, uu)
+        magnitude = terms.double().abs().sum(dim)
+    out = fused(s, u, y, w)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(chain(s, u, y, w)))
+    bound = np.sqrt(P) * 2.0 ** -24 * magnitude.cpu()
+    assert bool(((out.double().cpu() - plain.double()).abs() <= bound).all())
+    for b in (0, B - 1):
+        one = [t[b:b + 1] for t in (s, u, y, w)]
+        assert torch.equal(_bits(fused(*one)[0]), _bits(out[b]))
+
+
+@pytest.mark.cuda
+def test_softplus_device_function_equals_logaddexp():
+    """The softplus of the fused sums (``lane.softplus_kernel``) bitwise
+    ``torch.logaddexp(x, 0)`` on the card, over every 257th float32 bit
+    pattern and the special values (``chip_smoke.py`` checks all 2^32)."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    bits = torch.arange(0, 2 ** 32, 257, dtype=torch.int64, device=dev)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+    specials = torch.tensor([0.0, -0.0, float('inf'), -float('inf'), float('nan'),
+                             88.7, -88.7, 1e-30, -1e-30, 17.0, -17.0], device=dev)
+    for x in (bits.view(torch.float32), specials):
+        ref = lane.softplus_plain(x)
+        got = lane.softplus_kernel(x)
+        same = (_bits(ref) == _bits(got)) | (torch.isnan(ref) & torch.isnan(got))
+        assert bool(same.all())

@@ -47,7 +47,14 @@ result lines):
    warp-per-row product, the lane sum replayed on the host, the unfused
    chains the fused sums replace, timed beside them), with
    ``torch.bmm``, ``torch.sum`` and ``torch.linalg.vecdot`` as the library
-   calls (none for the softplus sums);
+   calls (none for the softplus sums); then ``lane_pcg``, the whole of
+   PCG (``solver._pcg_solve``) in one launch, at the (B, n) of
+   :data:`PCG_SHAPES` on Newton systems built from phase 3's gram inputs:
+   bitwise equal to the chain it replaces on the card (``lane.pcg_chain``,
+   its early exit and its run of all steps), a lane alone bitwise equal to
+   the same lane in the batch, a captured graph's replay bitwise equal to
+   the eager launch; the steps each lane ran, the kernel's and the chain's
+   device ms (the chain's steps captured in one graph) and the bound;
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
@@ -70,7 +77,9 @@ result lines):
    ms per image against the first kernel's 208 ms, the device's idle share
    of the wall, the host's syncs and kernel and graph launches, the Newton
    loops' captures and replays, and the gram launches by (B, active lanes,
-   P, n, route, pixel segments), counted at each replay;
+   P, n, route, pixel segments), counted at each replay, and the lane
+   kernels' launches by shape (``lane_pcg`` must launch: PCG's one launch
+   per Newton step at n > ``CHOLESKY_MAX_N``);
 5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` through
    the default entry point with no ``AF_scale``: the estimated scale must be
    the JAX estimator's (30 sqrt 2 = 42.4264...) and all 5 objects must
@@ -153,7 +162,8 @@ result lines):
    the device loop and seed 0 on the eager one (host syncs, host launches,
    idle share, captures, replays, graph memory); seconds per image of seeds
    0-3 at each ``SYNC_EVERY`` of :data:`SYNC_CHOICES` (label maps
-   unchanged); PCG's full run against its early exit at n = 512 and 1024.
+   unchanged); PCG's kernel against the chain it replaced, run to
+   ``CG_MAX_ITERS`` and with its early exit, at n = 512 and 1024.
 
 Every phase prints its wall seconds (``[phase]`` lines).
 
@@ -168,7 +178,8 @@ archive`` into the gitignored ``scratch/``, against ``.``): one fresh
 process per turn, in the order A, B, B, A, each building its own
 checkout's kernels and printing one JSON line: the device ms of every
 phase-3 launch, the float32 routes' first and then the bf16 routes' (each
-checked against the plain version first, as phase 3 checks it), then bench
+checked against the plain version first, as phase 3 checks it; the lane
+kernels' ms and ``solver._pcg_solve``'s at :data:`PCG_SHAPES`), then bench
 seeds 0-3 at ``AF_scale=12`` (after one cold run of seed 0),
 :data:`AB_REPS` times each, with each run's seconds, its
 global-energy-minimization seconds, lane Newton iterations, solve calls
@@ -635,6 +646,15 @@ LANE_REPLACES = {'lane_matvec': 'superdsm_tpu/dsm/solver.py:213',
                  'lane_dot': 'superdsm_tpu/dsm/solver.py:152',
                  'softplus_energies': 'superdsm_tpu/dsm/solver.py:217'}
 LANE_SOURCE = 'superdsm_tpu_torch/csrc/lane_ops.cu'
+#: ``lane_pcg``'s shapes (B, n): the bench field's n = 512 chunks (B = 2,
+#: the kernels line's row), the banded table chunk (B = 16), a B = 1
+#: re-solve, and n = 1024, the mosaic's largest DSM bucket, at B = 2 and 8.
+PCG_SHAPES = [(2, 512), (16, 512), (1, 512), (2, 1024), (8, 1024)]
+#: The JAX package's ``_pcg_solve`` (an XLA ``while_loop``, no Pallas
+#: kernel), which ``lane_pcg`` runs in one launch.
+PCG_REPLACES = 'superdsm_tpu/dsm/solver.py:126'
+#: The lane kernels the main path must launch.
+LANE_KERNELS = tuple(LANE_SHAPES) + ('lane_pcg',)
 #: float32 operations of one softplus-energy term: the candidate's x (line
 #: search: u c, s +, y *, negation; scale sweep: c *, negation, with y s once
 #: a pixel; one energy: y *, negation), logaddexp(x, 0) (the isinf test,
@@ -806,6 +826,102 @@ def _check_lane(name, shape):
     return row
 
 
+_PCG_SYSTEMS = {}
+
+
+def _pcg_systems(n):
+    """Newton systems ``(Hd, g)`` of the solver at n = 512 (the 16 lanes of
+    the banded table chunk (16, 32768, 512)) or 1024 (the 8 lanes of
+    (8, 16384, 1024)), from phase 3's inputs: H and g of the gram kernel,
+    ``Hd = H + mu scale I`` as ``_newton_step`` damps it, mu from the loop's
+    first 1e-6 up to 1e-2 across the lanes (so that lanes stop at different
+    steps); made once."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram, lane
+    if n not in _PCG_SYSTEMS:
+        shape = {512: KERNEL_SHAPES[2], 1024: ONE_SEGMENT_SHAPES[0]}[n]
+        Bf, s, yv, w, _, _ = _phase3_inputs(*shape)
+        B = Bf.shape[0]
+        g, H = gram.grad_hess_kernel(Bf, s, yv, w, torch.ones(B, dtype=torch.int32,
+                                                              device='cuda'))
+        del Bf, s, yv, w
+        mu = torch.logspace(-6, -2, B, device='cuda')
+        scale = lane.lane_sum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
+        Hd = H + (mu * scale)[:, None, None] * torch.eye(n, device='cuda')
+        _PCG_SYSTEMS[n] = Hd.contiguous(), g.contiguous()
+        del H
+        torch.cuda.empty_cache()
+    return _PCG_SYSTEMS[n]
+
+
+def _check_pcg(shape):
+    """Holds ``lane_pcg`` at ``(B, n)`` (the first B lanes of
+    :func:`_pcg_systems`) to the chain it replaces on the card
+    (``lane.pcg_chain``: the lane kernels and ATen's elementwise ops, run to
+    ``CG_MAX_ITERS`` and with its early exit), bitwise; a lane alone, a
+    captured graph's replay and a second run bitwise equal to it. Returns
+    its table row, with the steps each lane ran (the fewest ``iters`` that
+    give its bits).
+
+    Bound: the larger of one read of H and b and one write of x over the
+    memory rate, and 2 n^2 float32 operations per product each lane ran
+    (its steps and r = b - H x) over the float32 peak. The plain version is
+    the chain (its ms are ``plain_ms`` and ``chain_ms``); no single PyTorch
+    call computes PCG to a residual tolerance, so no library call."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane, solver
+    B, n = shape
+    Hd, g = (t[:B].contiguous() for t in _pcg_systems(n))
+    iters, rtol = solver.CG_MAX_ITERS, solver.CG_RTOL
+    kernel = lambda: lane.pcg_kernel(Hd, g, iters, rtol)
+    chain = lambda: lane.pcg_chain(Hd, g, iters, rtol, early_exit=False)
+    tag = f'lane_pcg {shape}'
+    out = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(out), _bits(kernel())):
+        fail(f'{tag}: two runs differ (not reproducible)')
+    ref = chain()
+    checks = {
+        'the chain run to CG_MAX_ITERS': torch.equal(_bits(out), _bits(ref)),
+        'the chain with its early exit': torch.equal(
+            _bits(out), _bits(lane.pcg_chain(Hd, g, iters, rtol))),
+        'a lane alone': all(torch.equal(
+            _bits(lane.pcg_kernel(Hd[b:b + 1], g[b:b + 1], iters, rtol)[0]),
+            _bits(out[b])) for b in (0, B - 1))}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel()
+    graph.replay()
+    torch.cuda.synchronize()
+    checks['a captured graph'] = torch.equal(_bits(captured), _bits(out))
+    del graph, captured
+    runs = [lane.pcg_kernel(Hd, g, i, rtol) for i in range(iters + 1)]
+    steps = [next(i for i, x in enumerate(runs) if torch.equal(_bits(x[b]), _bits(out[b])))
+             for b in range(B)]
+    del runs
+    err = float((out - ref).abs().max())
+    say(f'[kernel] {tag}: bitwise equal to ' + ', '.join(
+        f'{k} {v}' for k, v in checks.items()) + f'; steps per lane {steps} '
+        f'(slowest {max(steps)} of {iters}); finite {bool(torch.isfinite(out).all())}')
+    for what, ok in checks.items():
+        if not ok:
+            fail(f'{tag}: kernel not bitwise equal to {what}')
+    if not bool(torch.isfinite(out).all()):
+        fail(f'{tag}: non-finite solution')
+    ms = _event_ms(kernel)
+    chain_ms = _event_ms(chain)
+    ops_ms = 2.0 * n * n * sum(s + 1 for s in steps) / PEAK_FP32 * 1e3
+    bytes_ms = 4.0 * (B * n * n + 2 * B * n) / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
+    say(f'[kernel] {tag}: kernel {ms:.4f} ms, chain {chain_ms:.4f} ms '
+        f'({chain_ms / ms:.1f}x), library none, bound {bound_ms:.4f} ms by '
+        f'{bound_by}: {bound_ms / ms:.1%} of the bound')
+    return dict(max_abs_err=err, ms=ms, plain_ms=chain_ms, chain_ms=chain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                library_ms=None, shape=list(shape), steps=max(steps), lane_steps=steps)
+
+
 def _check_logaddexp(chunk=1 << 28):
     """The softplus device function of the fused sums (``lane.softplus_kernel``)
     against ``torch.logaddexp(x, 0)`` on the card over all 2^32 float32
@@ -840,7 +956,8 @@ def phase_kernels():
     """Phase 3: every launch of :func:`_cases`; a route's row is its table
     shape's, and its launches at the other shapes are listed under it as
     ``other_shapes``; then the softplus device function over all 2^32
-    inputs and the lane kernels at :data:`LANE_SHAPES`."""
+    inputs, the lane kernels at :data:`LANE_SHAPES` and ``lane_pcg`` at
+    :data:`PCG_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
@@ -862,6 +979,8 @@ def phase_kernels():
         rows[name] = dict(row, other_shapes=[_check_lane(name, shape)
                                              for shape in shapes[1:]])
         torch.cuda.empty_cache()
+    pcg = [_check_pcg(shape) for shape in PCG_SHAPES]
+    rows['lane_pcg'] = dict(pcg[0], other_shapes=pcg[1:])
     return rows
 
 
@@ -1232,6 +1351,7 @@ def _profiled(fn):
 #: Kernel families of a profile, by substrings of the kernels' names (the
 #: first that matches; else 'elementwise and reductions').
 KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce')),
+                   ('lane_pcg', ('lane_pcg',)),
                    ('lane_matvec', ('lane_matvec',)),
                    ('lane_dot', ('dotterm',)),
                    ('softplus_energies', ('lane_softplus',)),
@@ -1484,9 +1604,11 @@ def phase_profile(g):
     say('[profile] lane-kernel launches by (kernel, shape), most frequent first:')
     for key, count in lane_hist.most_common(40):
         say(f'[profile]   {key}: {count}')
-    for name in LANE_SHAPES:
+    for name in LANE_KERNELS:
         say(f'[profile] {name}: {sum(c for (k, _), c in lane_hist.items() if k == name)} '
             f'launches in {len([1 for k, _ in lane_hist if k == name])} shapes')
+    say('[profile] lane_pcg launches by (B, n): ' + str(
+        {shape: c for (k, shape), c in lane_hist.most_common() if k == 'lane_pcg'}))
     return hist, lane_hist, profile0
 
 
@@ -1497,7 +1619,7 @@ def _profiled_launches(rows, hist, lane_hist):
     lane-kernel row (``launches_at_shape``) how often it launched that
     kernel at the row's shape."""
     for route, row in rows.items():
-        if route in LANE_SHAPES:
+        if route in LANE_KERNELS:
             for one in [row] + row['other_shapes']:
                 one['launches_at_shape'] = lane_hist[(route, tuple(one['shape']))]
                 say(f'[profile] {route} {tuple(one["shape"])}: '
@@ -1561,8 +1683,9 @@ def phase_main_path():
         f'kernels: {dict(lane.LAUNCHES)}')
     if any(launches[r] == 0 for r in ('dense', 'triangle', 'banded')):
         fail('the main path left a float32 gram route unlaunched')
-    if any(launches[name] == 0 for name in LANE_SHAPES):
-        fail('the main path left a lane kernel unlaunched')
+    if any(launches[name] == 0 for name in LANE_KERNELS):
+        fail('the main path left a lane kernel unlaunched: '
+             f'{[k for k in LANE_KERNELS if launches[k] == 0]}')
     if any(v for r, v in launches.items() if r.endswith('pass')):
         fail('the default knobs launched a reduced-precision gram')
     if n_obj == 0:
@@ -2382,40 +2505,37 @@ def _same_run(a, b):
 
 
 def _pcg_cost():
-    """PCG run to ``CG_MAX_ITERS`` (as in the graph) against its early exit
-    on Newton systems of the bench chunk shapes at n = 512 and 1024 (the
-    phase-3 inputs' H with the loop's first damping): bitwise equal, and the
-    device ms of each (graph replays between CUDA events; the early exit as
-    the steps it runs, without its host syncs)."""
+    """PCG on the card (``solver._pcg_solve``: one ``lane_pcg`` launch)
+    against the chain it replaced (``lane.pcg_chain``) run to
+    ``CG_MAX_ITERS`` (as in the graph) and with its early exit, on the
+    Newton systems of :func:`_pcg_systems` at n = 512 (16 lanes) and 1024
+    (8): bitwise equal, and the device ms of each (graph replays between
+    CUDA events; the early exit as the steps it runs, without its host
+    syncs)."""
     import torch
-    from superdsm_tpu_torch.dsm import gram, lane, solver
-    for shape in (KERNEL_SHAPES[2], ONE_SEGMENT_SHAPES[0]):
-        Bf, s, yv, w, _, _ = _phase3_inputs(*shape)
-        B = Bf.shape[0]
-        g, H = gram.grad_hess_kernel(Bf, s, yv, w, torch.ones(B, dtype=torch.int32,
-                                                              device='cuda'))
-        del Bf, s, yv, w
-        n = H.shape[-1]
-        scale = lane.lane_sum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
-        Hd = H + (1e-6 * scale)[:, None, None] * torch.eye(n, device='cuda')
-        early = solver._pcg_solve(Hd, g)
-        full = solver._pcg_solve(Hd, g, early_exit=False)
-        if not torch.equal(early, full):
-            fail(f'PCG at n = {n}: the full run differs from the early exit')
-        steps = next(i for i in range(solver._CG_SYNC_EVERY, solver.CG_MAX_ITERS + 1,
-                                      solver._CG_SYNC_EVERY)
-                     if torch.equal(solver._pcg_solve(Hd, g, iters=i, early_exit=False),
-                                    full))
-        full_ms = _event_ms(lambda: solver._pcg_solve(Hd, g, early_exit=False))
-        exit_ms = _event_ms(lambda: solver._pcg_solve(Hd, g, iters=steps,
-                                                      early_exit=False))
-        say(f'[loop] PCG at (B, n) = ({B}, {n}): the full run of '
-            f'{solver.CG_MAX_ITERS} steps bitwise equals the early exit, which '
-            f'stops after {steps}; device {full_ms:.3f} ms against '
-            f'{exit_ms:.3f} ms: {full_ms - exit_ms:.3f} ms more per Newton '
-            f'iteration')
-        del H, Hd, g
-        torch.cuda.empty_cache()
+    from superdsm_tpu_torch.dsm import lane, solver
+    iters, rtol = solver.CG_MAX_ITERS, solver.CG_RTOL
+    for n in (512, 1024):
+        Hd, g = _pcg_systems(n)
+        B = Hd.shape[0]
+        kernel = solver._pcg_solve(Hd, g)
+        full = lane.pcg_chain(Hd, g, iters, rtol, early_exit=False)
+        early = lane.pcg_chain(Hd, g, iters, rtol)
+        if not (torch.equal(_bits(kernel), _bits(full))
+                and torch.equal(_bits(early), _bits(full))):
+            fail(f'PCG at n = {n}: the kernel, the chain\'s full run and its '
+                 'early exit differ')
+        steps = next(i for i in range(lane.PCG_SYNC_EVERY, iters + 1, lane.PCG_SYNC_EVERY)
+                     if torch.equal(lane.pcg_chain(Hd, g, i, rtol, early_exit=False), full))
+        kernel_ms = _event_ms(lambda: solver._pcg_solve(Hd, g, early_exit=False))
+        full_ms = _event_ms(lambda: lane.pcg_chain(Hd, g, iters, rtol, early_exit=False))
+        exit_ms = _event_ms(lambda: lane.pcg_chain(Hd, g, steps, rtol, early_exit=False))
+        say(f'[loop] PCG at (B, n) = ({B}, {n}): the kernel bitwise equals the '
+            f'chain run to {iters} steps and its early exit, which stops after '
+            f'{steps}; device {kernel_ms:.3f} ms for the kernel, {full_ms:.3f} ms '
+            f'for the full chain, {exit_ms:.3f} ms for its early exit\'s steps '
+            f'({full_ms / kernel_ms:.1f}x and {exit_ms / kernel_ms:.1f}x the '
+            f'kernel\'s)')
 
 
 def phase_device_loop(profile0):
@@ -2521,9 +2641,10 @@ def _ab_kernel_ms(root, shape, launches):
 def _ab_lane_ms():
     """Device ms of ``lane_matvec`` and ``lane_sum`` (the solver's (B, K,
     S) layout summed over K, as each checkout's wrapper reads it) at their
-    phase-3 shapes: the lane kernels both checkouts have."""
+    phase-3 shapes, the lane kernels both checkouts have, and of
+    ``solver._pcg_solve`` run to ``CG_MAX_ITERS`` at :data:`PCG_SHAPES`."""
     import torch
-    from superdsm_tpu_torch.dsm import lane
+    from superdsm_tpu_torch.dsm import lane, solver
     out = {}
     for shape in LANE_SHAPES['lane_matvec']:
         rng = np.random.RandomState(sum(shape))
@@ -2537,6 +2658,13 @@ def _ab_lane_ms():
                          .astype(np.float32), device='cuda')
         xt = x.transpose(1, 2).contiguous() if len(shape) == 3 else x
         out[f'lane_sum {shape}'] = _event_ms(lambda: lane.lane_sum_kernel(xt, 1))
+    # PCG as each checkout's solver runs it in the graph (a chain of lane
+    # kernels, or one lane_pcg launch)
+    for B, n in PCG_SHAPES:
+        Hd, g = (t[:B].contiguous() for t in _pcg_systems(n))
+        out[f'_pcg_solve {(B, n)}'] = _event_ms(
+            lambda: solver._pcg_solve(Hd, g, early_exit=False))
+    _PCG_SYSTEMS.clear()
     torch.cuda.empty_cache()
     return out
 
@@ -2795,6 +2923,9 @@ def main():
                    replaces=LANE_REPLACES[name], launches=launches[name],
                    **kernels[name])
               for name in LANE_SHAPES]
+    table.append(dict(name='lane_ops/lane_pcg', route='cuda', source=LANE_SOURCE,
+                      replaces=PCG_REPLACES, launches=launches['lane_pcg'],
+                      **kernels['lane_pcg']))
     say(card)  # the card's name and power limit, as nvidia-smi gives them
     say(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

@@ -51,12 +51,18 @@
 // rank q slots 32 q .. 32 q + 31, whose tree gathers them over the
 // cluster's distributed shared memory (the same order, so the same bits).
 //
+//   lane_pcg:     the whole Jacobi-preconditioned CG of solver._pcg_solve
+//     for every lane of a batch in one launch, bitwise the chain of
+//     lane_matvec, lane_dot and elementwise ATen ops that it replaces (see
+//     the comment above lane_pcg_kernel).
+//
 // They replace no Pallas kernel: in the JAX package these are XLA's
 // products and reductions inside the jitted Newton loop
 // (superdsm_tpu/dsm/solver.py, _newton_step and _pcg_solve), whose order
 // XLA fixes at compile time for each static shape; there the line search's
 // softplus terms and their sum are one XLA fusion (solver.py:217), as they
-// are one kernel here.
+// are one kernel here, and PCG is one while_loop (solver.py:126), as it is
+// one kernel here.
 //
 // What bounds them on the card: the products and plain sums read each input
 // once and do one FMA or add per element read, so bytes bound them; the
@@ -67,8 +73,8 @@
 // alone). At the solver's sizes (10^4 to 10^6 elements a
 // launch) launch latency dominates, which the CUDA graph of one Newton
 // iteration hides; a B = 1 sum stays latency-bound under its fixed order
-// (128 dependent adds a slot at 32768 pixels), and so do PCG's products at
-// B = 1, 2 (n = 512: 16 dependent FMAs a slot).
+// (128 dependent adds a slot at 32768 pixels), and so does lane_pcg (see
+// there).
 // Float32 accumulation, as PyTorch's float32 sums and cuBLAS's sgemv do.
 // Built without --use_fast_math: expf and log1pf must be the accurate ones
 // that ATen's logaddexp calls.
@@ -92,8 +98,13 @@ constexpr int RESIDENT_BLOCKS = 2;   // softplus blocks an SM holds
 constexpr int SMALL_N = 8;          // one thread a row up to this n ...
 constexpr int ROW_N = 32;           // ... and, with a full tree, up to this
 constexpr int SMALL_THREADS = 256;  // rows a block at n <= ROW_N
+constexpr int PCG_CLUSTER = 8;      // blocks of one lane's PCG
+constexpr int PCG_THREADS = ROW_THREADS;  // thread t is slot t of every dot
+constexpr int PCG_WARPS = PCG_THREADS / WARP;
+constexpr int PCG_GROUP = 4;        // rows a warp of lane_pcg computes at once
 
 static_assert(SLOT_BLOCK == WARP, "a block's slots are one warp wide");
+static_assert(PCG_WARPS == CLUSTER, "slot_tree reads 8 warps of slots");
 
 // A warp per output row (n > ROW_N): lane l sums j = l, l + 32, ... with
 // fmaf, then the xor-shuffle tree. (Rows per warp and loads issued ahead
@@ -388,6 +399,234 @@ __global__ void softplus_kernel(const float* __restrict__ x,
   if (i < count) out[i] = logaddexp0(x[i]);
 }
 
+// ---------------------------------------------------------------------------
+// lane_pcg: solver._pcg_solve in one launch.
+//
+// The chain it replaces issues some 17 launches a CG step (one lane_matvec,
+// three lane_dots, the divisions, axpys and torch.where freezes), 64 steps
+// a solve, each doing a microsecond of work or less: launches, not bodies,
+// bound it. This kernel runs every step of every lane in one launch.
+//
+// Work split: one cluster of PCG_CLUSTER = 8 blocks per lane. Block q owns
+// the rows q nr .. q nr + nr - 1 of the lane's H (nr = ceil(n / 8)) and
+// keeps as many of them as its shared memory holds for the whole solve,
+// loaded once with 16-byte asynchronous copies: all 64 at n = 512 (128
+// KB); at n = 1024 and 2048 a lane's H (4 and 16 MB) exceeds any cluster's
+// shared memory, and the block reads its other rows from global memory
+// (L2) every step. Every block holds full replicas of x, r, p and dinv and
+// updates all n elements itself, so every dot product and scalar is
+// computed redundantly and identically in each block, with no broadcast.
+// The only data exchanged is the product H p: each block writes each of
+// its rows of H p into every block's shared memory (distributed shared
+// memory), then one cluster barrier a step. H p is double-buffered across
+// steps, which that one barrier makes safe: a block writes buffer k % 2
+// again in step k + 2, after step k + 1's barrier, which every block
+// passes only after it has read step k's H p.
+//
+// Order: each operation rounds as the chain's kernel or ATen op does.
+// Rows as lane_matvec_kernel computes them (slot l < 32 sums j = l, l + 32,
+// ... with fmaf, then the xor-shuffle tree); dot products as lane_dot does
+// (slot t < 256 adds __fmul_rn products i = t, t + 256, ... in turn from
+// 0, then slot_tree); 1 / d (ATen's reciprocal), b * dinv, b - H x,
+// rz / (dot + eps), x + a p, r - a H p, r * dinv and z + beta p each an
+// IEEE-rounded __fdiv_rn / __fmul_rn / __fadd_rn / __fsub_rn, never
+// contracted; stop = rtol^2 * dot(b, b) + eps with the float32 values of
+// rtol^2 and eps that ATen's scalar ops use.
+//
+// Freezing: a step updates x, r, p and rz of a live lane, then
+// live = dot(r, r) > stop, as torch.where under the old live and then
+// live &= ... do in the chain; a lane that is not live never changes
+// again, so the cluster stops there, with the bits of all iters steps. A
+// NaN fails the comparison and freezes the lane as the chain does.
+//
+// No deadlock: every block of a cluster computes live from identical
+// replicas with identical operations, so all of them run the same steps
+// and leave the loop together; no block waits at a cluster barrier that a
+// peer skipped, and no block writes into a peer that has left (each step's
+// writes precede that step's barrier, which the peer also waits at).
+//
+// What bounds it: per step a lane reads its H once (from shared memory at
+// n = 512) for 2 n^2 operations and runs a chain of dependent phases (a
+// 16-FMA row chain at n = 512, one cluster barrier, three block barriers,
+// three 256-slot trees); at the solver's batches (B = 1 to 16 lanes, 8 to
+// 128 of the 132 SMs) the steps' latency bounds it, far above the float32
+// rate or the memory rate.
+
+// The tree of a lane sum over the block's 256 slots (part: slot t at
+// part[t]), run by every warp: the sum, in every thread.
+__device__ __forceinline__ float block_tree(const float* part) {
+  const int l = threadIdx.x % WARP;
+  float v[CLUSTER];
+#pragma unroll
+  for (int r = 0; r < CLUSTER; ++r) v[r] = part[r * WARP + l];
+  return __shfl_sync(0xffffffffu, slot_tree(v), 0);
+}
+
+template <bool GLOBAL>
+__device__ __forceinline__ float pcg_load(const float* a) {
+  if constexpr (GLOBAL) return __ldg(a);
+  else return *a;
+}
+
+// Rows lo <= lr < hi of the block's slice (row lr at a0 + lr n) times v,
+// each as lane_matvec_kernel computes a row: warp w takes rows lo + w,
+// lo + w + 8, ..., PCG_GROUP of them at a time (independent chains, each
+// in its own order); lane l < 8 then writes the row's sum (lane 0's, as
+// lane_matvec_kernel stores it) into block l's buffer at dst + row0 + lr.
+// (Eight rows at a time from global memory spilled and measured slower at
+// n = 1024 and 2048 on an H100.)
+template <bool GLOBAL>
+__device__ __forceinline__ void pcg_rows(const float* __restrict__ a0, int lo,
+                                         int hi, int n,
+                                         const float* __restrict__ v,
+                                         float* dst, int row0) {
+  const int l = threadIdx.x % WARP;
+  int lr = lo + (int)threadIdx.x / WARP;
+  for (; lr + (PCG_GROUP - 1) * PCG_WARPS < hi; lr += PCG_GROUP * PCG_WARPS) {
+    float acc[PCG_GROUP];
+#pragma unroll
+    for (int e = 0; e < PCG_GROUP; ++e) acc[e] = 0.0f;
+#pragma unroll 4
+    for (int j = l; j < n; j += WARP) {
+      const float vj = v[j];
+#pragma unroll
+      for (int e = 0; e < PCG_GROUP; ++e)
+        acc[e] = fmaf(pcg_load<GLOBAL>(a0 + (long long)(lr + e * PCG_WARPS) * n + j),
+                      vj, acc[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < PCG_GROUP; ++e) {
+#pragma unroll
+      for (int m = WARP / 2; m > 0; m /= 2)
+        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], m);
+      const float s = __shfl_sync(0xffffffffu, acc[e], 0);
+      if (l < PCG_CLUSTER) dst[row0 + lr + e * PCG_WARPS] = s;
+    }
+  }
+  for (; lr < hi; lr += PCG_WARPS) {
+    const float* a = a0 + (long long)lr * n;
+    float acc = 0.0f;
+    for (int j = l; j < n; j += WARP) acc = fmaf(pcg_load<GLOBAL>(a + j), v[j], acc);
+#pragma unroll
+    for (int m = WARP / 2; m > 0; m /= 2)
+      acc += __shfl_xor_sync(0xffffffffu, acc, m);
+    const float s = __shfl_sync(0xffffffffu, acc, 0);
+    if (l < PCG_CLUSTER) dst[row0 + lr] = s;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+// H (B, n, n) and b (B, n) float32 contiguous -> x (B, n); grid B * 8
+// blocks (one cluster a lane). Dynamic shared memory, in floats: the
+// block's first `cached` rows (cached n), then x, r, p, dinv (n each), H p
+// (2 n, double-buffered) and the slots of three dots (3 * 256).
+__global__ void __cluster_dims__(PCG_CLUSTER, 1, 1) __launch_bounds__(PCG_THREADS)
+lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
+                float* __restrict__ xout, int n, int iters, int cached,
+                int vec, float stop2, float eps) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = (int)cluster.block_rank();
+  const long long o = blockIdx.x / PCG_CLUSTER;
+  const int t = threadIdx.x;
+  const int nr = (n + PCG_CLUSTER - 1) / PCG_CLUSTER;
+  const int row0 = q * nr;
+  const int nrows = max(0, min(nr, n - row0));
+  const int ncached = min(cached, nrows);
+  const float* Hl = H + o * n * n;
+  const float* Hrows = Hl + (long long)row0 * n;
+  const float* bl = b + o * n;
+  float* rows = smem;
+  float* x = rows + (long long)cached * n;
+  float* r = x + n;
+  float* p = r + n;
+  float* dinv = p + n;
+  float* hp = dinv + n;
+  float* part = hp + 2 * n;
+  // peers may be written only once every block of the cluster runs
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (vec) {
+    for (int i = t; i < ncached * n / 4; i += PCG_THREADS)
+      cp_async16(rows + 4 * i, Hrows + 4 * i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  } else {
+    for (int i = t; i < ncached * n; i += PCG_THREADS) rows[i] = __ldg(Hrows + i);
+  }
+  for (int i = t; i < n; i += PCG_THREADS) {
+    const float di = __fdiv_rn(1.0f, __ldg(Hl + (long long)i * n + i));
+    dinv[i] = di;
+    x[i] = __fmul_rn(__ldg(bl + i), di);
+  }
+  if (vec) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // lane l < 8 of every warp writes into block l's H p
+  float* dst = cluster.map_shared_rank(hp, (t % WARP) % PCG_CLUSTER);
+  auto matvec = [&](const float* v, int buf) {
+    pcg_rows<false>(rows, 0, ncached, n, v, dst + buf * n, row0);
+    pcg_rows<true>(Hrows, ncached, nrows, n, v, dst + buf * n, row0);
+    cluster.sync();
+  };
+
+  // r = b - H x, z = r dinv, p = z; rz = r.z, stop from b.b, live from r.r
+  matvec(x, 0);
+  float c_rz = 0.0f, c_bb = 0.0f, c_rr = 0.0f;
+  for (int i = t; i < n; i += PCG_THREADS) {
+    const float bi = __ldg(bl + i);
+    const float ri = __fsub_rn(bi, hp[i]);
+    const float zi = __fmul_rn(ri, dinv[i]);
+    r[i] = ri;
+    p[i] = zi;
+    c_rz = __fadd_rn(c_rz, __fmul_rn(ri, zi));
+    c_bb = __fadd_rn(c_bb, __fmul_rn(bi, bi));
+    c_rr = __fadd_rn(c_rr, __fmul_rn(ri, ri));
+  }
+  part[t] = c_rz;
+  part[PCG_THREADS + t] = c_bb;
+  part[2 * PCG_THREADS + t] = c_rr;
+  __syncthreads();
+  float rz = block_tree(part);
+  const float stop = __fadd_rn(__fmul_rn(stop2, block_tree(part + PCG_THREADS)), eps);
+  bool live = block_tree(part + 2 * PCG_THREADS) > stop;
+
+  // the steps; every block leaves together (see above)
+  for (int it = 0; it < iters && live; ++it) {
+    const int buf = (it + 1) & 1;
+    const float* Hp = hp + buf * n;
+    matvec(p, buf);
+    float c = 0.0f;
+    for (int i = t; i < n; i += PCG_THREADS) c = __fadd_rn(c, __fmul_rn(p[i], Hp[i]));
+    part[t] = c;
+    __syncthreads();
+    const float a = __fdiv_rn(rz, __fadd_rn(block_tree(part), eps));
+    c_rz = c_rr = 0.0f;
+    for (int i = t; i < n; i += PCG_THREADS) {
+      x[i] = __fadd_rn(x[i], __fmul_rn(a, p[i]));
+      const float ri = __fsub_rn(r[i], __fmul_rn(a, Hp[i]));
+      const float zi = __fmul_rn(ri, dinv[i]);
+      r[i] = ri;
+      c_rz = __fadd_rn(c_rz, __fmul_rn(ri, zi));
+      c_rr = __fadd_rn(c_rr, __fmul_rn(ri, ri));
+    }
+    part[PCG_THREADS + t] = c_rz;
+    part[2 * PCG_THREADS + t] = c_rr;
+    __syncthreads();
+    const float rz_new = block_tree(part + PCG_THREADS);
+    const float beta = __fdiv_rn(rz_new, __fadd_rn(rz, eps));
+    for (int i = t; i < n; i += PCG_THREADS)
+      p[i] = __fadd_rn(__fmul_rn(r[i], dinv[i]), __fmul_rn(beta, p[i]));
+    rz = rz_new;
+    live = block_tree(part + 2 * PCG_THREADS) > stop;
+    __syncthreads();  // p is read whole by the next step's rows
+  }
+  for (int i = t; i < nrows; i += PCG_THREADS) xout[o * n + row0 + i] = x[row0 + i];
+}
+
 template <class Term, int UNROLL>
 int launch_sum(const Term& term, float* out, long long O, int L, int S,
                cudaStream_t stream) {
@@ -518,5 +757,41 @@ extern "C" int sdsm_lane_softplus(const float* x, float* out, int count,
   if (count == 0) return (int)cudaGetLastError();
   softplus_kernel<<<(count + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       x, out, count);
+  return (int)cudaGetLastError();
+}
+
+// x (B, n) = solver._pcg_solve(H, b, iters, rtol) with H (B, n, n) and b
+// (B, n) float32 contiguous, stop2 and eps the float32 values of rtol^2 and
+// 1e-30; one launch of B clusters on `stream`. Each block keeps as many of
+// its rows of H in shared memory as the card's opt-in maximum leaves beside
+// its vectors (6 n + 768 floats); n past that maximum is refused.
+extern "C" int sdsm_lane_pcg(const float* H, const float* b, float* x, int B,
+                             int n, int iters, float stop2, float eps,
+                             void* stream) {
+  if (B < 0 || n < 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return (int)cudaGetLastError();
+  if ((long long)B * PCG_CLUSTER > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long vec_bytes = 4LL * (6LL * n + 3 * PCG_THREADS);
+  if (vec_bytes > smem_max) return (int)cudaErrorInvalidValue;
+  const long long row_bytes = 4LL * n;
+  const long long nr = (n + PCG_CLUSTER - 1) / PCG_CLUSTER;
+  const long long fit = (smem_max - vec_bytes) / row_bytes;
+  const long long cached = fit < nr ? fit : nr;
+  // the card's maximum, the same for every launch (threads launching
+  // concurrently set the same value)
+  err = cudaFuncSetAttribute(lane_pcg_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = n % 4 == 0 && (unsigned long long)H % 16 == 0;
+  lane_pcg_kernel<<<B * PCG_CLUSTER, PCG_THREADS,
+                    (size_t)(vec_bytes + cached * row_bytes),
+                    (cudaStream_t)stream>>>(H, b, x, n, iters, (int)cached, vec,
+                                            stop2, eps);
   return (int)cudaGetLastError();
 }

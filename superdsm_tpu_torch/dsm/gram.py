@@ -136,11 +136,11 @@ LAUNCHES = {f'{route}{suffix}': 0 for suffix in ('', '-3pass', '-1pass')
 #: shared memory, spills).
 BUILD_LOG = {}
 
-#: Shared library, symbol prefix, entry points (name: pointer and int
-#: argument counts; every entry point ends with the stream) and compiled
-#: constants of each kernel source. The gram entry points take the pointers
-#: Bf, s, yv, w, active, band, g, H, scratch; the ints B, P, n, seg_chunks
-#: (and the bf16 kernel's passes and mode).
+#: Shared library, symbol prefix, entry points (name: pointer, int and, where
+#: given, float argument counts, in that order; every entry point ends with
+#: the stream) and compiled constants of each kernel source. The gram entry
+#: points take the pointers Bf, s, yv, w, active, band, g, H, scratch; the
+#: ints B, P, n, seg_chunks (and the bf16 kernel's passes and mode).
 _KERNELS = {
     'gram_grad_hess.cu': ('libsdsm_gram.so', 'sdsm_gram', {'grad_hess': (9, 4)},
                           dict(tile=TILE, rows=ROWS, flush=FLUSH_CHUNKS)),
@@ -150,7 +150,8 @@ _KERNELS = {
     # the solver's per-lane products and sums (superdsm_tpu_torch.dsm.lane)
     'lane_ops.cu': ('libsdsm_lane.so', 'sdsm_lane',
                     {'matvec': (3, 4), 'strided_sum': (2, 6), 'dot': (3, 2),
-                     'softplus_energies': (6, 4), 'softplus': (2, 1)},
+                     'softplus_energies': (6, 4), 'softplus': (2, 1),
+                     'pcg': (3, 3, 2)},
                     dict(warp=32, small_n=8, row_threads=256)),
 }
 _F32_SRC, _BF16_SRC, LANE_SRC = _KERNELS
@@ -460,10 +461,10 @@ def _load(src=_F32_SRC):
             build()
         lib = ctypes.CDLL(path)
         _, prefix, entries, constants = _KERNELS[src]
-        for name, (n_ptrs, n_ints) in entries.items():
+        for name, (n_ptrs, n_ints, *n_floats) in entries.items():
             fn = getattr(lib, f'{prefix}_{name}')
             fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
-                [ctypes.c_void_p]
+                [ctypes.c_float] * sum(n_floats) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         for name, value in constants.items():
             const = getattr(lib, f'{prefix}_{name}')

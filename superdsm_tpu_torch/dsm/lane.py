@@ -1,13 +1,13 @@
 """Per-lane products and sums of the batched Newton solver.
 
-Each output of :func:`matvec`, :func:`lane_sum`, :func:`lane_dot` and
-:func:`softplus_energies` belongs to one lane (the leading axis) and is
-summed in an order fixed by the reduced length alone, so a lane's result
-does not depend on which lanes share its batch. A library's batched product
-or reduction does not promise that: cuBLAS picks its kernel and PyTorch's
-CUDA reductions split a sum across threads and blocks from the whole
-launch, and on the CPU a batch of one takes BLAS's matrix-vector route while
-a batch of two takes its matrix-matrix one.
+Each output of :func:`matvec`, :func:`lane_sum`, :func:`lane_dot`,
+:func:`softplus_energies` and :func:`pcg` belongs to one lane (the leading
+axis) and is summed in an order fixed by the reduced length alone, so a
+lane's result does not depend on which lanes share its batch. A library's
+batched product or reduction does not promise that: cuBLAS picks its
+kernel and PyTorch's CUDA reductions split a sum across threads and blocks
+from the whole launch, and on the CPU a batch of one takes BLAS's
+matrix-vector route while a batch of two takes its matrix-matrix one.
 
 Two implementations of each function live here:
 
@@ -22,7 +22,10 @@ solver used to build op by op into a tensor before :func:`lane_sum` read
 it back; their kernels build each term in registers, rounding every
 intermediate as that op-by-op expression does (their plain versions are
 the expression), and sum the terms in :func:`lane_sum`'s order, so they
-give its bits without the tensor.
+give its bits without the tensor. :func:`pcg` runs the solver's whole
+Jacobi-preconditioned CG (:func:`pcg_chain`, a chain of :func:`matvec`,
+:func:`lane_dot` and elementwise ops, some 17 launches a step) as one
+kernel launch with the chain's bits on the card.
 
 Every kernel launch adds one to :data:`LAUNCHES` (through
 :func:`gram._count_launch`, so a captured CUDA graph counts its launches at
@@ -37,7 +40,7 @@ from . import gram
 #: Kernel launches per kernel (``softplus``: the elementwise check of
 #: :func:`softplus_kernel`, which no solver path launches).
 LAUNCHES = {'lane_matvec': 0, 'lane_sum': 0, 'lane_dot': 0,
-            'softplus_energies': 0, 'softplus': 0}
+            'softplus_energies': 0, 'lane_pcg': 0, 'softplus': 0}
 
 
 def reset_launch_counts():
@@ -46,7 +49,8 @@ def reset_launch_counts():
 
 #: Callables told of every lane-kernel launch with its kernel's name and
 #: shape (``lane_matvec`` (B, P, n), ``lane_sum`` (B, S, L) or (B, L)
-#: summed over L, ``lane_dot`` (B, n), ``softplus_energies`` (mode, B, P));
+#: summed over L, ``lane_dot`` (B, n), ``softplus_energies`` (mode, B, P),
+#: ``lane_pcg`` (B, n));
 #: under a replayed CUDA graph at each replay, as
 #: :func:`gram._count_launch` counts.
 LAUNCH_HOOKS = []
@@ -137,6 +141,51 @@ def softplus_terms(s, y, w, c=None, u=None):
 def softplus_energies_plain(s, y, w, c=None, u=None):
     """:func:`softplus_terms` summed by :func:`lane_sum_plain`."""
     return lane_sum_plain(*softplus_terms(s, y, w, c, u))
+
+
+#: PCG's early exit (:func:`pcg_chain`) reads whether every lane is done (a
+#: host sync) every this many steps.
+PCG_SYNC_EVERY = 8
+
+
+def pcg_chain(H, b, iters, rtol, early_exit=True):
+    """Jacobi-preconditioned CG of the (B, n, n) systems ``H x = b`` op by
+    op: the plain version of :func:`pcg_kernel` (:func:`matvec` and
+    :func:`lane_dot`, so the lane kernels on the card).
+
+    Residual-based: a lane iterates until ``||r|| <= rtol * ||b||`` or
+    ``iters`` steps. Lanes that are done are frozen (their state is kept
+    exactly), as the JAX package's vmapped ``while_loop`` freezes them; with
+    ``early_exit`` the loop ends when every lane is done (a host sync every
+    :data:`PCG_SYNC_EVERY` steps), else it runs all ``iters`` steps (inside
+    a CUDA graph), with the same result.
+    """
+    dinv = 1.0 / torch.diagonal(H, dim1=-2, dim2=-1)
+    x = b * dinv
+    r = b - matvec(H, x)
+    z = r * dinv
+    p = z
+    rz = lane_dot(r, z)
+    r2_stop = (rtol * rtol) * lane_dot(b, b) + 1e-30
+    live = lane_dot(r, r) > r2_stop
+    for i in range(iters):
+        if early_exit and i % PCG_SYNC_EVERY == 0 and not bool(live.any()):
+            break
+        Hp = matvec(H, p)
+        a = rz / (lane_dot(p, Hp) + 1e-30)
+        x_new = x + a[:, None] * p
+        r_new = r - a[:, None] * Hp
+        z = r_new * dinv
+        rz_new = lane_dot(r_new, z)
+        beta = rz_new / (rz + 1e-30)
+        p_new = z + beta[:, None] * p
+        keep = live[:, None]
+        x = torch.where(keep, x_new, x)
+        r = torch.where(keep, r_new, r)
+        p = torch.where(keep, p_new, p)
+        rz = torch.where(live, rz_new, rz)
+        live = live & (lane_dot(r, r) > r2_stop)
+    return x
 
 
 def _launch(name, shape, fn, *args):
@@ -299,6 +348,28 @@ def softplus_kernel(x):
     return out
 
 
+def pcg_kernel(H, b, iters, rtol):
+    """The CUDA kernel of :func:`pcg` on the current stream: one launch for
+    every step of every lane, bitwise :func:`pcg_chain` on the card, with no
+    host sync."""
+    _check_cuda('pcg_kernel', H, b)
+    H = H.contiguous()
+    b = b.contiguous()
+    if b.dim() != 2:
+        raise ValueError(f'pcg_kernel takes b (B, n), got {tuple(b.shape)}')
+    B, n = b.shape
+    gram._check('H', H, torch.float32, (B, n, n), b.device)
+    _int32('pcg_kernel', B, n, iters)
+    x = torch.empty((B, n), dtype=torch.float32, device=b.device)
+    lib = gram._load(gram.LANE_SRC)
+    # the float32 values the chain's scalar ops use
+    stop2, eps = (float(np.float32(v)) for v in (rtol * rtol, 1e-30))
+    with torch.cuda.device(b.device):
+        _launch('lane_pcg', (B, n), lib.sdsm_lane_pcg, H.data_ptr(), b.data_ptr(),
+                x.data_ptr(), B, n, iters, stop2, eps)
+    return x
+
+
 def matvec(A, x):
     """Per-lane matrix-vector product ``A (B, P, n) @ x (B, n) -> (B, P)``,
     float32."""
@@ -330,3 +401,14 @@ def softplus_energies(s, y, w, c=None, u=None):
     if s.device.type == 'cpu':
         return softplus_energies_plain(s, y, w, c, u)
     return softplus_energies_kernel(s, y, w, c, u)
+
+
+def pcg(H, b, iters, rtol, early_exit=True):
+    """Jacobi-preconditioned CG of the (B, n, n) float32 systems ``H x = b``
+    -> x (B, n), each lane frozen once ``||r|| <= rtol * ||b||``, at most
+    ``iters`` steps: :func:`pcg_chain` (``early_exit`` its host syncs) on the
+    CPU, one :func:`pcg_kernel` launch on the card (no host sync; the same
+    bits whatever ``early_exit``)."""
+    if H.device.type == 'cpu':
+        return pcg_chain(H, b, iters, rtol, early_exit)
+    return pcg_kernel(H, b, iters, rtol)

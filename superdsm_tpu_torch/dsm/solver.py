@@ -17,11 +17,14 @@ The JAX package jits each solve into one device program whose Newton loop
 is a ``lax.while_loop``. On the card the port captures one Newton iteration
 (gram, step, freeze updates) as a CUDA graph per solve and replays it
 :data:`SYNC_EVERY` iterations at a time, reading the convergence flags (one
-host sync) between chunks only; PCG runs its :data:`CG_MAX_ITERS` steps
-inside the graph. Lanes freeze one by one, so iterations after the last
-lane converged change nothing. :func:`eager_loop` runs the loop op by op
-instead, syncing every iteration (the counterpart of
-``jax.disable_jit()``); on the CPU the chunked loop runs eagerly.
+host sync) between chunks only. Lanes freeze one by one, so iterations
+after the last lane converged change nothing. :func:`eager_loop` runs the
+loop op by op instead, syncing every iteration (the counterpart of
+``jax.disable_jit()``); on the CPU the chunked loop runs eagerly. PCG
+(:func:`_pcg_solve`, at n > :data:`CHOLESKY_MAX_N`) is one launch of the
+``lane_pcg`` kernel on the card in either loop, whose lanes each stop when
+they are done (:data:`CG_MAX_ITERS` steps at most); on the CPU it is the
+op-by-op chain that the kernel replaces.
 
 Every product and sum of a lane goes through
 :mod:`superdsm_tpu_torch.dsm.lane` (fixed order) or a library call on that
@@ -63,10 +66,6 @@ SCALES = (0.7, 1.0, 1.4, 2.0, 3.0, 4.5, 6.5, 9.0)
 CHOLESKY_MAX_N = int(os.environ.get('SDSM_CHOL_MAX_N', '300'))
 CG_MAX_ITERS = 64
 CG_RTOL = 1e-5
-#: PCG lanes are frozen individually; run op by op, the loop checks for
-#: "all lanes done" (a host sync) every this many iterations — the results
-#: do not depend on it, since frozen lanes stay frozen.
-_CG_SYNC_EVERY = 8
 
 #: Newton iterations between two reads of the convergence flags (one host
 #: sync each): on the card, replays of the captured iteration. The results
@@ -104,10 +103,10 @@ def _note(**counts):
 @contextlib.contextmanager
 def eager_loop():
     """Runs every Newton loop of the block op by op, with a host sync every
-    iteration and PCG's early exit, instead of replaying a captured CUDA
-    graph: the counterpart of ``jax.disable_jit()``. It holds for every
-    thread of the process while the block runs. The results are bitwise
-    those of the graph."""
+    iteration (and, on the CPU, PCG's early exit), instead of replaying a
+    captured CUDA graph: the counterpart of ``jax.disable_jit()``. It holds
+    for every thread of the process while the block runs. The results are
+    bitwise those of the graph."""
     with _stats_lock:
         _eager['depth'] += 1
     try:
@@ -265,37 +264,15 @@ def _pcg_solve(H, b, iters=CG_MAX_ITERS, rtol=CG_RTOL, early_exit=True):
 
     Residual-based: a lane iterates until ``||r|| <= rtol * ||b||`` or
     ``iters`` steps. Lanes that are done are frozen (their state is kept
-    exactly), as the JAX package's vmapped ``while_loop`` freezes them; with
-    ``early_exit`` the loop ends when every lane is done (a host sync every
-    :data:`_CG_SYNC_EVERY` steps), else it runs all ``iters`` steps (inside
-    a CUDA graph), with the same result.
+    exactly), as the JAX package's vmapped ``while_loop`` freezes them. On
+    the card one launch of the ``lane_pcg`` kernel runs every step of every
+    lane (no host sync; each lane stops when it is done), bitwise the
+    op-by-op chain :func:`lane.pcg_chain`, which runs on the CPU: there
+    ``early_exit`` ends the loop when every lane is done (a host sync every
+    :data:`lane.PCG_SYNC_EVERY` steps), else it runs all ``iters`` steps,
+    with the same result.
     """
-    dinv = 1.0 / torch.diagonal(H, dim1=-2, dim2=-1)
-    x = b * dinv
-    r = b - _bmv(H, x)
-    z = r * dinv
-    p = z
-    rz = _dot(r, z)
-    r2_stop = (rtol * rtol) * _dot(b, b) + 1e-30
-    live = _dot(r, r) > r2_stop
-    for i in range(iters):
-        if early_exit and i % _CG_SYNC_EVERY == 0 and not bool(live.any()):
-            break
-        Hp = _bmv(H, p)
-        a = rz / (_dot(p, Hp) + 1e-30)
-        x_new = x + a[:, None] * p
-        r_new = r - a[:, None] * Hp
-        z = r_new * dinv
-        rz_new = _dot(r_new, z)
-        beta = rz_new / (rz + 1e-30)
-        p_new = z + beta[:, None] * p
-        keep = live[:, None]
-        x = torch.where(keep, x_new, x)
-        r = torch.where(keep, r_new, r)
-        p = torch.where(keep, p_new, p)
-        rz = torch.where(live, rz_new, rz)
-        live = live & (_dot(r, r) > r2_stop)
-    return x
+    return lane.pcg(H, b, iters, rtol, early_exit)
 
 
 def _cholesky_direction(Hd, g):
@@ -310,14 +287,14 @@ def _cholesky_direction(Hd, g):
                        delta)
 
 
-def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
-                 cg_early_exit=True):
+def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol):
     """One Levenberg-Marquardt-damped Newton iteration for a batch of lanes
     (see the JAX package's ``_newton_step`` for the rationale of the LM
     damping, the Armijo line search over one matvec and the multiplicative
     scale sweep). Shapes: params (B, n), mu/f0/alpha (B,), s/yv/w (B, P),
-    g (B, n), H (B, n, n), Bf (B, P, n), kmask (B, K). It makes no host sync
-    unless ``cg_early_exit`` (PCG's early exit, :func:`_pcg_solve`)."""
+    g (B, n), H (B, n, n), Bf (B, P, n), kmask (B, K). On the card it makes
+    no host sync (on the CPU PCG's early exit reads its lanes,
+    :func:`_pcg_solve`)."""
     B, n = params.shape
     dt, dev = params.dtype, params.device
     if n > 6:
@@ -329,7 +306,7 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
     scale_h = _lsum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
     Hd = H + (mu * scale_h)[:, None, None] * torch.eye(n, dtype=dt, device=dev)
     if n > CHOLESKY_MAX_N:
-        delta = -_pcg_solve(Hd, g, early_exit=cg_early_exit)
+        delta = -_pcg_solve(Hd, g)
     else:
         delta = _per_lane(_cholesky_direction, Hd, g)
     bad = ~torch.isfinite(delta).all(dim=1)
@@ -553,8 +530,7 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
         # zero and only feed the masked-out step below
         g_b, H_b = grad_hess_b(s, (~conv).to(torch.int32), cheap)
         new_params, new_s, new_f, new_conv, new_mu = _newton_step(
-            params, mu, s, fval, g_b, H_b, Bf, yv, w, alpha, epsilon, kmask, tol,
-            cg_early_exit=not graphed)
+            params, mu, s, fval, g_b, H_b, Bf, yv, w, alpha, epsilon, kmask, tol)
         keep = conv[:, None]
         it_dev.add_(1)
         params.copy_(torch.where(keep, params, new_params))

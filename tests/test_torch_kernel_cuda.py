@@ -39,7 +39,11 @@ variants compute the same order and are held to each other bitwise: the
 one-thread-a-row product (n <= 32) to the warp-per-row one, a strided sum
 read in place to its order replayed on the host, and each fused sum (``lane_dot``,
 ``softplus_energies``) to the op-by-op chain it replaces; the softplus
-device function equals ``torch.logaddexp(x, 0)`` bitwise.
+device function equals ``torch.logaddexp(x, 0)`` bitwise. ``lane_pcg``,
+the whole of PCG in one launch, is held bitwise to the chain it replaces
+(``lane.pcg_chain`` on the card), a lane alone to the lane in the batch, a
+captured graph's replay to the eager launch, and its frozen and NaN lanes
+to the chain's.
 """
 
 import numpy as np
@@ -753,3 +757,94 @@ def test_softplus_device_function_equals_logaddexp():
         got = lane.softplus_kernel(x)
         same = (_bits(ref) == _bits(got)) | (torch.isnan(ref) & torch.isnan(got))
         assert bool(same.all())
+
+
+def _pcg_systems(B, n, dev, seed=0):
+    """``B`` SPD systems ``A A^T + d I`` (A with N(0, 1/n) entries) on the
+    card, the damping d of lane k cycling through 0.2, 1, 5, 50, 0.05 and
+    0.02 (lanes that stop after a few steps, after 20 to 50, and at
+    ``CG_MAX_ITERS``), with right-hand sides."""
+    rng = np.random.RandomState(seed + B + n)
+    A = torch.as_tensor((rng.randn(B, n, n) / np.sqrt(n)).astype(np.float32), device=dev)
+    damping = torch.tensor([(0.2, 1.0, 5.0, 50.0, 0.05, 0.02)[k % 6] for k in range(B)],
+                           device=dev)
+    H = A @ A.transpose(1, 2) + damping[:, None, None] * torch.eye(n, device=dev)
+    b = torch.as_tensor(rng.randn(B, n).astype(np.float32), device=dev)
+    return H.contiguous(), b
+
+
+def _same_bits(a, b):
+    return bool(((_bits(a) == _bits(b)) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,n', [(1, 512), (2, 512), (16, 512), (2, 1024), (1, 2048),
+                                 (3, 384)])
+def test_lane_pcg_equals_the_chain(B, n):
+    """``lane_pcg`` (one launch) bitwise equal to the chain it replaces on
+    the card (``lane.pcg_chain``: the lane kernels and ATen's elementwise
+    ops), its early exit and its full run; a lane alone bitwise equal to the
+    same lane in the batch; ``solver._pcg_solve`` launches it once."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    H, b = _pcg_systems(B, n, dev)
+    iters, rtol = solver.CG_MAX_ITERS, solver.CG_RTOL
+    lane.reset_launch_counts()
+    out = solver._pcg_solve(H, b)
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_pcg'] == 1 and lane.LAUNCHES['lane_dot'] == 0
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(_bits(out), _bits(lane.pcg_chain(H, b, iters, rtol, early_exit=False)))
+    assert torch.equal(_bits(out), _bits(lane.pcg_chain(H, b, iters, rtol)))
+    for k in (0, B - 1):
+        assert torch.equal(_bits(lane.pcg_kernel(H[k:k + 1], b[k:k + 1], iters, rtol)[0]),
+                           _bits(out[k]))
+    for steps in (0, 1, 7):
+        assert torch.equal(_bits(lane.pcg_kernel(H, b, steps, rtol)),
+                           _bits(lane.pcg_chain(H, b, steps, rtol, early_exit=False)))
+
+
+@pytest.mark.cuda
+def test_lane_pcg_graph_replay_equals_eager():
+    """``lane_pcg`` captured in a CUDA graph and replayed (on new inputs
+    copied into the captured ones) bitwise equal to the eager launch."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    H, b = _pcg_systems(4, 512, dev)
+    H2, b2 = _pcg_systems(4, 512, dev, seed=1)
+    eager = lane.pcg_kernel(H, b, solver.CG_MAX_ITERS, solver.CG_RTOL)
+    eager2 = lane.pcg_kernel(H2, b2, solver.CG_MAX_ITERS, solver.CG_RTOL)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lane.pcg_kernel(H, b, solver.CG_MAX_ITERS, solver.CG_RTOL)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(eager))
+    H.copy_(H2)
+    b.copy_(b2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(eager2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [512, 6])
+def test_lane_pcg_frozen_and_nan_lanes(n):
+    """Lanes the chain never steps (a NaN in H off or on the diagonal, a zero
+    right-hand side) and lanes that stop early come out of the kernel as the
+    chain leaves them, bitwise (a NaN against any NaN), at n = 512 and at
+    n = 6 (fewer rows than the cluster has blocks)."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    H, b = _pcg_systems(6, n, dev)
+    H[1, 3, 5] = float('nan')
+    H[3, 4, 4] = float('nan')
+    b[2] = 0.0
+    b[4, 0] = float('inf')
+    for iters in (0, 3, solver.CG_MAX_ITERS):
+        out = lane.pcg_kernel(H, b, iters, solver.CG_RTOL)
+        chain = lane.pcg_chain(H, b, iters, solver.CG_RTOL, early_exit=False)
+        assert _same_bits(out, chain)
+    assert bool((out[2] == 0).all()) and bool(torch.isnan(out[3, 4]))
+    assert _same_bits(out[1], b[1] * (1.0 / torch.diagonal(H[1])))

@@ -25,8 +25,11 @@ result lines):
    B = 1 and B = 2 re-solves at (16384, 512), the main path's most
    frequent launches (their launches per bench image from phase 4's
    profile go into the table's ``other_shapes``), and ``dense-1pass`` at
-   (8, 16384, 1024), a launch that fills the card in one segment, where the bf16 kernel
-   writes H itself: the float32 kernel to
+   (8, 16384, 1024), many lanes at n = 1024, which the bf16 kernel splits
+   as one lane (its plan reads (P, n) alone) in groups of lanes under the
+   scratch cap, and the bf16 kernel at (8, 128, 1024) on dense random
+   lanes, a launch its plan runs as one segment: the direct write of H
+   (full mode, 1 and 3 passes): the float32 kernel to
    rtol = atol = 1e-4; the bf16 kernel at 3 passes to rtol = atol = 1e-4,
    at 1 pass within bf16's unit roundoff elementwise
    (|dH| <= 2^-7 |Bf|^T diag(kappa) |Bf| + 1e-4) and to 1e-4 on >= 99% of
@@ -54,7 +57,17 @@ result lines):
    its early exit and its run of all steps), a lane alone bitwise equal to
    the same lane in the batch, a captured graph's replay bitwise equal to
    the eager launch; the steps each lane ran, the kernel's and the chain's
-   device ms (the chain's steps captured in one graph) and the bound;
+   device ms (the chain's steps captured in one graph) and the bound; then
+   ``lane_cholesky``, the Newton direction by Cholesky in one launch, at
+   the (B, n) of :data:`CHOL_SHAPES` on Newton systems built from phase
+   3's lanes with the loop's damping and one lane that is not positive
+   definite: bitwise equal to its order written op by op on the card
+   (``lane.cholesky_chain``), a lane alone, a captured graph's replay and
+   a second run bitwise equal to it, NaN lanes exactly where the chain and
+   ``cholesky_ex`` fail, every other lane within 4 n u kappa of a float64
+   solve (beside cuSOLVER's error); the kernel's, the chain's, the per-lane
+   cuSOLVER route's it replaces and cuSOLVER's batched route's device ms,
+   and the bound;
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
@@ -79,7 +92,11 @@ result lines):
    loops' captures and replays, and the gram launches by (B, active lanes,
    P, n, route, pixel segments), counted at each replay, and the lane
    kernels' launches by shape (``lane_pcg`` must launch: PCG's one launch
-   per Newton step at n > ``CHOLESKY_MAX_N``);
+   per Newton step at n > ``CHOLESKY_MAX_N``; ``lane_cholesky`` must
+   launch, below it), the device ms per replayed Newton iteration by
+   kernel family from the graphs' replays alone (their activities carry a
+   graph launch's correlation id), where a ``lane_cholesky`` activity must
+   show and no cuSOLVER one may;
 5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` through
    the default entry point with no ``AF_scale``: the estimated scale must be
    the JAX estimator's (30 sqrt 2 = 42.4264...) and all 5 objects must
@@ -144,11 +161,13 @@ result lines):
 11. meshes on one card: the sharded DSM solver at (B, P, n) = (8, 16384,
    128) over a (1, 2) mesh of ``[cuda:0, cuda:0]`` (lanes built as phase 3
    builds them): finite energies, one float32 ``dense`` launch per shard per
-   Newton iteration, converged energies within rtol 1e-4 of a 1x1 mesh and
-   1e-3 of the unsharded Newton loop; the sharded poly solver at (8, 8192,
-   6) the same way; the sharded DSM solver over a (2, 1) mesh (each row's
-   Newton loop in its own thread and stream) within rtol 1e-4 of the 1x1
-   mesh; the bench field under the pipeline mesh ``'1'`` bitwise equal to
+   Newton iteration and one ``lane_cholesky`` launch per Newton iteration
+   (its sums in the lane kernels); lanes 0 and 7 alone bitwise equal to the
+   same lanes in the batch; converged energies within rtol 1e-4 of a 1x1
+   mesh and 1e-3 of the unsharded Newton loop; the sharded poly solver at
+   (8, 8192, 6) the same way (lanes alone bitwise too); the sharded DSM
+   solver over a (2, 1) mesh (each row's Newton loop in its own thread and
+   stream) within rtol 1e-4 of the 1x1 mesh; the bench field under the pipeline mesh ``'1'`` bitwise equal to
    phase 4's label map, and under a (2, 1) pipeline mesh of the card twice
    (each half of every chunk's lanes in its own thread and stream) within
    one unmatched object of its golden; ``parse_mesh_spec('2')`` raises on a
@@ -179,7 +198,8 @@ process per turn, in the order A, B, B, A, each building its own
 checkout's kernels and printing one JSON line: the device ms of every
 phase-3 launch, the float32 routes' first and then the bf16 routes' (each
 checked against the plain version first, as phase 3 checks it; the lane
-kernels' ms and ``solver._pcg_solve``'s at :data:`PCG_SHAPES`), then bench
+kernels' ms, ``solver._pcg_solve``'s at :data:`PCG_SHAPES` and the Cholesky
+direction's at :data:`CHOL_SHAPES`), then bench
 seeds 0-3 at ``AF_scale=12`` (after one cold run of seed 0),
 :data:`AB_REPS` times each, with each run's seconds, its
 global-energy-minimization seconds, lane Newton iterations, solve calls
@@ -194,6 +214,11 @@ the stall fixtures at B = 1, 2, 4, 16. Every turn's label maps of bench
 seeds 0-3 and the mosaic and its fixtures' params and energies must be
 bitwise those of every other turn (each result printed; a difference
 fails the run, after the timings).
+
+``python3 chip_smoke.py --ab ROOT_A ROOT_B --report-differences`` prints a
+result that differs between the two checkouts instead of failing on it (for
+a change that alters a lane's bits on purpose); a checkout whose results
+differ from its own other turn still fails the run.
 
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
 gate enforced on every image (:data:`F64_NOT_MET` included): it fails
@@ -235,9 +260,15 @@ FEW_LANE_SHAPES = [(1, 8192, 128, 'dense', 1), (1, 32768, 512, 'banded', 1),
 #: ... and these with the float32 route only: the banded B = 1 and B = 2
 #: re-solves at (16384, 512), the main path's most frequent launches.
 FEW_LANE_F32_SHAPES = [(1, 16384, 512, 'banded', 1), (2, 16384, 512, 'banded', 2)]
-#: A 1-pass full launch that fills the card in one segment (the hybrid
-#: schedule's cheap gram at n = 1024): the bf16 kernel's direct write of H.
-ONE_SEGMENT_SHAPES = [(8, 16384, 1024, 'dense', 8)]
+#: A 1-pass full launch of many lanes at n = 1024 (the hybrid schedule's
+#: cheap gram there), which the bf16 kernel splits as one lane, in groups
+#: of lanes under the scratch cap.
+N1024_SHAPES = [(8, 16384, 1024, 'dense', 8)]
+#: A bf16 launch that its plan runs as one segment (four pixel chunks), in
+#: which the kernel writes H and g itself (the direct write); no bucket of
+#: the solver is that short, so its lanes are dense random features, which
+#: fill every tile.
+ONE_SEGMENT_SHAPES = [(8, 128, 1024, 'dense', 8)]
 
 
 def _cases():
@@ -245,8 +276,8 @@ def _cases():
     route it runs: all routes at the table shapes (the bf16 kernel in full
     mode where the base route is dense), the float32 route and the 1-pass
     full gram at the few-lane shapes, the float32 route alone at the banded
-    few-lane re-solve shapes, the 1-pass full gram at the one-segment
-    shape."""
+    few-lane re-solve shapes, the 1-pass full gram at n = 1024, the bf16
+    kernel's full mode at 1 and 3 passes at the one-segment shape."""
     for shape in KERNEL_SHAPES:
         full = shape[3] == 'dense'
         yield shape, [(6, False), (3, full), (1, full)]
@@ -254,17 +285,25 @@ def _cases():
         yield shape, [(6, False), (1, True)]
     for shape in FEW_LANE_F32_SHAPES:
         yield shape, [(6, False)]
-    for shape in ONE_SEGMENT_SHAPES:
+    for shape in N1024_SHAPES:
         yield shape, [(1, True)]
+    for shape in ONE_SEGMENT_SHAPES:
+        yield shape, [(1, True), (3, True)]
 
 
 def _phase3_inputs(B, P, n, base, n_active):
     """The inputs of a phase-3 shape, made from the seed ``n`` on the card:
     ``(Bf, s, yv, w, active, band)``, band None unless ``base`` is
-    banded."""
+    banded; at :data:`ONE_SEGMENT_SHAPES` dense random lanes (features in
+    (-1, 1), labels of either sign, unit weights)."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rng = np.random.RandomState(n)
+    if (B, P, n, base, n_active) in ONE_SEGMENT_SHAPES:
+        t = lambda a: torch.tensor(a.astype(np.float32), device='cuda')
+        Bf, s = t(rng.uniform(-1, 1, (B, P, n))), t(rng.randn(B, P) * 2.0)
+        yv = t(np.sign(rng.randn(B, P)) * rng.uniform(0.05, 1.0, (B, P)))
+        return Bf, s, yv, t(np.ones((B, P))), _active(B, n_active), None
     lanes = [_lane_features(rng, P, n - 6) for _ in range(B)]
     Bf, s, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
     del lanes
@@ -653,8 +692,21 @@ PCG_SHAPES = [(2, 512), (16, 512), (1, 512), (2, 1024), (8, 1024)]
 #: The JAX package's ``_pcg_solve`` (an XLA ``while_loop``, no Pallas
 #: kernel), which ``lane_pcg`` runs in one launch.
 PCG_REPLACES = 'superdsm_tpu/dsm/solver.py:126'
+#: ``lane_cholesky``'s shapes (B, n): the bench field's most frequent DSM
+#: chunk first (the kernels line's row), its other chunks and its c2f
+#: solves (n = 6), the DSM buckets n = 32 to 256 at the GPU caps, the B = 1
+#: and B = 2 canonical re-solves, and n = 384, whose work space takes the
+#: global-scratch route (above ``lane.CHOL_SHARED_MAX_N``); then n = 512 and
+#: 1024 at the GPU caps of their pixel buckets, the sharded solver's
+#: (``parallel/newton.py`` takes the kernel at every n), on the same route.
+CHOL_SHAPES = [(16, 256), (8, 256), (32, 6), (16, 6), (64, 6), (64, 32), (64, 64),
+               (64, 128), (16, 128), (32, 256), (1, 128), (2, 256), (1, 256), (2, 384),
+               (16, 512), (8, 1024)]
+#: The JAX package's ``cho_factor`` / ``cho_solve`` in ``_newton_step`` (XLA's,
+#: no Pallas kernel), which ``lane_cholesky`` runs in one launch.
+CHOL_REPLACES = 'superdsm_tpu/dsm/solver.py:204'
 #: The lane kernels the main path must launch.
-LANE_KERNELS = tuple(LANE_SHAPES) + ('lane_pcg',)
+LANE_KERNELS = tuple(LANE_SHAPES) + ('lane_pcg', 'lane_cholesky')
 #: float32 operations of one softplus-energy term: the candidate's x (line
 #: search: u c, s +, y *, negation; scale sweep: c *, negation, with y s once
 #: a pixel; one energy: y *, negation), logaddexp(x, 0) (the isinf test,
@@ -839,7 +891,7 @@ def _pcg_systems(n):
     import torch
     from superdsm_tpu_torch.dsm import gram, lane
     if n not in _PCG_SYSTEMS:
-        shape = {512: KERNEL_SHAPES[2], 1024: ONE_SEGMENT_SHAPES[0]}[n]
+        shape = {512: KERNEL_SHAPES[2], 1024: N1024_SHAPES[0]}[n]
         Bf, s, yv, w, _, _ = _phase3_inputs(*shape)
         B = Bf.shape[0]
         g, H = gram.grad_hess_kernel(Bf, s, yv, w, torch.ones(B, dtype=torch.int32,
@@ -922,6 +974,193 @@ def _check_pcg(shape):
                 library_ms=None, shape=list(shape), steps=max(steps), lane_steps=steps)
 
 
+_CHOL_SYSTEMS = {}
+
+
+def _chol_systems(B, n):
+    """Newton systems ``(Hd, g)`` of the solver at (B, n) from phase 3's
+    lanes (built as :func:`_lane_features` builds them, P = 8192; at n = 6
+    the polynomial columns of n = 32 lanes): H and g of the plain float64-sum
+    gram, the regularizer's Hessian diagonal at xi = 0 (alpha 0.5, a unit
+    diagonal on the padded dimensions) and the loop's damping (``Hd = H +
+    mu scale I`` as ``_newton_step`` damps it, mu from the loop's first 1e-6
+    up to 1e-2 across the lanes); with B >= 2, lane B // 2 is made not
+    positive definite (its mean diagonal subtracted), the guard's case.
+    Made once per (B, n)."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram, lane
+    if (B, n) not in _CHOL_SYSTEMS:
+        rng = np.random.RandomState(B * 1000 + n)
+        K = max(n, 32) - 6
+        lanes = [_lane_features(rng, 8192, K) for _ in range(B)]
+        Bf, s, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
+        del lanes
+        Bf = Bf[..., :n].contiguous()
+        g, H = gram.grad_hess_plain(Bf, s, yv, w)
+        km = (Bf[..., 6:] != 0).any(dim=1).float()
+        reg = torch.cat([torch.zeros((B, 6), device='cuda'), 0.5 * km + (1.0 - km)], dim=1)
+        H = H + torch.diag_embed(reg)
+        mu = torch.logspace(-6, -2, B, device='cuda')
+        scale = lane.lane_sum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
+        Hd = H + (mu * scale)[:, None, None] * torch.eye(n, device='cuda')
+        if B >= 2:
+            bad = B // 2
+            Hd[bad] -= torch.diagonal(Hd[bad]).mean() * torch.eye(n, device='cuda')
+        _CHOL_SYSTEMS[(B, n)] = Hd.contiguous(), g.contiguous()
+        del Bf, s, yv, w, H
+        torch.cuda.empty_cache()
+    return _CHOL_SYSTEMS[(B, n)]
+
+
+def _per_lane_cholesky(Hd, g):
+    """The Cholesky direction as the solver computed it on the card before
+    ``lane_cholesky``: cuSOLVER's ``cholesky_ex`` and ``cholesky_solve`` on
+    each lane alone, the outputs concatenated (capturable)."""
+    import torch
+    out = []
+    for b in range(Hd.shape[0]):
+        L, info = torch.linalg.cholesky_ex(Hd[b:b + 1])
+        delta = -torch.cholesky_solve(g[b:b + 1, :, None], L)[..., 0]
+        out.append(torch.where((info != 0)[:, None],
+                               torch.full((), float('nan'), device=g.device), delta))
+    return torch.cat(out)
+
+
+def _batched_cholesky(Hd, g):
+    """cuSOLVER's batched route on the whole batch (``cholesky_ex`` and
+    ``cholesky_solve``; its batched solve is MAGMA's, which a CUDA graph
+    cannot hold): a yardstick, which the port never calls."""
+    import torch
+    L, info = torch.linalg.cholesky_ex(Hd)
+    delta = -torch.cholesky_solve(g[..., None], L)[..., 0]
+    return torch.where((info != 0)[:, None], torch.full((), float('nan'), device=g.device),
+                       delta)
+
+
+def _stream_ms(fn, reps=10):
+    """Device ms per call of ``fn`` for calls a CUDA graph cannot hold:
+    after a warm-up call, ``reps`` calls back to back between two CUDA
+    events (the host's issue time shows where it exceeds the device's);
+    the median of 3 such runs."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def _same_bits(a, b):
+    """Bitwise equal, a NaN equal to any NaN."""
+    import torch
+    return bool(((_bits(a) == _bits(b)) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+#: Forward error allowed against the float64 solve: a multiple of n u kappa
+#: (u = 2^-24), the first-order bound of a Cholesky solve's forward error
+#: (the backward error of the factor and the two substitutions, some 3 n u
+#: |L| |L^T| normwise, times the condition number); a lane's error in the
+#: order of cuSOLVER's is far below it.
+CHOL_ERR_FACTOR = 4.0
+
+
+def _check_cholesky(shape):
+    """Holds ``lane_cholesky`` at ``(B, n)`` (:func:`_chol_systems`) to its
+    order written op by op on the card (``lane.cholesky_chain``), bitwise, a
+    NaN against any NaN; a lane alone, a captured graph's replay and a
+    second run bitwise equal to it; NaN lanes exactly where the chain and
+    ``cholesky_ex`` have them; every other lane within CHOL_ERR_FACTOR n u
+    kappa of a float64 ``torch.linalg.solve``, beside cuSOLVER's per-lane
+    error. Returns its table row.
+
+    Times: the kernel, the chain (captured in one graph), the per-lane
+    cuSOLVER route it replaces (captured in one graph) and cuSOLVER's
+    batched route (``library_ms``, calls back to back: a graph cannot hold
+    it). Bound: the larger of one read of Hd and g and one write of delta
+    over the memory rate, and n^3 / 3 + 2 n^2 float32 operations per lane
+    over the float32 peak, a failing lane's factor counted up to the pivot
+    where ``cholesky_ex`` stops."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    B, n = shape
+    Hd, g = _chol_systems(B, n)
+    kernel = lambda: lane.cholesky_kernel(Hd, g)
+    chain = lambda: lane.cholesky_chain(Hd, g)
+    tag = f'lane_cholesky {shape}'
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = chain()
+    _, info = torch.linalg.cholesky_ex(Hd)
+    failed = info != 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel()
+    graph.replay()
+    torch.cuda.synchronize()
+    nan_lanes = torch.isnan(out).all(dim=1)
+    checks = {
+        'a second run': _same_bits(out, kernel()),
+        'the chain': _same_bits(out, ref),
+        'a lane alone': all(_same_bits(lane.cholesky_kernel(Hd[b:b + 1], g[b:b + 1])[0],
+                                       out[b]) for b in sorted({0, B // 2, B - 1})),
+        'a captured graph': _same_bits(captured, out),
+        'NaN lanes where cholesky_ex fails': torch.equal(nan_lanes, failed)
+        and torch.equal(nan_lanes, torch.isnan(ref).all(dim=1))}
+    del graph, captured
+    ok = ~failed
+    exact = -torch.linalg.solve(Hd[ok].double(), g[ok].double()[..., None])[..., 0]
+    eig = torch.linalg.eigvalsh(Hd[ok].double())
+    kappa = eig[:, -1] / eig[:, 0]
+    u = 2.0 ** -24
+
+    def rel_err(x):
+        return (x[ok].double() - exact).norm(dim=1) / exact.norm(dim=1)
+
+    err_k = rel_err(out)
+    err_c = rel_err(_per_lane_cholesky(Hd, g))
+    share = float((err_k / (CHOL_ERR_FACTOR * n * u * kappa)).max())
+    say(f'[kernel] {tag}: bitwise equal to ' + ', '.join(
+        f'{k} {v}' for k, v in checks.items()) + f'; failed lanes '
+        f'{failed.nonzero()[:, 0].tolist()}; relative error against float64 '
+        f'solve max {float(err_k.max()):.3e} (cuSOLVER per lane '
+        f'{float(err_c.max()):.3e}), kappa up to {float(kappa.max()):.3e}, '
+        f'{share:.3e} of {CHOL_ERR_FACTOR:g} n u kappa (<= 1)')
+    for what, good in checks.items():
+        if not good:
+            fail(f'{tag}: kernel not bitwise equal to {what}')
+    if not bool(torch.isfinite(out[ok]).all()) or share > 1.0:
+        fail(f'{tag}: kernel outside {CHOL_ERR_FACTOR:g} n u kappa of the float64 solve')
+    finite = torch.isfinite(out) & torch.isfinite(ref)
+    err = float((out[finite] - ref[finite]).abs().max()) if bool(finite.any()) else 0.0
+    ms = _event_ms(kernel)
+    chain_ms = _event_ms(chain)
+    per_lane_ms = _event_ms(lambda: _per_lane_cholesky(Hd, g))
+    batched_ms = _stream_ms(lambda: _batched_cholesky(Hd, g))
+    # a lane that fails at pivot m (cholesky_ex's info) factors m columns
+    m = torch.where(failed, info.clamp_min(1), n).double().cpu().numpy()
+    ops = float(np.sum((n ** 3 - (n - m) ** 3) / 3.0 + 2.0 * n * n * (m == n)))
+    ops_ms = ops / PEAK_FP32 * 1e3
+    bytes_ms = 4.0 * B * (n * n + 2 * n) / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
+    say(f'[kernel] {tag}: kernel {ms:.4f} ms, chain {chain_ms:.4f} ms, cuSOLVER per '
+        f'lane {per_lane_ms:.4f} ms ({per_lane_ms / ms:.2f}x the kernel), cuSOLVER '
+        f'batched {batched_ms:.4f} ms (calls back to back), bound {bound_ms:.4f} ms '
+        f'by {bound_by}: {bound_ms / ms:.1%} of the bound')
+    return dict(max_abs_err=err, ms=ms, plain_ms=chain_ms, chain_ms=chain_ms,
+                per_lane_ms=per_lane_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, library_ms=batched_ms, shape=list(shape),
+                rel_err=float(err_k.max()), cusolver_rel_err=float(err_c.max()))
+
+
 def _check_logaddexp(chunk=1 << 28):
     """The softplus device function of the fused sums (``lane.softplus_kernel``)
     against ``torch.logaddexp(x, 0)`` on the card over all 2^32 float32
@@ -956,8 +1195,8 @@ def phase_kernels():
     """Phase 3: every launch of :func:`_cases`; a route's row is its table
     shape's, and its launches at the other shapes are listed under it as
     ``other_shapes``; then the softplus device function over all 2^32
-    inputs, the lane kernels at :data:`LANE_SHAPES` and ``lane_pcg`` at
-    :data:`PCG_SHAPES`."""
+    inputs, the lane kernels at :data:`LANE_SHAPES`, ``lane_pcg`` at
+    :data:`PCG_SHAPES` and ``lane_cholesky`` at :data:`CHOL_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
@@ -966,6 +1205,10 @@ def phase_kernels():
         for passes, full in launches:
             band_ = None if full else band
             route = gram.route_for(shape[2], band_ is not None, passes, full)
+            if shape in ONE_SEGMENT_SHAPES and gram.split_plan(
+                    *shape[:3], passes, full)[1] != 1:
+                fail(f'{route} {shape}: the plan no longer runs one segment, '
+                     'so no launch holds the direct write')
             row = _check_route(route, passes, Bf, s, yv, w, active, band_)
             if shape in KERNEL_SHAPES:
                 rows[route] = dict(row, other_shapes=[])
@@ -981,6 +1224,10 @@ def phase_kernels():
         torch.cuda.empty_cache()
     pcg = [_check_pcg(shape) for shape in PCG_SHAPES]
     rows['lane_pcg'] = dict(pcg[0], other_shapes=pcg[1:])
+    chol = [_check_cholesky(shape) for shape in CHOL_SHAPES]
+    rows['lane_cholesky'] = dict(chol[0], other_shapes=chol[1:])
+    _CHOL_SYSTEMS.clear()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1166,11 +1413,11 @@ ROW_TOL = 0.5
 #: (``diverge.py --seed 3 --footprint 17``). The nuclei at (406.7, 430.1),
 #: which the port splits in two: each package's own energy at the end of
 #: the atom-split solve at offset (414, 370) (``diverge.py --seed 3 --near
-#: 430 407``). The label map's rows as the card gives them since a lane's
-#: solve stopped depending on its batch (the same objects, a pixel larger
-#: or smaller than before).
+#: 430 407``). The label map's rows as the card gives them since the
+#: Newton direction is the ``lane_cholesky`` kernel (``card_labels.py``'s
+#: ``bench3``; the same objects as before, the first two pixels smaller).
 SEED3_ROWS = [
-    ('spurious', (732, 398.7, 418.6), 127.34, 56.16),
+    ('spurious', (730, 398.6, 418.6), 127.34, 56.16),
     ('spurious', (736, 414.8, 441.6), 127.34, 56.16),
     ('missing', (1424, 406.7, 430.1), 127.34, 56.16),
     ('spurious', (1100, 577.0, 366.5), 657.73, 74.37),
@@ -1321,7 +1568,9 @@ def _profiled(fn):
     """Runs ``fn`` under ``torch.profiler``; returns its result and the
     run's counts: host syncs, kernel and graph launches issued by the host
     (with the host ms the graph launches took), and the device's busy ms
-    (the union of its activities) with the device spans."""
+    (the union of its activities) with the device spans, and apart the
+    spans of the CUDA graphs' replays (the activities that carry a graph
+    launch's correlation id)."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1337,6 +1586,10 @@ def _profiled(fn):
         fail('profile: torch.profiler recorded no device time')
     host = [e for e in events if e.device_type() != cuda]
     names = collections.Counter(e.name() for e in host)
+    replays = {e.correlation_id() for e in host if e.name() in GRAPH_LAUNCH_CALLS}
+    replay_spans = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                    for e in events
+                    if e.device_type() == cuda and e.correlation_id() in replays]
     return result, dict(
         syncs=sum(names[n] for n in HOST_SYNC_CALLS),
         launches=sum(names[n] for n in HOST_LAUNCH_CALLS),
@@ -1345,13 +1598,14 @@ def _profiled(fn):
                             if e.name() in GRAPH_LAUNCH_CALLS) / 1e6,
         busy_ms=_merged_ms([(a, b) for _, a, b in spans]),
         span_ms=(max(b for _, _, b in spans) - min(a for _, a, _ in spans)) / 1e3,
-        spans=spans)
+        spans=spans, replay_spans=replay_spans)
 
 
 #: Kernel families of a profile, by substrings of the kernels' names (the
 #: first that matches; else 'elementwise and reductions').
 KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce')),
                    ('lane_pcg', ('lane_pcg',)),
+                   ('lane_cholesky', ('lane_cholesky',)),
                    ('lane_matvec', ('lane_matvec',)),
                    ('lane_dot', ('dotterm',)),
                    ('softplus_energies', ('lane_softplus',)),
@@ -1514,12 +1768,16 @@ def _section_split(fn):
     return ms, iterations
 
 
+#: The span lists of :func:`_profiled`'s counts (not printed, not kept).
+SPAN_KEYS = ('spans', 'replay_spans')
+
+
 def _profile_line(tag, seconds, counts, loop=None):
     """Prints one profiled image's counts (and its Newton loops' counters,
     ``solver.LOOP_STATS``, with the device time per iteration by kernel
     family); returns them as a dict without the spans."""
     busy = counts['busy_ms']
-    out = dict({k: v for k, v in counts.items() if k != 'spans'}, seconds=seconds,
+    out = dict({k: v for k, v in counts.items() if k not in SPAN_KEYS}, seconds=seconds,
                idle=1 - busy / (seconds * 1e3))
     say(f'[profile] {tag}: wall {seconds:.2f} s, device busy {busy:.1f} ms '
         f'({len(counts["spans"])} device activities): idle {out["idle"]:.1%} of '
@@ -1543,6 +1801,11 @@ def _profile_line(tag, seconds, counts, loop=None):
         say(f'[profile] {tag}: device ms (activities) per Newton iteration by '
             'kernel family: ' + ', '.join(f'{f} {t:.4f} ({c:.1f})'
                                           for f, t, c in out['families']))
+        out['replay_families'] = _family_split(counts['replay_spans'], loop['replays'])
+        say(f'[profile] {tag}: device ms (activities) per replayed Newton iteration '
+            f'by kernel family, the graphs\' replays alone '
+            f'({len(counts["replay_spans"])} activities in {loop["replays"]} replays): '
+            + ', '.join(f'{f} {t:.4f} ({c:.1f})' for f, t, c in out['replay_families']))
     return out
 
 
@@ -1607,8 +1870,20 @@ def phase_profile(g):
     for name in LANE_KERNELS:
         say(f'[profile] {name}: {sum(c for (k, _), c in lane_hist.items() if k == name)} '
             f'launches in {len([1 for k, _ in lane_hist if k == name])} shapes')
-    say('[profile] lane_pcg launches by (B, n): ' + str(
-        {shape: c for (k, shape), c in lane_hist.most_common() if k == 'lane_pcg'}))
+    for name in ('lane_pcg', 'lane_cholesky'):
+        say(f'[profile] {name} launches by (B, n): ' + str(
+            {shape: c for (k, shape), c in lane_hist.most_common() if k == name}))
+    solver_in_replays = [(f, t, c) for f, t, c in profile0['replay_families']
+                         if f == 'cuSOLVER/MAGMA']
+    say(f'[profile] cuSOLVER/MAGMA activities per replayed Newton iteration: '
+        f'{solver_in_replays[0][2] if solver_in_replays else 0} (the Cholesky '
+        f'direction is lane_cholesky; _lsq_init\'s solve_ex runs before the loop)')
+    if not profile0['loop']['replays'] or not any(
+            f == 'lane_cholesky' for f, _, _ in profile0['replay_families']):
+        fail('profile: no lane_cholesky activity in a replayed Newton iteration')
+    if solver_in_replays:
+        fail(f'profile: cuSOLVER/MAGMA activity in a replayed Newton iteration: '
+             f'{solver_in_replays}')
     return hist, lane_hist, profile0
 
 
@@ -2251,7 +2526,7 @@ def phase_mesh(bench_seg):
     mesh and under a 2-device one of the card twice; a spec for more cards
     than there are."""
     import torch
-    from superdsm_tpu_torch.dsm import batching, gram, solver
+    from superdsm_tpu_torch.dsm import batching, gram, lane, solver
     from superdsm_tpu_torch.dsm.smooth import build_smooth_matrix
     from superdsm_tpu_torch.parallel import mesh as pm, newton
     dev = torch.device('cuda:0')
@@ -2270,17 +2545,20 @@ def phase_mesh(bench_seg):
     calls, original = _counting_contribs()
     try:
         gram.reset_launch_counts()
+        lane.reset_launch_counts()
         t0 = time.time()
-        _, f2, c2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)(*dsm_args)
+        p2, f2, c2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)(*dsm_args)
         torch.cuda.synchronize()
         seconds = time.time() - t0
         launches = dict(gram.LAUNCHES)
+        lane_launches = dict(lane.LAUNCHES)
     finally:
         newton._Shard.contribs = original
-    f2, c2 = f2.cpu().numpy(), c2.cpu().numpy()
+    p2, f2, c2 = p2.cpu().numpy(), f2.cpu().numpy(), c2.cpu().numpy()
     say(f'[mesh] sharded DSM {MESH_DSM_SHAPE} over {mesh2.shape} on [{dev}, {dev}]: '
         f'{seconds:.2f} s, {calls[0]} shard iterations, gram launches '
-        f'{ {k: v for k, v in launches.items() if v} }, {int(c2.sum())}/{B} '
+        f'{ {k: v for k, v in launches.items() if v} }, lane kernels '
+        f'{ {k: v for k, v in lane_launches.items() if v} }, {int(c2.sum())}/{B} '
         f'lanes converged')
     if not np.isfinite(f2).all():
         fail('sharded DSM: non-finite energy')
@@ -2288,6 +2566,22 @@ def phase_mesh(bench_seg):
             sum(launches.values()) != launches['dense']:
         fail(f'sharded DSM: {launches} float32 launches for {calls[0]} shard '
              'iterations (one dense launch per shard per iteration expected)')
+    # the direction is one lane_cholesky launch per Newton iteration of the
+    # row; the sums go through the lane kernels
+    if lane_launches['lane_cholesky'] != calls[0] // 2 or not all(
+            lane_launches[k] for k in ('lane_sum', 'lane_dot', 'softplus_energies')):
+        fail(f'sharded DSM: lane kernel launches {lane_launches} for '
+             f'{calls[0] // 2} Newton iterations (one lane_cholesky each expected)')
+    # a lane alone gives its bits in the batch
+    solve2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)
+    same = True
+    for b in (0, B - 1):
+        one = [t.cpu().numpy() for t in solve2(*(a[b:b + 1] for a in dsm_args))]
+        same &= all(np.array_equal(x[b:b + 1], x1) for x, x1 in zip((p2, f2, c2), one))
+    say(f'[mesh] sharded DSM: lanes 0 and {B - 1} alone bitwise equal to the same '
+        f'lanes in the batch of {B}: {same}')
+    if not same:
+        fail('sharded DSM: a lane alone differs from the same lane in its batch')
     _, f1, c1 = (t.cpu().numpy() for t in newton.make_sharded_dsm_solver(
         mesh1, MESH_SIGMA, MESH_CUTOFF)(*dsm_args))
     _compare('sharded DSM vs the 1x1 mesh', f2, c2, f1, c1, 1e-4)
@@ -2312,12 +2606,19 @@ def phase_mesh(bench_seg):
     coords, _, _, _, yv, w, _ = _mesh_problems(B, P, 0)
     p0 = np.zeros((B, 6), np.float32)
     t0 = time.time()
-    _, f2, c2 = (t.cpu().numpy() for t in newton.make_sharded_poly_solver(mesh2)(
+    p2, f2, c2 = (t.cpu().numpy() for t in newton.make_sharded_poly_solver(mesh2)(
         p0, coords, yv, w))
     say(f'[mesh] sharded poly {MESH_POLY_SHAPE + (6,)} over {mesh2.shape}: '
         f'{time.time() - t0:.2f} s, {int(c2.sum())}/{B} lanes converged')
     if not np.isfinite(f2).all():
         fail('sharded poly: non-finite energy')
+    same = all(np.array_equal(x[b:b + 1], x1) for b in (0, B - 1) for x, x1 in zip(
+        (p2, f2, c2), (t.cpu().numpy() for t in newton.make_sharded_poly_solver(mesh2)(
+            p0[b:b + 1], coords[b:b + 1], yv[b:b + 1], w[b:b + 1]))))
+    say(f'[mesh] sharded poly: lanes 0 and {B - 1} alone bitwise equal to the same '
+        f'lanes in the batch of {B}: {same}')
+    if not same:
+        fail('sharded poly: a lane alone differs from the same lane in its batch')
     _, f1, c1 = (t.cpu().numpy() for t in newton.make_sharded_poly_solver(mesh1)(
         p0, coords, yv, w))
     _compare('sharded poly vs the 1x1 mesh', f2, c2, f1, c1, 1e-4)
@@ -2641,8 +2942,12 @@ def _ab_kernel_ms(root, shape, launches):
 def _ab_lane_ms():
     """Device ms of ``lane_matvec`` and ``lane_sum`` (the solver's (B, K,
     S) layout summed over K, as each checkout's wrapper reads it) at their
-    phase-3 shapes, the lane kernels both checkouts have, and of
-    ``solver._pcg_solve`` run to ``CG_MAX_ITERS`` at :data:`PCG_SHAPES`."""
+    phase-3 shapes, the lane kernels both checkouts have, of
+    ``solver._pcg_solve`` run to ``CG_MAX_ITERS`` at :data:`PCG_SHAPES` and
+    of ``solver._cholesky_direction`` on the whole batch at
+    :data:`CHOL_SHAPES` (one ``lane_cholesky`` launch; in a checkout whose
+    direction is cuSOLVER's batched route, which a CUDA graph cannot hold,
+    the turn fails: phase 3 times cuSOLVER's routes)."""
     import torch
     from superdsm_tpu_torch.dsm import lane, solver
     out = {}
@@ -2665,6 +2970,11 @@ def _ab_lane_ms():
         out[f'_pcg_solve {(B, n)}'] = _event_ms(
             lambda: solver._pcg_solve(Hd, g, early_exit=False))
     _PCG_SYSTEMS.clear()
+    for B, n in CHOL_SHAPES:
+        Hd, g = _chol_systems(B, n)
+        out[f'_cholesky_direction {(B, n)}'] = _event_ms(
+            lambda: solver._cholesky_direction(Hd, g))
+    _CHOL_SYSTEMS.clear()
     torch.cuda.empty_cache()
     return out
 
@@ -2753,7 +3063,9 @@ def ab_run(root, out_dir):
     profile = dict(seconds=seconds, idle=1 - counts['busy_ms'] / (seconds * 1e3),
                    iterations=iterations,
                    families=_family_split(counts['spans'], iterations),
-                   **{k: v for k, v in counts.items() if k != 'spans'})
+                   replay_families=_family_split(counts['replay_spans'],
+                                                 solver.LOOP_STATS['replays']),
+                   **{k: v for k, v in counts.items() if k not in SPAN_KEYS})
     # seed 0 on the eager loop, its device time split by section
     sections, eager_iterations = _section_split(lambda: _segment(images[0], 12))
     mosaic_s = _ab_results(out_dir, segs)
@@ -2767,23 +3079,34 @@ def ab_run(root, out_dir):
 def _ab_compare(turn_dirs, roots):
     """Whether each result of :func:`_ab_results` is bitwise the same in
     every turn (both checkouts, both turns each); prints one line per
-    result and returns the keys that differ."""
+    result (with the share of its entries that differ between the
+    checkouts' first turns) and returns the keys that differ between the
+    turns, and those where a checkout differs from its own other turn."""
     results = [np.load(os.path.join(d, 'results.npz')) for d in turn_dirs]
-    differ = []
+    differ, self_differ = [], []
     for key in results[0].files:
         same = all(np.array_equal(results[0][key], r[key]) for r in results[1:])
         by_root = {root: all(np.array_equal(results[i][key], results[j][key])
                              for i, ri in enumerate(roots) for j, rj in enumerate(roots)
                              if ri == rj == root) for root in set(roots)}
-        say(f'[ab] {key}: bitwise equal across the checkouts: {same} (each '
+        a, b = results[0][key], results[1][key]
+        share = '' if same or a.shape != b.shape else \
+            f', {float(np.mean(a != b)):.3%} of its entries differ'
+        say(f'[ab] {key}: bitwise equal across the checkouts: {same}{share} (each '
             f'checkout against its own other turn: {by_root})')
         if not same:
             differ.append(key)
-    return differ
+        if not all(by_root.values()):
+            self_differ.append(key)
+    return differ, self_differ
 
 
-def ab(roots):
-    """``--ab ROOT_A ROOT_B``: the turns A, B, B, A, one process each."""
+def ab(roots, report=False):
+    """``--ab ROOT_A ROOT_B``: the turns A, B, B, A, one process each. A
+    result that differs between the checkouts fails the run, unless
+    ``report`` (``--report-differences``, for a change that alters a lane's
+    bits on purpose), which prints it instead; a checkout whose result
+    differs from its own other turn always fails it."""
     card = phase_environment()
     turns = {root: [] for root in roots}
     order = roots + roots[::-1]
@@ -2800,7 +3123,7 @@ def ab(roots):
             out = json.loads(proc.stdout.strip().splitlines()[-1])
             turns[root].append(out)
             _ab_turn_lines(root, out)
-        differ = _ab_compare(turn_dirs, order)
+        differ, self_differ = _ab_compare(turn_dirs, order)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for root, outs in turns.items():
@@ -2820,8 +3143,18 @@ def ab(roots):
         for out in outs:
             for f, t, c in out['profile']['families']:
                 fams.setdefault(f, []).append((t, c))
+        say(f'[ab] {root}: seed 0, device ms (activities) per Newton iteration '
+            'by kernel family, mean of the turns: ' + ', '.join(
+                f'{f} {np.mean([t for t, _ in v]):.4f} ({np.mean([c for _, c in v]):.1f})'
+                for f, v in sorted(fams.items(), key=lambda kv: -np.mean(
+                    [t for t, _ in kv[1]]))))
+        fams = {}
+        for out in outs:
+            for f, t, c in out['profile']['replay_families']:
+                fams.setdefault(f, []).append((t, c))
         say(f'[ab] {root}: seed 0, device ms (activities) per replayed Newton '
-            'iteration by kernel family, mean of the turns: ' + ', '.join(
+            'iteration by kernel family, the graphs\' replays alone, mean of the '
+            'turns: ' + ', '.join(
                 f'{f} {np.mean([t for t, _ in v]):.4f} ({np.mean([c for _, c in v]):.1f})'
                 for f, v in sorted(fams.items(), key=lambda kv: -np.mean(
                     [t for t, _ in kv[1]]))))
@@ -2841,7 +3174,12 @@ def ab(roots):
         ms_b = np.mean([out['kernel_ms'][tag] for out in turns[b]])
         say(f'[ab] {tag}: {ms_a:.4f} -> {ms_b:.4f} ms ({ms_a / ms_b:.2f}x)')
     say(card)
-    if differ:
+    if self_differ:
+        fail(f'--ab: a checkout\'s results differ between its own turns: {self_differ}')
+    if differ and report:
+        say(f'[ab] results that differ between the checkouts (printed, not failed: '
+            f'--report-differences): {differ}')
+    elif differ:
         fail(f'--ab: results differ between the checkouts: {differ}')
 
 
@@ -2926,6 +3264,9 @@ def main():
     table.append(dict(name='lane_ops/lane_pcg', route='cuda', source=LANE_SOURCE,
                       replaces=PCG_REPLACES, launches=launches['lane_pcg'],
                       **kernels['lane_pcg']))
+    table.append(dict(name='lane_ops/lane_cholesky', route='cuda', source=LANE_SOURCE,
+                      replaces=CHOL_REPLACES, launches=launches['lane_cholesky'],
+                      **kernels['lane_cholesky']))
     say(card)  # the card's name and power limit, as nvidia-smi gives them
     say(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {
@@ -2940,6 +3281,8 @@ if __name__ == '__main__':
         ab_run(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ['--ab'] and len(sys.argv) == 4:
         ab(sys.argv[2:])
+    elif sys.argv[1:2] == ['--ab'] and sys.argv[4:] == ['--report-differences']:
+        ab(sys.argv[2:4], report=True)
     elif sys.argv[1:] == ['--strict']:
         STRICT = True
         main()

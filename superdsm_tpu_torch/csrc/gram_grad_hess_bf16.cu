@@ -37,19 +37,22 @@
 // The design reuses what runs in the float32 kernel, around the tensor
 // cores:
 // * work items and split-P: a work item is (lane, tile pair, pixel segment
-//   of seg_chunks chunks), planned by gram.split_plan from the static
-//   (B, P, n) and this kernel's own tile-pair count (nt^2 in full mode,
-//   four per upper-triangle 128-block pair otherwise). Like the float32
-//   kernel it runs 128-thread blocks, 3 resident per SM, so the same
-//   target of work items applies. A split launch writes float64 partial
-//   tiles (and g) to scratch, and gram_bf16_reduce_kernel sums the
-//   segments in order s = 0, 1, ... and writes H, its mirror and g;
-// * a one-segment launch writes H and g itself (direct write), because its
-//   float64 partials would move too many bytes: in full mode they take
-//   twice the bytes of H (2.1 GB at the largest bucket's cap,
-//   (64, 2048, 2048), beside a 1.07 GB H), written once and read back by a
-//   second launch. The direct write is the reduction of a single segment
-//   (0 + x = x in float64), so the output does not depend on the path;
+//   of seg_chunks chunks), planned by gram.split_plan from (P, n) alone,
+//   as for one lane (never from B: a lane's sums would then depend on its
+//   batch), with this kernel's own tile-pair count (nt^2 in full mode,
+//   four per upper-triangle 128-block pair otherwise), at most
+//   gram.MAX_SEGMENTS; the wrapper launches lanes in groups whose scratch
+//   fits its cap. Like the float32 kernel it runs 128-thread blocks, 3
+//   resident per SM, so the same target of work items applies. A split
+//   launch writes float64 partial tiles (and g) to scratch, and
+//   gram_bf16_reduce_kernel sums the segments in order s = 0, 1, ... and
+//   writes H, its mirror and g;
+// * a one-segment launch (a lane whose tile pairs alone reach the target,
+//   or a short pixel loop) writes H and g itself (direct write), because
+//   its float64 partials would move too many bytes: in full mode they take
+//   twice the bytes of H, written once and read back by a second launch.
+//   The direct write is the reduction of a single segment (0 + x = x in
+//   float64), so the output does not depend on the path;
 // * copies: the float32 kernel's ring of STAGES cp.async.cg stages, one
 //   __syncthreads a chunk; every thread computes kappa and term1 once per
 //   staged row (a diagonal pair copies its tile once, into b, and the

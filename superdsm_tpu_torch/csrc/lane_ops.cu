@@ -55,14 +55,19 @@
 //     for every lane of a batch in one launch, bitwise the chain of
 //     lane_matvec, lane_dot and elementwise ATen ops that it replaces (see
 //     the comment above lane_pcg_kernel).
+//   lane_cholesky: the Newton direction -Hd^-1 g by Cholesky
+//     (solver._cholesky_direction) for every lane of a batch in one
+//     launch, one block a lane, in an order fixed by n alone (see the
+//     comment above lane_cholesky_kernel).
 //
 // They replace no Pallas kernel: in the JAX package these are XLA's
 // products and reductions inside the jitted Newton loop
 // (superdsm_tpu/dsm/solver.py, _newton_step and _pcg_solve), whose order
 // XLA fixes at compile time for each static shape; there the line search's
 // softplus terms and their sum are one XLA fusion (solver.py:217), as they
-// are one kernel here, and PCG is one while_loop (solver.py:126), as it is
-// one kernel here.
+// are one kernel here, PCG is one while_loop (solver.py:126), as it is
+// one kernel here, and the Cholesky direction is cho_factor / cho_solve
+// (solver.py:201-205), one kernel here.
 //
 // What bounds them on the card: the products and plain sums read each input
 // once and do one FMA or add per element read, so bytes bound them; the
@@ -102,6 +107,10 @@ constexpr int PCG_CLUSTER = 8;      // blocks of one lane's PCG
 constexpr int PCG_THREADS = ROW_THREADS;  // thread t is slot t of every dot
 constexpr int PCG_WARPS = PCG_THREADS / WARP;
 constexpr int PCG_GROUP = 4;        // rows a warp of lane_pcg computes at once
+constexpr int CHOL_MAX_THREADS = 512;  // threads of a lane_cholesky block
+constexpr int CHOL_COLS = 8;            // columns a warp of it updates at once
+constexpr int CHOL_BACK = 4;            // rows a lane of its back substitution updates at once
+constexpr int CHOL_SMEM_BYTES = 232448;  // shared memory a block may opt in to (sm_90)
 
 static_assert(SLOT_BLOCK == WARP, "a block's slots are one warp wide");
 static_assert(PCG_WARPS == CLUSTER, "slot_tree reads 8 warps of slots");
@@ -627,6 +636,289 @@ lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
   for (int i = t; i < nrows; i += PCG_THREADS) xout[o * n + row0 + i] = x[row0 + i];
 }
 
+// ---------------------------------------------------------------------------
+// lane_cholesky: solver._cholesky_direction, delta = -Hd^-1 g by Cholesky,
+// for every lane of a batch in one launch.
+//
+// It replaces, on the card, cuSOLVER's factor and solve called for each
+// lane alone (two library calls a lane, 2 B launches a Newton step):
+// cuSOLVER's batched routes give a lane other bits than a batch of one, and
+// at n >= 64 bits that depend on the batch. In the JAX package this is
+// jax.scipy.linalg.cho_factor / cho_solve inside the jitted Newton step
+// (superdsm_tpu/dsm/solver.py:201-205), XLA's, not a Pallas kernel.
+//
+// Order, fixed by n alone (lane.cholesky_chain replays it op by op with
+// ATen's elementwise ops): a right-looking factorization of the lower
+// triangle of Hd (the upper one is never read) with the forward
+// substitution fused into it, then the back substitution. For j = 0, ...,
+// n - 1:
+//   p = a_jj; the lane fails unless p > 0 (a NaN pivot fails too);
+//   L_jj = sqrt(p); l_i = a_ij / L_jj = L_ij for i > j;
+//   y_j = b_j / L_jj; b_i = b_i - l_i y_j for i > j;
+//   a_ik = a_ik - l_i l_k for j < k <= i;
+// then for j = n - 1, ..., 0: x_j = y_j / L_jj and y_i = y_i - L_ji x_j for
+// i < j; delta = -x. Square roots and divisions are IEEE-rounded
+// (__fsqrt_rn, __fdiv_rn, as ATen's); each update a - l m is rounded to
+// float64 and then to float32 (chol_update): the product of two floats is
+// exact in float64, so this matches the float32 fused multiply-adds of
+// cuSOLVER's and LAPACK's factors except in rare double-rounding cases,
+// and ATen's float64 ops give the same bits, where no ATen op gives a
+// float32 FMA's. A product and a difference rounded apart, as __fmul_rn and
+// __fsub_rn would, gave the Newton loop's near-singular systems up to ten
+// times cuSOLVER's error on an H100 (tests/data/torch_port/
+// cholesky_orders.py). Every a_ik and b_i takes its updates in the order
+// j = 0, 1, ..., as a sequential left-looking dot would. A failed lane's
+// delta is NaN in every entry (the chain's torch.where(fail, nan,
+// delta)), which solver._newton_step's guard turns into a gradient step.
+//
+// Work split: one block a lane, its thread count chosen from n (which
+// thread updates an entry does not change the entry's order). The lower
+// triangle is packed by columns (column k, rows k..n-1, at k n - k (k + 1)
+// / 2 + i). It lives, with L_jj, b, y and two buffers of a scaled column,
+// in shared memory up to n = CHOL_SHARED_MAX_N (335; 137 KB at n = 256),
+// above in a global scratch of the same layout that the wrapper allocates
+// (303 KB a lane at n = 384, L2-resident), with the same code and order.
+// Column j is one phase and one block barrier: threads update b and write
+// column j's L over its a; warp w updates the columns j + 1 + 8 w .. j + 8 w
+// + 8, then those 8 W further on, eight at a time (all loads first, so the
+// updates of a row run side by side), its lanes over the columns' rows
+// (consecutive addresses). Warp 0's first columns start at j + 1, so it
+// also makes the next phase's operands as they become final: L_{j+1, j+1}
+// and y_{j+1} (thread 0) and the scaled column L_{i, j+1} (a division a
+// row), into the other buffer, while the other warps go on; no phase
+// divides in its updates. Column j's entries are only read in its phase,
+// through the buffer, and what a phase writes (columns > j, column j's L,
+// b_i for i > j, the other buffer) is not read in it, so one barrier a
+// column suffices. The back substitution runs in warp 0: in shared memory
+// lane l holds y_i for i % 32 == l in registers and y_j comes by a
+// shuffle; in the global scratch y stays there (one __syncwarp a column).
+//
+// What bounds it: n^3 / 3 operations per lane (some microseconds at the
+// card's float32 rate at n = 256) against n dependent phases, each a block
+// barrier and a square root and divisions on warp 0's path (hundreds of
+// cycles at the last columns, where there is little else), and, at the
+// first columns, the issue of the updates (a load, two conversions, a
+// float64 fused multiply-add, a store): latency and issue, not bytes or
+// the arithmetic rate, at every n of the solver (6 to 300).
+
+// Floats of a lane's work space: the packed lower triangle, L_jj, b, y
+// and the scaled column (two).
+__host__ __device__ constexpr long long chol_floats(long long n) {
+  return n * (n + 1) / 2 + 5 * n;
+}
+
+constexpr int chol_shared_max_n() {
+  int n = 1;
+  while (4 * chol_floats(n + 1) <= CHOL_SMEM_BYTES) ++n;
+  return n;
+}
+
+constexpr int CHOL_SHARED_MAX_N = chol_shared_max_n();
+
+// Registers of a lane of the back substitution in shared memory: y_i for
+// i = l, l + 32, ... < CHOL_SHARED_MAX_N.
+constexpr int CHOL_BACK_REGS = (CHOL_SHARED_MAX_N + WARP - 1) / WARP;
+
+// a - l m rounded to float64, then to float32: the product of two floats
+// is exact in float64, the fused multiply-add rounds the difference to
+// float64 and the conversion rounds it to float32 (the plain version's
+// (a.double() - l.double() * m.double()).float()); a float32 FMA, which
+// rounds once, differs from it in rare double-rounding cases.
+__device__ __forceinline__ float chol_update(float a, double l, double m) {
+  return __double2float_rn(__fma_rn(-l, m, (double)a));
+}
+
+// Rows i0, i0 + 32, ..., (R of them, all < n) of columns ck[c] (c < C, all
+// right of the diagonal block): a_ik = a_ik - l_i l_k, all loads first (the
+// compiler cannot tell that the columns do not alias, and would otherwise
+// run the updates one by one). FIRST: column ck[0] is the next one, whose
+// scaled entries a_ik / dn go into lnext.
+template <int R, bool FIRST>
+__device__ __forceinline__ void chol_rows(float* a, const float* lcur,
+                                          const double (&lk)[CHOL_COLS],
+                                          const int (&ck)[CHOL_COLS], int i0,
+                                          float* lnext, float dn) {
+  double li[R];
+  float v[R][CHOL_COLS];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    li[q] = (double)lcur[i0 + q * WARP];
+#pragma unroll
+    for (int c = 0; c < CHOL_COLS; ++c) v[q][c] = a[ck[c] + i0 + q * WARP];
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+#pragma unroll
+    for (int c = 0; c < CHOL_COLS; ++c) {
+      v[q][c] = chol_update(v[q][c], li[q], lk[c]);
+      a[ck[c] + i0 + q * WARP] = v[q][c];
+    }
+    if (FIRST) lnext[i0 + q * WARP] = __fdiv_rn(v[q][0], dn);
+  }
+}
+
+template <bool GLOBAL>
+__global__ void __launch_bounds__(CHOL_MAX_THREADS)
+lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
+                     float* __restrict__ out, float* __restrict__ scratch,
+                     int n) {
+  extern __shared__ __align__(16) float smem[];
+  const long long o = blockIdx.x;
+  const int t = threadIdx.x, T = blockDim.x;
+  const int l = t % WARP, w = t / WARP, W = T / WARP;
+  float* a = GLOBAL ? scratch + o * chol_floats(n) : smem;
+  float* d = a + n * (n + 1) / 2;  // L_jj
+  float* b = d + n;
+  float* y = b + n;
+  float* lbuf = y + n;  // the scaled column j at lbuf + (j % 2) n
+  // entry (i, k), i >= k, of the triangle packed by columns
+  auto col0 = [n](int k) { return k * n - k * (k + 1) / 2; };
+  const float* Hl = H + o * n * n;
+  for (int i = w; i < n; i += W) {  // row i of Hd, read coalesced
+#pragma unroll 4
+    for (int k = l; k <= i; k += WARP) a[col0(k) + i] = __ldg(Hl + (long long)i * n + k);
+  }
+  for (int i = t; i < n; i += T) b[i] = __ldg(g + o * n + i);
+  __syncthreads();
+  {
+    const float d0 = __fsqrt_rn(a[0]);
+    if (t == 0) {
+      d[0] = d0;
+      y[0] = __fdiv_rn(b[0], d0);
+    }
+    for (int i = 1 + t; i < n; i += T) lbuf[i] = __fdiv_rn(a[i], d0);
+  }
+  __syncthreads();
+  for (int j = 0; j < n; ++j) {
+    float* cj = a + col0(j);
+    if (!(cj[j] > 0.0f)) {  // the same value in every thread: all leave here
+      for (int i = t; i < n; i += T) out[o * n + i] = __int_as_float(0x7fc00000);
+      return;
+    }
+    // L_jj, y_j and l = L_{j+1.., j}, made in the phase before (below)
+    const float* lcur = lbuf + (j % 2) * n;
+    float* lnext = lbuf + ((j + 1) % 2) * n;
+    const double yj = (double)y[j];
+    float bnext = 0.0f;
+    for (int i = j + 1 + t; i < n; i += T) {
+      const float li = lcur[i];
+      const float bi = chol_update(b[i], (double)li, yj);
+      b[i] = bi;
+      cj[i] = li;  // column j holds L from now on (no phase reads it but the last)
+      if (i == j + 1) bnext = bi;  // thread 0: b_{j+1}, final
+    }
+    for (int k0 = j + 1 + w * CHOL_COLS; k0 < n; k0 += W * CHOL_COLS) {
+      const bool first = k0 == j + 1;  // warp 0's first columns: j + 1 ...
+      const int kn = min(CHOL_COLS, n - k0);
+      double lk[CHOL_COLS];
+      int ck[CHOL_COLS];
+#pragma unroll
+      for (int c = 0; c < CHOL_COLS; ++c) {
+        const int k = min(k0 + c, n - 1);
+        lk[c] = (double)lcur[k];
+        ck[c] = col0(k);
+      }
+      const int i = k0 + l;  // the rows of the diagonal block
+      float v[CHOL_COLS] = {};
+      if (i < n) {
+        const double li = (double)lcur[i];
+#pragma unroll
+        for (int c = 0; c < CHOL_COLS; ++c)
+          v[c] = c < kn && k0 + c <= i ? a[ck[c] + i] : 0.0f;
+#pragma unroll
+        for (int c = 0; c < CHOL_COLS; ++c) {
+          if (c < kn && k0 + c <= i) {
+            v[c] = chol_update(v[c], li, lk[c]);
+            a[ck[c] + i] = v[c];
+          }
+        }
+      }
+      // the next column's L_jj (thread 0: a_{j+1, j+1} is v[0]) and y,
+      // and its scaled entries as they become final, while the other
+      // warps go on
+      float dn = 1.0f;
+      if (first) {
+        dn = __shfl_sync(0xffffffffu, __fsqrt_rn(v[0]), 0);
+        if (t == 0) {
+          d[j + 1] = dn;
+          y[j + 1] = __fdiv_rn(bnext, dn);
+        }
+        if (i > j + 1 && i < n) lnext[i] = __fdiv_rn(v[0], dn);
+      }
+      if (kn == CHOL_COLS) {
+        int i0 = k0 + WARP + l;
+        if (first) {
+          for (; i0 + WARP < n; i0 += 2 * WARP)
+            chol_rows<2, true>(a, lcur, lk, ck, i0, lnext, dn);
+          if (i0 < n) chol_rows<1, true>(a, lcur, lk, ck, i0, lnext, dn);
+        } else {
+          for (; i0 + WARP < n; i0 += 2 * WARP)
+            chol_rows<2, false>(a, lcur, lk, ck, i0, lnext, dn);
+          if (i0 < n) chol_rows<1, false>(a, lcur, lk, ck, i0, lnext, dn);
+        }
+      } else {
+        for (int i0 = k0 + WARP + l; i0 < n; i0 += WARP) {
+          const double li = (double)lcur[i0];
+#pragma unroll
+          for (int c = 0; c < CHOL_COLS; ++c) {
+            if (c < kn) {
+              const float u = chol_update(a[ck[c] + i0], li, lk[c]);
+              a[ck[c] + i0] = u;
+              if (c == 0 && first) lnext[i0] = __fdiv_rn(u, dn);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (w != 0) return;
+  if constexpr (!GLOBAL) {
+    // lane l holds y_i of i = l + 32 u in registers; y_j comes from its
+    // lane by a shuffle
+    float yr[CHOL_BACK_REGS];
+    int cb[CHOL_BACK_REGS];
+#pragma unroll
+    for (int u = 0; u < CHOL_BACK_REGS; ++u) {
+      const int i = l + u * WARP;
+      yr[u] = i < n ? y[i] : 0.0f;
+      cb[u] = i < n ? col0(i) : 0;
+    }
+    for (int j = n - 1; j >= 0; --j) {
+      const int uj = j / WARP;
+      float own = 0.0f;
+#pragma unroll
+      for (int u = 0; u < CHOL_BACK_REGS; ++u) own = u == uj ? yr[u] : own;
+      const float xj = __fdiv_rn(__shfl_sync(0xffffffffu, own, j % WARP), d[j]);
+#pragma unroll
+      for (int u = 0; u < CHOL_BACK_REGS; ++u) {
+        if (l + u * WARP < j) yr[u] = chol_update(yr[u], (double)a[cb[u] + j], (double)xj);
+      }
+      if (l == j % WARP) out[o * n + j] = -xj;
+    }
+  } else {
+    for (int j = n - 1; j >= 0; --j) {
+      const float xj = __fdiv_rn(y[j], d[j]);
+      for (int i0 = l; i0 < j; i0 += CHOL_BACK * WARP) {
+        float lji[CHOL_BACK], yi[CHOL_BACK];  // loads first
+#pragma unroll
+        for (int u = 0; u < CHOL_BACK; ++u) {
+          const int i = i0 + u * WARP;
+          lji[u] = i < j ? a[col0(i) + j] : 0.0f;
+          yi[u] = i < j ? y[i] : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < CHOL_BACK; ++u) {
+          const int i = i0 + u * WARP;
+          if (i < j) y[i] = chol_update(yi[u], (double)lji[u], (double)xj);
+        }
+      }
+      if (l == j % WARP) out[o * n + j] = -xj;
+      __syncwarp();
+    }
+  }
+}
+
 template <class Term, int UNROLL>
 int launch_sum(const Term& term, float* out, long long O, int L, int S,
                cudaStream_t stream) {
@@ -793,5 +1085,33 @@ extern "C" int sdsm_lane_pcg(const float* H, const float* b, float* x, int B,
                     (size_t)(vec_bytes + cached * row_bytes),
                     (cudaStream_t)stream>>>(H, b, x, n, iters, (int)cached, vec,
                                             stop2, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sdsm_lane_chol_shared_max_n() { return CHOL_SHARED_MAX_N; }
+
+// delta (B, n) = solver._cholesky_direction(Hd, g), Hd (B, n, n) and g
+// (B, n) float32 contiguous; one block a lane on `stream`. scratch: B *
+// (n (n + 1) / 2 + 5 n) floats when n > CHOL_SHARED_MAX_N (the lanes' work
+// space in global memory), else unused (may be null).
+extern "C" int sdsm_lane_cholesky(const float* H, const float* g, float* out,
+                                  float* scratch, int B, int n, void* stream) {
+  if (B < 0 || n < 0 || chol_floats(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return (int)cudaGetLastError();
+  const int threads = n <= 32 ? 64 : n <= 64 ? 128 : n <= 128 ? 256 : CHOL_MAX_THREADS;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= CHOL_SHARED_MAX_N) {
+    // the opt-in maximum, the same for every launch (threads launching
+    // concurrently set the same value)
+    const cudaError_t err = cudaFuncSetAttribute(
+        lane_cholesky_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        CHOL_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    lane_cholesky_kernel<false><<<B, threads, (size_t)(4 * chol_floats(n)), st>>>(
+        H, g, out, nullptr, n);
+  } else {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    lane_cholesky_kernel<true><<<B, threads, 0, st>>>(H, g, out, scratch, n);
+  }
   return (int)cudaGetLastError();
 }

@@ -43,11 +43,10 @@ scratch that :func:`grad_hess_kernel` allocates, and a second kernel sums
 the segments in a fixed order and writes ``H`` and ``g``. The float32
 kernel takes that path at one segment too; the bf16 kernel writes ``H`` and
 ``g`` itself when it runs one segment (in its full mode the partials would
-take twice the bytes of ``H``). The float32 kernel's plan depends on
-``(P, n)`` only, so a lane's sums are the same in every batch; its lanes
-launch in groups when the scratch would pass its cap. The bf16 kernel's
-plan depends on the launch's static shape ``(B, P, n)``. Neither depends on
-how many lanes are active.
+take twice the bytes of ``H``). Both kernels' plans depend on ``(P, n)``
+only, so a lane's sums are the same in every batch; their lanes launch in
+groups when the scratch would pass its cap. Neither plan depends on how
+many lanes are active.
 
 Every launch adds one to :data:`LAUNCHES` under the route it stands for
 (:func:`count_replayed` adds a captured CUDA graph's launches at each
@@ -90,19 +89,17 @@ TARGET_ITEMS = 2048
 #: ... with segments of at least this many chunks (128 pixel rows), so that
 #: a segment keeps the copy ring busy and the reduction stays small.
 MIN_SEG_CHUNKS = 4
-#: Most pixel segments of a float32 launch. Its plan is that of one lane
+#: Most pixel segments of a launch. Its plan is that of one lane
 #: (:func:`split_plan`), so a launch of many lanes splits as finely as one
 #: of a single lane; this bounds the scratch traffic that costs it.
 MAX_SEGMENTS = 16
-#: Bound of a split launch's float64 scratch. The bf16 kernel's plan keeps
-#: a launch under it (fewer than 2 * TARGET_ITEMS work items, each with one
-#: 64 x 64 tile and at most 64 entries of g: 136 MB); a float32 gram whose
-#: lanes would need more launches in groups of lanes that fit
-#: (:func:`lanes_per_launch`). A float32 launch of one segment needs
-#: B x tile pairs tiles, at most 1.5 times the bytes of the ``H`` it
-#: returns; a bf16 launch of one segment needs none (its full mode would
-#: need twice the bytes of ``H``). ``tests/test_torch_gram.py`` checks every
-#: (P, K) bucket at every batch size up to its GPU cap, for both kernels.
+#: Bound of a split launch's float64 scratch: a gram whose lanes would need
+#: more launches in groups of lanes that fit (:func:`lanes_per_launch`),
+#: with either kernel. A float32 launch of one segment needs B x tile
+#: pairs tiles, at most 1.5 times the bytes of the ``H`` it returns; a bf16
+#: launch of one segment needs none (its full mode would need twice the
+#: bytes of ``H``). ``tests/test_torch_gram.py`` checks every (P, K) bucket
+#: at every batch size up to its GPU cap, for both kernels.
 SCRATCH_CAP_BYTES = 2 ** 28
 
 #: Problem sizes n = 6 + K that take the banded mode (the JAX package's
@@ -151,8 +148,9 @@ _KERNELS = {
     'lane_ops.cu': ('libsdsm_lane.so', 'sdsm_lane',
                     {'matvec': (3, 4), 'strided_sum': (2, 6), 'dot': (3, 2),
                      'softplus_energies': (6, 4), 'softplus': (2, 1),
-                     'pcg': (3, 3, 2)},
-                    dict(warp=32, small_n=8, row_threads=256)),
+                     'pcg': (3, 3, 2), 'cholesky': (4, 2)},
+                    dict(warp=32, small_n=8, row_threads=256,
+                         chol_shared_max_n=335)),
 }
 _F32_SRC, _BF16_SRC, LANE_SRC = _KERNELS
 LANE_CONSTANTS = _KERNELS[LANE_SRC][3]
@@ -357,28 +355,25 @@ def tile_pairs(n, passes=6, full=False):
 def split_plan(B, P, n, passes=6, full=False):
     """A kernel's split of the pixel loop: ``(seg_chunks, n_segments)``.
 
-    The float32 kernel (``passes`` 6) plans from ``(P, n)`` alone, as for
-    one lane, and ``B`` is not read: every lane's float64 partials are then
-    summed over the same segments in the same order whatever its batch (a
-    plan from ``B`` made a lane's H differ between a batch of one and of
-    two). The bf16 kernel plans from the launch's static ``(B, P, n)``.
+    Both kernels, the float32 one (``passes`` 6) and the bf16 one (1 or 3),
+    plan from ``(P, n)`` alone, as for one lane, and ``B`` is not read:
+    every lane's float64 partials are then summed over the same segments in
+    the same order whatever its batch (a plan from ``B`` made a lane's H
+    differ between a batch of one and of two).
 
-    A launch of ``B x tile_pairs(n, passes, full)`` work items (``B`` = 1
-    for the float32 kernel) that reaches :data:`TARGET_ITEMS` runs one
-    segment (the whole pixel loop in each block). A smaller one splits its
-    ``P / ROWS`` chunks into segments of ``seg_chunks`` chunks, at least
-    :data:`MIN_SEG_CHUNKS` and a multiple of :data:`FLUSH_CHUNKS` (so the
-    float32 partials do not depend on the split), as few as bring the work
-    items up to about :data:`TARGET_ITEMS`; the float32 kernel at most
-    :data:`MAX_SEGMENTS`. Only static shapes count: frozen lanes are not
-    known on the host without a sync."""
+    One lane's ``tile_pairs(n, passes, full)`` work items, if they reach
+    :data:`TARGET_ITEMS`, run one segment (the whole pixel loop in each
+    block). Fewer split the ``P / ROWS`` chunks into segments of
+    ``seg_chunks`` chunks, at least :data:`MIN_SEG_CHUNKS` and a multiple of
+    :data:`FLUSH_CHUNKS` (so the float32 partials do not depend on the
+    split), as few as bring the work items up to about
+    :data:`TARGET_ITEMS`, at most :data:`MAX_SEGMENTS`. Only static shapes
+    count: frozen lanes are not known on the host without a sync."""
     nchunks = P // ROWS
-    items = (1 if passes == 6 else B) * tile_pairs(n, passes, full)
+    items = tile_pairs(n, passes, full)
     if items >= TARGET_ITEMS or nchunks <= MIN_SEG_CHUNKS:
         return nchunks, 1
-    want = -(-TARGET_ITEMS // items)
-    if passes == 6:
-        want = min(want, MAX_SEGMENTS)
+    want = min(-(-TARGET_ITEMS // items), MAX_SEGMENTS)
     seg = max(MIN_SEG_CHUNKS, -(-nchunks // want))
     seg = -(-seg // FLUSH_CHUNKS) * FLUSH_CHUNKS
     if seg >= nchunks:
@@ -397,13 +392,14 @@ def scratch_entries(B, P, n, passes=6, full=False):
 
 
 def lanes_per_launch(B, P, n, passes=6, full=False):
-    """Lanes of one kernel launch: a float32 gram of ``B`` lanes split over
-    pixel segments launches in groups of lanes whose scratch stays within
-    :data:`SCRATCH_CAP_BYTES` (its plan does not shrink with ``B``); every
-    other launch takes all ``B``."""
-    if passes != 6 or split_plan(B, P, n)[1] == 1:
+    """Lanes of one kernel launch: a gram of ``B`` lanes split over pixel
+    segments launches in groups of lanes whose scratch stays within
+    :data:`SCRATCH_CAP_BYTES` (its plan does not shrink with ``B``); a
+    launch of one segment takes all ``B``."""
+    if split_plan(B, P, n, passes, full)[1] == 1:
         return B
-    return max(1, min(B, SCRATCH_CAP_BYTES // (8 * scratch_entries(1, P, n))))
+    return max(1, min(B, SCRATCH_CAP_BYTES
+                      // (8 * scratch_entries(1, P, n, passes, full))))
 
 
 def _nvcc():

@@ -8,6 +8,9 @@ batched product or reduction does not promise that: cuBLAS picks its
 kernel and PyTorch's CUDA reductions split a sum across threads and blocks
 from the whole launch, and on the CPU a batch of one takes BLAS's
 matrix-vector route while a batch of two takes its matrix-matrix one.
+:func:`cholesky_kernel` factors and solves each lane's Newton system in an
+order fixed by n alone, where cuSOLVER's batched routes give a lane other
+bits than a batch of one.
 
 Two implementations of each function live here:
 
@@ -25,7 +28,10 @@ the expression), and sum the terms in :func:`lane_sum`'s order, so they
 give its bits without the tensor. :func:`pcg` runs the solver's whole
 Jacobi-preconditioned CG (:func:`pcg_chain`, a chain of :func:`matvec`,
 :func:`lane_dot` and elementwise ops, some 17 launches a step) as one
-kernel launch with the chain's bits on the card.
+kernel launch with the chain's bits on the card. :func:`cholesky_kernel`
+runs the Newton direction ``-Hd^-1 g`` of every lane in one launch,
+bitwise :func:`cholesky_chain` on the card; on the CPU the solver keeps
+LAPACK (``solver._cholesky_direction``).
 
 Every kernel launch adds one to :data:`LAUNCHES` (through
 :func:`gram._count_launch`, so a captured CUDA graph counts its launches at
@@ -40,7 +46,8 @@ from . import gram
 #: Kernel launches per kernel (``softplus``: the elementwise check of
 #: :func:`softplus_kernel`, which no solver path launches).
 LAUNCHES = {'lane_matvec': 0, 'lane_sum': 0, 'lane_dot': 0,
-            'softplus_energies': 0, 'lane_pcg': 0, 'softplus': 0}
+            'softplus_energies': 0, 'lane_pcg': 0, 'lane_cholesky': 0,
+            'softplus': 0}
 
 
 def reset_launch_counts():
@@ -50,7 +57,7 @@ def reset_launch_counts():
 #: Callables told of every lane-kernel launch with its kernel's name and
 #: shape (``lane_matvec`` (B, P, n), ``lane_sum`` (B, S, L) or (B, L)
 #: summed over L, ``lane_dot`` (B, n), ``softplus_energies`` (mode, B, P),
-#: ``lane_pcg`` (B, n));
+#: ``lane_pcg`` and ``lane_cholesky`` (B, n));
 #: under a replayed CUDA graph at each replay, as
 #: :func:`gram._count_launch` counts.
 LAUNCH_HOOKS = []
@@ -59,6 +66,11 @@ LAUNCH_HOOKS = []
 #: Slots of a lane sum (``csrc/lane_ops.cu``, ``ROW_THREADS``; checked
 #: against the library when it loads).
 ROW_THREADS = gram.LANE_CONSTANTS['row_threads']
+
+#: Largest n whose lanes :func:`cholesky_kernel` factors in shared memory;
+#: above it their work space is a global scratch (``csrc/lane_ops.cu``,
+#: ``CHOL_SHARED_MAX_N``; checked against the library when it loads).
+CHOL_SHARED_MAX_N = gram.LANE_CONSTANTS['chol_shared_max_n']
 
 #: :func:`softplus_energies` modes of the C entry point.
 _LINE_SEARCH, _SCALE_SWEEP, _SINGLE = 0, 1, 2
@@ -187,6 +199,59 @@ def pcg_chain(H, b, iters, rtol, early_exit=True):
         live = live & (lane_dot(r, r) > r2_stop)
     return x
 
+
+def _fused_update(a, l, m):
+    """``a - l m`` rounded to float64, then to float32: the product of two
+    floats is exact in float64, so the difference is rounded twice, which
+    matches a float32 fused multiply-add except in rare double-rounding
+    cases."""
+    return (a.double() - l.double() * m.double()).float()
+
+
+def cholesky_chain(Hd, g):
+    """``-Hd^-1 g`` per lane by Cholesky, op by op in the order of
+    :func:`cholesky_kernel` (the plain version it equals bitwise on the
+    card): ``Hd`` (B, n, n) float32 (its lower triangle is read), ``g`` (B,
+    n). Right-looking, with the forward substitution in the same loop: for
+    each column j the pivot ``p = a_jj`` (the lane fails unless ``p > 0``),
+    ``L_jj = sqrt(p)``, the column ``l = a[j+1:, j] / L_jj``, ``y_j = b_j /
+    L_jj``, ``b[j+1:] -= l y_j`` and ``a[j+1:, j+1:] -= l l^T``; then the
+    back substitution ``x_j = y_j / L_jj``, ``y[:j] -= L[j, :j] x_j`` for j =
+    n - 1, ..., 0. Each update's exact product is subtracted in float64 and
+    the difference rounded to float32 (:func:`_fused_update`), which matches
+    the float32 fused multiply-adds of cuSOLVER's and LAPACK's factors
+    except in rare double-rounding cases: a product and a difference
+    rounded apart leave the
+    near-singular systems of the Newton loop with up to ten times
+    cuSOLVER's error (``tests/data/torch_port/cholesky_orders.py``). A lane
+    whose factorization fails is NaN in every entry, as ``cholesky_ex``'s
+    ``info != 0`` made it. The trailing update also writes the upper
+    triangle, which is never read. No solver path calls it; it is the
+    kernel's oracle and, on the CPU, the kernel's arithmetic under test."""
+    B, n = g.shape
+    a = Hd.clone()
+    b = g.clone()
+    diag = torch.empty_like(g)
+    fail = torch.zeros(B, dtype=torch.bool, device=g.device)
+    for j in range(n):
+        p = a[:, j, j]
+        fail = fail | ~(p > 0)
+        dj = torch.sqrt(p)
+        col = a[:, j + 1:, j] / dj[:, None]
+        yj = b[:, j] / dj
+        diag[:, j] = dj
+        a[:, j + 1:, j] = col
+        b[:, j] = yj
+        b[:, j + 1:] = _fused_update(b[:, j + 1:], col, yj[:, None])
+        a[:, j + 1:, j + 1:] = _fused_update(a[:, j + 1:, j + 1:], col[:, :, None],
+                                             col[:, None, :])
+    for j in range(n - 1, -1, -1):
+        xj = b[:, j] / diag[:, j]
+        b[:, j] = xj
+        b[:, :j] = _fused_update(b[:, :j], a[:, j, :j], xj[:, None])
+    return torch.where(fail[:, None],
+                       torch.full((), float('nan'), dtype=g.dtype, device=g.device),
+                       -b)
 
 def _launch(name, shape, fn, *args):
     stream = torch.cuda.current_stream().cuda_stream
@@ -368,6 +433,34 @@ def pcg_kernel(H, b, iters, rtol):
         _launch('lane_pcg', (B, n), lib.sdsm_lane_pcg, H.data_ptr(), b.data_ptr(),
                 x.data_ptr(), B, n, iters, stop2, eps)
     return x
+
+
+def cholesky_kernel(Hd, g):
+    """The CUDA kernel of the Newton direction ``-Hd^-1 g`` (``Hd`` (B, n, n)
+    float32 SPD, its lower triangle read; ``g`` (B, n)) on the current
+    stream: one launch, one block a lane, bitwise :func:`cholesky_chain` on
+    the card, NaN in every entry of a lane whose factorization fails; no
+    host sync. Above :data:`CHOL_SHARED_MAX_N` the lanes' work space is a
+    scratch allocated here."""
+    _check_cuda('cholesky_kernel', Hd, g)
+    Hd = Hd.contiguous()
+    g = g.contiguous()
+    if g.dim() != 2:
+        raise ValueError(f'cholesky_kernel takes g (B, n), got {tuple(g.shape)}')
+    B, n = g.shape
+    gram._check('Hd', Hd, torch.float32, (B, n, n), g.device)
+    _int32('cholesky_kernel', B, n)
+    out = torch.empty((B, n), dtype=torch.float32, device=g.device)
+    scratch = None
+    if n > CHOL_SHARED_MAX_N:
+        scratch = torch.empty((B, n * (n + 1) // 2 + 5 * n), dtype=torch.float32,
+                              device=g.device)
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(g.device):
+        _launch('lane_cholesky', (B, n), lib.sdsm_lane_cholesky, Hd.data_ptr(),
+                g.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, n)
+    return out
 
 
 def matvec(A, x):

@@ -24,11 +24,14 @@ loop op by op instead, syncing every iteration (the counterpart of
 (:func:`_pcg_solve`, at n > :data:`CHOLESKY_MAX_N`) is one launch of the
 ``lane_pcg`` kernel on the card in either loop, whose lanes each stop when
 they are done (:data:`CG_MAX_ITERS` steps at most); on the CPU it is the
-op-by-op chain that the kernel replaces.
+op-by-op chain that the kernel replaces. The Cholesky direction (at n <=
+:data:`CHOLESKY_MAX_N`) is one launch of the ``lane_cholesky`` kernel on
+the card; on the CPU LAPACK's.
 
-Every product and sum of a lane goes through
-:mod:`superdsm_tpu_torch.dsm.lane` (fixed order) or a library call on that
-lane alone, so a lane's result does not depend on its batch. The Newton
+Every product, sum and factorization of a lane goes through
+:mod:`superdsm_tpu_torch.dsm.lane` (fixed order) or a library call whose
+batched route gives each lane its own bits, so a lane's result does not
+depend on its batch. The Newton
 gram at n % 128 == 0 goes through
 :func:`superdsm_tpu_torch.dsm.gram.fused_grad_hess_batched` (the CUDA kernel
 on the card).
@@ -226,19 +229,6 @@ def _concat(outs):
     return torch.cat(outs)
 
 
-def _per_lane(fn, *args):
-    """``fn`` on each lane alone (a batch of one) on the card, the outputs
-    concatenated: the Cholesky factor and solve, whose batched routes give
-    a lane other bits than a batch of one does, and at n >= 64 bits that
-    depend on the batch (``tests/data/torch_port/linalg_routes.py``). On
-    the CPU ``fn`` takes the whole batch (LAPACK factors each matrix by
-    itself)."""
-    B = args[0].shape[0]
-    if B <= 1 or not args[0].is_cuda:
-        return fn(*args)
-    return _concat([fn(*(a[b:b + 1] for a in args)) for b in range(B)])
-
-
 def _batched(fn, *args, split_on_cpu=True):
     """``fn`` on the whole batch, for calls whose batched route gives each
     lane the bits of that lane alone at every batch size (the float64
@@ -277,9 +267,16 @@ def _pcg_solve(H, b, iters=CG_MAX_ITERS, rtol=CG_RTOL, early_exit=True):
 
 def _cholesky_direction(Hd, g):
     """``-Hd^-1 g`` by Cholesky; NaN in the lanes whose factorization fails
-    (cholesky_ex reports failure instead of raising; the guard of
-    :func:`_newton_step` turns them into gradient steps, as the JAX
-    ``cho_factor`` returns NaNs there)."""
+    (the guard of :func:`_newton_step` turns them into gradient steps, as
+    the JAX ``cho_factor`` returns NaNs there). On the card one launch of
+    the ``lane_cholesky`` kernel for the whole batch
+    (:func:`lane.cholesky_kernel`: an order fixed by n alone, so a lane's
+    bits do not depend on its batch; NaN in every entry of a failed lane).
+    On the CPU LAPACK's ``cholesky_ex`` and ``cholesky_solve`` on the whole
+    batch (LAPACK factors each matrix by itself; ``cholesky_ex`` reports a
+    failure instead of raising)."""
+    if Hd.is_cuda:
+        return lane.cholesky_kernel(Hd, g)
     L, info = torch.linalg.cholesky_ex(Hd)
     delta = -torch.cholesky_solve(g[..., None], L)[..., 0]
     return torch.where((info != 0)[:, None],
@@ -308,7 +305,7 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol)
     if n > CHOLESKY_MAX_N:
         delta = -_pcg_solve(Hd, g)
     else:
-        delta = _per_lane(_cholesky_direction, Hd, g)
+        delta = _cholesky_direction(Hd, g)
     bad = ~torch.isfinite(delta).all(dim=1)
     delta = torch.where(bad[:, None],
                         -g / (torch.sqrt(_dot(g, g)) + 1.0)[:, None], delta)

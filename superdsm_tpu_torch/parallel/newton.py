@@ -18,7 +18,12 @@ CUDA kernel on the card where the shard's ``(P, n)`` serve it, otherwise
 :func:`~superdsm_tpu_torch.dsm.gram.grad_hess_plain` with float64 pixel
 sums), as in :func:`superdsm_tpu_torch.dsm.solver._solve_batch_impl`:
 float32 pixel sums stall the Levenberg-Marquardt loop. The step keeps the
-JAX file's LM damping, line search, scale sweep and convergence rule.
+JAX file's LM damping, line search, scale sweep and convergence rule, with
+a Cholesky direction at every n, as there. Every sum of a lane goes through
+:mod:`superdsm_tpu_torch.dsm.lane` and the direction through
+``solver._cholesky_direction`` (the ``lane_cholesky`` kernel on the card,
+LAPACK on the CPU), as in the unsharded solver, so a lane's result does not
+depend on its batch.
 
 The smooth-matrix rows are per pixel (built from the replicated subsample
 points), so ``G`` shards with the pixels and only the ``6 + K`` reductions
@@ -32,9 +37,9 @@ import numpy as np
 import torch
 
 from .._device import thread_device
-from ..dsm import gram
+from ..dsm import gram, lane
 from ..dsm.smooth import build_smooth_matrix
-from ..dsm.solver import (_load_linalg, _poly_basis, _reg_terms, _softplus, _bmv,
+from ..dsm.solver import (_cholesky_direction, _poly_basis, _reg_terms, _bmv,
                           LS_STEPS, ARMIJO_C, DEFAULT_MAXITER, DEFAULT_TOL, MU_MIN,
                           MU_MAX)
 from .pipelined import worker_stream
@@ -65,7 +70,7 @@ class _Shard:
     def contribs(self, params, active):
         """Local surface, data energy, g and H of the shard's pixels."""
         s = self.surface(params)
-        data = (self.w * _softplus(-self.yv * s)).sum(-1)
+        data = lane.softplus_energies(s, self.yv, self.w)
         if self.use_kernel:
             g, H = gram.fused_grad_hess_batched(
                 self.Bf, s, self.yv, self.w, active=active.to(self.device),
@@ -75,12 +80,13 @@ class _Shard:
                                         passes=gram.GRAM_PASSES)
         return s, data, g, H
 
-    def candidates(self, s, u, steps, factors):
-        """Data energies of the surfaces ``(s + u * steps) * factors`` (one
-        column per candidate; ``steps`` broadcasts against ``(B, P, 1)``)."""
-        s_cand = (s[:, :, None] + u[:, :, None] * steps.to(self.device)) \
-            * factors.to(self.device)
-        return (self.w[:, :, None] * _softplus(-self.yv[:, :, None] * s_cand)).sum(1)
+    def line_search(self, s, u, steps):
+        """Data energies of the line search's surfaces ``s + u * steps_k``."""
+        return lane.softplus_energies(s, self.yv, self.w, steps.to(self.device), u)
+
+    def scale_sweep(self, s, scales):
+        """Data energies of the scale sweep's surfaces ``s * scales_k``."""
+        return lane.softplus_energies(s, self.yv, self.w, scales.to(self.device))
 
 
 def _reduce(parts, home):
@@ -95,7 +101,7 @@ def _reduce(parts, home):
 def _reg_value(xi, alpha, epsilon, kmask):
     """The deformation regularizer at candidate ``xi (B, K, S)``."""
     term2 = torch.sqrt(xi * xi + epsilon)
-    return (alpha[:, None] * (kmask[:, :, None] * (term2 - math.sqrt(epsilon))).sum(1)
+    return (alpha[:, None] * lane.lane_sum(kmask[:, :, None] * (term2 - math.sqrt(epsilon)), 1)
             ).clamp_min(0.0)
 
 
@@ -104,7 +110,6 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
     split over ``shards``; every reduction and the replicated arithmetic run
     on the first shard's device. Returns ``(params, energy, conv)``."""
     home = shards[0].device
-    _load_linalg(home)
     B, n = params0.shape
     dt = params0.dtype
     eye = torch.eye(n, dtype=dt, device=home)
@@ -113,7 +118,7 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
     scales = torch.tensor(_SCALES, dtype=dt, device=home)
 
     def energy(params):
-        data = _reduce([(sh.w * _softplus(-sh.yv * sh.surface(params))).sum(-1)
+        data = _reduce([lane.softplus_energies(sh.surface(params), sh.yv, sh.w)
                         for sh in shards], home)
         return data + _reg_terms(params, alpha, epsilon, kmask)[0]
 
@@ -133,19 +138,16 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
         H = H + torch.diag_embed(reg_h)
 
         # adaptive LM damping, mirroring dsm.solver._newton_step
-        scale_h = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1) / n + 1e-12
-        L, info = torch.linalg.cholesky_ex(H + (mu * scale_h)[:, None, None] * eye)
-        delta = -torch.cholesky_solve(g[..., None], L)[..., 0]
-        delta = torch.where((info != 0)[:, None], torch.full((), float('nan'),
-                            dtype=dt, device=home), delta)
+        scale_h = lane.lane_sum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
+        delta = _cholesky_direction(H + (mu * scale_h)[:, None, None] * eye, g)
         bad = ~torch.isfinite(delta).all(dim=1)
         delta = torch.where(bad[:, None],
-                            -g / (torch.sqrt((g * g).sum(1)) + 1.0)[:, None], delta)
-        decrement = -(g * delta).sum(1)
+                            -g / (torch.sqrt(lane.lane_dot(g, g)) + 1.0)[:, None], delta)
+        decrement = -lane.lane_dot(g, delta)
 
         # line search: one matvec per shard, candidate energies reduced
         us = [sh.surface(delta) for sh in shards]
-        data_cand = _reduce([sh.candidates(c[0], u, steps, ones)
+        data_cand = _reduce([sh.line_search(c[0], u, steps)
                              for sh, c, u in zip(shards, local, us)], home)
         if n > 6:
             xi_c = params[:, 6:, None] + delta[:, 6:, None] * steps
@@ -162,9 +164,10 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
         new_params = params + t_step[:, None] * delta
         new_f = torch.where(improved, f_pick, f0)
 
-        # multiplicative scale sweep (dsm.solver._newton_step), candidate
-        # energies reduced like the line search
-        data_sc = _reduce([sh.candidates(c[0], u, t_step[:, None, None], scales)
+        # multiplicative scale sweep (dsm.solver._newton_step) of each
+        # shard's new surface, candidate energies reduced like the line
+        # search
+        data_sc = _reduce([sh.scale_sweep(c[0] + t_step.to(sh.device)[:, None] * u, scales)
                            for sh, c, u in zip(shards, local, us)], home)
         if n > 6:
             f_sc = data_sc + _reg_value(new_params[:, 6:, None] * scales,

@@ -1,27 +1,31 @@
 #!/usr/bin/env python
-"""On the card: the Newton loop's linear algebra and float64 grams one lane
-at a time (the port's design) against the libraries' batched routes with a
-batch of one widened to two, and where a Newton iteration's device time
-goes under each.
+"""On the card: the Newton loop's linear algebra and float64 grams as the
+port computes them against the libraries' per-lane and batched routes, and
+where a Newton iteration's device time goes under each design.
 
-The port calls cuSOLVER (``solver._cholesky_direction``, ``_lsq_init``'s
-``solve_ex``) and the float64 products of ``gram.grad_hess_plain`` (the
-n = 6 c2f gram) and ``_lsq_init`` once per lane (``solver._per_lane``), so
-that a lane's bits do not depend on its batch. The other design calls each
-once for the whole batch and takes a batch of one as the same lane twice.
-This script:
+The port computes the Cholesky direction (``solver._cholesky_direction``)
+with its own ``lane_cholesky`` kernel, one launch for the batch in an order
+fixed by n alone; before that kernel it called cuSOLVER once per lane,
+since cuSOLVER's batched routes give a lane other bits than a batch of
+one. ``_lsq_init``'s ``solve_ex`` and the float64 products of
+``gram.grad_hess_plain`` (the n = 6 c2f gram) and ``_lsq_init`` run once
+for the whole batch, a batch of one widened to two. This script:
 
 1. holds ``lane_matvec``'s one-thread-per-row kernel (n <= 32) against the
    warp-per-row one, bitwise, and times both;
 2. for each call of the loop, at the n and P the main path gives it and B
-   from 2 to 64: whether the batched design gives every lane the bits of
-   that lane alone (widened), and the bits of the per-lane design; and
-   each design's device ms (``chip_smoke._event_ms``);
+   from 2 to 64: whether each route gives every lane the bits of that lane
+   alone (widened for a library's batched route), and the bits of the
+   cuSOLVER per-lane route; and each route's device ms
+   (``chip_smoke._event_ms``; a route a CUDA graph cannot hold is not
+   timed);
 3. solves the two stall fixtures at B = 1, 2, 4, 16 and bench seed 0 under
-   each design, with each design's label map, and profiles one bench image
-   under each (device loop and eager loop): device ms per Newton iteration
-   by kernel family, and s/image in the order per lane, batched, batched,
-   per lane.
+   each design (``'kernel'``, the port as it is; ``'per lane'``, cuSOLVER
+   per lane; ``'batched'``, cuSOLVER's batched routes with triangular
+   solves and the batched float64 gram), with each design's label map, and
+   profiles one bench image under each (device loop and eager loop):
+   device ms per Newton iteration by kernel family, and s/image in the
+   order kernel, per lane, batched, batched, per lane, kernel.
 
 Usage (on a card; prints one ``[routes]`` line per measurement)::
 
@@ -50,17 +54,21 @@ def _widen(t):
     return t.expand((2,) + tuple(t.shape[1:])).contiguous()
 
 
-def _batched_per_lane(original):
-    """``solver._per_lane`` replaced by one call for the whole batch, a
-    batch of one widened to two (on CUDA tensors)."""
-    def per_lane(fn, *args, on_cpu=False):
-        if not args[0].is_cuda:
-            return original(fn, *args, on_cpu=on_cpu)
-        if args[0].shape[0] != 1:
-            return fn(*args)
-        out = fn(*(_widen(a) for a in args))
-        return tuple(o[:1] for o in out) if isinstance(out, tuple) else out[:1]
-    return per_lane
+def per_lane(fn, *args):
+    """``fn`` on each lane alone (a batch of one), the outputs concatenated."""
+    import torch
+    outs = [fn(*(a[b:b + 1] for a in args)) for b in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def batched(fn, *args):
+    """``fn`` on the whole batch, a batch of one widened to two."""
+    if args[0].shape[0] != 1:
+        return fn(*args)
+    out = fn(*(_widen(a) for a in args))
+    return tuple(o[:1] for o in out) if isinstance(out, tuple) else out[:1]
 
 
 def _batched_plain(original):
@@ -89,8 +97,8 @@ def _batched_plain(original):
 
 
 def _cholesky_direction_tri(Hd, g):
-    """``solver._cholesky_direction`` with two triangular solves in place of
-    ``cholesky_solve`` (whose batched route is MAGMA's)."""
+    """The Cholesky direction by cuSOLVER with two triangular solves in place
+    of ``cholesky_solve``."""
     import torch
     L, info = torch.linalg.cholesky_ex(Hd)
     y = torch.linalg.solve_triangular(L, g[..., None], upper=False)
@@ -102,17 +110,20 @@ def _cholesky_direction_tri(Hd, g):
 
 @contextlib.contextmanager
 def design(name):
-    """``'per lane'`` (the port as it is) or ``'batched'``."""
+    """``'kernel'`` (the port as it is), ``'per lane'`` (the Cholesky
+    direction by cuSOLVER per lane) or ``'batched'`` (cuSOLVER's batched
+    routes, triangular solves, and the batched float64 gram)."""
     from superdsm_tpu_torch.dsm import gram, solver
-    saved = solver._per_lane, gram.grad_hess_plain, solver._cholesky_direction
-    if name == 'batched':
-        solver._per_lane = _batched_per_lane(saved[0])
-        gram.grad_hess_plain = _batched_plain(saved[1])
-        solver._cholesky_direction = _cholesky_direction_tri
+    saved = gram.grad_hess_plain, solver._cholesky_direction
+    if name == 'per lane':
+        solver._cholesky_direction = cs._per_lane_cholesky
+    elif name == 'batched':
+        gram.grad_hess_plain = _batched_plain(saved[0])
+        solver._cholesky_direction = lambda Hd, g: batched(_cholesky_direction_tri, Hd, g)
     try:
         yield
     finally:
-        solver._per_lane, gram.grad_hess_plain, solver._cholesky_direction = saved
+        gram.grad_hess_plain, solver._cholesky_direction = saved
 
 
 def lane_matvec_paths():
@@ -164,7 +175,7 @@ def _calls(rng):
 
     calls = []
     for n in (6, 32, 64, 128, 256):
-        calls.append((f'cholesky direction n = {n}', solver._cholesky_direction,
+        calls.append((f'cholesky direction n = {n}', cs._batched_cholesky,
                       _cholesky_direction_tri, chol(n)))
     calls.append(('solve_ex n = 6', lambda A, b: torch.linalg.solve_ex(A, b)[0],
                   None, solve6))
@@ -178,14 +189,14 @@ def route_invariance():
     import torch
     from superdsm_tpu_torch.dsm import gram, solver
     rng = np.random.RandomState(11)
-    per_lane = solver._per_lane
-    batched = _batched_per_lane(per_lane)
     plain = gram.grad_hess_plain
     plain_b = _batched_plain(plain)
     for name, fn, fn_tri, make in _calls(rng):
-        variants = [('batched', fn)] + ([('batched, triangular solves', fn_tri)]
+        variants = [('batched', fn)] + ([('batched, triangular solves', fn_tri),
+                                         ('lane_cholesky', solver._cholesky_direction)]
                                         if fn_tri else [])
         for vname, vfn in variants:
+            route = (lambda f, *a: f(*a)) if vname == 'lane_cholesky' else batched
             rows = []
             for B in (2, 3, 4, 5, 8, 16, 64):
                 args = make(B)
@@ -195,22 +206,22 @@ def route_invariance():
                         alone = [vfn(*(a[b:b + 1] for a in args)) for b in range(B)]
                     ref = plain(*args)[1]
                 else:
-                    out = batched(vfn, *args)
-                    alone = [batched(vfn, *(a[b:b + 1] for a in args)) for b in range(B)]
+                    out = route(vfn, *args)
+                    alone = [route(vfn, *(a[b:b + 1] for a in args)) for b in range(B)]
                     ref = per_lane(fn, *args)
                 inv = all(torch.equal(out[b:b + 1], alone[b]) for b in range(B))
                 eq = bool(torch.equal(out, ref))
                 rows.append((B, inv, eq))
             args = make(64)
             try:
-                times = _times(name, fn, vfn, args, per_lane, batched, plain, plain_b)
+                times = _times(name, fn, vfn, args, route, plain, plain_b)
             except RuntimeError as e:  # a batched route that a graph cannot hold
                 times = f'not timed: {str(e)[:200]}'
             say(f'{name}, {vname}: (B, every lane bitwise its widened self, bitwise '
                 f'the per-lane design) {rows}; {times}')
 
 
-def _times(name, fn, vfn, args, per_lane, batched, plain, plain_b):
+def _times(name, fn, vfn, args, route, plain, plain_b):
     if 'gram' in name:
         ms_lane = cs._event_ms(lambda: plain(*args))
         ms_b = cs._event_ms(lambda: plain_b(*args))
@@ -218,11 +229,11 @@ def _times(name, fn, vfn, args, per_lane, batched, plain, plain_b):
         ms_l1 = cs._event_ms(lambda: plain(*(a[:1] for a in args)))
     else:
         ms_lane = cs._event_ms(lambda: per_lane(fn, *args))
-        ms_b = cs._event_ms(lambda: batched(vfn, *args))
-        ms_b1 = cs._event_ms(lambda: batched(vfn, *(a[:1] for a in args)))
+        ms_b = cs._event_ms(lambda: route(vfn, *args))
+        ms_b1 = cs._event_ms(lambda: route(vfn, *(a[:1] for a in args)))
         ms_l1 = cs._event_ms(lambda: per_lane(fn, *(a[:1] for a in args)))
-    return (f'B = 64: per lane {ms_lane:.4f} ms, batched {ms_b:.4f} ms; '
-            f'B = 1: per lane {ms_l1:.4f} ms, widened {ms_b1:.4f} ms')
+    return (f'B = 64: per lane {ms_lane:.4f} ms, this route {ms_b:.4f} ms; '
+            f'B = 1: per lane {ms_l1:.4f} ms, this route {ms_b1:.4f} ms')
 
 
 def profile_split(tag, image, eager):
@@ -250,21 +261,22 @@ def profile_split(tag, image, eager):
 def fixtures_and_images():
     image = cs.make_image(0)[0]
     segs = {}
-    for name in ('per lane', 'batched'):
+    for name in ('kernel', 'per lane', 'batched'):
         try:
             segs[name] = _design_runs(name, image)
         except Exception as e:  # noqa: BLE001 - report and go on to the next
             say(f'{name}: failed: {type(e).__name__}: {str(e)[:400]}')
             return
-    say('bench seed 0 label maps of the two designs bitwise equal: '
-        f'{bool(np.array_equal(segs["per lane"], segs["batched"]))}')
+    say('bench seed 0 label maps of the per-lane and batched designs bitwise '
+        f'equal to the kernel\'s: {bool(np.array_equal(segs["per lane"], segs["kernel"]))}, '
+        f'{bool(np.array_equal(segs["batched"], segs["kernel"]))}')
     times = collections.defaultdict(list)
-    for name in ('per lane', 'batched', 'batched', 'per lane'):
+    for name in ('kernel', 'per lane', 'batched', 'batched', 'per lane', 'kernel'):
         with design(name):
             for seed in range(4):
                 times[name].append(round(cs._segment(cs.make_image(seed)[0], 12)[4], 3))
-    say(f'seconds per image, bench seeds 0-3, per lane then batched then '
-        f'batched then per lane: {dict(times)}')
+    say(f'seconds per image, bench seeds 0-3, in the order kernel, per lane, '
+        f'batched, batched, per lane, kernel: {dict(times)}')
 
 
 def _design_runs(name, image):

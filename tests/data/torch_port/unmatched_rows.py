@@ -75,6 +75,8 @@ RESOLVED = {
     (1848.7, 547.6): ((0, 864), (985, 548), 638.2318, 299.3511, 41.0534),
     (1698.0, 1693.9): ((864, 864), (834, 830), 1072.7450, 220.8005, 68.8505),
     (1759.9, 1697.2): ((864, 864), (896, 833), 1129.2042, 624.2278, 63.1280),
+    (602.8, 1798.7): ((864, 0), (603, 935), 777.7144, 387.0181, 26.1822),
+    (1857.0, 1788.3): ((864, 864), (993, 922), 1383.3969, 873.5212, 46.4465),
 }
 
 

@@ -470,21 +470,25 @@ def test_split_scratch_stays_under_its_cap():
 
 #: (B, P, n, full, splits) of the bf16 kernel's plan: the phase-3 table
 #: shapes (full at n = 128, triangle and banded above), the few-lane launches
-#: of the hybrid schedule's 1-pass full gram (B = 1 re-solves), and
-#: launches that fill the card in one segment.
+#: of the hybrid schedule's 1-pass full gram (B = 1 re-solves), launches of
+#: many lanes at n = 1024 and 2048, which split as one lane does, and plans
+#: of one segment: a lane whose tile pairs reach the target (triangle mode
+#: at n = 4096) and a pixel loop too short to split.
 BF16_SPLIT_SHAPES = [(64, 8192, 128, True, True), (32, 12288, 256, False, True),
                      (16, 32768, 512, False, True), (1, 8192, 128, True, True),
                      (1, 32768, 512, True, True), (32, 12288, 256, True, True),
-                     (8, 16384, 1024, True, False), (64, 2048, 2048, True, False),
-                     (8, 131072, 2048, False, False)]
+                     (8, 16384, 1024, True, True), (64, 2048, 2048, True, True),
+                     (8, 131072, 2048, False, True), (1, 2048, 4096, False, False),
+                     (8, 128, 1024, True, False)]
 
 
 @pytest.mark.parametrize('B,P,n,full,splits', BF16_SPLIT_SHAPES)
 def test_bf16_split_plan_counts_its_own_tile_pairs(B, P, n, full, splits):
     """The bf16 kernel's plan counts its own work items (every tile pair in
-    full mode, four per upper-triangle 128-block pair otherwise); its
-    segments tile the chunks in order, start on a flush group and fit the
-    scratch cap, as the float32 kernel's do."""
+    full mode, four per upper-triangle 128-block pair otherwise), as for one
+    lane; its segments tile the chunks in order, start on a flush group and
+    are at most MAX_SEGMENTS, and its lanes launch in groups whose scratch
+    fits the cap, as the float32 kernel's do."""
     nt, nb = n // gram.TILE, n // gram.MIRROR_BLOCK
     pairs = gram.tile_pairs(n, 1, full)
     assert pairs == (nt * nt if full else 4 * nb * (nb + 1) // 2)
@@ -493,16 +497,35 @@ def test_bf16_split_plan_counts_its_own_tile_pairs(B, P, n, full, splits):
     assert gram.split_plan(B, P, n, 3, full) == (seg_chunks, nsegs)
     nchunks = P // gram.ROWS
     assert (nsegs > 1) == splits
-    assert (B * pairs < gram.TARGET_ITEMS) == splits
+    assert (pairs < gram.TARGET_ITEMS and nchunks > gram.MIN_SEG_CHUNKS) == splits
     assert nsegs == -(-nchunks // seg_chunks)
     chunks = [c for seg in range(nsegs)
               for c in range(seg * seg_chunks, min((seg + 1) * seg_chunks, nchunks))]
     assert chunks == list(range(nchunks))
+    group = gram.lanes_per_launch(B, P, n, 1, full)
     if splits:
         assert seg_chunks % gram.FLUSH_CHUNKS == 0
         assert seg_chunks >= gram.MIN_SEG_CHUNKS
+        assert nsegs <= gram.MAX_SEGMENTS
         assert gram.scratch_entries(B, P, n, 1, full) == \
             nsegs * B * (pairs * gram.TILE ** 2 + n)
-        assert gram.scratch_entries(B, P, n, 1, full) * 8 <= gram.SCRATCH_CAP_BYTES
+        assert 1 <= group <= B
+        assert group == 1 or \
+            gram.scratch_entries(group, P, n, 1, full) * 8 <= gram.SCRATCH_CAP_BYTES
+        assert group == B or \
+            gram.scratch_entries(group + 1, P, n, 1, full) * 8 > gram.SCRATCH_CAP_BYTES
     else:
         assert gram.scratch_entries(B, P, n, 1, full) == 0
+        assert group == B
+
+
+@pytest.mark.parametrize('B,P,n,splits', SPLIT_SHAPES)
+@pytest.mark.parametrize('passes,full', [(6, False), (3, False), (3, True), (1, False),
+                                         (1, True)])
+def test_split_plan_does_not_read_the_batch(B, P, n, splits, passes, full):
+    """Every kernel's plan, the float32 one's and the bf16 one's in both
+    modes, is the same for a batch of 1, 2, 16 and 64 lanes: a lane's pixel
+    segments, and so the order of its float64 sums, do not depend on its
+    batch."""
+    plans = {gram.split_plan(b, P, n, passes, full) for b in (1, 2, 16, 64)}
+    assert len(plans) == 1, plans

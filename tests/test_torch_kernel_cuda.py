@@ -43,7 +43,13 @@ device function equals ``torch.logaddexp(x, 0)`` bitwise. ``lane_pcg``,
 the whole of PCG in one launch, is held bitwise to the chain it replaces
 (``lane.pcg_chain`` on the card), a lane alone to the lane in the batch, a
 captured graph's replay to the eager launch, and its frozen and NaN lanes
-to the chain's.
+to the chain's. ``lane_cholesky``, the Newton direction by Cholesky in one
+launch, is held bitwise to its order written op by op
+(``lane.cholesky_chain`` on the card) in shared memory and in its global
+scratch, a lane alone to the lane in the batch, a captured graph's replay
+to the eager launch, and its NaN lanes to the chain's. A lane alone is
+held bitwise to the lane in its batch for the bf16 kernel (whose plan no
+longer reads B) and for the sharded solvers on a mesh of the card twice.
 """
 
 import numpy as np
@@ -848,3 +854,183 @@ def test_lane_pcg_frozen_and_nan_lanes(n):
         assert _same_bits(out, chain)
     assert bool((out[2] == 0).all()) and bool(torch.isnan(out[3, 4]))
     assert _same_bits(out[1], b[1] * (1.0 / torch.diagonal(H[1])))
+
+
+def _chol_systems(B, n, dev, seed=0):
+    """Damped SPD systems ``M M^T / n + d I`` (d from 1e-3 to 10 across the
+    lanes) and right-hand sides, on ``dev``."""
+    rng = np.random.RandomState(seed + B + n)
+    M = rng.randn(B, n, n).astype(np.float32)
+    d = np.logspace(-3, 1, B).astype(np.float32)
+    H = M @ M.transpose(0, 2, 1) / np.float32(n) + d[:, None, None] * np.eye(n, dtype=np.float32)
+    return (torch.as_tensor(H.astype(np.float32), device=dev),
+            torch.as_tensor(rng.randn(B, n).astype(np.float32), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,n', [(64, 6), (64, 32), (8, 64), (16, 128), (4, 256), (1, 300),
+                                 (3, 335), (2, 336), (2, 384)])
+def test_lane_cholesky_equals_the_chain(B, n):
+    """``lane_cholesky`` (one launch) bitwise equal to its order written op
+    by op on the card (``lane.cholesky_chain``), in shared memory up to
+    ``CHOL_SHARED_MAX_N`` and in the global scratch above; a lane alone
+    bitwise equal to the same lane in the batch; ``_cholesky_direction``
+    launches it once and no library call."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    H, g = _chol_systems(B, n, dev)
+    lane.reset_launch_counts()
+    out = solver._cholesky_direction(H, g)
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_cholesky'] == 1
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(_bits(out), _bits(lane.cholesky_chain(H, g)))
+    for k in sorted({0, B // 2, B - 1}):
+        assert torch.equal(_bits(lane.cholesky_kernel(H[k:k + 1], g[k:k + 1])[0]),
+                           _bits(out[k]))
+    exact = -torch.linalg.solve(H.double(), g.double()[..., None])[..., 0]
+    rel = float(((out.double() - exact).norm(dim=1) / exact.norm(dim=1)).max())
+    assert rel < 1e-3, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [128, 384])
+def test_lane_cholesky_graph_replay_equals_eager(n):
+    """``lane_cholesky`` captured in a CUDA graph and replayed (on new inputs
+    copied into the captured ones) bitwise equal to the eager launch, in
+    shared memory and in the global scratch."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    H, g = _chol_systems(4, n, dev)
+    H2, g2 = _chol_systems(4, n, dev, seed=1)
+    eager = lane.cholesky_kernel(H, g)
+    eager2 = lane.cholesky_kernel(H2, g2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lane.cholesky_kernel(H, g)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(eager))
+    H.copy_(H2)
+    g.copy_(g2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(eager2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [6, 128, 384])
+def test_lane_cholesky_nan_lanes(n):
+    """NaN lanes exactly where the chain has them, bitwise (a NaN against
+    any NaN): a lane that is not positive definite, a zero lane, a NaN in
+    the lower triangle, an infinite pivot; a NaN in the upper triangle is
+    never read, a NaN in g stays in the entries it reaches."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    H, g = _chol_systems(7, n, dev)
+    H[0] -= 20.0 * torch.eye(n, device=dev)
+    H[1] = 0.0
+    H[2, n - 1, n // 2] = float('nan')
+    H[3, 0, n - 1] = float('nan')
+    H[4, n // 2, n // 2] = float('inf')
+    g[5, n - 1] = float('nan')
+    out = lane.cholesky_kernel(H, g)
+    chain = lane.cholesky_chain(H, g)
+    torch.cuda.synchronize()
+    assert _same_bits(out, chain)
+    assert bool(torch.isnan(out[:3]).all()) and bool(torch.isfinite(out[3]).all())
+    assert bool(torch.isfinite(out[6]).all()) and bool(torch.isnan(out[5]).any())
+    _, info = torch.linalg.cholesky_ex(H[:2])
+    assert bool((info != 0).all())
+
+
+@pytest.mark.cuda
+def test_lane_cholesky_refuses_bad_arguments():
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    H, g = _chol_systems(2, 32, dev)
+    with pytest.raises(ValueError):
+        lane.cholesky_kernel(H.double(), g.double())
+    with pytest.raises(ValueError):
+        lane.cholesky_kernel(H[:, :16, :16], g)
+    with pytest.raises(ValueError):
+        lane.cholesky_kernel(H.cpu(), g.cpu())
+    lib = gram._load(gram.LANE_SRC)
+    out = torch.empty_like(g)
+    stream = torch.cuda.current_stream().cuda_stream
+    # the global route needs its scratch
+    H5, g5 = _chol_systems(1, 400, dev)
+    out5 = torch.empty_like(g5)
+    assert lib.sdsm_lane_cholesky(H5.data_ptr(), g5.data_ptr(), out5.data_ptr(), None,
+                                  1, 400, stream) != 0
+    assert lib.sdsm_lane_cholesky(H.data_ptr(), g.data_ptr(), out.data_ptr(), None,
+                                  -1, 32, stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', ['dense-1pass', 'banded-3pass'])
+def test_bf16_lane_alone_equals_lane_in_batch(route):
+    """The bf16 kernel plans its pixel segments from (P, n) alone: a lane
+    alone gives bitwise its g and H in the batch (frozen lanes beside it
+    included)."""
+    dev = _cuda()
+    if route == 'dense-1pass':
+        Bf, s, yv, w = _dense_problem(5, 4, 8192, 128, dev)
+        band, passes, full = None, 1, True
+    else:
+        Bf, s, yv, w = _band_problem(dev)
+        band, passes, full = gram.band_ranges(Bf, w), 3, False
+    B = Bf.shape[0]
+    active = torch.ones(B, dtype=torch.int32, device=dev)
+    active[-1] = 0 if B > 2 else 1
+    g, H = gram.grad_hess_kernel(Bf, s, yv, w, active, band, passes=passes, full=full)
+    gram.reset_launch_counts()
+    for k in range(B):
+        one = lambda t: t[k:k + 1].contiguous()
+        g1, H1 = gram.grad_hess_kernel(one(Bf), one(s), one(yv), one(w), one(active),
+                                       None if band is None else one(band),
+                                       passes=passes, full=full)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(g1[0]), _bits(g[k])) and torch.equal(_bits(H1[0]), _bits(H[k]))
+    assert gram.LAUNCHES[route] == B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['poly', 'dsm'])
+def test_sharded_lane_alone_equals_lane_in_batch_on_the_card(kind):
+    """The sharded solver on a (1, 2) mesh of the card twice: a lane alone
+    gives bitwise its params, energy and convergence flag in a batch of
+    four; its directions are ``lane_cholesky`` launches."""
+    from superdsm_tpu_torch.dsm import lane
+    from superdsm_tpu_torch.parallel import mesh as pm
+    from superdsm_tpu_torch.parallel.newton import (make_sharded_dsm_solver,
+                                                    make_sharded_poly_solver)
+    dev = _cuda()
+    rng = np.random.RandomState(0)
+    B, side, K = 4, 64, 122
+    rr, cc = np.indices((side, side))
+    pix = np.stack([rr, cc], -1).reshape(-1, 2).astype(np.float32)
+    coords = np.tile((pix / (side - 1))[None], (B, 1, 1))
+    Y = np.stack([(((rr - rng.randint(20, 44)) ** 2 + (cc - rng.randint(20, 44)) ** 2 < 150)
+                   .astype(np.float32) - 0.5).reshape(-1) + rng.randn(side * side).astype(
+                       np.float32) * 0.1 for _ in range(B)])
+    Wt = np.ones_like(Y)
+    card = torch.device('cuda:0')
+    mesh = pm.make_mesh(1, 2, [card, card])
+    if kind == 'poly':
+        solve = make_sharded_poly_solver(mesh)
+        args = (np.zeros((B, 6), np.float32), coords, Y, Wt)
+    else:
+        solve = make_sharded_dsm_solver(mesh, sigma=4.0, cutoff=16)
+        sub = rng.randint(0, side, (B, K, 2)).astype(np.float32)
+        args = (np.zeros((B, 6 + K), np.float32), coords, np.tile(pix[None], (B, 1, 1)),
+                sub, np.ones((B, K), np.float32), Y, Wt, np.full(B, 0.5, np.float32))
+    lane.reset_launch_counts()
+    batch = [t.cpu().numpy() for t in solve(*args)]
+    assert lane.LAUNCHES['lane_cholesky'] > 0
+    assert np.isfinite(batch[1]).all()
+    for b in (0, B - 1):
+        alone = [t.cpu().numpy() for t in solve(*(a[b:b + 1] for a in args))]
+        for x, x1 in zip(batch, alone):
+            assert np.array_equal(x[b:b + 1], x1)

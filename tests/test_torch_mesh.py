@@ -10,6 +10,8 @@ the JAX package's, on the CPU.
   three-blob field of ``tests/test_parallel.py``: three objects in both,
   at most 10 label pixels differ, per-object IoU >= 0.99, energies to rtol
   5e-3 (that test's bounds); a 1-device mesh equals no mesh bitwise.
+- The sharded solvers' direction and sums go through the lane ops (the
+  kernels on the card), and a lane alone gives its bits in a batch.
 - ``parse_mesh_spec``, ``apply_env_mesh`` and the batch CLI's ``--mesh``
   on the cases of ``tests/test_parallel.py``, with the port's device
   enumeration monkeypatched to 8 CPU devices.
@@ -114,6 +116,57 @@ def test_sharded_dsm_matches_jax(jax_sharded):
     assert both.any()
     np.testing.assert_allclose(fd[both], f1[both], rtol=1e-4)
 
+
+
+def test_sharded_solver_goes_through_the_lane_ops(monkeypatch):
+    """The sharded solver's direction goes through
+    ``solver._cholesky_direction`` (the ``lane_cholesky`` kernel on the
+    card, LAPACK here) and its sums through the lane ops: every Newton
+    iteration calls each of them."""
+    from superdsm_tpu_torch.dsm import lane
+    from superdsm_tpu_torch.parallel import newton
+    calls = {}
+
+    def spy(module, name):
+        original = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return original(*args, **kwargs)
+        monkeypatch.setattr(module, name, counted)
+
+    spy(newton, '_cholesky_direction')
+    for name in ('lane_sum', 'lane_dot', 'softplus_energies'):
+        spy(lane, name)
+    C, Y, Wt, pix, sub, km = _dsm_inputs(B=4)
+    make_sharded_dsm_solver(pm.make_mesh(1, 2, CPUS), sigma=3.0, cutoff=12)(
+        np.zeros((4, 14), np.float32), C, pix, sub, km, Y, Wt, np.full(4, 0.1, np.float32))
+    iterations = calls['_cholesky_direction']
+    assert iterations > 1
+    # the line search and scale sweep of each shard, the energy at the end
+    assert calls['softplus_energies'] >= 2 * 3 * iterations
+    assert calls['lane_dot'] >= 2 * iterations
+    assert calls['lane_sum'] >= 3 * iterations
+
+
+@pytest.mark.parametrize('kind', ['poly', 'dsm'])
+def test_sharded_lane_alone_equals_lane_in_batch(kind):
+    """A lane solved alone by the sharded solver on a (1, 2) mesh gives its
+    params, energy and convergence flag in a batch of four, bitwise."""
+    C, Y, Wt, pix, sub, km = _dsm_inputs(B=4)
+    mesh = pm.make_mesh(1, 2, CPUS)
+    if kind == 'poly':
+        solve = make_sharded_poly_solver(mesh)
+        args = (np.zeros((4, 6), np.float32), C, Y, Wt)
+    else:
+        solve = make_sharded_dsm_solver(mesh, sigma=3.0, cutoff=12)
+        args = (np.zeros((4, 14), np.float32), C, pix, sub, km, Y, Wt,
+                np.full(4, 0.1, np.float32))
+    batch = _host(*solve(*args))
+    for b in (0, 3):
+        alone = _host(*solve(*(a[b:b + 1] for a in args)))
+        for x, x1 in zip(batch, alone):
+            assert np.array_equal(x[b:b + 1], x1)
 
 def _three_blobs():
     rng = np.random.RandomState(0)

@@ -65,9 +65,11 @@ result lines):
    (``lane.cholesky_chain``), a lane alone, a captured graph's replay and
    a second run bitwise equal to it, NaN lanes exactly where the chain and
    ``cholesky_ex`` fail, every other lane within 4 n u kappa of a float64
-   solve (beside cuSOLVER's error); the kernel's, the chain's, the per-lane
-   cuSOLVER route's it replaces and cuSOLVER's batched route's device ms,
-   and the bound;
+   solve (beside cuSOLVER's error); the shape's route (one block a lane
+   in shared memory, a cluster of 8 blocks in panels of 8 columns, or one
+   block a lane in a global scratch) beside the kernel's, the chain's, the
+   per-lane cuSOLVER route's it replaces and cuSOLVER's batched route's
+   device ms, and the bound;
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
@@ -695,13 +697,14 @@ PCG_REPLACES = 'superdsm_tpu/dsm/solver.py:126'
 #: ``lane_cholesky``'s shapes (B, n): the bench field's most frequent DSM
 #: chunk first (the kernels line's row), its other chunks and its c2f
 #: solves (n = 6), the DSM buckets n = 32 to 256 at the GPU caps, the B = 1
-#: and B = 2 canonical re-solves, and n = 384, whose work space takes the
-#: global-scratch route (above ``lane.CHOL_SHARED_MAX_N``); then n = 512 and
-#: 1024 at the GPU caps of their pixel buckets, the sharded solver's
-#: (``parallel/newton.py`` takes the kernel at every n), on the same route.
+#: and B = 2 canonical re-solves, and n = 384; then n = 512 and 1024 at the
+#: GPU caps of their pixel buckets, the sharded solver's
+#: (``parallel/newton.py`` takes the kernel at every n); then the largest n
+#: of the cluster route (``lane.CHOL_CLUSTER_MAX_N``) and the first n above
+#: it, the global-scratch route (``lane.cholesky_route`` names each shape's).
 CHOL_SHAPES = [(16, 256), (8, 256), (32, 6), (16, 6), (64, 6), (64, 32), (64, 64),
                (64, 128), (16, 128), (32, 256), (1, 128), (2, 256), (1, 256), (2, 384),
-               (16, 512), (8, 1024)]
+               (16, 512), (8, 1024), (2, 807), (2, 808)]
 #: The JAX package's ``cho_factor`` / ``cho_solve`` in ``_newton_step`` (XLA's,
 #: no Pallas kernel), which ``lane_cholesky`` runs in one launch.
 CHOL_REPLACES = 'superdsm_tpu/dsm/solver.py:204'
@@ -1091,6 +1094,8 @@ def _check_cholesky(shape):
     import torch
     from superdsm_tpu_torch.dsm import lane
     B, n = shape
+    if shape == CHOL_SHAPES[-2] and n != lane.CHOL_CLUSTER_MAX_N:
+        fail(f'CHOL_SHAPES: the cluster route ends at n = {lane.CHOL_CLUSTER_MAX_N}, not {n}')
     Hd, g = _chol_systems(B, n)
     kernel = lambda: lane.cholesky_kernel(Hd, g)
     chain = lambda: lane.cholesky_chain(Hd, g)
@@ -1151,13 +1156,14 @@ def _check_cholesky(shape):
     bytes_ms = 4.0 * B * (n * n + 2 * n) / PEAK_BYTES * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
-    say(f'[kernel] {tag}: kernel {ms:.4f} ms, chain {chain_ms:.4f} ms, cuSOLVER per '
-        f'lane {per_lane_ms:.4f} ms ({per_lane_ms / ms:.2f}x the kernel), cuSOLVER '
-        f'batched {batched_ms:.4f} ms (calls back to back), bound {bound_ms:.4f} ms '
-        f'by {bound_by}: {bound_ms / ms:.1%} of the bound')
+    route = lane.CHOL_ROUTES[lane.cholesky_route(B, n)]
+    say(f'[kernel] {tag}: route {route}: kernel {ms:.4f} ms, chain {chain_ms:.4f} ms, '
+        f'cuSOLVER per lane {per_lane_ms:.4f} ms ({per_lane_ms / ms:.2f}x the kernel), '
+        f'cuSOLVER batched {batched_ms:.4f} ms (calls back to back), bound {bound_ms:.4f} '
+        f'ms by {bound_by}: {bound_ms / ms:.1%} of the bound')
     return dict(max_abs_err=err, ms=ms, plain_ms=chain_ms, chain_ms=chain_ms,
                 per_lane_ms=per_lane_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bound_share=bound_ms / ms, library_ms=batched_ms, shape=list(shape),
+                bound_share=bound_ms / ms, library_ms=batched_ms, shape=list(shape), chol_route=route,
                 rel_err=float(err_k.max()), cusolver_rel_err=float(err_c.max()))
 
 

@@ -57,8 +57,9 @@
 //     the comment above lane_pcg_kernel).
 //   lane_cholesky: the Newton direction -Hd^-1 g by Cholesky
 //     (solver._cholesky_direction) for every lane of a batch in one
-//     launch, one block a lane, in an order fixed by n alone (see the
-//     comment above lane_cholesky_kernel).
+//     launch, in an order fixed by n alone: one block a lane at small n
+//     (see the comment above lane_cholesky_kernel), a cluster of 8 blocks
+//     a lane in panels of 8 columns above (lane_cholesky_cluster_kernel).
 //
 // They replace no Pallas kernel: in the JAX package these are XLA's
 // products and reductions inside the jitted Newton loop
@@ -111,6 +112,10 @@ constexpr int CHOL_MAX_THREADS = 512;  // threads of a lane_cholesky block
 constexpr int CHOL_COLS = 8;            // columns a warp of it updates at once
 constexpr int CHOL_BACK = 4;            // rows a lane of its back substitution updates at once
 constexpr int CHOL_SMEM_BYTES = 232448;  // shared memory a block may opt in to (sm_90)
+constexpr int CHOL_CLUSTER = 8;         // blocks of a lane on lane_cholesky's cluster route
+constexpr int CHOL_PW = 8;              // columns of its panels
+constexpr int CHOL_ONE_BLOCK_MAX_N = 32;    // one block a lane up to this n,
+constexpr int CHOL_MANY_LANES_MAX_N = 128;  // and up to this one at many lanes
 
 static_assert(SLOT_BLOCK == WARP, "a block's slots are one warp wide");
 static_assert(PCG_WARPS == CLUSTER, "slot_tree reads 8 warps of slots");
@@ -671,13 +676,19 @@ lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
 // delta is NaN in every entry (the chain's torch.where(fail, nan,
 // delta)), which solver._newton_step's guard turns into a gradient step.
 //
+// Routes (sdsm_lane_cholesky, from n and B; the order and so the bits
+// from n alone): this kernel, one block a lane, for n <= CHOL_ONE_BLOCK_MAX_N
+// (32), and up to n = CHOL_MANY_LANES_MAX_N (128) when a batch has more
+// lanes than the card holds clusters at once, in shared memory; above
+// CHOL_CLUSTER_MAX_N in a global scratch; in between the cluster route
+// (lane_cholesky_cluster_kernel, below).
+//
 // Work split: one block a lane, its thread count chosen from n (which
 // thread updates an entry does not change the entry's order). The lower
 // triangle is packed by columns (column k, rows k..n-1, at k n - k (k + 1)
 // / 2 + i). It lives, with L_jj, b, y and two buffers of a scaled column,
-// in shared memory up to n = CHOL_SHARED_MAX_N (335; 137 KB at n = 256),
-// above in a global scratch of the same layout that the wrapper allocates
-// (303 KB a lane at n = 384, L2-resident), with the same code and order.
+// in shared memory or in a global scratch of the same layout that the
+// wrapper allocates, with the same code and order.
 // Column j is one phase and one block barrier: threads update b and write
 // column j's L over its a; warp w updates the columns j + 1 + 8 w .. j + 8 w
 // + 8, then those 8 W further on, eight at a time (all loads first, so the
@@ -693,13 +704,12 @@ lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
 // lane l holds y_i for i % 32 == l in registers and y_j comes by a
 // shuffle; in the global scratch y stays there (one __syncwarp a column).
 //
-// What bounds it: n^3 / 3 operations per lane (some microseconds at the
-// card's float32 rate at n = 256) against n dependent phases, each a block
-// barrier and a square root and divisions on warp 0's path (hundreds of
-// cycles at the last columns, where there is little else), and, at the
-// first columns, the issue of the updates (a load, two conversions, a
-// float64 fused multiply-add, a store): latency and issue, not bytes or
-// the arithmetic rate, at every n of the solver (6 to 300).
+// What bounds it: n dependent phases, each a block barrier and a square
+// root and divisions on warp 0's path, and, at the first columns, the
+// issue of the updates (a load, two conversions, a float64 fused
+// multiply-add, a store): latency and issue, not bytes or the arithmetic
+// rate. One block a lane leaves most of the card idle at few lanes and
+// takes n barriers; the cluster route takes n / 8.
 
 // Floats of a lane's work space: the packed lower triangle, L_jj, b, y
 // and the scaled column (two).
@@ -707,17 +717,12 @@ __host__ __device__ constexpr long long chol_floats(long long n) {
   return n * (n + 1) / 2 + 5 * n;
 }
 
-constexpr int chol_shared_max_n() {
-  int n = 1;
-  while (4 * chol_floats(n + 1) <= CHOL_SMEM_BYTES) ++n;
-  return n;
-}
-
-constexpr int CHOL_SHARED_MAX_N = chol_shared_max_n();
+static_assert(4 * chol_floats(CHOL_MANY_LANES_MAX_N) <= CHOL_SMEM_BYTES,
+              "the one-block route's work space fits shared memory");
 
 // Registers of a lane of the back substitution in shared memory: y_i for
-// i = l, l + 32, ... < CHOL_SHARED_MAX_N.
-constexpr int CHOL_BACK_REGS = (CHOL_SHARED_MAX_N + WARP - 1) / WARP;
+// i = l, l + 32, ... < CHOL_MANY_LANES_MAX_N.
+constexpr int CHOL_BACK_REGS = (CHOL_MANY_LANES_MAX_N + WARP - 1) / WARP;
 
 // a - l m rounded to float64, then to float32: the product of two floats
 // is exact in float64, the fused multiply-add rounds the difference to
@@ -919,6 +924,456 @@ lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
   }
 }
 
+// ---------------------------------------------------------------------------
+// lane_cholesky's cluster route: the same order, split over a cluster of
+// CHOL_CLUSTER = 8 blocks a lane and blocked into panels of CHOL_PW = 8
+// columns, for CHOL_ONE_BLOCK_MAX_N < n <= CHOL_CLUSTER_MAX_N (but n <= 128
+// at more lanes than the card holds clusters at once: sdsm_lane_cholesky).
+//
+// The forward substitution is the factor of one more row: b is row n of
+// the augmented lower triangle (its update b_k - y_j L_kj is a_nk - l_nj
+// l_kj with l_nj = b_j / L_jj = y_j, the same operations on the same
+// values), so each column k holds rows k .. n and ends with y_k.
+//
+// Work split: panel r (columns r PW .. r PW + PW - 1, rows r PW .. n, a
+// dense (n + 1 - r PW) x PW block, row-major, its upper corner unused)
+// lives in the shared memory of block r % 8 for the whole launch. Its owner
+// factors it: warp 0 the diagonal PW x PW block (a lane a row, the pivot
+// and the scaled entries by shuffles), releasing each column to the other
+// warps through a named barrier; each of those solves its rows below (a
+// thread a row, CHOL_ROWS at most) against the columns as they come. The
+// owner publishes the panel (float32, as it is) into the lane's scratch in
+// global memory, and one cluster barrier a panel orders that before every
+// block reads it back, widens it to float64 once and applies the panel's
+// PW updates to each entry of its own later panels, the entry held in a
+// register between them and rounded to float32 after each (chol_update):
+// one shared load and store an entry a panel, where the one-block route
+// takes one a column. Lookahead: the owner of panel p + 1 applies panel p
+// to that panel first, factors and publishes it before it updates its
+// other panels, and every other block arrives at the next barrier as soon
+// as it has read panel p (barrier.cluster.arrive / wait split), so the
+// chain of panels waits on factoring, not on the trailing updates. The
+// scratch keeps every panel (the back substitution reads them all), so no
+// slot of it is written twice. Every entry takes the updates j = 0, 1, ...
+// in order, and every L_jj, L_ij and y_j comes from the same __fsqrt_rn /
+// __fdiv_rn, whichever block or thread computes it: the bits of the
+// one-block route and of lane.cholesky_chain.
+//
+// Failure: the owner of panel p writes whether its pivot failed into every
+// block (flag[p]) before the barrier after which all of them read it; on a
+// failure every block writes NaN into its own columns and all leave after
+// that same barrier, so no block waits at a barrier that a peer has left.
+//
+// The back substitution runs in block 0 alone, from the published panels
+// (see there).
+//
+// What bounds it: latency. Every panel waits on a cluster barrier, the
+// panel read back from L2, warp 0's PW pivots (each a shuffle, a square
+// root, a division and an update in sequence) and the rows' last column;
+// the back substitution on n dependent divisions and updates in one warp.
+// The updates' two float32 <-> float64 conversions each (16 a clock an SM
+// on sm_90, a quarter of the float64 FMA rate; some n^3 / 6 a lane, over
+// eight SMs) bound only the first panels' trailing updates.
+
+__host__ __device__ constexpr long long chol_panel_rows(long long n, long long r) {
+  return n + 1 - r * CHOL_PW;
+}
+
+// Floats of block 0's panels (r = 0, 8, 16, ...), the most any block holds.
+__host__ __device__ constexpr long long chol_cluster_panel_floats(long long n) {
+  long long s = 0;
+  for (long long r = 0; r * CHOL_PW < n; r += CHOL_CLUSTER) s += chol_panel_rows(n, r) * CHOL_PW;
+  return s;
+}
+
+// Shared memory of a block of the cluster route: the applied panel widened
+// ((n + 1) x PW doubles), the diagonal block's L (PW x PW doubles), the own
+// panels, L_jj (n) and flags (one a panel, and one).
+__host__ __device__ constexpr long long chol_cluster_bytes(long long n) {
+  return 8 * ((n + 1) * CHOL_PW + CHOL_PW * CHOL_PW) +
+         4 * (chol_cluster_panel_floats(n) + n + (n + CHOL_PW - 1) / CHOL_PW + 1);
+}
+
+constexpr int chol_cluster_max_n() {
+  int n = 1;
+  while (chol_cluster_bytes(n + 1) <= CHOL_SMEM_BYTES) ++n;
+  return n;
+}
+
+constexpr int CHOL_CLUSTER_MAX_N = chol_cluster_max_n();
+
+// A lane's published panels in the scratch: panel p's rows p PW .. n from
+// chol_pub_offset(n, p) on, in the layout of its owner's copy.
+__host__ __device__ constexpr long long chol_pub_offset(long long n, long long p) {
+  return CHOL_PW * (p * (n + 1) - CHOL_PW * p * (p - 1) / 2);
+}
+
+__host__ __device__ constexpr long long chol_pub_floats(long long n) {
+  return chol_pub_offset(n, (n + CHOL_PW - 1) / CHOL_PW);
+}
+
+// Threads of a block of the cluster route that factor rows below a
+// panel's diagonal block (every warp but warp 0, which factors the block),
+// and the rows a thread takes at the largest n.
+constexpr int CHOL_ROW_THREADS = CHOL_MAX_THREADS - WARP;
+constexpr int CHOL_ROWS = (CHOL_CLUSTER_MAX_N + 1 - CHOL_PW + CHOL_ROW_THREADS - 1) / CHOL_ROW_THREADS;
+static_assert(CHOL_PW == 8 && CHOL_ROWS <= 2, "panel layout and registers sized for this");
+// Columns below a group of 32 that a thread of the back substitution holds.
+constexpr int CHOL_BACK_COLS = (CHOL_CLUSTER_MAX_N + CHOL_ROW_THREADS - 1) / CHOL_ROW_THREADS;
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Named barrier `id` of `count` threads: arrive without waiting / wait.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// a's PW entries take the PW updates of the panel widened in lw: the row's
+// L at li, the columns' at lw + k0 PW (kn of them), j in order.
+__device__ __forceinline__ void chol_apply_row(float (&v)[CHOL_PW], const double* li,
+                                               const double* lk, int kn) {
+  double l[CHOL_PW];
+#pragma unroll
+  for (int j = 0; j < CHOL_PW; ++j) l[j] = li[j];
+#pragma unroll
+  for (int j = 0; j < CHOL_PW; ++j) {
+#pragma unroll
+    for (int m = 0; m < CHOL_PW; ++m)
+      if (m < kn) v[m] = chol_update(v[m], l[j], lk[m * CHOL_PW + j]);
+  }
+}
+
+__device__ __forceinline__ void chol_load_row(float (&v)[CHOL_PW], const float* a) {
+#pragma unroll
+  for (int c = 0; c < CHOL_PW; c += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(a + c);
+    v[c] = u.x, v[c + 1] = u.y, v[c + 2] = u.z, v[c + 3] = u.w;
+  }
+}
+
+__device__ __forceinline__ void chol_store_row(float* a, const float (&v)[CHOL_PW]) {
+#pragma unroll
+  for (int c = 0; c < CHOL_PW; c += 4)
+    *reinterpret_cast<float4*>(a + c) = make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+}
+
+// H (B, n, n), g (B, n) -> out (B, n); grid B * 8 blocks of CHOL_MAX_THREADS,
+// one cluster a lane; dynamic shared memory chol_cluster_bytes(n); scratch
+// chol_pub_floats(n) floats a lane (the published panels).
+__global__ void __cluster_dims__(CHOL_CLUSTER, 1, 1) __launch_bounds__(CHOL_MAX_THREADS, 1)
+lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restrict__ g,
+                             float* __restrict__ out, float* __restrict__ scratch, int n) {
+  constexpr int PW = CHOL_PW, C = CHOL_CLUSTER;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = (int)cluster.block_rank();
+  const long long o = blockIdx.x / C;
+  const int t = threadIdx.x, T = CHOL_MAX_THREADS;
+  const int l = t % WARP, w = t / WARP;
+  const int rows = n + 1;
+  const int P = (n + PW - 1) / PW;
+  double* lw = reinterpret_cast<double*>(smem);  // the applied panel's L, row i at i PW
+  double* ld = lw + (long long)rows * PW;         // the diagonal block's L, (m, j) at m PW + j
+  float* A = reinterpret_cast<float*>(ld + PW * PW);
+  float* dg = A + chol_cluster_panel_floats(n);    // L_jj of the own columns
+  int* flag = reinterpret_cast<int*>(dg + n);      // [p]: panel p failed; [P]: local
+  float* pub = scratch + o * chol_pub_floats(n);   // the published panels
+  // own panel r (r % C == q): its m-th, after the m before it
+  auto panel = [&](int r) {
+    const long long m = (r - q) / C;
+    return A + PW * (m * rows - PW * (q * m + C * m * (m - 1) / 2));
+  };
+  auto width = [&](int r) { return min(PW, n - r * PW); };
+
+  // peers may be written only once every block of the cluster runs
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const float* Hl = H + o * n * n;
+  for (int r = q; r < P; r += C) {
+    float* a = panel(r);
+    const int c0 = r * PW;
+    const int count = (rows - c0) * PW;
+    for (int f = t; f < count; f += T) {
+      const int i = c0 + f / PW, k = c0 + f % PW;
+      float v = 0.0f;
+      if (k < n && i >= k) v = i < n ? __ldg(Hl + (long long)i * n + k) : __ldg(g + o * n + k);
+      a[f] = v;
+    }
+  }
+  __syncthreads();
+  cluster_wait();
+
+  // Own panel p, whose entries have the updates j < (p - 1) PW, takes panel
+  // p - 1's (in lw; none for p = 0) and is factored and published. Warp 0:
+  // the diagonal block, each column j released to the other warps through
+  // named barrier 1 + j.
+  auto diag = [&](int p) {
+    float* a = panel(p);
+    const int c0 = p * PW, wd = width(p);
+    {
+      if (p > 0) {  // the diagonal block's updates: four lanes a row, two columns each
+        const int r = l >> 2, c = 2 * (l & 3);
+        if (r < wd) {
+          float2* e = reinterpret_cast<float2*>(a + r * PW + c);
+          float2 u = *e;
+          const double* li = lw + (c0 + r) * PW;
+          const double* lk = lw + (long long)min(c0 + c, n - 1) * PW;
+          const double* lk1 = lw + (long long)min(c0 + c + 1, n - 1) * PW;
+#pragma unroll
+          for (int j = 0; j < PW; ++j) {
+            const double lij = li[j];
+            u.x = chol_update(u.x, lij, lk[j]);
+            u.y = chol_update(u.y, lij, lk1[j]);
+          }
+          *e = u;
+        }
+        __syncwarp();
+      }
+      // lane l holds row c0 + l; column j's pivot and l_lj by shuffles
+      float v[PW];
+#pragma unroll
+      for (int c = 0; c < PW; ++c) v[c] = l < wd ? a[l * PW + c] : 0.0f;
+      bool ok = true;
+#pragma unroll
+      for (int j = 0; j < PW; ++j) {
+        if (j < wd) {
+          // the pivot in every lane (a square root or division of another
+          // lane's value could take the slow path for the whole warp)
+          const float piv = __shfl_sync(0xffffffffu, v[j], j);
+          ok = ok && piv > 0.0f;  // a NaN fails
+          const float dj = __fsqrt_rn(piv);
+          const float lj = __fdiv_rn(l > j && l < wd ? v[j] : piv, dj);
+          const double ljd = (double)lj;
+          if (l == j) dg[c0 + j] = dj;
+          if (l > j && l < wd) ld[l * PW + j] = ljd;
+          named_arrive(1 + j, T);
+          v[j] = l > j ? lj : dj;
+#pragma unroll
+          for (int m = j + 1; m < PW; ++m) {
+            const double lm = __shfl_sync(0xffffffffu, ljd, m);
+            if (m < wd && l >= m) v[m] = chol_update(v[m], ljd, lm);
+          }
+        }
+      }
+      if (l < wd) {
+#pragma unroll
+        for (int c = 0; c < PW; ++c)
+          if (c <= l) a[l * PW + c] = v[c];
+#pragma unroll
+        for (int c = 0; c < PW; c += 4)
+          __stcg(reinterpret_cast<float4*>(pub + chol_pub_offset(n, p) + l * PW + c),
+                 make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]));
+      }
+      if (l == 0) flag[P] = !ok;
+    }
+  };
+  // The other warps: the rows below it (CHOL_ROWS a thread at most), each
+  // column as warp 0 releases it.
+  auto rows_below = [&](int p) {
+    float* a = panel(p);
+    const int c0 = p * PW, wd = width(p), below = rows - c0 - wd;
+    {
+      float v[CHOL_ROWS][PW];
+      int ir[CHOL_ROWS];
+#pragma unroll
+      for (int u = 0; u < CHOL_ROWS; ++u) {
+        const int f = t - WARP + u * CHOL_ROW_THREADS;
+        ir[u] = f < below ? c0 + wd + f : -1;
+        if (ir[u] >= 0) {
+          chol_load_row(v[u], a + (ir[u] - c0) * PW);
+          if (p > 0) chol_apply_row(v[u], lw + (long long)ir[u] * PW, lw + (long long)c0 * PW, wd);
+        }
+      }
+      // column j as warp 0 releases it
+#pragma unroll
+      for (int j = 0; j < PW; ++j) {
+        if (j < wd) {
+          named_sync(1 + j, T);
+          const float dj = dg[c0 + j];
+#pragma unroll
+          for (int u = 0; u < CHOL_ROWS; ++u) {
+            if (ir[u] >= 0) {
+              v[u][j] = __fdiv_rn(v[u][j], dj);
+              const double lj = (double)v[u][j];
+#pragma unroll
+              for (int m = j + 1; m < PW; ++m)
+                if (m < wd) v[u][m] = chol_update(v[u][m], lj, ld[m * PW + j]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CHOL_ROWS; ++u) {
+        if (ir[u] >= 0) {
+          chol_store_row(a + (ir[u] - c0) * PW, v[u]);
+#pragma unroll
+          for (int c = 0; c < PW; c += 4) {
+            const float4 e = make_float4(v[u][c], v[u][c + 1], v[u][c + 2], v[u][c + 3]);
+            __stcg(reinterpret_cast<float4*>(pub + chol_pub_offset(n, p) + (ir[u] - c0) * PW + c), e);
+          }
+        }
+      }
+    }
+  };
+  // the end of panel p: its flag into every block
+  auto finish = [&](int p) {
+    __syncthreads();
+    if (t < C) *cluster.map_shared_rank(flag + p, t) = flag[P];
+  };
+
+  // Applies panel p (widened in lw) to the rows of own panels r_lo, r_lo +
+  // C, ... < r_hi: entry (i, k) takes a_ik - l_ij l_kj for the panel's j in
+  // order; threads over (panel, row) pairs.
+  auto apply = [&](int r_lo, int r_hi) {
+    int f = t, base = 0;
+    for (int r = r_lo; r < r_hi; r += C) {
+      const int c0 = r * PW, wd = width(r);
+      const int cnt = rows - c0;
+      float* a = panel(r);
+      for (; f < base + cnt; f += T) {
+        float* ar = a + (f - base) * PW;
+        float v[PW];
+        chol_load_row(v, ar);
+        chol_apply_row(v, lw + (long long)(c0 + f - base) * PW, lw + (long long)c0 * PW, wd);
+        chol_store_row(ar, v);
+      }
+      base += cnt;
+    }
+  };
+
+  auto fail_out = [&]() {
+    for (int r = q; r < P; r += C)
+      for (int c = t; c < width(r); c += T) out[o * n + r * PW + c] = __int_as_float(0x7fc00000);
+  };
+
+  // panel p's rows below its diagonal block, from the scratch, widened into lw
+  auto widen = [&](int p) {
+    const int lo = (p + 1) * PW;
+    const float4* src = reinterpret_cast<const float4*>(pub + chol_pub_offset(n, p) + PW * PW);
+    for (int f = t; f < (rows - lo) * PW / 4; f += T) {
+      const float4 u = __ldcg(src + f);
+      double* d = lw + (long long)lo * PW + 4 * f;
+      d[0] = u.x, d[1] = u.y, d[2] = u.z, d[3] = u.w;
+    }
+  };
+
+  // own panel p, factored and published
+  auto advance = [&](int p) {
+    if (w == 0) diag(p);
+    else rows_below(p);
+    finish(p);
+  };
+
+  // forward: one cluster barrier a panel, after which every block reads
+  // whether panel p failed and widens it; the owner of panel p + 1 applies
+  // it there and factors that panel first (lookahead), and every other
+  // block arrives at the next barrier as soon as it has read the panel
+  if (q == 0) advance(0);
+  cluster_arrive();
+  for (int p = 0;; ++p) {
+    cluster_wait();
+    if (flag[p]) {  // every block reads it after the same barrier
+      fail_out();
+      return;
+    }
+    if (p == P - 1) break;
+    widen(p);
+    __syncthreads();
+    const bool next = (p + 1) % C == q;
+    if (next) advance(p + 1);
+    cluster_arrive();
+    // own panels after p (after p + 1 when this block factored it)
+    apply(p + 1 + ((q - p - 1) % C + C) % C + (next ? C : 0), P);
+    __syncthreads();  // lw is rewritten in the next step
+  }
+
+  // Back substitution, in block 0 alone, from L, its diagonal and y in the
+  // published panels (nothing is read from or written into a peer after the
+  // last barrier: the others leave). Columns in groups of 32 from the last:
+  // warp 0 holds the group's y (lane l: column g0 + l) and solves it, x_j
+  // by a shuffle from the lane holding y_j and L_jj, releasing its x eight
+  // columns at a time (named barriers 1 to 4) to the other warps, which
+  // hold the y of the columns below (CHOL_BACK_COLS a thread, in registers)
+  // and apply them in order, j descending; at a group's start the threads
+  // holding its columns hand their y to warp 0.
+  if (q != 0) return;
+  float* xsh = smem;                 // x_j
+  float* ysh = smem + (n + 3) / 4 * 4;  // the group's y, handed to warp 0
+  auto at = [&](int i, int j) {  // L_ji (j >= i); y_i at j = n
+    const int r = i / PW;
+    return pub + chol_pub_offset(n, r) + (j - r * PW) * PW + i % PW;
+  };
+  float yb[CHOL_BACK_COLS];
+  const float* lb[CHOL_BACK_COLS];
+  int ib[CHOL_BACK_COLS];
+#pragma unroll
+  for (int u = 0; u < CHOL_BACK_COLS; ++u) {
+    ib[u] = w == 0 ? n : t - WARP + u * (T - WARP);
+    lb[u] = at(min(ib[u], n - 1), 0);
+    yb[u] = ib[u] < n ? __ldcg(lb[u] + PW * n) : 0.0f;
+  }
+  for (int g0 = (n - 1) / WARP * WARP; g0 >= 0; g0 -= WARP) {
+#pragma unroll
+    for (int u = 0; u < CHOL_BACK_COLS; ++u)
+      if (ib[u] >= g0 && ib[u] < g0 + WARP) ysh[ib[u] - g0] = yb[u];
+    __syncthreads();
+    if (w == 0) {
+      const int i = g0 + l;
+      const float* li = at(min(i, n - 1), 0);
+      float lv[WARP];  // L_ji of the group's columns j, loaded ahead
+#pragma unroll
+      for (int k = 0; k < WARP; ++k) lv[k] = i < g0 + k && g0 + k < n ? __ldcg(li + PW * (g0 + k)) : 0.0f;
+      const float di = i < n ? __ldcg(li + PW * i) : 1.0f;  // L_ii
+      float y = i < n ? ysh[l] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < WARP / PW; ++c) {
+#pragma unroll
+        for (int k = WARP - 1 - PW * c; k >= WARP - PW * (c + 1); --k) {
+          if (g0 + k < n) {
+            // lane k holds y_j and L_jj
+            const float xj = __shfl_sync(0xffffffffu, __fdiv_rn(y, di), k);
+            if (l < k) y = chol_update(y, (double)lv[k], (double)xj);
+            if (l == k) {
+              xsh[g0 + k] = xj;
+              out[o * n + g0 + k] = -xj;
+            }
+          }
+        }
+        named_arrive(1 + c, T);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < WARP / PW; ++c) {
+        const int j0 = g0 + WARP - PW * (c + 1);  // this release's columns j0 .. j0 + PW - 1
+        float lv[CHOL_BACK_COLS][PW];
+#pragma unroll
+        for (int u = 0; u < CHOL_BACK_COLS; ++u)
+#pragma unroll
+          for (int k = 0; k < PW; ++k)
+            lv[u][k] = ib[u] < g0 && j0 + k < n ? __ldcg(lb[u] + PW * (j0 + k)) : 0.0f;
+        named_sync(1 + c, T);
+#pragma unroll
+        for (int u = 0; u < CHOL_BACK_COLS; ++u) {
+          if (ib[u] < g0) {
+#pragma unroll
+            for (int k = PW - 1; k >= 0; --k)
+              if (j0 + k < n) yb[u] = chol_update(yb[u], (double)lv[u][k], (double)xsh[j0 + k]);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <class Term, int UNROLL>
 int launch_sum(const Term& term, float* out, long long O, int L, int S,
                cudaStream_t stream) {
@@ -1088,30 +1543,66 @@ extern "C" int sdsm_lane_pcg(const float* H, const float* b, float* x, int B,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sdsm_lane_chol_shared_max_n() { return CHOL_SHARED_MAX_N; }
+extern "C" int sdsm_lane_chol_one_block_max_n() { return CHOL_ONE_BLOCK_MAX_N; }
+extern "C" int sdsm_lane_chol_cluster_max_n() { return CHOL_CLUSTER_MAX_N; }
+
+// lane_cholesky's route at (B, n), from n and B (an entry's order, and so
+// its bits, follows from n alone):
+//   0: n <= CHOL_ONE_BLOCK_MAX_N, or n <= CHOL_MANY_LANES_MAX_N with more
+//      lanes than the card holds clusters at once: one block a lane, in
+//      shared memory;
+//   1: n <= CHOL_CLUSTER_MAX_N: a cluster of 8 blocks a lane;
+//   2: above: one block a lane, its work space in a global scratch.
+// (The stream is not used: every entry point takes one.)
+extern "C" int sdsm_lane_chol_route(int B, int n, void*) {
+  if (n <= CHOL_ONE_BLOCK_MAX_N ||
+      ((long long)B * CHOL_CLUSTER > sm_count() && n <= CHOL_MANY_LANES_MAX_N))
+    return 0;
+  return n <= CHOL_CLUSTER_MAX_N ? 1 : 2;
+}
+
+// Floats of a lane's scratch on that route: none; the published panels;
+// the work space.
+extern "C" int sdsm_lane_chol_scratch_floats(int B, int n, void*) {
+  if (B < 0 || n < 0 || chol_floats(n) > 0x7fffffffLL) return 0;
+  switch (sdsm_lane_chol_route(B, n, nullptr)) {
+    case 1: return (int)chol_pub_floats(n);
+    case 2: return (int)chol_floats(n);
+    default: return 0;
+  }
+}
 
 // delta (B, n) = solver._cholesky_direction(Hd, g), Hd (B, n, n) and g
-// (B, n) float32 contiguous; one block a lane on `stream`. scratch: B *
-// (n (n + 1) / 2 + 5 n) floats when n > CHOL_SHARED_MAX_N (the lanes' work
-// space in global memory), else unused (may be null).
+// (B, n) float32 contiguous, in one launch on `stream`, on the route of
+// sdsm_lane_chol_route; scratch: B sdsm_lane_chol_scratch_floats(B, n)
+// floats (unused, may be null, on route 0).
 extern "C" int sdsm_lane_cholesky(const float* H, const float* g, float* out,
                                   float* scratch, int B, int n, void* stream) {
   if (B < 0 || n < 0 || chol_floats(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaGetLastError();
-  const int threads = n <= 32 ? 64 : n <= 64 ? 128 : n <= 128 ? 256 : CHOL_MAX_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
-  if (n <= CHOL_SHARED_MAX_N) {
-    // the opt-in maximum, the same for every launch (threads launching
-    // concurrently set the same value)
+  const int route = sdsm_lane_chol_route(B, n, nullptr);
+  if (route != 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  // each kernel's opt-in maximum, the same for every launch (threads
+  // launching concurrently set the same value)
+  if (route == 0) {
     const cudaError_t err = cudaFuncSetAttribute(
         lane_cholesky_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         CHOL_SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
+    const int threads = n <= 32 ? 64 : n <= 64 ? 128 : 256;
     lane_cholesky_kernel<false><<<B, threads, (size_t)(4 * chol_floats(n)), st>>>(
         H, g, out, nullptr, n);
+  } else if (route == 1) {
+    if ((long long)B * CHOL_CLUSTER > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        lane_cholesky_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        CHOL_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    lane_cholesky_cluster_kernel<<<B * CHOL_CLUSTER, CHOL_MAX_THREADS,
+                                   (size_t)chol_cluster_bytes(n), st>>>(H, g, out, scratch, n);
   } else {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    lane_cholesky_kernel<true><<<B, threads, 0, st>>>(H, g, out, scratch, n);
+    lane_cholesky_kernel<true><<<B, CHOL_MAX_THREADS, 0, st>>>(H, g, out, scratch, n);
   }
   return (int)cudaGetLastError();
 }

@@ -148,9 +148,10 @@ _KERNELS = {
     'lane_ops.cu': ('libsdsm_lane.so', 'sdsm_lane',
                     {'matvec': (3, 4), 'strided_sum': (2, 6), 'dot': (3, 2),
                      'softplus_energies': (6, 4), 'softplus': (2, 1),
-                     'pcg': (3, 3, 2), 'cholesky': (4, 2)},
+                     'pcg': (3, 3, 2), 'cholesky': (4, 2), 'chol_route': (0, 2),
+                     'chol_scratch_floats': (0, 2)},
                     dict(warp=32, small_n=8, row_threads=256,
-                         chol_shared_max_n=335)),
+                         chol_one_block_max_n=32, chol_cluster_max_n=807)),
 }
 _F32_SRC, _BF16_SRC, LANE_SRC = _KERNELS
 LANE_CONSTANTS = _KERNELS[LANE_SRC][3]

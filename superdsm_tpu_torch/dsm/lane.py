@@ -67,10 +67,17 @@ LAUNCH_HOOKS = []
 #: against the library when it loads).
 ROW_THREADS = gram.LANE_CONSTANTS['row_threads']
 
-#: Largest n whose lanes :func:`cholesky_kernel` factors in shared memory;
-#: above it their work space is a global scratch (``csrc/lane_ops.cu``,
-#: ``CHOL_SHARED_MAX_N``; checked against the library when it loads).
-CHOL_SHARED_MAX_N = gram.LANE_CONSTANTS['chol_shared_max_n']
+#: :func:`cholesky_kernel`'s routes by number (:func:`cholesky_route`): one
+#: block a lane up to ``CHOL_ONE_BLOCK_MAX_N`` (and up to n = 128 when a
+#: batch has more lanes than the card holds 8-block clusters at once); a
+#: cluster of eight blocks a lane, in panels of eight columns, up to
+#: ``CHOL_CLUSTER_MAX_N``; one block a lane with its work space in a global
+#: scratch above (``csrc/lane_ops.cu``; the bounds checked against the
+#: library when it loads).
+CHOL_ROUTES = ('one block a lane, shared memory', 'cluster of 8, panels of 8 columns',
+               'one block a lane, global scratch')
+CHOL_ONE_BLOCK_MAX_N = gram.LANE_CONSTANTS['chol_one_block_max_n']
+CHOL_CLUSTER_MAX_N = gram.LANE_CONSTANTS['chol_cluster_max_n']
 
 #: :func:`softplus_energies` modes of the C entry point.
 _LINE_SEARCH, _SCALE_SWEEP, _SINGLE = 0, 1, 2
@@ -435,13 +442,19 @@ def pcg_kernel(H, b, iters, rtol):
     return x
 
 
+def cholesky_route(B, n):
+    """The number of :func:`cholesky_kernel`'s route at (B, n) on the card
+    (:data:`CHOL_ROUTES`), as the library picks it."""
+    return gram._load(gram.LANE_SRC).sdsm_lane_chol_route(B, n, None)
+
+
 def cholesky_kernel(Hd, g):
     """The CUDA kernel of the Newton direction ``-Hd^-1 g`` (``Hd`` (B, n, n)
     float32 SPD, its lower triangle read; ``g`` (B, n)) on the current
-    stream: one launch, one block a lane, bitwise :func:`cholesky_chain` on
-    the card, NaN in every entry of a lane whose factorization fails; no
-    host sync. Above :data:`CHOL_SHARED_MAX_N` the lanes' work space is a
-    scratch allocated here."""
+    stream: one launch, bitwise :func:`cholesky_chain` on the card, NaN in
+    every entry of a lane whose factorization fails; no host sync. Off the
+    shared one-block route it takes a scratch allocated here, of the size
+    the library asks for."""
     _check_cuda('cholesky_kernel', Hd, g)
     Hd = Hd.contiguous()
     g = g.contiguous()
@@ -451,12 +464,11 @@ def cholesky_kernel(Hd, g):
     gram._check('Hd', Hd, torch.float32, (B, n, n), g.device)
     _int32('cholesky_kernel', B, n)
     out = torch.empty((B, n), dtype=torch.float32, device=g.device)
-    scratch = None
-    if n > CHOL_SHARED_MAX_N:
-        scratch = torch.empty((B, n * (n + 1) // 2 + 5 * n), dtype=torch.float32,
-                              device=g.device)
     lib = gram._load(gram.LANE_SRC)
     with torch.cuda.device(g.device):
+        floats = lib.sdsm_lane_chol_scratch_floats(B, n, None)
+        scratch = None if floats == 0 else torch.empty(
+            (B, floats), dtype=torch.float32, device=g.device)
         _launch('lane_cholesky', (B, n), lib.sdsm_lane_cholesky, Hd.data_ptr(),
                 g.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), B, n)

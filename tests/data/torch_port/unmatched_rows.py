@@ -77,6 +77,8 @@ RESOLVED = {
     (1759.9, 1697.2): ((864, 864), (896, 833), 1129.2042, 624.2278, 63.1280),
     (602.8, 1798.7): ((864, 0), (603, 935), 777.7144, 387.0181, 26.1822),
     (1857.0, 1788.3): ((864, 864), (993, 922), 1383.3969, 873.5212, 46.4465),
+    (1470.9, 985.9): ((0, 864), (607, 986), 1453.1774, 268.2334, 43.1089),
+    (1960.7, 1003.3): ((0, 864), (1097, 1003), 1682.3036, 1190.1127, 77.1142),
 }
 
 

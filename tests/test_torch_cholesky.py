@@ -8,9 +8,9 @@ CPU the solver keeps LAPACK, and the chain is the kernel's arithmetic under
 test. Here:
 
 - the chain against the JAX package's vmapped ``cho_factor`` /
-  ``cho_solve`` (JAX on the CPU, the same numpy inputs) at n = 6 to 256
-  and at n = 384, whose work space takes the kernel's global-scratch route
-  on the card: damped SPD systems built as ``tests/test_torch_pcg.py``
+  ``cho_solve`` (JAX on the CPU, the same numpy inputs) at n = 6 to 384
+  (the kernel's one-block route at n = 6 and 32, its cluster route above):
+  damped SPD systems built as ``tests/test_torch_pcg.py``
   builds them, rtol 1e-4, atol 1e-5, as
   ``tests/test_torch_solver.py::test_cg_matches_cholesky_and_jax_lane_freeze``
   (float32 in another order: the chain's right-looking one, LAPACK's
@@ -23,7 +23,11 @@ test. Here:
   (kept in this file), so every CPU result of the solver stays as it was;
 - a lane alone gives its bits in a batch, and the upper triangle is never
   read;
-- ``lane.cholesky_kernel`` refuses CPU tensors: no fallback.
+- ``lane.cholesky_kernel`` refuses CPU tensors: no fallback;
+- the cluster route's schedule (panels of columns dealt cyclically over
+  blocks, the trailing update panel by panel, the back substitution panel
+  by panel), written in plain torch here, gives the chain's bits, failing
+  lanes NaN in every entry.
 """
 
 import jax
@@ -96,12 +100,14 @@ def _with_failing_lanes(n):
 @pytest.mark.parametrize('n', [6, 32, 64, 128, 256, 384])
 def test_chain_matches_the_jax_package(n):
     """The chain's direction against the JAX package's ``cho_factor`` /
-    ``cho_solve`` on the same systems, rtol 1e-4, atol 1e-5; n = 384 is the
-    kernel's global-scratch route on the card."""
+    ``cho_solve`` on the same systems, rtol 1e-4, atol 1e-5; n = 6 and 32
+    are the kernel's one-block route on the card, n = 64 to 384 its cluster
+    route."""
     H, b = _systems(n)
     out = lane.cholesky_chain(torch.from_numpy(H), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(out, _jax_direction(H, b), rtol=RTOL, atol=ATOL)
-    assert (n > lane.CHOL_SHARED_MAX_N) == (n == 384)
+    assert (n > lane.CHOL_ONE_BLOCK_MAX_N) == (n >= 64)
+    assert n <= lane.CHOL_CLUSTER_MAX_N
 
 
 @pytest.mark.parametrize('n', [6, 64, 256])
@@ -199,3 +205,77 @@ def test_cholesky_kernel_refuses_cpu_tensors():
     H, b = (torch.from_numpy(a) for a in _systems(32))
     with pytest.raises(ValueError, match='CUDA'):
         lane.cholesky_kernel(H, b)
+
+
+def _blocked_direction(Hd, g, pw, blocks):
+    """``-Hd^-1 g`` in the schedule of the kernel's cluster route, written
+    with plain torch and :func:`lane._fused_update` rounding: b is row n of
+    the augmented lower triangle; panels of ``pw`` columns are dealt
+    cyclically over ``blocks`` blocks; the owner factors panel p (its
+    diagonal block and the rows below it, column by column), then each
+    block applies the panel's updates, j in order, to its own later
+    panels; the back substitution goes panel by panel from the last, each
+    solved within itself and applied, j descending, to the columns before
+    it. Entries above the diagonal are updated too (with values never read),
+    as the kernel's panel rows are."""
+    B, n = g.shape
+    a = torch.zeros((B, n + 1, n), dtype=torch.float32)
+    a[:, :n] = torch.tril(Hd)
+    a[:, n] = g
+    d = torch.empty_like(g)
+    fail = torch.zeros(B, dtype=torch.bool)
+    panels = -(-n // pw)
+    for p in range(panels):
+        c0, c1 = p * pw, min(n, (p + 1) * pw)
+        for j in range(c0, c1):
+            piv = a[:, j, j].clone()
+            fail |= ~(piv > 0)
+            d[:, j] = torch.sqrt(piv)
+            a[:, j + 1:, j] = a[:, j + 1:, j] / d[:, j, None]
+            for m in range(j + 1, c1):
+                a[:, m:, m] = lane._fused_update(a[:, m:, m], a[:, m:, j], a[:, m, j, None])
+        for blk in range(blocks):
+            cols = [k for k in range(c1, n) if (k // pw) % blocks == blk]
+            for j in range(c0, c1):
+                a[:, c1:, cols] = lane._fused_update(a[:, c1:, cols], a[:, c1:, j, None],
+                                                     a[:, cols, j][:, None, :])
+    y = a[:, n].clone()
+    for s in range(panels - 1, -1, -1):
+        c0, c1 = s * pw, min(n, (s + 1) * pw)
+        for j in range(c1 - 1, c0 - 1, -1):
+            y[:, j] = y[:, j] / d[:, j]
+            y[:, c0:j] = lane._fused_update(y[:, c0:j], a[:, j, c0:j], y[:, j, None])
+        for j in range(c1 - 1, c0 - 1, -1):
+            y[:, :c0] = lane._fused_update(y[:, :c0], a[:, j, :c0], y[:, j, None])
+    return torch.where(fail[:, None], torch.full((), float('nan')), -y)
+
+
+_BLOCKED_SYSTEMS = {}
+
+
+def _blocked_systems(n):
+    """Three healthy lanes and lanes that fail at the first pivot, at a
+    pivot inside a panel and at the last pivot (made once per n)."""
+    if n not in _BLOCKED_SYSTEMS:
+        H, b = _systems(n, damping=(0.2, 1.0, 5.0, 1.0, 1.0, 1.0))
+        H[3, 0, 0] = -1.0
+        k = min(n // 2 + 3, n - 2)  # inside a panel of 8 or 16
+        H[4, k, k] = -(n + 1.0)
+        H[5, n - 1, n - 1] = -(n + 1.0)
+        _BLOCKED_SYSTEMS[n] = torch.from_numpy(H), torch.from_numpy(b)
+    return _BLOCKED_SYSTEMS[n]
+
+
+@pytest.mark.parametrize('blocks', [1, 8, 16])
+@pytest.mark.parametrize('pw', [1, 8, 16])
+@pytest.mark.parametrize('n', [6, 37, 128, 256, 300])
+def test_blocked_schedule_keeps_every_bit(n, pw, blocks):
+    """The cluster route's schedule (panels of ``pw`` columns over
+    ``blocks`` blocks, the trailing update panel by panel, the back
+    substitution panel by panel) gives :func:`lane.cholesky_chain`'s bits,
+    failing lanes NaN in every entry."""
+    H, b = _blocked_systems(n)
+    chain = lane.cholesky_chain(H, b)
+    assert _same_bits(_blocked_direction(H, b, pw, blocks), chain)
+    nan = torch.isnan(chain).all(dim=1).tolist()
+    assert nan == [False] * 3 + [True] * 3

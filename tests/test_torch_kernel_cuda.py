@@ -45,8 +45,9 @@ the whole of PCG in one launch, is held bitwise to the chain it replaces
 captured graph's replay to the eager launch, and its frozen and NaN lanes
 to the chain's. ``lane_cholesky``, the Newton direction by Cholesky in one
 launch, is held bitwise to its order written op by op
-(``lane.cholesky_chain`` on the card) in shared memory and in its global
-scratch, a lane alone to the lane in the batch, a captured graph's replay
+(``lane.cholesky_chain`` on the card) on each of its routes (one block a
+lane in shared memory, a cluster a lane, one block a lane in a global
+scratch), a lane alone to the lane in the batch, a captured graph's replay
 to the eager launch, and its NaN lanes to the chain's. A lane alone is
 held bitwise to the lane in its batch for the bf16 kernel (whose plan no
 longer reads B) and for the sharded solvers on a mesh of the card twice.
@@ -868,15 +869,20 @@ def _chol_systems(B, n, dev, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,n', [(64, 6), (64, 32), (8, 64), (16, 128), (4, 256), (1, 300),
-                                 (3, 335), (2, 336), (2, 384)])
+@pytest.mark.parametrize('B,n', [(64, 6), (64, 32), (32, 33), (8, 64), (64, 128), (16, 128),
+                                 (4, 256), (1, 256), (40, 256), (1, 300), (3, 335), (2, 336),
+                                 (2, 384), (1, 807), (20, 807), (2, 808)])
 def test_lane_cholesky_equals_the_chain(B, n):
     """``lane_cholesky`` (one launch) bitwise equal to its order written op
-    by op on the card (``lane.cholesky_chain``), in shared memory up to
-    ``CHOL_SHARED_MAX_N`` and in the global scratch above; a lane alone
-    bitwise equal to the same lane in the batch; ``_cholesky_direction``
-    launches it once and no library call."""
+    by op on the card (``lane.cholesky_chain``) on each route: one block a
+    lane up to ``CHOL_ONE_BLOCK_MAX_N`` (and at n = 33 and 128 with more
+    lanes than the card holds clusters at once), a cluster a lane up to
+    ``CHOL_CLUSTER_MAX_N`` (807: its largest n, at B = 1 and at 20 lanes,
+    more clusters than the card holds at once), the global scratch above;
+    a lane alone bitwise equal to the same lane in the batch;
+    ``_cholesky_direction`` launches it once and no library call."""
     from superdsm_tpu_torch.dsm import lane, solver
+    assert lane.CHOL_CLUSTER_MAX_N == 807
     dev = _cuda()
     H, g = _chol_systems(B, n, dev)
     lane.reset_launch_counts()
@@ -894,11 +900,12 @@ def test_lane_cholesky_equals_the_chain(B, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [128, 384])
+@pytest.mark.parametrize('n', [32, 128, 384, 807, 808])
 def test_lane_cholesky_graph_replay_equals_eager(n):
     """``lane_cholesky`` captured in a CUDA graph and replayed (on new inputs
-    copied into the captured ones) bitwise equal to the eager launch, in
-    shared memory and in the global scratch."""
+    copied into the captured ones) bitwise equal to the eager launch, on
+    the one-block route, the cluster route (to its largest n) and the
+    global scratch."""
     from superdsm_tpu_torch.dsm import lane
     dev = _cuda()
     H, g = _chol_systems(4, n, dev)
@@ -920,15 +927,18 @@ def test_lane_cholesky_graph_replay_equals_eager(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [6, 128, 384])
+@pytest.mark.parametrize('n', [6, 128, 384, 807, 808])
 def test_lane_cholesky_nan_lanes(n):
     """NaN lanes exactly where the chain has them, bitwise (a NaN against
     any NaN): a lane that is not positive definite, a zero lane, a NaN in
-    the lower triangle, an infinite pivot; a NaN in the upper triangle is
-    never read, a NaN in g stays in the entries it reaches."""
+    the lower triangle, an infinite pivot, a pivot that fails inside a
+    panel of the cluster route; a NaN in the upper triangle is never read,
+    a NaN in g stays in the entries it reaches."""
     from superdsm_tpu_torch.dsm import lane
     dev = _cuda()
-    H, g = _chol_systems(7, n, dev)
+    H, g = _chol_systems(8, n, dev)
+    k = min(n // 2 + 3, n - 2)  # inside a panel of 8 columns
+    H[7, k, k] = -(n + 1.0)
     H[0] -= 20.0 * torch.eye(n, device=dev)
     H[1] = 0.0
     H[2, n - 1, n // 2] = float('nan')
@@ -941,6 +951,7 @@ def test_lane_cholesky_nan_lanes(n):
     assert _same_bits(out, chain)
     assert bool(torch.isnan(out[:3]).all()) and bool(torch.isfinite(out[3]).all())
     assert bool(torch.isfinite(out[6]).all()) and bool(torch.isnan(out[5]).any())
+    assert bool(torch.isnan(out[7]).all())
     _, info = torch.linalg.cholesky_ex(H[:2])
     assert bool((info != 0).all())
 
@@ -959,7 +970,7 @@ def test_lane_cholesky_refuses_bad_arguments():
     lib = gram._load(gram.LANE_SRC)
     out = torch.empty_like(g)
     stream = torch.cuda.current_stream().cuda_stream
-    # the global route needs its scratch
+    # the cluster route needs its scratch
     H5, g5 = _chol_systems(1, 400, dev)
     out5 = torch.empty_like(g5)
     assert lib.sdsm_lane_cholesky(H5.data_ptr(), g5.data_ptr(), out5.data_ptr(), None,

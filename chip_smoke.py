@@ -56,7 +56,8 @@ result lines):
    bitwise equal to the chain it replaces on the card (``lane.pcg_chain``,
    its early exit and its run of all steps), a lane alone bitwise equal to
    the same lane in the batch, a captured graph's replay bitwise equal to
-   the eager launch; the steps each lane ran, the kernel's and the chain's
+   the eager launch; its route (H in the cluster's registers at n <= 512,
+   in shared memory and L2 above), the steps each lane ran, the kernel's and the chain's
    device ms (the chain's steps captured in one graph) and the bound; then
    ``lane_cholesky``, the Newton direction by Cholesky in one launch, at
    the (B, n) of :data:`CHOL_SHAPES` on Newton systems built from phase
@@ -221,6 +222,26 @@ fails the run, after the timings).
 result that differs between the two checkouts instead of failing on it (for
 a change that alters a lane's bits on purpose); a checkout whose results
 differ from its own other turn still fails the run.
+
+``python3 chip_smoke.py --split`` measures where the time of ``lane_pcg``
+and ``softplus_energies`` goes instead: it builds ``lane_ops.cu`` a second
+time with ``-DSDSM_SPLIT`` (a library of its own, never loaded on the main
+path), whose kernels stamp ``clock64()`` at each phase boundary in thread
+0 of every block, launches each at the shapes of :data:`SPLIT_PCG` and
+:data:`SPLIT_SOFTPLUS` (every ``lane_pcg`` route, and PR 13's kernel at
+n <= 512 beside the route that replaced it), checks that the stamped
+build gives the main build's bits, and prints per shape the mean cycles
+and microseconds of each phase (a PCG step's; a softplus launch's), the
+SM clock the stamps imply, the SMs its blocks ran on, the launch's span
+and its blocks' start spread on ``%globaltimer``, the stamped and the
+main build's device ms (and a launch's of 20 back to back in one graph),
+and the kernel's registers, spilled bytes, shared memory and the clusters
+``cudaOccupancyMaxActiveClusters`` reports active at once for its launch;
+then, from ``cuobjdump -sass`` of that library, each stamped kernel's
+local-memory instructions and the instructions of one softplus term (a
+probe kernel's), with the issue bound they give at every phase-3 shape,
+and each softplus shape's time at 1, 2, 3, 4, 6 and 12 tiles beside its
+plan's; ``chiprun_out/split.json`` holds the same.
 
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
 gate enforced on every image (:data:`F64_NOT_MET` included): it fails
@@ -460,16 +481,19 @@ def _call_ms(fn, reps=10):
     return float(np.median(times))
 
 
-def _event_ms(fn, reps=10):
-    """Device ms per call of ``fn``: after a warm-up call, one call captured
-    in a CUDA graph and replayed ``reps`` times back to back between two
-    CUDA events; the median of 3 such runs."""
+def _event_ms(fn, reps=10, calls=1):
+    """Device ms per call of ``fn``: after a warm-up call, ``calls`` calls
+    captured back to back in a CUDA graph and the graph replayed ``reps``
+    times back to back between two CUDA events; the median of 3 such
+    runs. (``calls`` > 1 spreads the graph launch's own cost over them, as
+    inside the Newton loop's graph.)"""
     import torch
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     times = []
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
@@ -479,7 +503,7 @@ def _event_ms(fn, reps=10):
             graph.replay()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
+        times.append(start.elapsed_time(end) / (reps * calls))
     del graph
     return float(np.median(times))
 
@@ -660,7 +684,9 @@ def _active(B, n_active):
 #: chunk and a B = 1 re-solve. The lists of the other kernels end with the
 #: bench field's frequent shapes (phase 4's lane histogram): a triangle
 #: chunk's u = Bf delta and a poly chunk's surface, the step guard's dot
-#: products at n = 256 and the line search and scale sweep of (8, 12288).
+#: products at n = 256 and the line search and scale sweep of (8, 12288),
+#: (2, 16384), (16, 8192), (16, 6144) and (32, 16384), the softplus sums'
+#: most frequent shapes (556 of a bench image's 618 launches).
 LANE_SHAPES = {'lane_matvec': [(16, 32768, 512), (64, 8192, 6), (1, 16384, 512),
                                (64, 8192, 32), (2, 512, 512), (16, 512, 512),
                                (1, 512, 512), (2, 1024, 1024), (8, 12288, 256),
@@ -674,7 +700,15 @@ LANE_SHAPES = {'lane_matvec': [(16, 32768, 512), (64, 8192, 6), (1, 16384, 512),
                                      ('scale_sweep', 1, 16384),
                                      ('energy', 16, 32768), ('energy', 1, 16384),
                                      ('line_search', 8, 12288),
-                                     ('scale_sweep', 8, 12288)]}
+                                     ('scale_sweep', 8, 12288),
+                                     ('line_search', 2, 16384),
+                                     ('scale_sweep', 2, 16384),
+                                     ('line_search', 16, 8192),
+                                     ('scale_sweep', 16, 8192),
+                                     ('line_search', 16, 6144),
+                                     ('scale_sweep', 16, 6144),
+                                     ('line_search', 32, 16384),
+                                     ('scale_sweep', 32, 16384)]}
 #: Lane-sum shapes whose terms are positive, as the solver's softplus terms
 #: are (the others are normal: sums that cancel).
 LANE_SUM_POSITIVE = {(3, 12, 5000)}
@@ -969,12 +1003,14 @@ def _check_pcg(shape):
     bytes_ms = 4.0 * (B * n * n + 2 * B * n) / PEAK_BYTES * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
-    say(f'[kernel] {tag}: kernel {ms:.4f} ms, chain {chain_ms:.4f} ms '
+    route = 'registers' if n <= lane.PCG_REG_MAX_N else 'shared memory and L2'
+    say(f'[kernel] {tag}: kernel {ms:.4f} ms (H in {route}), chain {chain_ms:.4f} ms '
         f'({chain_ms / ms:.1f}x), library none, bound {bound_ms:.4f} ms by '
         f'{bound_by}: {bound_ms / ms:.1%} of the bound')
     return dict(max_abs_err=err, ms=ms, plain_ms=chain_ms, chain_ms=chain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
-                library_ms=None, shape=list(shape), steps=max(steps), lane_steps=steps)
+                library_ms=None, shape=list(shape), steps=max(steps), lane_steps=steps,
+                pcg_route=route)
 
 
 _CHOL_SYSTEMS = {}
@@ -1876,8 +1912,8 @@ def phase_profile(g):
     for name in LANE_KERNELS:
         say(f'[profile] {name}: {sum(c for (k, _), c in lane_hist.items() if k == name)} '
             f'launches in {len([1 for k, _ in lane_hist if k == name])} shapes')
-    for name in ('lane_pcg', 'lane_cholesky'):
-        say(f'[profile] {name} launches by (B, n): ' + str(
+    for name in ('lane_pcg', 'lane_cholesky', 'softplus_energies'):
+        say(f'[profile] {name} launches by shape: ' + str(
             {shape: c for (k, shape), c in lane_hist.most_common() if k == name}))
     solver_in_replays = [(f, t, c) for f, t, c in profile0['replay_families']
                          if f == 'cuSOLVER/MAGMA']
@@ -2947,8 +2983,9 @@ def _ab_kernel_ms(root, shape, launches):
 
 def _ab_lane_ms():
     """Device ms of ``lane_matvec`` and ``lane_sum`` (the solver's (B, K,
-    S) layout summed over K, as each checkout's wrapper reads it) at their
-    phase-3 shapes, the lane kernels both checkouts have, of
+    S) layout summed over K, as each checkout's wrapper reads it) and
+    ``softplus_energies`` at their phase-3 shapes, the lane kernels both
+    checkouts have, of
     ``solver._pcg_solve`` run to ``CG_MAX_ITERS`` at :data:`PCG_SHAPES` and
     of ``solver._cholesky_direction`` on the whole batch at
     :data:`CHOL_SHAPES` (one ``lane_cholesky`` launch; in a checkout whose
@@ -2969,6 +3006,10 @@ def _ab_lane_ms():
                          .astype(np.float32), device='cuda')
         xt = x.transpose(1, 2).contiguous() if len(shape) == 3 else x
         out[f'lane_sum {shape}'] = _event_ms(lambda: lane.lane_sum_kernel(xt, 1))
+    for shape in LANE_SHAPES['softplus_energies']:
+        s, y, w, c, u = _softplus_case(*shape)
+        out[f'softplus_energies {shape}'] = _event_ms(
+            lambda: lane.softplus_energies_kernel(s, y, w, c, u))
     # PCG as each checkout's solver runs it in the graph (a chain of lane
     # kernels, or one lane_pcg launch)
     for B, n in PCG_SHAPES:
@@ -3212,6 +3253,322 @@ def _ab_turn_lines(root, out):
         f'eager loop {out["eager_iterations"]} iterations')
 
 
+# ---------------------------------------------------------------------------
+# --split: where a kernel's time goes, from clock64() stamps
+# ---------------------------------------------------------------------------
+
+#: ``lane_pcg``'s (B, n) under ``--split``: the bench field's chunks and the
+#: mosaic's n = 1024 bucket.
+SPLIT_PCG = [(2, 512), (8, 1024)]
+#: ``softplus_energies``' (mode, B, P) under ``--split``: the bench field's
+#: most frequent line searches and scale sweep.
+SPLIT_SOFTPLUS = [('line_search', 8, 12288), ('scale_sweep', 8, 12288),
+                  ('line_search', 2, 16384), ('line_search', 16, 8192),
+                  ('line_search', 32, 16384)]
+#: The k tiles ``--split`` times each softplus shape at, beside its plan's.
+SPLIT_TILES = (1, 2, 3, 4, 6, 12)
+#: The phases each kernel stamps (``csrc/lane_ops.cu``, ``split.mark``), in
+#: stamp order. A PCG step's phases are summed over its steps (the matvec
+#: and the H p exchange also over the first product, r = b - H x); the
+#: setup (H's rows loaded, the first product's dots) is counted once.
+PCG_PHASES = ('setup (once)', 'matvec', 'H p exchange', 'p.Hp slot',
+              'block barrier 1', 'tree 1 and a', 'x, r update and slots',
+              'block barrier 2', 'trees 2, beta, p update', 'block barrier 3')
+#: The register route's: its matvec ends with the rows' tree and the push,
+#: its exchange is the wait on its mbarrier, it has no third barrier, and
+#: its setup's loads of H into registers are stamped apart.
+PCG_REG_PHASES = PCG_PHASES[:9] + ('H into registers (once)',)
+SOFTPLUS_PHASES = ('build group 0', 'block barrier', 'build next group',
+                   'slot adds', 'group barrier', 'slots pushed, owner waits',
+                   'trees')
+#: PR 13's softplus kernel's phases (``--split`` times it beside the
+#: kernel that replaced it).
+SOFTPLUS_PR13_PHASES = ('build group 0', 'block barrier', 'build next group',
+                        'slot adds', 'group barrier', 'cluster barrier 1',
+                        'trees', 'cluster barrier 2')
+#: The split library's entry points beyond the main library's (see
+#: ``gram._KERNELS``): PR 13's ``lane_pcg`` and ``softplus_energies``
+#: kernels (the routes this checkout replaced) and what the card reports
+#: for a launch.
+SPLIT_ENTRIES = {'split_reset': (0, 0), 'split_read': (1, 0),
+                 'split_pcg_info': (1, 3), 'split_pcg_smem': (3, 3, 2),
+                 'split_softplus_info': (1, 4), 'split_softplus_pr13': (6, 4),
+                 'split_softplus_tiles': (0, 1)}
+
+
+def _split_library():
+    """``lane_ops.cu`` built with ``-DSDSM_SPLIT`` into
+    ``libsdsm_lane_split.so`` beside the main library; returns the loaded
+    library and ptxas' lines on the stamped kernels."""
+    import ctypes
+    from superdsm_tpu_torch.dsm import gram
+    from superdsm_tpu_torch.native import BUILD_DIR
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, 'libsdsm_lane_split.so')
+    t0 = time.time()
+    proc = subprocess.run(gram.nvcc_command(gram.LANE_SRC, path, '-DSDSM_SPLIT'),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f'--split: nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}')
+    say(f'[split] nvcc -DSDSM_SPLIT build of {gram.LANE_SRC}: {time.time() - t0:.2f} s')
+    lib = ctypes.CDLL(path)
+    _, prefix, entries, _ = gram._KERNELS[gram.LANE_SRC]
+    gram.bind(lib, prefix, {**entries, **SPLIT_ENTRIES})
+    log, keep = [], False
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if 'Compiling entry function' in line:
+            keep = 'lane_pcg' in line or 'lane_softplus' in line
+        if keep:
+            log.append(line.strip())
+    return lib, log
+
+
+#: SASS opcodes that are not a softplus term's own work: memory, constant
+#: and special-register reads, control (the probe's loads, store and exit).
+SASS_NOT_TERM = ('LDG', 'STG', 'LDC', 'ULDC', 'S2R', 'S2UR', 'CS2R', 'EXIT', 'BRA',
+                 'NOP', 'RET')
+
+
+def _sass(path):
+    """``cuobjdump -sass`` of a library: each function's instructions (the
+    opcode with its modifiers, predicates dropped)."""
+    import re
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    proc = subprocess.run([tool, '-sass', path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f'--split: cuobjdump failed ({proc.returncode}): {proc.stderr[-2000:]}')
+    funcs, cur = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.match(r'\s*Function : (\S+)', line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r'\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)', line)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    return funcs
+
+
+def _sass_report(path):
+    """Prints and returns, from the split library's SASS: the instructions
+    of one softplus term in each mode (the probe kernel's, without
+    :data:`SASS_NOT_TERM`) and the local-memory instructions (LDL, STL)
+    of the stamped kernels."""
+    funcs = _sass(path)
+    report = {}
+    for name, ops in funcs.items():
+        local = sum(op.split('.')[0] in ('LDL', 'STL') for op in ops)
+        if 'softplus_term_probe' in name:
+            mode = {'ILi0E': 'line_search', 'ILi1E': 'scale_sweep', 'ILi2E': 'energy'}[
+                next(k for k in ('ILi0E', 'ILi1E', 'ILi2E') if k in name)]
+            term = [op for op in ops if op.split('.')[0] not in SASS_NOT_TERM]
+            mufu = sum(op.startswith('MUFU') for op in term)
+            report[f'term {mode}'] = dict(instructions=len(term), all=len(ops), mufu=mufu)
+            say(f'[split] sass: a {mode} term: {len(term)} instructions ({mufu} MUFU; '
+                f'the probe {len(ops)} with its loads, store and exit)')
+        elif any(k in name for k in ('lane_pcg', 'lane_softplus')):
+            kernel = next(k for k in ('lane_pcg_reg_kernel', 'lane_pcg_kernel',
+                                      'lane_softplus_pixel_kernel', 'lane_softplus_kernel')
+                          if k in name)
+            mode = next((m for k, m in (('ILi0E', 0), ('ILi1E', 1), ('ILi2E', 2)) if k in name), '')
+            report[f'{kernel}{mode}'] = dict(instructions=len(ops), local=local)
+            say(f'[split] sass: {kernel}{f"<{mode}>" if mode != "" else ""}: {len(ops)} '
+                f'instructions, {local} local-memory (LDL/STL)')
+    return report
+
+
+def _split_blocks(lib, blocks):
+    """The stamps of ``blocks`` blocks after a launch: (blocks, words)
+    uint64."""
+    import torch
+    words = lib.sdsm_lane_split_words()
+    host = np.zeros((lib.sdsm_lane_split_blocks(), words), np.uint64)
+    err = lib.sdsm_lane_split_read(host.ctypes.data, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f'--split: reading the stamps failed: CUDA error {err}')
+    return host[:blocks]
+
+
+def _split_report(tag, lib, launch, blocks, phases, per_step, main, info, once=(0,)):
+    """Launches ``launch`` (the stamped build) 5 times after a warm-up, and
+    returns and prints the mean cycles and microseconds of each phase
+    (``per_step``: a step's, over each block's steps, but a launch's for
+    the phases in ``once``; else a launch's), the
+    SM clock, the launch's span and block-start spread, the stamped and the
+    main build's device ms (``main``, where given: the route the main
+    build launches) and the kernel ``info``."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    launch()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        lib.sdsm_lane_split_reset(stream)
+        launch()
+        runs.append(_split_blocks(lib, blocks).astype(np.float64))
+    w = np.stack(runs)  # (runs, blocks, words)
+    P = lib.sdsm_lane_split_phases()
+    steps = w[..., P]
+    ns0, ns1, c0, c1 = (w[..., P + k] for k in (1, 2, 3, 4))
+    mhz = float(np.mean((c1 - c0) / (ns1 - ns0)) * 1e3)
+    cycles = {}
+    for k, name in enumerate(phases):
+        v = w[..., k]
+        if per_step and k not in once:
+            v = v / np.maximum(steps + (1 if k in (1, 2) else 0), 1)
+        cycles[name] = float(v.mean())
+    # blocks an SM ran, in each run: the SMs used and the most on one SM
+    sm_use = [np.bincount(run.astype(np.int64)) for run in w[..., P + 5]]
+    sms_used = float(np.mean([np.count_nonzero(c) for c in sm_use]))
+    sm_max = int(max(c.max() for c in sm_use))
+    span_us = float(np.mean(ns1.max(1) - ns0.min(1)) / 1e3)
+    spread_us = float(np.mean(ns0.max(1) - ns0.min(1)) / 1e3)
+    ms = _event_ms(launch)
+    main_ms = None if main is None else _event_ms(main)
+    burst_ms = _event_ms(launch, reps=1, calls=20)
+    total = sum(c for k, c in enumerate(cycles.values()) if not per_step or k not in once)
+    unit = 'a step' if per_step else 'a launch'
+    say(f'[split] {tag}: {info["blocks"]} blocks of {info["threads"]} threads, '
+        f'{info["registers"]} registers, {info["spill_bytes"]} spilled bytes, '
+        f'{info["static_smem"]} + {info["dynamic_smem"]} shared bytes, '
+        f'{info["active_clusters"]} clusters active at once '
+        f'(cudaOccupancyMaxActiveClusters); steps {float(steps.mean()):.1f}; SM '
+        f'clock {mhz:.0f} MHz; {sms_used:.0f} SMs ran its blocks, at most {sm_max} '
+        f'on one; span {span_us:.2f} us, block starts spread '
+        f'{spread_us:.2f} us; stamped {ms:.4f} ms ({burst_ms:.4f} ms a launch '
+        f'of 20 back to back)'
+        f'{"" if main_ms is None else f", main build {main_ms:.4f} ms"}')
+    say(f'[split] {tag}: cycles (us) {unit}: ' + ', '.join(
+        f'{name} {c:.0f} ({c / mhz:.3f})' for name, c in cycles.items()) +
+        f'; {"a step" if per_step else "all"} {total:.0f} ({total / mhz:.3f})')
+    return dict(cycles=cycles, mhz=mhz, steps=float(steps.mean()), span_us=span_us,
+                spread_us=spread_us, sms_used=sms_used, sm_max=sm_max, stamped_ms=ms,
+                burst_ms=burst_ms, main_ms=main_ms, info=info)
+
+
+def _split_info(fn, *args):
+    import ctypes
+    out = (ctypes.c_int * 7)()
+    err = fn(out, *args, None)
+    if err:
+        fail(f'--split: kernel info failed: CUDA error {err}')
+    keys = ('registers', 'spill_bytes', 'static_smem', 'dynamic_smem',
+            'active_clusters', 'threads', 'blocks')
+    return dict(zip(keys, list(out)))
+
+
+def split():
+    """``--split``: the phase split of ``lane_pcg`` and
+    ``softplus_energies`` from the stamped build (see the module's
+    docstring)."""
+    card = phase_environment()
+    import torch
+    import superdsm_tpu_torch as T
+    from superdsm_tpu_torch.dsm import gram, lane, solver
+    T.set_device('cuda')
+    gram.build()
+    lib, log = _split_library()
+    for line in log:
+        say(f'[split] ptxas: {line}')
+    from superdsm_tpu_torch.native import BUILD_DIR
+    sass = _sass_report(os.path.join(BUILD_DIR, 'libsdsm_lane_split.so'))
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    result = {}
+    iters, rtol = solver.CG_MAX_ITERS, solver.CG_RTOL
+    stop2, eps = (float(np.float32(v)) for v in (rtol * rtol, 1e-30))
+    for B, n in SPLIT_PCG:
+        Hd, g = (t[:B].contiguous() for t in _pcg_systems(n))
+        main = lambda: lane.pcg_kernel(Hd, g, iters, rtol)
+        ref = main()
+        kernels = [('', lib.sdsm_lane_pcg, 0)]
+        if n <= lane.PCG_REG_MAX_N:
+            kernels.append((", PR 13's kernel", lib.sdsm_lane_split_pcg_smem, 1))
+        for label, entry, smem in kernels:
+            tag = f'lane_pcg {(B, n)}{label}'
+            x = torch.empty_like(g)
+
+            def launch():
+                err = entry(Hd.data_ptr(), g.data_ptr(), x.data_ptr(), B, n, iters,
+                            stop2, eps, stream())
+                if err:
+                    fail(f'--split: {tag} launch failed: CUDA error {err}')
+            launch()
+            if not torch.equal(_bits(x), _bits(ref)):
+                fail(f'--split: the stamped {tag} differs from the main build')
+            info = _split_info(lib.sdsm_lane_split_pcg_info, B, n, smem)
+            reg = not smem and n <= lane.PCG_REG_MAX_N
+            result[tag] = _split_report(tag, lib, launch, B * 8,
+                                        PCG_REG_PHASES if reg else PCG_PHASES, True,
+                                        None if smem else main, info,
+                                        once=(0, 9) if reg else (0,))
+    _PCG_SYSTEMS.clear()
+    modes = {'line_search': 0, 'scale_sweep': 1, 'energy': 2}
+    for mode, B, P in SPLIT_SOFTPLUS:
+        s, y, w, c, u = _softplus_case(mode, B, P)
+        S = 1 if c is None else c.numel()
+        main = lambda: lane.softplus_energies_kernel(s, y, w, c, u)
+        ref = main()
+        launches = {}
+        for label, entry, pr13, phases in (
+                ('', lib.sdsm_lane_softplus_energies, 0, SOFTPLUS_PHASES),
+                (", PR 13's kernel", lib.sdsm_lane_split_softplus_pr13, 1,
+                 SOFTPLUS_PR13_PHASES)):
+            tag = f'softplus_energies {(mode, B, P)}{label}'
+            out = torch.empty((B, S), device='cuda')
+
+            def launch(entry=entry, out=out, tag=tag):
+                err = entry(s.data_ptr(), 0 if u is None else u.data_ptr(), y.data_ptr(),
+                            w.data_ptr(), 0 if c is None else c.data_ptr(), out.data_ptr(),
+                            B, P, S, modes[mode], stream())
+                if err:
+                    fail(f'--split: {tag} launch failed: CUDA error {err}')
+            launch()
+            launches[pr13] = launch, out
+            if not torch.equal(_bits(out), _bits(ref)):
+                fail(f'--split: the stamped {tag} differs from the main build')
+            info = _split_info(lib.sdsm_lane_split_softplus_info, B, S, modes[mode], pr13)
+            result[tag] = _split_report(tag, lib, launch, info['blocks'], phases, False,
+                                        None if pr13 else main, info)
+        # the plan against other tile counts (k tiles of ceil(S / k) outputs)
+        tiles = {}
+        for k in SPLIT_TILES:
+            lib.sdsm_lane_split_softplus_tiles(k, None)
+            launch, out = launches[0]
+            launch()
+            if not torch.equal(_bits(out), _bits(ref)):
+                fail(f'--split: softplus_energies {(mode, B, P)} at {k} tiles differs')
+            tiles[k] = _event_ms(launch, reps=1, calls=20)
+        lib.sdsm_lane_split_softplus_tiles(0, None)
+        row = result[f'softplus_energies {(mode, B, P)}']
+        row['tiles_ms'] = tiles
+        say(f'[split] softplus_energies {(mode, B, P)}: ms a launch of 20 back to '
+            f'back (stamped) by k tiles: ' + ', '.join(f'{k} {v:.4f}' for k, v in tiles.items())
+            + f'; the plan takes {row["info"]["blocks"] // (8 * B)} ({row["burst_ms"]:.4f})')
+        # the issue bound: every term's instructions over the card's
+        # schedulers (4 an SM, a warp instruction a cycle each, 32 lanes) at
+        # the clock the stamps show
+        per_term = sass[f'term {mode}']['instructions']
+        mhz = result[f'softplus_energies {(mode, B, P)}']['mhz']
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        issue_ms = B * P * S * per_term / (sms * 4 * 32 * mhz * 1e6) * 1e3
+        result[f'softplus_energies {(mode, B, P)}']['issue_bound_ms'] = issue_ms
+        say(f'[split] softplus_energies {(mode, B, P)}: issue bound {issue_ms:.4f} ms '
+            f'({B * P * S} terms x {per_term} instructions over {sms} SMs x 4 '
+            f'schedulers x 32 lanes at {mhz:.0f} MHz)')
+    # the issue bound at every phase-3 shape, at the clock of the last run
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue = {}
+    for mode, B, P in LANE_SHAPES['softplus_energies']:
+        S = {'line_search': solver.LS_STEPS, 'scale_sweep': len(solver.SCALES)}.get(mode, 1)
+        issue[str((mode, B, P))] = (B * P * S * sass[f'term {mode}']['instructions']
+                                    / (sms * 4 * 32 * mhz * 1e6) * 1e3)
+    say(f'[split] softplus_energies issue bounds (ms) at {mhz:.0f} MHz: ' + ', '.join(
+        f'{k} {v:.4f}' for k, v in issue.items()))
+    _write_json(os.path.join(REPO, 'chiprun_out', 'split.json'),
+                dict(card=card, kernels=result, ptxas=log, sass=sass, issue_bound_ms=issue))
+    say(card)
+
+
 def _timed(number, fn, *args):
     """Runs phase ``number`` and prints its wall seconds."""
     t0 = time.time()
@@ -3289,6 +3646,8 @@ if __name__ == '__main__':
         ab(sys.argv[2:])
     elif sys.argv[1:2] == ['--ab'] and sys.argv[4:] == ['--report-differences']:
         ab(sys.argv[2:4], report=True)
+    elif sys.argv[1:] == ['--split']:
+        split()
     elif sys.argv[1:] == ['--strict']:
         STRICT = True
         main()

@@ -45,16 +45,19 @@
 // holds its 256 slots: the solver's plain sums are short (PCG's and the
 // step guard's dot products, the regularizer's (B, K, S) sums, traces).
 // The softplus sums are long ((B, P) over P at up to 32768 pixels) and
-// their terms cost some 60 instructions each: all of a block's threads
-// build the terms (lane_softplus_kernel), and a cluster of CLUSTER = 8
-// blocks holds the 256 slots of up to SLOTS_K outputs of one lane, block
-// rank q slots 32 q .. 32 q + 31, whose tree gathers them over the
-// cluster's distributed shared memory (the same order, so the same bits).
+// their terms cost some 58 instructions each (chip_smoke.py --split counts
+// them in the SASS): all of a block's threads build the terms, a thread
+// every output of a tile for one pixel (lane_softplus_pixel_kernel), and a
+// cluster of CLUSTER = 8 blocks holds the 256 slots of a tile of one lane,
+// block rank q slots 32 q .. 32 q + 31, each of which it pushes to the
+// block that runs the output's tree (the same order, so the same bits).
 //
 //   lane_pcg:     the whole Jacobi-preconditioned CG of solver._pcg_solve
 //     for every lane of a batch in one launch, bitwise the chain of
-//     lane_matvec, lane_dot and elementwise ATen ops that it replaces (see
-//     the comment above lane_pcg_kernel).
+//     lane_matvec, lane_dot and elementwise ATen ops that it replaces: with
+//     a lane's H in its cluster's registers at n <= 512
+//     (lane_pcg_reg_kernel), in shared memory and L2 above
+//     (lane_pcg_kernel; see the comments above each).
 //   lane_cholesky: the Newton direction -Hd^-1 g by Cholesky
 //     (solver._cholesky_direction) for every lane of a batch in one
 //     launch, in an order fixed by n alone: one block a lane at small n
@@ -85,6 +88,8 @@
 // Built without --use_fast_math: expf and log1pf must be the accurate ones
 // that ATen's logaddexp calls.
 
+#include <atomic>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -98,9 +103,6 @@ constexpr int ROW_THREADS = 256;     // slots of a lane sum
 constexpr int CLUSTER = 8;           // blocks of one softplus sum
 constexpr int SLOT_BLOCK = ROW_THREADS / CLUSTER;  // slots a block, 32
 constexpr int SLOTS_K = 16;          // outputs of a softplus sum's cluster
-constexpr int TERM_THREADS = 1024;   // threads of a softplus sum's block
-constexpr int TERMS_A_THREAD = 4;    // terms a thread builds per group
-constexpr int RESIDENT_BLOCKS = 2;   // softplus blocks an SM holds
 constexpr int SMALL_N = 8;          // one thread a row up to this n ...
 constexpr int ROW_N = 32;           // ... and, with a full tree, up to this
 constexpr int SMALL_THREADS = 256;  // rows a block at n <= ROW_N
@@ -119,6 +121,134 @@ constexpr int CHOL_MANY_LANES_MAX_N = 128;  // and up to this one at many lanes
 
 static_assert(SLOT_BLOCK == WARP, "a block's slots are one warp wide");
 static_assert(PCG_WARPS == CLUSTER, "slot_tree reads 8 warps of slots");
+
+// Phase stamps of a kernel (chip_smoke.py --split): built only with
+// -DSDSM_SPLIT, which no main-path build defines; without it every call
+// below is empty. Thread 0 of each block reads clock64() at each phase
+// boundary (the counter does not agree across a block's warps, so one
+// thread only) and adds the cycles since the last stamp to the phase's
+// sum, kept in shared memory (not in registers every thread would
+// reserve); at the end it writes, at block b's SPLIT_WORDS words of
+// g_split, the sums, the steps counted, %globaltimer and clock64() at the
+// start and the end, and the SM it ran on.
+constexpr int SPLIT_PHASES = 10;
+constexpr int SPLIT_WORDS = SPLIT_PHASES + 6;
+constexpr int SPLIT_BLOCKS = 1024;
+#ifdef SDSM_SPLIT
+__device__ unsigned long long g_split[SPLIT_BLOCKS * SPLIT_WORDS];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The block's words (one static allocation a kernel).
+__device__ __forceinline__ unsigned long long* split_words() {
+  __shared__ unsigned long long words[SPLIT_WORDS];
+  return words;
+}
+
+struct Split {
+  unsigned long long last;
+  __device__ __forceinline__ void start() {
+    if (threadIdx.x != 0) return;
+    unsigned long long* w = split_words();
+    for (int i = 0; i < SPLIT_WORDS; ++i) w[i] = 0;
+    w[SPLIT_PHASES + 1] = global_ns();
+    w[SPLIT_PHASES + 3] = last = clock64();
+  }
+  __device__ __forceinline__ void mark(int phase) {
+    if (threadIdx.x != 0) return;
+    const unsigned long long now = clock64();
+    split_words()[phase] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void step() {
+    if (threadIdx.x == 0) ++split_words()[SPLIT_PHASES];
+  }
+  __device__ __forceinline__ void finish() {
+    if (threadIdx.x != 0 || blockIdx.x >= SPLIT_BLOCKS) return;
+    unsigned long long* w = split_words();
+    w[SPLIT_PHASES + 4] = clock64();
+    w[SPLIT_PHASES + 2] = global_ns();
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    w[SPLIT_PHASES + 5] = smid;
+    for (int i = 0; i < SPLIT_WORDS; ++i)
+      g_split[(size_t)blockIdx.x * SPLIT_WORDS + i] = w[i];
+  }
+};
+#else
+struct Split {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void step() {}
+  __device__ __forceinline__ void finish() {}
+};
+#endif
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Named barrier `id` of `count` threads: arrive without waiting / wait.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The address of shared address `a` in cluster block `rank`.
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// v stored at cluster address a; completes 4 bytes on the mbarrier at
+// cluster address bar (both in the same block).
+__device__ __forceinline__ void st_async(unsigned a, float v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(a),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// The one arrival of the mbarrier's phase, expecting `bytes` more.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the mbarrier's phase of parity `parity` is complete.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
 // A warp per output row (n > ROW_N): lane l sums j = l, l + 32, ... with
 // fmaf, then the xor-shuffle tree. (Rows per warp and loads issued ahead
@@ -308,26 +438,6 @@ __device__ __forceinline__ float slot_tree(float (&v)[CLUSTER]) {
   return acc;
 }
 
-// The cluster's trees: after the chains each block holds part[tl * kb + kl]
-// (slot 32 q + tl of its output kl, q its rank); warp w of rank q runs the
-// tree of output w * CLUSTER + q over the ranks' shared memory.
-__device__ __forceinline__ void cluster_trees(cg::cluster_group& cluster,
-                                              const float* part, int kb,
-                                              int kn, float* out) {
-  cluster.sync();
-  const int kt = threadIdx.x / WARP * CLUSTER + (int)cluster.block_rank();
-  const int l = threadIdx.x % WARP;
-  if (kt < kn) {
-    float v[CLUSTER];
-#pragma unroll
-    for (int r = 0; r < CLUSTER; ++r)
-      v[r] = cluster.map_shared_rank(part, r)[l * kb + kt];
-    const float acc = slot_tree(v);
-    if (l == 0) out[kt] = acc;
-  }
-  cluster.sync();  // no block leaves while its slots are read
-}
-
 // A lane sum in one block per output (o, k): thread t runs slot t's chain,
 // and warp 0 runs the tree over the block's shared memory.
 template <class Term, int UNROLL>
@@ -348,8 +458,39 @@ lane_sum_block_kernel(Term term, float* __restrict__ out, int L, int S) {
   }
 }
 
-// A softplus lane sum: its terms cost some 60 instructions each, more than
-// a slot's chain can hide, so the block's threads build them for every
+#ifdef SDSM_SPLIT
+constexpr int TERM_THREADS = 1024;   // threads of a softplus sum's block
+constexpr int TERMS_A_THREAD = 4;    // terms a thread builds per group
+constexpr int RESIDENT_BLOCKS = 2;   // softplus blocks an SM holds
+
+// The cluster's trees: after the chains each block holds part[tl * kb + kl]
+// (slot 32 q + tl of its output kl, q its rank); warp w of rank q runs the
+// tree of output w * CLUSTER + q over the ranks' shared memory.
+__device__ __forceinline__ void cluster_trees(cg::cluster_group& cluster,
+                                              const float* part, int kb,
+                                              int kn, float* out, Split& split) {
+  cluster.sync();
+  split.mark(5);
+  const int kt = threadIdx.x / WARP * CLUSTER + (int)cluster.block_rank();
+  const int l = threadIdx.x % WARP;
+  if (kt < kn) {
+    float v[CLUSTER];
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r)
+      v[r] = cluster.map_shared_rank(part, r)[l * kb + kt];
+    const float acc = slot_tree(v);
+    if (l == 0) out[kt] = acc;
+  }
+  split.mark(6);
+  cluster.sync();  // no block leaves while its slots are read
+  split.mark(7);
+  split.finish();
+}
+
+// PR 13's softplus lane sum (the route lane_softplus_pixel_kernel
+// replaced), kept for chip_smoke.py --split's split before and after; no
+// main-path build compiles it. Its terms cost some 60 instructions each,
+// more than a slot's chain can hide, so the block's threads build them for every
 // slot and the slots only add. Per group of G chain steps each of the
 // block's R threads of a (slot, output) pair builds TERMS_A_THREAD terms
 // into shared memory (double-buffered: the next group's terms are built
@@ -363,6 +504,8 @@ lane_softplus_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int L,
                      int S, int kb, int k_tiles) {
   __shared__ float buf[2][TERM_THREADS * TERMS_A_THREAD];
   __shared__ float part[SLOT_BLOCK * SLOTS_K];
+  Split split;
+  split.start();
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const long long tile = blockIdx.x / CLUSTER;
@@ -391,18 +534,185 @@ lane_softplus_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int L,
       dst[(g0 + e * R) * pairs + pj] = v[e];
   };
   build(0, buf[0]);
+  split.mark(0);
   __syncthreads();
+  split.mark(1);
   float acc = 0.0f;
   for (int group = 0; group < groups; ++group) {
     if (group + 1 < groups) build(group + 1, buf[(group + 1) & 1]);
+    split.mark(2);
     if (j < pairs) {
       const float* b = buf[group & 1] + pj;
       for (int g = 0; g < G; ++g) acc = __fadd_rn(acc, b[g * pairs]);
     }
+    split.mark(3);
     __syncthreads();
+    split.mark(4);
+    split.step();
   }
   if (j < pairs && live) part[tl * kb + kl] = acc;
-  cluster_trees(cluster, part, kb, kn, out + o * S + k0);
+  cluster_trees(cluster, part, kb, kn, out + o * S + k0, split);
+}
+#endif  // SDSM_SPLIT
+
+// A softplus lane sum, redesigned for issue and occupancy
+// (lane_softplus_pixel_kernel): the same slots and order, another split
+// of who builds a term.
+//
+// A cluster of CLUSTER = 8 blocks for (lane o, tile of kb outputs), block
+// q the slots 32 q .. 32 q + 31, as above. Group g of a block's chain
+// steps is SP_GROUP = SP_THREADS / 32 steps: thread j builds the pixel i =
+// (g SP_GROUP + j / 32) 256 + 32 q + j % 32 (slot 32 q + j % 32, chain step
+// g SP_GROUP + j / 32) for all kb outputs of the tile, s, u, y and w
+// loaded once (a group ahead: their latency is hidden behind the terms of
+// the group before) and y s formed once a pixel in the scale sweep (the
+// plain version's t = y * s), into shared memory (double-buffered: group
+// g + 1 is built while the slots add group g). Warp kl < kb adds output
+// kl's 32 slots, each its group's terms in chain order. Then each slot
+// goes, with st.async, to the block that owns the output (kl % 8),
+// completing on that block's mbarrier, which expects 256 slots an output
+// it owns: the owner waits for its slots' bytes alone, and the tree runs
+// there, in one warp an output. The cluster barrier that makes the peers'
+// mbarriers safe to push to is arrived at before the build and waited for
+// after it, so no block waits for another's build at a barrier, and no
+// block keeps its shared memory for a peer's reads.
+//
+// The grid: O clusters a tile of SP_KB outputs (softplus_pixel_plan).
+constexpr int SP_THREADS = 512;  // threads of a block
+constexpr int SP_BLOCKS = 2;     // blocks an SM must hold (at most 64 registers)
+// Outputs a tile, and the fewest blocks a launch should have: the bench's
+// shapes measured no faster at other widths on an H100 (chip_smoke.py
+// --split times each launch at 1, 2, 3, 4, 6 and 12 tiles).
+constexpr int SP_KB = 4;
+constexpr int SP_MIN_BLOCKS = 96;
+constexpr int SP_GROUP = SP_THREADS / SLOT_BLOCK;  // chain steps a group
+constexpr int SP_WARPS = SP_THREADS / WARP;
+static_assert(SP_WARPS == SP_GROUP, "a warp builds one chain step of a group");
+static_assert(SP_WARPS >= SLOTS_K, "a warp adds one output's slots");
+
+// Dynamic shared memory of the kernel at tile width kb, in floats: the two
+// group buffers (SP_GROUP x kb x 32) and the slots of the outputs a block
+// owns (two at most, 256 each).
+__host__ __device__ constexpr int softplus_smem_floats(int kb) {
+  return 2 * SP_GROUP * kb * SLOT_BLOCK + 2 * ROW_THREADS;
+}
+
+// A pixel's operands, loaded a group ahead of its terms.
+struct SoftplusPixel {
+  float s, u, y, w;
+  bool in;  // a pixel of the chain (else its terms are 0)
+};
+
+template <int MODE>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(SP_THREADS, SP_BLOCKS)
+lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int L,
+                           int S, int kb, int k_tiles) {
+  extern __shared__ __align__(16) float sp_smem[];
+  __shared__ __align__(8) unsigned long long bar;
+  Split split;
+  split.start();
+  const int q = (int)cg::this_cluster().block_rank();
+  const long long tile = blockIdx.x / CLUSTER;
+  const long long o = tile / k_tiles;
+  const int k0 = (int)(tile % k_tiles) * kb;
+  const int kn = min(kb, S - k0);
+  const int j = threadIdx.x, w = j / WARP, l = j % WARP;
+  const int owned = (kn - q + CLUSTER - 1) / CLUSTER;  // outputs q, q + 8 of kn
+  const int chain = (L + ROW_THREADS - 1) / ROW_THREADS;
+  const int groups = (chain + SP_GROUP - 1) / SP_GROUP;
+  const long long base = o * L;
+  const int t = q * SLOT_BLOCK + l;  // this thread's slot in the build
+  auto load = [&](int group) {
+    const int c = group * SP_GROUP + w;
+    const int i = c * ROW_THREADS + t;
+    SoftplusPixel px{0.0f, 0.0f, 0.0f, 0.0f, c < chain && i < L};
+    if (px.in) {
+      const long long p = base + i;
+      px.s = __ldg(term.s + p);
+      px.y = __ldg(term.y + p);
+      px.w = __ldg(term.w + p);
+      if (MODE == LINE_SEARCH) px.u = __ldg(term.u + p);
+    }
+    return px;
+  };
+  SoftplusPixel cur = load(0);
+  float* buf = sp_smem;                                // [2][SP_GROUP][kb][32]
+  float* slots = sp_smem + 2 * SP_GROUP * kb * SLOT_BLOCK;  // [2][256]
+  if (j == 0) {
+    mbar_init(smem_addr(&bar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive();
+  // the terms of pixel px into dst (its chain step w of the group)
+  auto build = [&](const SoftplusPixel& px, float* dst) {
+    float* d = dst + w * kb * SLOT_BLOCK + l;
+    if (px.in) {
+      if (MODE == LINE_SEARCH) {
+#pragma unroll 4
+        for (int kl = 0; kl < kn; ++kl) {
+          const float x =
+              -__fmul_rn(px.y, __fadd_rn(px.s, __fmul_rn(px.u, __ldg(term.c + k0 + kl))));
+          d[kl * SLOT_BLOCK] = __fmul_rn(px.w, logaddexp0(x));
+        }
+      } else if (MODE == SCALE_SWEEP) {
+        const float ys = -__fmul_rn(px.y, px.s);
+#pragma unroll 4
+        for (int kl = 0; kl < kn; ++kl)
+          d[kl * SLOT_BLOCK] = __fmul_rn(px.w, logaddexp0(__fmul_rn(ys, __ldg(term.c + k0 + kl))));
+      } else {
+        d[0] = __fmul_rn(px.w, logaddexp0(-__fmul_rn(px.y, px.s)));
+      }
+    } else {
+      for (int kl = 0; kl < kn; ++kl) d[kl * SLOT_BLOCK] = 0.0f;  // + 0 leaves acc
+    }
+  };
+  SoftplusPixel next = groups > 1 ? load(1) : cur;
+  build(cur, buf);
+  split.mark(0);
+  __syncthreads();
+  split.mark(1);
+  float acc = 0.0f;  // warp w < kn: output w's slot t
+  for (int group = 0; group < groups; ++group) {
+    if (group + 1 < groups) {
+      cur = next;
+      if (group + 2 < groups) next = load(group + 2);
+      build(cur, buf + ((group + 1) & 1) * SP_GROUP * kb * SLOT_BLOCK);
+    }
+    split.mark(2);
+    if (w < kn) {  // the steps past the chain hold zeros
+      const float* b = buf + (group & 1) * SP_GROUP * kb * SLOT_BLOCK + w * SLOT_BLOCK + l;
+      float v[SP_GROUP];
+#pragma unroll
+      for (int g = 0; g < SP_GROUP; ++g) v[g] = b[g * kb * SLOT_BLOCK];
+#pragma unroll
+      for (int g = 0; g < SP_GROUP; ++g) acc = __fadd_rn(acc, v[g]);
+    }
+    split.mark(3);
+    __syncthreads();
+    split.mark(4);
+    split.step();
+  }
+  // each slot to its output's owner (output kl: block kl % 8, its slots
+  // kl / 8), then the owner's trees
+  if (j == 0 && owned > 0)
+    mbar_expect(smem_addr(&bar), 4u * ROW_THREADS * (unsigned)owned);
+  cluster_wait();
+  if (w < kn) {
+    const int owner = w % CLUSTER;
+    st_async(cluster_addr(smem_addr(slots + (w / CLUSTER) * ROW_THREADS + t), owner), acc,
+             cluster_addr(smem_addr(&bar), owner));
+  }
+  if (owned > 0) mbar_wait(smem_addr(&bar), 0);
+  split.mark(5);
+  if (w < owned) {
+    float v[CLUSTER];
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) v[r] = slots[w * ROW_THREADS + r * WARP + l];
+    const float sum = slot_tree(v);
+    if (l == 0) out[o * S + k0 + q + w * CLUSTER] = sum;
+  }
+  split.mark(6);
+  split.finish();
 }
 
 // logaddexp(x, 0) elementwise (the device function the softplus sums use),
@@ -476,6 +786,37 @@ __device__ __forceinline__ float block_tree(const float* part) {
   return __shfl_sync(0xffffffffu, slot_tree(v), 0);
 }
 
+// block_tree of two slot arrays at once (their loads and shuffles
+// interleaved): the same two sums.
+__device__ __forceinline__ void block_trees(const float* part0, const float* part1,
+                                            float& sum0, float& sum1) {
+  const int l = threadIdx.x % WARP;
+  float v[CLUSTER], u[CLUSTER];
+#pragma unroll
+  for (int r = 0; r < CLUSTER; ++r) {
+    v[r] = part0[r * WARP + l];
+    u[r] = part1[r * WARP + l];
+  }
+#pragma unroll
+  for (int m = CLUSTER / 2; m > 0; m /= 2) {
+#pragma unroll
+    for (int r = 0; r < m; ++r) {
+      v[r] = __fadd_rn(v[r], v[r + m]);
+      u[r] = __fadd_rn(u[r], u[r + m]);
+    }
+  }
+  float a = v[0], b = u[0];
+#pragma unroll
+  for (int m = WARP / 2; m > 0; m /= 2) {
+    const float da = __shfl_down_sync(0xffffffffu, a, m);
+    const float db = __shfl_down_sync(0xffffffffu, b, m);
+    a = __fadd_rn(a, da);
+    b = __fadd_rn(b, db);
+  }
+  sum0 = __shfl_sync(0xffffffffu, a, 0);
+  sum1 = __shfl_sync(0xffffffffu, b, 0);
+}
+
 template <bool GLOBAL>
 __device__ __forceinline__ float pcg_load(const float* a) {
   if constexpr (GLOBAL) return __ldg(a);
@@ -544,6 +885,8 @@ lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
                 float* __restrict__ xout, int n, int iters, int cached,
                 int vec, float stop2, float eps) {
   extern __shared__ __align__(16) float smem[];
+  Split split;
+  split.start();
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const long long o = blockIdx.x / PCG_CLUSTER;
@@ -584,10 +927,13 @@ lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
   auto matvec = [&](const float* v, int buf) {
     pcg_rows<false>(rows, 0, ncached, n, v, dst + buf * n, row0);
     pcg_rows<true>(Hrows, ncached, nrows, n, v, dst + buf * n, row0);
+    split.mark(1);
     cluster.sync();
+    split.mark(2);
   };
 
   // r = b - H x, z = r dinv, p = z; rz = r.z, stop from b.b, live from r.r
+  split.mark(0);
   matvec(x, 0);
   float c_rz = 0.0f, c_bb = 0.0f, c_rr = 0.0f;
   for (int i = t; i < n; i += PCG_THREADS) {
@@ -607,17 +953,22 @@ lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
   float rz = block_tree(part);
   const float stop = __fadd_rn(__fmul_rn(stop2, block_tree(part + PCG_THREADS)), eps);
   bool live = block_tree(part + 2 * PCG_THREADS) > stop;
+  split.mark(0);
 
   // the steps; every block leaves together (see above)
   for (int it = 0; it < iters && live; ++it) {
     const int buf = (it + 1) & 1;
     const float* Hp = hp + buf * n;
+    split.mark(0);
     matvec(p, buf);
     float c = 0.0f;
     for (int i = t; i < n; i += PCG_THREADS) c = __fadd_rn(c, __fmul_rn(p[i], Hp[i]));
     part[t] = c;
+    split.mark(3);
     __syncthreads();
+    split.mark(4);
     const float a = __fdiv_rn(rz, __fadd_rn(block_tree(part), eps));
+    split.mark(5);
     c_rz = c_rr = 0.0f;
     for (int i = t; i < n; i += PCG_THREADS) {
       x[i] = __fadd_rn(x[i], __fmul_rn(a, p[i]));
@@ -629,16 +980,290 @@ lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
     }
     part[PCG_THREADS + t] = c_rz;
     part[2 * PCG_THREADS + t] = c_rr;
+    split.mark(6);
     __syncthreads();
+    split.mark(7);
     const float rz_new = block_tree(part + PCG_THREADS);
     const float beta = __fdiv_rn(rz_new, __fadd_rn(rz, eps));
     for (int i = t; i < n; i += PCG_THREADS)
       p[i] = __fadd_rn(__fmul_rn(r[i], dinv[i]), __fmul_rn(beta, p[i]));
     rz = rz_new;
     live = block_tree(part + 2 * PCG_THREADS) > stop;
+    split.mark(8);
     __syncthreads();  // p is read whole by the next step's rows
+    split.mark(9);
+    split.step();
   }
   for (int i = t; i < nrows; i += PCG_THREADS) xout[o * n + row0 + i] = x[row0 + i];
+  split.finish();
+}
+
+// ---------------------------------------------------------------------------
+// lane_pcg at n <= PCG_REG_MAX_N: the same order, redesigned for the
+// latency of a step (lane_pcg_reg_kernel).
+//
+// Work split: a cluster of PCG_CLUSTER = 8 blocks a lane, block q owning
+// rows q nr .. q nr + nr - 1 as above, but its rows live in registers for
+// the whole solve: warp w holds rows w, w + 8, ..., (8 rows at nr <= 64)
+// and lane l the columns j = l, l + 32, ... (16 at n <= 512), exactly the
+// operands lane l of lane_matvec_kernel's warp uses for those rows, so a
+// product reads no memory but p. Every warp holds the replicas of p, r and
+// dinv at its lane's columns j = l + 32 k in registers too, and updates all
+// of them itself: the next product needs no block barrier and no shared
+// memory for p. Thread t also keeps x and the dots' slot t at i = t and t +
+// 256 (k = w and w + 8).
+//
+// A product: each warp's 8 row chains (fmaf, j ascending, as
+// lane_matvec_kernel), then the xor tree for all 8 rows at once, halving
+// the rows a lane carries at each level (m = 16, 8, 4: a lane keeps the
+// rows of its half and adds its partner's copy, the operands the 8
+// separate trees add; m = 2, 1: one row a lane), so lanes 4 e .. 4 e + 3
+// end with row w + 8 e's sum: 9 shuffles in place of 40. Each of those 4
+// lanes pushes it to 2 of the 8 blocks (its own included) with st.async,
+// which completes on an mbarrier in the receiving block's shared memory
+// (one for each H p buffer, armed for n * 4 bytes a step). A block waits
+// on its own mbarrier's phase, for the bytes it expects, and not for its
+// peers' arrival at a cluster barrier.
+//
+// A step then has two block barriers: after p.Hp's slots (then every warp
+// runs the tree and a = rz / (p.Hp + eps)), and after r.z's and r.r's
+// slots (two trees: beta, live); x, r, z and p are updated in registers
+// in between, with the same rounded ops as above. The slots of the three
+// dots go to separate regions (pHp, rz, rr; the first product's b.b to a
+// fourth): a region is written again only after a block barrier that
+// every warp passes after its reads of it.
+//
+// Buffers and phases: H p is double-buffered, step it in buffer (it + 1) %
+// 2 (the first product in buffer 0), its u-th use (u = (it + 1) / 2) the
+// mbarrier's phase of parity u % 2. A block X reads buffer b of step k
+// before block barrier 2 of step k; it pushes step k + 1's rows only
+// after that barrier; a peer pushes step k + 2's rows into X's buffer b
+// only after its own mbarrier has all of step k + 1's rows, X's included
+// (st.async's completion releases at cluster scope, the wait acquires):
+// so no row is overwritten before X has read it, and no step k + 2 byte
+// reaches X's mbarrier before its step k phase is complete (X armed that
+// phase before it pushed step k + 1). Every block runs the same steps
+// (the no-deadlock argument above), waits for every byte pushed to it,
+// and passes one last cluster barrier before it leaves.
+//
+// What bounds it: the chain of a step's phases (the row chains and
+// their tree, the push and the wait, two barriers, three trees, two
+// divisions), not the 2 n^2 operations nor H's bytes, which are read
+// once a solve.
+constexpr int PCG_REG_MAX_N = 512;
+constexpr int PCG_REG_ROWS = 8;                    // rows a warp holds
+constexpr int PCG_REG_COLS = PCG_REG_MAX_N / WARP;  // columns a lane holds
+static_assert(PCG_REG_ROWS * PCG_WARPS * PCG_CLUSTER == PCG_REG_MAX_N,
+              "a cluster's registers hold a lane's H");
+static_assert(PCG_REG_COLS == 2 * PCG_WARPS, "slot t holds i = t and t + 256");
+
+// H (B, n, n) and b (B, n) float32 contiguous -> x (B, n), n <= 512; grid
+// B * 8 blocks (one cluster a lane).
+__global__ void __cluster_dims__(PCG_CLUSTER, 1, 1) __launch_bounds__(PCG_THREADS, 1)
+lane_pcg_reg_kernel(const float* __restrict__ H, const float* __restrict__ b,
+                    float* __restrict__ xout, int n, int iters, float stop2, float eps) {
+  __shared__ float hp[2][PCG_REG_MAX_N];
+  __shared__ float part[4][PCG_THREADS];  // slots of p.Hp, r.z, r.r, b.b
+  __shared__ __align__(8) unsigned long long bar[2];
+  Split split;
+  split.start();
+  const int q = (int)cg::this_cluster().block_rank();
+  const long long o = blockIdx.x / PCG_CLUSTER;
+  const int t = threadIdx.x, w = t / WARP, l = t % WARP;
+  const int nr = (n + PCG_CLUSTER - 1) / PCG_CLUSTER;
+  const int row0 = q * nr;
+  const int nrows = max(0, min(nr, n - row0));
+  const float* Hl = H + o * n * n;
+  const float* bl = b + o * n;
+  if (t == 0) {
+    mbar_init(smem_addr(&bar[0]), 1);
+    mbar_init(smem_addr(&bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // peers are pushed to only once every block runs, its mbarriers set up
+  cluster_arrive();
+  float a[PCG_REG_ROWS][PCG_REG_COLS];
+#pragma unroll
+  for (int e = 0; e < PCG_REG_ROWS; ++e) {
+    const int lr = w + PCG_WARPS * e;
+    const float* hr = Hl + (long long)(row0 + min(lr, max(nrows - 1, 0))) * n;
+#pragma unroll
+    for (int k = 0; k < PCG_REG_COLS; ++k) {
+      const int j = l + WARP * k;
+      a[e][k] = lr < nrows && j < n ? __ldg(hr + j) : 0.0f;
+    }
+  }
+  split.mark(9);
+  float p[PCG_REG_COLS], r[PCG_REG_COLS], dinv[PCG_REG_COLS];
+#pragma unroll
+  for (int k = 0; k < PCG_REG_COLS; ++k) {
+    const int j = l + WARP * k;
+    dinv[k] = j < n ? __fdiv_rn(1.0f, __ldg(Hl + (long long)j * n + j)) : 0.0f;
+    r[k] = j < n ? __ldg(bl + j) : 0.0f;  // b until the first product
+    p[k] = __fmul_rn(r[k], dinv[k]);       // x = b dinv, the first product's vector
+  }
+  // the same values at i = t and t + 256 (columns k = w and w + 8 of the
+  // arrays above, which an index by w would put in local memory): x and
+  // the dots' slots
+  float xs[2], rs[2] = {0.0f, 0.0f}, ps[2] = {0.0f, 0.0f}, ds[2], bs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = t + h * PCG_THREADS;
+    ds[h] = i < n ? __fdiv_rn(1.0f, __ldg(Hl + (long long)i * n + i)) : 0.0f;
+    bs[h] = i < n ? __ldg(bl + i) : 0.0f;
+    xs[h] = __fmul_rn(bs[h], ds[h]);
+  }
+  // this lane's row (4 lanes a row) goes to blocks 2 c and 2 c + 1
+  const int c = l % 4;
+  const int er = l / 4, my_row = w + PCG_WARPS * er;
+  const bool pushes = my_row < nrows;
+  unsigned dst[2], dbar[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    dst[h] = cluster_addr(smem_addr(&hp[0][row0 + my_row]), 2 * c + h);
+    dbar[h] = cluster_addr(smem_addr(&bar[0]), 2 * c + h);
+  }
+  const unsigned tx = 4u * (unsigned)n;
+  cluster_wait();
+
+  // H v into buffer `buf` of every block; returns once this block has
+  // all of it
+  auto product = [&](const float (&v)[PCG_REG_COLS], int buf, unsigned parity) {
+    float acc[PCG_REG_ROWS];
+#pragma unroll
+    for (int e = 0; e < PCG_REG_ROWS; ++e) acc[e] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < PCG_REG_COLS; ++k) {
+      if (l + WARP * k < n) {
+#pragma unroll
+        for (int e = 0; e < PCG_REG_ROWS; ++e) acc[e] = fmaf(a[e][k], v[k], acc[e]);
+      }
+    }
+    // the xor tree of all 8 rows: at m = 16, 8, 4 a lane keeps half its rows
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const bool hi = l & 16;
+      const float send = hi ? acc[h] : acc[h + 4];
+      const float keep = hi ? acc[h + 4] : acc[h];
+      acc[h] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 16));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool hi = l & 8;
+      const float send = hi ? acc[h] : acc[h + 2];
+      const float keep = hi ? acc[h + 2] : acc[h];
+      acc[h] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 8));
+    }
+    {
+      const bool hi = l & 4;
+      const float send = hi ? acc[0] : acc[1];
+      const float keep = hi ? acc[1] : acc[0];
+      acc[0] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 4));
+    }
+    acc[0] = __fadd_rn(acc[0], __shfl_xor_sync(0xffffffffu, acc[0], 2));
+    acc[0] = __fadd_rn(acc[0], __shfl_xor_sync(0xffffffffu, acc[0], 1));
+    if (t == 0) mbar_expect(smem_addr(&bar[buf]), tx);
+    if (pushes) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        st_async(dst[h] + 4u * PCG_REG_MAX_N * buf, acc[0], dbar[h] + 8u * buf);
+    }
+    split.mark(1);
+    mbar_wait(smem_addr(&bar[buf]), parity);
+    split.mark(2);
+  };
+
+  // r = b - H x, z = r dinv, p = z; rz = r.z, stop from b.b, live from r.r
+  split.mark(0);
+  product(p, 0, 0);
+#pragma unroll
+  for (int k = 0; k < PCG_REG_COLS; ++k) {
+    if (l + WARP * k < n) {
+      r[k] = __fsub_rn(r[k], hp[0][l + WARP * k]);
+      p[k] = __fmul_rn(r[k], dinv[k]);
+    }
+  }
+  float c_rz = 0.0f, c_bb = 0.0f, c_rr = 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = t + h * PCG_THREADS;
+    if (i < n) {
+      rs[h] = __fsub_rn(bs[h], hp[0][i]);
+      ps[h] = __fmul_rn(rs[h], ds[h]);
+      c_rz = __fadd_rn(c_rz, __fmul_rn(rs[h], ps[h]));
+      c_bb = __fadd_rn(c_bb, __fmul_rn(bs[h], bs[h]));
+      c_rr = __fadd_rn(c_rr, __fmul_rn(rs[h], rs[h]));
+    }
+  }
+  part[1][t] = c_rz;
+  part[2][t] = c_rr;
+  part[3][t] = c_bb;
+  __syncthreads();
+  float rz, rr, bb;
+  block_trees(part[1], part[2], rz, rr);
+  bb = block_tree(part[3]);
+  const float stop = __fadd_rn(__fmul_rn(stop2, bb), eps);
+  bool live = rr > stop;
+  split.mark(0);
+
+  // the steps; every block leaves together
+  for (int it = 0; it < iters && live; ++it) {
+    const int buf = (it + 1) & 1;
+    product(p, buf, ((it + 1) >> 1) & 1);
+    const float* Hp = hp[buf];
+    float cp = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (t + h * PCG_THREADS < n)
+        cp = __fadd_rn(cp, __fmul_rn(ps[h], Hp[t + h * PCG_THREADS]));
+    part[0][t] = cp;
+    split.mark(3);
+    __syncthreads();
+    split.mark(4);
+    const float al = __fdiv_rn(rz, __fadd_rn(block_tree(part[0]), eps));
+    split.mark(5);
+    c_rz = c_rr = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = t + h * PCG_THREADS;
+      if (i < n) {
+        xs[h] = __fadd_rn(xs[h], __fmul_rn(al, ps[h]));
+        rs[h] = __fsub_rn(rs[h], __fmul_rn(al, Hp[i]));
+        c_rz = __fadd_rn(c_rz, __fmul_rn(rs[h], __fmul_rn(rs[h], ds[h])));
+        c_rr = __fadd_rn(c_rr, __fmul_rn(rs[h], rs[h]));
+      }
+    }
+    part[1][t] = c_rz;
+    part[2][t] = c_rr;
+    split.mark(6);
+#pragma unroll
+    for (int k = 0; k < PCG_REG_COLS; ++k)
+      if (l + WARP * k < n) r[k] = __fsub_rn(r[k], __fmul_rn(al, Hp[l + WARP * k]));
+    __syncthreads();
+    split.mark(7);
+    float rz_new, rr;
+    block_trees(part[1], part[2], rz_new, rr);
+    const float beta = __fdiv_rn(rz_new, __fadd_rn(rz, eps));
+#pragma unroll
+    for (int k = 0; k < PCG_REG_COLS; ++k)
+      p[k] = __fadd_rn(__fmul_rn(r[k], dinv[k]), __fmul_rn(beta, p[k]));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      ps[h] = __fadd_rn(__fmul_rn(rs[h], ds[h]), __fmul_rn(beta, ps[h]));
+    rz = rz_new;
+    live = rr > stop;
+    split.mark(8);
+    split.step();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = t + h * PCG_THREADS;
+    if (i >= row0 && i < row0 + nrows) xout[o * n + i] = xs[h];
+  }
+  // no block leaves while a peer may still push into it
+  cluster_arrive();
+  cluster_wait();
+  split.finish();
 }
 
 // ---------------------------------------------------------------------------
@@ -1021,23 +1646,6 @@ static_assert(CHOL_PW == 8 && CHOL_ROWS <= 2, "panel layout and registers sized 
 // Columns below a group of 32 that a thread of the back substitution holds.
 constexpr int CHOL_BACK_COLS = (CHOL_CLUSTER_MAX_N + CHOL_ROW_THREADS - 1) / CHOL_ROW_THREADS;
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// Named barrier `id` of `count` threads: arrive without waiting / wait.
-__device__ __forceinline__ void named_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
 // a's PW entries take the PW updates of the panel widened in lw: the row's
 // L at li, the columns' at lw + k0 PW (kn of them), j in order.
 __device__ __forceinline__ void chol_apply_row(float (&v)[CHOL_PW], const double* li,
@@ -1400,24 +2008,104 @@ int sm_count() {
   return count;
 }
 
+// A softplus sum's launch: its outputs' tiles, the tile width, threads a
+// block and blocks.
+struct SoftplusPlan {
+  int k_tiles, kb, threads;
+  long long blocks;
+};
+
+#ifdef SDSM_SPLIT
+// PR 13's plan and launch (chip_smoke.py --split).
 // The outputs of a lane go into k tiles until the grid would pass what the
 // card holds at once (RESIDENT_BLOCKS an SM): more threads for few lanes.
-template <int MODE>
-int launch_softplus(const SoftplusTerm<MODE>& term, float* out, long long O,
-                    int L, int S, cudaStream_t stream) {
-  if (O < 0 || L < 0 || S < 1 || S > SLOTS_K) return (int)cudaErrorInvalidValue;
-  if (O == 0) return (int)cudaGetLastError();
+SoftplusPlan softplus_plan(long long O, int S) {
   const long long resident = (long long)RESIDENT_BLOCKS * sm_count();
   int k_tiles = 1;
   while (k_tiles < S && O * (k_tiles + 1) * CLUSTER <= resident) ++k_tiles;
   const int kb = (S + k_tiles - 1) / k_tiles;
   k_tiles = (S + kb - 1) / kb;
   const int pairs = SLOT_BLOCK * kb;
-  const int threads = TERM_THREADS / pairs * pairs;
-  const long long blocks = O * k_tiles * CLUSTER;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  lane_softplus_kernel<MODE><<<(unsigned)blocks, threads, 0, stream>>>(
-      term, out, L, S, kb, k_tiles);
+  return {k_tiles, kb, TERM_THREADS / pairs * pairs, O * k_tiles * CLUSTER};
+}
+
+template <int MODE>
+int launch_softplus_pr13(const SoftplusTerm<MODE>& term, float* out, long long O,
+                         int L, int S, cudaStream_t stream) {
+  if (O < 0 || L < 0 || S < 1 || S > SLOTS_K) return (int)cudaErrorInvalidValue;
+  if (O == 0) return (int)cudaGetLastError();
+  const SoftplusPlan plan = softplus_plan(O, S);
+  if (plan.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  lane_softplus_kernel<MODE><<<(unsigned)plan.blocks, plan.threads, 0, stream>>>(
+      term, out, L, S, plan.kb, plan.k_tiles);
+  return (int)cudaGetLastError();
+}
+#endif  // SDSM_SPLIT
+
+constexpr int MAX_DEVICES = 64;
+
+#ifdef SDSM_SPLIT
+int g_split_tiles = 0;  // --split's sweep: k tiles forced (0: the plan's)
+#endif
+
+// The tiles of a launch: SP_KB outputs a tile, or 2 where that leaves
+// fewer than SP_MIN_BLOCKS blocks (few lanes), and wider tiles where the
+// card cannot hold all O k_tiles clusters at once (cudaOccupancyMaxActiveClusters
+// for lane_softplus_pixel_kernel<MODE> at the tile's shared memory, asked
+// once a device and width). A narrower tile spreads a lane over more
+// blocks but loads each pixel once a tile. Sets the kernel's shared memory
+// maximum once a device. Returns 0 or a CUDA error.
+template <int MODE>
+int softplus_pixel_plan(long long O, int S, SoftplusPlan* plan) {
+  static std::atomic<int> known[MAX_DEVICES][SLOTS_K + 1];  // clusters, 0: not asked
+  static std::atomic<bool> ready[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(lane_softplus_pixel_kernel<MODE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               4 * softplus_smem_floats(SLOTS_K));
+    if (err != cudaSuccess) return (int)err;
+    ready[dev].store(true, std::memory_order_release);
+  }
+  int kb = min(S, SP_KB);
+  if (O * ((S + kb - 1) / kb) * CLUSTER < SP_MIN_BLOCKS) kb = min(S, 2);
+#ifdef SDSM_SPLIT
+  if (g_split_tiles > 0) kb = (S + g_split_tiles - 1) / g_split_tiles;
+#endif
+  for (;; ++kb) {
+    const int k_tiles = (S + kb - 1) / kb;
+    int clusters = known[dev][kb].load(std::memory_order_relaxed);
+    if (clusters == 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(CLUSTER);
+      cfg.blockDim = dim3(SP_THREADS);
+      cfg.dynamicSmemBytes = 4 * softplus_smem_floats(kb);
+      err = cudaOccupancyMaxActiveClusters(&clusters, lane_softplus_pixel_kernel<MODE>, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      known[dev][kb].store(clusters, std::memory_order_relaxed);
+    }
+    if (k_tiles == 1 || O * k_tiles <= clusters) {
+      *plan = {k_tiles, kb, SP_THREADS, O * k_tiles * CLUSTER};
+      return 0;
+    }
+  }
+}
+
+template <int MODE>
+int launch_softplus(const SoftplusTerm<MODE>& term, float* out, long long O,
+                    int L, int S, cudaStream_t stream) {
+  if (O < 0 || L < 0 || S < 1 || S > SLOTS_K) return (int)cudaErrorInvalidValue;
+  if (O == 0) return (int)cudaGetLastError();
+  SoftplusPlan plan;
+  const int err = softplus_pixel_plan<MODE>(O, S, &plan);
+  if (err) return err;
+  if (plan.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  lane_softplus_pixel_kernel<MODE><<<(unsigned)plan.blocks, SP_THREADS,
+                                     4 * softplus_smem_floats(plan.kb), stream>>>(
+      term, out, L, S, plan.kb, plan.k_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -1507,41 +2195,203 @@ extern "C" int sdsm_lane_softplus(const float* x, float* out, int count,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// lane_pcg_kernel's launch: its dynamic shared memory (the vectors and the
+// rows that fit beside them and its static shared memory), and its rows
+// kept there.
+int pcg_smem_plan(int n, long long* bytes, long long* cached) {
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lane_pcg_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const long long avail = smem_max - (long long)attr.sharedSizeBytes;
+  const long long vec_bytes = 4LL * (6LL * n + 3 * PCG_THREADS);
+  if (vec_bytes > avail) return (int)cudaErrorInvalidValue;
+  const long long nr = (n + PCG_CLUSTER - 1) / PCG_CLUSTER;
+  const long long fit = (avail - vec_bytes) / (4LL * n);
+  *cached = fit < nr ? fit : nr;
+  *bytes = vec_bytes + *cached * 4LL * n;
+  // the card's maximum, the same for every launch (threads launching
+  // concurrently set the same value)
+  return (int)cudaFuncSetAttribute(lane_pcg_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)avail);
+}
+
+int launch_pcg_smem(const float* H, const float* b, float* x, int B, int n, int iters,
+                    float stop2, float eps, cudaStream_t stream) {
+  long long bytes = 0, cached = 0;
+  const int err = pcg_smem_plan(n, &bytes, &cached);
+  if (err) return err;
+  const int vec = n % 4 == 0 && (unsigned long long)H % 16 == 0;
+  lane_pcg_kernel<<<B * PCG_CLUSTER, PCG_THREADS, (size_t)bytes, stream>>>(
+      H, b, x, n, iters, (int)cached, vec, stop2, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sdsm_lane_pcg_reg_max_n() { return PCG_REG_MAX_N; }
+
 // x (B, n) = solver._pcg_solve(H, b, iters, rtol) with H (B, n, n) and b
 // (B, n) float32 contiguous, stop2 and eps the float32 values of rtol^2 and
-// 1e-30; one launch of B clusters on `stream`. Each block keeps as many of
-// its rows of H in shared memory as the card's opt-in maximum leaves beside
-// its vectors (6 n + 768 floats); n past that maximum is refused.
+// 1e-30; one launch of B clusters on `stream`: lane_pcg_reg_kernel (H in
+// registers) at n <= PCG_REG_MAX_N, else lane_pcg_kernel, whose blocks keep
+// as many of their rows of H in shared memory as the card's opt-in maximum
+// leaves beside their vectors (6 n + 768 floats; n past that maximum is
+// refused). The two give the same bits (the same order).
 extern "C" int sdsm_lane_pcg(const float* H, const float* b, float* x, int B,
                              int n, int iters, float stop2, float eps,
                              void* stream) {
   if (B < 0 || n < 0 || iters < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaGetLastError();
   if ((long long)B * PCG_CLUSTER > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long vec_bytes = 4LL * (6LL * n + 3 * PCG_THREADS);
-  if (vec_bytes > smem_max) return (int)cudaErrorInvalidValue;
-  const long long row_bytes = 4LL * n;
-  const long long nr = (n + PCG_CLUSTER - 1) / PCG_CLUSTER;
-  const long long fit = (smem_max - vec_bytes) / row_bytes;
-  const long long cached = fit < nr ? fit : nr;
-  // the card's maximum, the same for every launch (threads launching
-  // concurrently set the same value)
-  err = cudaFuncSetAttribute(lane_pcg_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
-  if (err != cudaSuccess) return (int)err;
-  const int vec = n % 4 == 0 && (unsigned long long)H % 16 == 0;
-  lane_pcg_kernel<<<B * PCG_CLUSTER, PCG_THREADS,
-                    (size_t)(vec_bytes + cached * row_bytes),
-                    (cudaStream_t)stream>>>(H, b, x, n, iters, (int)cached, vec,
-                                            stop2, eps);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= PCG_REG_MAX_N) {
+    lane_pcg_reg_kernel<<<B * PCG_CLUSTER, PCG_THREADS, 0, st>>>(H, b, x, n, iters,
+                                                                stop2, eps);
+    return (int)cudaGetLastError();
+  }
+  return launch_pcg_smem(H, b, x, B, n, iters, stop2, eps, st);
 }
+
+#ifdef SDSM_SPLIT
+// chip_smoke.py --split: the stamps' layout, their reset and read-back, and
+// what the card reports for a launch.
+extern "C" int sdsm_lane_split_phases() { return SPLIT_PHASES; }
+extern "C" int sdsm_lane_split_words() { return SPLIT_WORDS; }
+extern "C" int sdsm_lane_split_blocks() { return SPLIT_BLOCKS; }
+
+extern "C" int sdsm_lane_split_reset(void* stream) {
+  void* p = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&p, g_split);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(p, 0, sizeof(g_split), (cudaStream_t)stream);
+  return (int)err;
+}
+
+extern "C" int sdsm_lane_split_read(void* host, void* stream) {
+  cudaError_t err = cudaStreamSynchronize((cudaStream_t)stream);
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_split, sizeof(g_split));
+  return (int)err;
+}
+
+// out: registers a thread, local (spilled) bytes a thread, static and
+// dynamic shared bytes a block, the clusters cudaOccupancyMaxActiveClusters
+// reports as active at once, threads a block, blocks.
+template <class K>
+int kernel_info(K* kernel, long long blocks, int threads, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  const int v[7] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    (int)smem, clusters, threads, (int)blocks};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// lane_pcg's launch at (B, n) as sdsm_lane_pcg makes it; `smem`: PR 13's
+// kernel with its rows in shared memory (and L2) at any n.
+extern "C" int sdsm_lane_split_pcg_info(int* out, int B, int n, int smem, void*) {
+  if (n <= PCG_REG_MAX_N && !smem)
+    return kernel_info(lane_pcg_reg_kernel, (long long)B * PCG_CLUSTER, PCG_THREADS, 0, out);
+  long long bytes = 0, cached = 0;
+  const int err = pcg_smem_plan(n, &bytes, &cached);
+  if (err) return err;
+  return kernel_info(lane_pcg_kernel, (long long)B * PCG_CLUSTER, PCG_THREADS,
+                     (size_t)bytes, out);
+}
+
+// PR 13's kernel at any n (the route that n <= PCG_REG_MAX_N left), for
+// the split before and after.
+extern "C" int sdsm_lane_split_pcg_smem(const float* H, const float* b, float* x, int B,
+                                        int n, int iters, float stop2, float eps,
+                                        void* stream) {
+  return launch_pcg_smem(H, b, x, B, n, iters, stop2, eps, (cudaStream_t)stream);
+}
+
+template <int MODE>
+int softplus_info(int* out, long long O, int S, bool pr13) {
+  if (pr13) {
+    const SoftplusPlan plan = softplus_plan(O, S);
+    return kernel_info(lane_softplus_kernel<MODE>, plan.blocks, plan.threads, 0, out);
+  }
+  SoftplusPlan plan;
+  const int err = softplus_pixel_plan<MODE>(O, S, &plan);
+  if (err) return err;
+  return kernel_info(lane_softplus_pixel_kernel<MODE>, plan.blocks, SP_THREADS,
+                     4 * softplus_smem_floats(plan.kb), out);
+}
+
+// softplus_energies' launch at O lanes of S outputs in `mode`; `pr13`:
+// PR 13's kernel and plan.
+extern "C" int sdsm_lane_split_softplus_info(int* out, int O, int S, int mode, int pr13,
+                                             void*) {
+  switch (mode) {
+    case LINE_SEARCH: return softplus_info<LINE_SEARCH>(out, O, S, pr13);
+    case SCALE_SWEEP: return softplus_info<SCALE_SWEEP>(out, O, S, pr13);
+    default: return softplus_info<SINGLE>(out, O, S, pr13);
+  }
+}
+
+// One softplus term a thread, its operands loaded and the term stored, as
+// the kernels build it: --split counts its SASS instructions.
+template <int MODE>
+__global__ void softplus_term_probe(SoftplusTerm<MODE> term, float* out) {
+  const int i = threadIdx.x;
+  const float sv = term.s[i], yv = term.y[i], wv = term.w[i];
+  float x;
+  if (MODE == LINE_SEARCH)
+    x = -__fmul_rn(yv, __fadd_rn(sv, __fmul_rn(term.u[i], term.c[0])));
+  else if (MODE == SCALE_SWEEP)
+    x = __fmul_rn(-__fmul_rn(yv, sv), term.c[0]);
+  else
+    x = -__fmul_rn(yv, sv);
+  out[i] = __fmul_rn(wv, logaddexp0(x));
+}
+
+// The probe's registers in `mode` (and the reason its code is emitted).
+extern "C" int sdsm_lane_split_probe_regs(int mode, void*) {
+  cudaFuncAttributes a;
+  cudaError_t err = mode == LINE_SEARCH ? cudaFuncGetAttributes(&a, softplus_term_probe<LINE_SEARCH>)
+                    : mode == SCALE_SWEEP ? cudaFuncGetAttributes(&a, softplus_term_probe<SCALE_SWEEP>)
+                                          : cudaFuncGetAttributes(&a, softplus_term_probe<SINGLE>);
+  return err == cudaSuccess ? a.numRegs : -(int)err;
+}
+
+// softplus_energies' launches with k tiles (0: the plan's own).
+extern "C" int sdsm_lane_split_softplus_tiles(int k, void*) {
+  g_split_tiles = k;
+  return 0;
+}
+
+// sdsm_lane_softplus_energies with PR 13's kernel and plan.
+extern "C" int sdsm_lane_split_softplus_pr13(const float* s, const float* u,
+                                             const float* y, const float* w,
+                                             const float* c, float* out, int O, int L,
+                                             int S, int mode, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case LINE_SEARCH:
+      return launch_softplus_pr13<LINE_SEARCH>({s, u, y, w, c, L}, out, O, L, S, st);
+    case SCALE_SWEEP:
+      return launch_softplus_pr13<SCALE_SWEEP>({s, u, y, w, c, L}, out, O, L, S, st);
+    default:
+      return launch_softplus_pr13<SINGLE>({s, u, y, w, c, L}, out, O, L, 1, st);
+  }
+}
+#endif
 
 extern "C" int sdsm_lane_chol_one_block_max_n() { return CHOL_ONE_BLOCK_MAX_N; }
 extern "C" int sdsm_lane_chol_cluster_max_n() { return CHOL_CLUSTER_MAX_N; }

@@ -151,7 +151,8 @@ _KERNELS = {
                      'pcg': (3, 3, 2), 'cholesky': (4, 2), 'chol_route': (0, 2),
                      'chol_scratch_floats': (0, 2)},
                     dict(warp=32, small_n=8, row_threads=256,
-                         chol_one_block_max_n=32, chol_cluster_max_n=807)),
+                         chol_one_block_max_n=32, chol_cluster_max_n=807,
+                         pcg_reg_max_n=512)),
 }
 _F32_SRC, _BF16_SRC, LANE_SRC = _KERNELS
 LANE_CONSTANTS = _KERNELS[LANE_SRC][3]
@@ -418,6 +419,15 @@ def _lib_path(src):
     return os.path.join(BUILD_DIR, _KERNELS[src][0])
 
 
+def nvcc_command(src, out, *flags):
+    """The ``nvcc`` command that builds kernel source ``src`` into the shared
+    library ``out`` (``-Xptxas -v``: registers, shared memory and spills of
+    each kernel in its output), with extra ``flags``."""
+    return [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+            '-O3', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC', *flags,
+            '-o', out, os.path.join(_CSRC, src)]
+
+
 def build():
     """Compiles every kernel library anew, one ``nvcc`` per source, all
     started together; returns the seconds the build took."""
@@ -426,10 +436,7 @@ def build():
     procs = {}
     for src in _KERNELS:
         tmp = f'{_lib_path(src)}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
-               '-std=c++17', '-O3', '-Xptxas', '-v', '-shared',
-               '-Xcompiler', '-fPIC', '-o', tmp, os.path.join(_CSRC, src)]
-        procs[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[src] = (tmp, subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     failed = []
     for src, (tmp, proc) in procs.items():
@@ -442,6 +449,16 @@ def build():
     if failed:
         raise RuntimeError('\n'.join(failed))
     return time.time() - t0
+
+
+def bind(lib, prefix, entries):
+    """Sets the argument and result types of ``lib``'s entry points (see
+    :data:`_KERNELS` for ``entries``)."""
+    for name, (n_ptrs, n_ints, *n_floats) in entries.items():
+        fn = getattr(lib, f'{prefix}_{name}')
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
+            [ctypes.c_float] * sum(n_floats) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def _load(src=_F32_SRC):
@@ -458,11 +475,7 @@ def _load(src=_F32_SRC):
             build()
         lib = ctypes.CDLL(path)
         _, prefix, entries, constants = _KERNELS[src]
-        for name, (n_ptrs, n_ints, *n_floats) in entries.items():
-            fn = getattr(lib, f'{prefix}_{name}')
-            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
-                [ctypes.c_float] * sum(n_floats) + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        bind(lib, prefix, entries)
         for name, value in constants.items():
             const = getattr(lib, f'{prefix}_{name}')
             const.restype = ctypes.c_int

@@ -79,6 +79,11 @@ CHOL_ROUTES = ('one block a lane, shared memory', 'cluster of 8, panels of 8 col
 CHOL_ONE_BLOCK_MAX_N = gram.LANE_CONSTANTS['chol_one_block_max_n']
 CHOL_CLUSTER_MAX_N = gram.LANE_CONSTANTS['chol_cluster_max_n']
 
+#: :func:`pcg_kernel` keeps a lane's H in its cluster's registers up to this
+#: n, in shared memory and L2 above (``csrc/lane_ops.cu``; the same bits,
+#: checked against the library when it loads).
+PCG_REG_MAX_N = gram.LANE_CONSTANTS['pcg_reg_max_n']
+
 #: :func:`softplus_energies` modes of the C entry point.
 _LINE_SEARCH, _SCALE_SWEEP, _SINGLE = 0, 1, 2
 _MODE_NAMES = {_LINE_SEARCH: 'line_search', _SCALE_SWEEP: 'scale_sweep',
@@ -370,7 +375,8 @@ def lane_dot_kernel(a, b):
 
 def softplus_energies_kernel(s, y, w, c=None, u=None):
     """The CUDA kernel of :func:`softplus_energies` on the current stream
-    (one launch, the terms built in registers)."""
+    (one launch, the terms built in registers, a thread every output of its
+    tile for one pixel)."""
     _check_cuda('softplus_energies_kernel', s, y, w)
     if u is not None and c is None:
         raise ValueError('softplus_energies: the line search needs c with u')
@@ -423,7 +429,9 @@ def softplus_kernel(x):
 def pcg_kernel(H, b, iters, rtol):
     """The CUDA kernel of :func:`pcg` on the current stream: one launch for
     every step of every lane, bitwise :func:`pcg_chain` on the card, with no
-    host sync."""
+    host sync; a lane's H in its cluster's registers at n <=
+    :data:`PCG_REG_MAX_N`, in shared memory and L2 above (the route from n
+    alone, the same bits on either)."""
     _check_cuda('pcg_kernel', H, b)
     H = H.contiguous()
     b = b.contiguous()

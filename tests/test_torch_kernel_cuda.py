@@ -39,11 +39,14 @@ variants compute the same order and are held to each other bitwise: the
 one-thread-a-row product (n <= 32) to the warp-per-row one, a strided sum
 read in place to its order replayed on the host, and each fused sum (``lane_dot``,
 ``softplus_energies``) to the op-by-op chain it replaces; the softplus
-device function equals ``torch.logaddexp(x, 0)`` bitwise. ``lane_pcg``,
-the whole of PCG in one launch, is held bitwise to the chain it replaces
-(``lane.pcg_chain`` on the card), a lane alone to the lane in the batch, a
-captured graph's replay to the eager launch, and its frozen and NaN lanes
-to the chain's. ``lane_cholesky``, the Newton direction by Cholesky in one
+device function equals ``torch.logaddexp(x, 0)`` bitwise, and
+``softplus_energies`` equals its order replayed on the host in every mode
+and tile width, with non-finite inputs. ``lane_pcg``, the whole of PCG in
+one launch, is held bitwise to the chain it replaces (``lane.pcg_chain``
+on the card) on both of its routes (H in registers at n <= 512, in
+shared memory above), a lane alone to the lane in the batch, a captured
+graph's replay to the eager launch, and its frozen and NaN lanes to the
+chain's. ``lane_cholesky``, the Newton direction by Cholesky in one
 launch, is held bitwise to its order written op by op
 (``lane.cholesky_chain`` on the card) on each of its routes (one block a
 lane in shared memory, a cluster a lane, one block a lane in a global
@@ -766,6 +769,40 @@ def test_softplus_device_function_equals_logaddexp():
         assert bool(same.all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P', [(1, 100), (64, 300), (2, 12288)])
+@pytest.mark.parametrize('mode,S', [('line_search', 1), ('line_search', 3), ('line_search', 12),
+                                    ('line_search', 16), ('scale_sweep', 1), ('scale_sweep', 3),
+                                    ('scale_sweep', 12), ('scale_sweep', 16), ('energy', 1)])
+def test_softplus_energies_kernel_equals_its_order(mode, S, B, P):
+    """``softplus_energies`` bitwise its order (``lane.softplus_terms``, ATen's
+    ops on the card, summed by ``lane.lane_sum_in_kernel_order`` on the
+    host) in each mode at S = 1, 3, 12 and 16 outputs (tiles of every
+    width), P below 256 and not a multiple of 256, B = 1 and 64, with +inf,
+    -inf, NaN and -0 in s (a NaN sum against any NaN); a lane alone bitwise
+    equal to the same lane in the batch."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    s, u, y, w = _fused_inputs(B, P, dev, seed=S)
+    s[0, :4] = torch.tensor([float('inf'), -float('inf'), -0.0, float('nan')])
+    s[B - 1, P - 1] = -0.0
+    c = {'line_search': 0.5 ** torch.arange(S, dtype=torch.float32),
+         'scale_sweep': torch.linspace(0.5, 2.0, S)}.get(mode)
+    c = None if c is None else c.to(dev)
+    uu = u if mode == 'line_search' else None
+    out = lane.softplus_energies_kernel(s, y, w, c, uu)
+    torch.cuda.synchronize()
+    terms, dim = lane.softplus_terms(s, y, w, c, uu)
+    terms = terms.movedim(dim, -1).contiguous().cpu().numpy()
+    want = lane.lane_sum_in_kernel_order(terms.reshape(-1, P)).reshape(tuple(out.shape))
+    assert _same_bits(out.cpu(), torch.from_numpy(want))
+    assert bool(torch.isnan(out[0]).all()) and bool(torch.isfinite(out[1:]).all())
+    for k in (0, B - 1):
+        one = lane.softplus_energies_kernel(s[k:k + 1], y[k:k + 1], w[k:k + 1], c,
+                                            None if uu is None else uu[k:k + 1])
+        assert _same_bits(one[0], out[k])
+
+
 def _pcg_systems(B, n, dev, seed=0):
     """``B`` SPD systems ``A A^T + d I`` (A with N(0, 1/n) entries) on the
     card, the damping d of lane k cycling through 0.2, 1, 5, 50, 0.05 and
@@ -812,6 +849,30 @@ def test_lane_pcg_equals_the_chain(B, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('B,n', [(8, 1024), (2, 510), (3, 511), (2, 512), (3, 513), (2, 1022),
+                                 (17, 512), (1, 6), (4, 300)])
+def test_lane_pcg_routes_equal_the_chain(B, n):
+    """Both of ``lane_pcg``'s routes (H in the cluster's registers at n <=
+    ``lane.PCG_REG_MAX_N``, in shared memory and L2 above; the route from n
+    alone) bitwise equal to the chain at n on either side of the threshold,
+    n not a multiple of 4 (the shared-memory route's scalar load of H), more
+    lanes than the card holds clusters at once, and at 0, 1, 5 and all
+    steps (lanes that stop at different steps); a lane alone bitwise equal
+    to the same lane in the batch."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    H, b = _pcg_systems(B, n, dev)
+    rtol = solver.CG_RTOL
+    for iters in (0, 1, 5, solver.CG_MAX_ITERS):
+        out = lane.pcg_kernel(H, b, iters, rtol)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(lane.pcg_chain(H, b, iters, rtol, early_exit=False)))
+    for k in (0, B - 1):
+        assert torch.equal(_bits(lane.pcg_kernel(H[k:k + 1], b[k:k + 1], iters, rtol)[0]),
+                           _bits(out[k]))
+
+
+@pytest.mark.cuda
 def test_lane_pcg_graph_replay_equals_eager():
     """``lane_pcg`` captured in a CUDA graph and replayed (on new inputs
     copied into the captured ones) bitwise equal to the eager launch."""
@@ -836,12 +897,13 @@ def test_lane_pcg_graph_replay_equals_eager():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [512, 6])
+@pytest.mark.parametrize('n', [512, 6, 513, 300])
 def test_lane_pcg_frozen_and_nan_lanes(n):
     """Lanes the chain never steps (a NaN in H off or on the diagonal, a zero
     right-hand side) and lanes that stop early come out of the kernel as the
-    chain leaves them, bitwise (a NaN against any NaN), at n = 512 and at
-    n = 6 (fewer rows than the cluster has blocks)."""
+    chain leaves them, bitwise (a NaN against any NaN), at n = 512, 300 and
+    6 (fewer rows than the cluster has blocks) on the register route and n =
+    513 on the shared-memory one."""
     from superdsm_tpu_torch.dsm import lane, solver
     dev = _cuda()
     H, b = _pcg_systems(6, n, dev)

@@ -19,7 +19,14 @@ every CPU result stays bitwise what it was. Here:
   contiguous copy, replayed in the kernel's order on the host;
 - ``solver._newton_step`` (a Cholesky lane, a PCG lane, a polynomial lane),
   ``_energy_from_surface`` and ``_better_of`` bitwise equal to the same
-  functions with the fused sums replaced by the copied expressions.
+  functions with the fused sums replaced by the copied expressions;
+- the schedule of the softplus sums' kernel (``lane_softplus_pixel_kernel``:
+  a thread builds one pixel's terms for every output of its tile, groups
+  of 16 chain steps, slots pushed to the output's owner block) replayed
+  with its own index arithmetic in numpy: bitwise
+  ``lane.lane_sum_in_kernel_order`` of the terms, at several lengths,
+  tiles and output counts; the replay with a group's steps added in
+  reverse gives other bits.
 """
 
 import jax
@@ -316,3 +323,73 @@ def test_solver_bitwise_as_with_the_op_by_op_sums(case, monkeypatch):
     for a, b in zip(fused, reference):
         assert _bits_equal(a.float() if a.dtype == torch.bool else a,
                            b.float() if b.dtype == torch.bool else b), case
+
+
+#: ``csrc/lane_ops.cu``: blocks of a cluster, slots a block, threads of a
+#: block of ``lane_softplus_pixel_kernel`` (a warp a chain step of a group).
+_CLUSTER, _SLOT_BLOCK, _SP_THREADS = 8, 32, 512
+_SP_GROUP = _SP_THREADS // 32
+
+
+def _pixel_kernel_sums(terms, kb, reverse=False):
+    """``terms`` (L, S) float32 of one lane summed over L as
+    ``lane_softplus_pixel_kernel`` schedules the sums at tile width ``kb``:
+    for each tile and block q, group g's buffer [step][kl][l] is built by
+    thread (warp w, lane l) from pixel ((g G + w) 256 + 32 q + l) (zeros
+    past the chain or L), warp kl's lane l adds the group's G steps in
+    order (``reverse``: the wrong order), the slot goes to block kl % 8's
+    slots[kl // 8][32 q + l], and the owner's warp runs the slot tree."""
+    L, S = terms.shape
+    chain = -(-L // 256)
+    groups = -(-chain // _SP_GROUP)
+    out = np.zeros(S, np.float32)
+    for k0 in range(0, S, kb):
+        kn = min(kb, S - k0)
+        owned_slots = np.zeros((_CLUSTER, 2, 256), np.float32)
+        for q in range(_CLUSTER):
+            acc = np.zeros((kn, _SLOT_BLOCK), np.float32)
+            for g in range(groups):
+                buf = np.zeros((_SP_GROUP, kn, _SLOT_BLOCK), np.float32)
+                for w in range(_SP_GROUP):
+                    c = g * _SP_GROUP + w
+                    for l in range(_SLOT_BLOCK):
+                        i = c * 256 + 32 * q + l
+                        if c < chain and i < L:
+                            buf[w, :, l] = terms[i, k0:k0 + kn]
+                steps = range(_SP_GROUP - 1, -1, -1) if reverse else range(_SP_GROUP)
+                for step in steps:
+                    acc = (acc + buf[step]).astype(np.float32)
+            for kl in range(kn):
+                owned_slots[kl % _CLUSTER, kl // _CLUSTER, 32 * q:32 * q + 32] = acc[kl]
+        for q in range(_CLUSTER):
+            for u in range(2):
+                kl = q + _CLUSTER * u
+                if kl >= kn:
+                    continue
+                v = owned_slots[q, u].reshape(8, 32)  # v[r, l]: slot 32 r + l
+                for m in (4, 2, 1):
+                    v = (v[:m] + v[m:2 * m]).astype(np.float32)
+                v = v[0]
+                for m in (16, 8, 4, 2, 1):
+                    v = (v + np.concatenate([v[m:], np.zeros(m, np.float32)])).astype(np.float32)
+                out[k0 + kl] = v[0]
+    return out
+
+
+@pytest.mark.parametrize('L,S,kb', [(100, 1, 1), (256, 3, 3), (5001, 12, 3), (5001, 12, 2),
+                                    (12288, 12, 4), (12288, 16, 16), (4100, 16, 9),
+                                    (12288, 1, 1)])
+def test_softplus_pixel_schedule_keeps_every_bit(L, S, kb):
+    """The kernel's schedule gives the lane-sum order's bits for every
+    output (positive terms, as the solver's, of mixed magnitudes); the same schedule
+    with a group's steps added in reverse does not, at lengths of more than
+    one group (so the comparison would see it)."""
+    rng = np.random.RandomState(L + S + kb)
+    terms = (np.logaddexp(rng.randn(L, S) * 4, 0)
+             * 10.0 ** rng.randint(-3, 4, (L, S))).astype(np.float32)
+    want = lane.lane_sum_in_kernel_order(terms.T)
+    got = _pixel_kernel_sums(terms, kb)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    if -(-L // 256) > 1:
+        wrong = _pixel_kernel_sums(terms, kb, reverse=True)
+        assert not np.array_equal(wrong.view(np.int32), want.view(np.int32))

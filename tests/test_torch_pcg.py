@@ -19,7 +19,13 @@ before the kernel existed. Here:
   XLA's its own);
 - the early exit (a host sync every ``lane.PCG_SYNC_EVERY`` steps) and the
   full run give the same bits, and a lane alone gives its bits in a batch;
-- ``lane.pcg_kernel`` refuses CPU tensors: no fallback.
+- ``lane.pcg_kernel`` refuses CPU tensors: no fallback;
+- the schedule of the kernel's register route (``lane_pcg_reg_kernel``,
+  n <= ``lane.PCG_REG_MAX_N``) replayed in numpy: a warp's 8 rows reduced
+  by one xor tree that halves the rows a lane carries gives each row the
+  bits of ``lane_matvec``'s separate tree (a tree in another order
+  fails), and the dots' slots read from the registers' columns (thread
+  (w, l) holds j = l + 32 k) give ``lane_sum``'s order.
 """
 
 import functools
@@ -183,3 +189,74 @@ def test_pcg_kernel_refuses_cpu_tensors():
     lane.reset_launch_counts()
     lane.pcg(H, b, solver.CG_MAX_ITERS, solver.CG_RTOL)
     assert lane.LAUNCHES['lane_pcg'] == 0
+
+
+_LANES = np.arange(32)
+
+
+def _xor_tree(v, order=(16, 8, 4, 2, 1)):
+    """``lane_matvec_kernel``'s tree of one row's 32 lane sums (float32):
+    lane l adds lane l ^ m's value for m = 16, 8, 4, 2, 1; every lane's
+    result."""
+    for m in order:
+        v = (v + v[_LANES ^ m]).astype(np.float32)
+    return v
+
+
+def _rows_tree(acc, order=(16, 8, 4)):
+    """``lane_pcg_reg_kernel``'s tree of a warp's 8 rows at once (``acc``
+    (8, 32): row e's sum in lane l): at each m of ``order`` a lane keeps the
+    half of its rows its bit m selects and adds its partner's copy of them,
+    then m = 2, 1 on the one row left; returns (32,), lane l's row."""
+    v = acc
+    for m in order:
+        half = v.shape[0] // 2
+        hi = (_LANES & m) != 0
+        send = np.where(hi, v[:half], v[half:])
+        keep = np.where(hi, v[half:], v[:half])
+        v = (keep + send[:, _LANES ^ m]).astype(np.float32)
+    v = v[0]
+    for m in (2, 1):
+        v = (v + v[_LANES ^ m]).astype(np.float32)
+    return v
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_register_route_row_tree_keeps_every_bit(seed):
+    """Lanes 4 e .. 4 e + 3 end with row e's sum, bitwise what the separate
+    xor tree gives it; on these sums a tree in another order gives other
+    bits (so the comparison would see one)."""
+    rng = np.random.RandomState(seed)
+    acc = (rng.randn(8, 32) * 10.0 ** rng.randint(-3, 4, (8, 32))).astype(np.float32)
+    rows = _rows_tree(acc)
+    for e in range(8):
+        want = _xor_tree(acc[e])
+        assert np.all(want == want[0])
+        assert np.array_equal(rows[4 * e:4 * e + 4].view(np.int32),
+                              np.full(4, want[0], np.float32).view(np.int32))
+    assert any(_xor_tree(acc[e], (8, 16, 4, 2, 1))[0] != _xor_tree(acc[e])[0]
+               for e in range(8))
+
+
+@pytest.mark.parametrize('n', [6, 100, 256, 300, 510, 512])
+def test_register_route_dot_slots_keep_every_bit(n):
+    """A dot's slot t = 32 w + l sums the columns k = w and w + 8 that
+    thread (w, l) holds (j = l + 32 k < n, in that order, from 0), and the
+    slot tree gives ``lane.lane_sum_in_kernel_order``'s bits."""
+    rng = np.random.RandomState(n)
+    x = (rng.randn(n) * 10.0 ** rng.randint(-3, 4, n)).astype(np.float32)
+    slots = np.zeros(256, np.float32)
+    for w in range(8):
+        for l in range(32):
+            for k in (w, w + 8):
+                j = l + 32 * k
+                if j < n:
+                    slots[32 * w + l] = np.float32(slots[32 * w + l] + x[j])
+    v = slots.reshape(8, 32)  # v[r, l]: slot 32 r + l
+    for m in (4, 2, 1):
+        v = (v[:m] + v[m:2 * m]).astype(np.float32)
+    v = v[0]
+    for m in (16, 8, 4, 2, 1):  # shuffle down: lane l adds lane l + m
+        v = (v + np.concatenate([v[m:], np.zeros(m, np.float32)])).astype(np.float32)
+    want = lane.lane_sum_in_kernel_order(x[None])[0]
+    assert v[0].view(np.int32) == np.float32(want).view(np.int32)

@@ -201,8 +201,9 @@ process per turn, in the order A, B, B, A, each building its own
 checkout's kernels and printing one JSON line: the device ms of every
 phase-3 launch, the float32 routes' first and then the bf16 routes' (each
 checked against the plain version first, as phase 3 checks it; the lane
-kernels' ms, ``solver._pcg_solve``'s at :data:`PCG_SHAPES` and the Cholesky
-direction's at :data:`CHOL_SHAPES`), then bench
+kernels' ms, ``solver._pcg_solve``'s at :data:`PCG_SHAPES`, the Cholesky
+direction's at :data:`CHOL_SHAPES` and one whole ``solver._newton_step``'s
+at :data:`STEP_SHAPES`), then bench
 seeds 0-3 at ``AF_scale=12`` (after one cold run of seed 0),
 :data:`AB_REPS` times each, with each run's seconds, its
 global-energy-minimization seconds, lane Newton iterations, solve calls
@@ -211,8 +212,9 @@ launches per route and objects, and seed 0's match against the golden;
 then one more run of seed 0 under ``torch.profiler``: host syncs, kernel
 and graph launches issued by the host, device busy ms, idle share and the
 device ms per replayed Newton iteration by kernel family; seed 0 on the
-eager loop with its device time split by section (PCG's steps, the line
-search, the scale sweep, the rest); the 2048x2048 mosaic (1 thread) and
+eager loop with its device time split by section (the assembly of the
+damped system, the direction and its guard, PCG's steps within it, the
+line search, the scale sweep, the rest); the 2048x2048 mosaic (1 thread) and
 the stall fixtures at B = 1, 2, 4, 16. Every turn's label maps of bench
 seeds 0-3 and the mosaic and its fixtures' params and energies must be
 bitwise those of every other turn (each result printed; a difference
@@ -674,25 +676,31 @@ def _active(B, n_active):
 #: bucket (n = 32) and PCG's H p at n = 512 and 1024 (B = 2: the bench's
 #: banded chunks, 16: the table chunk, 1: a re-solve); ``lane_sum`` (B, S,
 #: K) summed over K (the solver's (B, K, S) layout, read in place) at the
-#: bench field's regularizer candidates and (B, K) energy sums, the shapes
-#: it launches most, then at shapes the main path no longer gives it since
-#: the softplus sums are fused: a (16, 32768) chunk's 12 line-search
-#: candidates, a B = 1 re-solve's, (B, P) one energy per lane and positive
-#: terms; ``lane_dot`` (B, n): PCG's dot products at the table chunk, a
+#: bench field's scale-sweep regularizer sums (S = 8), the shapes it
+#: launches most since the step guard took the line search's (S = 12),
+#: then at those and the (B, K) energy sums, and at shapes the main path
+#: no longer gives it since the softplus sums are fused: a (16, 32768)
+#: chunk's 12 line-search candidates, a B = 1 re-solve's, (B, P) one
+#: energy per lane and positive terms; ``lane_dot`` (B, n), which no
+#: solver path launches since the step guard took its last launches (it
+#: stays the sums of ``lane.pcg_chain``, the oracle of ``lane_pcg``):
+#: PCG's dot products at the table chunk, a
 #: B = 1 re-solve and the bench's B = 2; and ``softplus_energies`` (mode,
 #: B, P): the line search, the scale sweep and one energy at the table
 #: chunk and a B = 1 re-solve. The lists of the other kernels end with the
 #: bench field's frequent shapes (phase 4's lane histogram): a triangle
-#: chunk's u = Bf delta and a poly chunk's surface, the step guard's dot
-#: products at n = 256 and the line search and scale sweep of (8, 12288),
-#: (2, 16384), (16, 8192), (16, 6144) and (32, 16384), the softplus sums'
-#: most frequent shapes (556 of a bench image's 618 launches).
+#: chunk's u = Bf delta and a poly chunk's surface, the former step
+#: guard's dot products at n = 256 and the line search and scale sweep of
+#: (8, 12288), (2, 16384), (16, 8192), (16, 6144) and (32, 16384), the
+#: softplus sums' most frequent shapes (556 of a bench image's 618
+#: launches).
 LANE_SHAPES = {'lane_matvec': [(16, 32768, 512), (64, 8192, 6), (1, 16384, 512),
                                (64, 8192, 32), (2, 512, 512), (16, 512, 512),
                                (1, 512, 512), (2, 1024, 1024), (8, 12288, 256),
                                (32, 16384, 6)],
-               'lane_sum': [(2, 12, 506), (16, 12, 250), (16, 250), (16, 12, 32768),
-                            (1, 12, 16384), (64, 8192), (3, 12, 5000)],
+               'lane_sum': [(2, 8, 506), (8, 8, 250), (16, 8, 250), (2, 12, 506),
+                            (16, 12, 250), (16, 250), (16, 12, 32768), (1, 12, 16384),
+                            (64, 8192), (3, 12, 5000)],
                'lane_dot': [(16, 512), (1, 512), (2, 512), (8, 1024), (16, 256)],
                'softplus_energies': [('line_search', 16, 32768),
                                      ('line_search', 1, 16384),
@@ -742,8 +750,17 @@ CHOL_SHAPES = [(16, 256), (8, 256), (32, 6), (16, 6), (64, 6), (64, 32), (64, 64
 #: The JAX package's ``cho_factor`` / ``cho_solve`` in ``_newton_step`` (XLA's,
 #: no Pallas kernel), which ``lane_cholesky`` runs in one launch.
 CHOL_REPLACES = 'superdsm_tpu/dsm/solver.py:204'
-#: The lane kernels the main path must launch.
-LANE_KERNELS = tuple(LANE_SHAPES) + ('lane_pcg', 'lane_cholesky')
+#: The lane kernels of the kernels line.
+LANE_KERNELS = tuple(LANE_SHAPES) + ('lane_pcg', 'lane_cholesky', 'lane_lm_system',
+                                     'lane_step_guard')
+#: Lane kernels that no solver path launches since their work moved into
+#: another kernel (``lane_dot`` into ``lane_step_guard``; ``lane.pcg_chain``,
+#: the oracle of ``lane_pcg``, and phase 3 still launch it): the main path
+#: must launch them 0 times.
+OFF_PATH_LANE_KERNELS = ('lane_dot',)
+#: The kernels of each Newton step around its direction: one launch each
+#: per Newton iteration.
+STEP_KERNELS = ('lane_lm_system', 'lane_step_guard')
 #: float32 operations of one softplus-energy term: the candidate's x (line
 #: search: u c, s +, y *, negation; scale sweep: c *, negation, with y s once
 #: a pixel; one energy: y *, negation), logaddexp(x, 0) (the isinf test,
@@ -1203,6 +1220,144 @@ def _check_cholesky(shape):
                 rel_err=float(err_k.max()), cusolver_rel_err=float(err_c.max()))
 
 
+def _step_inputs(B, n):
+    """A Newton step's inputs at (B, n) on the card: H and g of
+    :func:`_chol_systems` (its damped system, one lane of it not positive
+    definite), params of a tenth, alpha 0.5, the last tenth of kmask padded,
+    mu from 1e-6 up to 1e-2 across the lanes, f0 of 1e3 to 1e4; the
+    direction as the step hands it to the guard (``lane_cholesky``'s, NaN
+    in the lane whose factor fails, or at n > ``CHOLESKY_MAX_N`` the
+    ``lane_pcg`` solution, which the guard negates) of the damped system
+    ``lane_lm_system`` makes; and ``negate``."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane, solver
+    H, g = _chol_systems(B, n)
+    rng = np.random.RandomState(B + 3 * n)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device='cuda')
+    K = max(n - 6, 0)
+    kmask = np.ones((B, K), np.float32)
+    kmask[:, K - K // 10:] = 0.0
+    a = dict(H=H, g=g, params=t(rng.randn(B, n) * 0.1), alpha=t(np.full(B, 0.5)),
+             kmask=t(kmask), mu=t(np.logspace(-6, -2, B)), f0=t(rng.uniform(1e3, 1e4, B)),
+             steps=0.5 ** torch.arange(solver.LS_STEPS, dtype=torch.float32, device='cuda'))
+    g_d, Hd = lane.lm_system_kernel(a['params'], a['mu'], a['alpha'], 1.0, a['kmask'], g, H)
+    a['negate'] = n > solver.CHOLESKY_MAX_N
+    a['direction'] = (lane.pcg_kernel(Hd, g_d, solver.CG_MAX_ITERS, solver.CG_RTOL)
+                      if a['negate'] else lane.cholesky_kernel(Hd, g_d))
+    a['g_d'] = g_d
+    return a
+
+
+#: ``lane_lm_system``'s shapes (B, n): the bench field's most frequent DSM
+#: chunk first (the kernels line's row), its other n = 256 and n = 128
+#: chunks, a banded n = 512 chunk and its c2f solves (n = 6).
+LM_SHAPES = [(16, 256), (8, 256), (16, 128), (2, 512), (32, 6), (16, 6)]
+#: ``lane_step_guard``'s shapes (B, n): the bench's banded n = 512 chunks
+#: first (a PCG direction, negated in the kernel; the kernels line's row),
+#: its n = 256 chunks (a Cholesky direction, one lane's NaN) and a c2f
+#: solve.
+GUARD_SHAPES = [(2, 512), (16, 256), (8, 256), (2, 6)]
+#: The lines of the JAX package's jitted ``_newton_step`` (XLA's fusions, no
+#: Pallas kernel) that the two step kernels run: the damped system, and the
+#: guard with the line search's regularizer candidates and thresholds.
+STEP_REPLACES = {'lane_lm_system': 'superdsm_tpu/dsm/solver.py:194',
+                 'lane_step_guard': 'superdsm_tpu/dsm/solver.py:208'}
+
+
+def _check_step(name, shape):
+    """Holds ``lane_lm_system`` or ``lane_step_guard`` at ``(B, n)``
+    (:func:`_step_inputs`) to the chain it replaces on the card (its plain
+    version: ATen's ops and the ``lane_sum`` and ``lane_dot`` kernels),
+    bitwise, a NaN against any NaN; a lane alone, a captured graph's replay
+    and a second run bitwise equal to it; and again on inputs with
+    non-finite values (``lane_lm_system``: an infinite mu in lane 1, every
+    dimension of the last lane padded; ``lane_step_guard``: a NaN
+    direction in lane 0, an infinite f0 in the last lane). Returns its
+    table row.
+
+    Bound: the larger of the bytes each input is read once and each output
+    written once over the memory rate and the float32 operations over the
+    float32 peak: ``lane_lm_system`` two additions an entry of Hd, some
+    twenty operations an entry of its diagonal and g; ``lane_step_guard``
+    the decrement's 2 n, the fallback's 3 n in each lane it takes, eight
+    operations a regularizer term (S K a lane) and four a threshold. The
+    plain version is the chain (``plain_ms`` and ``chain_ms``); no single
+    PyTorch call computes either, so no library call."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane, solver
+    B, n = shape
+    a = _step_inputs(B, n)
+    K, S = max(n - 6, 0), solver.LS_STEPS
+    tag = f'{name} {shape}'
+    if name == 'lane_lm_system':
+        def call(fn, a, lanes=slice(None)):
+            return fn(a['params'][lanes], a['mu'][lanes], a['alpha'][lanes], 1.0,
+                      a['kmask'][lanes], a['g'][lanes], a['H'][lanes])
+        kernel, plain = lane.lm_system_kernel, lane.lm_system_plain
+
+        def special(a):
+            a = dict(a, mu=a['mu'].clone(), kmask=a['kmask'].clone())
+            a['mu'][min(1, B - 1)] = float('inf')
+            a['kmask'][-1] = 0.0
+            return a
+        nbytes = 4.0 * (2 * B * n * n + B * n + 2 * B + (3 * B * n + B * K if n > 6 else 0))
+        ops = 2.0 * B * n * n + 20.0 * B * n
+    else:
+        def call(fn, a, lanes=slice(None)):
+            return fn(a['direction'][lanes], a['g_d'][lanes], a['params'][lanes],
+                      a['alpha'][lanes], 1.0, a['kmask'][lanes], a['steps'], a['f0'][lanes],
+                      solver.ARMIJO_C, a['negate'])
+        kernel, plain = lane.step_guard_kernel, lane.step_guard_plain
+
+        def special(a):
+            a = dict(a, direction=a['direction'].clone(), f0=a['f0'].clone())
+            a['direction'][0, n // 2] = float('nan')
+            a['f0'][-1] = float('inf')
+            return a
+        d = -a['direction'] if a['negate'] else a['direction']
+        bad = int((~torch.isfinite(d).all(dim=1)).sum())
+        nbytes = 4.0 * (4 * B * n + B * K + 3 * B + S + (2 if n > 6 else 1) * B * S)
+        ops = 2.0 * B * n + 3.0 * n * bad + 8.0 * B * S * K + 4.0 * B * S
+
+    def same(x, y):
+        return all(u is None and v is None or _same_bits(u, v) for u, v in zip(x, y))
+    out = call(kernel, a)
+    torch.cuda.synchronize()
+    ref = call(plain, a)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call(kernel, a)
+    graph.replay()
+    torch.cuda.synchronize()
+    odd = special(a)
+    checks = {
+        'the chain': same(out, ref),
+        'a second run': same(out, call(kernel, a)),
+        'a lane alone': all(same([x[0] for x in call(kernel, a, slice(b, b + 1)) if x is not None],
+                                 [x[b] for x in out if x is not None])
+                            for b in sorted({0, B // 2, B - 1})),
+        'a captured graph': same(captured, out),
+        'the chain on non-finite inputs': same(call(kernel, odd), call(plain, odd))}
+    del graph, captured
+    say(f'[kernel] {tag}: bitwise equal to ' + ', '.join(f'{k} {v}' for k, v in checks.items()))
+    for what, ok in checks.items():
+        if not ok:
+            fail(f'{tag}: kernel not bitwise equal to {what}')
+    finite = [(x - y)[torch.isfinite(x) & torch.isfinite(y)]
+              for x, y in zip(out, ref) if x is not None]
+    errs = [float(d.abs().max()) for d in finite if d.numel()]
+    ms = _event_ms(lambda: call(kernel, a))
+    chain_ms = _event_ms(lambda: call(plain, a))
+    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
+    say(f'[kernel] {tag}: kernel {ms:.4f} ms, chain {chain_ms:.4f} ms ({chain_ms / ms:.1f}x), '
+        f'library none, bound {bound_ms:.4f} ms by {bound_by}: {bound_ms / ms:.1%} of the bound')
+    return dict(max_abs_err=max(errs, default=0.0), ms=ms, plain_ms=chain_ms,
+                chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, library_ms=None, shape=list(shape))
+
+
 def _check_logaddexp(chunk=1 << 28):
     """The softplus device function of the fused sums (``lane.softplus_kernel``)
     against ``torch.logaddexp(x, 0)`` on the card over all 2^32 float32
@@ -1238,7 +1393,9 @@ def phase_kernels():
     shape's, and its launches at the other shapes are listed under it as
     ``other_shapes``; then the softplus device function over all 2^32
     inputs, the lane kernels at :data:`LANE_SHAPES`, ``lane_pcg`` at
-    :data:`PCG_SHAPES` and ``lane_cholesky`` at :data:`CHOL_SHAPES`."""
+    :data:`PCG_SHAPES`, ``lane_cholesky`` at :data:`CHOL_SHAPES`,
+    ``lane_lm_system`` at :data:`LM_SHAPES` and ``lane_step_guard`` at
+    :data:`GUARD_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
@@ -1268,6 +1425,9 @@ def phase_kernels():
     rows['lane_pcg'] = dict(pcg[0], other_shapes=pcg[1:])
     chol = [_check_cholesky(shape) for shape in CHOL_SHAPES]
     rows['lane_cholesky'] = dict(chol[0], other_shapes=chol[1:])
+    for name, shapes in (('lane_lm_system', LM_SHAPES), ('lane_step_guard', GUARD_SHAPES)):
+        step = [_check_step(name, shape) for shape in shapes]
+        rows[name] = dict(step[0], other_shapes=step[1:])
     _CHOL_SYSTEMS.clear()
     torch.cuda.empty_cache()
     return rows
@@ -1648,6 +1808,8 @@ def _profiled(fn):
 KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce')),
                    ('lane_pcg', ('lane_pcg',)),
                    ('lane_cholesky', ('lane_cholesky',)),
+                   ('lane_lm_system', ('lane_lm_system',)),
+                   ('lane_step_guard', ('lane_step_guard',)),
                    ('lane_matvec', ('lane_matvec',)),
                    ('lane_dot', ('dotterm',)),
                    ('softplus_energies', ('lane_softplus',)),
@@ -1683,16 +1845,20 @@ def _family_split(spans, iterations):
 
 #: Sections of a Newton iteration whose device time ``--ab`` splits out:
 #: PCG's steps (``solver._pcg_solve``), and within ``solver._newton_step``
-#: the line search and the scale sweep, from the source lines that open
-#: them (found by their text, so in either checkout of ``--ab``) to the
-#: one after.
-SECTION_MARKS = ('# line search: s is affine', '# multiplicative scale sweep',
-                 'new_mu = torch.where(')
+#: the assembly of the damped system (its lines before the first mark),
+#: the direction and its guard, the line search and the scale sweep, from
+#: the source lines that open them (found by their text, so in either
+#: checkout of ``--ab``) to the one after.
+SECTION_MARKS = ('if n > CHOLESKY_MAX_N:', '# line search: s is affine',
+                 '# multiplicative scale sweep', 'new_mu = torch.where(')
+#: The sections of ``_newton_step`` from its first line and from each mark
+#: but the last.
+SECTION_NAMES = ('assembly', 'direction and guard', 'line search', 'scale sweep')
 
 
 def _solver_sections(path):
-    """The first lines of the line search, the scale sweep and what follows
-    it in ``_newton_step`` of the solver source at ``path``."""
+    """The first lines of ``_newton_step`` and of each of its sections
+    (:data:`SECTION_MARKS`) in the solver source at ``path``."""
     lines = open(path).read().splitlines()
     at, marks = 0, []
     for text in ('def _newton_step(',) + SECTION_MARKS:
@@ -1702,16 +1868,17 @@ def _solver_sections(path):
                  f'before it): the split by section needs SECTION_MARKS to '
                  f'name lines of that solver')
         marks.append(at + 1)
-    return tuple(marks[1:])
+    return tuple(marks)
 
 
 @contextlib.contextmanager
 def _section_ranges(marks):
     """While the block runs, each section of the solver's Newton iterations
     is a ``torch.profiler.record_function`` range named ``sdsm.<section>``:
-    a call of ``_pcg_solve`` is 'PCG steps'; the lines of ``_newton_step``
-    from ``marks[0]`` and from ``marks[1]`` up to ``marks[2]`` are 'line
-    search' and 'scale sweep' (a line tracer on this and new threads,
+    a call of ``_pcg_solve`` is 'PCG steps' (inside the direction's
+    section); the lines of ``_newton_step`` from ``marks[i]`` up to
+    ``marks[i + 1]`` are section :data:`SECTION_NAMES` [i] (``marks[0]``:
+    its first line; a line tracer on this and new threads,
     ``sys.settrace``; only those two functions' frames are traced line by
     line)."""
     import threading
@@ -1720,9 +1887,8 @@ def _section_ranges(marks):
     newton, pcg = solver._newton_step.__code__, solver._pcg_solve.__code__
 
     def section(line):
-        if marks[0] <= line < marks[1]:
-            return 'line search'
-        return 'scale sweep' if marks[1] <= line < marks[2] else None
+        return next((name for name, a, b in zip(SECTION_NAMES, marks, marks[1:])
+                     if a <= line < b), None)
 
     def local(frame, event, arg, state):
         name = section(frame.f_lineno) if event == 'line' else None
@@ -1764,10 +1930,10 @@ def _section_split(fn):
     """Runs ``fn`` (a solve on the eager loop, whose kernels are those a
     replayed iteration launches) under ``torch.profiler`` with its sections
     marked (:func:`_section_ranges`); attributes every device activity to
-    the section whose range holds the host call that launched it (the
-    runtime call of the same correlation id, on the same thread). Returns
-    the device ms per Newton iteration by (kernel family, section) and the
-    iterations run."""
+    the innermost section whose range holds the host call that launched it
+    (the runtime call of the same correlation id, on the same thread: PCG's
+    steps inside the direction's section). Returns the device ms per Newton
+    iteration by (kernel family, section) and the iterations run."""
     import bisect
     import collections
     import torch
@@ -1803,9 +1969,13 @@ def _section_split(fn):
         where = 'rest'
         thread, t = launched.get(e.correlation_id(), (None, None))
         if thread in starts:
+            # the latest range that starts before the call and still holds
+            # it (sections nest at most two deep)
             i = bisect.bisect_right(starts[thread], t) - 1
-            if i >= 0 and ranges[thread][i][1] >= t:
-                where = ranges[thread][i][2]
+            for j in range(i, max(i - 2, -1), -1):
+                if ranges[thread][j][1] >= t:
+                    where = ranges[thread][j][2]
+                    break
         ms[(_kernel_family(e.name()), where)] += e.duration_ns() / 1e6 / iterations
     return ms, iterations
 
@@ -1983,15 +2153,17 @@ def phase_main_path():
     """Phase 4; returns the timed run's launches (the gram routes' and the
     lane kernels'), seed 0's label map, the profile's launch histograms
     (gram, lane kernels) and the profiled image's counts."""
-    from superdsm_tpu_torch.dsm import gram, lane
+    from superdsm_tpu_torch.dsm import gram, lane, solver
     g, n = make_image(0)
     _, _, _, timings, seconds = _segment(g, 12)
     say(f'[main] cold run: {seconds:.2f} s '
         f'({ {k: round(v, 3) for k, v in timings.items()} })')
     gram.reset_launch_counts()
     lane.reset_launch_counts()
+    solver.reset_loop_stats()
     data, seg, _, timings, seconds = _segment(g, 12)
     launches = dict(gram.LAUNCHES, **lane.LAUNCHES)
+    iterations = solver.LOOP_STATS['iterations']
     n_obj = len(data['postprocessed_objects'])
     say(f'[main] timed run: {seconds:.2f} s, {n_obj} objects '
         f'(field has {n} nuclei); stage seconds '
@@ -2000,9 +2172,18 @@ def phase_main_path():
         f'kernels: {dict(lane.LAUNCHES)}')
     if any(launches[r] == 0 for r in ('dense', 'triangle', 'banded')):
         fail('the main path left a float32 gram route unlaunched')
-    if any(launches[name] == 0 for name in LANE_KERNELS):
-        fail('the main path left a lane kernel unlaunched: '
-             f'{[k for k in LANE_KERNELS if launches[k] == 0]}')
+    unlaunched = [k for k in LANE_KERNELS if k not in OFF_PATH_LANE_KERNELS
+                  and launches[k] == 0]
+    if unlaunched:
+        fail(f'the main path left a lane kernel unlaunched: {unlaunched}')
+    say(f'[main] {iterations} Newton iterations; ' + ', '.join(
+        f'{k} {launches[k]} launches' for k in STEP_KERNELS + OFF_PATH_LANE_KERNELS))
+    if any(launches[k] for k in OFF_PATH_LANE_KERNELS):
+        fail(f'the main path launched {[k for k in OFF_PATH_LANE_KERNELS if launches[k]]}, '
+             'whose work another kernel does')
+    if any(launches[k] != iterations for k in STEP_KERNELS):
+        fail(f'the step kernels did not launch once per Newton iteration ({iterations}): '
+             f'{ {k: launches[k] for k in STEP_KERNELS} }')
     if any(v for r, v in launches.items() if r.endswith('pass')):
         fail('the default knobs launched a reduced-precision gram')
     if n_obj == 0:
@@ -2609,11 +2790,14 @@ def phase_mesh(bench_seg):
         fail(f'sharded DSM: {launches} float32 launches for {calls[0]} shard '
              'iterations (one dense launch per shard per iteration expected)')
     # the direction is one lane_cholesky launch per Newton iteration of the
-    # row; the sums go through the lane kernels
-    if lane_launches['lane_cholesky'] != calls[0] // 2 or not all(
-            lane_launches[k] for k in ('lane_sum', 'lane_dot', 'softplus_energies')):
+    # row, its guard one lane_step_guard launch; the sums go through the
+    # lane kernels, and none through lane_dot
+    if any(lane_launches[k] != calls[0] // 2 for k in ('lane_cholesky', 'lane_step_guard')) \
+            or not all(lane_launches[k] for k in ('lane_sum', 'softplus_energies')) \
+            or lane_launches['lane_dot']:
         fail(f'sharded DSM: lane kernel launches {lane_launches} for '
-             f'{calls[0] // 2} Newton iterations (one lane_cholesky each expected)')
+             f'{calls[0] // 2} Newton iterations (one lane_cholesky and one '
+             'lane_step_guard each, no lane_dot expected)')
     # a lane alone gives its bits in the batch
     solve2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)
     same = True
@@ -2981,16 +3165,44 @@ def _ab_kernel_ms(root, shape, launches):
     return kernel_ms
 
 
+#: ``solver._newton_step``'s (B, P, n) that ``--ab`` times in both
+#: checkouts: the bench field's most frequent DSM chunk (a Cholesky
+#: direction), a banded n = 512 chunk (PCG) and a c2f chunk (n = 6).
+STEP_SHAPES = [(16, 8192, 256), (2, 16384, 512), (32, 8192, 6)]
+
+
+def _newton_step_args(B, P, n):
+    """One Newton step's arguments at (B, P, n) from phase 3's lanes (at n
+    = 6 the polynomial columns of n = 32 lanes): the plain float64-sum
+    gram's g and H at params of a hundredth, alpha 0.5, mu 1e-4, the
+    lanes' own kmask."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram, lane, solver
+    rng = np.random.RandomState(B + P + n)
+    lanes = [_lane_features(rng, P, max(n, 32) - 6) for _ in range(B)]
+    Bf, _, yv, w = (torch.stack(t).contiguous() for t in zip(*lanes))
+    Bf = Bf[..., :n].contiguous()
+    kmask = (Bf[..., 6:] != 0).any(dim=1).float()
+    params = torch.tensor(rng.randn(B, n).astype(np.float32) * 0.01, device='cuda')
+    alpha = torch.full((B,), 0.5 if n > 6 else 0.0, device='cuda')
+    s = lane.matvec(Bf, params)
+    f0 = solver._energy_from_surface(s, params[:, 6:], yv, w, alpha, 1.0, kmask)
+    g, H = gram.grad_hess_plain(Bf, s, yv, w)
+    return (params, torch.full((B,), 1e-4, device='cuda'), s, f0, g, H, Bf, yv, w, alpha,
+            1.0, kmask, solver.DEFAULT_TOL)
+
+
 def _ab_lane_ms():
     """Device ms of ``lane_matvec`` and ``lane_sum`` (the solver's (B, K,
     S) layout summed over K, as each checkout's wrapper reads it) and
     ``softplus_energies`` at their phase-3 shapes, the lane kernels both
     checkouts have, of
-    ``solver._pcg_solve`` run to ``CG_MAX_ITERS`` at :data:`PCG_SHAPES` and
+    ``solver._pcg_solve`` run to ``CG_MAX_ITERS`` at :data:`PCG_SHAPES`,
     of ``solver._cholesky_direction`` on the whole batch at
     :data:`CHOL_SHAPES` (one ``lane_cholesky`` launch; in a checkout whose
     direction is cuSOLVER's batched route, which a CUDA graph cannot hold,
-    the turn fails: phase 3 times cuSOLVER's routes)."""
+    the turn fails: phase 3 times cuSOLVER's routes) and of one whole
+    ``solver._newton_step`` at :data:`STEP_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import lane, solver
     out = {}
@@ -3022,6 +3234,10 @@ def _ab_lane_ms():
         out[f'_cholesky_direction {(B, n)}'] = _event_ms(
             lambda: solver._cholesky_direction(Hd, g))
     _CHOL_SYSTEMS.clear()
+    for shape in STEP_SHAPES:
+        args = _newton_step_args(*shape)
+        out[f'_newton_step {shape}'] = _event_ms(lambda: solver._newton_step(*args))
+        del args
     torch.cuda.empty_cache()
     return out
 
@@ -3630,6 +3846,9 @@ def main():
     table.append(dict(name='lane_ops/lane_cholesky', route='cuda', source=LANE_SOURCE,
                       replaces=CHOL_REPLACES, launches=launches['lane_cholesky'],
                       **kernels['lane_cholesky']))
+    table += [dict(name=f'lane_ops/{name}', route='cuda', source=LANE_SOURCE,
+                   replaces=STEP_REPLACES[name], launches=launches[name], **kernels[name])
+              for name in STEP_KERNELS]
     say(card)  # the card's name and power limit, as nvidia-smi gives them
     say(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

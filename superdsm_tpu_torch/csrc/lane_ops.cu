@@ -63,6 +63,11 @@
 //     launch, in an order fixed by n alone: one block a lane at small n
 //     (see the comment above lane_cholesky_kernel), a cluster of 8 blocks
 //     a lane in panels of 8 columns above (lane_cholesky_cluster_kernel).
+//   lane_lm_system, lane_step_guard: the damped Newton system before the
+//     direction solve, and the guard, decrement, line-search regularizer
+//     candidates and Armijo thresholds after it, each one launch a Newton
+//     step, bitwise the ATen ops and lane sums they replace (see the
+//     comment above lane_lm_system_kernel).
 //
 // They replace no Pallas kernel: in the JAX package these are XLA's
 // products and reductions inside the jitted Newton loop
@@ -1982,6 +1987,216 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
   }
 }
 
+// ---------------------------------------------------------------------------
+// The two ends of a Newton step (solver._newton_step): the damped system
+// before the direction solve (lane_lm_system) and the step guard after it
+// (lane_step_guard). Each replaces a run of ATen's elementwise kernels and
+// lane sums (some 35 and 25 launches of a DSM iteration), and gives the
+// bits of that run: every operation rounds as ATen's CUDA kernel rounds it
+// (__fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn, no contraction), and
+// every sum takes the lane sums' slot-and-tree order. They replace no
+// Pallas kernel: in the JAX package these are XLA's fusions of the jitted
+// Newton step (superdsm_tpu/dsm/solver.py:194-200, 208-227). Bytes bound
+// lane_lm_system (one read of H, one write of Hd); lane_step_guard moves a
+// few vectors of a lane and is bound by its launch and its four dependent
+// block trees.
+// ---------------------------------------------------------------------------
+
+constexpr int LM_ROWS = 16;             // rows of Hd a block of lane_lm_system writes
+constexpr int GUARD_MAX_S = SLOTS_K;    // line-search steps of lane_step_guard
+constexpr int GUARD_MAX_N = 4096;       // its direction in dynamic shared memory
+
+// ATen's clamp_min(v, 0) on CUDA: NaN propagates (fmaxf alone would drop it).
+__device__ __forceinline__ float clamp_min0(float v) { return isnan(v) ? v : fmaxf(v, 0.0f); }
+
+// sqrt(xi * xi + eps), op by op.
+__device__ __forceinline__ float reg_term2(float xi, float eps) {
+  return __fsqrt_rn(__fadd_rn(__fmul_rn(xi, xi), eps));
+}
+
+// The regularizer's gradient at a deformation entry, as lane.reg_grad_hess
+// builds it: (a * (xi / term2)) * kmask.
+__device__ __forceinline__ float reg_grad(float xi, float a, float km, float eps) {
+  return __fmul_rn(__fmul_rn(a, __fdiv_rn(xi, reg_term2(xi, eps))), km);
+}
+
+// Its Hessian diagonal there: clamp_min(a * (1.0 / term2 - (xi * xi) /
+// term2 ** 3), 0) * kmask + (1.0 - kmask). PyTorch's 1.0 / t is
+// reciprocal(t) * 1.0 and ATen's t ** 3 is (t * t) * t.
+__device__ __forceinline__ float reg_hess(float xi, float a, float km, float eps) {
+  const float t2 = reg_term2(xi, eps);
+  const float r = __fmul_rn(__fdiv_rn(1.0f, t2), 1.0f);
+  const float q = __fdiv_rn(__fmul_rn(xi, xi), __fmul_rn(__fmul_rn(t2, t2), t2));
+  const float h = clamp_min0(__fmul_rn(a, __fsub_rn(r, q)));
+  return __fadd_rn(__fmul_rn(h, km), __fsub_rn(1.0f, km));
+}
+
+// The lane sum of the block's slots (thread t holds slot t's chain): warp 0
+// runs the tree over `part`, and every thread gets the sum. `part` and
+// `total` may be used again right after it returns.
+__device__ __forceinline__ float block_slot_sum(float acc, float* part, float* total) {
+  const int t = threadIdx.x;
+  part[t] = acc;
+  __syncthreads();
+  if (t < WARP) {
+    float v[CLUSTER];
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) v[r] = part[r * WARP + t];
+    const float sum = slot_tree(v);
+    if (t == 0) *total = sum;
+  }
+  __syncthreads();
+  return *total;
+}
+
+// Hd = H + diag(reg_h) + (mu scale_h) I and g' = (g + reg_g) * [1, kmask]
+// for a lane, where scale_h = lane_sum(diag(H + diag(reg_h))) / n + 1e-12
+// (solver.py:297-304; at n <= 6 no regularizer: g is left alone and Hd = H
+// + (mu scale_h) I). A block writes LM_ROWS rows of one lane's Hd; each
+// recomputes the lane's scale_h over the n diagonal entries in lane_sum's
+// order (slot t adds entries t, t + 256, ...; the tree), which needs no
+// second launch and no grid-wide barrier. Row tile 0 writes g'. ATen's
+// steps kept: x / n with a Python n is x * (1.0f / n) (inv_n, from the
+// host), H + diag_embed(reg_h) adds 0 off the diagonal (a -0 becomes +0),
+// and the damping adds c * 0 there (NaN everywhere when c is not finite).
+__global__ void __launch_bounds__(ROW_THREADS)
+lane_lm_system_kernel(const float* __restrict__ params, const float* __restrict__ mu,
+                      const float* __restrict__ alpha, const float* __restrict__ kmask,
+                      const float* __restrict__ g, const float* __restrict__ H,
+                      float* __restrict__ g_out, float* __restrict__ Hd, int n, int tiles,
+                      float eps, float inv_n, float tiny) {
+  __shared__ float part[ROW_THREADS];
+  __shared__ float total;
+  const long long o = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  const int t = threadIdx.x;
+  const int K = n - 6;
+  const bool reg = K > 0;
+  const float* p = params + o * n;
+  const float* km = kmask + (reg ? o * K : 0);
+  const float a = reg ? __ldg(alpha + o) : 0.0f;
+  const float* h = H + o * n * n;
+  float* hd = Hd + o * n * n;
+  float acc = 0.0f;
+  for (int i = t; i < n; i += ROW_THREADS) {
+    float v = __ldg(h + (long long)i * n + i);
+    if (reg) v = __fadd_rn(v, i < 6 ? 0.0f : reg_hess(__ldg(p + i), a, __ldg(km + i - 6), eps));
+    acc = __fadd_rn(acc, v);
+  }
+  const float sum = block_slot_sum(acc, part, &total);
+  const float c = __fmul_rn(__ldg(mu + o), __fadd_rn(__fmul_rn(sum, inv_n), tiny));
+  const float c_diag = __fmul_rn(c, 1.0f), c_off = __fmul_rn(c, 0.0f);
+  // column j of the tile's rows: all LM_ROWS loads issued before the first
+  // store (a thread's loads in flight, not one after another)
+  const int i0 = tile * LM_ROWS;
+  for (int j = t; j < n; j += ROW_THREADS) {
+    float v[LM_ROWS];
+#pragma unroll
+    for (int r = 0; r < LM_ROWS; ++r)
+      v[r] = i0 + r < n ? __ldg(h + (long long)(i0 + r) * n + j) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < LM_ROWS; ++r) {
+      const int i = i0 + r;
+      if (i >= n) break;
+      float x = v[r];
+      if (j == i) {
+        if (reg) x = __fadd_rn(x, i < 6 ? 0.0f : reg_hess(__ldg(p + i), a, __ldg(km + i - 6), eps));
+        x = __fadd_rn(x, c_diag);
+      } else {
+        if (reg) x = __fadd_rn(x, 0.0f);
+        x = __fadd_rn(x, c_off);
+      }
+      hd[(long long)i * n + j] = x;
+    }
+  }
+  if (tile == 0 && reg) {
+    for (int i = t; i < n; i += ROW_THREADS) {
+      const float rg = i < 6 ? 0.0f : reg_grad(__ldg(p + i), a, __ldg(km + i - 6), eps);
+      const float m = i < 6 ? 1.0f : __ldg(km + i - 6);
+      g_out[o * n + i] = __fmul_rn(__fadd_rn(__ldg(g + o * n + i), rg), m);
+    }
+  }
+}
+
+// The guard of a Newton direction and what the line search needs of it,
+// for one lane a block (solver.py:309-312, 321-324, 329):
+//   delta = dir (-dir with `negate`: PCG's solution); where an entry is not
+//     finite, delta = -g / (sqrt(lane_dot(g, g)) + 1);
+//   decrement = -lane_dot(g, delta);
+//   thr[k] = f0 - (armijo * steps[k]) * decrement, the Armijo thresholds;
+//   reg_cand[k] = clamp_min(alpha * lane_sum_K(kmask * (sqrt(xi * xi + eps)
+//     - sqrt(eps))), 0), xi = params[6:] + delta[6:] * steps[k] (n > 6).
+// Each sum takes lane_dot's and lane_sum's own order (slot t adds terms t,
+// t + 256, ... in turn; then the tree), so the outputs are bitwise that
+// chain with no tensor in between; the S regularizer sums run in turn over
+// the same 256 slots and their trees over the block's 8 warps. The lane's
+// direction sits in dynamic shared memory (n floats): the regularizer's
+// terms read entries 6 + i that other threads loaded.
+__global__ void __launch_bounds__(ROW_THREADS)
+lane_step_guard_kernel(const float* __restrict__ dir, const float* __restrict__ g,
+                       const float* __restrict__ params, const float* __restrict__ alpha,
+                       const float* __restrict__ kmask, const float* __restrict__ steps,
+                       const float* __restrict__ f0, float* __restrict__ delta,
+                       float* __restrict__ decrement, float* __restrict__ reg_cand,
+                       float* __restrict__ thr, int n, int S, int negate, float eps,
+                       float sq_eps, float armijo) {
+  extern __shared__ float d[];
+  __shared__ float part[GUARD_MAX_S][ROW_THREADS];
+  __shared__ float total;
+  const long long o = blockIdx.x;
+  const int t = threadIdx.x;
+  const float* gl = g + o * n;
+  int bad = 0;
+  for (int i = t; i < n; i += ROW_THREADS) {
+    float v = __ldg(dir + o * n + i);
+    if (negate) v = -v;
+    bad |= !isfinite(v);
+    d[i] = v;
+  }
+  if (__syncthreads_or(bad)) {
+    float gg = 0.0f;
+    for (int i = t; i < n; i += ROW_THREADS) {
+      const float gi = __ldg(gl + i);
+      gg = __fadd_rn(gg, __fmul_rn(gi, gi));
+    }
+    const float den = __fadd_rn(__fsqrt_rn(block_slot_sum(gg, part[0], &total)), 1.0f);
+    for (int i = t; i < n; i += ROW_THREADS) d[i] = __fdiv_rn(-__ldg(gl + i), den);
+  }
+  float gd = 0.0f;
+  for (int i = t; i < n; i += ROW_THREADS) {
+    delta[o * n + i] = d[i];
+    gd = __fadd_rn(gd, __fmul_rn(__ldg(gl + i), d[i]));
+  }
+  // the barriers of the sum also publish d to every thread
+  const float dec = -block_slot_sum(gd, part[0], &total);
+  if (t == 0) decrement[o] = dec;
+  if (t < S)
+    thr[o * S + t] = __fsub_rn(__ldg(f0 + o), __fmul_rn(__fmul_rn(armijo, __ldg(steps + t)), dec));
+  const int K = n - 6;
+  if (K <= 0) return;
+  const float* p = params + o * n + 6;
+  const float* km = kmask + o * K;
+  for (int k = 0; k < S; ++k) {
+    const float sk = __ldg(steps + k);
+    float acc = 0.0f;
+    for (int i = t; i < K; i += ROW_THREADS) {
+      const float xi = __fadd_rn(__ldg(p + i), __fmul_rn(d[6 + i], sk));
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(km + i), __fsub_rn(reg_term2(xi, eps), sq_eps)));
+    }
+    part[k][t] = acc;
+  }
+  __syncthreads();
+  const float a = __ldg(alpha + o);
+  const int lane = t % WARP;
+  for (int k = t / WARP; k < S; k += ROW_THREADS / WARP) {
+    float v[CLUSTER];
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) v[r] = part[k][r * WARP + lane];
+    const float sum = slot_tree(v);
+    if (lane == 0) reg_cand[o * S + k] = clamp_min0(__fmul_rn(a, sum));
+  }
+}
+
 template <class Term, int UNROLL>
 int launch_sum(const Term& term, float* out, long long O, int L, int S,
                cudaStream_t stream) {
@@ -2454,5 +2669,47 @@ extern "C" int sdsm_lane_cholesky(const float* H, const float* g, float* out,
   } else {
     lane_cholesky_kernel<true><<<B, CHOL_MAX_THREADS, 0, st>>>(H, g, out, scratch, n);
   }
+  return (int)cudaGetLastError();
+}
+
+// (g', Hd) = the damped Newton system of solver._newton_step for B lanes
+// (lane_lm_system_kernel): params, g (B, n), H (B, n, n), mu, alpha (B,),
+// kmask (B, n - 6) float32 contiguous (alpha, kmask and g_out unused at n
+// <= 6); eps, inv_n and tiny the float32 values of epsilon, 1 / n and
+// 1e-12; one launch of B ceil(n / LM_ROWS) blocks on `stream`.
+extern "C" int sdsm_lane_lm_system(const float* params, const float* mu, const float* alpha,
+                                   const float* kmask, const float* g, const float* H,
+                                   float* g_out, float* Hd, int B, int n, float eps,
+                                   float inv_n, float tiny, void* stream) {
+  if (B < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return (int)cudaGetLastError();
+  const int tiles = (n + LM_ROWS - 1) / LM_ROWS;
+  const long long blocks = (long long)B * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  lane_lm_system_kernel<<<(unsigned)blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      params, mu, alpha, kmask, g, H, g_out, Hd, n, tiles, eps, inv_n, tiny);
+  return (int)cudaGetLastError();
+}
+
+// (delta, decrement, reg_cand, thr) = the step guard of solver._newton_step
+// for B lanes (lane_step_guard_kernel): dir, g, params (B, n), alpha, f0
+// (B,), kmask (B, n - 6), steps (S,) float32 contiguous, 1 <= S <=
+// GUARD_MAX_S, n <= GUARD_MAX_N; delta (B, n), decrement (B,), thr (B, S),
+// reg_cand (B, S) (unused, may be null, at n <= 6, as are alpha, kmask and
+// params); eps, sq_eps and armijo the float32 values of epsilon,
+// sqrt(epsilon) and the Armijo constant; one block a lane on `stream`.
+extern "C" int sdsm_lane_step_guard(const float* dir, const float* g, const float* params,
+                                    const float* alpha, const float* kmask,
+                                    const float* steps, const float* f0, float* delta,
+                                    float* decrement, float* reg_cand, float* thr, int B,
+                                    int n, int S, int negate, float eps, float sq_eps,
+                                    float armijo, void* stream) {
+  if (B < 0 || n < 0 || n > GUARD_MAX_N || S < 1 || S > GUARD_MAX_S)
+    return (int)cudaErrorInvalidValue;
+  if (n > 6 && reg_cand == nullptr) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return (int)cudaGetLastError();
+  lane_step_guard_kernel<<<B, ROW_THREADS, (size_t)n * sizeof(float), (cudaStream_t)stream>>>(
+      dir, g, params, alpha, kmask, steps, f0, delta, decrement, reg_cand, thr, n, S, negate,
+      eps, sq_eps, armijo);
   return (int)cudaGetLastError();
 }

@@ -149,7 +149,8 @@ _KERNELS = {
                     {'matvec': (3, 4), 'strided_sum': (2, 6), 'dot': (3, 2),
                      'softplus_energies': (6, 4), 'softplus': (2, 1),
                      'pcg': (3, 3, 2), 'cholesky': (4, 2), 'chol_route': (0, 2),
-                     'chol_scratch_floats': (0, 2)},
+                     'chol_scratch_floats': (0, 2), 'lm_system': (8, 2, 3),
+                     'step_guard': (11, 4, 3)},
                     dict(warp=32, small_n=8, row_threads=256,
                          chol_one_block_max_n=32, chol_cluster_max_n=807,
                          pcg_reg_max_n=512)),

@@ -31,12 +31,19 @@ Jacobi-preconditioned CG (:func:`pcg_chain`, a chain of :func:`matvec`,
 kernel launch with the chain's bits on the card. :func:`cholesky_kernel`
 runs the Newton direction ``-Hd^-1 g`` of every lane in one launch,
 bitwise :func:`cholesky_chain` on the card; on the CPU the solver keeps
-LAPACK (``solver._cholesky_direction``).
+LAPACK (``solver._cholesky_direction``). :func:`lm_system` and
+:func:`step_guard` are the two ends of a Newton step around the direction
+solve (the damped system; the guard, decrement, line-search regularizer
+candidates and Armijo thresholds), each one launch on the card, bitwise
+its plain version there, which is the solver's former op-by-op expression
+(its sums :func:`lane_sum` and :func:`lane_dot`).
 
 Every kernel launch adds one to :data:`LAUNCHES` (through
 :func:`gram._count_launch`, so a captured CUDA graph counts its launches at
 each replay).
 """
+
+import math
 
 import numpy as np
 import torch
@@ -47,7 +54,7 @@ from . import gram
 #: :func:`softplus_kernel`, which no solver path launches).
 LAUNCHES = {'lane_matvec': 0, 'lane_sum': 0, 'lane_dot': 0,
             'softplus_energies': 0, 'lane_pcg': 0, 'lane_cholesky': 0,
-            'softplus': 0}
+            'lane_lm_system': 0, 'lane_step_guard': 0, 'softplus': 0}
 
 
 def reset_launch_counts():
@@ -57,7 +64,8 @@ def reset_launch_counts():
 #: Callables told of every lane-kernel launch with its kernel's name and
 #: shape (``lane_matvec`` (B, P, n), ``lane_sum`` (B, S, L) or (B, L)
 #: summed over L, ``lane_dot`` (B, n), ``softplus_energies`` (mode, B, P),
-#: ``lane_pcg`` and ``lane_cholesky`` (B, n));
+#: ``lane_pcg``, ``lane_cholesky``, ``lane_lm_system`` and
+#: ``lane_step_guard`` (B, n));
 #: under a replayed CUDA graph at each replay, as
 #: :func:`gram._count_launch` counts.
 LAUNCH_HOOKS = []
@@ -264,6 +272,65 @@ def cholesky_chain(Hd, g):
     return torch.where(fail[:, None],
                        torch.full((), float('nan'), dtype=g.dtype, device=g.device),
                        -b)
+
+
+def reg_grad_hess(params, alpha, epsilon, kmask):
+    """The smooth-L1 deformation regularizer's ``term2 = sqrt(xi^2 +
+    epsilon)``, gradient and Hessian diagonal (params (B, n), n > 6, xi =
+    params[:, 6:]; alpha (B,), kmask (B, K)), op by op."""
+    xi = params[..., 6:]
+    a = torch.as_tensor(alpha, dtype=params.dtype, device=params.device)[..., None]
+    term2 = torch.sqrt(xi * xi + epsilon)
+    zeros6 = torch.zeros(params.shape[:-1] + (6,), dtype=params.dtype,
+                         device=params.device)
+    grad = torch.cat([zeros6, a * (xi / term2) * kmask], dim=-1)
+    hdiag = a * (1.0 / term2 - (xi * xi) / (term2 ** 3))
+    hdiag = torch.cat([zeros6, hdiag.clamp_min(0.0) * kmask + (1.0 - kmask)],
+                      dim=-1)
+    return term2, grad, hdiag
+
+
+def lm_system_plain(params, mu, alpha, epsilon, kmask, g, H):
+    """The Levenberg-Marquardt-damped Newton system of
+    ``solver._newton_step`` op by op: at n > 6 the regularizer's gradient
+    added to ``g`` (B, n), masked by ``[1] * 6 + kmask``, and its Hessian
+    diagonal to ``H`` (B, n, n); then ``Hd = H + mu scale_h I`` with
+    ``scale_h = lane_sum(diag H) / n + 1e-12``. Returns ``(g, Hd)``."""
+    B, n = params.shape
+    if n > 6:
+        _, reg_g, reg_h = reg_grad_hess(params, alpha, epsilon, kmask)
+        g = (g + reg_g) * torch.cat(
+            [torch.ones((B, 6), dtype=g.dtype, device=g.device), kmask], dim=1)
+        H = H + torch.diag_embed(reg_h)
+    scale_h = lane_sum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
+    return g, H + (mu * scale_h)[:, None, None] * torch.eye(n, dtype=H.dtype,
+                                                             device=H.device)
+
+
+def step_guard_plain(direction, g, params, alpha, epsilon, kmask, steps, f0, armijo_c,
+                     negate=False):
+    """The guard of a Newton direction and what the line search needs of
+    it, op by op as ``solver._newton_step`` computed them: ``delta`` is
+    ``direction`` (B, n) (``-direction`` if ``negate``: PCG's solution),
+    replaced in each lane holding a non-finite entry by the gradient step
+    ``-g / (sqrt(g . g) + 1)``; the decrement ``-g . delta``; at n > 6 the
+    regularizer of the candidates ``xi = params[:, 6:] + delta[:, 6:]
+    steps_k`` (B, S), clamped at 0; and the Armijo thresholds ``f0 -
+    armijo_c steps_k decrement`` (B, S). Returns ``(delta, decrement,
+    reg_cand or None, thresholds)``."""
+    delta = -direction if negate else direction
+    bad = ~torch.isfinite(delta).all(dim=1)
+    delta = torch.where(bad[:, None],
+                        -g / (torch.sqrt(lane_dot(g, g)) + 1.0)[:, None], delta)
+    decrement = -lane_dot(g, delta)  # lambda^2 >= 0 for the Newton step
+    reg_cand = None
+    if params.shape[1] > 6:
+        xi_cand = params[:, 6:, None] + delta[:, 6:, None] * steps   # (B, K, S)
+        term2c = torch.sqrt(xi_cand * xi_cand + epsilon)
+        reg_cand = (alpha[:, None] * lane_sum(
+            kmask[:, :, None] * (term2c - math.sqrt(epsilon)), 1)).clamp_min(0.0)
+    return delta, decrement, reg_cand, f0[:, None] - armijo_c * steps * decrement[:, None]
+
 
 def _launch(name, shape, fn, *args):
     stream = torch.cuda.current_stream().cuda_stream
@@ -483,6 +550,72 @@ def cholesky_kernel(Hd, g):
     return out
 
 
+def _f32(value):
+    """The float32 value ATen computes with for a Python scalar."""
+    return float(np.float32(value))
+
+
+def lm_system_kernel(params, mu, alpha, epsilon, kmask, g, H):
+    """The CUDA kernel of :func:`lm_system` on the current stream: one
+    launch, bitwise :func:`lm_system_plain` on the card (a block writes 16
+    rows of a lane's Hd and recomputes the lane's ``scale_h`` in
+    :func:`lane_sum`'s order). At n <= 6 ``g`` comes back as it is."""
+    _check_cuda('lm_system_kernel', params, mu, alpha, kmask, g, H)
+    params, mu, alpha, kmask, g, H = (t.contiguous() for t in (params, mu, alpha, kmask, g, H))
+    if params.dim() != 2:
+        raise ValueError(f'lm_system_kernel takes params (B, n), got {tuple(params.shape)}')
+    B, n = params.shape
+    dev = params.device
+    for name, t, shape in (('mu', mu, (B,)), ('g', g, (B, n)), ('H', H, (B, n, n))) + (
+            (('alpha', alpha, (B,)), ('kmask', kmask, (B, n - 6))) if n > 6 else ()):
+        gram._check(name, t, torch.float32, shape, dev)
+    _int32('lm_system_kernel', B, n)
+    g_out = torch.empty_like(g) if n > 6 else g
+    Hd = torch.empty_like(H)
+    lib = gram._load(gram.LANE_SRC)
+    # ATen divides a CUDA tensor by a Python number as a product with the
+    # number's float32 reciprocal: scale_h's / n is * (1 / n)
+    with torch.cuda.device(dev):
+        _launch('lane_lm_system', (B, n), lib.sdsm_lane_lm_system, params.data_ptr(),
+                mu.data_ptr(), alpha.data_ptr(), kmask.data_ptr(), g.data_ptr(),
+                H.data_ptr(), g_out.data_ptr(), Hd.data_ptr(), B, n, _f32(epsilon),
+                _f32(np.float32(1.0) / np.float32(n)), _f32(1e-12))
+    return g_out, Hd
+
+
+def step_guard_kernel(direction, g, params, alpha, epsilon, kmask, steps, f0, armijo_c,
+                      negate=False):
+    """The CUDA kernel of :func:`step_guard` on the current stream: one
+    block a lane, bitwise :func:`step_guard_plain` on the card (its sums in
+    :func:`lane_dot`'s and :func:`lane_sum`'s order, no tensor between)."""
+    _check_cuda('step_guard_kernel', direction, g, params, alpha, kmask, steps, f0)
+    direction, g, params, alpha, kmask, steps, f0 = (
+        t.contiguous() for t in (direction, g, params, alpha, kmask, steps, f0))
+    if direction.dim() != 2 or steps.dim() != 1:
+        raise ValueError('step_guard_kernel takes direction (B, n) and steps (S,), got '
+                         f'{tuple(direction.shape)} and {tuple(steps.shape)}')
+    B, n = direction.shape
+    S = steps.shape[0]
+    dev = direction.device
+    for name, t, shape in (('g', g, (B, n)), ('params', params, (B, n)), ('f0', f0, (B,))) + (
+            (('alpha', alpha, (B,)), ('kmask', kmask, (B, n - 6))) if n > 6 else ()):
+        gram._check(name, t, torch.float32, shape, dev)
+    _int32('step_guard_kernel', B, n, S)
+    delta = torch.empty_like(direction)
+    decrement = torch.empty((B,), dtype=torch.float32, device=dev)
+    thresholds = torch.empty((B, S), dtype=torch.float32, device=dev)
+    reg_cand = torch.empty((B, S), dtype=torch.float32, device=dev) if n > 6 else None
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(dev):
+        _launch('lane_step_guard', (B, n), lib.sdsm_lane_step_guard, direction.data_ptr(),
+                g.data_ptr(), params.data_ptr(), alpha.data_ptr(), kmask.data_ptr(),
+                steps.data_ptr(), f0.data_ptr(), delta.data_ptr(), decrement.data_ptr(),
+                None if reg_cand is None else reg_cand.data_ptr(), thresholds.data_ptr(),
+                B, n, S, int(negate), _f32(epsilon), _f32(math.sqrt(epsilon)),
+                _f32(armijo_c))
+    return delta, decrement, reg_cand, thresholds
+
+
 def matvec(A, x):
     """Per-lane matrix-vector product ``A (B, P, n) @ x (B, n) -> (B, P)``,
     float32."""
@@ -525,3 +658,24 @@ def pcg(H, b, iters, rtol, early_exit=True):
     if H.device.type == 'cpu':
         return pcg_chain(H, b, iters, rtol, early_exit)
     return pcg_kernel(H, b, iters, rtol)
+
+
+def lm_system(params, mu, alpha, epsilon, kmask, g, H):
+    """The damped Newton system ``(g, Hd)`` of ``solver._newton_step`` (see
+    :func:`lm_system_plain`), float32: the plain version on the CPU, one
+    :func:`lm_system_kernel` launch on the card (bitwise the same)."""
+    if params.device.type == 'cpu':
+        return lm_system_plain(params, mu, alpha, epsilon, kmask, g, H)
+    return lm_system_kernel(params, mu, alpha, epsilon, kmask, g, H)
+
+
+def step_guard(direction, g, params, alpha, epsilon, kmask, steps, f0, armijo_c,
+               negate=False):
+    """The guarded Newton step ``(delta, decrement, reg_cand, thresholds)``
+    (see :func:`step_guard_plain`), float32: the plain version on the CPU,
+    one :func:`step_guard_kernel` launch on the card (bitwise the same)."""
+    if direction.device.type == 'cpu':
+        return step_guard_plain(direction, g, params, alpha, epsilon, kmask, steps, f0,
+                                armijo_c, negate)
+    return step_guard_kernel(direction, g, params, alpha, epsilon, kmask, steps, f0,
+                             armijo_c, negate)

@@ -26,7 +26,11 @@ loop op by op instead, syncing every iteration (the counterpart of
 they are done (:data:`CG_MAX_ITERS` steps at most); on the CPU it is the
 op-by-op chain that the kernel replaces. The Cholesky direction (at n <=
 :data:`CHOLESKY_MAX_N`) is one launch of the ``lane_cholesky`` kernel on
-the card; on the CPU LAPACK's.
+the card; on the CPU LAPACK's. The damped system before it and the guard
+after it are one launch each on the card (``lane_lm_system``,
+``lane_step_guard``), on the CPU their plain versions, the op-by-op
+expressions of :func:`superdsm_tpu_torch.dsm.lane.lm_system_plain` and
+:func:`~superdsm_tpu_torch.dsm.lane.step_guard_plain`.
 
 Every product, sum and factorization of a lane goes through
 :mod:`superdsm_tpu_torch.dsm.lane` (fixed order) or a library call whose
@@ -190,16 +194,9 @@ def _reg_terms(params, alpha, epsilon, kmask):
         z = torch.zeros_like(params)
         return torch.zeros(params.shape[:-1], dtype=params.dtype,
                            device=params.device), z, z
-    xi = params[..., 6:]
-    a = torch.as_tensor(alpha, dtype=params.dtype, device=params.device)[..., None]
-    term2 = torch.sqrt(xi * xi + epsilon)
-    val = (a[..., 0] * lane.lane_sum(kmask * (term2 - math.sqrt(epsilon)))).clamp_min(0.0)
-    zeros6 = torch.zeros(params.shape[:-1] + (6,), dtype=params.dtype,
-                         device=params.device)
-    grad = torch.cat([zeros6, a * (xi / term2) * kmask], dim=-1)
-    hdiag = a * (1.0 / term2 - (xi * xi) / (term2 ** 3))
-    hdiag = torch.cat([zeros6, hdiag.clamp_min(0.0) * kmask + (1.0 - kmask)],
-                      dim=-1)
+    term2, grad, hdiag = lane.reg_grad_hess(params, alpha, epsilon, kmask)
+    a = torch.as_tensor(alpha, dtype=params.dtype, device=params.device)
+    val = (a * lane.lane_sum(kmask * (term2 - math.sqrt(epsilon)))).clamp_min(0.0)
     return val, grad, hdiag
 
 
@@ -220,7 +217,6 @@ def _grad_hess(params, s, Q, G, yv, w, alpha, epsilon, kmask):
 
 _bmv = lane.matvec
 _lsum = lane.lane_sum
-_dot = lane.lane_dot
 
 
 def _concat(outs):
@@ -294,39 +290,29 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol)
     :func:`_pcg_solve`)."""
     B, n = params.shape
     dt, dev = params.dtype, params.device
-    if n > 6:
-        _, reg_g, reg_h = _reg_terms(params, alpha, epsilon, kmask)
-        g = (g + reg_g) * torch.cat(
-            [torch.ones((B, 6), dtype=dt, device=dev), kmask], dim=1)
-        H = H + torch.diag_embed(reg_h)
-
-    scale_h = _lsum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
-    Hd = H + (mu * scale_h)[:, None, None] * torch.eye(n, dtype=dt, device=dev)
+    # the damped system: g with the regularizer's gradient, masked; Hd = H +
+    # diag(reg_h) + mu scale_h I (one lane_lm_system launch on the card)
+    g, Hd = lane.lm_system(params, mu, alpha, epsilon, kmask, g, H)
+    steps = 0.5 ** torch.arange(LS_STEPS, dtype=dt, device=dev)    # (S,)
     if n > CHOLESKY_MAX_N:
-        delta = -_pcg_solve(Hd, g)
+        direction, negate = _pcg_solve(Hd, g), True
     else:
-        delta = _cholesky_direction(Hd, g)
-    bad = ~torch.isfinite(delta).all(dim=1)
-    delta = torch.where(bad[:, None],
-                        -g / (torch.sqrt(_dot(g, g)) + 1.0)[:, None], delta)
-    decrement = -_dot(g, delta)  # lambda^2 >= 0 for the Newton step
+        direction, negate = _cholesky_direction(Hd, g), False
+    # delta = -direction for PCG; in a lane with a non-finite entry a
+    # gradient step; the decrement lambda^2 >= 0, the line search's
+    # regularizer candidates and Armijo thresholds (one lane_step_guard
+    # launch on the card)
+    delta, decrement, reg_cand, armijo_f = lane.step_guard(
+        direction, g, params, alpha, epsilon, kmask, steps, f0, ARMIJO_C, negate)
 
     # line search: s is affine in params, so one matvec covers all steps
     u = _bmv(Bf, delta)
-    steps = 0.5 ** torch.arange(LS_STEPS, dtype=dt, device=dev)    # (S,)
     # sum_p w softplus(-(y (s + u steps))): one kernel on the card, no
     # (B, P, S) tensor
     data_cand = lane.softplus_energies(s, yv, w, steps, u)         # (B, S)
-    sq_eps = math.sqrt(epsilon)
-    if n > 6:
-        xi_cand = params[:, 6:, None] + delta[:, 6:, None] * steps  # (B, K, S)
-        term2c = torch.sqrt(xi_cand * xi_cand + epsilon)
-        reg_cand = alpha[:, None] * _lsum(kmask[:, :, None] * (term2c - sq_eps), 1)
-        f_cand = data_cand + reg_cand.clamp_min(0.0)
-    else:
-        f_cand = data_cand
+    f_cand = data_cand + reg_cand if n > 6 else data_cand
 
-    armijo = f_cand <= f0[:, None] - ARMIJO_C * steps * decrement[:, None]
+    armijo = f_cand <= armijo_f
     any_ok = armijo.any(dim=1)
     # torch.argmax refuses bool; on int it returns the FIRST maximum, the
     # first (largest) passing step
@@ -345,6 +331,7 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol)
     # multiplicative scale sweep against the near-separable "creep"
     scales = _scales(dt, dev)
     data_sc = lane.softplus_energies(new_s, yv, w, scales)         # (B, S)
+    sq_eps = math.sqrt(epsilon)
     if n > 6:
         xi_sc = new_params[:, 6:, None] * scales
         term2sc = torch.sqrt(xi_sc * xi_sc + epsilon)

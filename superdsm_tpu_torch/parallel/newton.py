@@ -22,8 +22,11 @@ JAX file's LM damping, line search, scale sweep and convergence rule, with
 a Cholesky direction at every n, as there. Every sum of a lane goes through
 :mod:`superdsm_tpu_torch.dsm.lane` and the direction through
 ``solver._cholesky_direction`` (the ``lane_cholesky`` kernel on the card,
-LAPACK on the CPU), as in the unsharded solver, so a lane's result does not
-depend on its batch.
+LAPACK on the CPU), and the step's guard through ``lane.step_guard`` (the
+``lane_step_guard`` kernel on the card), as in the unsharded solver, so a
+lane's result does not depend on its batch. The damped system is
+assembled here op by op: its energy takes the regularizer's value, and its
+g no kmask product.
 
 The smooth-matrix rows are per pixel (built from the replicated subsample
 points), so ``G`` shards with the pixels and only the ``6 + K`` reductions
@@ -99,7 +102,8 @@ def _reduce(parts, home):
 
 
 def _reg_value(xi, alpha, epsilon, kmask):
-    """The deformation regularizer at candidate ``xi (B, K, S)``."""
+    """The deformation regularizer at the scale sweep's candidates ``xi (B,
+    K, S)``."""
     term2 = torch.sqrt(xi * xi + epsilon)
     return (alpha[:, None] * lane.lane_sum(kmask[:, :, None] * (term2 - math.sqrt(epsilon)), 1)
             ).clamp_min(0.0)
@@ -139,22 +143,18 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
 
         # adaptive LM damping, mirroring dsm.solver._newton_step
         scale_h = lane.lane_sum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
-        delta = _cholesky_direction(H + (mu * scale_h)[:, None, None] * eye, g)
-        bad = ~torch.isfinite(delta).all(dim=1)
-        delta = torch.where(bad[:, None],
-                            -g / (torch.sqrt(lane.lane_dot(g, g)) + 1.0)[:, None], delta)
-        decrement = -lane.lane_dot(g, delta)
+        direction = _cholesky_direction(H + (mu * scale_h)[:, None, None] * eye, g)
+        # the guard, decrement, regularizer candidates and Armijo thresholds
+        # (one lane_step_guard launch on the card, as in the unsharded step)
+        delta, decrement, reg_cand, armijo_f = lane.step_guard(
+            direction, g, params, alpha, epsilon, kmask, steps, f0, ARMIJO_C)
 
         # line search: one matvec per shard, candidate energies reduced
         us = [sh.surface(delta) for sh in shards]
         data_cand = _reduce([sh.line_search(c[0], u, steps)
                              for sh, c, u in zip(shards, local, us)], home)
-        if n > 6:
-            xi_c = params[:, 6:, None] + delta[:, 6:, None] * steps
-            f_cand = data_cand + _reg_value(xi_c, alpha, epsilon, kmask)
-        else:
-            f_cand = data_cand
-        armijo = f_cand <= f0[:, None] - ARMIJO_C * steps * decrement[:, None]
+        f_cand = data_cand + reg_cand if n > 6 else data_cand
+        armijo = f_cand <= armijo_f
         pick = torch.where(armijo.any(dim=1), armijo.to(torch.int32).argmax(dim=1),
                            torch.argmin(f_cand, dim=1))
         f_pick = f_cand.gather(1, pick[:, None])[:, 0]

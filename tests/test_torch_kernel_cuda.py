@@ -51,7 +51,13 @@ launch, is held bitwise to its order written op by op
 (``lane.cholesky_chain`` on the card) on each of its routes (one block a
 lane in shared memory, a cluster a lane, one block a lane in a global
 scratch), a lane alone to the lane in the batch, a captured graph's replay
-to the eager launch, and its NaN lanes to the chain's. A lane alone is
+to the eager launch, and its NaN lanes to the chain's. ``lane_lm_system``
+and ``lane_step_guard``, the damped Newton system and the step guard in
+one launch each, are held bitwise to the chains they replace
+(``lane.lm_system_plain`` and ``lane.step_guard_plain`` on the card) at
+the main path's shapes, with non-finite damping, directions and energies,
+a lane alone to the lane in the batch; ``solver._newton_step`` launches
+each once and no ``lane_dot``. A lane alone is
 held bitwise to the lane in its batch for the bf16 kernel (whose plan no
 longer reads B) and for the sharded solvers on a mesh of the card twice.
 """
@@ -1107,3 +1113,120 @@ def test_sharded_lane_alone_equals_lane_in_batch_on_the_card(kind):
         alone = [t.cpu().numpy() for t in solve(*(a[b:b + 1] for a in args))]
         for x, x1 in zip(batch, alone):
             assert np.array_equal(x[b:b + 1], x1)
+
+
+def _step_systems(B, n, dev, seed=0):
+    """A Newton step's ``(params, mu, alpha, kmask, g, H)`` on ``dev``:
+    SPD H of the gram's scale, g and params of a few units, kmask with
+    padded dimensions (all of the last lane's, at B >= 3), alpha 0.05 to
+    0.5, mu from 1e-6 up to 1e-1 across the lanes (inf in lane 1 at B >=
+    4: a damping that is not finite)."""
+    rng = np.random.RandomState(seed + 7 * B + n)
+    K = max(n - 6, 0)
+    M = rng.randn(B, n, n).astype(np.float32)
+    H = M @ M.transpose(0, 2, 1) / np.float32(n)
+    kmask = (rng.rand(B, K) < 0.8).astype(np.float32)
+    if B >= 3:
+        kmask[-1] = 0.0
+    mu = np.logspace(-6, -1, B).astype(np.float32)
+    if B >= 4:
+        mu[1] = np.inf
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return (t(rng.randn(B, n) * 2), t(mu), t(rng.uniform(0.05, 0.5, B) if K else np.zeros(B)),
+            t(kmask), t(rng.randn(B, n) * 3), t(H))
+
+
+#: ``lane_lm_system``'s main-path shapes (B, n), as chip_smoke.py phase 3.
+LM_SHAPES = [(16, 256), (8, 256), (16, 128), (2, 512), (32, 6), (16, 6), (1, 1024), (5, 38)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,n', LM_SHAPES)
+def test_lane_lm_system_equals_the_chain(B, n):
+    """``lane_lm_system`` (one launch) bitwise equal to the chain it
+    replaces on the card (``lane.lm_system_plain``: ATen's ops and the
+    ``lane_sum`` kernel), with a lane of infinite damping (NaN off its
+    diagonal) and one all-padded kmask; a lane alone bitwise equal to the
+    lane in the batch."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    params, mu, alpha, kmask, g, H = _step_systems(B, n, dev)
+    lane.reset_launch_counts()
+    got = lane.lm_system(params, mu, alpha, 1.0, kmask, g, H)
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_lm_system'] == 1 and lane.LAUNCHES['lane_sum'] == 0
+    want = lane.lm_system_plain(params, mu, alpha, 1.0, kmask, g, H)
+    for x, y in zip(got, want):
+        assert _same_bits(x, y)
+    for k in sorted({0, B // 2, B - 1}):
+        alone = lane.lm_system_kernel(*(a[k:k + 1] for a in (params, mu, alpha)), 1.0,
+                                      *(a[k:k + 1] for a in (kmask, g, H)))
+        for x, y in zip(alone, got):
+            assert _same_bits(x[0], y[k])
+
+
+#: ``lane_step_guard``'s main-path shapes (B, n), as chip_smoke.py phase 3.
+GUARD_SHAPES = [(2, 512), (16, 256), (8, 256), (2, 6), (1, 1024), (5, 38)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('negate', [False, True])
+@pytest.mark.parametrize('B,n', GUARD_SHAPES)
+def test_lane_step_guard_equals_the_chain(B, n, negate):
+    """``lane_step_guard`` (one launch) bitwise equal to the chain it
+    replaces on the card (``lane.step_guard_plain``: ATen's ops, the
+    ``lane_dot`` and ``lane_sum`` kernels), negated (PCG's solution) or
+    not, with a NaN direction in lane 0 and an infinite f0 in the last
+    lane; a lane alone bitwise equal to the lane in the batch."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    params, _, alpha, kmask, g, _ = _step_systems(B, n, dev, seed=1)
+    rng = np.random.RandomState(n + B)
+    direction = torch.as_tensor((rng.randn(B, n) * 0.5).astype(np.float32), device=dev)
+    direction[0, n // 2] = float('nan')
+    f0 = torch.as_tensor((rng.rand(B) * 1e3).astype(np.float32), device=dev)
+    f0[-1] = float('inf')
+    steps = 0.5 ** torch.arange(solver.LS_STEPS, dtype=torch.float32, device=dev)
+    args = (direction, g, params, alpha, 1.0, kmask, steps, f0, solver.ARMIJO_C, negate)
+    lane.reset_launch_counts()
+    got = lane.step_guard(*args)
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_step_guard'] == 1 and lane.LAUNCHES['lane_dot'] == 0
+    want = lane.step_guard_plain(*args)
+    assert (got[2] is None) == (want[2] is None) == (n <= 6)
+    for x, y in zip(got, want):
+        assert x is None or _same_bits(x, y)
+    assert bool(torch.isfinite(got[0]).all())
+    for k in sorted({0, B // 2, B - 1}):
+        one = [a[k:k + 1] if isinstance(a, torch.Tensor) and a is not steps else a
+               for a in args]
+        for x, y in zip(lane.step_guard_kernel(*one), got):
+            assert x is None or _same_bits(x[0], y[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [6, 128, 512])
+def test_newton_step_launches_the_step_kernels(n, monkeypatch):
+    """``solver._newton_step`` on the card launches ``lane_lm_system`` and
+    ``lane_step_guard`` once each, and no ``lane_dot``; its result is
+    bitwise the same step with their chains in their place."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    B, P = 4, 2048
+    params, mu, alpha, kmask, g, H = _step_systems(B, n, dev, seed=2)
+    mu = torch.full_like(mu, 1e-3)
+    rng = np.random.RandomState(n)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    Bf, yv, w = t(rng.randn(B, P, n) * 0.1), t(np.sign(rng.randn(B, P))), t(rng.rand(B, P) < 0.9)
+    s = lane.matvec(Bf, params)
+    f0 = solver._energy_from_surface(s, params[:, 6:], yv, w, alpha, 1.0, kmask)
+    args = (params, mu, s, f0, g, H, Bf, yv, w, alpha, 1.0, kmask, 1e-5)
+    lane.reset_launch_counts()
+    out = solver._newton_step(*args)
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_lm_system'] == 1 and lane.LAUNCHES['lane_step_guard'] == 1
+    assert lane.LAUNCHES['lane_dot'] == 0
+    monkeypatch.setattr(lane, 'lm_system', lane.lm_system_plain)
+    monkeypatch.setattr(lane, 'step_guard', lane.step_guard_plain)
+    for x, y in zip(out, solver._newton_step(*args)):
+        assert torch.equal(x, y)

@@ -70,7 +70,15 @@ result lines):
    in shared memory, a cluster of 8 blocks in panels of 8 columns, or one
    block a lane in a global scratch) beside the kernel's, the chain's, the
    per-lane cuSOLVER route's it replaces and cuSOLVER's batched route's
-   device ms, and the bound;
+   device ms, and the bound; then the Newton step's kernels against the
+   chains they replace on the card, bitwise, a lane alone, a captured
+   graph's replay: ``lane_lm_system`` and ``lane_step_guard`` at the (B,
+   n) of :data:`LM_SHAPES` and :data:`GUARD_SHAPES`, ``lane_step_pick``
+   and ``lane_step_tail`` at the (B, P, n) of :data:`TAIL_SHAPES`, with
+   NaN, infinite and tied candidates, mu at its bounds, and the tail also
+   writing the loop's state in place (bitwise the chain's freeze, every
+   converged lane's state untouched to the bit), each with the kernel's,
+   the chain's and the bound's ms;
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
@@ -96,7 +104,10 @@ result lines):
    P, n, route, pixel segments), counted at each replay, and the lane
    kernels' launches by shape (``lane_pcg`` must launch: PCG's one launch
    per Newton step at n > ``CHOLESKY_MAX_N``; ``lane_cholesky`` must
-   launch, below it), the device ms per replayed Newton iteration by
+   launch, below it; each of :data:`STEP_KERNELS` once per Newton
+   iteration; ``lane_sum`` never over (B, S, K) candidates, whose sums the
+   step kernels run), the elementwise activities and device ms per
+   replayed iteration, the device ms per replayed Newton iteration by
    kernel family from the graphs' replays alone (their activities carry a
    graph launch's correlation id), where a ``lane_cholesky`` activity must
    show and no cuSOLVER one may;
@@ -164,8 +175,10 @@ result lines):
 11. meshes on one card: the sharded DSM solver at (B, P, n) = (8, 16384,
    128) over a (1, 2) mesh of ``[cuda:0, cuda:0]`` (lanes built as phase 3
    builds them): finite energies, one float32 ``dense`` launch per shard per
-   Newton iteration and one ``lane_cholesky`` launch per Newton iteration
-   (its sums in the lane kernels); lanes 0 and 7 alone bitwise equal to the
+   Newton iteration and one launch each of ``lane_cholesky``,
+   ``lane_step_guard``, ``lane_step_pick`` and ``lane_step_tail`` per
+   Newton iteration (its sums in the lane kernels, no ``lane_sum`` over (B,
+   S, K) candidates); lanes 0 and 7 alone bitwise equal to the
    same lanes in the batch; converged energies within rtol 1e-4 of a 1x1
    mesh and 1e-3 of the unsharded Newton loop; the sharded poly solver at
    (8, 8192, 6) the same way (lanes alone bitwise too); the sharded DSM
@@ -214,7 +227,8 @@ and graph launches issued by the host, device busy ms, idle share and the
 device ms per replayed Newton iteration by kernel family; seed 0 on the
 eager loop with its device time split by section (the assembly of the
 damped system, the direction and its guard, PCG's steps within it, the
-line search, the scale sweep, the rest); the 2048x2048 mosaic (1 thread) and
+line search with its pick, the scale sweep's sums, the rest: since
+``lane_step_tail`` the step's end with it); the 2048x2048 mosaic (1 thread) and
 the stall fixtures at B = 1, 2, 4, 16. Every turn's label maps of bench
 seeds 0-3 and the mosaic and its fixtures' params and energies must be
 bitwise those of every other turn (each result printed; a difference
@@ -674,11 +688,12 @@ def _active(B, n_active):
 #: row first: ``lane_matvec`` (B, P, n) at the banded table chunk's line
 #: search (u = Bf delta), a poly chunk, a B = 1 re-solve, the smallest DSM
 #: bucket (n = 32) and PCG's H p at n = 512 and 1024 (B = 2: the bench's
-#: banded chunks, 16: the table chunk, 1: a re-solve); ``lane_sum`` (B, S,
-#: K) summed over K (the solver's (B, K, S) layout, read in place) at the
-#: bench field's scale-sweep regularizer sums (S = 8), the shapes it
-#: launches most since the step guard took the line search's (S = 12),
-#: then at those and the (B, K) energy sums, and at shapes the main path
+#: banded chunks, 16: the table chunk, 1: a re-solve); ``lane_sum`` (B, K)
+#: at the bench field's energy regularizer sums, its only main-path
+#: launches since ``lane_step_tail`` took the scale sweep's; then (B, S, K)
+#: summed over K (the solver's (B, K, S) layout, read in place) at the
+#: scale sweep's (S = 8) and the line search's (S = 12) former shapes,
+#: now summed inside the step kernels, and at shapes the main path
 #: no longer gives it since the softplus sums are fused: a (16, 32768)
 #: chunk's 12 line-search candidates, a B = 1 re-solve's, (B, P) one
 #: energy per lane and positive terms; ``lane_dot`` (B, n), which no
@@ -698,9 +713,9 @@ LANE_SHAPES = {'lane_matvec': [(16, 32768, 512), (64, 8192, 6), (1, 16384, 512),
                                (64, 8192, 32), (2, 512, 512), (16, 512, 512),
                                (1, 512, 512), (2, 1024, 1024), (8, 12288, 256),
                                (32, 16384, 6)],
-               'lane_sum': [(2, 8, 506), (8, 8, 250), (16, 8, 250), (2, 12, 506),
-                            (16, 12, 250), (16, 250), (16, 12, 32768), (1, 12, 16384),
-                            (64, 8192), (3, 12, 5000)],
+               'lane_sum': [(16, 250), (2, 506), (8, 250), (16, 122), (2, 8, 506),
+                            (8, 8, 250), (16, 8, 250), (2, 12, 506), (16, 12, 250),
+                            (16, 12, 32768), (1, 12, 16384), (64, 8192), (3, 12, 5000)],
                'lane_dot': [(16, 512), (1, 512), (2, 512), (8, 1024), (16, 256)],
                'softplus_energies': [('line_search', 16, 32768),
                                      ('line_search', 1, 16384),
@@ -738,29 +753,30 @@ PCG_SHAPES = [(2, 512), (16, 512), (1, 512), (2, 1024), (8, 1024)]
 PCG_REPLACES = 'superdsm_tpu/dsm/solver.py:126'
 #: ``lane_cholesky``'s shapes (B, n): the bench field's most frequent DSM
 #: chunk first (the kernels line's row), its other chunks and its c2f
-#: solves (n = 6), the DSM buckets n = 32 to 256 at the GPU caps, the B = 1
-#: and B = 2 canonical re-solves, and n = 384; then n = 512 and 1024 at the
+#: solves (n = 6, at each B the bench launches), the DSM buckets n = 32 to
+#: 256 at the GPU caps, the B = 1 and B = 2 canonical re-solves, and n =
+#: 384; then n = 512 and 1024 at the
 #: GPU caps of their pixel buckets, the sharded solver's
 #: (``parallel/newton.py`` takes the kernel at every n); then the largest n
 #: of the cluster route (``lane.CHOL_CLUSTER_MAX_N``) and the first n above
 #: it, the global-scratch route (``lane.cholesky_route`` names each shape's).
-CHOL_SHAPES = [(16, 256), (8, 256), (32, 6), (16, 6), (64, 6), (64, 32), (64, 64),
-               (64, 128), (16, 128), (32, 256), (1, 128), (2, 256), (1, 256), (2, 384),
-               (16, 512), (8, 1024), (2, 807), (2, 808)]
+CHOL_SHAPES = [(16, 256), (8, 256), (32, 6), (16, 6), (2, 6), (8, 6), (64, 6), (64, 32),
+               (64, 64), (64, 128), (16, 128), (32, 256), (1, 128), (2, 256), (1, 256),
+               (2, 384), (16, 512), (8, 1024), (2, 807), (2, 808)]
 #: The JAX package's ``cho_factor`` / ``cho_solve`` in ``_newton_step`` (XLA's,
 #: no Pallas kernel), which ``lane_cholesky`` runs in one launch.
 CHOL_REPLACES = 'superdsm_tpu/dsm/solver.py:204'
 #: The lane kernels of the kernels line.
 LANE_KERNELS = tuple(LANE_SHAPES) + ('lane_pcg', 'lane_cholesky', 'lane_lm_system',
-                                     'lane_step_guard')
+                                     'lane_step_guard', 'lane_step_pick', 'lane_step_tail')
 #: Lane kernels that no solver path launches since their work moved into
 #: another kernel (``lane_dot`` into ``lane_step_guard``; ``lane.pcg_chain``,
 #: the oracle of ``lane_pcg``, and phase 3 still launch it): the main path
 #: must launch them 0 times.
 OFF_PATH_LANE_KERNELS = ('lane_dot',)
-#: The kernels of each Newton step around its direction: one launch each
-#: per Newton iteration.
-STEP_KERNELS = ('lane_lm_system', 'lane_step_guard')
+#: The kernels of each Newton step around its direction and after its
+#: softplus sums: one launch each per Newton iteration.
+STEP_KERNELS = ('lane_lm_system', 'lane_step_guard', 'lane_step_pick', 'lane_step_tail')
 #: float32 operations of one softplus-energy term: the candidate's x (line
 #: search: u c, s +, y *, negation; scale sweep: c *, negation, with y s once
 #: a pixel; one energy: y *, negation), logaddexp(x, 0) (the isinf test,
@@ -1250,18 +1266,22 @@ def _step_inputs(B, n):
 
 #: ``lane_lm_system``'s shapes (B, n): the bench field's most frequent DSM
 #: chunk first (the kernels line's row), its other n = 256 and n = 128
-#: chunks, a banded n = 512 chunk and its c2f solves (n = 6).
-LM_SHAPES = [(16, 256), (8, 256), (16, 128), (2, 512), (32, 6), (16, 6)]
+#: chunks, a banded n = 512 chunk and its c2f solves (n = 6); then the two
+#: shapes both step kernels launch besides (a c2f chunk of 8, a re-solve of
+#: 2 at n = 256).
+LM_SHAPES = [(16, 256), (8, 256), (16, 128), (2, 512), (32, 6), (16, 6), (8, 6), (2, 256)]
 #: ``lane_step_guard``'s shapes (B, n): the bench's banded n = 512 chunks
 #: first (a PCG direction, negated in the kernel; the kernels line's row),
 #: its n = 256 chunks (a Cholesky direction, one lane's NaN) and a c2f
-#: solve.
-GUARD_SHAPES = [(2, 512), (16, 256), (8, 256), (2, 6)]
+#: solve; then the same two as :data:`LM_SHAPES`.
+GUARD_SHAPES = [(2, 512), (16, 256), (8, 256), (2, 6), (8, 6), (2, 256)]
 #: The lines of the JAX package's jitted ``_newton_step`` (XLA's fusions, no
 #: Pallas kernel) that the two step kernels run: the damped system, and the
 #: guard with the line search's regularizer candidates and thresholds.
 STEP_REPLACES = {'lane_lm_system': 'superdsm_tpu/dsm/solver.py:194',
-                 'lane_step_guard': 'superdsm_tpu/dsm/solver.py:208'}
+                 'lane_step_guard': 'superdsm_tpu/dsm/solver.py:208',
+                 'lane_step_pick': 'superdsm_tpu/dsm/solver.py:227',
+                 'lane_step_tail': 'superdsm_tpu/dsm/solver.py:256'}
 
 
 def _check_step(name, shape):
@@ -1358,6 +1378,206 @@ def _check_step(name, shape):
                 bound_share=bound_ms / ms, library_ms=None, shape=list(shape))
 
 
+#: ``lane_step_pick``'s and ``lane_step_tail``'s shapes (B, P, n): those of
+#: the softplus rows, the bench's banded n = 512 chunks first (the kernels
+#: line's row), its n = 256 and n = 128 chunks and a c2f chunk (n = 6).
+TAIL_SHAPES = [(2, 16384, 512), (8, 12288, 256), (16, 8192, 256), (16, 6144, 128),
+               (32, 16384, 6)]
+
+
+def _tail_case(B, P, n):
+    """One step's pick and tail inputs at (B, P, n) on the card, from a
+    seed: f0 of 1e3 to 1e4, candidates around it (params of a tenth, alpha
+    0.5, the last tenth of kmask padded), and by lane b % 8: 0 as drawn; 1
+    no passing step and a tie for the least candidate, mu at MU_MAX; 2 a NaN
+    candidate and no passing step; 3 every candidate +inf; 4 a NaN scale
+    candidate; 5 every scale candidate -inf; 6 a full step at mu = MU_MIN;
+    7 no step, no boost, no decrement at mu 1e-5: it converges (as lane 1
+    does at MU_MAX). The loop's state: conv set in lanes b % 3
+    == 2, a NaN of its own payload and a -0 in each of their params and s,
+    it_dev 7."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane, solver
+    rng = np.random.RandomState(B + P + n)
+    S, SC, K = solver.LS_STEPS, len(solver.SCALES), max(n - 6, 0)
+    steps = solver._steps(torch.float32, torch.device('cuda', torch.cuda.current_device()))
+    f0 = rng.uniform(1e3, 1e4, B)
+    dec = rng.uniform(0.0, 50.0, B)
+    thr = f0[:, None] - solver.ARMIJO_C * steps.cpu().numpy() * dec[:, None]
+    data = f0[:, None] + rng.randn(B, S) * 20.0
+    reg = rng.uniform(0.0, 2.0, (B, S)) if n > 6 else np.zeros((B, S))
+    data_sc = f0[:, None] + rng.randn(B, SC) * 20.0
+    mu = 10.0 ** rng.uniform(-8, 2, B)
+    for b in range(B):
+        kind = b % 8
+        if kind == 1:
+            data[b] = f0[b] + 5.0 + rng.rand(S)
+            data[b, 3] = data[b, 7] = f0[b] + 4.0
+            data_sc[b] = f0[b] + 1.0 + rng.rand(SC)
+            mu[b] = solver.MU_MAX
+        elif kind == 2:
+            data[b] = f0[b] + 5.0 + rng.rand(S)
+            data[b, 4] = np.nan
+        elif kind == 3:
+            data[b] = np.inf
+        elif kind == 4:
+            data_sc[b, 5] = np.nan
+        elif kind == 5:
+            data_sc[b] = -np.inf
+        elif kind == 6:
+            data[b, 0] = thr[b, 0] - 0.5 - reg[b, 0]
+            mu[b] = solver.MU_MIN
+        elif kind == 7:
+            data[b] = f0[b] + 5.0 + rng.rand(S)
+            data_sc[b] = f0[b] + 1.0 + rng.rand(SC)
+            mu[b], dec[b] = 1e-5, 0.0
+    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device='cuda')
+    kmask = np.ones((B, K), np.float32)
+    kmask[:, K - K // 10:] = 0.0
+    conv = np.arange(B) % 3 == 2
+    params = rng.randn(B, n) * 0.1
+    s = rng.randn(B, P) * 3.0
+    state_params, state_s = params.astype(np.float32), s.astype(np.float32)
+    state_params[conv, 0] = np.uint32(0x7fc01234).view(np.float32)
+    state_params[conv, 1] = -0.0
+    state_s[conv, :2] = state_params[conv, :2]
+    return dict(data_cand=t(data), reg_cand=t(reg) if n > 6 else None, armijo_f=t(thr),
+                f0=t(f0), steps=steps, params=t(state_params), delta=t(rng.randn(B, n) * 0.2),
+                s=t(state_s), u=t(rng.randn(B, P)), data_sc=t(data_sc), mu=t(mu),
+                decrement=t(dec), alpha=t(np.full(B, 0.5)), kmask=t(kmask),
+                scales=solver._scales(torch.float32, steps.device), conv=t(conv, torch.bool),
+                it_lane=t(rng.randint(0, 7, B), torch.int32), it_dev=t(7, torch.int32))
+
+
+def _tail_call(fn, a, pick, lanes=slice(None), state=None):
+    """``fn`` (a wrapper of ``lane_step_tail``) on :func:`_tail_case`'s
+    inputs after the pick ``pick`` (lanes ``lanes`` of both)."""
+    from superdsm_tpu_torch.dsm import solver
+    L = lambda x: None if x is None else x[lanes]
+    _, new_params, new_s, new_f, improved, full_step = (L(x) for x in pick)
+    return fn(L(a['data_sc']), new_params, new_s, new_f, improved, full_step, L(a['mu']),
+              L(a['f0']), L(a['decrement']), L(a['alpha']), 1.0, L(a['kmask']), a['scales'],
+              solver.DEFAULT_TOL, solver.MU_MIN, solver.MU_MAX, state)
+
+
+def _check_tail(shape):
+    """Holds ``lane_step_pick`` and ``lane_step_tail`` at ``(B, P, n)``
+    (:func:`_tail_case`) to the chains they replace on the card (their plain
+    versions: ATen's ops and, in the tail, the ``lane_sum`` kernel),
+    bitwise, a NaN against any NaN; a lane alone, a captured graph's replay
+    and a second run bitwise equal to it; the tail also in the loop's mode,
+    writing the state in place: bitwise the chain's freeze on a copy of the
+    same state, and every lane whose conv was set bitwise as it was (NaN
+    payloads and -0 included). Returns the two table rows.
+
+    Bound: the larger of the bytes each input is read once and each output
+    written once over the memory rate and the float32 operations over the
+    float32 peak: the pick two a surface and a params entry and three a
+    candidate; the tail one a surface and a params entry, eight a
+    regularizer term (S K a lane) and some thirty a lane. No single PyTorch
+    call computes either, so no library call."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    B, P, n = shape
+    a = _tail_case(B, P, n)
+    S, SC, K = a['data_cand'].shape[1], a['scales'].shape[0], max(n - 6, 0)
+
+    def pick_call(fn, lanes=slice(None)):
+        L = lambda x: None if x is None else x[lanes]
+        return fn(L(a['data_cand']), L(a['reg_cand']), L(a['armijo_f']), L(a['f0']),
+                  a['steps'], L(a['params']), L(a['delta']), L(a['s']), L(a['u']))
+
+    def same(x, y):
+        return all(u is None and v is None or (
+            torch.equal(u, v) if u.dtype == torch.bool else _same_bits(u, v))
+            for u, v in zip(x, y))
+    rows = {}
+    pick = pick_call(lane.step_pick_kernel)
+    torch.cuda.synchronize()
+    ref = pick_call(lane.step_pick_plain)
+    out = _tail_call(lane.step_tail_kernel, a, pick)
+    torch.cuda.synchronize()
+    tail_ref = _tail_call(lane.step_tail_plain, a, pick)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pick_call(lane.step_pick_kernel)
+        captured_tail = _tail_call(lane.step_tail_kernel, a, pick)
+    graph.replay()
+    torch.cuda.synchronize()
+    lanes = sorted({0, B // 2, B - 1})
+    # the loop's mode: the kernel and the chain each on a copy of the state
+    keys = ('params', 's', 'f0', 'it_lane', 'it_dev', 'conv')
+    frozen = a['conv'].clone()
+    states = []
+    for fn in (lane.step_tail_kernel, lane.step_tail_plain):
+        st = {k: a[k].clone() for k in keys + ('mu',)}
+        # the loop's f0 is its fval, and its mu the state's: both in place
+        _tail_call(fn, dict(a, mu=st['mu'], f0=st['f0']), pick, state=lane.FreezeState(
+            st['params'], st['s'], st['f0'], st['it_lane'], st['it_dev'], st['conv']))
+        states.append(st)
+    torch.cuda.synchronize()
+    untouched = all(torch.equal(states[0][k][frozen].view(torch.int32),
+                                a[k][frozen].view(torch.int32))
+                    for k in ('params', 's', 'f0', 'mu', 'it_lane'))
+    checks = {
+        'lane_step_pick': {
+            'the chain': same(pick, ref),
+            'a second run': same(pick, pick_call(lane.step_pick_kernel)),
+            'a lane alone': all(same([x[0] for x in pick_call(lane.step_pick_kernel, slice(b, b + 1))
+                                      if x is not None], [x[b] for x in pick if x is not None])
+                                for b in lanes),
+            'a captured graph': same(captured, pick)},
+        'lane_step_tail': {
+            'the chain': same(out, tail_ref),
+            'a second run': same(out, _tail_call(lane.step_tail_kernel, a, pick)),
+            'a lane alone': all(same(
+                [x[0] for x in _tail_call(lane.step_tail_kernel, a, pick, slice(b, b + 1))
+                 if x is not None], [x[b] for x in out if x is not None]) for b in lanes),
+            'a captured graph': same(captured_tail, out),
+            'the chain\'s freeze in place': all(same([states[0][k]], [states[1][k]])
+                                                 for k in keys + ('mu',)),
+            'frozen lanes as they were': untouched}}
+    del graph, captured, captured_tail
+    specials = [b for b in range(min(B, 8))]
+    for name, results in checks.items():
+        tag = f'{name} {shape}'
+        say(f'[kernel] {tag}: bitwise equal to ' + ', '.join(
+            f'{k} {v}' for k, v in results.items()) + (
+            f'; lanes 0-{specials[-1]} hold the special cases of _tail_case, '
+            f'{int(frozen.sum())} of {B} lanes frozen' if name == 'lane_step_tail' else ''))
+        for what, good in results.items():
+            if not good:
+                fail(f'{tag}: kernel not bitwise equal to {what}')
+    say(f'[kernel] lane_step_pick {shape}: improved {int(pick[4].sum())} of {B}, full steps '
+        f'{int(pick[5].sum())}; lane_step_tail: converged {int(out[3].sum())} of {B}')
+    # bytes each input read once and each output written once; operations
+    pick_bytes = 4.0 * (B * S * (3 if n > 6 else 2) + S + 3 * B * n + 3 * B * P + 3 * B) + 2 * B
+    pick_ops = B * (3.0 * S + 2 * n + 2 * P)
+    tail_bytes = 4.0 * (B * SC + 2 * B * n + 2 * B * P + 7 * B + B * K + SC) + 3 * B
+    tail_ops = B * (8.0 * SC * K + 3 * SC + n + P + 30)
+    for name, kernel, chain, nbytes, ops, o, r in (
+            ('lane_step_pick', lambda: pick_call(lane.step_pick_kernel),
+             lambda: pick_call(lane.step_pick_plain), pick_bytes, pick_ops, pick, ref),
+            ('lane_step_tail', lambda: _tail_call(lane.step_tail_kernel, a, pick),
+             lambda: _tail_call(lane.step_tail_plain, a, pick), tail_bytes, tail_ops, out,
+             tail_ref)):
+        finite = [(x.float() - y.float())[torch.isfinite(x.float()) & torch.isfinite(y.float())]
+                  for x, y in zip(o, r) if x is not None]
+        err = max((float(d.abs().max()) for d in finite if d.numel()), default=0.0)
+        ms = _event_ms(kernel)
+        chain_ms = _event_ms(chain)
+        ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
+        say(f'[kernel] {name} {shape}: kernel {ms:.4f} ms, chain {chain_ms:.4f} ms '
+            f'({chain_ms / ms:.1f}x), library none, bound {bound_ms:.4f} ms by {bound_by}: '
+            f'{bound_ms / ms:.1%} of the bound; max abs err {err:.3e}')
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=chain_ms, chain_ms=chain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                          library_ms=None, shape=list(shape))
+    return rows
+
+
 def _check_logaddexp(chunk=1 << 28):
     """The softplus device function of the fused sums (``lane.softplus_kernel``)
     against ``torch.logaddexp(x, 0)`` on the card over all 2^32 float32
@@ -1394,8 +1614,9 @@ def phase_kernels():
     ``other_shapes``; then the softplus device function over all 2^32
     inputs, the lane kernels at :data:`LANE_SHAPES`, ``lane_pcg`` at
     :data:`PCG_SHAPES`, ``lane_cholesky`` at :data:`CHOL_SHAPES`,
-    ``lane_lm_system`` at :data:`LM_SHAPES` and ``lane_step_guard`` at
-    :data:`GUARD_SHAPES`."""
+    ``lane_lm_system`` at :data:`LM_SHAPES`, ``lane_step_guard`` at
+    :data:`GUARD_SHAPES` and ``lane_step_pick`` and ``lane_step_tail`` at
+    :data:`TAIL_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
@@ -1428,6 +1649,9 @@ def phase_kernels():
     for name, shapes in (('lane_lm_system', LM_SHAPES), ('lane_step_guard', GUARD_SHAPES)):
         step = [_check_step(name, shape) for shape in shapes]
         rows[name] = dict(step[0], other_shapes=step[1:])
+    tail = [_check_tail(shape) for shape in TAIL_SHAPES]
+    for name in ('lane_step_pick', 'lane_step_tail'):
+        rows[name] = dict(tail[0][name], other_shapes=[t[name] for t in tail[1:]])
     _CHOL_SYSTEMS.clear()
     torch.cuda.empty_cache()
     return rows
@@ -1810,6 +2034,8 @@ KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce')),
                    ('lane_cholesky', ('lane_cholesky',)),
                    ('lane_lm_system', ('lane_lm_system',)),
                    ('lane_step_guard', ('lane_step_guard',)),
+                   ('lane_step_pick', ('lane_step_pick',)),
+                   ('lane_step_tail', ('lane_step_tail',)),
                    ('lane_matvec', ('lane_matvec',)),
                    ('lane_dot', ('dotterm',)),
                    ('softplus_energies', ('lane_softplus',)),
@@ -1845,10 +2071,12 @@ def _family_split(spans, iterations):
 
 #: Sections of a Newton iteration whose device time ``--ab`` splits out:
 #: PCG's steps (``solver._pcg_solve``), and within ``solver._newton_step``
+#: (and ``solver._step_tail``, which it calls, where a checkout has it)
 #: the assembly of the damped system (its lines before the first mark),
 #: the direction and its guard, the line search and the scale sweep, from
 #: the source lines that open them (found by their text, so in either
-#: checkout of ``--ab``) to the one after.
+#: checkout of ``--ab``) to the one after; the lines after the last mark
+#: (the step's end, with ``lane_step_tail``) fall to 'rest'.
 SECTION_MARKS = ('if n > CHOLESKY_MAX_N:', '# line search: s is affine',
                  '# multiplicative scale sweep', 'new_mu = torch.where(')
 #: The sections of ``_newton_step`` from its first line and from each mark
@@ -1878,13 +2106,17 @@ def _section_ranges(marks):
     a call of ``_pcg_solve`` is 'PCG steps' (inside the direction's
     section); the lines of ``_newton_step`` from ``marks[i]`` up to
     ``marks[i + 1]`` are section :data:`SECTION_NAMES` [i] (``marks[0]``:
-    its first line; a line tracer on this and new threads,
-    ``sys.settrace``; only those two functions' frames are traced line by
-    line)."""
+    its first line), and so are those of ``_step_tail`` where the
+    checkout's solver has it (defined after ``_newton_step``, so its lines
+    follow the same marks); a line tracer on this and new threads,
+    ``sys.settrace``; only these functions' frames are traced line by
+    line."""
     import threading
     from torch.profiler import record_function
     from superdsm_tpu_torch.dsm import solver
-    newton, pcg = solver._newton_step.__code__, solver._pcg_solve.__code__
+    pcg = solver._pcg_solve.__code__
+    newton = {f.__code__ for f in (solver._newton_step, getattr(solver, '_step_tail', None))
+              if f is not None}
 
     def section(line):
         return next((name for name, a, b in zip(SECTION_NAMES, marks, marks[1:])
@@ -1913,7 +2145,7 @@ def _section_ranges(marks):
                     rf.__exit__(None, None, None)
                 return pcg_local
             return pcg_local
-        if frame.f_code is newton:
+        if frame.f_code in newton:
             return lambda f, e, a: local(f, e, a, [None, None])
         return None
 
@@ -2217,6 +2449,19 @@ def phase_main_path():
     for seed in GOLDEN_SEEDS:
         _f64_gate(segs[seed], _bench_golden(seed, F64), 1)
     hist, lane_hist, profile0 = phase_profile(g)
+    # the step's sums over (B, S, K) candidates run inside lane_step_guard
+    # and lane_step_tail: lane_sum sums energies and traces alone
+    strided = {shape: c for (k, shape), c in lane_hist.items() if k == 'lane_sum'
+               and len(shape) == 3}
+    say(f'[main] lane_sum launches by shape in the profiled image: '
+        f'{ {shape: c for (k, shape), c in lane_hist.most_common() if k == "lane_sum"} }')
+    if strided:
+        fail(f'the main path launched lane_sum over (B, S, K) candidates: {strided}')
+    elementwise = [(t, c) for f, t, c in profile0['replay_families']
+                   if f == 'elementwise and reductions']
+    say('[main] elementwise and reductions per replayed Newton iteration: '
+        + (f'{elementwise[0][0]:.4f} ms in {elementwise[0][1]:.1f} activities'
+           if elementwise else 'none'))
     return launches, seg, hist, lane_hist, profile0
 
 
@@ -2766,6 +3011,12 @@ def phase_mesh(bench_seg):
     p0 = np.zeros((B, n), np.float32)
     dsm_args = (p0, coords, pix, sub, km, yv, w, alpha)
     calls, original = _counting_contribs()
+    sum_shapes = {}
+
+    def sum_recording(name, shape):
+        if name == 'lane_sum':
+            sum_shapes[tuple(shape)] = sum_shapes.get(tuple(shape), 0) + 1
+    lane.LAUNCH_HOOKS.append(sum_recording)
     try:
         gram.reset_launch_counts()
         lane.reset_launch_counts()
@@ -2777,6 +3028,7 @@ def phase_mesh(bench_seg):
         lane_launches = dict(lane.LAUNCHES)
     finally:
         newton._Shard.contribs = original
+        lane.LAUNCH_HOOKS.remove(sum_recording)
     p2, f2, c2 = p2.cpu().numpy(), f2.cpu().numpy(), c2.cpu().numpy()
     say(f'[mesh] sharded DSM {MESH_DSM_SHAPE} over {mesh2.shape} on [{dev}, {dev}]: '
         f'{seconds:.2f} s, {calls[0]} shard iterations, gram launches '
@@ -2790,14 +3042,18 @@ def phase_mesh(bench_seg):
         fail(f'sharded DSM: {launches} float32 launches for {calls[0]} shard '
              'iterations (one dense launch per shard per iteration expected)')
     # the direction is one lane_cholesky launch per Newton iteration of the
-    # row, its guard one lane_step_guard launch; the sums go through the
-    # lane kernels, and none through lane_dot
-    if any(lane_launches[k] != calls[0] // 2 for k in ('lane_cholesky', 'lane_step_guard')) \
+    # row, its guard one lane_step_guard launch, its pick and tail one
+    # lane_step_pick and one lane_step_tail launch; the sums go through the
+    # lane kernels, none through lane_dot, and lane_sum sums the assembly's
+    # regularizer value and trace alone, no (B, S, K) candidates
+    per_iteration = ('lane_cholesky', 'lane_step_guard', 'lane_step_pick', 'lane_step_tail')
+    say(f'[mesh] sharded DSM: lane_sum launches by shape {sum_shapes}')
+    if any(lane_launches[k] != calls[0] // 2 for k in per_iteration) \
             or not all(lane_launches[k] for k in ('lane_sum', 'softplus_energies')) \
-            or lane_launches['lane_dot']:
-        fail(f'sharded DSM: lane kernel launches {lane_launches} for '
-             f'{calls[0] // 2} Newton iterations (one lane_cholesky and one '
-             'lane_step_guard each, no lane_dot expected)')
+            or lane_launches['lane_dot'] or any(len(shape) == 3 for shape in sum_shapes):
+        fail(f'sharded DSM: lane kernel launches {lane_launches} (lane_sum by shape '
+             f'{sum_shapes}) for {calls[0] // 2} Newton iterations (one each of '
+             f'{per_iteration}, no lane_dot and no lane_sum over (B, S, K) expected)')
     # a lane alone gives its bits in the batch
     solve2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)
     same = True

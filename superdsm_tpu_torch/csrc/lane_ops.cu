@@ -68,6 +68,11 @@
 //     candidates and Armijo thresholds after it, each one launch a Newton
 //     step, bitwise the ATen ops and lane sums they replace (see the
 //     comment above lane_lm_system_kernel).
+//   lane_step_pick, lane_step_tail: the rest of the step, the line search's
+//     pick and, after the scale sweep's sums, the sweep's regularizer sums
+//     and pick, the new mu, the convergence test and the loop's freeze
+//     writes in place, one launch each (see the comment above
+//     lane_step_pick_kernel).
 //
 // They replace no Pallas kernel: in the JAX package these are XLA's
 // products and reductions inside the jitted Newton loop
@@ -2031,6 +2036,47 @@ __device__ __forceinline__ float reg_hess(float xi, float a, float km, float eps
   return __fadd_rn(__fmul_rn(h, km), __fsub_rn(1.0f, km));
 }
 
+// The S regularizer sums of one lane, out[k] = clamp_min(a * lane_sum_K(km
+// * (sqrt(xi(i, k)^2 + eps) - sq_eps)), 0): lane_sum's order over the (B,
+// K, S) terms summed over K (slot t adds i = t, t + 256, ... in turn; then
+// the tree), the S sums in turn over the block's 256 slots and their trees
+// over its 8 warps. `part` holds GUARD_MAX_S rows of slots; out[k] is
+// written by lane 0 of warp k % 8, with no barrier after it. The candidates
+// xi(i, k): the line search's (GuardXi) in lane_step_guard, the scale
+// sweep's (SweepXi) in lane_step_tail.
+template <class Xi>
+__device__ __forceinline__ void reg_sums(const Xi& xi, const float* __restrict__ km, int K,
+                                         int S, float a, float eps, float sq_eps,
+                                         float (*part)[ROW_THREADS], float* out) {
+  const int t = threadIdx.x;
+  for (int k = 0; k < S; ++k) {
+    float acc = 0.0f;
+    for (int i = t; i < K; i += ROW_THREADS)
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(km + i), __fsub_rn(reg_term2(xi(i, k), eps), sq_eps)));
+    part[k][t] = acc;
+  }
+  __syncthreads();
+  const int lane = t % WARP;
+  for (int k = t / WARP; k < S; k += ROW_THREADS / WARP) {
+    float v[CLUSTER];
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) v[r] = part[k][r * WARP + lane];
+    const float sum = slot_tree(v);
+    if (lane == 0) out[k] = clamp_min0(__fmul_rn(a, sum));
+  }
+}
+
+// The line search's candidates params[6 + i] + delta[6 + i] steps[k] (d: the
+// lane's delta in shared memory).
+struct GuardXi {
+  const float* __restrict__ p;
+  const float* d;
+  const float* __restrict__ steps;
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    return __fadd_rn(__ldg(p + i), __fmul_rn(d[6 + i], __ldg(steps + k)));
+  }
+};
+
 // The lane sum of the block's slots (thread t holds slot t's chain): warp 0
 // runs the tree over `part`, and every thread gets the sum. `part` and
 // `total` may be used again right after it returns.
@@ -2174,26 +2220,236 @@ lane_step_guard_kernel(const float* __restrict__ dir, const float* __restrict__ 
     thr[o * S + t] = __fsub_rn(__ldg(f0 + o), __fmul_rn(__fmul_rn(armijo, __ldg(steps + t)), dec));
   const int K = n - 6;
   if (K <= 0) return;
-  const float* p = params + o * n + 6;
-  const float* km = kmask + o * K;
-  for (int k = 0; k < S; ++k) {
-    const float sk = __ldg(steps + k);
-    float acc = 0.0f;
-    for (int i = t; i < K; i += ROW_THREADS) {
-      const float xi = __fadd_rn(__ldg(p + i), __fmul_rn(d[6 + i], sk));
-      acc = __fadd_rn(acc, __fmul_rn(__ldg(km + i), __fsub_rn(reg_term2(xi, eps), sq_eps)));
+  reg_sums(GuardXi{params + o * n + 6, d, steps}, kmask + o * K, K, S, __ldg(alpha + o), eps,
+           sq_eps, part, reg_cand + o * S);
+}
+
+// ---------------------------------------------------------------------------
+// The rest of a Newton step (solver._step_tail): the line search's pick
+// after its softplus sums (lane_step_pick), and after the scale sweep's the
+// sweep's regularizer sums and pick, the new mu, the convergence test and,
+// in the loop, the freeze writes (lane_step_tail). Each replaces a run of
+// ATen's elementwise kernels (some 20 and 55 launches an iteration) and
+// gives that run's bits: __fmul_rn / __fadd_rn / __fsub_rn, no contraction;
+// ATen's argmin (its first NaN, else its first least value), argmax of the
+// int-cast Armijo test (its first passing step), NaN-keeping clamps; each
+// gather from the device's steps and scales. Neither replaces a Pallas
+// kernel: in the JAX package these are XLA's fusions of the jitted step
+// (superdsm_tpu/dsm/solver.py:227-289) and of the loop body's freeze
+// (:370-376). Both move a lane's surface once (read, and write scaled) and
+// are bound by their launch and the sweep's sums at the bench's sizes.
+//
+// A lane takes STEP_BLOCKS blocks: each recomputes the lane's pick from its
+// few candidates (no second launch, no grid barrier) and writes every
+// STEP_BLOCKS-th run of 256 surface entries; rank 0 also writes the lane's
+// params and scalars. In the loop lane_step_tail writes the state in place
+// (a lane already converged keeps every bit of it), so its blocks are a
+// cluster: every block reads whether its lane was converged, then arrives at
+// the cluster barrier, and rank 0 writes conv only after waiting at it.
+// ---------------------------------------------------------------------------
+
+constexpr int STEP_BLOCKS = 8;  // blocks of a lane (lane_step_tail's cluster)
+
+// ATen's argmin over v[0 .. S) on the card (its LessOrNan order): the first
+// NaN if one is there, else the first least value (-0 ties +0).
+__device__ __forceinline__ int aten_argmin(const float* v, int S) {
+  int best = 0;
+  for (int k = 1; k < S; ++k)
+    if (!isnan(v[best]) && (isnan(v[k]) || v[k] < v[best])) best = k;
+  return best;
+}
+
+// clamp_min(v, lo) and clamp_max(v, hi) as ATen's CUDA kernels: NaN stays.
+__device__ __forceinline__ float clamp_min_nan(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+__device__ __forceinline__ float clamp_max_nan(float v, float hi) {
+  return isnan(v) ? v : fminf(v, hi);
+}
+
+struct PickArgs {
+  const float* __restrict__ data_cand;  // (B, S)
+  const float* __restrict__ reg_cand;   // (B, S), null at n <= 6
+  const float* __restrict__ thr;        // (B, S) Armijo thresholds
+  const float* __restrict__ f0;         // (B,)
+  const float* __restrict__ steps;      // (S,)
+  const float* __restrict__ params;     // (B, n)
+  const float* __restrict__ delta;      // (B, n)
+  const float* __restrict__ s;          // (B, P), null: no surface
+  const float* __restrict__ u;          // (B, P)
+  float* __restrict__ t_step;           // (B,)
+  float* __restrict__ new_params;       // (B, n)
+  float* __restrict__ new_s;            // (B, P)
+  float* __restrict__ new_f;            // (B,)
+  unsigned char* __restrict__ improved;   // (B,) bool
+  unsigned char* __restrict__ full_step;  // (B,) bool
+  int n, P, S;
+};
+
+// The line search's pick for one lane (solver.py's former 313-329):
+//   f_cand = data_cand + reg_cand (n > 6); pick = the first k with f_cand[k]
+//   <= thr[k], else argmin(f_cand); improved = f_cand[pick] < f0; t_step =
+//   improved ? steps[pick] : 0; full_step = improved & (pick == 0);
+//   new_params = params + t_step delta; new_s = s + t_step u; new_f =
+//   improved ? f_cand[pick] : f0.
+__global__ void __launch_bounds__(ROW_THREADS) lane_step_pick_kernel(PickArgs a) {
+  __shared__ float t_sh;
+  const long long o = blockIdx.x / STEP_BLOCKS;
+  const int rank = blockIdx.x % STEP_BLOCKS;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    float f[GUARD_MAX_S];
+    int first_ok = -1;
+    for (int k = 0; k < a.S; ++k) {
+      const float d = __ldg(a.data_cand + o * a.S + k);
+      f[k] = a.reg_cand ? __fadd_rn(d, __ldg(a.reg_cand + o * a.S + k)) : d;
+      if (first_ok < 0 && f[k] <= __ldg(a.thr + o * a.S + k)) first_ok = k;
     }
-    part[k][t] = acc;
+    const int pick = first_ok >= 0 ? first_ok : aten_argmin(f, a.S);
+    const float f0 = __ldg(a.f0 + o);
+    const bool improved = f[pick] < f0;
+    const float ts = improved ? __ldg(a.steps + pick) : 0.0f;
+    t_sh = ts;
+    if (rank == 0) {
+      a.t_step[o] = ts;
+      a.new_f[o] = improved ? f[pick] : f0;
+      a.improved[o] = improved;
+      a.full_step[o] = improved && pick == 0;
+    }
   }
   __syncthreads();
-  const float a = __ldg(alpha + o);
-  const int lane = t % WARP;
-  for (int k = t / WARP; k < S; k += ROW_THREADS / WARP) {
-    float v[CLUSTER];
-#pragma unroll
-    for (int r = 0; r < CLUSTER; ++r) v[r] = part[k][r * WARP + lane];
-    const float sum = slot_tree(v);
-    if (lane == 0) reg_cand[o * S + k] = clamp_min0(__fmul_rn(a, sum));
+  const float ts = t_sh;
+  if (rank == 0) {
+    for (int i = t; i < a.n; i += ROW_THREADS) {
+      const long long j = o * a.n + i;
+      a.new_params[j] = __fadd_rn(__ldg(a.params + j), __fmul_rn(ts, __ldg(a.delta + j)));
+    }
+  }
+  if (a.s != nullptr) {
+    const float* s = a.s + o * a.P;
+    const float* u = a.u + o * a.P;
+    float* ns = a.new_s + o * a.P;
+#pragma unroll 4
+    for (int i = rank * ROW_THREADS + t; i < a.P; i += STEP_BLOCKS * ROW_THREADS)
+      ns[i] = __fadd_rn(__ldg(s + i), __fmul_rn(ts, __ldg(u + i)));
+  }
+}
+
+// The scale sweep's candidates new_params[6 + i] scales[k].
+struct SweepXi {
+  const float* __restrict__ p;
+  const float* __restrict__ scales;
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    return __fmul_rn(__ldg(p + i), __ldg(scales + k));
+  }
+};
+
+struct TailArgs {
+  const float* __restrict__ data_sc;      // (B, S) the sweep's data energies
+  const float* __restrict__ new_params;   // (B, n) lane_step_pick's
+  const float* __restrict__ new_s;        // (B, P), null: no surface
+  const float* __restrict__ new_f;        // (B,)
+  const unsigned char* __restrict__ improved;
+  const unsigned char* __restrict__ full_step;
+  const float* mu;         // (B,) the step's mu (the loop's, written in place)
+  const float* f0;         // (B,) the step's f0 (the loop's fval, written in place)
+  const float* __restrict__ decrement;  // (B,)
+  const float* __restrict__ alpha;      // (B,), null at n <= 6
+  const float* __restrict__ kmask;      // (B, n - 6)
+  const float* __restrict__ scales;     // (S,)
+  float* params;   // (B, n) out, or the loop's params
+  float* s;        // (B, P) out, or the loop's s (null: no surface)
+  float* fval;     // (B,) out, or the loop's fval (may be null in the loop)
+  float* mu_out;   // (B,) out, or mu itself
+  unsigned char* conv;  // (B,) out, or the loop's conv (read, then or-ed)
+  int* it_lane;         // (B,) the loop's (null: none)
+  const int* it_dev;    // () the loop's iteration count, with it_lane
+  int n, P, S, freeze;
+  float eps, sq_eps, tol, mu_min, mu_max, mu_small;
+};
+
+// The tail of one lane (solver.py's former 333-356, and with `freeze` the
+// loop's 519-525):
+//   reg_sc[k] = clamp_min(alpha lane_sum_K(kmask (sqrt(xi^2 + eps) -
+//     sq_eps)), 0), xi = new_params[6:] scales[k] (n > 6; reg_sums, the
+//     order of lane_sum over the (B, K, S) terms);
+//   f_sc = data_sc + reg_sc; pick = argmin(f_sc); boost = f_sc[pick] < new_f
+//   and finite; c = boost ? scales[pick] : 1; params' = new_params c, s' =
+//   new_s c, f' = boost ? f_sc[pick] : new_f;
+//   mu' = full_step ? clamp_min(mu 0.25, mu_min) : improved ? mu :
+//     clamp_max(mu 8, mu_max);
+//   tiny_gain = (f0 - f') <= tol (|f0| + 1); converged = (0.5 decrement <=
+//     tol (|f0| + 1) & mu <= mu_small & tiny_gain) | (!improved & mu >=
+//     mu_max & tiny_gain).
+// Without `freeze` it writes params', s', f', converged and mu' to its
+// outputs; with it, in a lane whose conv was false it writes them over the
+// loop's params, s, fval, conv and mu, and it_lane = *it_dev; a lane whose
+// conv was true is left as it is (conv | converged is true).
+__global__ void __cluster_dims__(STEP_BLOCKS, 1, 1) __launch_bounds__(ROW_THREADS)
+lane_step_tail_kernel(TailArgs a) {
+  __shared__ float part[GUARD_MAX_S][ROW_THREADS];
+  __shared__ float reg[GUARD_MAX_S];
+  __shared__ float c_sh;
+  const long long o = blockIdx.x / STEP_BLOCKS;
+  const int rank = blockIdx.x % STEP_BLOCKS;
+  const int t = threadIdx.x;
+  // every block reads its lane's conv before the cluster barrier, and rank
+  // 0 writes it only after the barrier
+  const bool frozen = a.freeze && a.conv[o];
+  cluster_arrive();
+  const int K = a.n - 6;
+  if (K > 0)
+    reg_sums(SweepXi{a.new_params + o * a.n + 6, a.scales}, a.kmask + o * K, K, a.S,
+             __ldg(a.alpha + o), a.eps, a.sq_eps, part, reg);
+  __syncthreads();
+  float f_new = 0.0f, mu_new = 0.0f;
+  bool converged = false;
+  if (t == 0) {
+    float f[GUARD_MAX_S];
+    for (int k = 0; k < a.S; ++k) {
+      const float d = __ldg(a.data_sc + o * a.S + k);
+      f[k] = K > 0 ? __fadd_rn(d, reg[k]) : d;
+    }
+    const int pick = aten_argmin(f, a.S);
+    const float f_pick = f[pick];
+    const float nf = __ldg(a.new_f + o);
+    const bool boost = f_pick < nf && isfinite(f_pick);
+    c_sh = boost ? __ldg(a.scales + pick) : 1.0f;
+    if (rank == 0) {
+      f_new = boost ? f_pick : nf;
+      const float mu = a.mu[o], f0 = a.f0[o];
+      const bool improved = a.improved[o];
+      mu_new = a.full_step[o] ? clamp_min_nan(__fmul_rn(mu, 0.25f), a.mu_min)
+               : improved     ? mu
+                              : clamp_max_nan(__fmul_rn(mu, 8.0f), a.mu_max);
+      const float gain_tol = __fmul_rn(__fadd_rn(fabsf(f0), 1.0f), a.tol);
+      const bool tiny_gain = __fsub_rn(f0, f_new) <= gain_tol;
+      converged = (__fmul_rn(__ldg(a.decrement + o), 0.5f) <= gain_tol && mu <= a.mu_small &&
+                   tiny_gain) ||
+                  (!improved && mu >= a.mu_max && tiny_gain);
+    }
+  }
+  __syncthreads();
+  const float c = c_sh;
+  if (!frozen) {
+    if (rank == 0) {
+      for (int i = t; i < a.n; i += ROW_THREADS)
+        a.params[o * a.n + i] = __fmul_rn(__ldg(a.new_params + o * a.n + i), c);
+    }
+    if (a.s != nullptr) {
+      const float* ns = a.new_s + o * a.P;
+      float* s = a.s + o * a.P;
+#pragma unroll 4
+      for (int i = rank * ROW_THREADS + t; i < a.P; i += STEP_BLOCKS * ROW_THREADS)
+        s[i] = __fmul_rn(__ldg(ns + i), c);
+    }
+  }
+  cluster_wait();
+  if (rank == 0 && t == 0 && !frozen) {
+    if (a.fval != nullptr) a.fval[o] = f_new;
+    a.mu_out[o] = mu_new;
+    if (a.it_lane != nullptr) a.it_lane[o] = *a.it_dev;
+    a.conv[o] = converged;
   }
 }
 
@@ -2711,5 +2967,65 @@ extern "C" int sdsm_lane_step_guard(const float* dir, const float* g, const floa
   lane_step_guard_kernel<<<B, ROW_THREADS, (size_t)n * sizeof(float), (cudaStream_t)stream>>>(
       dir, g, params, alpha, kmask, steps, f0, delta, decrement, reg_cand, thr, n, S, negate,
       eps, sq_eps, armijo);
+  return (int)cudaGetLastError();
+}
+
+// (t_step, new_params, new_s, new_f, improved, full_step) = the line search's
+// pick of solver._step_tail for B lanes (lane_step_pick_kernel):
+// data_cand, thr (B, S), reg_cand (B, S) (null at n <= 6), f0 (B,), steps
+// (S,), params, delta (B, n), s, u (B, P) (both null without a surface, as
+// is new_s) float32 contiguous, 1 <= S <= GUARD_MAX_S; improved and
+// full_step (B,) bool; one launch of B STEP_BLOCKS blocks on `stream`.
+extern "C" int sdsm_lane_step_pick(const float* data_cand, const float* reg_cand,
+                                   const float* thr, const float* f0, const float* steps,
+                                   const float* params, const float* delta, const float* s,
+                                   const float* u, float* t_step, float* new_params, float* new_s,
+                                   float* new_f, unsigned char* improved,
+                                   unsigned char* full_step, int B, int n, int P, int S,
+                                   void* stream) {
+  if (B < 0 || n < 0 || P < 0 || S < 1 || S > GUARD_MAX_S) return (int)cudaErrorInvalidValue;
+  if ((s == nullptr) != (u == nullptr) || (s != nullptr && new_s == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  const long long blocks = (long long)B * STEP_BLOCKS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  lane_step_pick_kernel<<<(unsigned)blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      PickArgs{data_cand, reg_cand, thr, f0, steps, params, delta, s, u, t_step, new_params,
+               new_s, new_f, improved, full_step, n, P, S});
+  return (int)cudaGetLastError();
+}
+
+// The scale sweep's pick, the new mu, the convergence test and, with
+// `freeze`, the loop's freeze writes, for B lanes (lane_step_tail_kernel):
+// data_sc (B, S), new_params (B, n), new_s (B, P) (null without a surface,
+// as is s), new_f, mu, f0, decrement (B,), alpha (B,) and kmask (B, n - 6)
+// (unused at n <= 6), scales (S,) float32 contiguous, improved and full_step
+// (B,) bool, 1 <= S <= GUARD_MAX_S; out: params (B, n), s (B, P), fval,
+// mu_out (B,) float32, conv (B,) bool; with `freeze` these are the loop's
+// own (mu_out the same as mu, fval as f0 or null; it_lane (B,) and it_dev
+// () int32, or both null); eps, sq_eps, tol, mu_min, mu_max and mu_small the
+// float32 values of epsilon, sqrt(epsilon), tol, MU_MIN, MU_MAX and 1e-4;
+// one launch of B clusters of STEP_BLOCKS blocks on `stream`.
+extern "C" int sdsm_lane_step_tail(const float* data_sc, const float* new_params,
+                                   const float* new_s, const float* new_f,
+                                   const unsigned char* improved, const unsigned char* full_step,
+                                   const float* mu, const float* f0, const float* decrement,
+                                   const float* alpha, const float* kmask, const float* scales,
+                                   float* params, float* s, float* fval, float* mu_out,
+                                   unsigned char* conv, int* it_lane, const int* it_dev, int B,
+                                   int n, int P, int S, int freeze, float eps, float sq_eps,
+                                   float tol, float mu_min, float mu_max, float mu_small,
+                                   void* stream) {
+  if (B < 0 || n < 0 || P < 0 || S < 1 || S > GUARD_MAX_S) return (int)cudaErrorInvalidValue;
+  if ((new_s == nullptr) != (s == nullptr) || (it_lane == nullptr) != (it_dev == nullptr) ||
+      (n > 6 && (alpha == nullptr || kmask == nullptr)) || (!freeze && fval == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  const long long blocks = (long long)B * STEP_BLOCKS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  lane_step_tail_kernel<<<(unsigned)blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      TailArgs{data_sc, new_params, new_s, new_f, improved, full_step, mu, f0, decrement, alpha,
+               kmask, scales, params, s, fval, mu_out, conv, it_lane, it_dev, n, P, S, freeze,
+               eps, sq_eps, tol, mu_min, mu_max, mu_small});
   return (int)cudaGetLastError();
 }

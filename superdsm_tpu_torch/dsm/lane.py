@@ -36,7 +36,10 @@ LAPACK (``solver._cholesky_direction``). :func:`lm_system` and
 solve (the damped system; the guard, decrement, line-search regularizer
 candidates and Armijo thresholds), each one launch on the card, bitwise
 its plain version there, which is the solver's former op-by-op expression
-(its sums :func:`lane_sum` and :func:`lane_dot`).
+(its sums :func:`lane_sum` and :func:`lane_dot`); so are :func:`step_pick`
+and :func:`step_tail`, the rest of the step (the line search's pick; the
+scale sweep's regularizer sums and pick, the new mu, the convergence test
+and, in the loop, the freeze writes).
 
 Every kernel launch adds one to :data:`LAUNCHES` (through
 :func:`gram._count_launch`, so a captured CUDA graph counts its launches at
@@ -44,6 +47,7 @@ each replay).
 """
 
 import math
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -54,7 +58,8 @@ from . import gram
 #: :func:`softplus_kernel`, which no solver path launches).
 LAUNCHES = {'lane_matvec': 0, 'lane_sum': 0, 'lane_dot': 0,
             'softplus_energies': 0, 'lane_pcg': 0, 'lane_cholesky': 0,
-            'lane_lm_system': 0, 'lane_step_guard': 0, 'softplus': 0}
+            'lane_lm_system': 0, 'lane_step_guard': 0, 'lane_step_pick': 0,
+            'lane_step_tail': 0, 'softplus': 0}
 
 
 def reset_launch_counts():
@@ -65,7 +70,8 @@ def reset_launch_counts():
 #: shape (``lane_matvec`` (B, P, n), ``lane_sum`` (B, S, L) or (B, L)
 #: summed over L, ``lane_dot`` (B, n), ``softplus_energies`` (mode, B, P),
 #: ``lane_pcg``, ``lane_cholesky``, ``lane_lm_system`` and
-#: ``lane_step_guard`` (B, n));
+#: ``lane_step_guard`` (B, n), ``lane_step_pick`` and ``lane_step_tail`` (B,
+#: P, n), P = 0 without a surface);
 #: under a replayed CUDA graph at each replay, as
 #: :func:`gram._count_launch` counts.
 LAUNCH_HOOKS = []
@@ -330,6 +336,100 @@ def step_guard_plain(direction, g, params, alpha, epsilon, kmask, steps, f0, arm
         reg_cand = (alpha[:, None] * lane_sum(
             kmask[:, :, None] * (term2c - math.sqrt(epsilon)), 1)).clamp_min(0.0)
     return delta, decrement, reg_cand, f0[:, None] - armijo_c * steps * decrement[:, None]
+
+
+def step_pick_plain(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s=None, u=None):
+    """The line search's pick, op by op as ``solver._newton_step`` made it:
+    the candidates' energies ``f_cand = data_cand + reg_cand`` (B, S)
+    (``reg_cand`` None at n <= 6); the first step that passes the Armijo
+    test ``f_cand <= armijo_f``, else the least ``f_cand``; ``improved`` if
+    its energy is below ``f0``, and then ``t_step`` its step (0 else) and
+    ``full_step`` if it is the first; ``new_params = params + t_step
+    delta`` (B, n), ``new_s = s + t_step u`` (B, P) (None without ``s``),
+    ``new_f``. Returns ``(t_step, new_params, new_s, new_f, improved,
+    full_step)``."""
+    dt, dev = params.dtype, params.device
+    f_cand = data_cand + reg_cand if reg_cand is not None else data_cand
+    armijo = f_cand <= armijo_f
+    any_ok = armijo.any(dim=1)
+    # torch.argmax refuses bool; on int it returns the FIRST maximum, the
+    # first (largest) passing step
+    first_ok = armijo.to(torch.int32).argmax(dim=1)
+    best = torch.argmin(f_cand, dim=1)      # fallback: best decrease
+    pick = torch.where(any_ok, first_ok, best)
+    f_pick = f_cand.gather(1, pick[:, None])[:, 0]
+    improved = f_pick < f0
+    t_step = torch.where(improved, steps[pick], torch.zeros((), dtype=dt, device=dev))
+    full_step = improved & (pick == 0)
+    new_params = params + t_step[:, None] * delta
+    new_s = None if s is None else s + t_step[:, None] * u
+    new_f = torch.where(improved, f_pick, f0)
+    return t_step, new_params, new_s, new_f, improved, full_step
+
+
+#: The Newton loop's state that :func:`step_tail` writes in place: params
+#: (B, n), s (B, P), fval (B,) float32, it_lane (B,) int32, it_dev () int32
+#: (the iterations run, added to before the step) and conv (B,) bool; s,
+#: fval, it_lane and it_dev may be None (the sharded solver keeps params, mu
+#: and conv). The step's ``mu`` is the loop's own and is written in place
+#: too.
+FreezeState = namedtuple('FreezeState', 'params s fval it_lane it_dev conv')
+
+
+def step_tail_plain(data_sc, new_params, new_s, new_f, improved, full_step, mu, f0, decrement,
+                    alpha, epsilon, kmask, scales, tol, mu_min, mu_max, state=None):
+    """The rest of a Newton step after the scale sweep's data energies
+    ``data_sc`` (B, S), op by op as ``solver._newton_step`` and the loop's
+    iteration made it: at n > 6 the regularizer of the candidates
+    ``new_params[:, 6:] scales_k``, clamped at 0, added; the least candidate
+    ``f_sc``, taken (``boost``) if finite and below ``new_f``, scales
+    ``new_params`` and ``new_s`` (None: no surface) by ``c_best`` and gives
+    ``new_f``; the new mu (a quarter after a full step, at least
+    ``mu_min``; kept after a shorter one; else eight times, at most
+    ``mu_max``) and the convergence test on the old ``mu``, ``f0`` and
+    ``decrement`` at ``tol``. Returns ``(new_params, new_s, new_f,
+    converged, new_mu)``; given ``state`` (:class:`FreezeState`) writes
+    them instead, as the loop's freeze did: a lane whose ``state.conv`` is
+    set keeps its state, the others take the new values (``mu`` in place,
+    ``it_lane`` from ``it_dev``), and ``conv |= converged``; returns
+    None."""
+    dt, dev = new_params.dtype, new_params.device
+    if new_params.shape[1] > 6:
+        xi_sc = new_params[:, 6:, None] * scales
+        term2sc = torch.sqrt(xi_sc * xi_sc + epsilon)
+        reg_sc = (alpha[:, None] * lane_sum(kmask[:, :, None] * (term2sc - math.sqrt(epsilon)), 1)
+                  ).clamp_min(0.0)
+        f_sc = data_sc + reg_sc
+    else:
+        f_sc = data_sc
+    pick_sc = torch.argmin(f_sc, dim=1)
+    f_sc_pick = f_sc.gather(1, pick_sc[:, None])[:, 0]
+    boost = (f_sc_pick < new_f) & torch.isfinite(f_sc_pick)
+    c_best = torch.where(boost, scales[pick_sc], torch.ones((), dtype=dt, device=dev))
+    new_params = new_params * c_best[:, None]
+    new_s = None if new_s is None else new_s * c_best[:, None]
+    new_f = torch.where(boost, f_sc_pick, new_f)
+
+    new_mu = torch.where(full_step, (mu * 0.25).clamp_min(mu_min),
+                         torch.where(improved, mu, (mu * 8.0).clamp_max(mu_max)))
+    tiny_gain = (f0 - new_f) <= tol * (1.0 + f0.abs())
+    converged = (((0.5 * decrement <= tol * (1.0 + f0.abs())) & (mu <= 1e-4)
+                  & tiny_gain)
+                 | ((~improved) & (mu >= mu_max) & tiny_gain))
+    if state is None:
+        return new_params, new_s, new_f, converged, new_mu
+    conv = state.conv
+    keep = conv[:, None]
+    state.params.copy_(torch.where(keep, state.params, new_params))
+    if state.s is not None:
+        state.s.copy_(torch.where(keep, state.s, new_s))
+    if state.fval is not None:
+        state.fval.copy_(torch.where(conv, state.fval, new_f))
+    mu.copy_(torch.where(conv, mu, new_mu))
+    if state.it_lane is not None:
+        state.it_lane.copy_(torch.where(conv, state.it_lane, state.it_dev))
+    conv.logical_or_(converged)
+    return None
 
 
 def _launch(name, shape, fn, *args):
@@ -616,6 +716,127 @@ def step_guard_kernel(direction, g, params, alpha, epsilon, kmask, steps, f0, ar
     return delta, decrement, reg_cand, thresholds
 
 
+def _ptr(t):
+    """A tensor's address, or None for no tensor."""
+    return t.data_ptr() if t is not None else None
+
+
+def step_pick_kernel(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s=None, u=None):
+    """The CUDA kernel of :func:`step_pick` on the current stream: one
+    launch, bitwise :func:`step_pick_plain` on the card (eight blocks a
+    lane, each recomputing the lane's pick and writing an eighth of its
+    surface)."""
+    _check_cuda('step_pick_kernel', data_cand, armijo_f, f0, steps, params, delta)
+    data_cand, armijo_f, f0, steps, params, delta = (
+        t.contiguous() for t in (data_cand, armijo_f, f0, steps, params, delta))
+    if params.dim() != 2 or data_cand.dim() != 2 or steps.dim() != 1:
+        raise ValueError('step_pick_kernel takes data_cand (B, S), params (B, n) and steps (S,), '
+                         f'got {tuple(data_cand.shape)}, {tuple(params.shape)} and '
+                         f'{tuple(steps.shape)}')
+    B, n = params.shape
+    S = steps.shape[0]
+    dev = params.device
+    checks = [('data_cand', data_cand, (B, S)), ('armijo_f', armijo_f, (B, S)),
+              ('f0', f0, (B,)), ('delta', delta, (B, n))]
+    if reg_cand is not None:
+        _check_cuda('step_pick_kernel', reg_cand)
+        reg_cand = reg_cand.contiguous()
+        checks.append(('reg_cand', reg_cand, (B, S)))
+    P = 0
+    if s is not None:
+        _check_cuda('step_pick_kernel', s, u)
+        s, u = s.contiguous(), u.contiguous()
+        P = s.shape[1]
+        checks += [('s', s, (B, P)), ('u', u, (B, P))]
+    for name, t, shape in checks:
+        gram._check(name, t, torch.float32, shape, dev)
+    _int32('step_pick_kernel', B, n, P, S)
+    t_step = torch.empty((B,), dtype=torch.float32, device=dev)
+    new_params = torch.empty_like(params)
+    new_s = None if s is None else torch.empty_like(s)
+    new_f = torch.empty((B,), dtype=torch.float32, device=dev)
+    improved = torch.empty((B,), dtype=torch.bool, device=dev)
+    full_step = torch.empty((B,), dtype=torch.bool, device=dev)
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(dev):
+        _launch('lane_step_pick', (B, P, n), lib.sdsm_lane_step_pick, data_cand.data_ptr(),
+                _ptr(reg_cand), armijo_f.data_ptr(), f0.data_ptr(), steps.data_ptr(),
+                params.data_ptr(), delta.data_ptr(), _ptr(s), _ptr(u),
+                t_step.data_ptr(), new_params.data_ptr(), _ptr(new_s), new_f.data_ptr(),
+                improved.data_ptr(), full_step.data_ptr(), B, n, P, S)
+    return t_step, new_params, new_s, new_f, improved, full_step
+
+
+def step_tail_kernel(data_sc, new_params, new_s, new_f, improved, full_step, mu, f0, decrement,
+                     alpha, epsilon, kmask, scales, tol, mu_min, mu_max, state=None):
+    """The CUDA kernel of :func:`step_tail` on the current stream: one
+    launch (a cluster of eight blocks a lane), bitwise
+    :func:`step_tail_plain` on the card, in either mode; with ``state`` it
+    writes the loop's tensors in place (each must be contiguous, ``mu``
+    too)."""
+    _check_cuda('step_tail_kernel', data_sc, new_params, new_f, mu, f0, decrement, scales)
+    data_sc, new_params, new_f, improved, full_step, f0, decrement, scales = (
+        t.contiguous() for t in (data_sc, new_params, new_f, improved, full_step, f0,
+                                 decrement, scales))
+    if new_params.dim() != 2 or scales.dim() != 1:
+        raise ValueError('step_tail_kernel takes new_params (B, n) and scales (S,), got '
+                         f'{tuple(new_params.shape)} and {tuple(scales.shape)}')
+    B, n = new_params.shape
+    S = scales.shape[0]
+    dev = new_params.device
+    checks = [('data_sc', data_sc, torch.float32, (B, S)), ('new_f', new_f, torch.float32, (B,)),
+              ('improved', improved, torch.bool, (B,)),
+              ('full_step', full_step, torch.bool, (B,)), ('f0', f0, torch.float32, (B,)),
+              ('decrement', decrement, torch.float32, (B,))]
+    ptrs = [None, None]
+    if n > 6:
+        _check_cuda('step_tail_kernel', alpha, kmask)
+        alpha, kmask = alpha.contiguous(), kmask.contiguous()
+        checks += [('alpha', alpha, torch.float32, (B,)),
+                   ('kmask', kmask, torch.float32, (B, n - 6))]
+        ptrs = [alpha.data_ptr(), kmask.data_ptr()]
+    P = 0
+    if new_s is not None:
+        _check_cuda('step_tail_kernel', new_s)
+        new_s = new_s.contiguous()
+        P = new_s.shape[1]
+        checks.append(('new_s', new_s, torch.float32, (B, P)))
+    if state is None:
+        mu = mu.contiguous()
+        out = (torch.empty_like(new_params), None if new_s is None else torch.empty_like(new_s),
+               torch.empty_like(new_f), torch.empty((B,), dtype=torch.bool, device=dev),
+               torch.empty_like(mu))
+        params, s, fval, conv, mu_out = out
+        it_lane = it_dev = None
+    else:
+        params, s, fval, it_lane, it_dev, conv = state
+        mu_out = mu
+        if (s is None) != (new_s is None) or (it_lane is None) != (it_dev is None):
+            raise ValueError('step_tail_kernel: the state has s exactly where new_s is given, '
+                             'and it_lane exactly with it_dev')
+        checks += [('params', params, torch.float32, (B, n)),
+                   ('conv', conv, torch.bool, (B,))]
+        checks += [(name, t, dtype, shape) for name, t, dtype, shape in (
+            ('s', s, torch.float32, (B, P)), ('fval', fval, torch.float32, (B,)),
+            ('it_lane', it_lane, torch.int32, (B,)), ('it_dev', it_dev, torch.int32, ()))
+            if t is not None]
+    checks.append(('mu', mu, torch.float32, (B,)))
+    for name, t, dtype, shape in checks:
+        gram._check(name, t, dtype, shape, dev)
+    _int32('step_tail_kernel', B, n, P, S)
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(dev):
+        _launch('lane_step_tail', (B, P, n), lib.sdsm_lane_step_tail, data_sc.data_ptr(),
+                new_params.data_ptr(), _ptr(new_s), new_f.data_ptr(),
+                improved.data_ptr(), full_step.data_ptr(), mu.data_ptr(), f0.data_ptr(),
+                decrement.data_ptr(), *ptrs, scales.data_ptr(), params.data_ptr(),
+                _ptr(s), _ptr(fval), mu_out.data_ptr(), conv.data_ptr(),
+                _ptr(it_lane), _ptr(it_dev), B, n, P, S, int(state is not None),
+                _f32(epsilon), _f32(math.sqrt(epsilon)), _f32(tol), _f32(mu_min),
+                _f32(mu_max), _f32(1e-4))
+    return out if state is None else None
+
+
 def matvec(A, x):
     """Per-lane matrix-vector product ``A (B, P, n) @ x (B, n) -> (B, P)``,
     float32."""
@@ -679,3 +900,25 @@ def step_guard(direction, g, params, alpha, epsilon, kmask, steps, f0, armijo_c,
                                 armijo_c, negate)
     return step_guard_kernel(direction, g, params, alpha, epsilon, kmask, steps, f0,
                              armijo_c, negate)
+
+
+def step_pick(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s=None, u=None):
+    """The line search's pick ``(t_step, new_params, new_s, new_f, improved,
+    full_step)`` (see :func:`step_pick_plain`): the plain version on the CPU,
+    one :func:`step_pick_kernel` launch on the card (bitwise the same)."""
+    if params.device.type == 'cpu':
+        return step_pick_plain(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s, u)
+    return step_pick_kernel(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s, u)
+
+
+def step_tail(data_sc, new_params, new_s, new_f, improved, full_step, mu, f0, decrement, alpha,
+              epsilon, kmask, scales, tol, mu_min, mu_max, state=None):
+    """The rest of a Newton step after the scale sweep's data energies (see
+    :func:`step_tail_plain`), returned or, given ``state``, written into the
+    loop's tensors: the plain version on the CPU, one
+    :func:`step_tail_kernel` launch on the card (bitwise the same)."""
+    args = (data_sc, new_params, new_s, new_f, improved, full_step, mu, f0, decrement, alpha,
+            epsilon, kmask, scales, tol, mu_min, mu_max, state)
+    if new_params.device.type == 'cpu':
+        return step_tail_plain(*args)
+    return step_tail_kernel(*args)

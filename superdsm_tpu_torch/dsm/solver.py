@@ -28,9 +28,13 @@ op-by-op chain that the kernel replaces. The Cholesky direction (at n <=
 :data:`CHOLESKY_MAX_N`) is one launch of the ``lane_cholesky`` kernel on
 the card; on the CPU LAPACK's. The damped system before it and the guard
 after it are one launch each on the card (``lane_lm_system``,
-``lane_step_guard``), on the CPU their plain versions, the op-by-op
-expressions of :func:`superdsm_tpu_torch.dsm.lane.lm_system_plain` and
-:func:`~superdsm_tpu_torch.dsm.lane.step_guard_plain`.
+``lane_step_guard``), and so are the line search's pick and the rest of
+the step after the scale sweep's sums, the loop's freeze writes included
+(``lane_step_pick``, ``lane_step_tail``); on the CPU their plain versions,
+the op-by-op expressions of :func:`superdsm_tpu_torch.dsm.lane.lm_system_plain`,
+:func:`~superdsm_tpu_torch.dsm.lane.step_guard_plain`,
+:func:`~superdsm_tpu_torch.dsm.lane.step_pick_plain` and
+:func:`~superdsm_tpu_torch.dsm.lane.step_tail_plain`.
 
 Every product, sum and factorization of a lane goes through
 :mod:`superdsm_tpu_torch.dsm.lane` (fixed order) or a library call whose
@@ -280,20 +284,25 @@ def _cholesky_direction(Hd, g):
                        delta)
 
 
-def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol):
+def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
+                 state=None):
     """One Levenberg-Marquardt-damped Newton iteration for a batch of lanes
     (see the JAX package's ``_newton_step`` for the rationale of the LM
     damping, the Armijo line search over one matvec and the multiplicative
     scale sweep). Shapes: params (B, n), mu/f0/alpha (B,), s/yv/w (B, P),
-    g (B, n), H (B, n, n), Bf (B, P, n), kmask (B, K). On the card it makes
-    no host sync (on the CPU PCG's early exit reads its lanes,
+    g (B, n), H (B, n, n), Bf (B, P, n), kmask (B, K). Returns ``(new_params,
+    new_s, new_f, converged, new_mu)``; given the loop's ``state``
+    (:class:`lane.FreezeState`, whose params, s and fval are the step's
+    params, s and f0, and whose mu is ``mu``) it writes them into the state
+    instead, as the loop's freeze does, and returns None. On the card it
+    makes no host sync (on the CPU PCG's early exit reads its lanes,
     :func:`_pcg_solve`)."""
-    B, n = params.shape
+    n = params.shape[1]
     dt, dev = params.dtype, params.device
     # the damped system: g with the regularizer's gradient, masked; Hd = H +
     # diag(reg_h) + mu scale_h I (one lane_lm_system launch on the card)
     g, Hd = lane.lm_system(params, mu, alpha, epsilon, kmask, g, H)
-    steps = 0.5 ** torch.arange(LS_STEPS, dtype=dt, device=dev)    # (S,)
+    steps = _steps(dt, dev)                                         # (S,)
     if n > CHOLESKY_MAX_N:
         direction, negate = _pcg_solve(Hd, g), True
     else:
@@ -310,51 +319,33 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol)
     # sum_p w softplus(-(y (s + u steps))): one kernel on the card, no
     # (B, P, S) tensor
     data_cand = lane.softplus_energies(s, yv, w, steps, u)         # (B, S)
-    f_cand = data_cand + reg_cand if n > 6 else data_cand
+    return _step_tail(params, mu, f0, delta, decrement, data_cand, reg_cand, armijo_f, alpha,
+                      epsilon, kmask, tol,
+                      lambda t_step, new_s, scales: lane.softplus_energies(new_s, yv, w, scales),
+                      s, u, state)
 
-    armijo = f_cand <= armijo_f
-    any_ok = armijo.any(dim=1)
-    # torch.argmax refuses bool; on int it returns the FIRST maximum, the
-    # first (largest) passing step
-    first_ok = armijo.to(torch.int32).argmax(dim=1)
-    best = torch.argmin(f_cand, dim=1)      # fallback: best decrease
-    pick = torch.where(any_ok, first_ok, best)
-    f_pick = f_cand.gather(1, pick[:, None])[:, 0]
-    improved = f_pick < f0
-    t_step = torch.where(improved, steps[pick], torch.zeros((), dtype=dt, device=dev))
-    full_step = improved & (pick == 0)
 
-    new_params = params + t_step[:, None] * delta
-    new_s = s + t_step[:, None] * u
-    new_f = torch.where(improved, f_pick, f0)
+def _step_tail(params, mu, f0, delta, decrement, data_cand, reg_cand, armijo_f, alpha, epsilon,
+               kmask, tol, sweep, s=None, u=None, state=None):
+    """The Newton step after the line search's energies, shared by both
+    solvers (this module's and ``parallel/newton._newton_row``): the line
+    search's pick and the new params (and surface ``s + t_step u``); the
+    multiplicative scale sweep, whose data energies ``sweep(t_step, new_s,
+    scales)`` gives (B, S); its pick, the new mu and the convergence test,
+    returned or written into the loop's ``state`` (:func:`_newton_step`).
+    On the card one ``lane_step_pick`` and one ``lane_step_tail`` launch
+    around the sweep's sums."""
+    dt, dev = params.dtype, params.device
+    t_step, new_params, new_s, new_f, improved, full_step = lane.step_pick(
+        data_cand, reg_cand, armijo_f, f0, _steps(dt, dev), params, delta, s, u)
 
     # multiplicative scale sweep against the near-separable "creep"
     scales = _scales(dt, dev)
-    data_sc = lane.softplus_energies(new_s, yv, w, scales)         # (B, S)
-    sq_eps = math.sqrt(epsilon)
-    if n > 6:
-        xi_sc = new_params[:, 6:, None] * scales
-        term2sc = torch.sqrt(xi_sc * xi_sc + epsilon)
-        reg_sc = (alpha[:, None] * _lsum(kmask[:, :, None] * (term2sc - sq_eps), 1)
-                  ).clamp_min(0.0)
-        f_sc = data_sc + reg_sc
-    else:
-        f_sc = data_sc
-    pick_sc = torch.argmin(f_sc, dim=1)
-    f_sc_pick = f_sc.gather(1, pick_sc[:, None])[:, 0]
-    boost = (f_sc_pick < new_f) & torch.isfinite(f_sc_pick)
-    c_best = torch.where(boost, scales[pick_sc], torch.ones((), dtype=dt, device=dev))
-    new_params = new_params * c_best[:, None]
-    new_s = new_s * c_best[:, None]
-    new_f = torch.where(boost, f_sc_pick, new_f)
-
-    new_mu = torch.where(full_step, (mu * 0.25).clamp_min(MU_MIN),
-                         torch.where(improved, mu, (mu * 8.0).clamp_max(MU_MAX)))
-    tiny_gain = (f0 - new_f) <= tol * (1.0 + f0.abs())
-    converged = (((0.5 * decrement <= tol * (1.0 + f0.abs())) & (mu <= 1e-4)
-                  & tiny_gain)
-                 | ((~improved) & (mu >= MU_MAX) & tiny_gain))
-    return new_params, new_s, new_f, converged, new_mu
+    data_sc = sweep(t_step, new_s, scales)                          # (B, S)
+    # its regularizer and pick, new_mu = torch.where(full_step, ...) and
+    # the convergence test (lane.step_tail_plain), and the freeze writes
+    return lane.step_tail(data_sc, new_params, new_s, new_f, improved, full_step, mu, f0,
+                          decrement, alpha, epsilon, kmask, scales, tol, MU_MIN, MU_MAX, state)
 
 
 def _lsq_init(Q, yv, w, margin=2.0, ridge=1e-6):
@@ -390,6 +381,7 @@ def _better_of(Q, yv, w, theta_a, theta_b):
 
 
 _SCALES_ON = {}
+_STEPS_ON = {}
 
 
 def _scales(dtype, device):
@@ -400,6 +392,20 @@ def _scales(dtype, device):
     if key not in _SCALES_ON:
         _SCALES_ON[key] = torch.tensor(SCALES, dtype=dtype, device=device)
     return _SCALES_ON[key]
+
+
+def _steps(dtype, device):
+    """The line search's steps ``0.5 ** arange(LS_STEPS)`` on ``device``,
+    computed there once, before any capture (as :func:`_scales`: a graph
+    would fill it only when replayed), and waited for, since other threads'
+    streams read it."""
+    key = (dtype, device)
+    if key not in _STEPS_ON:
+        steps = 0.5 ** torch.arange(LS_STEPS, dtype=dtype, device=device)
+        if steps.is_cuda:
+            torch.cuda.current_stream(device).synchronize()
+        _STEPS_ON[key] = steps
+    return _STEPS_ON[key]
 
 
 def _capture_context(device):
@@ -509,20 +515,15 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
     it_lane = torch.zeros(B, dtype=torch.int32, device=dev)
     it_dev = torch.zeros((), dtype=torch.int32, device=dev)
 
+    freeze = lane.FreezeState(params, s, fval, it_lane, it_dev, conv)
+
     def iteration(cheap):
         # frozen lanes skip the gram work in the kernel; their g/H come back
-        # zero and only feed the masked-out step below
+        # zero and only feed the step, whose results the freeze drops there
         g_b, H_b = grad_hess_b(s, (~conv).to(torch.int32), cheap)
-        new_params, new_s, new_f, new_conv, new_mu = _newton_step(
-            params, mu, s, fval, g_b, H_b, Bf, yv, w, alpha, epsilon, kmask, tol)
-        keep = conv[:, None]
         it_dev.add_(1)
-        params.copy_(torch.where(keep, params, new_params))
-        s.copy_(torch.where(keep, s, new_s))
-        fval.copy_(torch.where(conv, fval, new_f))
-        mu.copy_(torch.where(conv, mu, new_mu))
-        it_lane.copy_(torch.where(conv, it_lane, it_dev))
-        conv.logical_or_(new_conv)
+        _newton_step(params, mu, s, fval, g_b, H_b, Bf, yv, w, alpha, epsilon, kmask, tol,
+                     freeze)
 
     graphs = {}  # cheap -> its captured iteration, after one eager run
 

@@ -23,17 +23,17 @@ a Cholesky direction at every n, as there. Every sum of a lane goes through
 :mod:`superdsm_tpu_torch.dsm.lane` and the direction through
 ``solver._cholesky_direction`` (the ``lane_cholesky`` kernel on the card,
 LAPACK on the CPU), and the step's guard through ``lane.step_guard`` (the
-``lane_step_guard`` kernel on the card), as in the unsharded solver, so a
-lane's result does not depend on its batch. The damped system is
-assembled here op by op: its energy takes the regularizer's value, and its
-g no kmask product.
+``lane_step_guard`` kernel on the card), and the rest of the step through
+``solver._step_tail`` (the ``lane_step_pick`` and ``lane_step_tail``
+kernels), as in the unsharded solver, so a lane's result does not depend
+on its batch. The damped system is assembled here op by op: its energy
+takes the regularizer's value, and its g no kmask product.
 
 The smooth-matrix rows are per pixel (built from the replicated subsample
 points), so ``G`` shards with the pixels and only the ``6 + K`` reductions
 cross devices.
 """
 
-import math
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -42,13 +42,11 @@ import torch
 from .._device import thread_device
 from ..dsm import gram, lane
 from ..dsm.smooth import build_smooth_matrix
-from ..dsm.solver import (_cholesky_direction, _poly_basis, _reg_terms, _bmv,
-                          LS_STEPS, ARMIJO_C, DEFAULT_MAXITER, DEFAULT_TOL, MU_MIN,
-                          MU_MAX)
+from ..dsm.solver import (_cholesky_direction, _poly_basis, _reg_terms, _bmv, _step_tail,
+                          _steps, ARMIJO_C, DEFAULT_MAXITER, DEFAULT_TOL)
 from .pipelined import worker_stream
 
 _F32 = torch.float32
-_SCALES = (0.7, 1.0, 1.4, 2.0, 3.0, 4.5, 6.5, 9.0)
 
 
 def _split(n, parts):
@@ -101,14 +99,6 @@ def _reduce(parts, home):
     return total.to(_F32)
 
 
-def _reg_value(xi, alpha, epsilon, kmask):
-    """The deformation regularizer at the scale sweep's candidates ``xi (B,
-    K, S)``."""
-    term2 = torch.sqrt(xi * xi + epsilon)
-    return (alpha[:, None] * lane.lane_sum(kmask[:, :, None] * (term2 - math.sqrt(epsilon)), 1)
-            ).clamp_min(0.0)
-
-
 def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
     """Newton iteration for the problems of one batch row whose pixels are
     split over ``shards``; every reduction and the replicated arithmetic run
@@ -117,18 +107,18 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
     B, n = params0.shape
     dt = params0.dtype
     eye = torch.eye(n, dtype=dt, device=home)
-    steps = 0.5 ** torch.arange(LS_STEPS, dtype=dt, device=home)
-    ones = torch.ones((), dtype=dt, device=home)
-    scales = torch.tensor(_SCALES, dtype=dt, device=home)
+    steps = _steps(dt, home)
 
     def energy(params):
         data = _reduce([lane.softplus_energies(sh.surface(params), sh.yv, sh.w)
                         for sh in shards], home)
         return data + _reg_terms(params, alpha, epsilon, kmask)[0]
 
-    params = params0
+    # the loop state, updated in place by the step's tail
+    params = params0.clone()
     conv = torch.zeros(B, dtype=torch.bool, device=home)
     mu = torch.full((B,), 1e-6, dtype=dt, device=home)
+    freeze = lane.FreezeState(params, None, None, None, None, conv)
     it = 0
     while it < maxiter and not bool(conv.all()):
         active = (~conv).to(torch.int32)
@@ -153,41 +143,18 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
         us = [sh.surface(delta) for sh in shards]
         data_cand = _reduce([sh.line_search(c[0], u, steps)
                              for sh, c, u in zip(shards, local, us)], home)
-        f_cand = data_cand + reg_cand if n > 6 else data_cand
-        armijo = f_cand <= armijo_f
-        pick = torch.where(armijo.any(dim=1), armijo.to(torch.int32).argmax(dim=1),
-                           torch.argmin(f_cand, dim=1))
-        f_pick = f_cand.gather(1, pick[:, None])[:, 0]
-        improved = f_pick < f0
-        t_step = torch.where(improved, steps[pick], torch.zeros((), dtype=dt, device=home))
-        full_step = improved & (pick == 0)
-        new_params = params + t_step[:, None] * delta
-        new_f = torch.where(improved, f_pick, f0)
 
-        # multiplicative scale sweep (dsm.solver._newton_step) of each
-        # shard's new surface, candidate energies reduced like the line
-        # search
-        data_sc = _reduce([sh.scale_sweep(c[0] + t_step.to(sh.device)[:, None] * u, scales)
-                           for sh, c, u in zip(shards, local, us)], home)
-        if n > 6:
-            f_sc = data_sc + _reg_value(new_params[:, 6:, None] * scales,
-                                        alpha, epsilon, kmask)
-        else:
-            f_sc = data_sc
-        pick_sc = torch.argmin(f_sc, dim=1)
-        f_sc_pick = f_sc.gather(1, pick_sc[:, None])[:, 0]
-        boost = (f_sc_pick < new_f) & torch.isfinite(f_sc_pick)
-        new_params = new_params * torch.where(boost, scales[pick_sc], ones)[:, None]
-        new_f = torch.where(boost, f_sc_pick, new_f)
+        def sweep(t_step, _, scales):
+            # the scale sweep of each shard's new surface, candidate
+            # energies reduced like the line search's
+            return _reduce([sh.scale_sweep(c[0] + t_step.to(sh.device)[:, None] * u, scales)
+                            for sh, c, u in zip(shards, local, us)], home)
 
-        new_mu = torch.where(full_step, (mu * 0.25).clamp_min(MU_MIN),
-                             torch.where(improved, mu, (mu * 8.0).clamp_max(MU_MAX)))
-        tiny_gain = (f0 - new_f) <= tol * (1.0 + f0.abs())
-        new_conv = (((0.5 * decrement <= tol * (1.0 + f0.abs())) & (mu <= 1e-4)
-                     & tiny_gain) | ((~improved) & (mu >= MU_MAX) & tiny_gain))
-        params = torch.where(conv[:, None], params, new_params)
-        mu = torch.where(conv, mu, new_mu)
-        conv = conv | new_conv
+        # the picks, mu and the convergence test, as dsm.solver's step (one
+        # lane_step_pick and one lane_step_tail launch on the card); the
+        # freeze writes params, mu and conv in place
+        _step_tail(params, mu, f0, delta, decrement, data_cand, reg_cand, armijo_f, alpha,
+                   epsilon, kmask, tol, sweep, state=freeze)
         it += 1
     return params, energy(params), conv
 

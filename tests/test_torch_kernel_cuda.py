@@ -57,7 +57,14 @@ one launch each, are held bitwise to the chains they replace
 (``lane.lm_system_plain`` and ``lane.step_guard_plain`` on the card) at
 the main path's shapes, with non-finite damping, directions and energies,
 a lane alone to the lane in the batch; ``solver._newton_step`` launches
-each once and no ``lane_dot``. A lane alone is
+each once and no ``lane_dot``. ``lane_step_pick`` and ``lane_step_tail``,
+the line search's pick and the rest of the step with the loop's freeze
+writes, are held bitwise to their chains (``lane.step_pick_plain`` and
+``lane.step_tail_plain`` on the card) at the main path's shapes, with
+NaN, infinite and tied candidates, in both of the tail's modes (a lane
+already converged keeps every bit of its state), a lane alone to the lane
+in the batch; ``solver._newton_step`` launches each once and no
+``lane_sum``. A lane alone is
 held bitwise to the lane in its batch for the bf16 kernel (whose plan no
 longer reads B) and for the sharded solvers on a mesh of the card twice.
 """
@@ -1230,3 +1237,159 @@ def test_newton_step_launches_the_step_kernels(n, monkeypatch):
     monkeypatch.setattr(lane, 'step_guard', lane.step_guard_plain)
     for x, y in zip(out, solver._newton_step(*args)):
         assert torch.equal(x, y)
+
+
+def _tail_inputs(B, P, n, dev, seed=0):
+    """A step's pick and tail inputs on ``dev``: energies around f0 (1e3 to
+    1e4), and by lane b % 6: as drawn; no passing step with tied least
+    candidates; a NaN candidate; every candidate +inf; a NaN scale
+    candidate; every scale candidate -inf. mu spans MU_MIN to MU_MAX; conv
+    is set in lanes b % 3 == 2, which hold a NaN of their own payload and
+    -0 in params and s."""
+    from superdsm_tpu_torch.dsm import solver
+    rng = np.random.RandomState(seed + B + P + n)
+    S, SC, K = solver.LS_STEPS, len(solver.SCALES), max(n - 6, 0)
+    steps = solver._steps(torch.float32, dev)
+    f0 = rng.uniform(1e3, 1e4, B)
+    dec = rng.uniform(0, 50, B)
+    thr = f0[:, None] - solver.ARMIJO_C * steps.cpu().numpy() * dec[:, None]
+    data = f0[:, None] + rng.randn(B, S) * 20
+    data_sc = f0[:, None] + rng.randn(B, SC) * 20
+    for b in range(B):
+        if b % 6 == 1:
+            data[b] = f0[b] + 5 + rng.rand(S)
+            data[b, 2] = data[b, 9] = f0[b] + 4
+        elif b % 6 == 2:
+            data[b, 4] = np.nan
+        elif b % 6 == 3:
+            data[b] = np.inf
+        elif b % 6 == 4:
+            data_sc[b, 5] = np.nan
+        elif b % 6 == 5:
+            data_sc[b] = -np.inf
+    mu = np.clip(10.0 ** rng.uniform(-11, 7, B), solver.MU_MIN, solver.MU_MAX)
+    conv = np.arange(B) % 3 == 2
+    params = (rng.randn(B, n) * 0.1).astype(np.float32)
+    s = (rng.randn(B, P) * 3).astype(np.float32)
+    params[conv, :2] = [np.uint32(0x7fc01234).view(np.float32), -0.0]
+    if P:
+        s[conv, :2] = params[conv, :2]
+    kmask = (rng.rand(B, K) < 0.8).astype(np.float32)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+    return dict(data_cand=t(data), reg_cand=t(rng.uniform(0, 2, (B, S))) if n > 6 else None,
+                armijo_f=t(thr), f0=t(f0), steps=steps, params=t(params),
+                delta=t(rng.randn(B, n) * 0.2), s=t(s), u=t(rng.randn(B, P)), data_sc=t(data_sc),
+                mu=t(mu), decrement=t(dec), alpha=t(np.full(B, 0.5)), kmask=t(kmask),
+                scales=solver._scales(torch.float32, dev), conv=t(conv, torch.bool),
+                it_lane=t(rng.randint(0, 5, B), torch.int32), it_dev=t(5, torch.int32))
+
+
+def _pick(fn, a, lanes=slice(None)):
+    L = lambda x: None if x is None else x[lanes]
+    return fn(L(a['data_cand']), L(a['reg_cand']), L(a['armijo_f']), L(a['f0']), a['steps'],
+              L(a['params']), L(a['delta']), L(a['s']), L(a['u']))
+
+
+def _tail(fn, a, pick, lanes=slice(None), state=None):
+    from superdsm_tpu_torch.dsm import solver
+    L = lambda x: None if x is None else x[lanes]
+    return fn(L(a['data_sc']), *(L(x) for x in pick[1:]), L(a['mu']), L(a['f0']),
+              L(a['decrement']), L(a['alpha']), 1.0, L(a['kmask']), a['scales'],
+              solver.DEFAULT_TOL, solver.MU_MIN, solver.MU_MAX, state)
+
+
+def _same_outputs(x, y):
+    return all(u is None and v is None or (
+        torch.equal(u, v) if u.dtype == torch.bool else _same_bits(u, v)) for u, v in zip(x, y))
+
+
+#: ``lane_step_pick``'s and ``lane_step_tail``'s main-path shapes (B, P, n),
+#: as chip_smoke.py phase 3, and two more (a wide n, no surface).
+TAIL_SHAPES = [(2, 16384, 512), (8, 12288, 256), (16, 8192, 256), (16, 6144, 128),
+               (32, 16384, 6), (1, 2048, 1024), (7, 0, 38)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P,n', TAIL_SHAPES)
+def test_lane_step_pick_and_tail_equal_the_chains(B, P, n):
+    """``lane_step_pick`` and ``lane_step_tail`` (one launch each) bitwise
+    equal to the chains they replace on the card, a NaN against any NaN;
+    a lane alone bitwise the lane in the batch; the tail in the loop's mode
+    (f0 the loop's fval, mu the loop's, both written in place) bitwise the
+    chain's freeze on a copy of the state, its converged lanes' state
+    untouched to the bit."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    a = _tail_inputs(B, P, n, dev)
+    if P == 0:
+        a['s'] = a['u'] = None
+    lane.reset_launch_counts()
+    pick = _pick(lane.step_pick, a)
+    out = _tail(lane.step_tail, a, pick)
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_step_pick'] == lane.LAUNCHES['lane_step_tail'] == 1
+    assert lane.LAUNCHES['lane_sum'] == 0
+    assert _same_outputs(pick, _pick(lane.step_pick_plain, a))
+    assert _same_outputs(out, _tail(lane.step_tail_plain, a, pick))
+    for b in sorted({0, B // 2, B - 1}):
+        one = _pick(lane.step_pick_kernel, a, slice(b, b + 1))
+        assert _same_outputs([x[0] for x in one if x is not None],
+                             [x[b] for x in pick if x is not None])
+        one = _tail(lane.step_tail_kernel, a, pick, slice(b, b + 1))
+        assert _same_outputs([x[0] for x in one if x is not None],
+                             [x[b] for x in out if x is not None])
+    keys = ('params', 's', 'f0', 'it_lane', 'it_dev', 'conv', 'mu')
+    states = []
+    for fn in (lane.step_tail_kernel, lane.step_tail_plain):
+        st = {k: None if a[k] is None else a[k].clone() for k in keys}
+        _tail(fn, dict(a, mu=st['mu'], f0=st['f0']), pick, state=lane.FreezeState(
+            st['params'], st['s'], st['f0'], st['it_lane'], st['it_dev'], st['conv']))
+        states.append(st)
+    assert _same_outputs([states[0][k] for k in keys], [states[1][k] for k in keys])
+    frozen = a['conv']
+    for k in ('params', 's', 'f0', 'mu', 'it_lane'):
+        if a[k] is not None:
+            assert torch.equal(states[0][k][frozen].view(torch.int32),
+                               a[k][frozen].view(torch.int32))
+    assert bool(states[0]['conv'][frozen].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [6, 128, 512])
+def test_newton_step_launches_the_tail_kernels(n, monkeypatch):
+    """``solver._newton_step`` on the card launches ``lane_step_pick`` and
+    ``lane_step_tail`` once each and no ``lane_sum``; its result is bitwise
+    the same step with their chains in their place, and its loop mode
+    bitwise its return mode followed by the former freeze writes."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    B, P = 4, 2048
+    params, mu, alpha, kmask, g, H = _step_systems(B, n, dev, seed=3)
+    mu = torch.full_like(mu, 1e-3)
+    rng = np.random.RandomState(n + 1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    Bf, yv, w = t(rng.randn(B, P, n) * 0.1), t(np.sign(rng.randn(B, P))), t(rng.rand(B, P) < 0.9)
+    s = lane.matvec(Bf, params)
+    f0 = solver._energy_from_surface(s, params[:, 6:], yv, w, alpha, 1.0, kmask)
+    args = (params, mu, s, f0, g, H, Bf, yv, w, alpha, 1.0, kmask, 1e-5)
+    lane.reset_launch_counts()
+    out = solver._newton_step(*args)
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_step_pick'] == lane.LAUNCHES['lane_step_tail'] == 1
+    assert lane.LAUNCHES['lane_sum'] == 0
+    conv = torch.tensor([False, True, False, True], device=dev)
+    it_lane, it_dev = torch.zeros(B, dtype=torch.int32, device=dev), torch.ones((), dtype=torch.int32, device=dev)
+    state = [x.clone() for x in (params, s, f0, mu)]
+    c = conv.clone()
+    solver._newton_step(state[0], state[3], state[1], state[2], *args[4:],
+                        state=lane.FreezeState(state[0], state[1], state[2], it_lane, it_dev, c))
+    keep = conv[:, None]
+    for x, y in ((state[0], torch.where(keep, params, out[0])),
+                 (state[1], torch.where(keep, s, out[1])), (state[2], torch.where(conv, f0, out[2])),
+                 (state[3], torch.where(conv, mu, out[4])), (c, conv | out[3]),
+                 (it_lane, torch.where(conv, 0, it_dev).int())):
+        assert torch.equal(x, y)
+    monkeypatch.setattr(lane, 'step_pick', lane.step_pick_plain)
+    monkeypatch.setattr(lane, 'step_tail', lane.step_tail_plain)
+    for x, y in zip(out, solver._newton_step(*args)):
+        assert _same_bits(x, y) if x.dtype != torch.bool else torch.equal(x, y)

@@ -67,10 +67,15 @@ result lines):
    a second run bitwise equal to it, NaN lanes exactly where the chain and
    ``cholesky_ex`` fail, every other lane within 4 n u kappa of a float64
    solve (beside cuSOLVER's error); the shape's route (one block a lane
-   in shared memory, a cluster of 8 blocks in panels of 8 columns, or one
-   block a lane in a global scratch) beside the kernel's, the chain's, the
-   per-lane cuSOLVER route's it replaces and cuSOLVER's batched route's
-   device ms, and the bound; then the Newton step's kernels against the
+   in shared memory, a cluster of 8 blocks in panels of 8 columns held in
+   shared memory, a cluster of 16 with its panels in shared memory or in
+   the lane's global scratch) and the clusters of it the card holds at
+   once (``cudaOccupancyMaxActiveClusters``) beside the kernel's, the
+   chain's, the per-lane cuSOLVER route's it replaces and cuSOLVER's
+   batched route's device ms, and the bound (above n = 807 also the
+   kernel's and the batched route's ms with every lane positive definite,
+   each lane bitwise the same lane with a failing one beside it); then the
+   Newton step's kernels against the
    chains they replace on the card, bitwise, a lane alone, a captured
    graph's replay: ``lane_lm_system`` and ``lane_step_guard`` at the (B,
    n) of :data:`LM_SHAPES` and :data:`GUARD_SHAPES`, ``lane_step_pick``
@@ -159,7 +164,9 @@ result lines):
    nuclei), ``AF_scale=12`` with speculation off, the default tile
    (1024, 1024) and halo 160 (4 tiles), with 1 thread and then 2 threads on
    CUDA streams: objects, wall seconds, seconds per tile and gram launches
-   per route of each, and how many planted nuclei it and the JAX-CPU
+   per route of each, the 1-thread run's gram launches by (B, P, n) and
+   its ``lane_pcg`` and ``lane_cholesky`` launches by (B, n), and how many
+   planted nuclei it and the JAX-CPU
    golden ``tests/data/torch_port/mosaic-2048-seed0.csv`` find; a float32
    gram route must launch; the 1-thread label map (written to
    ``chiprun_out/``) is matched against the golden at 3 px / 10%, the rows
@@ -183,7 +190,16 @@ result lines):
    mesh and 1e-3 of the unsharded Newton loop; the sharded poly solver at
    (8, 8192, 6) the same way (lanes alone bitwise too); the sharded DSM
    solver over a (2, 1) mesh (each row's Newton loop in its own thread and
-   stream) within rtol 1e-4 of the 1x1 mesh; the bench field under the pipeline mesh ``'1'`` bitwise equal to
+   stream) within rtol 1e-4 of the 1x1 mesh; the sharded DSM solver at
+   (8, 16384, 1024) (K = 1018, a cluster of 16 blocks a lane for its
+   direction) over the (1, 2) mesh: finite energies, one
+   ``lane_cholesky`` launch per Newton iteration, all on that route
+   (printed by route, with its iterations and seconds, and each
+   iteration's direction and both shards' local terms in device ms
+   between CUDA events), lanes 0 and 7
+   alone bitwise equal to the same lanes in the batch, and the whole solve
+   bitwise equal to the same solve with ``lane.cholesky_chain`` as its
+   direction; the bench field under the pipeline mesh ``'1'`` bitwise equal to
    phase 4's label map, and under a (2, 1) pipeline mesh of the card twice
    (each half of every chunk's lanes in its own thread and stream) within
    one unmatched object of its golden; ``parse_mesh_spec('2')`` raises on a
@@ -239,8 +255,8 @@ result that differs between the two checkouts instead of failing on it (for
 a change that alters a lane's bits on purpose); a checkout whose results
 differ from its own other turn still fails the run.
 
-``python3 chip_smoke.py --split`` measures where the time of ``lane_pcg``
-and ``softplus_energies`` goes instead: it builds ``lane_ops.cu`` a second
+``python3 chip_smoke.py --split`` measures where the time of ``lane_pcg``,
+``softplus_energies`` and ``lane_cholesky`` goes instead: it builds ``lane_ops.cu`` a second
 time with ``-DSDSM_SPLIT`` (a library of its own, never loaded on the main
 path), whose kernels stamp ``clock64()`` at each phase boundary in thread
 0 of every block, launches each at the shapes of :data:`SPLIT_PCG` and
@@ -257,7 +273,11 @@ then, from ``cuobjdump -sass`` of that library, each stamped kernel's
 local-memory instructions and the instructions of one softplus term (a
 probe kernel's), with the issue bound they give at every phase-3 shape,
 and each softplus shape's time at 1, 2, 3, 4, 6 and 12 tiles beside its
-plan's; ``chiprun_out/split.json`` holds the same.
+plan's; then ``lane_cholesky`` at :data:`SPLIT_CHOL` on its route (each
+phase's cycles summed over a launch, the mean over the blocks and block
+0's, which alone runs the back substitution), and the
+device ms of the cluster routes forced at each n of
+:data:`SPLIT_CHOL_ROUTES`; ``chiprun_out/split.json`` holds the same.
 
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
 gate enforced on every image (:data:`F64_NOT_MET` included): it fails
@@ -746,7 +766,9 @@ LANE_REPLACES = {'lane_matvec': 'superdsm_tpu/dsm/solver.py:213',
 LANE_SOURCE = 'superdsm_tpu_torch/csrc/lane_ops.cu'
 #: ``lane_pcg``'s shapes (B, n): the bench field's n = 512 chunks (B = 2,
 #: the kernels line's row), the banded table chunk (B = 16), a B = 1
-#: re-solve, and n = 1024, the mosaic's largest DSM bucket, at B = 2 and 8.
+#: re-solve, and n = 1024, a DSM bucket that no bench or mosaic solve
+#: reaches (phase 10 prints the mosaic's launches by shape: its largest n
+#: is 256), at B = 2 and 8.
 PCG_SHAPES = [(2, 512), (16, 512), (1, 512), (2, 1024), (8, 1024)]
 #: The JAX package's ``_pcg_solve`` (an XLA ``while_loop``, no Pallas
 #: kernel), which ``lane_pcg`` runs in one launch.
@@ -758,11 +780,15 @@ PCG_REPLACES = 'superdsm_tpu/dsm/solver.py:126'
 #: 384; then n = 512 and 1024 at the
 #: GPU caps of their pixel buckets, the sharded solver's
 #: (``parallel/newton.py`` takes the kernel at every n); then the largest n
-#: of the cluster route (``lane.CHOL_CLUSTER_MAX_N``) and the first n above
-#: it, the global-scratch route (``lane.cholesky_route`` names each shape's).
+#: of the cluster route of 8 blocks (``lane.CHOL_CLUSTER_MAX_N``) and the
+#: first n above it, on the routes of 16 blocks; n = 1024 at 16 lanes, more
+#: clusters of 16 than the card holds at once; and n = 2048, the largest
+#: DSM bucket, its panels in the global scratch (``lane.cholesky_route``
+#: names each shape's route).
 CHOL_SHAPES = [(16, 256), (8, 256), (32, 6), (16, 6), (2, 6), (8, 6), (64, 6), (64, 32),
                (64, 64), (64, 128), (16, 128), (32, 256), (1, 128), (2, 256), (1, 256),
-               (2, 384), (16, 512), (8, 1024), (2, 807), (2, 808)]
+               (2, 384), (16, 512), (8, 1024), (2, 807), (2, 808), (16, 1024), (2, 2048),
+               (16, 2048)]
 #: The JAX package's ``cho_factor`` / ``cho_solve`` in ``_newton_step`` (XLA's,
 #: no Pallas kernel), which ``lane_cholesky`` runs in one launch.
 CHOL_REPLACES = 'superdsm_tpu/dsm/solver.py:204'
@@ -1159,12 +1185,17 @@ def _check_cholesky(shape):
     it). Bound: the larger of one read of Hd and g and one write of delta
     over the memory rate, and n^3 / 3 + 2 n^2 float32 operations per lane
     over the float32 peak, a failing lane's factor counted up to the pivot
-    where ``cholesky_ex`` stops."""
+    where ``cholesky_ex`` stops.
+
+    Above ``lane.CHOL_CLUSTER_MAX_N`` at B >= 2 also the kernel and
+    cuSOLVER's batched route on the same systems with every lane positive
+    definite (lane B // 2's Hd that of lane 0), the sharded solver's case:
+    there the failing lane leaves a cluster's place free, which can save
+    a wave. Each healthy lane is held bitwise to the same lane solved
+    alone."""
     import torch
     from superdsm_tpu_torch.dsm import lane
     B, n = shape
-    if shape == CHOL_SHAPES[-2] and n != lane.CHOL_CLUSTER_MAX_N:
-        fail(f'CHOL_SHAPES: the cluster route ends at n = {lane.CHOL_CLUSTER_MAX_N}, not {n}')
     Hd, g = _chol_systems(B, n)
     kernel = lambda: lane.cholesky_kernel(Hd, g)
     chain = lambda: lane.cholesky_chain(Hd, g)
@@ -1215,7 +1246,8 @@ def _check_cholesky(shape):
     finite = torch.isfinite(out) & torch.isfinite(ref)
     err = float((out[finite] - ref[finite]).abs().max()) if bool(finite.any()) else 0.0
     ms = _event_ms(kernel)
-    chain_ms = _event_ms(chain)
+    # the chain's graph replays once a run at n >= 1024 (0.1 s and more)
+    chain_ms = _event_ms(chain, reps=1 if n >= 1024 else 10)
     per_lane_ms = _event_ms(lambda: _per_lane_cholesky(Hd, g))
     batched_ms = _stream_ms(lambda: _batched_cholesky(Hd, g))
     # a lane that fails at pivot m (cholesky_ex's info) factors m columns
@@ -1226,14 +1258,52 @@ def _check_cholesky(shape):
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
     route = lane.CHOL_ROUTES[lane.cholesky_route(B, n)]
-    say(f'[kernel] {tag}: route {route}: kernel {ms:.4f} ms, chain {chain_ms:.4f} ms, '
+    clusters = lane.cholesky_clusters(B, n)
+    say(f'[kernel] {tag}: route {route} ({clusters} clusters at once, '
+        f'cudaOccupancyMaxActiveClusters): kernel {ms:.4f} ms, chain {chain_ms:.4f} ms, '
         f'cuSOLVER per lane {per_lane_ms:.4f} ms ({per_lane_ms / ms:.2f}x the kernel), '
         f'cuSOLVER batched {batched_ms:.4f} ms (calls back to back), bound {bound_ms:.4f} '
         f'ms by {bound_by}: {bound_ms / ms:.1%} of the bound')
-    return dict(max_abs_err=err, ms=ms, plain_ms=chain_ms, chain_ms=chain_ms,
-                per_lane_ms=per_lane_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bound_share=bound_ms / ms, library_ms=batched_ms, shape=list(shape), chol_route=route,
-                rel_err=float(err_k.max()), cusolver_rel_err=float(err_c.max()))
+    row = dict(max_abs_err=err, ms=ms, plain_ms=chain_ms, chain_ms=chain_ms,
+               per_lane_ms=per_lane_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms, library_ms=batched_ms, shape=list(shape),
+               chol_route=route, clusters=clusters, rel_err=float(err_k.max()),
+               cusolver_rel_err=float(err_c.max()))
+    if B >= 2 and n > lane.CHOL_CLUSTER_MAX_N:
+        row['healthy'] = _healthy_cholesky(Hd, g, out)
+    return row
+
+
+def _healthy_cholesky(Hd, g, out):
+    """:func:`_check_cholesky`'s all-healthy batch: ``Hd`` with lane B //
+    2's system replaced by lane 0's. Holds the kernel's lanes other than B
+    // 2 bitwise to ``out`` (the same lanes in the batch with a failing
+    lane) and lane B // 2 to lane 0's system solved alone with its own g;
+    returns the kernel's and cuSOLVER's batched ms on it, and its bound."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    B, n = g.shape
+    bad = B // 2
+    Hh = Hd.clone()
+    Hh[bad] = Hd[0]
+    kernel = lambda: lane.cholesky_kernel(Hh, g)
+    healthy = kernel()
+    others = torch.arange(B, device=g.device) != bad
+    alone = lane.cholesky_kernel(Hh[bad:bad + 1], g[bad:bad + 1])[0]
+    tag = f'lane_cholesky {(B, n)}, every lane positive definite'
+    if not (bool(torch.isfinite(healthy).all()) and _same_bits(healthy[others], out[others])
+            and _same_bits(healthy[bad], alone)):
+        fail(f'{tag}: not finite, or a lane differs from the same lane in the batch with '
+             'a failing lane or solved alone')
+    ms = _event_ms(kernel)
+    batched_ms = _stream_ms(lambda: _batched_cholesky(Hh, g))
+    bound_ms = max(B * (n ** 3 / 3.0 + 2.0 * n * n) / PEAK_FP32,
+                   4.0 * B * (n * n + 2 * n) / PEAK_BYTES) * 1e3
+    say(f'[kernel] {tag}: bitwise the same lanes with a failing lane and lane {bad} '
+        f'alone; kernel {ms:.4f} ms, cuSOLVER batched {batched_ms:.4f} ms ({batched_ms / ms:.2f}x '
+        f'the kernel), bound {bound_ms:.4f} ms')
+    del Hh
+    return dict(ms=ms, library_ms=batched_ms, bound_ms=bound_ms)
 
 
 def _step_inputs(B, n):
@@ -1644,6 +1714,11 @@ def phase_kernels():
         torch.cuda.empty_cache()
     pcg = [_check_pcg(shape) for shape in PCG_SHAPES]
     rows['lane_pcg'] = dict(pcg[0], other_shapes=pcg[1:])
+    from superdsm_tpu_torch.dsm import lane
+    ends = {lane.CHOL_CLUSTER_MAX_N, lane.CHOL_CLUSTER_MAX_N + 1}
+    if not ends <= {n for _, n in CHOL_SHAPES}:
+        fail(f'CHOL_SHAPES: no shape at n = {sorted(ends)}, where the cluster route of 8 '
+             'blocks ends')
     chol = [_check_cholesky(shape) for shape in CHOL_SHAPES]
     rows['lane_cholesky'] = dict(chol[0], other_shapes=chol[1:])
     for name, shapes in (('lane_lm_system', LM_SHAPES), ('lane_step_guard', GUARD_SHAPES)):
@@ -2899,7 +2974,7 @@ def phase_mosaic():
     threads; returns the 1-thread run's launches."""
     import torch
     import superdsm_tpu_torch as T
-    from superdsm_tpu_torch.dsm import gram, solver
+    from superdsm_tpu_torch.dsm import gram, lane, solver
     from superdsm_tpu_torch.output import get_output
     from superdsm_tpu_torch.parallel import process_mosaic, rasterize_mosaic_labels
     centers = []
@@ -2907,14 +2982,32 @@ def phase_mosaic():
     cfg = T.Config({'AF_scale': 12})
     cfg['c2f-region-analysis/speculate'] = False
     labels, launches = {}, {}
+    by_shape = {'gram': {}, 'lane_pcg': {}, 'lane_cholesky': {}}
+
+    def gram_shape(Bf_shape, *_):
+        key = tuple(Bf_shape)
+        by_shape['gram'][key] = by_shape['gram'].get(key, 0) + 1
+
+    def lane_shape(name, shape):
+        if name in by_shape:
+            by_shape[name][tuple(shape)] = by_shape[name].get(tuple(shape), 0) + 1
     for threads in (1, 2):
         gram.reset_launch_counts()
         solver.reset_loop_stats()
+        hooks = [(gram.LAUNCH_HOOKS, gram_shape), (lane.LAUNCH_HOOKS, lane_shape)]
+        if threads == 1:
+            for table, hook in hooks:
+                table.append(hook)
         t0 = time.time()
-        objects, n_tiles = process_mosaic(T.create_default_pipeline, cfg, g,
-                                          out=get_output(None).derive(muted=True),
-                                          threads_per_device=threads)
-        torch.cuda.synchronize()
+        try:
+            objects, n_tiles = process_mosaic(T.create_default_pipeline, cfg, g,
+                                              out=get_output(None).derive(muted=True),
+                                              threads_per_device=threads)
+            torch.cuda.synchronize()
+        finally:
+            if threads == 1:
+                for table, hook in hooks:
+                    table.remove(hook)
         seconds = time.time() - t0
         launches[threads] = {k: v for k, v in gram.LAUNCHES.items() if v}
         labels[threads] = rasterize_mosaic_labels(g.shape, objects)
@@ -2923,6 +3016,11 @@ def phase_mosaic():
             f'{seconds / n_tiles:.2f} s per tile ({n_tiles} tiles of 1024x1024 '
             f'with halo 160); gram launches per route {launches[threads]}; '
             f'Newton loops {dict(solver.LOOP_STATS)}')
+    say('[mosaic] 1 thread: launches by shape: ' + '; '.join(
+        f'{name} ' + ', '.join(f'{k} {v}' for k, v in sorted(table.items()))
+        for name, table in by_shape.items()) + '; largest n of a gram launch '
+        f'{max((k[2] for k in by_shape["gram"]), default=0)}, of a lane_pcg launch '
+        f'{max((k[1] for k in by_shape["lane_pcg"]), default=0)}')
     if not any(launches[1].get(r) for r in ('dense', 'triangle', 'banded')):
         fail('mosaic: no float32 gram route launched')
     validate = _validate_module()
@@ -2951,6 +3049,10 @@ def phase_mosaic():
 
 #: (B, P, n) of the sharded DSM dry run and (B, P) of the poly one.
 MESH_DSM_SHAPE = (8, 16384, 128)
+#: (B, P, n) of the sharded DSM solve whose direction takes ``lane_cholesky``
+#: above n = 807: the K = 1018 bucket (n = 1024) at the GPU batch cap of
+#: its largest pixel bucket, at 16384 pixels.
+MESH_DSM_WIDE_SHAPE = (8, 16384, 1024)
 MESH_POLY_SHAPE = (8, 8192)
 MESH_SIGMA, MESH_CUTOFF, MESH_ALPHA = 4.0, 16, 0.5
 
@@ -2985,6 +3087,90 @@ def _compare(tag, f, conv, f_ref, conv_ref, rtol):
         f'energy difference {rel.max():.3e} (rtol {rtol})')
     if not (rel <= rtol).all():
         fail(f'{tag}: energies disagree')
+
+
+def _wide_mesh_solve(mesh2):
+    """The sharded DSM solver at :data:`MESH_DSM_WIDE_SHAPE` over ``mesh2``:
+    one ``lane_cholesky`` launch per Newton iteration, all on the route of
+    16 blocks a lane that n takes; lanes alone and the solve with
+    ``lane.cholesky_chain`` as its direction bitwise equal to it. Times
+    each iteration's direction and each shard's local terms (surface,
+    softplus sums and gram: ``_Shard.contribs``) between CUDA events on the
+    row's stream."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    from superdsm_tpu_torch.parallel import newton
+    B, P, n = MESH_DSM_WIDE_SHAPE
+    coords, pix, sub, km, yv, w, _ = _mesh_problems(B, P, n - 6)
+    args = (np.zeros((B, n), np.float32), coords, pix, sub, km, yv, w,
+            np.full(B, MESH_ALPHA, np.float32))
+    solve = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)
+    routes = {}
+
+    def by_route(name, shape):
+        if name == 'lane_cholesky':
+            route = lane.CHOL_ROUTES[lane.cholesky_route(*shape)]
+            routes[route] = routes.get(route, 0) + 1
+    events = {'direction': [], 'local terms': []}
+
+    def timed(fn, key):
+        def call(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn(*a)
+            end.record()
+            events[key].append((start, end))
+            return result
+        return call
+    direction = newton._cholesky_direction
+    calls, original = _counting_contribs()
+    newton._Shard.contribs = timed(newton._Shard.contribs, 'local terms')
+    newton._cholesky_direction = timed(direction, 'direction')
+    lane.LAUNCH_HOOKS.append(by_route)
+    try:
+        lane.reset_launch_counts()
+        t0 = time.time()
+        out = [t.cpu().numpy() for t in solve(*args)]
+        seconds = time.time() - t0
+        launches = lane.LAUNCHES['lane_cholesky']
+    finally:
+        newton._Shard.contribs = original
+        newton._cholesky_direction = direction
+        lane.LAUNCH_HOOKS.remove(by_route)
+    torch.cuda.synchronize()
+    iterations = calls[0] // 2
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
+    local = [sum(ms['local terms'][2 * i:2 * i + 2]) for i in range(iterations)]
+    wide = lane.CHOL_ROUTES[lane.cholesky_route(B, n)]
+    say(f'[mesh] sharded DSM {MESH_DSM_WIDE_SHAPE} over {mesh2.shape}: {seconds:.2f} s, '
+        f'{iterations} Newton iterations, lane_cholesky launches by route {routes}, '
+        f'{int(out[2].sum())}/{B} lanes converged; device ms an iteration (CUDA events): '
+        f'direction {[round(x, 4) for x in ms["direction"]]}, both shards\' local terms '
+        f'(surface, softplus sums, gram) {[round(x, 4) for x in local]}; wall ms an '
+        f'iteration {seconds * 1e3 / max(iterations, 1):.1f}')
+    if not np.isfinite(out[1]).all():
+        fail(f'sharded DSM {MESH_DSM_WIDE_SHAPE}: non-finite energy')
+    if iterations == 0 or launches != iterations or routes != {wide: iterations} \
+            or lane.cholesky_route(B, n) < 2:
+        fail(f'sharded DSM {MESH_DSM_WIDE_SHAPE}: lane_cholesky launches by route {routes} '
+             f'for {iterations} Newton iterations (one each on a route of 16 blocks expected)')
+    alone = all(np.array_equal(x[b:b + 1], x1) for b in (0, B - 1) for x, x1 in zip(
+        out, (t.cpu().numpy() for t in solve(*(a[b:b + 1] for a in args)))))
+    newton._cholesky_direction = lane.cholesky_chain
+    try:
+        t0 = time.time()
+        chained = [t.cpu().numpy() for t in solve(*args)]
+        chain_seconds = time.time() - t0
+    finally:
+        newton._cholesky_direction = direction
+    same = all(np.array_equal(x, y) for x, y in zip(out, chained))
+    say(f'[mesh] sharded DSM {MESH_DSM_WIDE_SHAPE}: lanes 0 and {B - 1} alone bitwise equal '
+        f'to the same lanes in the batch: {alone}; bitwise equal to the solve with '
+        f'lane.cholesky_chain as its direction ({chain_seconds:.2f} s): {same}')
+    if not (alone and same):
+        fail(f'sharded DSM {MESH_DSM_WIDE_SHAPE}: a lane alone or the chain-direction solve '
+             'differs')
 
 
 def phase_mesh(bench_seg):
@@ -3083,6 +3269,7 @@ def phase_mesh(bench_seg):
         solver.DEFAULT_MAXITER, solver.DEFAULT_TOL, banded=True)
     _compare('sharded DSM vs the unsharded Newton loop', f2, c2,
              fu.cpu().numpy(), cu.cpu().numpy(), 1e-3)
+    _wide_mesh_solve(mesh2)
 
     B, P = MESH_POLY_SHAPE
     coords, _, _, _, yv, w, _ = _mesh_problems(B, P, 0)
@@ -3730,7 +3917,7 @@ def _ab_turn_lines(root, out):
 # ---------------------------------------------------------------------------
 
 #: ``lane_pcg``'s (B, n) under ``--split``: the bench field's chunks and the
-#: mosaic's n = 1024 bucket.
+#: n = 1024 bucket.
 SPLIT_PCG = [(2, 512), (8, 1024)]
 #: ``softplus_energies``' (mode, B, P) under ``--split``: the bench field's
 #: most frequent line searches and scale sweep.
@@ -3739,6 +3926,18 @@ SPLIT_SOFTPLUS = [('line_search', 8, 12288), ('scale_sweep', 8, 12288),
                   ('line_search', 32, 16384)]
 #: The k tiles ``--split`` times each softplus shape at, beside its plan's.
 SPLIT_TILES = (1, 2, 3, 4, 6, 12)
+#: ``lane_cholesky``'s (B, n) under ``--split``: the sharded solver's n =
+#: 1024 bucket and the largest DSM bucket, each on its route.
+SPLIT_CHOL = [(8, 1024), (2, 2048)]
+#: (B, n) where ``--split`` times the cluster routes of 8 and of 16 blocks
+#: (and at n = 1024 the route of 16 with its panels in shared memory and in
+#: the global scratch) on the same systems: where one overtakes the other.
+SPLIT_CHOL_ROUTES = [(1, 384), (2, 384), (2, 512), (8, 512), (16, 512), (2, 640),
+                     (8, 640), (2, 807), (8, 807), (16, 807), (8, 1024)]
+#: ``lane_cholesky``'s cluster routes' phases (``split.mark``), summed
+#: over a launch.
+CHOL_PHASES = ('H loaded', 'cluster barrier waits', 'panel read back',
+               'factoring own panels', 'trailing updates', 'back substitution')
 #: The phases each kernel stamps (``csrc/lane_ops.cu``, ``split.mark``), in
 #: stamp order. A PCG step's phases are summed over its steps (the matvec
 #: and the H p exchange also over the first product, r = b - H x); the
@@ -3765,7 +3964,8 @@ SOFTPLUS_PR13_PHASES = ('build group 0', 'block barrier', 'build next group',
 SPLIT_ENTRIES = {'split_reset': (0, 0), 'split_read': (1, 0),
                  'split_pcg_info': (1, 3), 'split_pcg_smem': (3, 3, 2),
                  'split_softplus_info': (1, 4), 'split_softplus_pr13': (6, 4),
-                 'split_softplus_tiles': (0, 1)}
+                 'split_softplus_tiles': (0, 1), 'split_cholesky': (4, 3),
+                 'split_chol_floats': (0, 2), 'split_chol_info': (1, 3)}
 
 
 def _split_library():
@@ -3789,7 +3989,7 @@ def _split_library():
     log, keep = [], False
     for line in (proc.stdout + proc.stderr).splitlines():
         if 'Compiling entry function' in line:
-            keep = 'lane_pcg' in line or 'lane_softplus' in line
+            keep = any(k in line for k in ('lane_pcg', 'lane_softplus', 'lane_cholesky'))
         if keep:
             log.append(line.strip())
     return lib, log
@@ -3838,6 +4038,15 @@ def _sass_report(path):
             report[f'term {mode}'] = dict(instructions=len(term), all=len(ops), mufu=mufu)
             say(f'[split] sass: a {mode} term: {len(term)} instructions ({mufu} MUFU; '
                 f'the probe {len(ops)} with its loads, store and exit)')
+        elif 'lane_cholesky' in name:
+            kernel = 'lane_cholesky_kernel'
+            if 'cluster' in name:
+                kernel = 'lane_cholesky_cluster_kernel' + next(
+                    a for a, k in (('<8>', 'ILi8ELb0E'), ('<16>', 'ILi16ELb0E'),
+                                   ('<16, global>', 'ILi16ELb1E')) if k in name)
+            report[kernel] = dict(instructions=len(ops), local=local)
+            say(f'[split] sass: {kernel}: {len(ops)} instructions, {local} local-memory '
+                '(LDL/STL)')
         elif any(k in name for k in ('lane_pcg', 'lane_softplus')):
             kernel = next(k for k in ('lane_pcg_reg_kernel', 'lane_pcg_kernel',
                                       'lane_softplus_pixel_kernel', 'lane_softplus_kernel')
@@ -3929,9 +4138,78 @@ def _split_info(fn, *args):
     return dict(zip(keys, list(out)))
 
 
+def _split_cholesky(lib):
+    """``--split``'s ``lane_cholesky`` rows: at :data:`SPLIT_CHOL` the
+    phases of the main route (bitwise the main build), their mean over the
+    blocks and block 0's (a lane's back substitution), and at
+    :data:`SPLIT_CHOL_ROUTES` the device ms of each cluster route forced at
+    the same n."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    result = {}
+
+    def systems(B, n):  # phase 3's systems, every lane positive definite
+        Hd, g = _chol_systems(B, n)
+        Hd = Hd.clone()
+        Hd[B // 2] = Hd[0]
+        return Hd, g
+
+    def forced(Hd, g, route, tag):
+        B, n = g.shape
+        scratch = torch.empty((B, lib.sdsm_lane_split_chol_floats(n, route, None)), device='cuda')
+        out = torch.empty_like(g)
+
+        def launch():
+            err = lib.sdsm_lane_split_cholesky(Hd.data_ptr(), g.data_ptr(), out.data_ptr(),
+                                               scratch.data_ptr(), B, n, route, stream())
+            if err:
+                fail(f'--split: {tag} launch failed: CUDA error {err}')
+        return launch, out
+
+    for B, n in SPLIT_CHOL:
+        Hd, g = systems(B, n)
+        main = lambda: lane.cholesky_kernel(Hd, g)
+        ref = main()
+        route = lane.cholesky_route(B, n)
+        tag = f'lane_cholesky {(B, n)}'
+        launch, out = forced(Hd, g, route, tag)
+        launch()
+        if not torch.equal(_bits(out), _bits(ref)):
+            fail(f'--split: the stamped {tag} differs from the main build')
+        info = _split_info(lib.sdsm_lane_split_chol_info, B, n, route)
+        row = _split_report(tag, lib, launch, info['blocks'], CHOL_PHASES, False, main, info)
+        w = _split_blocks(lib, info['blocks']).astype(np.float64)
+        row['block0'] = {name: float(w[0, k]) for k, name in enumerate(CHOL_PHASES)}
+        row['max'] = {name: float(w[:, k].max()) for k, name in enumerate(CHOL_PHASES)}
+        say(f'[split] {tag}: cycles (us) of block 0: ' + ', '.join(
+            f'{k} {v:.0f} ({v / row["mhz"]:.1f})' for k, v in row['block0'].items()))
+        result[tag] = row
+        _CHOL_SYSTEMS.clear()
+        torch.cuda.empty_cache()
+    times = {}
+    for B, n in SPLIT_CHOL_ROUTES:
+        Hd, g = systems(B, n)
+        ref = lane.cholesky_kernel(Hd, g)
+        routes = (1, 2) if n <= lane.CHOL_CLUSTER_MAX_N else (2, 3)
+        for r in routes:
+            tag = f'lane_cholesky {(B, n)} on {lane.CHOL_ROUTES[r]}'
+            launch, out = forced(Hd, g, r, tag)
+            launch()
+            if not torch.equal(_bits(out), _bits(ref)):
+                fail(f'--split: {tag} differs from the main build')
+            times[tag] = _event_ms(launch)
+        say(f'[split] lane_cholesky {(B, n)}: stamped ms by forced route: ' + ', '.join(
+            f'{lane.CHOL_ROUTES[r]} {times[f"lane_cholesky {(B, n)} on {lane.CHOL_ROUTES[r]}"]:.4f}'
+            for r in routes) + f'; the main build takes {lane.CHOL_ROUTES[lane.cholesky_route(B, n)]}')
+        _CHOL_SYSTEMS.clear()
+    result['lane_cholesky routes'] = times
+    return result
+
+
 def split():
-    """``--split``: the phase split of ``lane_pcg`` and
-    ``softplus_energies`` from the stamped build (see the module's
+    """``--split``: the phase split of ``lane_pcg``, ``softplus_energies``
+    and ``lane_cholesky`` from the stamped build (see the module's
     docstring)."""
     card = phase_environment()
     import torch
@@ -4027,6 +4305,7 @@ def split():
         say(f'[split] softplus_energies {(mode, B, P)}: issue bound {issue_ms:.4f} ms '
             f'({B * P * S} terms x {per_term} instructions over {sms} SMs x 4 '
             f'schedulers x 32 lanes at {mhz:.0f} MHz)')
+    result.update(_split_cholesky(lib))
     # the issue bound at every phase-3 shape, at the clock of the last run
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue = {}

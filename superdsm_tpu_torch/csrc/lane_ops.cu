@@ -62,7 +62,8 @@
 //     (solver._cholesky_direction) for every lane of a batch in one
 //     launch, in an order fixed by n alone: one block a lane at small n
 //     (see the comment above lane_cholesky_kernel), a cluster of 8 blocks
-//     a lane in panels of 8 columns above (lane_cholesky_cluster_kernel).
+//     a lane in panels of 8 columns above, and of 16 blocks above n = 807
+//     (lane_cholesky_cluster_kernel).
 //   lane_lm_system, lane_step_guard: the damped Newton system before the
 //     direction solve, and the guard, decrement, line-search regularizer
 //     candidates and Armijo thresholds after it, each one launch a Newton
@@ -122,9 +123,9 @@ constexpr int PCG_WARPS = PCG_THREADS / WARP;
 constexpr int PCG_GROUP = 4;        // rows a warp of lane_pcg computes at once
 constexpr int CHOL_MAX_THREADS = 512;  // threads of a lane_cholesky block
 constexpr int CHOL_COLS = 8;            // columns a warp of it updates at once
-constexpr int CHOL_BACK = 4;            // rows a lane of its back substitution updates at once
 constexpr int CHOL_SMEM_BYTES = 232448;  // shared memory a block may opt in to (sm_90)
 constexpr int CHOL_CLUSTER = 8;         // blocks of a lane on lane_cholesky's cluster route
+constexpr int CHOL_WIDE_CLUSTER = 16;   // and on its wide routes (a non-portable cluster size)
 constexpr int CHOL_PW = 8;              // columns of its panels
 constexpr int CHOL_ONE_BLOCK_MAX_N = 32;    // one block a lane up to this n,
 constexpr int CHOL_MANY_LANES_MAX_N = 128;  // and up to this one at many lanes
@@ -1311,19 +1312,17 @@ lane_pcg_reg_kernel(const float* __restrict__ H, const float* __restrict__ b,
 // delta is NaN in every entry (the chain's torch.where(fail, nan,
 // delta)), which solver._newton_step's guard turns into a gradient step.
 //
-// Routes (sdsm_lane_cholesky, from n and B; the order and so the bits
+// Routes (sdsm_lane_chol_route, from n and B; the order and so the bits
 // from n alone): this kernel, one block a lane, for n <= CHOL_ONE_BLOCK_MAX_N
 // (32), and up to n = CHOL_MANY_LANES_MAX_N (128) when a batch has more
-// lanes than the card holds clusters at once, in shared memory; above
-// CHOL_CLUSTER_MAX_N in a global scratch; in between the cluster route
-// (lane_cholesky_cluster_kernel, below).
+// lanes than the card holds clusters at once, in shared memory; above it
+// the cluster routes (lane_cholesky_cluster_kernel, below).
 //
 // Work split: one block a lane, its thread count chosen from n (which
 // thread updates an entry does not change the entry's order). The lower
 // triangle is packed by columns (column k, rows k..n-1, at k n - k (k + 1)
 // / 2 + i). It lives, with L_jj, b, y and two buffers of a scaled column,
-// in shared memory or in a global scratch of the same layout that the
-// wrapper allocates, with the same code and order.
+// in shared memory.
 // Column j is one phase and one block barrier: threads update b and write
 // column j's L over its a; warp w updates the columns j + 1 + 8 w .. j + 8 w
 // + 8, then those 8 W further on, eight at a time (all loads first, so the
@@ -1335,16 +1334,15 @@ lane_pcg_reg_kernel(const float* __restrict__ H, const float* __restrict__ b,
 // divides in its updates. Column j's entries are only read in its phase,
 // through the buffer, and what a phase writes (columns > j, column j's L,
 // b_i for i > j, the other buffer) is not read in it, so one barrier a
-// column suffices. The back substitution runs in warp 0: in shared memory
-// lane l holds y_i for i % 32 == l in registers and y_j comes by a
-// shuffle; in the global scratch y stays there (one __syncwarp a column).
+// column suffices. The back substitution runs in warp 0: lane l holds y_i
+// for i % 32 == l in registers and y_j comes by a shuffle.
 //
 // What bounds it: n dependent phases, each a block barrier and a square
 // root and divisions on warp 0's path, and, at the first columns, the
 // issue of the updates (a load, two conversions, a float64 fused
 // multiply-add, a store): latency and issue, not bytes or the arithmetic
 // rate. One block a lane leaves most of the card idle at few lanes and
-// takes n barriers; the cluster route takes n / 8.
+// takes n barriers; the cluster routes take n / 8.
 
 // Floats of a lane's work space: the packed lower triangle, L_jj, b, y
 // and the scaled column (two).
@@ -1397,16 +1395,14 @@ __device__ __forceinline__ void chol_rows(float* a, const float* lcur,
   }
 }
 
-template <bool GLOBAL>
 __global__ void __launch_bounds__(CHOL_MAX_THREADS)
 lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
-                     float* __restrict__ out, float* __restrict__ scratch,
-                     int n) {
+                     float* __restrict__ out, int n) {
   extern __shared__ __align__(16) float smem[];
   const long long o = blockIdx.x;
   const int t = threadIdx.x, T = blockDim.x;
   const int l = t % WARP, w = t / WARP, W = T / WARP;
-  float* a = GLOBAL ? scratch + o * chol_floats(n) : smem;
+  float* a = smem;
   float* d = a + n * (n + 1) / 2;  // L_jj
   float* b = d + n;
   float* y = b + n;
@@ -1513,57 +1509,42 @@ lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
     __syncthreads();
   }
   if (w != 0) return;
-  if constexpr (!GLOBAL) {
-    // lane l holds y_i of i = l + 32 u in registers; y_j comes from its
-    // lane by a shuffle
-    float yr[CHOL_BACK_REGS];
-    int cb[CHOL_BACK_REGS];
+  // lane l holds y_i of i = l + 32 u in registers; y_j comes from its lane
+  // by a shuffle
+  float yr[CHOL_BACK_REGS];
+  int cb[CHOL_BACK_REGS];
+#pragma unroll
+  for (int u = 0; u < CHOL_BACK_REGS; ++u) {
+    const int i = l + u * WARP;
+    yr[u] = i < n ? y[i] : 0.0f;
+    cb[u] = i < n ? col0(i) : 0;
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const int uj = j / WARP;
+    float own = 0.0f;
+#pragma unroll
+    for (int u = 0; u < CHOL_BACK_REGS; ++u) own = u == uj ? yr[u] : own;
+    const float xj = __fdiv_rn(__shfl_sync(0xffffffffu, own, j % WARP), d[j]);
 #pragma unroll
     for (int u = 0; u < CHOL_BACK_REGS; ++u) {
-      const int i = l + u * WARP;
-      yr[u] = i < n ? y[i] : 0.0f;
-      cb[u] = i < n ? col0(i) : 0;
+      if (l + u * WARP < j) yr[u] = chol_update(yr[u], (double)a[cb[u] + j], (double)xj);
     }
-    for (int j = n - 1; j >= 0; --j) {
-      const int uj = j / WARP;
-      float own = 0.0f;
-#pragma unroll
-      for (int u = 0; u < CHOL_BACK_REGS; ++u) own = u == uj ? yr[u] : own;
-      const float xj = __fdiv_rn(__shfl_sync(0xffffffffu, own, j % WARP), d[j]);
-#pragma unroll
-      for (int u = 0; u < CHOL_BACK_REGS; ++u) {
-        if (l + u * WARP < j) yr[u] = chol_update(yr[u], (double)a[cb[u] + j], (double)xj);
-      }
-      if (l == j % WARP) out[o * n + j] = -xj;
-    }
-  } else {
-    for (int j = n - 1; j >= 0; --j) {
-      const float xj = __fdiv_rn(y[j], d[j]);
-      for (int i0 = l; i0 < j; i0 += CHOL_BACK * WARP) {
-        float lji[CHOL_BACK], yi[CHOL_BACK];  // loads first
-#pragma unroll
-        for (int u = 0; u < CHOL_BACK; ++u) {
-          const int i = i0 + u * WARP;
-          lji[u] = i < j ? a[col0(i) + j] : 0.0f;
-          yi[u] = i < j ? y[i] : 0.0f;
-        }
-#pragma unroll
-        for (int u = 0; u < CHOL_BACK; ++u) {
-          const int i = i0 + u * WARP;
-          if (i < j) y[i] = chol_update(yi[u], (double)lji[u], (double)xj);
-        }
-      }
-      if (l == j % WARP) out[o * n + j] = -xj;
-      __syncwarp();
-    }
+    if (l == j % WARP) out[o * n + j] = -xj;
   }
 }
 
 // ---------------------------------------------------------------------------
-// lane_cholesky's cluster route: the same order, split over a cluster of
-// CHOL_CLUSTER = 8 blocks a lane and blocked into panels of CHOL_PW = 8
-// columns, for CHOL_ONE_BLOCK_MAX_N < n <= CHOL_CLUSTER_MAX_N (but n <= 128
-// at more lanes than the card holds clusters at once: sdsm_lane_cholesky).
+// lane_cholesky's cluster routes: the same order, split over a cluster of
+// C blocks a lane and blocked into panels of CHOL_PW = 8 columns. C =
+// CHOL_CLUSTER = 8 for CHOL_ONE_BLOCK_MAX_N < n <= CHOL_CLUSTER_MAX_N (but
+// n <= 128 at more lanes than the card holds clusters at once:
+// sdsm_lane_chol_route); C = CHOL_WIDE_CLUSTER = 16 above, a non-portable
+// cluster size (launched through cudaLaunchKernelEx after the opt-in
+// attribute; each cluster needs 16 free SMs of one GPC, and the lanes run
+// in waves when the card holds fewer clusters than lanes), with the own
+// panels in shared memory up to CHOL_WIDE_MAX_N and in the lane's global
+// scratch above (GLOBAL: n = 2048, the largest DSM bucket, and every n
+// whose panels no cluster holds).
 //
 // The forward substitution is the factor of one more row: b is row n of
 // the augmented lower triangle (its update b_k - y_j L_kj is a_nk - l_nj
@@ -1572,27 +1553,33 @@ lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
 //
 // Work split: panel r (columns r PW .. r PW + PW - 1, rows r PW .. n, a
 // dense (n + 1 - r PW) x PW block, row-major, its upper corner unused)
-// lives in the shared memory of block r % 8 for the whole launch. Its owner
-// factors it: warp 0 the diagonal PW x PW block (a lane a row, the pivot
-// and the scaled entries by shuffles), releasing each column to the other
-// warps through a named barrier; each of those solves its rows below (a
-// thread a row, CHOL_ROWS at most) against the columns as they come. The
-// owner publishes the panel (float32, as it is) into the lane's scratch in
-// global memory, and one cluster barrier a panel orders that before every
-// block reads it back, widens it to float64 once and applies the panel's
-// PW updates to each entry of its own later panels, the entry held in a
-// register between them and rounded to float32 after each (chol_update):
-// one shared load and store an entry a panel, where the one-block route
-// takes one a column. Lookahead: the owner of panel p + 1 applies panel p
-// to that panel first, factors and publishes it before it updates its
-// other panels, and every other block arrives at the next barrier as soon
-// as it has read panel p (barrier.cluster.arrive / wait split), so the
-// chain of panels waits on factoring, not on the trailing updates. The
-// scratch keeps every panel (the back substitution reads them all), so no
-// slot of it is written twice. Every entry takes the updates j = 0, 1, ...
-// in order, and every L_jj, L_ij and y_j comes from the same __fsqrt_rn /
-// __fdiv_rn, whichever block or thread computes it: the bits of the
-// one-block route and of lane.cholesky_chain.
+// belongs to block r % C for the whole launch, in its shared memory or,
+// with GLOBAL, in the panel's slot of the lane's scratch, where its owner
+// publishes it (a working copy no other block reads before it is
+// published there, in place). Its owner factors it: warp 0 the diagonal
+// PW x PW block (a lane a row, the pivot and the scaled entries by
+// shuffles), releasing each column to the other warps through a named
+// barrier; each of those solves its rows below (a thread a row, in passes
+// of CHOL_ROWS rows a thread: the first pass takes each column as warp 0
+// releases it, later passes, at n > 967, find them all released) against
+// the columns as they come. The owner publishes the panel (float32, as it
+// is) into the lane's scratch in global memory, and one cluster barrier a
+// panel orders that before every block reads it back, widens it to
+// float64 once (in shared memory, or with GLOBAL in a slot of the scratch
+// a block) and applies the panel's PW updates to each entry of its own
+// later panels, the entry held in a register between them and rounded to
+// float32 after each (chol_update): one load and store an entry a panel,
+// where the one-block route takes one a column. Lookahead: the owner of
+// panel p + 1 applies panel p to that panel first, factors and publishes
+// it before it updates its other panels, and every other block arrives at
+// the next barrier as soon as it has read panel p (barrier.cluster.arrive
+// / wait split), so the chain of panels waits on factoring, not on the
+// trailing updates. The scratch keeps every panel (the back substitution
+// reads them all), so no slot of it is written by two blocks. Every entry
+// takes the updates j = 0, 1, ... in order, and every L_jj, L_ij and y_j
+// comes from the same __fsqrt_rn / __fdiv_rn, whichever block or thread
+// computes it: the bits of the one-block route and of lane.cholesky_chain,
+// at every C and wherever the panels live.
 //
 // Failure: the owner of panel p writes whether its pivot failed into every
 // block (flag[p]) before the barrier after which all of them read it; on a
@@ -1602,40 +1589,51 @@ lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
 // The back substitution runs in block 0 alone, from the published panels
 // (see there).
 //
-// What bounds it: latency. Every panel waits on a cluster barrier, the
-// panel read back from L2, warp 0's PW pivots (each a shuffle, a square
-// root, a division and an update in sequence) and the rows' last column;
-// the back substitution on n dependent divisions and updates in one warp.
-// The updates' two float32 <-> float64 conversions each (16 a clock an SM
-// on sm_90, a quarter of the float64 FMA rate; some n^3 / 6 a lane, over
-// eight SMs) bound only the first panels' trailing updates.
+// What bounds it: latency, and above n ~ 800 the conversions. Every panel
+// waits on a cluster barrier, the panel read back from L2, warp 0's PW
+// pivots (each a shuffle, a square root, a division and an update in
+// sequence) and the rows' last column; the back substitution on n
+// dependent divisions and updates in one warp. The updates' two float32
+// <-> float64 conversions each (16 a clock an SM on sm_90, a quarter of
+// the float64 FMA rate; some n^3 / 6 a lane, over C SMs: n^3 / (96 C)
+// clocks, some 0.8 ms at n = 1024 and 6 ms at n = 2048 on 16 SMs at 1.75
+// GHz) bound the first panels' trailing updates, and at n = 2048 most of
+// the launch. With GLOBAL the own panels' loads and stores (some n^3 / 48
+// entries a lane) go through L2 from 16 SMs.
 
 __host__ __device__ constexpr long long chol_panel_rows(long long n, long long r) {
   return n + 1 - r * CHOL_PW;
 }
 
-// Floats of block 0's panels (r = 0, 8, 16, ...), the most any block holds.
-__host__ __device__ constexpr long long chol_cluster_panel_floats(long long n) {
+// Floats of block 0's panels (r = 0, C, 2 C, ...), the most any block holds.
+__host__ __device__ constexpr long long chol_cluster_panel_floats(long long n, int C) {
   long long s = 0;
-  for (long long r = 0; r * CHOL_PW < n; r += CHOL_CLUSTER) s += chol_panel_rows(n, r) * CHOL_PW;
+  for (long long r = 0; r * CHOL_PW < n; r += C) s += chol_panel_rows(n, r) * CHOL_PW;
   return s;
 }
 
-// Shared memory of a block of the cluster route: the applied panel widened
-// ((n + 1) x PW doubles), the diagonal block's L (PW x PW doubles), the own
-// panels, L_jj (n) and flags (one a panel, and one).
-__host__ __device__ constexpr long long chol_cluster_bytes(long long n) {
-  return 8 * ((n + 1) * CHOL_PW + CHOL_PW * CHOL_PW) +
-         4 * (chol_cluster_panel_floats(n) + n + (n + CHOL_PW - 1) / CHOL_PW + 1);
+// Shared memory of a block of a cluster route: the applied panel widened
+// ((n + 1) x PW doubles) and the own panels (both in the scratch with
+// GLOBAL), the diagonal block's L (PW x PW doubles), L_jj (n) and flags
+// (one a panel, and one); at least the back substitution's x, the group's
+// y and the y held in shared memory (n, 32 and n floats at most).
+__host__ __device__ constexpr long long chol_cluster_bytes(long long n, int C, bool global) {
+  const long long fwd =
+      8 * ((global ? 0 : (n + 1) * CHOL_PW) + CHOL_PW * CHOL_PW) +
+      4 * ((global ? 0 : chol_cluster_panel_floats(n, C)) + n + (n + CHOL_PW - 1) / CHOL_PW + 1);
+  const long long back = 4 * ((n + 3) / 4 * 4 + WARP + n);
+  return fwd > back ? fwd : back;
 }
 
-constexpr int chol_cluster_max_n() {
+// The largest n whose panels a cluster of C blocks holds in shared memory.
+constexpr int chol_cluster_max_n(int C) {
   int n = 1;
-  while (chol_cluster_bytes(n + 1) <= CHOL_SMEM_BYTES) ++n;
+  while (chol_cluster_bytes(n + 1, C, false) <= CHOL_SMEM_BYTES) ++n;
   return n;
 }
 
-constexpr int CHOL_CLUSTER_MAX_N = chol_cluster_max_n();
+constexpr int CHOL_CLUSTER_MAX_N = chol_cluster_max_n(CHOL_CLUSTER);
+constexpr int CHOL_WIDE_MAX_N = chol_cluster_max_n(CHOL_WIDE_CLUSTER);
 
 // A lane's published panels in the scratch: panel p's rows p PW .. n from
 // chol_pub_offset(n, p) on, in the layout of its owner's copy.
@@ -1647,14 +1645,26 @@ __host__ __device__ constexpr long long chol_pub_floats(long long n) {
   return chol_pub_offset(n, (n + CHOL_PW - 1) / CHOL_PW);
 }
 
-// Threads of a block of the cluster route that factor rows below a
-// panel's diagonal block (every warp but warp 0, which factors the block),
-// and the rows a thread takes at the largest n.
+// Floats of a lane's scratch on a cluster route: the published panels and,
+// with GLOBAL, a widened panel ((n + 1) x PW doubles) a block after them.
+__host__ __device__ constexpr long long chol_scratch_floats(long long n, int C, bool global) {
+  return chol_pub_floats(n) + (global ? 2LL * C * (n + 1) * CHOL_PW : 0);
+}
+
+// Threads of a block of a cluster route that factor rows below a panel's
+// diagonal block (every warp but warp 0, which factors the block), and the
+// rows a thread takes in a pass (one pass up to n = CHOL_CLUSTER_MAX_N).
 constexpr int CHOL_ROW_THREADS = CHOL_MAX_THREADS - WARP;
 constexpr int CHOL_ROWS = (CHOL_CLUSTER_MAX_N + 1 - CHOL_PW + CHOL_ROW_THREADS - 1) / CHOL_ROW_THREADS;
-static_assert(CHOL_PW == 8 && CHOL_ROWS <= 2, "panel layout and registers sized for this");
-// Columns below a group of 32 that a thread of the back substitution holds.
-constexpr int CHOL_BACK_COLS = (CHOL_CLUSTER_MAX_N + CHOL_ROW_THREADS - 1) / CHOL_ROW_THREADS;
+static_assert(CHOL_PW == 8 && CHOL_ROWS == 2, "panel layout and registers sized for this");
+static_assert(CHOL_CLUSTER_MAX_N + 1 - CHOL_PW <= CHOL_ROWS * CHOL_ROW_THREADS,
+              "the route of 8 blocks takes the rows below a diagonal block in one pass");
+// Rows below a group of 32 that a thread of the back substitution holds
+// in registers, and the rows they cover (the rest in shared memory).
+constexpr int CHOL_BACK_COLS = 2;
+constexpr int CHOL_BACK_ROWS = CHOL_BACK_COLS * CHOL_ROW_THREADS;
+static_assert(CHOL_CLUSTER_MAX_N <= CHOL_BACK_ROWS,
+              "the route of 8 blocks holds every row of its back substitution in registers");
 
 // a's PW entries take the PW updates of the panel widened in lw: the row's
 // L at li, the columns' at lw + k0 PW (kn of them), j in order.
@@ -1685,13 +1695,21 @@ __device__ __forceinline__ void chol_store_row(float* a, const float (&v)[CHOL_P
     *reinterpret_cast<float4*>(a + c) = make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
 }
 
-// H (B, n, n), g (B, n) -> out (B, n); grid B * 8 blocks of CHOL_MAX_THREADS,
-// one cluster a lane; dynamic shared memory chol_cluster_bytes(n); scratch
-// chol_pub_floats(n) floats a lane (the published panels).
-__global__ void __cluster_dims__(CHOL_CLUSTER, 1, 1) __launch_bounds__(CHOL_MAX_THREADS, 1)
+// H (B, n, n), g (B, n) -> out (B, n); grid B C blocks of CHOL_MAX_THREADS,
+// one cluster of C a lane (a launch attribute); dynamic shared memory
+// chol_cluster_bytes(n, C, GLOBAL); scratch chol_scratch_floats(n, C,
+// GLOBAL) floats a lane. Stamps (chip_smoke.py --split): 0 H loaded, 1 the
+// waits at the cluster barrier, 2 the read-back of the published panel, 3
+// factoring own panels, 4 the trailing updates, 5 the back substitution.
+template <int C, bool GLOBAL>
+__global__ void __launch_bounds__(CHOL_MAX_THREADS, 1)
 lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restrict__ g,
                              float* __restrict__ out, float* __restrict__ scratch, int n) {
-  constexpr int PW = CHOL_PW, C = CHOL_CLUSTER;
+  constexpr int PW = CHOL_PW;
+  // only the routes of 16 blocks take n past one pass of rows below a
+  // diagonal block and past the rows the back substitution holds in
+  // registers
+  constexpr bool WIDE = C > CHOL_CLUSTER;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
@@ -1700,14 +1718,21 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
   const int l = t % WARP, w = t / WARP;
   const int rows = n + 1;
   const int P = (n + PW - 1) / PW;
-  double* lw = reinterpret_cast<double*>(smem);  // the applied panel's L, row i at i PW
-  double* ld = lw + (long long)rows * PW;         // the diagonal block's L, (m, j) at m PW + j
-  float* A = reinterpret_cast<float*>(ld + PW * PW);
-  float* dg = A + chol_cluster_panel_floats(n);    // L_jj of the own columns
-  int* flag = reinterpret_cast<int*>(dg + n);      // [p]: panel p failed; [P]: local
-  float* pub = scratch + o * chol_pub_floats(n);   // the published panels
-  // own panel r (r % C == q): its m-th, after the m before it
+  Split split;
+  split.start();
+  float* pub = scratch + o * chol_scratch_floats(n, C, GLOBAL);  // the published panels
+  // the applied panel's L, row i at i PW
+  double* lw = GLOBAL ? reinterpret_cast<double*>(pub + chol_pub_floats(n)) + (long long)q * rows * PW
+                      : reinterpret_cast<double*>(smem);
+  // the diagonal block's L, (m, j) at m PW + j
+  double* ld = GLOBAL ? reinterpret_cast<double*>(smem) : lw + (long long)rows * PW;
+  float* A = reinterpret_cast<float*>(ld + PW * PW);  // the own panels in shared memory
+  float* dg = GLOBAL ? A : A + chol_cluster_panel_floats(n, C);  // L_jj of the own columns
+  int* flag = reinterpret_cast<int*>(dg + n);  // [p]: panel p failed; [P]: local
+  // own panel r (r % C == q): its m-th, after the m before it; with GLOBAL
+  // its published slot
   auto panel = [&](int r) {
+    if (GLOBAL) return pub + chol_pub_offset(n, r);
     const long long m = (r - q) / C;
     return A + PW * (m * rows - PW * (q * m + C * m * (m - 1) / 2));
   };
@@ -1728,7 +1753,9 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
     }
   }
   __syncthreads();
+  split.mark(0);
   cluster_wait();
+  split.mark(1);
 
   // Own panel p, whose entries have the updates j < (p - 1) PW, takes panel
   // p - 1's (in lw; none for p = 0) and is factored and published. Warp 0:
@@ -1783,9 +1810,11 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
         }
       }
       if (l < wd) {
+        if (!GLOBAL) {  // with GLOBAL the published row below is the panel's own
 #pragma unroll
-        for (int c = 0; c < PW; ++c)
-          if (c <= l) a[l * PW + c] = v[c];
+          for (int c = 0; c < PW; ++c)
+            if (c <= l) a[l * PW + c] = v[c];
+        }
 #pragma unroll
         for (int c = 0; c < PW; c += 4)
           __stcg(reinterpret_cast<float4*>(pub + chol_pub_offset(n, p) + l * PW + c),
@@ -1794,28 +1823,28 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
       if (l == 0) flag[P] = !ok;
     }
   };
-  // The other warps: the rows below it (CHOL_ROWS a thread at most), each
-  // column as warp 0 releases it.
+  // The other warps: the rows below it, CHOL_ROWS a thread a pass, each
+  // column as warp 0 releases it (in the first pass; later passes find
+  // every column released).
   auto rows_below = [&](int p) {
     float* a = panel(p);
     const int c0 = p * PW, wd = width(p), below = rows - c0 - wd;
-    {
+    for (int f0 = 0; f0 == 0 || (WIDE && f0 < below); f0 += CHOL_ROWS * CHOL_ROW_THREADS) {
       float v[CHOL_ROWS][PW];
       int ir[CHOL_ROWS];
 #pragma unroll
       for (int u = 0; u < CHOL_ROWS; ++u) {
-        const int f = t - WARP + u * CHOL_ROW_THREADS;
+        const int f = f0 + t - WARP + u * CHOL_ROW_THREADS;
         ir[u] = f < below ? c0 + wd + f : -1;
         if (ir[u] >= 0) {
           chol_load_row(v[u], a + (ir[u] - c0) * PW);
           if (p > 0) chol_apply_row(v[u], lw + (long long)ir[u] * PW, lw + (long long)c0 * PW, wd);
         }
       }
-      // column j as warp 0 releases it
 #pragma unroll
       for (int j = 0; j < PW; ++j) {
         if (j < wd) {
-          named_sync(1 + j, T);
+          if (f0 == 0) named_sync(1 + j, T);
           const float dj = dg[c0 + j];
 #pragma unroll
           for (int u = 0; u < CHOL_ROWS; ++u) {
@@ -1832,7 +1861,7 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
 #pragma unroll
       for (int u = 0; u < CHOL_ROWS; ++u) {
         if (ir[u] >= 0) {
-          chol_store_row(a + (ir[u] - c0) * PW, v[u]);
+          if (!GLOBAL) chol_store_row(a + (ir[u] - c0) * PW, v[u]);
 #pragma unroll
           for (int c = 0; c < PW; c += 4) {
             const float4 e = make_float4(v[u][c], v[u][c + 1], v[u][c + 2], v[u][c + 3]);
@@ -1879,8 +1908,9 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
     const float4* src = reinterpret_cast<const float4*>(pub + chol_pub_offset(n, p) + PW * PW);
     for (int f = t; f < (rows - lo) * PW / 4; f += T) {
       const float4 u = __ldcg(src + f);
-      double* d = lw + (long long)lo * PW + 4 * f;
-      d[0] = u.x, d[1] = u.y, d[2] = u.z, d[3] = u.w;
+      double2* d = reinterpret_cast<double2*>(lw + (long long)lo * PW + 4 * f);
+      d[0] = make_double2(u.x, u.y);
+      d[1] = make_double2(u.z, u.w);
     }
   };
 
@@ -1896,22 +1926,29 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
   // it there and factors that panel first (lookahead), and every other
   // block arrives at the next barrier as soon as it has read the panel
   if (q == 0) advance(0);
+  split.mark(3);
   cluster_arrive();
   for (int p = 0;; ++p) {
     cluster_wait();
+    split.mark(1);
     if (flag[p]) {  // every block reads it after the same barrier
       fail_out();
+      split.finish();
       return;
     }
     if (p == P - 1) break;
     widen(p);
     __syncthreads();
+    split.mark(2);
     const bool next = (p + 1) % C == q;
     if (next) advance(p + 1);
+    split.mark(3);
     cluster_arrive();
     // own panels after p (after p + 1 when this block factored it)
     apply(p + 1 + ((q - p - 1) % C + C) % C + (next ? C : 0), P);
     __syncthreads();  // lw is rewritten in the next step
+    split.mark(4);
+    split.step();
   }
 
   // Back substitution, in block 0 alone, from L, its diagonal and y in the
@@ -1920,12 +1957,18 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
   // warp 0 holds the group's y (lane l: column g0 + l) and solves it, x_j
   // by a shuffle from the lane holding y_j and L_jj, releasing its x eight
   // columns at a time (named barriers 1 to 4) to the other warps, which
-  // hold the y of the columns below (CHOL_BACK_COLS a thread, in registers)
-  // and apply them in order, j descending; at a group's start the threads
-  // holding its columns hand their y to warp 0.
-  if (q != 0) return;
-  float* xsh = smem;                 // x_j
+  // hold the y of the columns below (CHOL_BACK_COLS a thread in registers,
+  // the rows from CHOL_BACK_ROWS on in shared memory, each row owned by one
+  // thread) and apply them in order, j descending; at a group's start the
+  // threads holding its columns in registers hand their y to warp 0.
+  if (q != 0) {
+    split.finish();
+    return;
+  }
+  __syncthreads();  // every thread has read the flags that x and y overlay
+  float* xsh = smem;                    // x_j
   float* ysh = smem + (n + 3) / 4 * 4;  // the group's y, handed to warp 0
+  float* ysm = ysh + WARP;              // y_i of the rows i >= CHOL_BACK_ROWS
   auto at = [&](int i, int j) {  // L_ji (j >= i); y_i at j = n
     const int r = i / PW;
     return pub + chol_pub_offset(n, r) + (j - r * PW) * PW + i % PW;
@@ -1935,10 +1978,11 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
   int ib[CHOL_BACK_COLS];
 #pragma unroll
   for (int u = 0; u < CHOL_BACK_COLS; ++u) {
-    ib[u] = w == 0 ? n : t - WARP + u * (T - WARP);
+    ib[u] = w == 0 ? n : t - WARP + u * CHOL_ROW_THREADS;
     lb[u] = at(min(ib[u], n - 1), 0);
     yb[u] = ib[u] < n ? __ldcg(lb[u] + PW * n) : 0.0f;
   }
+  for (int i = CHOL_BACK_ROWS + t; i < n; i += T) ysm[i - CHOL_BACK_ROWS] = __ldcg(at(i, n));
   for (int g0 = (n - 1) / WARP * WARP; g0 >= 0; g0 -= WARP) {
 #pragma unroll
     for (int u = 0; u < CHOL_BACK_COLS; ++u)
@@ -1951,7 +1995,7 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
 #pragma unroll
       for (int k = 0; k < WARP; ++k) lv[k] = i < g0 + k && g0 + k < n ? __ldcg(li + PW * (g0 + k)) : 0.0f;
       const float di = i < n ? __ldcg(li + PW * i) : 1.0f;  // L_ii
-      float y = i < n ? ysh[l] : 0.0f;
+      float y = i >= n ? 0.0f : i < CHOL_BACK_ROWS ? ysh[l] : ysm[i - CHOL_BACK_ROWS];
 #pragma unroll
       for (int c = 0; c < WARP / PW; ++c) {
 #pragma unroll
@@ -1987,9 +2031,36 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
               if (j0 + k < n) yb[u] = chol_update(yb[u], (double)lv[u][k], (double)xsh[j0 + k]);
           }
         }
+        // the rows from CHOL_BACK_ROWS on below the group (n > 992 only:
+        // the routes of 16 blocks), CHOL_BACK_COLS a thread at a time
+        if (WIDE) {
+          for (int i0 = t - WARP + CHOL_BACK_ROWS; i0 < g0; i0 += CHOL_BACK_ROWS) {
+#pragma unroll
+            for (int u = 0; u < CHOL_BACK_COLS; ++u) {
+              const int i = i0 + u * CHOL_ROW_THREADS;
+              const float* li = at(min(i, n - 1), 0);
+#pragma unroll
+              for (int k = 0; k < PW; ++k)
+                lv[u][k] = i < g0 && j0 + k < n ? __ldcg(li + PW * (j0 + k)) : 0.0f;
+            }
+#pragma unroll
+            for (int u = 0; u < CHOL_BACK_COLS; ++u) {
+              const int i = i0 + u * CHOL_ROW_THREADS;
+              if (i < g0) {
+                float y = ysm[i - CHOL_BACK_ROWS];
+#pragma unroll
+                for (int k = PW - 1; k >= 0; --k)
+                  if (j0 + k < n) y = chol_update(y, (double)lv[u][k], (double)xsh[j0 + k]);
+                ysm[i - CHOL_BACK_ROWS] = y;
+              }
+            }
+          }
+        }
       }
     }
   }
+  split.mark(5);
+  split.finish();
 }
 
 // ---------------------------------------------------------------------------
@@ -2864,69 +2935,224 @@ extern "C" int sdsm_lane_split_softplus_pr13(const float* s, const float* u,
 }
 #endif
 
+namespace {
+
+// A cluster route's kernel (sdsm_lane_chol_route's numbers 1-3).
+struct CholKernel {
+  void (*kernel)(const float*, const float*, float*, float*, int);
+  int C;
+  bool global;
+};
+
+CholKernel chol_kernel(int route) {
+  switch (route) {
+    case 1: return {lane_cholesky_cluster_kernel<CHOL_CLUSTER, false>, CHOL_CLUSTER, false};
+    case 2: return {lane_cholesky_cluster_kernel<CHOL_WIDE_CLUSTER, false>, CHOL_WIDE_CLUSTER, false};
+    default: return {lane_cholesky_cluster_kernel<CHOL_WIDE_CLUSTER, true>, CHOL_WIDE_CLUSTER, true};
+  }
+}
+
+// Sets the dynamic shared memory maximum of route `route`'s kernel to what
+// the card's opt-in maximum leaves beside its static shared memory (the
+// stamped build's words), the same value at every launch (threads
+// launching concurrently set the same one), and on the wide routes allows
+// its non-portable cluster size; once a device and route. *avail: that
+// maximum.
+template <class K>
+int chol_setup(K* kernel, int route, int* avail) {
+  static std::atomic<int> known[MAX_DEVICES][4];  // avail + 1, 0: not set up
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  const int seen = known[dev][route].load(std::memory_order_acquire);
+  if (seen > 0) {
+    *avail = seen - 1;
+    return 0;
+  }
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    *avail = optin - (int)attr.sharedSizeBytes;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *avail);
+  }
+  if (err == cudaSuccess && route >= 2)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  known[dev][route].store(*avail + 1, std::memory_order_release);
+  return 0;
+}
+
+// The launch of cluster route `route` at (B, n) on `stream`: B clusters of
+// C blocks (a launch attribute), its kernel set up. Returns 0 or a CUDA
+// error (cudaErrorInvalidValue where the block's shared memory passes the
+// card's maximum).
+int chol_cluster_config(int route, long long B, int n, cudaStream_t stream,
+                        cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, CholKernel* k) {
+  *k = chol_kernel(route);
+  int avail = 0;
+  const int err = chol_setup(k->kernel, route, &avail);
+  if (err) return err;
+  const long long bytes = chol_cluster_bytes(n, k->C, k->global);
+  if (bytes > avail || B * k->C > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  *cfg = {};
+  cfg->gridDim = dim3((unsigned)(B * k->C));
+  cfg->blockDim = dim3(CHOL_MAX_THREADS);
+  cfg->dynamicSmemBytes = (size_t)bytes;
+  cfg->stream = stream;
+  *attr = {};
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)k->C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+int launch_chol_cluster(int route, const float* H, const float* g, float* out,
+                        float* scratch, int B, int n, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  CholKernel k;
+  const int err = chol_cluster_config(route, B, n, stream, &cfg, &attr, &k);
+  if (err) return err;
+  const cudaError_t launch = cudaLaunchKernelEx(&cfg, k.kernel, H, g, out, scratch, n);
+  return launch != cudaSuccess ? (int)launch : (int)cudaGetLastError();
+}
+
+// Floats of a lane's scratch on `route` (1-3), 0 past the int range.
+int chol_route_floats(int route, int n) {
+  const CholKernel k = chol_kernel(route);
+  const long long f = chol_scratch_floats(n, k.C, k.global);
+  return f > 0x7fffffffLL ? 0 : (int)f;
+}
+
+int launch_chol_one_block(const float* H, const float* g, float* out, int B, int n,
+                          cudaStream_t stream) {
+  int avail = 0;
+  const int err = chol_setup(lane_cholesky_kernel, 0, &avail);
+  if (err) return err;
+  const long long bytes = 4 * chol_floats(n);
+  if (bytes > avail) return (int)cudaErrorInvalidValue;
+  const int threads = n <= 32 ? 64 : n <= 64 ? 128 : 256;
+  lane_cholesky_kernel<<<B, threads, (size_t)bytes, stream>>>(H, g, out, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int sdsm_lane_chol_one_block_max_n() { return CHOL_ONE_BLOCK_MAX_N; }
 extern "C" int sdsm_lane_chol_cluster_max_n() { return CHOL_CLUSTER_MAX_N; }
+extern "C" int sdsm_lane_chol_wide_max_n() { return CHOL_WIDE_MAX_N; }
 
 // lane_cholesky's route at (B, n), from n and B (an entry's order, and so
 // its bits, follows from n alone):
 //   0: n <= CHOL_ONE_BLOCK_MAX_N, or n <= CHOL_MANY_LANES_MAX_N with more
 //      lanes than the card holds clusters at once: one block a lane, in
 //      shared memory;
-//   1: n <= CHOL_CLUSTER_MAX_N: a cluster of 8 blocks a lane;
-//   2: above: one block a lane, its work space in a global scratch.
+//   1: n <= CHOL_CLUSTER_MAX_N: a cluster of 8 blocks a lane, the panels
+//      in shared memory;
+//   2: n <= CHOL_WIDE_MAX_N: a cluster of 16 blocks a lane, the panels in
+//      shared memory;
+//   3: above: a cluster of 16 blocks a lane, the panels and the widened
+//      panel in the global scratch.
 // (The stream is not used: every entry point takes one.)
 extern "C" int sdsm_lane_chol_route(int B, int n, void*) {
   if (n <= CHOL_ONE_BLOCK_MAX_N ||
       ((long long)B * CHOL_CLUSTER > sm_count() && n <= CHOL_MANY_LANES_MAX_N))
     return 0;
-  return n <= CHOL_CLUSTER_MAX_N ? 1 : 2;
+  return n <= CHOL_CLUSTER_MAX_N ? 1 : n <= CHOL_WIDE_MAX_N ? 2 : 3;
 }
 
-// Floats of a lane's scratch on that route: none; the published panels;
-// the work space.
+// Floats of a lane's scratch on that route: none on route 0; the
+// published panels, and on route 3 a widened panel a block; 0 where they
+// pass the int range (the launch is then refused).
 extern "C" int sdsm_lane_chol_scratch_floats(int B, int n, void*) {
-  if (B < 0 || n < 0 || chol_floats(n) > 0x7fffffffLL) return 0;
-  switch (sdsm_lane_chol_route(B, n, nullptr)) {
-    case 1: return (int)chol_pub_floats(n);
-    case 2: return (int)chol_floats(n);
-    default: return 0;
+  if (B < 0 || n < 0) return 0;
+  const int route = sdsm_lane_chol_route(B, n, nullptr);
+  return route == 0 ? 0 : chol_route_floats(route, n);
+}
+
+// The clusters of lane_cholesky's launch at (B, n) that the card holds at
+// once (cudaOccupancyMaxActiveClusters; 0 on route 0), or minus a CUDA
+// error.
+extern "C" int sdsm_lane_chol_clusters(int B, int n, void*) {
+  const int route = sdsm_lane_chol_route(B, n, nullptr);
+  if (route == 0) return 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  CholKernel k;
+  int err = chol_cluster_config(route, B, n, nullptr, &cfg, &attr, &k);
+  int clusters = 0;
+  if (!err) err = (int)cudaOccupancyMaxActiveClusters(&clusters, k.kernel, &cfg);
+  return err ? -err : clusters;
+}
+
+// The library's load-time check: the card holds at least one cluster of
+// every cluster route at its largest shared memory (n =
+// CHOL_CLUSTER_MAX_N, CHOL_WIDE_MAX_N, and 2048, the largest DSM bucket,
+// on route 3). 0, a CUDA error, or cudaErrorLaunchOutOfResources where the
+// card holds none.
+extern "C" int sdsm_lane_chol_check(void*) {
+  for (int n : {CHOL_CLUSTER_MAX_N, CHOL_WIDE_MAX_N, 2048}) {
+    const int clusters = sdsm_lane_chol_clusters(1, n, nullptr);
+    if (clusters < 0) return -clusters;
+    if (clusters == 0) return (int)cudaErrorLaunchOutOfResources;
   }
+  return 0;
 }
 
 // delta (B, n) = solver._cholesky_direction(Hd, g), Hd (B, n, n) and g
 // (B, n) float32 contiguous, in one launch on `stream`, on the route of
 // sdsm_lane_chol_route; scratch: B sdsm_lane_chol_scratch_floats(B, n)
-// floats (unused, may be null, on route 0).
+// floats (unused, may be null, on route 0). A cluster launch the card
+// refuses returns its error: no other route is taken.
 extern "C" int sdsm_lane_cholesky(const float* H, const float* g, float* out,
                                   float* scratch, int B, int n, void* stream) {
-  if (B < 0 || n < 0 || chol_floats(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (B < 0 || n < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const int route = sdsm_lane_chol_route(B, n, nullptr);
-  if (route != 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  // each kernel's opt-in maximum, the same for every launch (threads
-  // launching concurrently set the same value)
-  if (route == 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lane_cholesky_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        CHOL_SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    const int threads = n <= 32 ? 64 : n <= 64 ? 128 : 256;
-    lane_cholesky_kernel<false><<<B, threads, (size_t)(4 * chol_floats(n)), st>>>(
-        H, g, out, nullptr, n);
-  } else if (route == 1) {
-    if ((long long)B * CHOL_CLUSTER > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const cudaError_t err = cudaFuncSetAttribute(
-        lane_cholesky_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        CHOL_SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    lane_cholesky_cluster_kernel<<<B * CHOL_CLUSTER, CHOL_MAX_THREADS,
-                                   (size_t)chol_cluster_bytes(n), st>>>(H, g, out, scratch, n);
-  } else {
-    lane_cholesky_kernel<true><<<B, CHOL_MAX_THREADS, 0, st>>>(H, g, out, scratch, n);
-  }
-  return (int)cudaGetLastError();
+  if (route == 0) return launch_chol_one_block(H, g, out, B, n, st);
+  if (scratch == nullptr || chol_route_floats(route, n) == 0) return (int)cudaErrorInvalidValue;
+  return launch_chol_cluster(route, H, g, out, scratch, B, n, st);
 }
+
+#ifdef SDSM_SPLIT
+// chip_smoke.py --split: lane_cholesky on a cluster route (1-3) forced at
+// any n where its shared memory holds the panels, its scratch floats a
+// lane, and what the card reports for the launch.
+extern "C" int sdsm_lane_split_chol_floats(int n, int route, void*) {
+  return route >= 1 && route <= 3 ? chol_route_floats(route, n) : 0;
+}
+
+extern "C" int sdsm_lane_split_cholesky(const float* H, const float* g, float* out,
+                                        float* scratch, int B, int n, int route,
+                                        void* stream) {
+  if (B <= 0 || n <= 0 || scratch == nullptr || sdsm_lane_split_chol_floats(n, route, nullptr) == 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_chol_cluster(route, H, g, out, scratch, B, n, (cudaStream_t)stream);
+}
+
+extern "C" int sdsm_lane_split_chol_info(int* out, int B, int n, int route, void*) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  CholKernel k;
+  int err = chol_cluster_config(route, B, n, nullptr, &cfg, &attr, &k);
+  cudaFuncAttributes a;
+  int clusters = 0;
+  if (!err) err = (int)cudaFuncGetAttributes(&a, k.kernel);
+  if (!err) err = (int)cudaOccupancyMaxActiveClusters(&clusters, k.kernel, &cfg);
+  if (err) return err;
+  const int v[7] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    (int)cfg.dynamicSmemBytes, clusters, CHOL_MAX_THREADS, (int)cfg.gridDim.x};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+#endif
 
 // (g', Hd) = the damped Newton system of solver._newton_step for B lanes
 // (lane_lm_system_kernel): params, g (B, n), H (B, n, n), mu, alpha (B,),

@@ -149,12 +149,13 @@ _KERNELS = {
                     {'matvec': (3, 4), 'strided_sum': (2, 6), 'dot': (3, 2),
                      'softplus_energies': (6, 4), 'softplus': (2, 1),
                      'pcg': (3, 3, 2), 'cholesky': (4, 2), 'chol_route': (0, 2),
-                     'chol_scratch_floats': (0, 2), 'lm_system': (8, 2, 3),
+                     'chol_scratch_floats': (0, 2), 'chol_clusters': (0, 2),
+                     'chol_check': (0, 0), 'lm_system': (8, 2, 3),
                      'step_guard': (11, 4, 3), 'step_pick': (15, 4),
                      'step_tail': (19, 5, 6)},
                     dict(warp=32, small_n=8, row_threads=256,
                          chol_one_block_max_n=32, chol_cluster_max_n=807,
-                         pcg_reg_max_n=512)),
+                         chol_wide_max_n=1063, pcg_reg_max_n=512)),
 }
 _F32_SRC, _BF16_SRC, LANE_SRC = _KERNELS
 LANE_CONSTANTS = _KERNELS[LANE_SRC][3]
@@ -484,6 +485,13 @@ def _load(src=_F32_SRC):
             if const() != value:
                 raise RuntimeError(f'{src}: library has {name}={const()}, '
                                    f'expected {value}')
+        if src == LANE_SRC:
+            # lane_cholesky's cluster routes: a card that holds no cluster
+            # of one of them is refused here, never given another route
+            err = lib.sdsm_lane_chol_check(None)
+            if err:
+                raise RuntimeError(f'{src}: the card holds no cluster of a lane_cholesky '
+                                   f'route at its shared memory (CUDA error {err})')
         _libs[src] = lib
     return lib
 

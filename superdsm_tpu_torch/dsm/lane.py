@@ -84,14 +84,18 @@ ROW_THREADS = gram.LANE_CONSTANTS['row_threads']
 #: :func:`cholesky_kernel`'s routes by number (:func:`cholesky_route`): one
 #: block a lane up to ``CHOL_ONE_BLOCK_MAX_N`` (and up to n = 128 when a
 #: batch has more lanes than the card holds 8-block clusters at once); a
-#: cluster of eight blocks a lane, in panels of eight columns, up to
-#: ``CHOL_CLUSTER_MAX_N``; one block a lane with its work space in a global
-#: scratch above (``csrc/lane_ops.cu``; the bounds checked against the
-#: library when it loads).
-CHOL_ROUTES = ('one block a lane, shared memory', 'cluster of 8, panels of 8 columns',
-               'one block a lane, global scratch')
+#: cluster of eight blocks a lane, in panels of eight columns held in
+#: shared memory, up to ``CHOL_CLUSTER_MAX_N``; a cluster of sixteen blocks
+#: a lane, its panels in shared memory, up to ``CHOL_WIDE_MAX_N``; and
+#: above, sixteen blocks whose panels live in the lane's global scratch
+#: (``csrc/lane_ops.cu``; the bounds checked against the library when it
+#: loads, and that the card holds a cluster of each).
+CHOL_ROUTES = ('one block a lane, shared memory', 'cluster of 8, panels in shared memory',
+               'cluster of 16, panels in shared memory',
+               'cluster of 16, panels in the global scratch')
 CHOL_ONE_BLOCK_MAX_N = gram.LANE_CONSTANTS['chol_one_block_max_n']
 CHOL_CLUSTER_MAX_N = gram.LANE_CONSTANTS['chol_cluster_max_n']
+CHOL_WIDE_MAX_N = gram.LANE_CONSTANTS['chol_wide_max_n']
 
 #: :func:`pcg_kernel` keeps a lane's H in its cluster's registers up to this
 #: n, in shared memory and L2 above (``csrc/lane_ops.cu``; the same bits,
@@ -623,13 +627,23 @@ def cholesky_route(B, n):
     return gram._load(gram.LANE_SRC).sdsm_lane_chol_route(B, n, None)
 
 
+def cholesky_clusters(B, n):
+    """The clusters of :func:`cholesky_kernel`'s launch at (B, n) that the
+    current card holds at once (``cudaOccupancyMaxActiveClusters``; 0 on
+    the one-block route); more lanes than that run in waves."""
+    clusters = gram._load(gram.LANE_SRC).sdsm_lane_chol_clusters(B, n, None)
+    if clusters < 0:
+        raise RuntimeError(f'cholesky_clusters({B}, {n}): CUDA error {-clusters}')
+    return clusters
+
+
 def cholesky_kernel(Hd, g):
     """The CUDA kernel of the Newton direction ``-Hd^-1 g`` (``Hd`` (B, n, n)
     float32 SPD, its lower triangle read; ``g`` (B, n)) on the current
     stream: one launch, bitwise :func:`cholesky_chain` on the card, NaN in
     every entry of a lane whose factorization fails; no host sync. Off the
     shared one-block route it takes a scratch allocated here, of the size
-    the library asks for."""
+    the library asks for; a launch the card refuses raises."""
     _check_cuda('cholesky_kernel', Hd, g)
     Hd = Hd.contiguous()
     g = g.contiguous()

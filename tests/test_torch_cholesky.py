@@ -9,7 +9,8 @@ test. Here:
 
 - the chain against the JAX package's vmapped ``cho_factor`` /
   ``cho_solve`` (JAX on the CPU, the same numpy inputs) at n = 6 to 384
-  (the kernel's one-block route at n = 6 and 32, its cluster route above):
+  and 808 (the kernel's one-block route at n = 6 and 32, its cluster
+  routes above):
   damped SPD systems built as ``tests/test_torch_pcg.py``
   builds them, rtol 1e-4, atol 1e-5, as
   ``tests/test_torch_solver.py::test_cg_matches_cholesky_and_jax_lane_freeze``
@@ -27,7 +28,10 @@ test. Here:
 - the cluster route's schedule (panels of columns dealt cyclically over
   blocks, the trailing update panel by panel, the back substitution panel
   by panel), written in plain torch here, gives the chain's bits, failing
-  lanes NaN in every entry.
+  lanes NaN in every entry; so do the cluster routes as the kernel runs
+  them (8 or 16 blocks, panels in shared memory or in the global scratch,
+  the rows below a diagonal block in passes, the back substitution in
+  groups of 32 columns released 8 at a time).
 """
 
 import jax
@@ -97,17 +101,19 @@ def _with_failing_lanes(n):
     return torch.from_numpy(H), torch.from_numpy(b)
 
 
-@pytest.mark.parametrize('n', [6, 32, 64, 128, 256, 384])
+@pytest.mark.parametrize('n', [6, 32, 64, 128, 256, 384, 808])
 def test_chain_matches_the_jax_package(n):
     """The chain's direction against the JAX package's ``cho_factor`` /
     ``cho_solve`` on the same systems, rtol 1e-4, atol 1e-5; n = 6 and 32
     are the kernel's one-block route on the card, n = 64 to 384 its cluster
-    route."""
-    H, b = _systems(n)
+    route of 8 blocks, n = 808 (two lanes) the first n of its cluster
+    routes of 16."""
+    H, b = _systems(n, damping=DAMPING if n <= 384 else DAMPING[:2])
     out = lane.cholesky_chain(torch.from_numpy(H), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(out, _jax_direction(H, b), rtol=RTOL, atol=ATOL)
     assert (n > lane.CHOL_ONE_BLOCK_MAX_N) == (n >= 64)
-    assert n <= lane.CHOL_CLUSTER_MAX_N
+    assert (n > lane.CHOL_CLUSTER_MAX_N) == (n == 808)
+    assert n <= lane.CHOL_WIDE_MAX_N
 
 
 @pytest.mark.parametrize('n', [6, 64, 256])
@@ -207,46 +213,67 @@ def test_cholesky_kernel_refuses_cpu_tensors():
         lane.cholesky_kernel(H, b)
 
 
-def _blocked_direction(Hd, g, pw, blocks):
-    """``-Hd^-1 g`` in the schedule of the kernel's cluster route, written
+def _blocked_direction(Hd, g, pw, blocks, own='shared', rows_pass=None, back=None,
+                       release=None):
+    """``-Hd^-1 g`` in the schedule of the kernel's cluster routes, written
     with plain torch and :func:`lane._fused_update` rounding: b is row n of
     the augmented lower triangle; panels of ``pw`` columns are dealt
     cyclically over ``blocks`` blocks; the owner factors panel p (its
-    diagonal block and the rows below it, column by column), then each
-    block applies the panel's updates, j in order, to its own later
-    panels; the back substitution goes panel by panel from the last, each
-    solved within itself and applied, j descending, to the columns before
-    it. Entries above the diagonal are updated too (with values never read),
+    diagonal block column by column, then the rows below it in passes of
+    ``rows_pass`` rows, each pass column by column) and publishes it; then
+    each block applies the published panel's updates, j in order, to its
+    own later panels. ``own``: where a block's panels live while it updates
+    them, apart from the published copy (``'shared'``) or in it, in place
+    (``'global'``). The back substitution goes in groups of ``back``
+    columns from the last (``pw`` by default), each group's columns
+    released ``release`` at a time (the whole group by default), j
+    descending: each released column solved and applied to the group's
+    rows below it, then the release applied to the rows before the group.
+    Entries above the diagonal are updated too (with values never read),
     as the kernel's panel rows are."""
     B, n = g.shape
     a = torch.zeros((B, n + 1, n), dtype=torch.float32)
     a[:, :n] = torch.tril(Hd)
     a[:, n] = g
+    pub = a if own == 'global' else torch.zeros_like(a)
     d = torch.empty_like(g)
     fail = torch.zeros(B, dtype=torch.bool)
     panels = -(-n // pw)
+    rows_pass = rows_pass or n + 1
     for p in range(panels):
         c0, c1 = p * pw, min(n, (p + 1) * pw)
         for j in range(c0, c1):
             piv = a[:, j, j].clone()
             fail |= ~(piv > 0)
             d[:, j] = torch.sqrt(piv)
-            a[:, j + 1:, j] = a[:, j + 1:, j] / d[:, j, None]
+            a[:, j + 1:c1, j] = a[:, j + 1:c1, j] / d[:, j, None]
             for m in range(j + 1, c1):
-                a[:, m:, m] = lane._fused_update(a[:, m:, m], a[:, m:, j], a[:, m, j, None])
+                a[:, m:c1, m] = lane._fused_update(a[:, m:c1, m], a[:, m:c1, j], a[:, m, j, None])
+        for r0 in range(c1, n + 1, rows_pass):
+            r1 = min(n + 1, r0 + rows_pass)
+            for j in range(c0, c1):
+                a[:, r0:r1, j] = a[:, r0:r1, j] / d[:, j, None]
+                for m in range(j + 1, c1):
+                    a[:, r0:r1, m] = lane._fused_update(a[:, r0:r1, m], a[:, r0:r1, j],
+                                                        a[:, m, j, None])
+        if own != 'global':
+            pub[:, c0:, c0:c1] = a[:, c0:, c0:c1]
         for blk in range(blocks):
             cols = [k for k in range(c1, n) if (k // pw) % blocks == blk]
             for j in range(c0, c1):
-                a[:, c1:, cols] = lane._fused_update(a[:, c1:, cols], a[:, c1:, j, None],
-                                                     a[:, cols, j][:, None, :])
-    y = a[:, n].clone()
-    for s in range(panels - 1, -1, -1):
-        c0, c1 = s * pw, min(n, (s + 1) * pw)
-        for j in range(c1 - 1, c0 - 1, -1):
-            y[:, j] = y[:, j] / d[:, j]
-            y[:, c0:j] = lane._fused_update(y[:, c0:j], a[:, j, c0:j], y[:, j, None])
-        for j in range(c1 - 1, c0 - 1, -1):
-            y[:, :c0] = lane._fused_update(y[:, :c0], a[:, j, :c0], y[:, j, None])
+                a[:, c1:, cols] = lane._fused_update(a[:, c1:, cols], pub[:, c1:, j, None],
+                                                     pub[:, cols, j][:, None, :])
+    y = pub[:, n].clone()
+    back = back or pw
+    for c0 in range((n - 1) // back * back, -1, -back):
+        c1 = min(n, c0 + back)
+        for r1 in range(c1, c0, -(release or back)):
+            r0 = max(c0, r1 - (release or back))
+            for j in range(r1 - 1, r0 - 1, -1):
+                y[:, j] = y[:, j] / d[:, j]
+                y[:, c0:j] = lane._fused_update(y[:, c0:j], pub[:, j, c0:j], y[:, j, None])
+            for j in range(r1 - 1, r0 - 1, -1):
+                y[:, :c0] = lane._fused_update(y[:, :c0], pub[:, j, :c0], y[:, j, None])
     return torch.where(fail[:, None], torch.full((), float('nan')), -y)
 
 
@@ -279,3 +306,22 @@ def test_blocked_schedule_keeps_every_bit(n, pw, blocks):
     assert _same_bits(_blocked_direction(H, b, pw, blocks), chain)
     nan = torch.isnan(chain).all(dim=1).tolist()
     assert nan == [False] * 3 + [True] * 3
+
+
+@pytest.mark.parametrize('own', ['shared', 'global'])
+@pytest.mark.parametrize('blocks', [8, 16])
+@pytest.mark.parametrize('n', [37, 130, 300])
+def test_cluster_routes_schedule_keeps_every_bit(n, blocks, own):
+    """The kernel's cluster routes as they run: panels of 8 columns over 8
+    or 16 blocks (the routes up to n = 807 and above it), a block's panels
+    in its shared memory or in the published copy itself (the global
+    scratch of the widest route), the rows below a diagonal block in
+    passes (here of 5 rows, so that small n take several, as n > 967 do
+    with the kernel's 960), and the back substitution in groups of 32
+    columns released 8 at a time: :func:`lane.cholesky_chain`'s bits,
+    failing lanes NaN in every entry."""
+    H, b = _blocked_systems(n)
+    chain = lane.cholesky_chain(H, b)
+    out = _blocked_direction(H, b, 8, blocks, own=own, rows_pass=5, back=32, release=8)
+    assert _same_bits(out, chain)
+    assert torch.isnan(out).all(dim=1).tolist() == [False] * 3 + [True] * 3

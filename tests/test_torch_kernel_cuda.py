@@ -49,9 +49,10 @@ graph's replay to the eager launch, and its frozen and NaN lanes to the
 chain's. ``lane_cholesky``, the Newton direction by Cholesky in one
 launch, is held bitwise to its order written op by op
 (``lane.cholesky_chain`` on the card) on each of its routes (one block a
-lane in shared memory, a cluster a lane, one block a lane in a global
-scratch), a lane alone to the lane in the batch, a captured graph's replay
-to the eager launch, and its NaN lanes to the chain's. ``lane_lm_system``
+lane in shared memory, a cluster of 8 blocks a lane, a cluster of 16 with
+its panels in shared memory or in the global scratch, up to n = 2048), a
+lane alone to the lane in the batch, a captured graph's replay to the
+eager launch, and its NaN lanes to the chain's. ``lane_lm_system``
 and ``lane_step_guard``, the damped Newton system and the step guard in
 one launch each, are held bitwise to the chains they replace
 (``lane.lm_system_plain`` and ``lane.step_guard_plain`` on the card) at
@@ -946,19 +947,25 @@ def _chol_systems(B, n, dev, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize('B,n', [(64, 6), (64, 32), (32, 33), (8, 64), (64, 128), (16, 128),
                                  (4, 256), (1, 256), (40, 256), (1, 300), (3, 335), (2, 336),
-                                 (2, 384), (1, 807), (20, 807), (2, 808)])
+                                 (2, 384), (1, 807), (20, 807), (2, 808), (8, 1024),
+                                 (16, 1024), (2, 1063), (2, 1064), (2, 2048)])
 def test_lane_cholesky_equals_the_chain(B, n):
     """``lane_cholesky`` (one launch) bitwise equal to its order written op
     by op on the card (``lane.cholesky_chain``) on each route: one block a
     lane up to ``CHOL_ONE_BLOCK_MAX_N`` (and at n = 33 and 128 with more
-    lanes than the card holds clusters at once), a cluster a lane up to
-    ``CHOL_CLUSTER_MAX_N`` (807: its largest n, at B = 1 and at 20 lanes,
-    more clusters than the card holds at once), the global scratch above;
-    a lane alone bitwise equal to the same lane in the batch;
-    ``_cholesky_direction`` launches it once and no library call."""
+    lanes than the card holds clusters at once), a cluster of 8 a lane up
+    to ``CHOL_CLUSTER_MAX_N`` (807: its largest n, at B = 1 and at 20 lanes,
+    more clusters than the card holds at once), a cluster of 16 with its
+    panels in shared memory up to ``CHOL_WIDE_MAX_N`` (1063; n = 1024 at 8
+    and 16 lanes, more than the card holds at once), and in the global
+    scratch above (1064, and 2048, the largest DSM bucket); a lane alone
+    bitwise equal to the same lane in the batch; ``_cholesky_direction``
+    launches it once and no library call."""
     from superdsm_tpu_torch.dsm import lane, solver
-    assert lane.CHOL_CLUSTER_MAX_N == 807
+    assert (lane.CHOL_CLUSTER_MAX_N, lane.CHOL_WIDE_MAX_N) == (807, 1063)
     dev = _cuda()
+    if n > 807:
+        assert lane.cholesky_route(B, n) == (2 if n <= 1063 else 3)
     H, g = _chol_systems(B, n, dev)
     lane.reset_launch_counts()
     out = solver._cholesky_direction(H, g)
@@ -975,12 +982,12 @@ def test_lane_cholesky_equals_the_chain(B, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [32, 128, 384, 807, 808])
+@pytest.mark.parametrize('n', [32, 128, 384, 807, 808, 1024, 1064])
 def test_lane_cholesky_graph_replay_equals_eager(n):
     """``lane_cholesky`` captured in a CUDA graph and replayed (on new inputs
     copied into the captured ones) bitwise equal to the eager launch, on
-    the one-block route, the cluster route (to its largest n) and the
-    global scratch."""
+    the one-block route, the cluster route of 8 (to its largest n) and the
+    two of 16 (panels in shared memory, in the global scratch)."""
     from superdsm_tpu_torch.dsm import lane
     dev = _cuda()
     H, g = _chol_systems(4, n, dev)
@@ -1002,7 +1009,7 @@ def test_lane_cholesky_graph_replay_equals_eager(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [6, 128, 384, 807, 808])
+@pytest.mark.parametrize('n', [6, 128, 384, 807, 808, 1024, 1064])
 def test_lane_cholesky_nan_lanes(n):
     """NaN lanes exactly where the chain has them, bitwise (a NaN against
     any NaN): a lane that is not positive definite, a zero lane, a NaN in
@@ -1045,11 +1052,12 @@ def test_lane_cholesky_refuses_bad_arguments():
     lib = gram._load(gram.LANE_SRC)
     out = torch.empty_like(g)
     stream = torch.cuda.current_stream().cuda_stream
-    # the cluster route needs its scratch
-    H5, g5 = _chol_systems(1, 400, dev)
-    out5 = torch.empty_like(g5)
-    assert lib.sdsm_lane_cholesky(H5.data_ptr(), g5.data_ptr(), out5.data_ptr(), None,
-                                  1, 400, stream) != 0
+    # the cluster routes need their scratch
+    for n in (400, 808, 1064):
+        H5, g5 = _chol_systems(1, n, dev)
+        out5 = torch.empty_like(g5)
+        assert lib.sdsm_lane_cholesky(H5.data_ptr(), g5.data_ptr(), out5.data_ptr(), None,
+                                      1, n, stream) != 0
     assert lib.sdsm_lane_cholesky(H.data_ptr(), g.data_ptr(), out.data_ptr(), None,
                                   -1, 32, stream) != 0
 

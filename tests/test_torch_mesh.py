@@ -10,6 +10,8 @@ the JAX package's, on the CPU.
   three-blob field of ``tests/test_parallel.py``: three objects in both,
   at most 10 label pixels differ, per-object IoU >= 0.99, energies to rtol
   5e-3 (that test's bounds); a 1-device mesh equals no mesh bitwise.
+- The sharded DSM solver at K = 1018 (n = 1024) on a (1, 2) mesh against
+  the JAX package's, two Newton iterations: energies to rtol 1e-4.
 - The sharded solvers' direction and sums go through the lane ops (the
   kernels on the card), and a lane alone gives its bits in a batch.
 - ``parse_mesh_spec``, ``apply_env_mesh`` and the batch CLI's ``--mesh``
@@ -116,6 +118,27 @@ def test_sharded_dsm_matches_jax(jax_sharded):
     assert both.any()
     np.testing.assert_allclose(fd[both], f1[both], rtol=1e-4)
 
+
+def test_sharded_dsm_at_k1018_matches_jax():
+    """The sharded DSM solver at K = 1018 (n = 1024, the bucket whose
+    direction takes ``lane_cholesky``'s clusters of 16 blocks on the card;
+    LAPACK here) on a (1, 2) mesh against the JAX package's on its (1, 2)
+    mesh: two lanes of 512 pixels, two Newton iterations (``maxiter`` 2,
+    neither converged): energies to rtol 1e-4, params to 1e-4 of their
+    largest magnitude (float32 sums in other orders, two steps apart)."""
+    import jax
+    from superdsm_tpu.parallel import make_mesh
+    from superdsm_tpu.parallel.newton import make_sharded_dsm_solver as jdsm
+    C, Y, Wt, pix, sub, km = _dsm_inputs(B=2, K=1018)
+    args = (np.zeros((2, 1024), np.float32), C, pix, sub, km, Y, Wt,
+            np.full(2, 0.1, np.float32))
+    pj, fj, cj = (np.asarray(a) for a in jax.block_until_ready(
+        jdsm(make_mesh(n_batch=1, n_pixel=2), sigma=3.0, cutoff=12, maxiter=2)(*args)))
+    p, f, c = _host(*make_sharded_dsm_solver(pm.make_mesh(1, 2, CPUS), sigma=3.0,
+                                             cutoff=12, maxiter=2)(*args))
+    assert p.shape == (2, 1024) and not c.any() and not cj.any()
+    np.testing.assert_allclose(f, fj, rtol=1e-4)
+    np.testing.assert_allclose(p, pj, rtol=0, atol=1e-4 * float(np.abs(pj).max()))
 
 
 def test_sharded_solver_goes_through_the_lane_ops(monkeypatch):

@@ -83,7 +83,18 @@ result lines):
    NaN, infinite and tied candidates, mu at its bounds, and the tail also
    writing the loop's state in place (bitwise the chain's freeze, every
    converged lane's state untouched to the bit), each with the kernel's,
-   the chain's and the bound's ms;
+   the chain's and the bound's ms; then the direction launch
+   (``lane.newton_direction_kernel``: the damped system, the direction and
+   its guard in one launch of the direction kernel's step variant,
+   ``lane_chol_step`` or, at n > ``CHOLESKY_MAX_N``, ``lane_pcg_step``) at
+   the (B, n) of :data:`DIRECTION_SHAPES`, and the guard alone (the
+   sharded solver's) at :data:`GUARD_ONLY_SHAPES`: bitwise the three
+   launches it replaced (``lane_lm_system``, the direction kernel,
+   ``lane_step_guard``) and its plain version, a lane alone, a captured
+   graph's replay, a second run, and the three launches again on inputs
+   with an infinite mu and an all-padded lane (beside the lane that is
+   not positive definite), each with the launch's, the three launches'
+   and the plain version's ms and the bound;
 4. the main path: ``automation.process_image`` on seed 0 of the bench's
    520x696 synthetic nuclei field at ``AF_scale=12`` (cold, then timed with
    the kernel launch counts), the label map held against the JAX-CPU golden
@@ -107,11 +118,14 @@ result lines):
    of the wall, the host's syncs and kernel and graph launches, the Newton
    loops' captures and replays, and the gram launches by (B, active lanes,
    P, n, route, pixel segments), counted at each replay, and the lane
-   kernels' launches by shape (``lane_pcg`` must launch: PCG's one launch
-   per Newton step at n > ``CHOLESKY_MAX_N``; ``lane_cholesky`` must
-   launch, below it; each of :data:`STEP_KERNELS` once per Newton
-   iteration; ``lane_sum`` never over (B, S, K) candidates, whose sums the
-   step kernels run), the elementwise activities and device ms per
+   kernels' launches by shape (``lane_pcg_step`` must launch: the
+   direction launch with PCG at n > ``CHOLESKY_MAX_N``; ``lane_chol_step``
+   must launch, below it; one of the two and each of
+   :data:`STEP_KERNELS` once per Newton iteration; none of
+   :data:`OFF_PATH_LANE_KERNELS`, ``lane_lm_system``, ``lane_step_guard``
+   and the direction kernels' plain variants among them; ``lane_sum`` never
+   over (B, S, K) candidates, whose sums the step kernels run), the
+   elementwise activities and device ms per
    replayed iteration, the device ms per replayed Newton iteration by
    kernel family from the graphs' replays alone (their activities carry a
    graph launch's correlation id), where a ``lane_cholesky`` activity must
@@ -165,7 +179,7 @@ result lines):
    (1024, 1024) and halo 160 (4 tiles), with 1 thread and then 2 threads on
    CUDA streams: objects, wall seconds, seconds per tile and gram launches
    per route of each, the 1-thread run's gram launches by (B, P, n) and
-   its ``lane_pcg`` and ``lane_cholesky`` launches by (B, n), and how many
+   its ``lane_pcg_step`` and ``lane_chol_step`` launches by (B, n), and how many
    planted nuclei it and the JAX-CPU
    golden ``tests/data/torch_port/mosaic-2048-seed0.csv`` find; a float32
    gram route must launch; the 1-thread label map (written to
@@ -182,10 +196,13 @@ result lines):
 11. meshes on one card: the sharded DSM solver at (B, P, n) = (8, 16384,
    128) over a (1, 2) mesh of ``[cuda:0, cuda:0]`` (lanes built as phase 3
    builds them): finite energies, one float32 ``dense`` launch per shard per
-   Newton iteration and one launch each of ``lane_cholesky``,
-   ``lane_step_guard``, ``lane_step_pick`` and ``lane_step_tail`` per
-   Newton iteration (its sums in the lane kernels, no ``lane_sum`` over (B,
-   S, K) candidates); lanes 0 and 7 alone bitwise equal to the
+   Newton iteration and one launch each of ``lane_chol_step`` (the Cholesky
+   direction with the guard in its epilogue; no ``lane_cholesky`` or
+   ``lane_step_guard`` launch), ``lane_step_pick`` and ``lane_step_tail``
+   per Newton iteration (its sums in the lane kernels, no ``lane_sum`` over
+   (B, S, K) candidates); params, energies and flags bitwise those of the
+   same solve with its direction and guard as the two launches they were;
+   lanes 0 and 7 alone bitwise equal to the
    same lanes in the batch; converged energies within rtol 1e-4 of a 1x1
    mesh and 1e-3 of the unsharded Newton loop; the sharded poly solver at
    (8, 8192, 6) the same way (lanes alone bitwise too); the sharded DSM
@@ -193,13 +210,14 @@ result lines):
    stream) within rtol 1e-4 of the 1x1 mesh; the sharded DSM solver at
    (8, 16384, 1024) (K = 1018, a cluster of 16 blocks a lane for its
    direction) over the (1, 2) mesh: finite energies, one
-   ``lane_cholesky`` launch per Newton iteration, all on that route
+   ``lane_chol_step`` launch per Newton iteration, all on that route
    (printed by route, with its iterations and seconds, and each
-   iteration's direction and both shards' local terms in device ms
-   between CUDA events), lanes 0 and 7
+   iteration's direction and guard and both shards' local terms in device
+   ms between CUDA events), lanes 0 and 7
    alone bitwise equal to the same lanes in the batch, and the whole solve
-   bitwise equal to the same solve with ``lane.cholesky_chain`` as its
-   direction; the bench field under the pipeline mesh ``'1'`` bitwise equal to
+   bitwise equal to the same solve with the plain version as its direction
+   and guard (``lane.cholesky_chain`` and the guard's op-by-op chain); the
+   bench field under the pipeline mesh ``'1'`` bitwise equal to
    phase 4's label map, and under a (2, 1) pipeline mesh of the card twice
    (each half of every chunk's lanes in its own thread and stream) within
    one unmatched object of its golden; ``parse_mesh_spec('2')`` raises on a
@@ -231,7 +249,9 @@ checkout's kernels and printing one JSON line: the device ms of every
 phase-3 launch, the float32 routes' first and then the bf16 routes' (each
 checked against the plain version first, as phase 3 checks it; the lane
 kernels' ms, ``solver._pcg_solve``'s at :data:`PCG_SHAPES`, the Cholesky
-direction's at :data:`CHOL_SHAPES` and one whole ``solver._newton_step``'s
+direction's at :data:`CHOL_SHAPES`, the step's direction and guard at
+:data:`DIRECTION_SHAPES` as each checkout launches them (one direction
+launch, or the three it replaced) and one whole ``solver._newton_step``'s
 at :data:`STEP_SHAPES`), then bench
 seeds 0-3 at ``AF_scale=12`` (after one cold run of seed 0),
 :data:`AB_REPS` times each, with each run's seconds, its
@@ -240,7 +260,9 @@ and canonically re-solved lanes (``batching.device_accounting``), gram
 launches per route and objects, and seed 0's match against the golden;
 then one more run of seed 0 under ``torch.profiler``: host syncs, kernel
 and graph launches issued by the host, device busy ms, idle share and the
-device ms per replayed Newton iteration by kernel family; seed 0 on the
+device ms per replayed Newton iteration by kernel family and in all, with
+the Newton loops' graph captures and the ms capturing and instantiating
+them; seed 0 on the
 eager loop with its device time split by section (the assembly of the
 damped system, the direction and its guard, PCG's steps within it, the
 line search with its pick, the scale sweep's sums, the rest: since
@@ -277,7 +299,10 @@ plan's; then ``lane_cholesky`` at :data:`SPLIT_CHOL` on its route (each
 phase's cycles summed over a launch, the mean over the blocks and block
 0's, which alone runs the back substitution), and the
 device ms of the cluster routes forced at each n of
-:data:`SPLIT_CHOL_ROUTES`; ``chiprun_out/split.json`` holds the same.
+:data:`SPLIT_CHOL_ROUTES`; then the direction launch at :data:`SPLIT_STEP`
+(the prologue's trace and damped load, the guard's phases in the lanes'
+blocks 0, beside the direction kernel's plain variant on the damped
+system); ``chiprun_out/split.json`` holds the same.
 
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
 gate enforced on every image (:data:`F64_NOT_MET` included): it fails
@@ -794,15 +819,23 @@ CHOL_SHAPES = [(16, 256), (8, 256), (32, 6), (16, 6), (2, 6), (8, 6), (64, 6), (
 CHOL_REPLACES = 'superdsm_tpu/dsm/solver.py:204'
 #: The lane kernels of the kernels line.
 LANE_KERNELS = tuple(LANE_SHAPES) + ('lane_pcg', 'lane_cholesky', 'lane_lm_system',
-                                     'lane_step_guard', 'lane_step_pick', 'lane_step_tail')
-#: Lane kernels that no solver path launches since their work moved into
-#: another kernel (``lane_dot`` into ``lane_step_guard``; ``lane.pcg_chain``,
-#: the oracle of ``lane_pcg``, and phase 3 still launch it): the main path
-#: must launch them 0 times.
-OFF_PATH_LANE_KERNELS = ('lane_dot',)
-#: The kernels of each Newton step around its direction and after its
-#: softplus sums: one launch each per Newton iteration.
-STEP_KERNELS = ('lane_lm_system', 'lane_step_guard', 'lane_step_pick', 'lane_step_tail')
+                                     'lane_step_guard', 'lane_chol_step', 'lane_pcg_step',
+                                     'lane_step_pick', 'lane_step_tail')
+#: Lane kernels that no unsharded solver path launches since their work
+#: moved into another launch (``lane_dot`` into the step guard; the damped
+#: system, the direction kernels' plain variants and the guard into the
+#: direction launch, :data:`DIRECTION_KERNELS`; the oracles and phase 3
+#: still launch them): the main path must launch them 0 times.
+OFF_PATH_LANE_KERNELS = ('lane_dot', 'lane_lm_system', 'lane_step_guard', 'lane_cholesky',
+                         'lane_pcg')
+#: The direction launch of a Newton step: the damped system, the direction
+#: (Cholesky, or PCG above ``CHOLESKY_MAX_N``) and its guard in one launch
+#: of the direction kernel's step variant; one of the two per Newton
+#: iteration.
+DIRECTION_KERNELS = ('lane_chol_step', 'lane_pcg_step')
+#: The kernels of each Newton step after its softplus sums: one launch each
+#: per Newton iteration.
+STEP_KERNELS = ('lane_step_pick', 'lane_step_tail')
 #: float32 operations of one softplus-energy term: the candidate's x (line
 #: search: u c, s +, y *, negation; scale sweep: c *, negation, with y s once
 #: a pixel; one energy: y *, negation), logaddexp(x, 0) (the isinf test,
@@ -1336,15 +1369,18 @@ def _step_inputs(B, n):
 
 #: ``lane_lm_system``'s shapes (B, n): the bench field's most frequent DSM
 #: chunk first (the kernels line's row), its other n = 256 and n = 128
-#: chunks, a banded n = 512 chunk and its c2f solves (n = 6); then the two
-#: shapes both step kernels launch besides (a c2f chunk of 8, a re-solve of
-#: 2 at n = 256).
-LM_SHAPES = [(16, 256), (8, 256), (16, 128), (2, 512), (32, 6), (16, 6), (8, 6), (2, 256)]
+#: chunks, a banded n = 512 chunk and its c2f solves (n = 6); then the
+#: shapes both step kernels launched besides (a c2f chunk of 8, a re-solve
+#: of 2 at n = 256, a c2f chunk of 2): every shape of a bench image's step
+#: launches until the direction launch took them in.
+LM_SHAPES = [(16, 256), (8, 256), (16, 128), (2, 512), (32, 6), (16, 6), (8, 6), (2, 256),
+             (2, 6)]
 #: ``lane_step_guard``'s shapes (B, n): the bench's banded n = 512 chunks
 #: first (a PCG direction, negated in the kernel; the kernels line's row),
 #: its n = 256 chunks (a Cholesky direction, one lane's NaN) and a c2f
-#: solve; then the same two as :data:`LM_SHAPES`.
-GUARD_SHAPES = [(2, 512), (16, 256), (8, 256), (2, 6), (8, 6), (2, 256)]
+#: solve; then the others of :data:`LM_SHAPES`.
+GUARD_SHAPES = [(2, 512), (16, 256), (8, 256), (2, 6), (8, 6), (2, 256), (16, 128), (32, 6),
+                (16, 6)]
 #: The lines of the JAX package's jitted ``_newton_step`` (XLA's fusions, no
 #: Pallas kernel) that the two step kernels run: the damped system, and the
 #: guard with the line search's regularizer candidates and thresholds.
@@ -1446,6 +1482,185 @@ def _check_step(name, shape):
     return dict(max_abs_err=max(errs, default=0.0), ms=ms, plain_ms=chain_ms,
                 chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bound_share=bound_ms / ms, library_ms=None, shape=list(shape))
+
+
+#: The direction launch's shapes (B, n) on the unsharded solver's path
+#: (``lane_chol_step``; ``lane_pcg_step`` at n > ``CHOLESKY_MAX_N``): those
+#: of :data:`LM_SHAPES` and :data:`GUARD_SHAPES` (the bench field's chunks
+#: and c2f solves; each kernel's table row first), a banded chunk of 16 at n
+#: = 512 (PCG's register route) and n = 1024, PCG's route in shared memory
+#: and L2, which takes a ``lane_lm_system`` launch before it.
+DIRECTION_SHAPES = [(16, 256), (2, 512), (8, 256), (16, 128), (32, 6), (16, 6), (8, 6),
+                    (2, 256), (2, 6), (16, 512), (2, 1024)]
+#: The sharded solver's direction launch (the guard alone on the system it
+#: damps itself) at phase 11's (B, n) of the bench's width; phase 11 holds
+#: its n = 1024 solve whole to the plain version.
+GUARD_ONLY_SHAPES = [(8, 128)]
+#: The lines of the JAX package's jitted ``_newton_step`` that the direction
+#: launch runs: from the damped system (:194) through the direction (PCG
+#: :202, ``cho_factor``/``cho_solve`` :204) to the guard and decrement.
+DIRECTION_REPLACES = {'lane_chol_step': 'superdsm_tpu/dsm/solver.py:194',
+                      'lane_pcg_step': 'superdsm_tpu/dsm/solver.py:194'}
+
+
+def _direction_inputs(B, n, damped=True):
+    """The direction launch's inputs at (B, n) on the card: H and g of
+    :func:`_chol_systems` (a damped system, lane B // 2 not positive
+    definite; the raw system of the damped launch, the system itself of the
+    guard alone), params of a tenth, alpha 0.5, the last tenth of kmask
+    padded, mu from 1e-6 up to 1e-2 across the lanes, f0 of 1e3 to 1e4, the
+    line search's steps, and PCG's ``(iters, rtol)`` where the solver takes
+    PCG (damped, n > ``CHOLESKY_MAX_N``), else None."""
+    import torch
+    from superdsm_tpu_torch.dsm import solver
+    H, g = _chol_systems(B, n)
+    rng = np.random.RandomState(B + 5 * n)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device='cuda')
+    K = max(n - 6, 0)
+    kmask = np.ones((B, K), np.float32)
+    kmask[:, K - K // 10:] = 0.0
+    pcg = (solver.CG_MAX_ITERS, solver.CG_RTOL) if damped and n > solver.CHOLESKY_MAX_N \
+        else None
+    return dict(H=H, g=g, params=t(rng.randn(B, n) * 0.1), alpha=t(np.full(B, 0.5)),
+                kmask=t(kmask), mu=t(np.logspace(-6, -2, B)) if damped else None,
+                f0=t(rng.uniform(1e3, 1e4, B)),
+                steps=solver._steps(torch.float32, torch.device('cuda')), pcg=pcg)
+
+
+def _three_launches(params, mu, alpha, epsilon, kmask, g, H, steps, f0, armijo_c, pcg=None):
+    """The direction launch as the chain of three launches it replaced:
+    ``lane_lm_system`` (with ``mu``), ``lane_pcg`` or ``lane_cholesky``, and
+    ``lane_step_guard``."""
+    from superdsm_tpu_torch.dsm import lane
+    if mu is not None:
+        g, H = lane.lm_system_kernel(params, mu, alpha, epsilon, kmask, g, H)
+    direction = lane.pcg_kernel(H, g, *pcg[:2]) if pcg else lane.cholesky_kernel(H, g)
+    return lane.step_guard_kernel(direction, g, params, alpha, epsilon, kmask, steps, f0,
+                                  armijo_c, pcg is not None)
+
+
+def _check_direction(shape, damped=True):
+    """Holds the direction launch (``lane.newton_direction_kernel``) at
+    ``(B, n)`` (:func:`_direction_inputs`; ``damped``: with the damped
+    system's prologue, as the unsharded solver launches it, else the guard
+    alone, as the sharded one does) bitwise to the three launches it
+    replaced (:func:`_three_launches`) and to its plain version on the card
+    (``lane.newton_direction_plain``: ATen's ops, the lane sums, the
+    Cholesky or PCG chain), a NaN against any NaN; a lane alone, a captured
+    graph's replay and a second run bitwise equal to it; and again on
+    non-finite inputs (damped: an infinite mu in lane 1 and every dimension
+    of the last lane padded; the guard alone: a NaN in lane 0's system and
+    an infinite f0 in the last lane), beside the lane that is not positive
+    definite. Returns its table row.
+
+    Bound: the larger of the bytes (H read once; g, params, kmask, mu,
+    alpha, f0 and steps read once; delta, the decrement, the thresholds and
+    the regularizer candidates written once) over the memory rate and the
+    float32 operations (Cholesky's n^3 / 3 + 2 n^2 a lane, or PCG's 2 n^2 a
+    product for the steps each lane ran; the damping's 2 n^2 + 20 n; the
+    guard's 2 n + 8 S K + 4 S) over the float32 peak. The plain version is
+    timed with PCG run to ``CG_MAX_ITERS`` (its bits, and a CUDA graph holds
+    it); no single PyTorch call computes the step, so no library call."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane, solver
+    B, n = shape
+    a = _direction_inputs(B, n, damped)
+    pcg = a['pcg']
+    name = 'lane_pcg_step' if pcg else 'lane_chol_step'
+    K, S = max(n - 6, 0), solver.LS_STEPS
+    tag = f'{name} {shape}' + ('' if damped else ', the guard alone')
+
+    def call(fn, a, lanes=slice(None), pcg=pcg):
+        L = lambda k: None if a[k] is None else a[k][lanes]
+        return fn(L('params'), L('mu'), L('alpha'), 1.0, L('kmask'), L('g'), L('H'), a['steps'],
+                  L('f0'), solver.ARMIJO_C, pcg)
+
+    def same(x, y):
+        return all(u is None and v is None or _same_bits(u, v) for u, v in zip(x, y))
+
+    def special(a):
+        a = dict(a, H=a['H'].clone(), f0=a['f0'].clone(), kmask=a['kmask'].clone())
+        if damped:
+            a['mu'] = a['mu'].clone()
+            a['mu'][min(1, B - 1)] = float('inf')
+            a['kmask'][-1] = 0.0
+        else:
+            a['H'][0, n // 2, n // 3] = float('nan')
+            a['f0'][-1] = float('inf')
+        return a
+
+    def fallback(a):
+        # the lanes whose direction is not finite: the guard's gradient step
+        g, H = a['g'], a['H']
+        if damped:
+            g, H = lane.lm_system_kernel(a['params'], a['mu'], a['alpha'], 1.0, a['kmask'], g, H)
+        d = lane.pcg_kernel(H, g, *pcg) if pcg else lane.cholesky_kernel(H, g)
+        return [b for b in range(B) if not bool(torch.isfinite(d[b]).all())], g, H
+    kernel = lane.newton_direction_kernel
+    lane.reset_launch_counts()
+    out = call(kernel, a)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in lane.LAUNCHES.items() if v}
+    want = {name: 1, **({'lane_lm_system': 1} if pcg and n > lane.PCG_REG_MAX_N else {})}
+    if launched != want:
+        fail(f'{tag}: launches {launched}, expected {want}')
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call(kernel, a)
+    graph.replay()
+    torch.cuda.synchronize()
+    odd = special(a)
+    checks = {
+        'the three launches': same(out, call(_three_launches, a)),
+        'the plain chain': same(out, call(lane.newton_direction_plain, a)),
+        'a second run': same(out, call(kernel, a)),
+        'a lane alone': all(same([x[0] for x in call(kernel, a, slice(b, b + 1)) if x is not None],
+                                 [x[b] for x in out if x is not None])
+                            for b in sorted({0, B // 2, B - 1})),
+        'a captured graph': same(captured, out),
+        'the three launches on non-finite inputs': same(call(kernel, odd),
+                                                        call(_three_launches, odd))}
+    del graph, captured
+    steps_run = None
+    if pcg:
+        _, g_d, H_d = fallback(a)
+        final = lane.pcg_kernel(H_d, g_d, *pcg)
+        runs = [lane.pcg_kernel(H_d, g_d, i, pcg[1]) for i in range(pcg[0] + 1)]
+        steps_run = [next(i for i, x in enumerate(runs) if torch.equal(_bits(x[b]), _bits(final[b])))
+                     for b in range(B)]
+        del runs, final, g_d, H_d
+    say(f'[kernel] {tag}: bitwise equal to ' + ', '.join(f'{k} {v}' for k, v in checks.items())
+        + f'; gradient steps in lanes {fallback(a)[0]}, and {fallback(odd)[0]} on the '
+        f'non-finite inputs' + ('' if steps_run is None else f'; PCG steps per lane {steps_run}'))
+    for what, ok in checks.items():
+        if not ok:
+            fail(f'{tag}: the direction launch not bitwise equal to {what}')
+    if not bool(torch.isfinite(out[0]).all()):
+        fail(f'{tag}: a non-finite delta')
+    ms = _event_ms(lambda: call(kernel, a))
+    chain_ms = _event_ms(lambda: call(_three_launches, a))
+    plain_ms = _event_ms(lambda: call(lane.newton_direction_plain, a,
+                                      pcg=None if pcg is None else pcg + (False,)))
+    nbytes = 4.0 * (B * n * n + 3 * B * n + B * K + 3 * B + S + B + (2 if n > 6 else 1) * B * S)
+    if pcg:
+        ops = 2.0 * n * n * sum(s + 1 for s in steps_run)
+    else:
+        ops = B * (n ** 3 / 3.0 + 2.0 * n * n)
+    ops += (2.0 * B * n * n + 20.0 * B * n if damped else 0.0) + B * (2.0 * n + 8.0 * S * K
+                                                                      + 4.0 * S)
+    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
+    route = f'PCG, H in {"registers" if n <= lane.PCG_REG_MAX_N else "shared memory and L2"}' \
+        if pcg else lane.CHOL_ROUTES[lane.cholesky_route(B, n)]
+    say(f'[kernel] {tag}: one launch ({route}) {ms:.4f} ms, the three launches {chain_ms:.4f} '
+        f'ms ({chain_ms / ms:.2f}x), plain chain {plain_ms:.4f} ms, library none, bound '
+        f'{bound_ms:.4f} ms by {bound_by}: {bound_ms / ms:.1%} of the bound')
+    del a, odd
+    return dict(name=name, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                library_ms=None, shape=list(shape), damped=damped, solve=route,
+                pcg_steps=steps_run)
 
 
 #: ``lane_step_pick``'s and ``lane_step_tail``'s shapes (B, P, n): those of
@@ -1685,8 +1900,9 @@ def phase_kernels():
     inputs, the lane kernels at :data:`LANE_SHAPES`, ``lane_pcg`` at
     :data:`PCG_SHAPES`, ``lane_cholesky`` at :data:`CHOL_SHAPES`,
     ``lane_lm_system`` at :data:`LM_SHAPES`, ``lane_step_guard`` at
-    :data:`GUARD_SHAPES` and ``lane_step_pick`` and ``lane_step_tail`` at
-    :data:`TAIL_SHAPES`."""
+    :data:`GUARD_SHAPES`, the direction launch at :data:`DIRECTION_SHAPES`
+    and, the guard alone, at :data:`GUARD_ONLY_SHAPES`, and
+    ``lane_step_pick`` and ``lane_step_tail`` at :data:`TAIL_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
@@ -1724,6 +1940,13 @@ def phase_kernels():
     for name, shapes in (('lane_lm_system', LM_SHAPES), ('lane_step_guard', GUARD_SHAPES)):
         step = [_check_step(name, shape) for shape in shapes]
         rows[name] = dict(step[0], other_shapes=step[1:])
+    direction = {name: [] for name in DIRECTION_KERNELS}
+    for shape, damped in [(x, True) for x in DIRECTION_SHAPES] + \
+            [(x, False) for x in GUARD_ONLY_SHAPES]:
+        row = _check_direction(shape, damped)
+        direction[row.pop('name')].append(row)
+    for name, found in direction.items():
+        rows[name] = dict(found[0], other_shapes=found[1:])
     tail = [_check_tail(shape) for shape in TAIL_SHAPES]
     for name in ('lane_step_pick', 'lane_step_tail'):
         rows[name] = dict(tail[0][name], other_shapes=[t[name] for t in tail[1:]])
@@ -2071,7 +2294,9 @@ def _profiled(fn):
     (with the host ms the graph launches took), and the device's busy ms
     (the union of its activities) with the device spans, and apart the
     spans of the CUDA graphs' replays (the activities that carry a graph
-    launch's correlation id)."""
+    launch's correlation id), with the sum over the replays of each one's
+    span on the device (its first activity's start to its last one's end:
+    the gaps between a graph's nodes included)."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2091,6 +2316,10 @@ def _profiled(fn):
     replay_spans = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
                     for e in events
                     if e.device_type() == cuda and e.correlation_id() in replays]
+    by_replay = collections.defaultdict(list)
+    for e in events:
+        if e.device_type() == cuda and e.correlation_id() in replays:
+            by_replay[e.correlation_id()].append((e.start_ns(), e.start_ns() + e.duration_ns()))
     return result, dict(
         syncs=sum(names[n] for n in HOST_SYNC_CALLS),
         launches=sum(names[n] for n in HOST_LAUNCH_CALLS),
@@ -2099,6 +2328,8 @@ def _profiled(fn):
                             if e.name() in GRAPH_LAUNCH_CALLS) / 1e6,
         busy_ms=_merged_ms([(a, b) for _, a, b in spans]),
         span_ms=(max(b for _, _, b in spans) - min(a for _, a, _ in spans)) / 1e3,
+        replay_span_ms=sum(max(b for _, b in v) - min(a for a, _ in v)
+                           for v in by_replay.values()) / 1e6,
         spans=spans, replay_spans=replay_spans)
 
 
@@ -2315,7 +2546,8 @@ def _profile_line(tag, seconds, counts, loop=None):
             f'{1e3 * loop["instantiate_s"]:.1f} ms instantiating, graph memory '
             f'{loop["graph_bytes"] / 2**20:.1f} MiB reserved while capturing), '
             f'{loop["replays"]} replays; device busy {busy / iters:.3f} ms per '
-            f'iteration')
+            f'iteration; a replay\'s span on the device '
+            f'{counts["replay_span_ms"] / max(loop["replays"], 1):.4f} ms')
         out['families'] = _family_split(counts['spans'], loop['iterations'])
         say(f'[profile] {tag}: device ms (activities) per Newton iteration by '
             'kernel family: ' + ', '.join(f'{f} {t:.4f} ({c:.1f})'
@@ -2389,14 +2621,14 @@ def phase_profile(g):
     for name in LANE_KERNELS:
         say(f'[profile] {name}: {sum(c for (k, _), c in lane_hist.items() if k == name)} '
             f'launches in {len([1 for k, _ in lane_hist if k == name])} shapes')
-    for name in ('lane_pcg', 'lane_cholesky', 'softplus_energies'):
+    for name in DIRECTION_KERNELS + ('lane_lm_system', 'lane_step_guard', 'softplus_energies'):
         say(f'[profile] {name} launches by shape: ' + str(
             {shape: c for (k, shape), c in lane_hist.most_common() if k == name}))
     solver_in_replays = [(f, t, c) for f, t, c in profile0['replay_families']
                          if f == 'cuSOLVER/MAGMA']
     say(f'[profile] cuSOLVER/MAGMA activities per replayed Newton iteration: '
         f'{solver_in_replays[0][2] if solver_in_replays else 0} (the Cholesky '
-        f'direction is lane_cholesky; _lsq_init\'s solve_ex runs before the loop)')
+        f'direction is lane_chol_step\'s; _lsq_init\'s solve_ex runs before the loop)')
     if not profile0['loop']['replays'] or not any(
             f == 'lane_cholesky' for f, _, _ in profile0['replay_families']):
         fail('profile: no lane_cholesky activity in a replayed Newton iteration')
@@ -2484,13 +2716,15 @@ def phase_main_path():
     if unlaunched:
         fail(f'the main path left a lane kernel unlaunched: {unlaunched}')
     say(f'[main] {iterations} Newton iterations; ' + ', '.join(
-        f'{k} {launches[k]} launches' for k in STEP_KERNELS + OFF_PATH_LANE_KERNELS))
+        f'{k} {launches[k]} launches'
+        for k in DIRECTION_KERNELS + STEP_KERNELS + OFF_PATH_LANE_KERNELS))
     if any(launches[k] for k in OFF_PATH_LANE_KERNELS):
         fail(f'the main path launched {[k for k in OFF_PATH_LANE_KERNELS if launches[k]]}, '
-             'whose work another kernel does')
-    if any(launches[k] != iterations for k in STEP_KERNELS):
+             'whose work another launch does')
+    if any(launches[k] != iterations for k in STEP_KERNELS) or \
+            sum(launches[k] for k in DIRECTION_KERNELS) != iterations:
         fail(f'the step kernels did not launch once per Newton iteration ({iterations}): '
-             f'{ {k: launches[k] for k in STEP_KERNELS} }')
+             f'{ {k: launches[k] for k in DIRECTION_KERNELS + STEP_KERNELS} }')
     if any(v for r, v in launches.items() if r.endswith('pass')):
         fail('the default knobs launched a reduced-precision gram')
     if n_obj == 0:
@@ -2982,7 +3216,7 @@ def phase_mosaic():
     cfg = T.Config({'AF_scale': 12})
     cfg['c2f-region-analysis/speculate'] = False
     labels, launches = {}, {}
-    by_shape = {'gram': {}, 'lane_pcg': {}, 'lane_cholesky': {}}
+    by_shape = {'gram': {}, 'lane_pcg_step': {}, 'lane_chol_step': {}}
 
     def gram_shape(Bf_shape, *_):
         key = tuple(Bf_shape)
@@ -3019,8 +3253,8 @@ def phase_mosaic():
     say('[mosaic] 1 thread: launches by shape: ' + '; '.join(
         f'{name} ' + ', '.join(f'{k} {v}' for k, v in sorted(table.items()))
         for name, table in by_shape.items()) + '; largest n of a gram launch '
-        f'{max((k[2] for k in by_shape["gram"]), default=0)}, of a lane_pcg launch '
-        f'{max((k[1] for k in by_shape["lane_pcg"]), default=0)}')
+        f'{max((k[2] for k in by_shape["gram"]), default=0)}, of a lane_pcg_step launch '
+        f'{max((k[1] for k in by_shape["lane_pcg_step"]), default=0)}')
     if not any(launches[1].get(r) for r in ('dense', 'triangle', 'banded')):
         fail('mosaic: no float32 gram route launched')
     validate = _validate_module()
@@ -3091,12 +3325,14 @@ def _compare(tag, f, conv, f_ref, conv_ref, rtol):
 
 def _wide_mesh_solve(mesh2):
     """The sharded DSM solver at :data:`MESH_DSM_WIDE_SHAPE` over ``mesh2``:
-    one ``lane_cholesky`` launch per Newton iteration, all on the route of
-    16 blocks a lane that n takes; lanes alone and the solve with
-    ``lane.cholesky_chain`` as its direction bitwise equal to it. Times
-    each iteration's direction and each shard's local terms (surface,
-    softplus sums and gram: ``_Shard.contribs``) between CUDA events on the
-    row's stream."""
+    one ``lane_chol_step`` launch (the Cholesky direction with its guard)
+    per Newton iteration, all on the route of 16 blocks a lane that n
+    takes; lanes alone and the solve with the plain version as its
+    direction and guard (``lane.newton_direction_plain``:
+    ``lane.cholesky_chain`` and the guard's op-by-op chain) bitwise equal
+    to it. Times each iteration's direction and guard and each shard's
+    local terms (surface, softplus sums and gram: ``_Shard.contribs``)
+    between CUDA events on the row's stream."""
     import torch
     from superdsm_tpu_torch.dsm import lane
     from superdsm_tpu_torch.parallel import newton
@@ -3108,7 +3344,7 @@ def _wide_mesh_solve(mesh2):
     routes = {}
 
     def by_route(name, shape):
-        if name == 'lane_cholesky':
+        if name == 'lane_chol_step':
             route = lane.CHOL_ROUTES[lane.cholesky_route(*shape)]
             routes[route] = routes.get(route, 0) + 1
     events = {'direction': [], 'local terms': []}
@@ -3123,20 +3359,21 @@ def _wide_mesh_solve(mesh2):
             events[key].append((start, end))
             return result
         return call
-    direction = newton._cholesky_direction
+    direction = lane.newton_direction
     calls, original = _counting_contribs()
     newton._Shard.contribs = timed(newton._Shard.contribs, 'local terms')
-    newton._cholesky_direction = timed(direction, 'direction')
+    lane.newton_direction = timed(direction, 'direction')
     lane.LAUNCH_HOOKS.append(by_route)
     try:
         lane.reset_launch_counts()
         t0 = time.time()
         out = [t.cpu().numpy() for t in solve(*args)]
         seconds = time.time() - t0
-        launches = lane.LAUNCHES['lane_cholesky']
+        launches = lane.LAUNCHES['lane_chol_step']
+        guards = lane.LAUNCHES['lane_step_guard'] + lane.LAUNCHES['lane_cholesky']
     finally:
         newton._Shard.contribs = original
-        newton._cholesky_direction = direction
+        lane.newton_direction = direction
         lane.LAUNCH_HOOKS.remove(by_route)
     torch.cuda.synchronize()
     iterations = calls[0] // 2
@@ -3144,30 +3381,32 @@ def _wide_mesh_solve(mesh2):
     local = [sum(ms['local terms'][2 * i:2 * i + 2]) for i in range(iterations)]
     wide = lane.CHOL_ROUTES[lane.cholesky_route(B, n)]
     say(f'[mesh] sharded DSM {MESH_DSM_WIDE_SHAPE} over {mesh2.shape}: {seconds:.2f} s, '
-        f'{iterations} Newton iterations, lane_cholesky launches by route {routes}, '
+        f'{iterations} Newton iterations, lane_chol_step launches by route {routes}, '
         f'{int(out[2].sum())}/{B} lanes converged; device ms an iteration (CUDA events): '
-        f'direction {[round(x, 4) for x in ms["direction"]]}, both shards\' local terms '
+        f'direction and guard {[round(x, 4) for x in ms["direction"]]}, both shards\' local terms '
         f'(surface, softplus sums, gram) {[round(x, 4) for x in local]}; wall ms an '
         f'iteration {seconds * 1e3 / max(iterations, 1):.1f}')
     if not np.isfinite(out[1]).all():
         fail(f'sharded DSM {MESH_DSM_WIDE_SHAPE}: non-finite energy')
     if iterations == 0 or launches != iterations or routes != {wide: iterations} \
-            or lane.cholesky_route(B, n) < 2:
-        fail(f'sharded DSM {MESH_DSM_WIDE_SHAPE}: lane_cholesky launches by route {routes} '
-             f'for {iterations} Newton iterations (one each on a route of 16 blocks expected)')
+            or lane.cholesky_route(B, n) < 2 or guards:
+        fail(f'sharded DSM {MESH_DSM_WIDE_SHAPE}: lane_chol_step launches by route {routes} '
+             f'for {iterations} Newton iterations (one each on a route of 16 blocks expected), '
+             f'{guards} lane_step_guard and lane_cholesky launches (none expected)')
     alone = all(np.array_equal(x[b:b + 1], x1) for b in (0, B - 1) for x, x1 in zip(
         out, (t.cpu().numpy() for t in solve(*(a[b:b + 1] for a in args)))))
-    newton._cholesky_direction = lane.cholesky_chain
+    lane.newton_direction = lane.newton_direction_plain
     try:
         t0 = time.time()
         chained = [t.cpu().numpy() for t in solve(*args)]
         chain_seconds = time.time() - t0
     finally:
-        newton._cholesky_direction = direction
+        lane.newton_direction = direction
     same = all(np.array_equal(x, y) for x, y in zip(out, chained))
     say(f'[mesh] sharded DSM {MESH_DSM_WIDE_SHAPE}: lanes 0 and {B - 1} alone bitwise equal '
         f'to the same lanes in the batch: {alone}; bitwise equal to the solve with '
-        f'lane.cholesky_chain as its direction ({chain_seconds:.2f} s): {same}')
+        f'lane.cholesky_chain and the guard\'s plain chain as its direction and guard '
+        f'({chain_seconds:.2f} s): {same}')
     if not (alone and same):
         fail(f'sharded DSM {MESH_DSM_WIDE_SHAPE}: a lane alone or the chain-direction solve '
              'differs')
@@ -3227,19 +3466,40 @@ def phase_mesh(bench_seg):
             sum(launches.values()) != launches['dense']:
         fail(f'sharded DSM: {launches} float32 launches for {calls[0]} shard '
              'iterations (one dense launch per shard per iteration expected)')
-    # the direction is one lane_cholesky launch per Newton iteration of the
-    # row, its guard one lane_step_guard launch, its pick and tail one
+    # the direction and its guard are one lane_chol_step launch per Newton
+    # iteration of the row (the guard in the Cholesky kernel's epilogue: no
+    # lane_cholesky and no lane_step_guard launch), its pick and tail one
     # lane_step_pick and one lane_step_tail launch; the sums go through the
     # lane kernels, none through lane_dot, and lane_sum sums the assembly's
     # regularizer value and trace alone, no (B, S, K) candidates
-    per_iteration = ('lane_cholesky', 'lane_step_guard', 'lane_step_pick', 'lane_step_tail')
+    per_iteration = ('lane_chol_step', 'lane_step_pick', 'lane_step_tail')
+    never = ('lane_dot', 'lane_cholesky', 'lane_step_guard', 'lane_lm_system')
     say(f'[mesh] sharded DSM: lane_sum launches by shape {sum_shapes}')
     if any(lane_launches[k] != calls[0] // 2 for k in per_iteration) \
             or not all(lane_launches[k] for k in ('lane_sum', 'softplus_energies')) \
-            or lane_launches['lane_dot'] or any(len(shape) == 3 for shape in sum_shapes):
+            or any(lane_launches[k] for k in never) or any(len(shape) == 3 for shape in sum_shapes):
         fail(f'sharded DSM: lane kernel launches {lane_launches} (lane_sum by shape '
              f'{sum_shapes}) for {calls[0] // 2} Newton iterations (one each of '
-             f'{per_iteration}, no lane_dot and no lane_sum over (B, S, K) expected)')
+             f'{per_iteration}, none of {never} and no lane_sum over (B, S, K) expected)')
+    # the epilogue bitwise the former guard: the same solve with the
+    # direction and the guard as the two launches they were
+    former = lane.newton_direction
+
+    def two_launches(params, mu, alpha, epsilon, kmask, g, Hd, steps, f0, armijo_c, pcg=None):
+        return lane.step_guard_kernel(lane.cholesky_kernel(Hd, g), g, params, alpha, epsilon,
+                                      kmask, steps, f0, armijo_c)
+    lane.newton_direction = two_launches
+    try:
+        p2f, f2f, c2f = (t.cpu().numpy() for t in newton.make_sharded_dsm_solver(
+            mesh2, MESH_SIGMA, MESH_CUTOFF)(*dsm_args))
+    finally:
+        lane.newton_direction = former
+    same = all(np.array_equal(x, y) for x, y in zip((p2, f2, c2), (p2f, f2f, c2f)))
+    say(f'[mesh] sharded DSM: params, energies and flags bitwise those of the same solve '
+        f'with its direction and guard as the two launches lane_cholesky and '
+        f'lane_step_guard: {same}')
+    if not same:
+        fail('sharded DSM: the guard epilogue differs from the former lane_step_guard launch')
     # a lane alone gives its bits in the batch
     solve2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)
     same = True
@@ -3677,6 +3937,16 @@ def _ab_lane_ms():
         out[f'_cholesky_direction {(B, n)}'] = _event_ms(
             lambda: solver._cholesky_direction(Hd, g))
     _CHOL_SYSTEMS.clear()
+    # the step's damped system, direction and guard as the checkout launches
+    # them: one direction launch, or the three launches it replaced
+    direction = getattr(lane, 'newton_direction_kernel', None) or _three_launches
+    for B, n in DIRECTION_SHAPES:
+        a = _direction_inputs(B, n)
+        out[f'direction and guard {(B, n)}'] = _event_ms(lambda: direction(
+            a['params'], a['mu'], a['alpha'], 1.0, a['kmask'], a['g'], a['H'], a['steps'],
+            a['f0'], solver.ARMIJO_C, a['pcg']))
+        del a
+    _CHOL_SYSTEMS.clear()
     for shape in STEP_SHAPES:
         args = _newton_step_args(*shape)
         out[f'_newton_step {shape}'] = _event_ms(lambda: solver._newton_step(*args))
@@ -3771,6 +4041,8 @@ def ab_run(root, out_dir):
                    families=_family_split(counts['spans'], iterations),
                    replay_families=_family_split(counts['replay_spans'],
                                                  solver.LOOP_STATS['replays']),
+                   loop={k: solver.LOOP_STATS[k] for k in ('graphs', 'replays', 'capture_s',
+                                                           'instantiate_s')},
                    **{k: v for k, v in counts.items() if k not in SPAN_KEYS})
     # seed 0 on the eager loop, its device time split by section
     sections, eager_iterations = _section_split(lambda: _segment(images[0], 12))
@@ -3864,6 +4136,18 @@ def ab(roots, report=False):
                 f'{f} {np.mean([t for t, _ in v]):.4f} ({np.mean([c for _, c in v]):.1f})'
                 for f, v in sorted(fams.items(), key=lambda kv: -np.mean(
                     [t for t, _ in kv[1]]))))
+        totals = [sum(t for _, t, _ in out['profile']['replay_families']) for out in outs]
+        activities = [sum(c for _, _, c in out['profile']['replay_families']) for out in outs]
+        loops = [out['profile'].get('loop', {}) for out in outs]
+        spans = [out['profile'].get('replay_span_ms', float('nan')) / max(lp.get('replays', 1), 1)
+                 for out, lp in zip(outs, loops)]
+        say(f'[ab] {root}: seed 0, a replayed Newton iteration: device ms {np.mean(totals):.4f} '
+            f'in {np.mean(activities):.1f} activities (turns {[round(t, 4) for t in totals]}), '
+            f'span on the device {np.mean(spans):.4f} ms (the gaps between its nodes '
+            f'included; turns {[round(t, 4) for t in spans]}); graphs captured '
+            f'{[lp.get("graphs") for lp in loops]}, ms capturing '
+            f'{[round(1e3 * lp.get("capture_s", 0.0), 1) for lp in loops]}, ms instantiating '
+            f'{[round(1e3 * lp.get("instantiate_s", 0.0), 1) for lp in loops]}')
         split = {}
         for out in outs:
             for f, w, ms in out['sections']:
@@ -3938,6 +4222,16 @@ SPLIT_CHOL_ROUTES = [(1, 384), (2, 384), (2, 512), (8, 512), (16, 512), (2, 640)
 #: over a launch.
 CHOL_PHASES = ('H loaded', 'cluster barrier waits', 'panel read back',
                'factoring own panels', 'trailing updates', 'back substitution')
+#: The direction launch's (B, n) under ``--split``: the bench field's two
+#: most frequent DSM chunks (a cluster of 8 blocks a lane) and its banded n
+#: = 512 chunks (PCG's register route).
+SPLIT_STEP = [(16, 256), (8, 256), (2, 512)]
+#: The phases the direction kernels' step variants stamp beyond their own
+#: (phases 10 to 12 of ``csrc/lane_ops.cu``): the prologue's trace (every
+#: block) and, in block 0 of a lane, the guard (its non-finite test,
+#: fallback, decrement and thresholds) and its regularizer sums.
+STEP_PHASES = ('trace (prologue)', 'guard: test, decrement, thresholds',
+               'guard: regularizer sums')
 #: The phases each kernel stamps (``csrc/lane_ops.cu``, ``split.mark``), in
 #: stamp order. A PCG step's phases are summed over its steps (the matvec
 #: and the H p exchange also over the first product, r = b - H x); the
@@ -3965,7 +4259,8 @@ SPLIT_ENTRIES = {'split_reset': (0, 0), 'split_read': (1, 0),
                  'split_pcg_info': (1, 3), 'split_pcg_smem': (3, 3, 2),
                  'split_softplus_info': (1, 4), 'split_softplus_pr13': (6, 4),
                  'split_softplus_tiles': (0, 1), 'split_cholesky': (4, 3),
-                 'split_chol_floats': (0, 2), 'split_chol_info': (1, 3)}
+                 'split_chol_floats': (0, 2), 'split_chol_info': (1, 3),
+                 'split_step_info': (1, 3)}
 
 
 def _split_library():
@@ -3989,7 +4284,8 @@ def _split_library():
     log, keep = [], False
     for line in (proc.stdout + proc.stderr).splitlines():
         if 'Compiling entry function' in line:
-            keep = any(k in line for k in ('lane_pcg', 'lane_softplus', 'lane_cholesky'))
+            keep = any(k in line for k in ('lane_pcg', 'lane_softplus', 'lane_cholesky',
+                                           'lane_lm_system', 'lane_step_guard'))
         if keep:
             log.append(line.strip())
     return lib, log
@@ -4094,6 +4390,8 @@ def _split_report(tag, lib, launch, blocks, phases, per_step, main, info, once=(
     mhz = float(np.mean((c1 - c0) / (ns1 - ns0)) * 1e3)
     cycles = {}
     for k, name in enumerate(phases):
+        if name is None:  # a phase the kernel does not stamp
+            continue
         v = w[..., k]
         if per_step and k not in once:
             v = v / np.maximum(steps + (1 if k in (1, 2) else 0), 1)
@@ -4107,7 +4405,7 @@ def _split_report(tag, lib, launch, blocks, phases, per_step, main, info, once=(
     ms = _event_ms(launch)
     main_ms = None if main is None else _event_ms(main)
     burst_ms = _event_ms(launch, reps=1, calls=20)
-    total = sum(c for k, c in enumerate(cycles.values()) if not per_step or k not in once)
+    total = sum(c for name, c in cycles.items() if not per_step or phases.index(name) not in once)
     unit = 'a step' if per_step else 'a launch'
     say(f'[split] {tag}: {info["blocks"]} blocks of {info["threads"]} threads, '
         f'{info["registers"]} registers, {info["spill_bytes"]} spilled bytes, '
@@ -4204,6 +4502,96 @@ def _split_cholesky(lib):
             for r in routes) + f'; the main build takes {lane.CHOL_ROUTES[lane.cholesky_route(B, n)]}')
         _CHOL_SYSTEMS.clear()
     result['lane_cholesky routes'] = times
+    return result
+
+
+def _split_step(lib):
+    """``--split``'s direction-launch rows: at :data:`SPLIT_STEP` the
+    phases of the launch with the damped system's prologue and the guard's
+    epilogue (bitwise the main build), the guard's phases in the lanes'
+    blocks 0 alone, where it runs, and the same direction kernel's plain
+    variant on the damped system (its load of H raw, no guard)."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane, solver
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    result = {}
+    for B, n in SPLIT_STEP:
+        a = _direction_inputs(B, n)
+        pcg = a['pcg']
+        iters, rtol = pcg if pcg else (0, 0.0)
+        args = (a['params'], a['mu'], a['alpha'], 1.0, a['kmask'], a['g'], a['H'], a['steps'],
+                a['f0'], solver.ARMIJO_C, pcg)
+        main = lambda: lane.newton_direction_kernel(*args)
+        ref = main()
+        K, S = n - 6, solver.LS_STEPS
+        outs = [torch.empty((B, n), device='cuda'), torch.empty(B, device='cuda'),
+                torch.empty((B, S), device='cuda') if K > 0 else None,
+                torch.empty((B, S), device='cuda')]
+        floats = 0 if pcg else lib.sdsm_lane_chol_scratch_floats(B, n, None)
+        scratch = torch.empty((B, max(floats, 1)), device='cuda')
+        name = 'lane_pcg_step' if pcg else 'lane_chol_step'
+        tag = f'{name} {(B, n)}'
+
+        def launch():
+            err = lib.sdsm_lane_newton_direction(
+                a['H'].data_ptr(), a['g'].data_ptr(), a['params'].data_ptr(),
+                a['mu'].data_ptr(), a['alpha'].data_ptr(), a['kmask'].data_ptr(),
+                a['steps'].data_ptr(), a['f0'].data_ptr(), outs[0].data_ptr(),
+                outs[1].data_ptr(), None if outs[2] is None else outs[2].data_ptr(),
+                outs[3].data_ptr(), scratch.data_ptr(), B, n, S, int(bool(pcg)), 1, iters,
+                1.0, float(np.float32(1.0) / np.float32(n)), float(np.float32(1e-12)), 1.0,
+                float(np.float32(solver.ARMIJO_C)), float(np.float32(rtol * rtol)),
+                float(np.float32(1e-30)), stream())
+            if err:
+                fail(f'--split: {tag} launch failed: CUDA error {err}')
+        launch()
+        if not all(x is None and y is None or torch.equal(_bits(x), _bits(y))
+                   for x, y in zip(outs, ref)):
+            fail(f'--split: the stamped {tag} differs from the main build')
+        info = _split_info(lib.sdsm_lane_split_step_info, B, n, int(bool(pcg)))
+        # the plain variant on the damped system the prologue forms
+        g_d, H_d = lane.lm_system_kernel(a['params'], a['mu'], a['alpha'], 1.0, a['kmask'],
+                                         a['g'], a['H'])
+        x = torch.empty_like(g_d)
+        if pcg:
+            phases = PCG_REG_PHASES + STEP_PHASES
+            once = (0, 9, 10, 11, 12)
+
+            def plain():
+                err = lib.sdsm_lane_pcg(H_d.data_ptr(), g_d.data_ptr(), x.data_ptr(), B, n,
+                                        iters, float(np.float32(rtol * rtol)),
+                                        float(np.float32(1e-30)), stream())
+                if err:
+                    fail(f'--split: lane_pcg {(B, n)} launch failed: CUDA error {err}')
+            plain_info = _split_info(lib.sdsm_lane_split_pcg_info, B, n, 0)
+        else:
+            phases = CHOL_PHASES + (None,) * 4 + STEP_PHASES
+            once = ()
+
+            def plain():
+                err = lib.sdsm_lane_cholesky(H_d.data_ptr(), g_d.data_ptr(), x.data_ptr(),
+                                             scratch.data_ptr(), B, n, stream())
+                if err:
+                    fail(f'--split: lane_cholesky {(B, n)} launch failed: CUDA error {err}')
+            plain_info = _split_info(lib.sdsm_lane_split_chol_info, B, n,
+                                     lane.cholesky_route(B, n))
+        row = _split_report(tag, lib, launch, info['blocks'], phases, bool(pcg), main, info,
+                            once=once)
+        # the guard runs in block 0 of each lane's cluster alone
+        w = _split_blocks(lib, info['blocks']).astype(np.float64)
+        C = info['blocks'] // B
+        row['lane_block0'] = {name: float(w[::C, 10 + k].mean())
+                              for k, name in enumerate(STEP_PHASES)}
+        say(f'[split] {tag}: cycles (us) in the lanes\' blocks 0: ' + ', '.join(
+            f'{k} {v:.0f} ({v / row["mhz"]:.3f})' for k, v in row['lane_block0'].items()))
+        plain_phases = PCG_REG_PHASES if pcg else CHOL_PHASES
+        row['plain'] = _split_report(f'{tag}, the plain variant on the damped system', lib,
+                                     plain, plain_info['blocks'], plain_phases, bool(pcg),
+                                     None, plain_info, once=(0, 9) if pcg else (0,))
+        result[tag] = row
+        del a, H_d, g_d
+        _CHOL_SYSTEMS.clear()
+        torch.cuda.empty_cache()
     return result
 
 
@@ -4306,6 +4694,7 @@ def split():
             f'({B * P * S} terms x {per_term} instructions over {sms} SMs x 4 '
             f'schedulers x 32 lanes at {mhz:.0f} MHz)')
     result.update(_split_cholesky(lib))
+    result.update(_split_step(lib))
     # the issue bound at every phase-3 shape, at the clock of the last run
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue = {}
@@ -4383,7 +4772,10 @@ def main():
                       **kernels['lane_cholesky']))
     table += [dict(name=f'lane_ops/{name}', route='cuda', source=LANE_SOURCE,
                    replaces=STEP_REPLACES[name], launches=launches[name], **kernels[name])
-              for name in STEP_KERNELS]
+              for name in STEP_REPLACES]
+    table += [dict(name=f'lane_ops/{name}', route='cuda', source=LANE_SOURCE,
+                   replaces=DIRECTION_REPLACES[name], launches=launches[name], **kernels[name])
+              for name in DIRECTION_KERNELS]
     say(card)  # the card's name and power limit, as nvidia-smi gives them
     say(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

@@ -64,11 +64,13 @@
 //     (see the comment above lane_cholesky_kernel), a cluster of 8 blocks
 //     a lane in panels of 8 columns above, and of 16 blocks above n = 807
 //     (lane_cholesky_cluster_kernel).
-//   lane_lm_system, lane_step_guard: the damped Newton system before the
-//     direction solve, and the guard, decrement, line-search regularizer
-//     candidates and Armijo thresholds after it, each one launch a Newton
-//     step, bitwise the ATen ops and lane sums they replace (see the
-//     comment above lane_lm_system_kernel).
+//   the Newton step's ends: the damped Newton system before the direction
+//     solve, and the guard, decrement, line-search regularizer candidates
+//     and Armijo thresholds after it, bitwise the ATen ops and lane sums
+//     they replace; on the solver's path the prologue and epilogue of the
+//     direction launch (the step variants of lane_cholesky and lane_pcg),
+//     and kernels of their own (lane_lm_system, lane_step_guard), which the
+//     fused launch is held to (see the comment above lane_pcg).
 //   lane_step_pick, lane_step_tail: the rest of the step, the line search's
 //     pick and, after the scale sweep's sums, the sweep's regularizer sums
 //     and pick, the new mu, the convergence test and the loop's freeze
@@ -142,7 +144,7 @@ static_assert(PCG_WARPS == CLUSTER, "slot_tree reads 8 warps of slots");
 // reserve); at the end it writes, at block b's SPLIT_WORDS words of
 // g_split, the sums, the steps counted, %globaltimer and clock64() at the
 // start and the end, and the SM it ran on.
-constexpr int SPLIT_PHASES = 10;
+constexpr int SPLIT_PHASES = 13;
 constexpr int SPLIT_WORDS = SPLIT_PHASES + 6;
 constexpr int SPLIT_BLOCKS = 1024;
 #ifdef SDSM_SPLIT
@@ -735,6 +737,330 @@ __global__ void softplus_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// The two ends of a Newton step (solver._newton_step): the damped system
+// before the direction solve and the step guard after it. Each replaces a
+// run of ATen's elementwise kernels and lane sums (some 35 and 25 launches
+// of a DSM iteration), and gives the bits of that run: every operation
+// rounds as ATen's CUDA kernel rounds it (__fmul_rn / __fadd_rn /
+// __fdiv_rn / __fsqrt_rn, no contraction), and every sum takes the lane
+// sums' slot-and-tree order. They replace no Pallas kernel: in the JAX
+// package these are XLA's fusions of the jitted Newton step
+// (superdsm_tpu/dsm/solver.py:194-200, 208-227).
+//
+// Their arithmetic lives in the device functions below (Damp, lm_damp,
+// step_guard_lane), which two kinds of kernel run:
+//   - lane_lm_system_kernel and lane_step_guard_kernel, one launch each
+//     around a direction launch (the oracles the fused launches are held
+//     to, and the damped system of lane_pcg_kernel's route, n > 512);
+//   - the direction kernels' step variants (template argument STEP):
+//     STEP_FULL forms the damped system where the kernel loads H (the
+//     prologue: the trace, then Hd's entries and g' as they are loaded,
+//     never written to device memory) and runs the guard on the direction
+//     where the kernel holds it (the epilogue); STEP_GUARD runs the
+//     epilogue alone on a system the caller damped (the sharded solver's
+//     own assembly). One launch a Newton step in place of three, and no Hd
+//     round trip through device memory.
+// What bounds them: the damped system moves H (one read; the standalone
+// kernel also writes Hd), the guard a few vectors of a lane; at the
+// solver's sizes both are at a launch's floor, which the fused variants
+// remove, and the prologue's trace is n loads of a lane's diagonal and one
+// block tree, before the direction's first load.
+// ---------------------------------------------------------------------------
+
+constexpr int LM_ROWS = 16;             // rows of Hd a block of lane_lm_system writes
+constexpr int GUARD_MAX_S = SLOTS_K;    // line-search steps of the guard
+constexpr int GUARD_MAX_N = 4096;       // lane_step_guard's direction in dynamic shared memory
+// Floats of a block's guard scratch (GUARD_MAX_S rows of slots and the
+// tree's total, padded): what the direction kernels' step variants add to,
+// or find in, their shared memory.
+constexpr int GUARD_FLOATS = GUARD_MAX_S * ROW_THREADS + 4;
+
+// The direction kernels' variants: the direction alone; with the guard
+// epilogue; with the damped-system prologue and the guard epilogue.
+constexpr int STEP_PLAIN = 0, STEP_GUARD = 1, STEP_FULL = 2;
+
+// ATen's clamp_min(v, 0) on CUDA: NaN propagates (fmaxf alone would drop it).
+__device__ __forceinline__ float clamp_min0(float v) { return isnan(v) ? v : fmaxf(v, 0.0f); }
+
+// sqrt(xi * xi + eps), op by op.
+__device__ __forceinline__ float reg_term2(float xi, float eps) {
+  return __fsqrt_rn(__fadd_rn(__fmul_rn(xi, xi), eps));
+}
+
+// The regularizer's gradient at a deformation entry, as lane.reg_grad_hess
+// builds it: (a * (xi / term2)) * kmask.
+__device__ __forceinline__ float reg_grad(float xi, float a, float km, float eps) {
+  return __fmul_rn(__fmul_rn(a, __fdiv_rn(xi, reg_term2(xi, eps))), km);
+}
+
+// Its Hessian diagonal there: clamp_min(a * (1.0 / term2 - (xi * xi) /
+// term2 ** 3), 0) * kmask + (1.0 - kmask). PyTorch's 1.0 / t is
+// reciprocal(t) * 1.0 and ATen's t ** 3 is (t * t) * t.
+__device__ __forceinline__ float reg_hess(float xi, float a, float km, float eps) {
+  const float t2 = reg_term2(xi, eps);
+  const float r = __fmul_rn(__fdiv_rn(1.0f, t2), 1.0f);
+  const float q = __fdiv_rn(__fmul_rn(xi, xi), __fmul_rn(__fmul_rn(t2, t2), t2));
+  const float h = clamp_min0(__fmul_rn(a, __fsub_rn(r, q)));
+  return __fadd_rn(__fmul_rn(h, km), __fsub_rn(1.0f, km));
+}
+
+// The tree of a lane sum over the 256 slots at part[s] (written, and
+// published by a block barrier): warp 0 runs it, and every thread gets the
+// sum. `part` and `total` may be used again right after it returns.
+__device__ __forceinline__ float slots_total(const float* part, float* total) {
+  const int t = threadIdx.x;
+  if (t < WARP) {
+    float v[CLUSTER];
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) v[r] = part[r * WARP + t];
+    const float sum = slot_tree(v);
+    if (t == 0) *total = sum;
+  }
+  __syncthreads();
+  return *total;
+}
+
+// The lane sum of terms term(i), i < L, in lane_sum's order (slot s < 256
+// adds terms s, s + 256, ... in turn from 0; then the tree), by a block of
+// any multiple of 32 threads: thread t runs slots t, t + T, ...
+template <class Term>
+__device__ __forceinline__ float lane_slots_sum(int L, const Term& term, float* part,
+                                                float* total) {
+  for (int s = threadIdx.x; s < ROW_THREADS; s += blockDim.x) {
+    float acc = 0.0f;
+    for (int i = s; i < L; i += ROW_THREADS) acc = __fadd_rn(acc, term(i));
+    part[s] = acc;
+  }
+  __syncthreads();
+  return slots_total(part, total);
+}
+
+// The S regularizer sums of one lane, out[k] = clamp_min(a * lane_sum_K(km
+// * (sqrt(xi(i, k)^2 + eps) - sq_eps)), 0): lane_sum's order over the (B,
+// K, S) terms summed over K (slot s adds i = s, s + 256, ... in turn; then
+// the tree), the S sums over the same 256 slots (thread t runs slots t, t +
+// T, ...; a slot's S chains side by side, each in its own order, so their
+// square roots overlap) and their trees over the block's warps. `part`
+// holds GUARD_MAX_S rows of slots; out[k] is written by lane 0 of one warp,
+// with no barrier after it. The candidates xi(i, k): the line search's
+// (GuardXi) in the guard, the scale sweep's (SweepXi) in lane_step_tail.
+// The block computes the sums k = k0, k0 + dk, ... (k0 < dk) alone: blocks
+// that share a lane's candidates deal its sums, each sum whole.
+template <class Xi>
+__device__ __forceinline__ void reg_sums(const Xi& xi, const float* __restrict__ km, int K,
+                                         int S, float a, float eps, float sq_eps,
+                                         float (*part)[ROW_THREADS], float* out, int k0 = 0,
+                                         int dk = 1) {
+  const int t = threadIdx.x, T = blockDim.x;
+  auto mine = [&](int k) { return k < S && k % dk == k0; };
+  for (int s = t; s < ROW_THREADS; s += T) {
+    float acc[GUARD_MAX_S];
+#pragma unroll
+    for (int k = 0; k < GUARD_MAX_S; ++k) acc[k] = 0.0f;
+    for (int i = s; i < K; i += ROW_THREADS) {
+      const float m = __ldg(km + i);
+#pragma unroll
+      for (int k = 0; k < GUARD_MAX_S; ++k)
+        if (mine(k)) acc[k] = __fadd_rn(acc[k], __fmul_rn(m, __fsub_rn(reg_term2(xi(i, k), eps), sq_eps)));
+    }
+#pragma unroll
+    for (int k = 0; k < GUARD_MAX_S; ++k)
+      if (mine(k)) part[k][s] = acc[k];
+  }
+  __syncthreads();
+  const int lane = t % WARP;
+  for (int k = k0 + dk * (t / WARP); k < S; k += dk * (T / WARP)) {
+    float v[CLUSTER];
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) v[r] = part[k][r * WARP + lane];
+    const float sum = slot_tree(v);
+    if (lane == 0) out[k] = clamp_min0(__fmul_rn(a, sum));
+  }
+}
+
+// The line search's candidates params[6 + i] + delta[6 + i] steps[k] (d: the
+// lane's delta in shared memory).
+struct GuardXi {
+  const float* __restrict__ p;
+  const float* d;
+  const float* __restrict__ steps;
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    return __fadd_rn(__ldg(p + i), __fmul_rn(d[6 + i], __ldg(steps + k)));
+  }
+};
+
+// What a step variant of a direction kernel reads and writes besides H, g
+// and the direction's own arguments (the damped system's inputs, the
+// guard's inputs and outputs; see lane_lm_system_kernel and
+// lane_step_guard_kernel for each).
+struct StepArgs {
+  const float* __restrict__ params;  // (B, n)
+  const float* __restrict__ mu;      // (B,) (STEP_FULL)
+  const float* __restrict__ alpha;   // (B,) at n > 6
+  const float* __restrict__ kmask;   // (B, n - 6) at n > 6
+  const float* __restrict__ steps;   // (S,)
+  const float* __restrict__ f0;      // (B,)
+  float* __restrict__ delta;         // (B, n)
+  float* __restrict__ decrement;     // (B,)
+  float* __restrict__ reg_cand;      // (B, S) at n > 6
+  float* __restrict__ thr;           // (B, S)
+  int S;
+  float eps, inv_n, tiny, sq_eps, armijo;
+};
+
+// The damped system of lane o (solver.py:297-304): at n > 6 (reg) the
+// regularizer's Hessian diagonal added to H's diagonal and its gradient to
+// g, masked by [1, kmask]; then Hd = H + c I, c = mu (trace / n + tiny)
+// with the trace of the regularized H in lane_sum's order (lm_damp). ATen's
+// steps kept: x / n with a Python n is x * (1.0f / n) (inv_n, from the
+// host), H + diag_embed(reg_h) adds 0 off the diagonal (a -0 becomes +0),
+// and the damping adds c * 0 there (NaN everywhere when c is not finite).
+struct Damp {
+  const float* __restrict__ p;
+  const float* __restrict__ km;
+  float a, eps, c_diag, c_off;
+  bool reg;
+  __device__ __forceinline__ Damp() {}  // unused (STEP_GUARD's)
+  __device__ __forceinline__ Damp(const float* params, const float* kmask, const float* alpha,
+                                  long long o, int n, float eps_)
+      : p(params + o * n), eps(eps_), c_diag(0.0f), c_off(0.0f), reg(n > 6) {
+    km = kmask + (reg ? o * (n - 6) : 0);
+    a = reg ? __ldg(alpha + o) : 0.0f;
+  }
+  // H's diagonal entry i regularized: the trace's term
+  __device__ __forceinline__ float trace_term(float h, int i) const {
+    if (!reg) return h;
+    return __fadd_rn(h, i < 6 ? 0.0f : reg_hess(__ldg(p + i), a, __ldg(km + i - 6), eps));
+  }
+  __device__ __forceinline__ void set_trace(float sum, float mu, float inv_n, float tiny) {
+    const float c = __fmul_rn(mu, __fadd_rn(__fmul_rn(sum, inv_n), tiny));
+    c_diag = __fmul_rn(c, 1.0f);
+    c_off = __fmul_rn(c, 0.0f);
+  }
+  __device__ __forceinline__ float diag(float h, int i) const {
+    return __fadd_rn(trace_term(h, i), c_diag);
+  }
+  // Hd[i, i] from the trace's term i (lm_damp's `terms`)
+  __device__ __forceinline__ float from_term(float term) const { return __fadd_rn(term, c_diag); }
+  __device__ __forceinline__ float off(float h) const {
+    return __fadd_rn(reg ? __fadd_rn(h, 0.0f) : h, c_off);
+  }
+  // Hd[i, k] from H[i, k]
+  __device__ __forceinline__ float at(float h, int i, int k) const {
+    return i == k ? diag(h, i) : off(h);
+  }
+  // g'[i] from g[i]
+  __device__ __forceinline__ float grad(float gi, int i) const {
+    if (!reg) return gi;
+    const float rg = i < 6 ? 0.0f : reg_grad(__ldg(p + i), a, __ldg(km + i - 6), eps);
+    const float m = i < 6 ? 1.0f : __ldg(km + i - 6);
+    return __fmul_rn(__fadd_rn(gi, rg), m);
+  }
+};
+
+// The damping of lane o (H: its (n, n) block) computed by the calling block
+// (its trace over the 256 slots in part, then c); every thread gets it.
+// With `terms` (n floats), the trace's terms are kept there, visible to the
+// block on return: the diagonal's damped entries then need no second
+// regularizer term (Damp::from_term).
+__device__ __forceinline__ Damp lm_damp(const StepArgs& sa, const float* __restrict__ H,
+                                        long long o, int n, float* part, float* total,
+                                        float* terms = nullptr) {
+  Damp dm(sa.params, sa.kmask, sa.alpha, o, n, sa.eps);
+  const float* h = H + o * n * n;
+  const float sum = lane_slots_sum(n, [&](int i) {
+    const float v = dm.trace_term(__ldg(h + (long long)i * n + i), i);
+    if (terms != nullptr) terms[i] = v;
+    return v;
+  }, part, total);
+  dm.set_trace(sum, __ldg(sa.mu + o), sa.inv_n, sa.tiny);
+  return dm;
+}
+
+// g' of a step variant: the damped gradient (STEP_FULL) or g as given.
+template <int STEP>
+struct StepGrad {
+  const float* __restrict__ g;
+  Damp dm;
+  __device__ __forceinline__ float operator()(int i) const {
+    const float gi = __ldg(g + i);
+    return STEP == STEP_FULL ? dm.grad(gi, i) : gi;
+  }
+};
+
+// g' kept in shared memory by the kernel's prologue.
+struct SharedGrad {
+  const float* g;
+  __device__ __forceinline__ float operator()(int i) const { return g[i]; }
+};
+
+// The guard's g' of lane o, its regularizer terms read afresh (the
+// prologue's Damp need not stay live through the direction's registers).
+template <int STEP>
+__device__ __forceinline__ StepGrad<STEP> step_grad(const StepArgs& sa, const float* g,
+                                                    long long o, int n) {
+  return {g + o * n, STEP == STEP_FULL ? Damp(sa.params, sa.kmask, sa.alpha, o, n, sa.eps)
+                                       : Damp()};
+}
+
+// The guard of lane o's direction (solver.py:309-312, 321-324, 329), by a
+// block of T threads (a multiple of 32): d holds the direction (n floats in
+// shared memory, each entry i visible to thread i % T), gp(i) is g'[i], and
+// `bad` is set in a lane known to have failed (d's entries are then not
+// read as a direction).
+//   delta = d; where an entry is not finite (or `bad`), delta = -g' /
+//     (sqrt(lane_dot(g', g')) + 1);
+//   decrement = -lane_dot(g', delta);
+//   thr[k] = f0 - (armijo * steps[k]) * decrement, the Armijo thresholds;
+//   reg_cand[k] = clamp_min(alpha * lane_sum_K(kmask * (sqrt(xi * xi + eps)
+//     - sqrt(eps))), 0), xi = params[6:] + delta[6:] * steps[k] (n > 6).
+// Each sum takes lane_dot's and lane_sum's own order (lane_slots_sum), so
+// the outputs are bitwise that chain with no tensor in between; the S
+// regularizer sums run over the same 256 slots (reg_sums). part: GUARD_MAX_S
+// rows of slots. `ranks` blocks holding the same direction (PCG's cluster:
+// every block holds x) may share the guard: each runs the test and the
+// fallback, block `rank` the sums k = rank, rank + ranks, ..., and block
+// 0 alone the decrement and writes delta, the decrement and thresholds.
+//
+// Not inlined: a call at a kernel's end, compiled apart, leaves the
+// direction kernel's own register allocation as it was (inlined, it slowed
+// the cluster routes' trailing updates by a fifth at n = 256 on an H100,
+// chip_smoke.py --split).
+template <class Gp>
+__device__ __noinline__ void step_guard_lane(const StepArgs& sa, long long o, int n, float* d,
+                                                int bad, const Gp& gp,
+                                                float (*part)[ROW_THREADS], float* total,
+                                                Split& split, int rank = 0, int ranks = 1) {
+  const int t = threadIdx.x, T = blockDim.x;
+  for (int i = t; i < n; i += T) bad |= !isfinite(d[i]);
+  if (__syncthreads_or(bad)) {
+    const float gg = lane_slots_sum(n, [&](int i) {
+      const float gi = gp(i);
+      return __fmul_rn(gi, gi);
+    }, part[0], total);
+    const float den = __fadd_rn(__fsqrt_rn(gg), 1.0f);
+    for (int i = t; i < n; i += T) d[i] = __fdiv_rn(-gp(i), den);
+    __syncthreads();
+  }
+  // d is published: by the barrier above, or that of the fallback
+  if (rank == 0) {
+    const float dec = -lane_slots_sum(n, [&](int i) { return __fmul_rn(gp(i), d[i]); },
+                                      part[0], total);
+    for (int i = t; i < n; i += T) sa.delta[o * n + i] = d[i];
+    if (t == 0) sa.decrement[o] = dec;
+    if (t < sa.S)
+      sa.thr[o * sa.S + t] =
+          __fsub_rn(__ldg(sa.f0 + o), __fmul_rn(__fmul_rn(sa.armijo, __ldg(sa.steps + t)), dec));
+  }
+  split.mark(11);
+  const int K = n - 6;
+  if (K <= 0) return;
+  reg_sums(GuardXi{sa.params + o * n + 6, d, sa.steps}, sa.kmask + o * K, K, sa.S,
+           __ldg(sa.alpha + o), sa.eps, sa.sq_eps, part, sa.reg_cand + o * sa.S, rank, ranks);
+  split.mark(12);
+}
+
+// ---------------------------------------------------------------------------
 // lane_pcg: solver._pcg_solve in one launch.
 //
 // The chain it replaces issues some 17 launches a CG step (one lane_matvec,
@@ -891,10 +1217,19 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 // blocks (one cluster a lane). Dynamic shared memory, in floats: the
 // block's first `cached` rows (cached n), then x, r, p, dinv (n each), H p
 // (2 n, double-buffered) and the slots of three dots (3 * 256).
+// STEP_GUARD (see above lane_pcg; no STEP_FULL: a damped read of H every
+// step would cost this route, whose rows of H outside shared memory come
+// from L2 each step, so its caller damps H once, lane_lm_system_kernel):
+// block 0 runs the guard on -x, negated in place, once the loop is done
+// (no peer writes into it after the last step's barrier), with its slots
+// in the cached rows or, where those are fewer floats, after x; x is not
+// written out.
+template <int STEP>
 __global__ void __cluster_dims__(PCG_CLUSTER, 1, 1) __launch_bounds__(PCG_THREADS)
 lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
                 float* __restrict__ xout, int n, int iters, int cached,
-                int vec, float stop2, float eps) {
+                int vec, float stop2, float eps, StepArgs sa) {
+  static_assert(STEP != STEP_FULL, "lane_pcg_kernel takes a damped system");
   extern __shared__ __align__(16) float smem[];
   Split split;
   split.start();
@@ -1005,7 +1340,15 @@ lane_pcg_kernel(const float* __restrict__ H, const float* __restrict__ b,
     split.mark(9);
     split.step();
   }
-  for (int i = t; i < nrows; i += PCG_THREADS) xout[o * n + row0 + i] = x[row0 + i];
+  if constexpr (STEP == STEP_PLAIN) {
+    for (int i = t; i < nrows; i += PCG_THREADS) xout[o * n + row0 + i] = x[row0 + i];
+  } else if (q == 0) {
+    for (int i = t; i < n; i += PCG_THREADS) x[i] = -x[i];  // the direction
+    float* slots = (long long)cached * n >= GUARD_FLOATS ? rows : r;
+    auto gpart = reinterpret_cast<float (*)[ROW_THREADS]>(slots);
+    step_guard_lane(sa, o, n, x, 0, step_grad<STEP_GUARD>(sa, b, o, n), gpart,
+                    gpart[GUARD_MAX_S], split);
+  }
   split.finish();
 }
 
@@ -1070,11 +1413,31 @@ static_assert(PCG_REG_COLS == 2 * PCG_WARPS, "slot t holds i = t and t + 256");
 
 // H (B, n, n) and b (B, n) float32 contiguous -> x (B, n), n <= 512; grid
 // B * 8 blocks (one cluster a lane).
+// STEP (STEP_GUARD, STEP_FULL), the step variants (see above lane_pcg): with
+// STEP_FULL every block computes its lane's trace and g' (its slots, the
+// trace's terms and g' in its own static shared memory: peers may push
+// into the H p buffers already), loads H's rows into registers as the
+// plain variant does (with the damping applied as they load, the loads
+// took 7 times as long, and with the trace after the loads were issued
+// the launch took 2.5 us more, on an H100: chip_smoke.py --split, phase
+// 3) and then damps them in place (Jacobi's diagonal of Hd from the
+// trace's terms, g' for b). After the last cluster barrier every block
+// runs the guard on -x (every block holds the whole of x, the same bits:
+// thread t at i = t and t + 256, negated into the first H p buffer) and
+// the g' it kept, block q the regularizer sums k = q, q + 8, ... (block
+// 0's guard alone measured ~8 us after a 64 MB read, more than the
+// lane_step_guard launch it replaced); x is not written out. Stamps: 10
+// the trace and g', 9 the loads and the damping.
+template <int STEP>
 __global__ void __cluster_dims__(PCG_CLUSTER, 1, 1) __launch_bounds__(PCG_THREADS, 1)
 lane_pcg_reg_kernel(const float* __restrict__ H, const float* __restrict__ b,
-                    float* __restrict__ xout, int n, int iters, float stop2, float eps) {
+                    float* __restrict__ xout, int n, int iters, float stop2, float eps,
+                    StepArgs sa) {
   __shared__ float hp[2][PCG_REG_MAX_N];
   __shared__ float part[4][PCG_THREADS];  // slots of p.Hp, r.z, r.r, b.b
+  __shared__ float gpart[STEP == STEP_PLAIN ? 1 : GUARD_MAX_S][ROW_THREADS];  // the step's slots
+  __shared__ float gtotal;
+  __shared__ float gprime[STEP == STEP_FULL ? PCG_REG_MAX_N : 1];  // g' (STEP_FULL)
   __shared__ __align__(8) unsigned long long bar[2];
   Split split;
   split.start();
@@ -1093,6 +1456,17 @@ lane_pcg_reg_kernel(const float* __restrict__ H, const float* __restrict__ b,
   }
   // peers are pushed to only once every block runs, its mbarriers set up
   cluster_arrive();
+  // STEP_FULL: the trace and g' first, then H's rows raw into registers
+  // (the plain variant's loads, all in flight at once: only the damping's
+  // two constants stay live beside them), then Hd's entries in place
+  Damp dm;
+  float* terms = gpart[2];  // the trace's terms (two rows of slots: n <= 512)
+  if constexpr (STEP == STEP_FULL) {
+    dm = lm_damp(sa, H, o, n, gpart[0], &gtotal, terms);
+    for (int i = t; i < n; i += PCG_THREADS) gprime[i] = dm.grad(__ldg(bl + i), i);
+    __syncthreads();
+  }
+  split.mark(10);
   float a[PCG_REG_ROWS][PCG_REG_COLS];
 #pragma unroll
   for (int e = 0; e < PCG_REG_ROWS; ++e) {
@@ -1104,14 +1478,33 @@ lane_pcg_reg_kernel(const float* __restrict__ H, const float* __restrict__ b,
       a[e][k] = lr < nrows && j < n ? __ldg(hr + j) : 0.0f;
     }
   }
+  if constexpr (STEP == STEP_FULL) {
+#pragma unroll
+    for (int e = 0; e < PCG_REG_ROWS; ++e) {
+      const int i = row0 + w + PCG_WARPS * e;
+#pragma unroll
+      for (int k = 0; k < PCG_REG_COLS; ++k) {
+        const int j = l + WARP * k;
+        if (i - row0 < nrows && j < n) a[e][k] = i == j ? dm.from_term(terms[i]) : dm.off(a[e][k]);
+      }
+    }
+  }
+  auto diag = [&](int i) {
+    if constexpr (STEP == STEP_FULL) return dm.from_term(terms[i]);
+    return __ldg(Hl + (long long)i * n + i);
+  };
+  auto rhs = [&](int i) {
+    if constexpr (STEP == STEP_FULL) return gprime[i];
+    return __ldg(bl + i);
+  };
   split.mark(9);
   float p[PCG_REG_COLS], r[PCG_REG_COLS], dinv[PCG_REG_COLS];
 #pragma unroll
   for (int k = 0; k < PCG_REG_COLS; ++k) {
     const int j = l + WARP * k;
-    dinv[k] = j < n ? __fdiv_rn(1.0f, __ldg(Hl + (long long)j * n + j)) : 0.0f;
-    r[k] = j < n ? __ldg(bl + j) : 0.0f;  // b until the first product
-    p[k] = __fmul_rn(r[k], dinv[k]);       // x = b dinv, the first product's vector
+    dinv[k] = j < n ? __fdiv_rn(1.0f, diag(j)) : 0.0f;
+    r[k] = j < n ? rhs(j) : 0.0f;     // b until the first product
+    p[k] = __fmul_rn(r[k], dinv[k]);  // x = b dinv, the first product's vector
   }
   // the same values at i = t and t + 256 (columns k = w and w + 8 of the
   // arrays above, which an index by w would put in local memory): x and
@@ -1120,8 +1513,8 @@ lane_pcg_reg_kernel(const float* __restrict__ H, const float* __restrict__ b,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = t + h * PCG_THREADS;
-    ds[h] = i < n ? __fdiv_rn(1.0f, __ldg(Hl + (long long)i * n + i)) : 0.0f;
-    bs[h] = i < n ? __ldg(bl + i) : 0.0f;
+    ds[h] = i < n ? __fdiv_rn(1.0f, diag(i)) : 0.0f;
+    bs[h] = i < n ? rhs(i) : 0.0f;
     xs[h] = __fmul_rn(bs[h], ds[h]);
   }
   // this lane's row (4 lanes a row) goes to blocks 2 c and 2 c + 1
@@ -1266,14 +1659,29 @@ lane_pcg_reg_kernel(const float* __restrict__ H, const float* __restrict__ b,
     split.mark(8);
     split.step();
   }
+  if constexpr (STEP == STEP_PLAIN) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = t + h * PCG_THREADS;
-    if (i >= row0 && i < row0 + nrows) xout[o * n + i] = xs[h];
+    for (int h = 0; h < 2; ++h) {
+      const int i = t + h * PCG_THREADS;
+      if (i >= row0 && i < row0 + nrows) xout[o * n + i] = xs[h];
+    }
   }
   // no block leaves while a peer may still push into it
   cluster_arrive();
   cluster_wait();
+  if constexpr (STEP != STEP_PLAIN) {
+    // every block: its replica of x is the lane's; the guard shared over
+    // the cluster (block q the sums k = q, q + 8, ...)
+    float* d = hp[0];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (t + h * PCG_THREADS < n) d[t + h * PCG_THREADS] = -xs[h];
+    if constexpr (STEP == STEP_FULL)
+      step_guard_lane(sa, o, n, d, 0, SharedGrad{gprime}, gpart, &gtotal, split, q, PCG_CLUSTER);
+    else
+      step_guard_lane(sa, o, n, d, 0, step_grad<STEP>(sa, b, o, n), gpart, &gtotal, split, q,
+                      PCG_CLUSTER);
+  }
   split.finish();
 }
 
@@ -1395,10 +1803,49 @@ __device__ __forceinline__ void chol_rows(float* a, const float* lcur,
   }
 }
 
+// lane_cholesky_kernel's back substitution, in warp 0: x from L (packed in
+// a), L_jj (d) and y; out[j] = -x_j (the direction, in device memory or,
+// for the step variants, in shared memory).
+__device__ __forceinline__ void chol_back_one_block(const float* a, const float* d,
+                                                    const float* y, int n, float* out) {
+  const int l = threadIdx.x % WARP;
+  auto col0 = [n](int k) { return k * n - k * (k + 1) / 2; };
+  // lane l holds y_i of i = l + 32 u in registers; y_j comes from its lane
+  // by a shuffle
+  float yr[CHOL_BACK_REGS];
+  int cb[CHOL_BACK_REGS];
+#pragma unroll
+  for (int u = 0; u < CHOL_BACK_REGS; ++u) {
+    const int i = l + u * WARP;
+    yr[u] = i < n ? y[i] : 0.0f;
+    cb[u] = i < n ? col0(i) : 0;
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const int uj = j / WARP;
+    float own = 0.0f;
+#pragma unroll
+    for (int u = 0; u < CHOL_BACK_REGS; ++u) own = u == uj ? yr[u] : own;
+    const float xj = __fdiv_rn(__shfl_sync(0xffffffffu, own, j % WARP), d[j]);
+#pragma unroll
+    for (int u = 0; u < CHOL_BACK_REGS; ++u) {
+      if (l + u * WARP < j) yr[u] = chol_update(yr[u], (double)a[cb[u] + j], (double)xj);
+    }
+    if (l == j % WARP) out[j] = -xj;
+  }
+}
+
+// STEP (STEP_GUARD, STEP_FULL): the step variants (see above lane_pcg),
+// with GUARD_FLOATS more floats of dynamic shared memory after the work
+// space (the trace's and the guard's slots); the direction goes to the
+// guard in shared memory (the scaled columns' buffers), not to `out`. A
+// failed lane's guard takes the gradient step.
+template <int STEP>
 __global__ void __launch_bounds__(CHOL_MAX_THREADS)
 lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
-                     float* __restrict__ out, int n) {
+                     float* __restrict__ out, int n, StepArgs sa) {
   extern __shared__ __align__(16) float smem[];
+  Split split;
+  split.start();
   const long long o = blockIdx.x;
   const int t = threadIdx.x, T = blockDim.x;
   const int l = t % WARP, w = t / WARP, W = T / WARP;
@@ -1407,15 +1854,28 @@ lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
   float* b = d + n;
   float* y = b + n;
   float* lbuf = y + n;  // the scaled column j at lbuf + (j % 2) n
+  auto gpart = reinterpret_cast<float (*)[ROW_THREADS]>(lbuf + 2 * n);  // STEP's slots
+  float* gtotal = gpart[GUARD_MAX_S];
+  Damp dm;  // the trace's terms in d (L_jj, written after the loads)
+  if constexpr (STEP == STEP_FULL) dm = lm_damp(sa, H, o, n, gpart[0], gtotal, d);
+  split.mark(10);
   // entry (i, k), i >= k, of the triangle packed by columns
   auto col0 = [n](int k) { return k * n - k * (k + 1) / 2; };
   const float* Hl = H + o * n * n;
   for (int i = w; i < n; i += W) {  // row i of Hd, read coalesced
 #pragma unroll 4
-    for (int k = l; k <= i; k += WARP) a[col0(k) + i] = __ldg(Hl + (long long)i * n + k);
+    for (int k = l; k <= i; k += WARP) {
+      const float h = __ldg(Hl + (long long)i * n + k);
+      if constexpr (STEP == STEP_FULL) a[col0(k) + i] = i == k ? dm.from_term(d[i]) : dm.off(h);
+      else a[col0(k) + i] = h;
+    }
   }
-  for (int i = t; i < n; i += T) b[i] = __ldg(g + o * n + i);
+  for (int i = t; i < n; i += T) {
+    const float gi = __ldg(g + o * n + i);
+    b[i] = STEP == STEP_FULL ? dm.grad(gi, i) : gi;
+  }
   __syncthreads();
+  split.mark(0);
   {
     const float d0 = __fsqrt_rn(a[0]);
     if (t == 0) {
@@ -1425,11 +1885,16 @@ lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
     for (int i = 1 + t; i < n; i += T) lbuf[i] = __fdiv_rn(a[i], d0);
   }
   __syncthreads();
+  int fail = 0;
   for (int j = 0; j < n; ++j) {
     float* cj = a + col0(j);
     if (!(cj[j] > 0.0f)) {  // the same value in every thread: all leave here
-      for (int i = t; i < n; i += T) out[o * n + i] = __int_as_float(0x7fc00000);
-      return;
+      if constexpr (STEP == STEP_PLAIN) {
+        for (int i = t; i < n; i += T) out[o * n + i] = __int_as_float(0x7fc00000);
+        return;
+      }
+      fail = 1;
+      break;
     }
     // L_jj, y_j and l = L_{j+1.., j}, made in the phase before (below)
     const float* lcur = lbuf + (j % 2) * n;
@@ -1508,29 +1973,14 @@ lane_cholesky_kernel(const float* __restrict__ H, const float* __restrict__ g,
     }
     __syncthreads();
   }
-  if (w != 0) return;
-  // lane l holds y_i of i = l + 32 u in registers; y_j comes from its lane
-  // by a shuffle
-  float yr[CHOL_BACK_REGS];
-  int cb[CHOL_BACK_REGS];
-#pragma unroll
-  for (int u = 0; u < CHOL_BACK_REGS; ++u) {
-    const int i = l + u * WARP;
-    yr[u] = i < n ? y[i] : 0.0f;
-    cb[u] = i < n ? col0(i) : 0;
+  split.mark(3);
+  if (w == 0 && !fail) chol_back_one_block(a, d, y, n, STEP == STEP_PLAIN ? out + o * n : lbuf);
+  if constexpr (STEP != STEP_PLAIN) {
+    __syncthreads();
+    split.mark(5);
+    step_guard_lane(sa, o, n, lbuf, fail, step_grad<STEP>(sa, g, o, n), gpart, gtotal, split);
   }
-  for (int j = n - 1; j >= 0; --j) {
-    const int uj = j / WARP;
-    float own = 0.0f;
-#pragma unroll
-    for (int u = 0; u < CHOL_BACK_REGS; ++u) own = u == uj ? yr[u] : own;
-    const float xj = __fdiv_rn(__shfl_sync(0xffffffffu, own, j % WARP), d[j]);
-#pragma unroll
-    for (int u = 0; u < CHOL_BACK_REGS; ++u) {
-      if (l + u * WARP < j) yr[u] = chol_update(yr[u], (double)a[cb[u] + j], (double)xj);
-    }
-    if (l == j % WARP) out[o * n + j] = -xj;
-  }
+  split.finish();
 }
 
 // ---------------------------------------------------------------------------
@@ -1625,6 +2075,14 @@ __host__ __device__ constexpr long long chol_cluster_bytes(long long n, int C, b
   return fwd > back ? fwd : back;
 }
 
+// Shared memory of a block of a cluster route's variant STEP: at least the
+// guard's direction and slots (block 0, after the back substitution).
+__host__ __device__ constexpr long long chol_step_bytes(long long n, int C, bool global, int step) {
+  const long long b = chol_cluster_bytes(n, C, global);
+  const long long guard = step == STEP_PLAIN ? 0 : 4 * ((n + 3) / 4 * 4 + GUARD_FLOATS);
+  return b > guard ? b : guard;
+}
+
 // The largest n whose panels a cluster of C blocks holds in shared memory.
 constexpr int chol_cluster_max_n(int C) {
   int n = 1;
@@ -1697,14 +2155,26 @@ __device__ __forceinline__ void chol_store_row(float* a, const float (&v)[CHOL_P
 
 // H (B, n, n), g (B, n) -> out (B, n); grid B C blocks of CHOL_MAX_THREADS,
 // one cluster of C a lane (a launch attribute); dynamic shared memory
-// chol_cluster_bytes(n, C, GLOBAL); scratch chol_scratch_floats(n, C,
+// chol_step_bytes(n, C, GLOBAL, STEP); scratch chol_scratch_floats(n, C,
 // GLOBAL) floats a lane. Stamps (chip_smoke.py --split): 0 H loaded, 1 the
 // waits at the cluster barrier, 2 the read-back of the published panel, 3
-// factoring own panels, 4 the trailing updates, 5 the back substitution.
-template <int C, bool GLOBAL>
+// factoring own panels, 4 the trailing updates, 5 the back substitution;
+// the step variants' 10 the trace, 11 the guard and 12 its regularizer sums.
+//
+// STEP (STEP_GUARD, STEP_FULL), the step variants (see above lane_pcg):
+// with STEP_FULL every block computes its lane's trace (n loads of H's
+// diagonal, the slots in the first floats of its shared memory, which no
+// other phase uses yet) and loads its panels as the damped system's
+// entries, the augmented row as g'; block 0 runs the guard after the back
+// substitution, on x negated in place in shared memory (its slots where the
+// back substitution's y was), and on a failed lane after the barrier at
+// which every block reads the failure (no peer writes into it after that
+// barrier), where it takes the gradient step; no block writes `out`.
+template <int C, bool GLOBAL, int STEP>
 __global__ void __launch_bounds__(CHOL_MAX_THREADS, 1)
 lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restrict__ g,
-                             float* __restrict__ out, float* __restrict__ scratch, int n) {
+                             float* __restrict__ out, float* __restrict__ scratch, int n,
+                             StepArgs sa) {
   constexpr int PW = CHOL_PW;
   // only the routes of 16 blocks take n past one pass of rows below a
   // diagonal block and past the rows the back substitution holds in
@@ -1740,6 +2210,12 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
 
   // peers may be written only once every block of the cluster runs
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // the trace's slots in the first floats of shared memory, its terms in the
+  // widened panel's place after them (shared or global), both unused yet
+  float* terms = reinterpret_cast<float*>(lw) + ROW_THREADS + 4;
+  Damp dm;
+  if constexpr (STEP == STEP_FULL) dm = lm_damp(sa, H, o, n, smem, smem + ROW_THREADS, terms);
+  split.mark(10);
   const float* Hl = H + o * n * n;
   for (int r = q; r < P; r += C) {
     float* a = panel(r);
@@ -1748,7 +2224,18 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
     for (int f = t; f < count; f += T) {
       const int i = c0 + f / PW, k = c0 + f % PW;
       float v = 0.0f;
-      if (k < n && i >= k) v = i < n ? __ldg(Hl + (long long)i * n + k) : __ldg(g + o * n + k);
+      if (k < n && i >= k) {
+        if (i < n) {
+          if constexpr (STEP == STEP_FULL) {
+            v = i == k ? dm.from_term(terms[i]) : dm.off(__ldg(Hl + (long long)i * n + k));
+          } else {
+            v = __ldg(Hl + (long long)i * n + k);
+          }
+        } else {
+          v = __ldg(g + o * n + k);
+          if (STEP == STEP_FULL) v = dm.grad(v, k);
+        }
+      }
       a[f] = v;
     }
   }
@@ -1901,6 +2388,14 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
     for (int r = q; r < P; r += C)
       for (int c = t; c < width(r); c += T) out[o * n + r * PW + c] = __int_as_float(0x7fc00000);
   };
+  // the step variants' guard in block 0 (d: the direction, n4 floats from
+  // smem; its slots after it)
+  const int n4 = (n + 3) / 4 * 4;
+  auto guard = [&](int fail) {
+    auto gpart = reinterpret_cast<float (*)[ROW_THREADS]>(smem + n4);
+    step_guard_lane(sa, o, n, smem, fail, step_grad<STEP>(sa, g, o, n), gpart,
+                    gpart[GUARD_MAX_S], split);
+  };
 
   // panel p's rows below its diagonal block, from the scratch, widened into lw
   auto widen = [&](int p) {
@@ -1932,7 +2427,12 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
     cluster_wait();
     split.mark(1);
     if (flag[p]) {  // every block reads it after the same barrier
-      fail_out();
+      if constexpr (STEP == STEP_PLAIN) {
+        fail_out();
+      } else if (q == 0) {
+        __syncthreads();  // every thread has read the flag that the guard overlays
+        guard(1);
+      }
       split.finish();
       return;
     }
@@ -2006,7 +2506,7 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
             if (l < k) y = chol_update(y, (double)lv[k], (double)xj);
             if (l == k) {
               xsh[g0 + k] = xj;
-              out[o * n + g0 + k] = -xj;
+              if (STEP == STEP_PLAIN) out[o * n + g0 + k] = -xj;
             }
           }
         }
@@ -2060,149 +2560,36 @@ lane_cholesky_cluster_kernel(const float* __restrict__ H, const float* __restric
     }
   }
   split.mark(5);
+  if constexpr (STEP != STEP_PLAIN) {
+    __syncthreads();
+    for (int i = t; i < n; i += T) xsh[i] = -xsh[i];  // the direction
+    guard(0);
+  }
   split.finish();
 }
 
+
 // ---------------------------------------------------------------------------
-// The two ends of a Newton step (solver._newton_step): the damped system
-// before the direction solve (lane_lm_system) and the step guard after it
-// (lane_step_guard). Each replaces a run of ATen's elementwise kernels and
-// lane sums (some 35 and 25 launches of a DSM iteration), and gives the
-// bits of that run: every operation rounds as ATen's CUDA kernel rounds it
-// (__fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn, no contraction), and
-// every sum takes the lane sums' slot-and-tree order. They replace no
-// Pallas kernel: in the JAX package these are XLA's fusions of the jitted
-// Newton step (superdsm_tpu/dsm/solver.py:194-200, 208-227). Bytes bound
-// lane_lm_system (one read of H, one write of Hd); lane_step_guard moves a
-// few vectors of a lane and is bound by its launch and its four dependent
-// block trees.
-// ---------------------------------------------------------------------------
-
-constexpr int LM_ROWS = 16;             // rows of Hd a block of lane_lm_system writes
-constexpr int GUARD_MAX_S = SLOTS_K;    // line-search steps of lane_step_guard
-constexpr int GUARD_MAX_N = 4096;       // its direction in dynamic shared memory
-
-// ATen's clamp_min(v, 0) on CUDA: NaN propagates (fmaxf alone would drop it).
-__device__ __forceinline__ float clamp_min0(float v) { return isnan(v) ? v : fmaxf(v, 0.0f); }
-
-// sqrt(xi * xi + eps), op by op.
-__device__ __forceinline__ float reg_term2(float xi, float eps) {
-  return __fsqrt_rn(__fadd_rn(__fmul_rn(xi, xi), eps));
-}
-
-// The regularizer's gradient at a deformation entry, as lane.reg_grad_hess
-// builds it: (a * (xi / term2)) * kmask.
-__device__ __forceinline__ float reg_grad(float xi, float a, float km, float eps) {
-  return __fmul_rn(__fmul_rn(a, __fdiv_rn(xi, reg_term2(xi, eps))), km);
-}
-
-// Its Hessian diagonal there: clamp_min(a * (1.0 / term2 - (xi * xi) /
-// term2 ** 3), 0) * kmask + (1.0 - kmask). PyTorch's 1.0 / t is
-// reciprocal(t) * 1.0 and ATen's t ** 3 is (t * t) * t.
-__device__ __forceinline__ float reg_hess(float xi, float a, float km, float eps) {
-  const float t2 = reg_term2(xi, eps);
-  const float r = __fmul_rn(__fdiv_rn(1.0f, t2), 1.0f);
-  const float q = __fdiv_rn(__fmul_rn(xi, xi), __fmul_rn(__fmul_rn(t2, t2), t2));
-  const float h = clamp_min0(__fmul_rn(a, __fsub_rn(r, q)));
-  return __fadd_rn(__fmul_rn(h, km), __fsub_rn(1.0f, km));
-}
-
-// The S regularizer sums of one lane, out[k] = clamp_min(a * lane_sum_K(km
-// * (sqrt(xi(i, k)^2 + eps) - sq_eps)), 0): lane_sum's order over the (B,
-// K, S) terms summed over K (slot t adds i = t, t + 256, ... in turn; then
-// the tree), the S sums in turn over the block's 256 slots and their trees
-// over its 8 warps. `part` holds GUARD_MAX_S rows of slots; out[k] is
-// written by lane 0 of warp k % 8, with no barrier after it. The candidates
-// xi(i, k): the line search's (GuardXi) in lane_step_guard, the scale
-// sweep's (SweepXi) in lane_step_tail.
-template <class Xi>
-__device__ __forceinline__ void reg_sums(const Xi& xi, const float* __restrict__ km, int K,
-                                         int S, float a, float eps, float sq_eps,
-                                         float (*part)[ROW_THREADS], float* out) {
-  const int t = threadIdx.x;
-  for (int k = 0; k < S; ++k) {
-    float acc = 0.0f;
-    for (int i = t; i < K; i += ROW_THREADS)
-      acc = __fadd_rn(acc, __fmul_rn(__ldg(km + i), __fsub_rn(reg_term2(xi(i, k), eps), sq_eps)));
-    part[k][t] = acc;
-  }
-  __syncthreads();
-  const int lane = t % WARP;
-  for (int k = t / WARP; k < S; k += ROW_THREADS / WARP) {
-    float v[CLUSTER];
-#pragma unroll
-    for (int r = 0; r < CLUSTER; ++r) v[r] = part[k][r * WARP + lane];
-    const float sum = slot_tree(v);
-    if (lane == 0) out[k] = clamp_min0(__fmul_rn(a, sum));
-  }
-}
-
-// The line search's candidates params[6 + i] + delta[6 + i] steps[k] (d: the
-// lane's delta in shared memory).
-struct GuardXi {
-  const float* __restrict__ p;
-  const float* d;
-  const float* __restrict__ steps;
-  __device__ __forceinline__ float operator()(int i, int k) const {
-    return __fadd_rn(__ldg(p + i), __fmul_rn(d[6 + i], __ldg(steps + k)));
-  }
-};
-
-// The lane sum of the block's slots (thread t holds slot t's chain): warp 0
-// runs the tree over `part`, and every thread gets the sum. `part` and
-// `total` may be used again right after it returns.
-__device__ __forceinline__ float block_slot_sum(float acc, float* part, float* total) {
-  const int t = threadIdx.x;
-  part[t] = acc;
-  __syncthreads();
-  if (t < WARP) {
-    float v[CLUSTER];
-#pragma unroll
-    for (int r = 0; r < CLUSTER; ++r) v[r] = part[r * WARP + t];
-    const float sum = slot_tree(v);
-    if (t == 0) *total = sum;
-  }
-  __syncthreads();
-  return *total;
-}
+// The two ends of a Newton step as kernels of their own (see the device
+// functions above lane_pcg for their arithmetic).
 
 // Hd = H + diag(reg_h) + (mu scale_h) I and g' = (g + reg_g) * [1, kmask]
-// for a lane, where scale_h = lane_sum(diag(H + diag(reg_h))) / n + 1e-12
-// (solver.py:297-304; at n <= 6 no regularizer: g is left alone and Hd = H
-// + (mu scale_h) I). A block writes LM_ROWS rows of one lane's Hd; each
-// recomputes the lane's scale_h over the n diagonal entries in lane_sum's
-// order (slot t adds entries t, t + 256, ...; the tree), which needs no
-// second launch and no grid-wide barrier. Row tile 0 writes g'. ATen's
-// steps kept: x / n with a Python n is x * (1.0f / n) (inv_n, from the
-// host), H + diag_embed(reg_h) adds 0 off the diagonal (a -0 becomes +0),
-// and the damping adds c * 0 there (NaN everywhere when c is not finite).
+// for a lane (Damp; at n <= 6 no regularizer: g is left alone). A block
+// writes LM_ROWS rows of one lane's Hd; each recomputes the lane's scale_h
+// over the n diagonal entries in lane_sum's order (lm_damp), which needs no
+// second launch and no grid-wide barrier. Row tile 0 writes g'. Bytes
+// bound it (one read of H, one write of Hd).
 __global__ void __launch_bounds__(ROW_THREADS)
-lane_lm_system_kernel(const float* __restrict__ params, const float* __restrict__ mu,
-                      const float* __restrict__ alpha, const float* __restrict__ kmask,
-                      const float* __restrict__ g, const float* __restrict__ H,
-                      float* __restrict__ g_out, float* __restrict__ Hd, int n, int tiles,
-                      float eps, float inv_n, float tiny) {
+lane_lm_system_kernel(StepArgs sa, const float* __restrict__ g, const float* __restrict__ H,
+                      float* __restrict__ g_out, float* __restrict__ Hd, int n, int tiles) {
   __shared__ float part[ROW_THREADS];
   __shared__ float total;
   const long long o = blockIdx.x / tiles;
   const int tile = blockIdx.x % tiles;
   const int t = threadIdx.x;
-  const int K = n - 6;
-  const bool reg = K > 0;
-  const float* p = params + o * n;
-  const float* km = kmask + (reg ? o * K : 0);
-  const float a = reg ? __ldg(alpha + o) : 0.0f;
+  const Damp dm = lm_damp(sa, H, o, n, part, &total);
   const float* h = H + o * n * n;
   float* hd = Hd + o * n * n;
-  float acc = 0.0f;
-  for (int i = t; i < n; i += ROW_THREADS) {
-    float v = __ldg(h + (long long)i * n + i);
-    if (reg) v = __fadd_rn(v, i < 6 ? 0.0f : reg_hess(__ldg(p + i), a, __ldg(km + i - 6), eps));
-    acc = __fadd_rn(acc, v);
-  }
-  const float sum = block_slot_sum(acc, part, &total);
-  const float c = __fmul_rn(__ldg(mu + o), __fadd_rn(__fmul_rn(sum, inv_n), tiny));
-  const float c_diag = __fmul_rn(c, 1.0f), c_off = __fmul_rn(c, 0.0f);
   // column j of the tile's rows: all LM_ROWS loads issued before the first
   // store (a thread's loads in flight, not one after another)
   const int i0 = tile * LM_ROWS;
@@ -2215,84 +2602,33 @@ lane_lm_system_kernel(const float* __restrict__ params, const float* __restrict_
     for (int r = 0; r < LM_ROWS; ++r) {
       const int i = i0 + r;
       if (i >= n) break;
-      float x = v[r];
-      if (j == i) {
-        if (reg) x = __fadd_rn(x, i < 6 ? 0.0f : reg_hess(__ldg(p + i), a, __ldg(km + i - 6), eps));
-        x = __fadd_rn(x, c_diag);
-      } else {
-        if (reg) x = __fadd_rn(x, 0.0f);
-        x = __fadd_rn(x, c_off);
-      }
-      hd[(long long)i * n + j] = x;
+      hd[(long long)i * n + j] = dm.at(v[r], i, j);
     }
   }
-  if (tile == 0 && reg) {
-    for (int i = t; i < n; i += ROW_THREADS) {
-      const float rg = i < 6 ? 0.0f : reg_grad(__ldg(p + i), a, __ldg(km + i - 6), eps);
-      const float m = i < 6 ? 1.0f : __ldg(km + i - 6);
-      g_out[o * n + i] = __fmul_rn(__fadd_rn(__ldg(g + o * n + i), rg), m);
-    }
+  if (tile == 0 && dm.reg) {
+    for (int i = t; i < n; i += ROW_THREADS) g_out[o * n + i] = dm.grad(__ldg(g + o * n + i), i);
   }
 }
 
 // The guard of a Newton direction and what the line search needs of it,
-// for one lane a block (solver.py:309-312, 321-324, 329):
-//   delta = dir (-dir with `negate`: PCG's solution); where an entry is not
-//     finite, delta = -g / (sqrt(lane_dot(g, g)) + 1);
-//   decrement = -lane_dot(g, delta);
-//   thr[k] = f0 - (armijo * steps[k]) * decrement, the Armijo thresholds;
-//   reg_cand[k] = clamp_min(alpha * lane_sum_K(kmask * (sqrt(xi * xi + eps)
-//     - sqrt(eps))), 0), xi = params[6:] + delta[6:] * steps[k] (n > 6).
-// Each sum takes lane_dot's and lane_sum's own order (slot t adds terms t,
-// t + 256, ... in turn; then the tree), so the outputs are bitwise that
-// chain with no tensor in between; the S regularizer sums run in turn over
-// the same 256 slots and their trees over the block's 8 warps. The lane's
-// direction sits in dynamic shared memory (n floats): the regularizer's
-// terms read entries 6 + i that other threads loaded.
+// for one lane a block (step_guard_lane): the direction dir (-dir with
+// `negate`: PCG's solution) read into dynamic shared memory (n floats: the
+// regularizer's terms read entries 6 + i that other threads loaded). Its
+// launch and four dependent block trees bound it.
 __global__ void __launch_bounds__(ROW_THREADS)
-lane_step_guard_kernel(const float* __restrict__ dir, const float* __restrict__ g,
-                       const float* __restrict__ params, const float* __restrict__ alpha,
-                       const float* __restrict__ kmask, const float* __restrict__ steps,
-                       const float* __restrict__ f0, float* __restrict__ delta,
-                       float* __restrict__ decrement, float* __restrict__ reg_cand,
-                       float* __restrict__ thr, int n, int S, int negate, float eps,
-                       float sq_eps, float armijo) {
+lane_step_guard_kernel(StepArgs sa, const float* __restrict__ dir, const float* __restrict__ g,
+                       int n, int negate) {
   extern __shared__ float d[];
   __shared__ float part[GUARD_MAX_S][ROW_THREADS];
   __shared__ float total;
+  Split split;
+  split.start();
   const long long o = blockIdx.x;
-  const int t = threadIdx.x;
-  const float* gl = g + o * n;
-  int bad = 0;
-  for (int i = t; i < n; i += ROW_THREADS) {
-    float v = __ldg(dir + o * n + i);
-    if (negate) v = -v;
-    bad |= !isfinite(v);
-    d[i] = v;
+  for (int i = threadIdx.x; i < n; i += ROW_THREADS) {
+    const float v = __ldg(dir + o * n + i);
+    d[i] = negate ? -v : v;
   }
-  if (__syncthreads_or(bad)) {
-    float gg = 0.0f;
-    for (int i = t; i < n; i += ROW_THREADS) {
-      const float gi = __ldg(gl + i);
-      gg = __fadd_rn(gg, __fmul_rn(gi, gi));
-    }
-    const float den = __fadd_rn(__fsqrt_rn(block_slot_sum(gg, part[0], &total)), 1.0f);
-    for (int i = t; i < n; i += ROW_THREADS) d[i] = __fdiv_rn(-__ldg(gl + i), den);
-  }
-  float gd = 0.0f;
-  for (int i = t; i < n; i += ROW_THREADS) {
-    delta[o * n + i] = d[i];
-    gd = __fadd_rn(gd, __fmul_rn(__ldg(gl + i), d[i]));
-  }
-  // the barriers of the sum also publish d to every thread
-  const float dec = -block_slot_sum(gd, part[0], &total);
-  if (t == 0) decrement[o] = dec;
-  if (t < S)
-    thr[o * S + t] = __fsub_rn(__ldg(f0 + o), __fmul_rn(__fmul_rn(armijo, __ldg(steps + t)), dec));
-  const int K = n - 6;
-  if (K <= 0) return;
-  reg_sums(GuardXi{params + o * n + 6, d, steps}, kmask + o * K, K, S, __ldg(alpha + o), eps,
-           sq_eps, part, reg_cand + o * S);
+  step_guard_lane(sa, o, n, d, 0, StepGrad<STEP_GUARD>{g + o * n, Damp()}, part, &total, split);
 }
 
 // ---------------------------------------------------------------------------
@@ -2741,7 +3077,9 @@ namespace {
 
 // lane_pcg_kernel's launch: its dynamic shared memory (the vectors and the
 // rows that fit beside them and its static shared memory), and its rows
-// kept there.
+// kept there; the step variant also needs its guard's slots in the rows or
+// after x (cudaErrorInvalidValue where neither holds them).
+template <int STEP>
 int pcg_smem_plan(int n, long long* bytes, long long* cached) {
   int dev = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -2749,7 +3087,7 @@ int pcg_smem_plan(int n, long long* bytes, long long* cached) {
     err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                  dev);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lane_pcg_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lane_pcg_kernel<STEP>);
   if (err != cudaSuccess) return (int)err;
   const long long avail = smem_max - (long long)attr.sharedSizeBytes;
   const long long vec_bytes = 4LL * (6LL * n + 3 * PCG_THREADS);
@@ -2758,21 +3096,48 @@ int pcg_smem_plan(int n, long long* bytes, long long* cached) {
   const long long fit = (avail - vec_bytes) / (4LL * n);
   *cached = fit < nr ? fit : nr;
   *bytes = vec_bytes + *cached * 4LL * n;
+  if (STEP != STEP_PLAIN && *cached * n < GUARD_FLOATS && 5LL * n + 3 * PCG_THREADS < GUARD_FLOATS)
+    return (int)cudaErrorInvalidValue;
   // the card's maximum, the same for every launch (threads launching
   // concurrently set the same value)
-  return (int)cudaFuncSetAttribute(lane_pcg_kernel,
+  return (int)cudaFuncSetAttribute(lane_pcg_kernel<STEP>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)avail);
 }
 
+template <int STEP>
 int launch_pcg_smem(const float* H, const float* b, float* x, int B, int n, int iters,
-                    float stop2, float eps, cudaStream_t stream) {
+                    float stop2, float eps, const StepArgs& sa, cudaStream_t stream) {
   long long bytes = 0, cached = 0;
-  const int err = pcg_smem_plan(n, &bytes, &cached);
+  const int err = pcg_smem_plan<STEP>(n, &bytes, &cached);
   if (err) return err;
   const int vec = n % 4 == 0 && (unsigned long long)H % 16 == 0;
-  lane_pcg_kernel<<<B * PCG_CLUSTER, PCG_THREADS, (size_t)bytes, stream>>>(
-      H, b, x, n, iters, (int)cached, vec, stop2, eps);
+  lane_pcg_kernel<STEP><<<B * PCG_CLUSTER, PCG_THREADS, (size_t)bytes, stream>>>(
+      H, b, x, n, iters, (int)cached, vec, stop2, eps, sa);
   return (int)cudaGetLastError();
+}
+
+// lane_pcg's launch of variant `step` on its route from n (the guard's
+// StepArgs unused by STEP_PLAIN); STEP_FULL only at n <= PCG_REG_MAX_N.
+int launch_pcg(int step, const float* H, const float* b, float* x, int B, int n, int iters,
+               float stop2, float eps, const StepArgs& sa, cudaStream_t st) {
+  if ((long long)B * PCG_CLUSTER > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(B * PCG_CLUSTER);
+  if (n <= PCG_REG_MAX_N) {
+    switch (step) {
+      case STEP_PLAIN:
+        lane_pcg_reg_kernel<STEP_PLAIN><<<grid, PCG_THREADS, 0, st>>>(H, b, x, n, iters, stop2, eps, sa);
+        break;
+      case STEP_GUARD:
+        lane_pcg_reg_kernel<STEP_GUARD><<<grid, PCG_THREADS, 0, st>>>(H, b, x, n, iters, stop2, eps, sa);
+        break;
+      default:
+        lane_pcg_reg_kernel<STEP_FULL><<<grid, PCG_THREADS, 0, st>>>(H, b, x, n, iters, stop2, eps, sa);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (step == STEP_FULL) return (int)cudaErrorInvalidValue;
+  return step == STEP_PLAIN ? launch_pcg_smem<STEP_PLAIN>(H, b, x, B, n, iters, stop2, eps, sa, st)
+                            : launch_pcg_smem<STEP_GUARD>(H, b, x, B, n, iters, stop2, eps, sa, st);
 }
 
 }  // namespace
@@ -2791,14 +3156,8 @@ extern "C" int sdsm_lane_pcg(const float* H, const float* b, float* x, int B,
                              void* stream) {
   if (B < 0 || n < 0 || iters < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaGetLastError();
-  if ((long long)B * PCG_CLUSTER > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n <= PCG_REG_MAX_N) {
-    lane_pcg_reg_kernel<<<B * PCG_CLUSTER, PCG_THREADS, 0, st>>>(H, b, x, n, iters,
-                                                                stop2, eps);
-    return (int)cudaGetLastError();
-  }
-  return launch_pcg_smem(H, b, x, B, n, iters, stop2, eps, st);
+  return launch_pcg(STEP_PLAIN, H, b, x, B, n, iters, stop2, eps, StepArgs{},
+                    (cudaStream_t)stream);
 }
 
 #ifdef SDSM_SPLIT
@@ -2847,11 +3206,12 @@ int kernel_info(K* kernel, long long blocks, int threads, size_t smem, int* out)
 // kernel with its rows in shared memory (and L2) at any n.
 extern "C" int sdsm_lane_split_pcg_info(int* out, int B, int n, int smem, void*) {
   if (n <= PCG_REG_MAX_N && !smem)
-    return kernel_info(lane_pcg_reg_kernel, (long long)B * PCG_CLUSTER, PCG_THREADS, 0, out);
+    return kernel_info(lane_pcg_reg_kernel<STEP_PLAIN>, (long long)B * PCG_CLUSTER, PCG_THREADS,
+                       0, out);
   long long bytes = 0, cached = 0;
-  const int err = pcg_smem_plan(n, &bytes, &cached);
+  const int err = pcg_smem_plan<STEP_PLAIN>(n, &bytes, &cached);
   if (err) return err;
-  return kernel_info(lane_pcg_kernel, (long long)B * PCG_CLUSTER, PCG_THREADS,
+  return kernel_info(lane_pcg_kernel<STEP_PLAIN>, (long long)B * PCG_CLUSTER, PCG_THREADS,
                      (size_t)bytes, out);
 }
 
@@ -2860,7 +3220,8 @@ extern "C" int sdsm_lane_split_pcg_info(int* out, int B, int n, int smem, void*)
 extern "C" int sdsm_lane_split_pcg_smem(const float* H, const float* b, float* x, int B,
                                         int n, int iters, float stop2, float eps,
                                         void* stream) {
-  return launch_pcg_smem(H, b, x, B, n, iters, stop2, eps, (cudaStream_t)stream);
+  return launch_pcg_smem<STEP_PLAIN>(H, b, x, B, n, iters, stop2, eps, StepArgs{},
+                                    (cudaStream_t)stream);
 }
 
 template <int MODE>
@@ -2937,35 +3298,46 @@ extern "C" int sdsm_lane_split_softplus_pr13(const float* s, const float* u,
 
 namespace {
 
-// A cluster route's kernel (sdsm_lane_chol_route's numbers 1-3).
+// A cluster route's kernel (sdsm_lane_chol_route's numbers 1-3) in variant
+// `step` (STEP_PLAIN, STEP_GUARD, STEP_FULL).
 struct CholKernel {
-  void (*kernel)(const float*, const float*, float*, float*, int);
+  void (*kernel)(const float*, const float*, float*, float*, int, StepArgs);
   int C;
   bool global;
 };
 
-CholKernel chol_kernel(int route) {
+template <int STEP>
+CholKernel chol_kernel_of(int route) {
   switch (route) {
-    case 1: return {lane_cholesky_cluster_kernel<CHOL_CLUSTER, false>, CHOL_CLUSTER, false};
-    case 2: return {lane_cholesky_cluster_kernel<CHOL_WIDE_CLUSTER, false>, CHOL_WIDE_CLUSTER, false};
-    default: return {lane_cholesky_cluster_kernel<CHOL_WIDE_CLUSTER, true>, CHOL_WIDE_CLUSTER, true};
+    case 1: return {lane_cholesky_cluster_kernel<CHOL_CLUSTER, false, STEP>, CHOL_CLUSTER, false};
+    case 2:
+      return {lane_cholesky_cluster_kernel<CHOL_WIDE_CLUSTER, false, STEP>, CHOL_WIDE_CLUSTER,
+              false};
+    default:
+      return {lane_cholesky_cluster_kernel<CHOL_WIDE_CLUSTER, true, STEP>, CHOL_WIDE_CLUSTER, true};
   }
 }
 
-// Sets the dynamic shared memory maximum of route `route`'s kernel to what
-// the card's opt-in maximum leaves beside its static shared memory (the
-// stamped build's words), the same value at every launch (threads
-// launching concurrently set the same one), and on the wide routes allows
-// its non-portable cluster size; once a device and route. *avail: that
-// maximum.
+CholKernel chol_kernel(int route, int step) {
+  return step == STEP_FULL    ? chol_kernel_of<STEP_FULL>(route)
+         : step == STEP_GUARD ? chol_kernel_of<STEP_GUARD>(route)
+                              : chol_kernel_of<STEP_PLAIN>(route);
+}
+
+// Sets the dynamic shared memory maximum of route `route`'s kernel (variant
+// `step`) to what the card's opt-in maximum leaves beside its static shared
+// memory (the stamped build's words), the same value at every launch
+// (threads launching concurrently set the same one), and on the wide routes
+// allows its non-portable cluster size; once a device, route and variant.
+// *avail: that maximum.
 template <class K>
-int chol_setup(K* kernel, int route, int* avail) {
-  static std::atomic<int> known[MAX_DEVICES][4];  // avail + 1, 0: not set up
+int chol_setup(K* kernel, int route, int step, int* avail) {
+  static std::atomic<int> known[MAX_DEVICES][4][3];  // avail + 1, 0: not set up
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  const int seen = known[dev][route].load(std::memory_order_acquire);
+  const int seen = known[dev][route][step].load(std::memory_order_acquire);
   if (seen > 0) {
     *avail = seen - 1;
     return 0;
@@ -2981,21 +3353,21 @@ int chol_setup(K* kernel, int route, int* avail) {
   if (err == cudaSuccess && route >= 2)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
-  known[dev][route].store(*avail + 1, std::memory_order_release);
+  known[dev][route][step].store(*avail + 1, std::memory_order_release);
   return 0;
 }
 
-// The launch of cluster route `route` at (B, n) on `stream`: B clusters of
-// C blocks (a launch attribute), its kernel set up. Returns 0 or a CUDA
-// error (cudaErrorInvalidValue where the block's shared memory passes the
-// card's maximum).
-int chol_cluster_config(int route, long long B, int n, cudaStream_t stream,
+// The launch of cluster route `route` (variant `step`) at (B, n) on
+// `stream`: B clusters of C blocks (a launch attribute), its kernel set up.
+// Returns 0 or a CUDA error (cudaErrorInvalidValue where the block's shared
+// memory passes the card's maximum).
+int chol_cluster_config(int route, int step, long long B, int n, cudaStream_t stream,
                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, CholKernel* k) {
-  *k = chol_kernel(route);
+  *k = chol_kernel(route, step);
   int avail = 0;
-  const int err = chol_setup(k->kernel, route, &avail);
+  const int err = chol_setup(k->kernel, route, step, &avail);
   if (err) return err;
-  const long long bytes = chol_cluster_bytes(n, k->C, k->global);
+  const long long bytes = chol_step_bytes(n, k->C, k->global, step);
   if (bytes > avail || B * k->C > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   *cfg = {};
   cfg->gridDim = dim3((unsigned)(B * k->C));
@@ -3012,34 +3384,61 @@ int chol_cluster_config(int route, long long B, int n, cudaStream_t stream,
   return 0;
 }
 
-int launch_chol_cluster(int route, const float* H, const float* g, float* out,
-                        float* scratch, int B, int n, cudaStream_t stream) {
+int launch_chol_cluster(int route, int step, const float* H, const float* g, float* out,
+                        float* scratch, int B, int n, const StepArgs& sa, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   CholKernel k;
-  const int err = chol_cluster_config(route, B, n, stream, &cfg, &attr, &k);
+  const int err = chol_cluster_config(route, step, B, n, stream, &cfg, &attr, &k);
   if (err) return err;
-  const cudaError_t launch = cudaLaunchKernelEx(&cfg, k.kernel, H, g, out, scratch, n);
+  const cudaError_t launch = cudaLaunchKernelEx(&cfg, k.kernel, H, g, out, scratch, n, sa);
   return launch != cudaSuccess ? (int)launch : (int)cudaGetLastError();
 }
 
-// Floats of a lane's scratch on `route` (1-3), 0 past the int range.
+// Floats of a lane's scratch on `route` (1-3), 0 past the int range (the
+// same in every variant).
 int chol_route_floats(int route, int n) {
-  const CholKernel k = chol_kernel(route);
+  const CholKernel k = chol_kernel(route, STEP_PLAIN);
   const long long f = chol_scratch_floats(n, k.C, k.global);
   return f > 0x7fffffffLL ? 0 : (int)f;
 }
 
+template <int STEP>
 int launch_chol_one_block(const float* H, const float* g, float* out, int B, int n,
-                          cudaStream_t stream) {
+                          const StepArgs& sa, cudaStream_t stream) {
   int avail = 0;
-  const int err = chol_setup(lane_cholesky_kernel, 0, &avail);
+  const int err = chol_setup(lane_cholesky_kernel<STEP>, 0, STEP, &avail);
   if (err) return err;
-  const long long bytes = 4 * chol_floats(n);
+  const long long bytes = 4 * (chol_floats(n) + (STEP == STEP_PLAIN ? 0 : GUARD_FLOATS));
   if (bytes > avail) return (int)cudaErrorInvalidValue;
   const int threads = n <= 32 ? 64 : n <= 64 ? 128 : 256;
-  lane_cholesky_kernel<<<B, threads, (size_t)bytes, stream>>>(H, g, out, n);
+  lane_cholesky_kernel<STEP><<<B, threads, (size_t)bytes, stream>>>(H, g, out, n, sa);
   return (int)cudaGetLastError();
+}
+
+// lane_cholesky's launch of variant `step` on `route` (sdsm_lane_chol_route).
+int launch_cholesky(int route, int step, const float* H, const float* g, float* out,
+                    float* scratch, int B, int n, const StepArgs& sa, cudaStream_t st) {
+  if (route == 0) {
+    return step == STEP_FULL    ? launch_chol_one_block<STEP_FULL>(H, g, out, B, n, sa, st)
+           : step == STEP_GUARD ? launch_chol_one_block<STEP_GUARD>(H, g, out, B, n, sa, st)
+                                : launch_chol_one_block<STEP_PLAIN>(H, g, out, B, n, sa, st);
+  }
+  if (scratch == nullptr || chol_route_floats(route, n) == 0) return (int)cudaErrorInvalidValue;
+  return launch_chol_cluster(route, step, H, g, out, scratch, B, n, sa, st);
+}
+
+// The guard's StepArgs (and the damped system's, where given).
+StepArgs guard_args(const float* params, const float* mu, const float* alpha,
+                    const float* kmask, const float* steps, const float* f0, float* delta,
+                    float* decrement, float* reg_cand, float* thr, int S, float eps,
+                    float inv_n, float tiny, float sq_eps, float armijo) {
+  StepArgs sa = {};
+  sa.params = params, sa.mu = mu, sa.alpha = alpha, sa.kmask = kmask, sa.steps = steps;
+  sa.f0 = f0, sa.delta = delta, sa.decrement = decrement, sa.reg_cand = reg_cand, sa.thr = thr;
+  sa.S = S, sa.eps = eps, sa.inv_n = inv_n, sa.tiny = tiny, sa.sq_eps = sq_eps;
+  sa.armijo = armijo;
+  return sa;
 }
 
 }  // namespace
@@ -3085,7 +3484,7 @@ extern "C" int sdsm_lane_chol_clusters(int B, int n, void*) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   CholKernel k;
-  int err = chol_cluster_config(route, B, n, nullptr, &cfg, &attr, &k);
+  int err = chol_cluster_config(route, STEP_PLAIN, B, n, nullptr, &cfg, &attr, &k);
   int clusters = 0;
   if (!err) err = (int)cudaOccupancyMaxActiveClusters(&clusters, k.kernel, &cfg);
   return err ? -err : clusters;
@@ -3115,10 +3514,8 @@ extern "C" int sdsm_lane_cholesky(const float* H, const float* g, float* out,
   if (B < 0 || n < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  const int route = sdsm_lane_chol_route(B, n, nullptr);
-  if (route == 0) return launch_chol_one_block(H, g, out, B, n, st);
-  if (scratch == nullptr || chol_route_floats(route, n) == 0) return (int)cudaErrorInvalidValue;
-  return launch_chol_cluster(route, H, g, out, scratch, B, n, st);
+  return launch_cholesky(sdsm_lane_chol_route(B, n, nullptr), STEP_PLAIN, H, g, out, scratch, B,
+                         n, StepArgs{}, st);
 }
 
 #ifdef SDSM_SPLIT
@@ -3134,14 +3531,15 @@ extern "C" int sdsm_lane_split_cholesky(const float* H, const float* g, float* o
                                         void* stream) {
   if (B <= 0 || n <= 0 || scratch == nullptr || sdsm_lane_split_chol_floats(n, route, nullptr) == 0)
     return (int)cudaErrorInvalidValue;
-  return launch_chol_cluster(route, H, g, out, scratch, B, n, (cudaStream_t)stream);
+  return launch_chol_cluster(route, STEP_PLAIN, H, g, out, scratch, B, n, StepArgs{},
+                             (cudaStream_t)stream);
 }
 
 extern "C" int sdsm_lane_split_chol_info(int* out, int B, int n, int route, void*) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   CholKernel k;
-  int err = chol_cluster_config(route, B, n, nullptr, &cfg, &attr, &k);
+  int err = chol_cluster_config(route, STEP_PLAIN, B, n, nullptr, &cfg, &attr, &k);
   cudaFuncAttributes a;
   int clusters = 0;
   if (!err) err = (int)cudaFuncGetAttributes(&a, k.kernel);
@@ -3168,8 +3566,11 @@ extern "C" int sdsm_lane_lm_system(const float* params, const float* mu, const f
   const int tiles = (n + LM_ROWS - 1) / LM_ROWS;
   const long long blocks = (long long)B * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  StepArgs sa = {};
+  sa.params = params, sa.mu = mu, sa.alpha = alpha, sa.kmask = kmask;
+  sa.eps = eps, sa.inv_n = inv_n, sa.tiny = tiny;
   lane_lm_system_kernel<<<(unsigned)blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      params, mu, alpha, kmask, g, H, g_out, Hd, n, tiles, eps, inv_n, tiny);
+      sa, g, H, g_out, Hd, n, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -3190,11 +3591,79 @@ extern "C" int sdsm_lane_step_guard(const float* dir, const float* g, const floa
     return (int)cudaErrorInvalidValue;
   if (n > 6 && reg_cand == nullptr) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaGetLastError();
+  const StepArgs sa = guard_args(params, nullptr, alpha, kmask, steps, f0, delta, decrement,
+                                 reg_cand, thr, S, eps, 0.0f, 0.0f, sq_eps, armijo);
   lane_step_guard_kernel<<<B, ROW_THREADS, (size_t)n * sizeof(float), (cudaStream_t)stream>>>(
-      dir, g, params, alpha, kmask, steps, f0, delta, decrement, reg_cand, thr, n, S, negate,
-      eps, sq_eps, armijo);
+      sa, dir, g, n, negate);
   return (int)cudaGetLastError();
 }
+
+// (delta, decrement, reg_cand, thr) = the direction of solver._newton_step
+// and its guard for B lanes in one launch, the step variants of lane_pcg
+// and lane_cholesky (see above lane_pcg): with `prologue`, H (B, n, n) and g
+// (B, n) are the raw system, damped in the kernel as sdsm_lane_lm_system
+// damps it (params, mu, alpha, kmask; eps, inv_n and tiny), else H and g
+// are the damped system (g' of the guard); with `pcg` the direction is
+// PCG's (iters, stop2 and cg_eps as sdsm_lane_pcg takes them), negated in
+// the guard, else Cholesky's on the route of sdsm_lane_chol_route (scratch:
+// B sdsm_lane_chol_scratch_floats(B, n) floats, null on route 0); the
+// guard's steps, f0 and outputs as sdsm_lane_step_guard takes them (alpha,
+// kmask and reg_cand unused at n <= 6), float32 contiguous, 1 <= S <=
+// GUARD_MAX_S. The prologue with PCG past PCG_REG_MAX_N is refused (its
+// caller damps the system with sdsm_lane_lm_system first), as is any launch
+// the card refuses: no other kernel is taken.
+extern "C" int sdsm_lane_newton_direction(
+    const float* H, const float* g, const float* params, const float* mu, const float* alpha,
+    const float* kmask, const float* steps, const float* f0, float* delta, float* decrement,
+    float* reg_cand, float* thr, float* scratch, int B, int n, int S, int pcg, int prologue,
+    int iters, float eps, float inv_n, float tiny, float sq_eps, float armijo, float stop2,
+    float cg_eps, void* stream) {
+  if (B < 0 || n < 0 || S < 1 || S > GUARD_MAX_S || iters < 0) return (int)cudaErrorInvalidValue;
+  if ((n > 6 && (alpha == nullptr || kmask == nullptr || reg_cand == nullptr)) ||
+      (prologue && mu == nullptr) || (pcg && prologue && n > PCG_REG_MAX_N))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return (int)cudaGetLastError();
+  const StepArgs sa = guard_args(params, mu, alpha, kmask, steps, f0, delta, decrement, reg_cand,
+                                 thr, S, eps, inv_n, tiny, sq_eps, armijo);
+  const int step = prologue ? STEP_FULL : STEP_GUARD;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (pcg) return launch_pcg(step, H, g, nullptr, B, n, iters, stop2, cg_eps, sa, st);
+  return launch_cholesky(sdsm_lane_chol_route(B, n, nullptr), step, H, g, nullptr, scratch, B, n,
+                         sa, st);
+}
+
+#ifdef SDSM_SPLIT
+// chip_smoke.py --split: what the card reports for the direction launch
+// with the prologue (sdsm_lane_newton_direction's) at (B, n).
+extern "C" int sdsm_lane_split_step_info(int* out, int B, int n, int pcg, void*) {
+  if (pcg) {
+    if (n > PCG_REG_MAX_N) return (int)cudaErrorInvalidValue;
+    return kernel_info(lane_pcg_reg_kernel<STEP_FULL>, (long long)B * PCG_CLUSTER, PCG_THREADS,
+                       0, out);
+  }
+  const int route = sdsm_lane_chol_route(B, n, nullptr);
+  if (route == 0) {
+    int avail = 0;
+    const int err = chol_setup(lane_cholesky_kernel<STEP_FULL>, 0, STEP_FULL, &avail);
+    if (err) return err;
+    return kernel_info(lane_cholesky_kernel<STEP_FULL>, B, n <= 32 ? 64 : n <= 64 ? 128 : 256,
+                       (size_t)(4 * (chol_floats(n) + GUARD_FLOATS)), out);
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  CholKernel k;
+  int err = chol_cluster_config(route, STEP_FULL, B, n, nullptr, &cfg, &attr, &k);
+  cudaFuncAttributes a;
+  int clusters = 0;
+  if (!err) err = (int)cudaFuncGetAttributes(&a, k.kernel);
+  if (!err) err = (int)cudaOccupancyMaxActiveClusters(&clusters, k.kernel, &cfg);
+  if (err) return err;
+  const int v[7] = {a.numRegs, (int)a.localSizeBytes, (int)a.sharedSizeBytes,
+                    (int)cfg.dynamicSmemBytes, clusters, CHOL_MAX_THREADS, (int)cfg.gridDim.x};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+#endif
 
 // (t_step, new_params, new_s, new_f, improved, full_step) = the line search's
 // pick of solver._step_tail for B lanes (lane_step_pick_kernel):

@@ -151,7 +151,8 @@ _KERNELS = {
                      'pcg': (3, 3, 2), 'cholesky': (4, 2), 'chol_route': (0, 2),
                      'chol_scratch_floats': (0, 2), 'chol_clusters': (0, 2),
                      'chol_check': (0, 0), 'lm_system': (8, 2, 3),
-                     'step_guard': (11, 4, 3), 'step_pick': (15, 4),
+                     'step_guard': (11, 4, 3), 'newton_direction': (13, 6, 7),
+                     'step_pick': (15, 4),
                      'step_tail': (19, 5, 6)},
                     dict(warp=32, small_n=8, row_threads=256,
                          chol_one_block_max_n=32, chol_cluster_max_n=807,

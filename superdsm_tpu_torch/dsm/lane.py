@@ -34,12 +34,16 @@ bitwise :func:`cholesky_chain` on the card; on the CPU the solver keeps
 LAPACK (``solver._cholesky_direction``). :func:`lm_system` and
 :func:`step_guard` are the two ends of a Newton step around the direction
 solve (the damped system; the guard, decrement, line-search regularizer
-candidates and Armijo thresholds), each one launch on the card, bitwise
-its plain version there, which is the solver's former op-by-op expression
-(its sums :func:`lane_sum` and :func:`lane_dot`); so are :func:`step_pick`
-and :func:`step_tail`, the rest of the step (the line search's pick; the
-scale sweep's regularizer sums and pick, the new mu, the convergence test
-and, in the loop, the freeze writes).
+candidates and Armijo thresholds), each bitwise its plain version, which
+is the solver's former op-by-op expression (its sums :func:`lane_sum` and
+:func:`lane_dot`); on the card :func:`newton_direction` runs both with
+the direction between them as one launch (the damped system formed where
+the direction kernel loads H, the guard where it holds the direction),
+bitwise the three launches :func:`lm_system_kernel`, the direction kernel
+and :func:`step_guard_kernel`. :func:`step_pick` and :func:`step_tail`,
+the rest of the step (the line search's pick; the scale sweep's
+regularizer sums and pick, the new mu, the convergence test and, in the
+loop, the freeze writes), are one launch each on the card.
 
 Every kernel launch adds one to :data:`LAUNCHES` (through
 :func:`gram._count_launch`, so a captured CUDA graph counts its launches at
@@ -58,8 +62,8 @@ from . import gram
 #: :func:`softplus_kernel`, which no solver path launches).
 LAUNCHES = {'lane_matvec': 0, 'lane_sum': 0, 'lane_dot': 0,
             'softplus_energies': 0, 'lane_pcg': 0, 'lane_cholesky': 0,
-            'lane_lm_system': 0, 'lane_step_guard': 0, 'lane_step_pick': 0,
-            'lane_step_tail': 0, 'softplus': 0}
+            'lane_lm_system': 0, 'lane_step_guard': 0, 'lane_chol_step': 0,
+            'lane_pcg_step': 0, 'lane_step_pick': 0, 'lane_step_tail': 0, 'softplus': 0}
 
 
 def reset_launch_counts():
@@ -69,8 +73,9 @@ def reset_launch_counts():
 #: Callables told of every lane-kernel launch with its kernel's name and
 #: shape (``lane_matvec`` (B, P, n), ``lane_sum`` (B, S, L) or (B, L)
 #: summed over L, ``lane_dot`` (B, n), ``softplus_energies`` (mode, B, P),
-#: ``lane_pcg``, ``lane_cholesky``, ``lane_lm_system`` and
-#: ``lane_step_guard`` (B, n), ``lane_step_pick`` and ``lane_step_tail`` (B,
+#: ``lane_pcg``, ``lane_cholesky``, ``lane_lm_system``,
+#: ``lane_step_guard`` and the direction launches ``lane_chol_step`` and
+#: ``lane_pcg_step`` (B, n), ``lane_step_pick`` and ``lane_step_tail`` (B,
 #: P, n), P = 0 without a surface);
 #: under a replayed CUDA graph at each replay, as
 #: :func:`gram._count_launch` counts.
@@ -340,6 +345,39 @@ def step_guard_plain(direction, g, params, alpha, epsilon, kmask, steps, f0, arm
         reg_cand = (alpha[:, None] * lane_sum(
             kmask[:, :, None] * (term2c - math.sqrt(epsilon)), 1)).clamp_min(0.0)
     return delta, decrement, reg_cand, f0[:, None] - armijo_c * steps * decrement[:, None]
+
+
+def cholesky_lapack(Hd, g):
+    """``-Hd^-1 g`` by LAPACK's ``cholesky_ex`` and ``cholesky_solve`` on
+    the whole batch (LAPACK factors each matrix by itself; ``cholesky_ex``
+    reports a failure instead of raising), NaN in the lanes whose factor
+    fails: the Cholesky direction on the CPU."""
+    L, info = torch.linalg.cholesky_ex(Hd)
+    delta = -torch.cholesky_solve(g[..., None], L)[..., 0]
+    return torch.where((info != 0)[:, None],
+                       torch.full((), float('nan'), dtype=g.dtype, device=g.device),
+                       delta)
+
+
+def newton_direction_plain(params, mu, alpha, epsilon, kmask, g, H, steps, f0, armijo_c,
+                           pcg=None):
+    """A Newton step's direction and its guard, op by op: with ``mu``, the
+    damped system :func:`lm_system_plain` of ``g`` and ``H``; with ``mu``
+    None, ``(g, H)`` as given (a system the caller damped); its direction
+    ``-Hd^-1 g'``, by PCG if ``pcg`` is ``(iters, rtol)`` (:func:`pcg_chain`,
+    whose solution the guard negates; ``(iters, rtol, False)`` runs it
+    without its early exit, the same bits), else by Cholesky
+    (:func:`cholesky_chain` on the card, :func:`cholesky_lapack` on the
+    CPU, as ``solver._cholesky_direction``); then :func:`step_guard_plain`.
+    Returns ``(delta, decrement, reg_cand or None, thresholds)``."""
+    if mu is not None:
+        g, H = lm_system_plain(params, mu, alpha, epsilon, kmask, g, H)
+    if pcg is not None:
+        direction = pcg_chain(H, g, *pcg)
+    else:
+        direction = cholesky_chain(H, g) if H.is_cuda else cholesky_lapack(H, g)
+    return step_guard_plain(direction, g, params, alpha, epsilon, kmask, steps, f0, armijo_c,
+                            pcg is not None)
 
 
 def step_pick_plain(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s=None, u=None):
@@ -735,6 +773,63 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def newton_direction_kernel(params, mu, alpha, epsilon, kmask, g, H, steps, f0, armijo_c,
+                            pcg=None):
+    """The CUDA kernel of :func:`newton_direction` on the current stream:
+    one launch (``lane_pcg_step`` with ``pcg``, else ``lane_chol_step``),
+    bitwise :func:`newton_direction_plain` on the card and the three
+    launches :func:`lm_system_kernel`, the direction kernel and
+    :func:`step_guard_kernel`: the direction kernel's step variant, which
+    forms the damped system where it loads H (with ``mu``) and runs the
+    guard where it holds the direction; no Hd, g' or direction in device
+    memory. PCG's route above :data:`PCG_REG_MAX_N` takes a damped system,
+    so there :func:`lm_system_kernel` launches first. A launch the card
+    refuses raises."""
+    _check_cuda('newton_direction_kernel', params, g, H, steps, f0,
+                *(t for t in (mu, alpha, kmask) if t is not None))
+    if params.dim() != 2 or steps.dim() != 1:
+        raise ValueError('newton_direction_kernel takes params (B, n) and steps (S,), got '
+                         f'{tuple(params.shape)} and {tuple(steps.shape)}')
+    params, g, H, steps, f0 = (t.contiguous() for t in (params, g, H, steps, f0))
+    mu, alpha, kmask = (None if t is None else t.contiguous() for t in (mu, alpha, kmask))
+    B, n = params.shape
+    S = steps.shape[0]
+    dev = params.device
+    checks = (('g', g, (B, n)), ('H', H, (B, n, n)), ('f0', f0, (B,)))
+    if mu is not None:
+        checks += (('mu', mu, (B,)),)
+    if n > 6:
+        checks += (('alpha', alpha, (B,)), ('kmask', kmask, (B, n - 6)))
+    for name, t, shape in checks:
+        gram._check(name, t, torch.float32, shape, dev)
+    _int32('newton_direction_kernel', B, n, S)
+    if pcg is not None and mu is not None and n > PCG_REG_MAX_N:
+        g, H = lm_system_kernel(params, mu, alpha, epsilon, kmask, g, H)
+        mu = None
+    delta = torch.empty((B, n), dtype=torch.float32, device=dev)
+    decrement = torch.empty((B,), dtype=torch.float32, device=dev)
+    thresholds = torch.empty((B, S), dtype=torch.float32, device=dev)
+    reg_cand = torch.empty((B, S), dtype=torch.float32, device=dev) if n > 6 else None
+    iters, rtol = pcg[:2] if pcg is not None else (0, 0.0)
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(dev):
+        floats = 0 if pcg is not None else lib.sdsm_lane_chol_scratch_floats(B, n, None)
+        scratch = None if floats == 0 else torch.empty((B, floats), dtype=torch.float32,
+                                                       device=dev)
+        # the float32 values ATen computes with: lm_system_kernel's eps, 1 /
+        # n and 1e-12, step_guard_kernel's eps, sqrt(eps) and Armijo
+        # constant, pcg_kernel's rtol^2 and 1e-30
+        _launch('lane_chol_step' if pcg is None else 'lane_pcg_step', (B, n),
+                lib.sdsm_lane_newton_direction, H.data_ptr(), g.data_ptr(), params.data_ptr(),
+                _ptr(mu), _ptr(alpha) if n > 6 else None, _ptr(kmask) if n > 6 else None,
+                steps.data_ptr(), f0.data_ptr(), delta.data_ptr(), decrement.data_ptr(),
+                _ptr(reg_cand), thresholds.data_ptr(), _ptr(scratch), B, n, S,
+                int(pcg is not None), int(mu is not None), iters, _f32(epsilon),
+                _f32(np.float32(1.0) / np.float32(n)), _f32(1e-12), _f32(math.sqrt(epsilon)),
+                _f32(armijo_c), _f32(rtol * rtol), _f32(1e-30))
+    return delta, decrement, reg_cand, thresholds
+
+
 def step_pick_kernel(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s=None, u=None):
     """The CUDA kernel of :func:`step_pick` on the current stream: one
     launch, bitwise :func:`step_pick_plain` on the card (eight blocks a
@@ -914,6 +1009,17 @@ def step_guard(direction, g, params, alpha, epsilon, kmask, steps, f0, armijo_c,
                                 armijo_c, negate)
     return step_guard_kernel(direction, g, params, alpha, epsilon, kmask, steps, f0,
                              armijo_c, negate)
+
+
+def newton_direction(params, mu, alpha, epsilon, kmask, g, H, steps, f0, armijo_c, pcg=None):
+    """A Newton step's guarded direction ``(delta, decrement, reg_cand,
+    thresholds)`` from its system (see :func:`newton_direction_plain`),
+    float32: the plain version on the CPU, one :func:`newton_direction_kernel`
+    launch on the card (bitwise the same)."""
+    args = (params, mu, alpha, epsilon, kmask, g, H, steps, f0, armijo_c, pcg)
+    if params.device.type == 'cpu':
+        return newton_direction_plain(*args)
+    return newton_direction_kernel(*args)
 
 
 def step_pick(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s=None, u=None):

@@ -20,19 +20,18 @@ is a ``lax.while_loop``. On the card the port captures one Newton iteration
 host sync) between chunks only. Lanes freeze one by one, so iterations
 after the last lane converged change nothing. :func:`eager_loop` runs the
 loop op by op instead, syncing every iteration (the counterpart of
-``jax.disable_jit()``); on the CPU the chunked loop runs eagerly. PCG
-(:func:`_pcg_solve`, at n > :data:`CHOLESKY_MAX_N`) is one launch of the
-``lane_pcg`` kernel on the card in either loop, whose lanes each stop when
-they are done (:data:`CG_MAX_ITERS` steps at most); on the CPU it is the
-op-by-op chain that the kernel replaces. The Cholesky direction (at n <=
-:data:`CHOLESKY_MAX_N`) is one launch of the ``lane_cholesky`` kernel on
-the card; on the CPU LAPACK's. The damped system before it and the guard
-after it are one launch each on the card (``lane_lm_system``,
-``lane_step_guard``), and so are the line search's pick and the rest of
-the step after the scale sweep's sums, the loop's freeze writes included
-(``lane_step_pick``, ``lane_step_tail``); on the CPU their plain versions,
-the op-by-op expressions of :func:`superdsm_tpu_torch.dsm.lane.lm_system_plain`,
-:func:`~superdsm_tpu_torch.dsm.lane.step_guard_plain`,
+``jax.disable_jit()``); on the CPU the chunked loop runs eagerly. A
+Newton step's damped system, its direction (PCG, as :func:`_pcg_solve`,
+at n > :data:`CHOLESKY_MAX_N`, whose lanes each stop when they are done,
+:data:`CG_MAX_ITERS` steps at most; else Cholesky, as
+:func:`_cholesky_direction`) and the direction's guard are one launch on
+the card in either loop (``lane_pcg_step`` or ``lane_chol_step``:
+:func:`superdsm_tpu_torch.dsm.lane.newton_direction`), and so are the line
+search's pick and the rest of the step after the scale sweep's sums, the
+loop's freeze writes included (``lane_step_pick``, ``lane_step_tail``); on
+the CPU their plain versions, the op-by-op expressions of
+:func:`~superdsm_tpu_torch.dsm.lane.newton_direction_plain` (LAPACK's
+Cholesky, the chain the PCG kernel replaces),
 :func:`~superdsm_tpu_torch.dsm.lane.step_pick_plain` and
 :func:`~superdsm_tpu_torch.dsm.lane.step_tail_plain`.
 
@@ -277,11 +276,7 @@ def _cholesky_direction(Hd, g):
     failure instead of raising)."""
     if Hd.is_cuda:
         return lane.cholesky_kernel(Hd, g)
-    L, info = torch.linalg.cholesky_ex(Hd)
-    delta = -torch.cholesky_solve(g[..., None], L)[..., 0]
-    return torch.where((info != 0)[:, None],
-                       torch.full((), float('nan'), dtype=g.dtype, device=g.device),
-                       delta)
+    return lane.cholesky_lapack(Hd, g)
 
 
 def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
@@ -299,20 +294,19 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
     :func:`_pcg_solve`)."""
     n = params.shape[1]
     dt, dev = params.dtype, params.device
-    # the damped system: g with the regularizer's gradient, masked; Hd = H +
-    # diag(reg_h) + mu scale_h I (one lane_lm_system launch on the card)
-    g, Hd = lane.lm_system(params, mu, alpha, epsilon, kmask, g, H)
     steps = _steps(dt, dev)                                         # (S,)
+    # the damped system (g with the regularizer's gradient, masked; Hd = H
+    # + diag(reg_h) + mu scale_h I), its direction -Hd^-1 g (by PCG, as
+    # _pcg_solve, above CHOLESKY_MAX_N, else by Cholesky, as
+    # _cholesky_direction) and its guard: in a lane with a non-finite entry
+    # a gradient step; the decrement lambda^2 >= 0, the line search's
+    # regularizer candidates and Armijo thresholds (one lane_pcg_step or
+    # lane_chol_step launch on the card)
+    pcg = None
     if n > CHOLESKY_MAX_N:
-        direction, negate = _pcg_solve(Hd, g), True
-    else:
-        direction, negate = _cholesky_direction(Hd, g), False
-    # delta = -direction for PCG; in a lane with a non-finite entry a
-    # gradient step; the decrement lambda^2 >= 0, the line search's
-    # regularizer candidates and Armijo thresholds (one lane_step_guard
-    # launch on the card)
-    delta, decrement, reg_cand, armijo_f = lane.step_guard(
-        direction, g, params, alpha, epsilon, kmask, steps, f0, ARMIJO_C, negate)
+        pcg = (CG_MAX_ITERS, CG_RTOL)
+    delta, decrement, reg_cand, armijo_f = lane.newton_direction(
+        params, mu, alpha, epsilon, kmask, g, H, steps, f0, ARMIJO_C, pcg)
 
     # line search: s is affine in params, so one matvec covers all steps
     u = _bmv(Bf, delta)

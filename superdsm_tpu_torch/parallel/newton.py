@@ -20,10 +20,11 @@ sums), as in :func:`superdsm_tpu_torch.dsm.solver._solve_batch_impl`:
 float32 pixel sums stall the Levenberg-Marquardt loop. The step keeps the
 JAX file's LM damping, line search, scale sweep and convergence rule, with
 a Cholesky direction at every n, as there. Every sum of a lane goes through
-:mod:`superdsm_tpu_torch.dsm.lane` and the direction through
-``solver._cholesky_direction`` (the ``lane_cholesky`` kernel on the card,
-LAPACK on the CPU), and the step's guard through ``lane.step_guard`` (the
-``lane_step_guard`` kernel on the card), and the rest of the step through
+:mod:`superdsm_tpu_torch.dsm.lane`, the direction and the step's guard
+through ``lane.newton_direction`` with the system damped here (one
+``lane_chol_step`` launch on the card, the Cholesky kernel with the guard
+in its epilogue; LAPACK and the guard's plain version on the CPU), and the
+rest of the step through
 ``solver._step_tail`` (the ``lane_step_pick`` and ``lane_step_tail``
 kernels), as in the unsharded solver, so a lane's result does not depend
 on its batch. The damped system is assembled here op by op: its energy
@@ -42,8 +43,8 @@ import torch
 from .._device import thread_device
 from ..dsm import gram, lane
 from ..dsm.smooth import build_smooth_matrix
-from ..dsm.solver import (_cholesky_direction, _poly_basis, _reg_terms, _bmv, _step_tail,
-                          _steps, ARMIJO_C, DEFAULT_MAXITER, DEFAULT_TOL)
+from ..dsm.solver import (_poly_basis, _reg_terms, _bmv, _step_tail, _steps, ARMIJO_C,
+                          DEFAULT_MAXITER, DEFAULT_TOL)
 from .pipelined import worker_stream
 
 _F32 = torch.float32
@@ -133,11 +134,12 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
 
         # adaptive LM damping, mirroring dsm.solver._newton_step
         scale_h = lane.lane_sum(torch.diagonal(H, dim1=-2, dim2=-1)) / n + 1e-12
-        direction = _cholesky_direction(H + (mu * scale_h)[:, None, None] * eye, g)
-        # the guard, decrement, regularizer candidates and Armijo thresholds
-        # (one lane_step_guard launch on the card, as in the unsharded step)
-        delta, decrement, reg_cand, armijo_f = lane.step_guard(
-            direction, g, params, alpha, epsilon, kmask, steps, f0, ARMIJO_C)
+        # the direction, its guard, decrement, regularizer candidates and
+        # Armijo thresholds (one lane_chol_step launch on the card, the
+        # unsharded step's without its damping)
+        delta, decrement, reg_cand, armijo_f = lane.newton_direction(
+            params, None, alpha, epsilon, kmask, g, H + (mu * scale_h)[:, None, None] * eye,
+            steps, f0, ARMIJO_C)
 
         # line search: one matvec per shard, candidate energies reduced
         us = [sh.surface(delta) for sh in shards]

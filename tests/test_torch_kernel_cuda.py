@@ -57,8 +57,15 @@ and ``lane_step_guard``, the damped Newton system and the step guard in
 one launch each, are held bitwise to the chains they replace
 (``lane.lm_system_plain`` and ``lane.step_guard_plain`` on the card) at
 the main path's shapes, with non-finite damping, directions and energies,
-a lane alone to the lane in the batch; ``solver._newton_step`` launches
-each once and no ``lane_dot``. ``lane_step_pick`` and ``lane_step_tail``,
+a lane alone to the lane in the batch. The direction launch
+(``lane.newton_direction``: the damped system, the direction and its
+guard in one launch of the direction kernel's step variant, or the guard
+alone on a damped system) is held bitwise to the three launches it
+replaced and to its plain version, with a lane of infinite damping, one
+not positive definite and one all padded, a lane alone to the lane in the
+batch, a captured graph's replay to the eager launch; it raises on what
+it does not take; ``solver._newton_step`` makes one direction launch and
+no ``lane_lm_system``, ``lane_step_guard`` or ``lane_dot`` launch. ``lane_step_pick`` and ``lane_step_tail``,
 the line search's pick and the rest of the step with the loop's freeze
 writes, are held bitwise to their chains (``lane.step_pick_plain`` and
 ``lane.step_tail_plain`` on the card) at the main path's shapes, with
@@ -1095,7 +1102,9 @@ def test_bf16_lane_alone_equals_lane_in_batch(route):
 def test_sharded_lane_alone_equals_lane_in_batch_on_the_card(kind):
     """The sharded solver on a (1, 2) mesh of the card twice: a lane alone
     gives bitwise its params, energy and convergence flag in a batch of
-    four; its directions are ``lane_cholesky`` launches."""
+    four; its directions and guards are ``lane_chol_step`` launches (the
+    Cholesky kernel with the guard in its epilogue), with no
+    ``lane_cholesky`` or ``lane_step_guard`` launch of their own."""
     from superdsm_tpu_torch.dsm import lane
     from superdsm_tpu_torch.parallel import mesh as pm
     from superdsm_tpu_torch.parallel.newton import (make_sharded_dsm_solver,
@@ -1122,7 +1131,8 @@ def test_sharded_lane_alone_equals_lane_in_batch_on_the_card(kind):
                 sub, np.ones((B, K), np.float32), Y, Wt, np.full(B, 0.5, np.float32))
     lane.reset_launch_counts()
     batch = [t.cpu().numpy() for t in solve(*args)]
-    assert lane.LAUNCHES['lane_cholesky'] > 0
+    assert lane.LAUNCHES['lane_chol_step'] > 0
+    assert lane.LAUNCHES['lane_cholesky'] == lane.LAUNCHES['lane_step_guard'] == 0
     assert np.isfinite(batch[1]).all()
     for b in (0, B - 1):
         alone = [t.cpu().numpy() for t in solve(*(a[b:b + 1] for a in args))]
@@ -1219,12 +1229,114 @@ def test_lane_step_guard_equals_the_chain(B, n, negate):
             assert x is None or _same_bits(x[0], y[k])
 
 
+#: The direction launch's shapes (B, n), as chip_smoke.py phase 3 (the
+#: damped system's prologue; PCG above ``CHOLESKY_MAX_N``), and a few more
+#: (a lane of n = 38, many lanes at n = 128 on the one-block route, the
+#: first n of the routes of 16 blocks, the largest DSM bucket).
+DIRECTION_SHAPES = [(16, 256), (2, 512), (8, 256), (16, 128), (32, 6), (16, 6), (8, 6),
+                    (2, 256), (2, 6), (16, 512), (2, 1024), (5, 38), (64, 128), (2, 808)]
+#: The guard alone (the sharded solver's), Cholesky at every n.
+GUARD_ONLY_SHAPES = [(8, 128), (5, 38), (2, 6), (8, 1024), (1, 2048)]
+
+
+def _three_launches(params, mu, alpha, epsilon, kmask, g, H, steps, f0, armijo_c, pcg=None):
+    from superdsm_tpu_torch.dsm import lane
+    if mu is not None:
+        g, H = lane.lm_system_kernel(params, mu, alpha, epsilon, kmask, g, H)
+    direction = lane.pcg_kernel(H, g, *pcg) if pcg else lane.cholesky_kernel(H, g)
+    return lane.step_guard_kernel(direction, g, params, alpha, epsilon, kmask, steps, f0,
+                                  armijo_c, pcg is not None)
+
+
+def _same_outputs_or_none(x, y):
+    return all(u is None and v is None or (u is not None and v is not None and _same_bits(u, v))
+               for u, v in zip(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('damped,B,n', [(True, B, n) for B, n in DIRECTION_SHAPES]
+                         + [(False, B, n) for B, n in GUARD_ONLY_SHAPES])
+def test_newton_direction_equals_the_chain(damped, B, n):
+    """The direction launch (``lane.newton_direction``: the damped system,
+    the direction and its guard in one launch; ``damped`` False: the guard
+    alone on a system the caller damped) bitwise equal to the three launches
+    it replaced (``lane_lm_system``, ``lane_cholesky`` or ``lane_pcg``,
+    whose solution the guard negates, and ``lane_step_guard``) and, up to n
+    = 512, to its plain version on the card; with a lane of infinite
+    damping, a lane that is not positive definite, an all-padded kmask and
+    an infinite f0; a lane alone bitwise the lane in the batch; a captured
+    graph's replay bitwise the eager launch."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    params, mu, alpha, kmask, g, H = _step_systems(B, n, dev, seed=4)
+    if B >= 2:
+        H[B // 2] = -H[B // 2]  # not positive definite: the guard's gradient step
+    if not damped:
+        mu = None
+    rng = np.random.RandomState(n + 3 * B)
+    f0 = torch.as_tensor((rng.rand(B) * 1e3).astype(np.float32), device=dev)
+    f0[-1] = float('inf')
+    steps = solver._steps(torch.float32, dev)
+    pcg = (solver.CG_MAX_ITERS, solver.CG_RTOL) if damped and n > solver.CHOLESKY_MAX_N \
+        else None
+    args = (params, mu, alpha, 1.0, kmask, g, H, steps, f0, solver.ARMIJO_C, pcg)
+    lane.reset_launch_counts()
+    got = lane.newton_direction(*args)
+    torch.cuda.synchronize()
+    name = 'lane_pcg_step' if pcg else 'lane_chol_step'
+    assert lane.LAUNCHES[name] == 1
+    assert lane.LAUNCHES['lane_lm_system'] == int(bool(pcg) and n > lane.PCG_REG_MAX_N)
+    assert lane.LAUNCHES['lane_step_guard'] == lane.LAUNCHES['lane_cholesky'] == \
+        lane.LAUNCHES['lane_pcg'] == lane.LAUNCHES['lane_dot'] == 0
+    assert (got[2] is None) == (n <= 6)
+    assert _same_outputs_or_none(got, _three_launches(*args))
+    if n <= 512:
+        assert _same_outputs_or_none(got, lane.newton_direction_plain(*args))
+    assert bool(torch.isfinite(got[0]).all())
+    for k in sorted({0, B // 2, B - 1}):
+        one = [a[k:k + 1] if isinstance(a, torch.Tensor) and a is not steps else a
+               for a in args]
+        for x, y in zip(lane.newton_direction_kernel(*one), got):
+            assert x is None or _same_bits(x[0], y[k])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = lane.newton_direction_kernel(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_outputs_or_none(captured, got)
+
+
+@pytest.mark.cuda
+def test_newton_direction_refuses_bad_arguments():
+    """The direction launch raises on what its kernels do not take (never
+    falls back to the three launches or the plain version): a CPU tensor
+    beside CUDA ones, a wrong shape, more line-search steps than the guard
+    holds."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    params, mu, alpha, kmask, g, H = _step_systems(2, 38, dev)
+    f0 = torch.zeros(2, device=dev)
+    steps = solver._steps(torch.float32, dev)
+    ok = (params, mu, alpha, 1.0, kmask, g, H, steps, f0, solver.ARMIJO_C)
+    lane.newton_direction_kernel(*ok)
+    bad = [dict(g=g.cpu()), dict(H=H[:, :, :37].contiguous()),
+           dict(steps=torch.ones(17, device=dev))]
+    names = ('params', 'mu', 'alpha', 'epsilon', 'kmask', 'g', 'H', 'steps', 'f0', 'armijo_c')
+    for change in bad:
+        args = [change.get(k, v) for k, v in zip(names, ok)]
+        with pytest.raises((ValueError, RuntimeError)):
+            lane.newton_direction_kernel(*args)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('n', [6, 128, 512])
 def test_newton_step_launches_the_step_kernels(n, monkeypatch):
-    """``solver._newton_step`` on the card launches ``lane_lm_system`` and
-    ``lane_step_guard`` once each, and no ``lane_dot``; its result is
-    bitwise the same step with their chains in their place."""
+    """``solver._newton_step`` on the card makes one direction launch (the
+    damped system, the direction and its guard: ``lane_chol_step``, or
+    ``lane_pcg_step`` at n > ``CHOLESKY_MAX_N``) and no ``lane_lm_system``,
+    ``lane_step_guard``, ``lane_cholesky``, ``lane_pcg`` or ``lane_dot``
+    launch; its result is bitwise the same step with the plain version in
+    its place."""
     from superdsm_tpu_torch.dsm import lane, solver
     dev = _cuda()
     B, P = 4, 2048
@@ -1239,10 +1351,11 @@ def test_newton_step_launches_the_step_kernels(n, monkeypatch):
     lane.reset_launch_counts()
     out = solver._newton_step(*args)
     torch.cuda.synchronize()
-    assert lane.LAUNCHES['lane_lm_system'] == 1 and lane.LAUNCHES['lane_step_guard'] == 1
-    assert lane.LAUNCHES['lane_dot'] == 0
-    monkeypatch.setattr(lane, 'lm_system', lane.lm_system_plain)
-    monkeypatch.setattr(lane, 'step_guard', lane.step_guard_plain)
+    name = 'lane_pcg_step' if n > solver.CHOLESKY_MAX_N else 'lane_chol_step'
+    assert lane.LAUNCHES[name] == 1
+    assert not any(lane.LAUNCHES[k] for k in ('lane_lm_system', 'lane_step_guard',
+                                              'lane_cholesky', 'lane_pcg', 'lane_dot'))
+    monkeypatch.setattr(lane, 'newton_direction', lane.newton_direction_plain)
     for x, y in zip(out, solver._newton_step(*args)):
         assert torch.equal(x, y)
 

@@ -142,12 +142,11 @@ def test_sharded_dsm_at_k1018_matches_jax():
 
 
 def test_sharded_solver_goes_through_the_lane_ops(monkeypatch):
-    """The sharded solver's direction goes through
-    ``solver._cholesky_direction`` (the ``lane_cholesky`` kernel on the
-    card, LAPACK here) and its sums through the lane ops: every Newton
-    iteration calls each of them."""
+    """The sharded solver's direction and its guard go through
+    ``lane.newton_direction`` (the ``lane_chol_step`` kernel on the card,
+    LAPACK and the guard's plain version here) and its sums through the
+    lane ops: every Newton iteration calls each of them."""
     from superdsm_tpu_torch.dsm import lane
-    from superdsm_tpu_torch.parallel import newton
     calls = {}
 
     def spy(module, name):
@@ -158,13 +157,12 @@ def test_sharded_solver_goes_through_the_lane_ops(monkeypatch):
             return original(*args, **kwargs)
         monkeypatch.setattr(module, name, counted)
 
-    spy(newton, '_cholesky_direction')
-    for name in ('lane_sum', 'lane_dot', 'softplus_energies'):
+    for name in ('newton_direction', 'lane_sum', 'lane_dot', 'softplus_energies'):
         spy(lane, name)
     C, Y, Wt, pix, sub, km = _dsm_inputs(B=4)
     make_sharded_dsm_solver(pm.make_mesh(1, 2, CPUS), sigma=3.0, cutoff=12)(
         np.zeros((4, 14), np.float32), C, pix, sub, km, Y, Wt, np.full(4, 0.1, np.float32))
-    iterations = calls['_cholesky_direction']
+    iterations = calls['newton_direction']
     assert iterations > 1
     # the line search and scale sweep of each shard, the energy at the end
     assert calls['softplus_energies'] >= 2 * 3 * iterations

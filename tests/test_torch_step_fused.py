@@ -4,11 +4,14 @@
 regularizer's gradient and Hessian diagonal, ``scale_h`` and the LM
 damping) and :func:`lane.step_guard` guards the direction and computes
 what the line search needs of it (the gradient fallback, the decrement, the
-regularizer's candidates and the Armijo thresholds). On the card each is
-one kernel (``lane_lm_system``, ``lane_step_guard`` in
-``superdsm_tpu_torch/csrc/lane_ops.cu``); on the CPU each is its plain
-version, which must be exactly the op-by-op expressions the solver ran
-before, so that every CPU result stays bitwise what it was. Here:
+regularizer's candidates and the Armijo thresholds). On the card each is a
+kernel of its own (``lane_lm_system``, ``lane_step_guard`` in
+``superdsm_tpu_torch/csrc/lane_ops.cu``), and the solver runs both with the
+direction between them as one launch (:func:`lane.newton_direction`: the
+direction kernels' step variants, the damped system formed as they load H
+and the guard run where they hold the direction); on the CPU each is its
+plain version, which must be exactly the op-by-op expressions the solver
+ran before, so that every CPU result stays bitwise what it was. Here:
 
 - (a) the plain versions against a copy of those expressions (kept in this
   file), bitwise, on a Cholesky lane, a PCG lane (``CHOLESKY_MAX_N``
@@ -26,8 +29,13 @@ before, so that every CPU result stays bitwise what it was. Here:
   their trees): bitwise the chain it replaces replayed with float32 numpy
   ops as ATen's CUDA kernels round them (``x / n`` as ``x * (1 / n)``) and
   :func:`lane.lane_sum_in_kernel_order`; a replay with one sum's slots in
-  another order gives other bits;
-- (d) ``solver._newton_step`` bitwise a copy of its former body, and the
+  another order gives other bits; and the direction kernels' prologue and
+  epilogue replayed the same way (the trace in every block of a lane by
+  64 to 512 threads, the damped entries in each route's load order, the
+  guard on the direction as block 0 holds it, a failed lane's gradient
+  step);
+- (d) ``solver._newton_step`` bitwise a copy of its former body (through
+  :func:`lane.newton_direction_plain`, at the DSM buckets' n too), and the
   sharded solvers (``parallel/newton._newton_row``) bitwise what they give
   with the guard written as the copied expressions.
 
@@ -403,6 +411,11 @@ def _slot_sum(terms, reverse=False):
         run = range(t * chain, min(L, (t + 1) * chain)) if reverse else range(t, L, SLOTS)
         for i in run:
             slots[t] = F32(slots[t] + terms[i])
+    return _slot_tree(slots)
+
+
+def _slot_tree(slots):
+    """The tree of the 256 slots (:func:`_slot_sum`'s)."""
     v = slots.reshape(SLOTS // WARP, WARP)
     for m in (4, 2, 1):
         v = (v[:m] + v[m:2 * m]).astype(F32)
@@ -548,12 +561,116 @@ def _np_equal(a, b):
     return a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
 
 
+def _slots_by_threads(terms, T):
+    """``lane_slots_sum`` in a block of T threads (the direction kernels'
+    64 to 512): thread t runs slots t, t + T, ... (< 256), slot s adding
+    terms s, s + 256, ... in turn; then the tree."""
+    slots = np.zeros(SLOTS, F32)
+    for t in range(T):
+        for s in range(t, SLOTS, T):
+            acc = F32(0)
+            for i in range(s, len(terms), SLOTS):
+                acc = F32(acc + terms[i])
+            slots[s] = acc
+    return _slot_tree(slots)
+
+
+#: The direction kernels' step variants by (route, threads a block, blocks
+#: a lane): one block a lane (64 threads at n <= 32, 128 at n <= 64, else
+#: 256), the cluster routes (512 threads, 8 or 16 blocks), PCG's register
+#: route (256 threads, 8 blocks).
+FUSED_ROUTES = [('one block', 64, 1), ('one block', 256, 1), ('cluster', 512, 8),
+                ('cluster', 512, 16), ('pcg', 256, 8)]
+PW = 8  # columns of a cluster route's panel
+
+
+class _Damp:
+    """``Damp`` of ``csrc/lane_ops.cu`` for one lane, in numpy float32: the
+    trace computed by a block of T threads (:func:`_slots_by_threads`),
+    then each entry of Hd and g' from H's and g's as a kernel loads it."""
+
+    def __init__(self, p, mu, a, km, H, T):
+        n = len(p)
+        self.reg, self.n = n > 6, n
+        eps = F32(EPSILON)
+        if self.reg:
+            self.reg_h = np.concatenate([np.zeros(6, F32), _reg_hess_np(p[6:], a, km, eps)])
+            xi = p[6:]
+            self.reg_g = np.concatenate([np.zeros(6, F32), (a * (xi / np.sqrt(xi * xi + eps))) * km])
+            self.mask = np.concatenate([np.ones(6, F32), km])
+        self.total = _slots_by_threads([self.trace_term(H[i, i], i) for i in range(n)], T)
+        c = F32(mu * F32(F32(self.total * (F32(1) / F32(n))) + F32(1e-12)))
+        self.c_diag, self.c_off = F32(c * F32(1)), F32(c * F32(0))
+
+    def trace_term(self, h, i):
+        return F32(h + self.reg_h[i]) if self.reg else h
+
+    def at(self, h, i, k):
+        if i == k:
+            return F32(self.trace_term(h, i) + self.c_diag)
+        return F32((F32(h + F32(0)) if self.reg else h) + self.c_off)
+
+    def grad(self, gi, i):
+        return F32(F32(gi + self.reg_g[i]) * self.mask[i]) if self.reg else gi
+
+
+def _fused_prologue_replay(params, mu, alpha, kmask, g, H, route, T, C):
+    """The step variants' prologue lane by lane: every block of a lane
+    recomputes the trace (each block's ``Damp``; all must agree), then the
+    damped entries as the route loads them: the cluster routes panel by
+    panel (panel r of PW columns, rows r PW .. n, the augmented row n its
+    g', owned by block r % C); one block a lane the lower triangle row by
+    row; PCG's registers every row of its blocks' rows, Jacobi's diagonal
+    and b. Returns (g', the lower triangle of Hd, whole rows for PCG, the
+    trace)."""
+    B, n = params.shape
+    g_out, Hd, total = np.zeros_like(g), np.zeros_like(H), np.empty(B, F32)
+    for o in range(B):
+        dms = [_Damp(params[o], mu[o], alpha[o], kmask[o] if n > 6 else None, H[o], T)
+               for _ in range(C)]
+        assert len({d.total.tobytes() for d in dms}) == 1
+        total[o] = dms[0].total
+        if route == 'cluster':
+            for r in range(-(-n // PW)):
+                dm, c0 = dms[r % C], r * PW
+                for f in range((n + 1 - c0) * PW):
+                    i, k = c0 + f // PW, c0 + f % PW
+                    if k < n and i >= k:
+                        if i < n:
+                            Hd[o, i, k] = dm.at(H[o, i, k], i, k)
+                        else:
+                            g_out[o, k] = dm.grad(g[o, k], k)
+        elif route == 'one block':
+            for i in range(n):
+                for k in range(i + 1):
+                    Hd[o, i, k] = dms[0].at(H[o, i, k], i, k)
+                g_out[o, i] = dms[0].grad(g[o, i], i)
+        else:
+            nr = -(-n // C)
+            for q in range(C):
+                for i in range(q * nr, min(n, (q + 1) * nr)):
+                    for j in range(n):
+                        Hd[o, i, j] = dms[q].at(H[o, i, j], i, j)
+                # every block's Jacobi diagonal and b, whole
+                jacobi = [dms[q].at(H[o, j, j], j, j) for j in range(n)]
+                b = [dms[q].grad(g[o, j], j) for j in range(n)]
+                if q:
+                    assert _np_equal(jacobi, first) and _np_equal(b, g_out[o])
+                first, g_out[o] = jacobi, b
+    return g_out, Hd, total
+
+
 @pytest.mark.parametrize('n,B', [(6, 3), (38, 2), (262, 2), (774, 1)])
 def test_lm_system_schedule_keeps_every_bit(n, B):
     """(c) ``lane_lm_system``'s blocks (16 rows of a lane's Hd each, every
     block with its own ``scale_h`` sum) give the chain's bits; the same
     schedule with the diagonal's slots in another order gives other bits
-    of its sum where a slot adds more than one entry."""
+    of its sum where a slot adds more than one entry. So does the direction
+    kernels' prologue (the direction launch's damped system, never written
+    out) on each route: the trace in every block of a lane by its threads,
+    the damped entries and g' in the order each route loads them (a
+    cluster route's panels, the one-block route's triangle, PCG's rows in
+    registers)."""
     params, mu, alpha, kmask, g, H, _ = _replay_inputs(n, B, seed=1)
     got = _lm_kernel_replay(params, mu, alpha, kmask, g, H)
     want = _lm_chain_replay(params, mu, alpha, kmask, g, H)
@@ -567,6 +684,52 @@ def test_lm_system_schedule_keeps_every_bit(n, B):
     if n > SLOTS:
         wrong = _lm_kernel_replay(params, mu, alpha, kmask, g, H, reverse=True)
         assert not _np_equal(wrong[2], want[2])
+    # the direction kernels' prologue: the trace in each block of a lane,
+    # the damped entries as each route loads them
+    lower = np.tril(np.ones((n, n), bool))
+    for route, T, C in FUSED_ROUTES:
+        g_f, Hd_f, total_f = _fused_prologue_replay(params, mu, alpha, kmask, g, H, route, T, C)
+        assert _np_equal(total_f, want[2]) and _np_equal(g_f, want[0]), route
+        mask = np.ones((n, n), bool) if route == 'pcg' else lower
+        assert _np_equal(Hd_f[:, mask], want[1][:, mask]), route
+
+
+def _fused_guard_replay(direction, g, params, alpha, kmask, steps, f0, negate, T, fail=None,
+                        blocks=1):
+    """``step_guard_lane`` of the direction kernels' epilogue lane by lane,
+    in a block of T threads: the direction as block 0 holds it (x negated
+    in place: Cholesky's back substitution gives x = -direction, PCG's
+    replica holds its solution, which the guard negates); thread t tests
+    entries t, t + T, ...; the sums over the 256 slots by T threads
+    (:func:`_slots_by_threads`), the S regularizer trees over the block's
+    T / 32 warps (each sum's order its own), dealt over ``blocks`` blocks
+    holding the same direction (PCG's cluster: block q the sums k = q, q +
+    blocks, ...); lane ``fail``'s factor failed, and its direction is not
+    read (here: its entries left as they are)."""
+    B, n = direction.shape
+    S, K = len(steps), n - 6
+    eps, sq_eps, armijo = F32(EPSILON), F32(math.sqrt(EPSILON)), F32(solver.ARMIJO_C)
+    delta = np.empty_like(direction)
+    dec, thr = np.empty(B, F32), np.empty((B, S), F32)
+    reg = np.empty((B, S), F32) if K > 0 else None
+    for o in range(B):
+        x = direction[o] if negate else -direction[o]
+        d = -x
+        bad = o == fail or any(not np.isfinite(d[i]) for t in range(T) for i in range(t, n, T))
+        if bad:
+            den = F32(np.sqrt(_slots_by_threads(g[o] * g[o], T)) + F32(1))
+            d = (-g[o] / den).astype(F32)
+        delta[o] = d
+        dec[o] = -_slots_by_threads(g[o] * d, T)
+        thr[o] = f0[o] - (armijo * steps) * dec[o]
+        warps = T // WARP
+        for q in range(blocks):
+            for w in range(warps):
+                for k in range(q + blocks * w, S if K > 0 else 0, blocks * warps):
+                    xi = params[o, 6:] + d[6:] * steps[k]
+                    terms = kmask[o] * (np.sqrt(xi * xi + eps) - sq_eps)
+                    reg[o, k] = _clamp0(F32(alpha[o] * _slots_by_threads(terms, T)))
+    return delta, dec, reg, thr
 
 
 @pytest.mark.parametrize('negate', [False, True])
@@ -578,7 +741,11 @@ def test_step_guard_schedule_keeps_every_bit(n, B, negate):
     chain's bits, with a non-finite direction in lane 0; the decrement's
     slots in another order give other bits in the last lane (a finite
     direction, its terms of either sign) where a slot adds more than one
-    term."""
+    term. So does the direction kernels' epilogue in blocks of 64, 256
+    and 512 threads, on the direction as its block 0 holds it, its S sums
+    dealt over PCG's 8 blocks, and with a lane whose factor failed (the
+    chain's all-NaN direction) taking the gradient step without reading a
+    direction."""
     params, _, alpha, kmask, g, _, direction = _replay_inputs(n, B, seed=2)
     direction[0, n // 2] = np.inf
     steps = _steps().numpy()
@@ -597,6 +764,22 @@ def test_step_guard_schedule_keeps_every_bit(n, B, negate):
         wrong = _guard_kernel_replay(direction, g, params, alpha, kmask, steps, f0, negate,
                                      reverse=True)
         assert not _np_equal(wrong[1][-1], want[1][-1])
+    # the direction kernels' epilogue, in blocks of T threads (the
+    # direction as block 0 holds it: Cholesky's -x, PCG's replica of x
+    # negated), and the failure path's gradient step: a lane whose factor
+    # failed reads no direction
+    failed = direction.copy()
+    failed[-1] = np.nan  # the chain's direction of a failed lane
+    for T, blocks in sorted({(T, C if route == 'pcg' else 1) for route, T, C in FUSED_ROUTES}):
+        got = _fused_guard_replay(direction, g, params, alpha, kmask, steps, f0, negate, T,
+                                  blocks=blocks)
+        for x, y in zip(got, want):
+            assert _np_equal(x, y), T
+        got = _fused_guard_replay(direction, g, params, alpha, kmask, steps, f0, negate, T,
+                                  fail=B - 1, blocks=blocks)
+        for x, y in zip(got, _guard_chain_replay(failed, g, params, alpha, kmask, steps, f0,
+                                                 negate)):
+            assert _np_equal(x, y), T
 
 
 # (d) the solver's steps bitwise as they were
@@ -612,6 +795,34 @@ def test_newton_step_is_its_former_body(kind, variant, _kind):
     args = (a['params'], a['mu'], a['s'], a['f0'], a['g'], a['H'], a['Bf'], a['yv'], a['w'],
             a['alpha'], EPSILON, a['kmask'], 1e-5)
     for x, y in zip(solver._newton_step(*args), _former_newton_step(*args)):
+        assert _bits_equal(x, y)
+
+
+@pytest.mark.parametrize('n', [6, 134, 262, 518])
+def test_newton_step_goes_through_the_direction_plain_version(n, monkeypatch):
+    """(d) On the CPU ``solver._newton_step`` takes its damped system,
+    direction and guard from ``lane.newton_direction_plain`` (once a step;
+    PCG above ``CHOLESKY_MAX_N``, n = 518) and is bitwise its former body
+    (the copy in this file: the damped system, ``_pcg_solve`` or
+    ``_cholesky_direction`` and the guard op by op) at the DSM buckets' n =
+    6, 134, 262 and 518, with an infinite damping in one lane."""
+    a = _variant_inputs('poly', 3, 'infinite damping') if n == 6 else None
+    if a is None:
+        a = {k: torch.from_numpy(np.array(v)) for k, v in _inputs(n, 3, seed=7).items()}
+        a['mu'][-1] = float('inf')
+    calls = []
+    plain = lane.newton_direction_plain
+
+    def counted(*args, **kwargs):
+        calls.append(args[10] if len(args) > 10 else kwargs.get('pcg'))
+        return plain(*args, **kwargs)
+    monkeypatch.setattr(lane, 'newton_direction_plain', counted)
+    args = (a['params'], a['mu'], a['s'], a['f0'], a['g'], a['H'], a['Bf'], a['yv'], a['w'],
+            a['alpha'], EPSILON, a['kmask'], 1e-5)
+    out = solver._newton_step(*args)
+    assert calls == [(solver.CG_MAX_ITERS, solver.CG_RTOL) if n > solver.CHOLESKY_MAX_N
+                     else None]
+    for x, y in zip(out, _former_newton_step(*args)):
         assert _bits_equal(x, y)
 
 
@@ -635,8 +846,10 @@ def _mesh_inputs(B=4, H=16, W=32, K=8):
 @pytest.mark.parametrize('kind', ['poly', 'dsm'])
 def test_sharded_solver_is_as_with_the_former_guard(kind, monkeypatch):
     """(d) The sharded solvers on a (1, 2) mesh give bitwise what they give
-    with the step guard written as the former expressions, and call the
-    guard once a Newton iteration."""
+    with the step guard written as the former expressions after the
+    Cholesky direction of the system they damp, and take the direction and
+    its guard (``lane.newton_direction``, without its damping) once a
+    Newton iteration."""
     C, Y, Wt, pix, sub, km = _mesh_inputs()
     mesh = pm.make_mesh(1, 2, ['cpu'] * 2)
     if kind == 'poly':
@@ -647,19 +860,24 @@ def test_sharded_solver_is_as_with_the_former_guard(kind, monkeypatch):
         args = (np.zeros((4, 14), np.float32), C, pix, sub, km, Y, Wt,
                 np.full(4, 0.1, np.float32))
     calls = [0, 0]
-    guard, direction = lane.step_guard, newton._cholesky_direction
-
-    def counted_guard(*a, **k):
-        calls[0] += 1
-        return guard(*a, **k)
+    direction, contribs = lane.newton_direction, newton._Shard.contribs
 
     def counted_direction(*a, **k):
-        calls[1] += 1
+        calls[0] += 1
         return direction(*a, **k)
-    monkeypatch.setattr(lane, 'step_guard', counted_guard)
-    monkeypatch.setattr(newton, '_cholesky_direction', counted_direction)
+
+    def counted_contribs(*a, **k):
+        calls[1] += 1
+        return contribs(*a, **k)
+
+    def former(params, mu, alpha, epsilon, kmask, g, Hd, steps, f0, armijo_c, pcg=None):
+        assert mu is None and pcg is None
+        return _former_guard(solver._cholesky_direction(Hd, g), g, params, alpha, epsilon,
+                             kmask, steps, f0, armijo_c)
+    monkeypatch.setattr(lane, 'newton_direction', counted_direction)
+    monkeypatch.setattr(newton._Shard, 'contribs', counted_contribs)
     out = solve(*args)
-    assert calls[0] == calls[1] > 1
-    monkeypatch.setattr(lane, 'step_guard', _former_guard)
+    assert calls[0] > 1 and calls[1] == 2 * calls[0]
+    monkeypatch.setattr(lane, 'newton_direction', former)
     for x, y in zip(out, solve(*args)):
         assert _bits_equal(x.float(), y.float())

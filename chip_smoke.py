@@ -83,7 +83,14 @@ result lines):
    NaN, infinite and tied candidates, mu at its bounds, and the tail also
    writing the loop's state in place (bitwise the chain's freeze, every
    converged lane's state untouched to the bit), each with the kernel's,
-   the chain's and the bound's ms; then the direction launch
+   the chain's and the bound's ms, and ``lane_step_sweep`` (the loop's
+   pick, scale sweep and tail with the freeze writes in one launch) at the
+   same shapes, with NaN and -inf scale candidates besides: bitwise the
+   three launches it replaces and its plain version, a second run, 1, 2
+   and 4 tiles a lane forced, a lane alone, a captured graph replayed
+   twice in a row (its arrival counters at 0 after every launch), each
+   launch's and the three launches' ms on the state restored; then the
+   direction launch
    (``lane.newton_direction_kernel``: the damped system, the direction and
    its guard in one launch of the direction kernel's step variant,
    ``lane_chol_step`` or, at n > ``CHOLESKY_MAX_N``, ``lane_pcg_step``) at
@@ -120,13 +127,14 @@ result lines):
    P, n, route, pixel segments), counted at each replay, and the lane
    kernels' launches by shape (``lane_pcg_step`` must launch: the
    direction launch with PCG at n > ``CHOLESKY_MAX_N``; ``lane_chol_step``
-   must launch, below it; one of the two and each of
-   :data:`STEP_KERNELS` once per Newton iteration; none of
-   :data:`OFF_PATH_LANE_KERNELS`, ``lane_lm_system``, ``lane_step_guard``
-   and the direction kernels' plain variants among them; ``lane_sum`` never
-   over (B, S, K) candidates, whose sums the step kernels run), the
-   elementwise activities and device ms per
-   replayed iteration, the device ms per replayed Newton iteration by
+   must launch, below it; one of the two and ``lane_step_sweep``
+   (:data:`STEP_KERNELS`) once per Newton iteration; none of
+   :data:`OFF_PATH_LANE_KERNELS`, ``lane_lm_system``, ``lane_step_guard``,
+   ``lane_step_pick``, ``lane_step_tail`` and the direction kernels' plain
+   variants among them; ``lane_sum`` never over (B, S, K) candidates,
+   whose sums the step kernels run), the elementwise activities and device
+   ms per replayed iteration (and by kernel name), the device ms per
+   replayed Newton iteration by
    kernel family from the graphs' replays alone (their activities carry a
    graph launch's correlation id), where a ``lane_cholesky`` activity must
    show and no cuSOLVER one may;
@@ -199,7 +207,8 @@ result lines):
    Newton iteration and one launch each of ``lane_chol_step`` (the Cholesky
    direction with the guard in its epilogue; no ``lane_cholesky`` or
    ``lane_step_guard`` launch), ``lane_step_pick`` and ``lane_step_tail``
-   per Newton iteration (its sums in the lane kernels, no ``lane_sum`` over
+   per Newton iteration (its sweep sums over the shards between them, so no
+   ``lane_step_sweep``; its sums in the lane kernels, no ``lane_sum`` over
    (B, S, K) candidates); params, energies and flags bitwise those of the
    same solve with its direction and guard as the two launches they were;
    lanes 0 and 7 alone bitwise equal to the
@@ -251,8 +260,11 @@ checked against the plain version first, as phase 3 checks it; the lane
 kernels' ms, ``solver._pcg_solve``'s at :data:`PCG_SHAPES`, the Cholesky
 direction's at :data:`CHOL_SHAPES`, the step's direction and guard at
 :data:`DIRECTION_SHAPES` as each checkout launches them (one direction
-launch, or the three it replaced) and one whole ``solver._newton_step``'s
-at :data:`STEP_SHAPES`), then bench
+launch, or the three it replaced), one whole ``solver._newton_step``'s
+at :data:`STEP_SHAPES`, the loop's step after the line search's sums at
+:data:`TAIL_SHAPES` as each checkout launches it (``lane_step_sweep``, or
+the three launches it replaced) and one whole step in the loop at
+:data:`STEP_SHAPES`, these two on the state restored), then bench
 seeds 0-3 at ``AF_scale=12`` (after one cold run of seed 0),
 :data:`AB_REPS` times each, with each run's seconds, its
 global-energy-minimization seconds, lane Newton iterations, solve calls
@@ -266,7 +278,9 @@ them; seed 0 on the
 eager loop with its device time split by section (the assembly of the
 damped system, the direction and its guard, PCG's steps within it, the
 line search with its pick, the scale sweep's sums, the rest: since
-``lane_step_tail`` the step's end with it); the 2048x2048 mosaic (1 thread) and
+``lane_step_tail`` the step's end with it; since ``lane_step_sweep`` the
+pick, the sweep and the step's end are one launch in the scale sweep's
+section); the 2048x2048 mosaic (1 thread) and
 the stall fixtures at B = 1, 2, 4, 16. Every turn's label maps of bench
 seeds 0-3 and the mosaic and its fixtures' params and energies must be
 bitwise those of every other turn (each result printed; a difference
@@ -302,7 +316,11 @@ device ms of the cluster routes forced at each n of
 :data:`SPLIT_CHOL_ROUTES`; then the direction launch at :data:`SPLIT_STEP`
 (the prologue's trace and damped load, the guard's phases in the lanes'
 blocks 0, beside the direction kernel's plain variant on the damped
-system); ``chiprun_out/split.json`` holds the same.
+system); then ``lane_step_sweep`` at :data:`SPLIT_SWEEP` (its sums'
+phases, the pick in its prologue, the arrival and the tail in the lanes'
+last clusters, beside the plain scale sweep's launch at the same (B, P)
+in :data:`SPLIT_SOFTPLUS`, and its terms' issue bound);
+``chiprun_out/split.json`` holds the same.
 
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
 gate enforced on every image (:data:`F64_NOT_MET` included): it fails
@@ -820,22 +838,25 @@ CHOL_REPLACES = 'superdsm_tpu/dsm/solver.py:204'
 #: The lane kernels of the kernels line.
 LANE_KERNELS = tuple(LANE_SHAPES) + ('lane_pcg', 'lane_cholesky', 'lane_lm_system',
                                      'lane_step_guard', 'lane_chol_step', 'lane_pcg_step',
-                                     'lane_step_pick', 'lane_step_tail')
+                                     'lane_step_pick', 'lane_step_tail', 'lane_step_sweep')
 #: Lane kernels that no unsharded solver path launches since their work
 #: moved into another launch (``lane_dot`` into the step guard; the damped
 #: system, the direction kernels' plain variants and the guard into the
-#: direction launch, :data:`DIRECTION_KERNELS`; the oracles and phase 3
-#: still launch them): the main path must launch them 0 times.
+#: direction launch, :data:`DIRECTION_KERNELS`; the pick and the tail into
+#: the scale sweep's launch, :data:`STEP_KERNELS`; the oracles, phase 3 and
+#: the sharded solver of phase 11 still launch them): the main path must
+#: launch them 0 times.
 OFF_PATH_LANE_KERNELS = ('lane_dot', 'lane_lm_system', 'lane_step_guard', 'lane_cholesky',
-                         'lane_pcg')
+                         'lane_pcg', 'lane_step_pick', 'lane_step_tail')
 #: The direction launch of a Newton step: the damped system, the direction
 #: (Cholesky, or PCG above ``CHOLESKY_MAX_N``) and its guard in one launch
 #: of the direction kernel's step variant; one of the two per Newton
 #: iteration.
 DIRECTION_KERNELS = ('lane_chol_step', 'lane_pcg_step')
-#: The kernels of each Newton step after its softplus sums: one launch each
-#: per Newton iteration.
-STEP_KERNELS = ('lane_step_pick', 'lane_step_tail')
+#: The kernels of each Newton step after its line search's sums (the pick,
+#: the scale sweep's sums, the tail and the loop's freeze writes in one
+#: launch): one launch each per Newton iteration.
+STEP_KERNELS = ('lane_step_sweep',)
 #: float32 operations of one softplus-energy term: the candidate's x (line
 #: search: u c, s +, y *, negation; scale sweep: c *, negation, with y s once
 #: a pixel; one energy: y *, negation), logaddexp(x, 0) (the isinf test,
@@ -1387,7 +1408,8 @@ GUARD_SHAPES = [(2, 512), (16, 256), (8, 256), (2, 6), (8, 6), (2, 256), (16, 12
 STEP_REPLACES = {'lane_lm_system': 'superdsm_tpu/dsm/solver.py:194',
                  'lane_step_guard': 'superdsm_tpu/dsm/solver.py:208',
                  'lane_step_pick': 'superdsm_tpu/dsm/solver.py:227',
-                 'lane_step_tail': 'superdsm_tpu/dsm/solver.py:256'}
+                 'lane_step_tail': 'superdsm_tpu/dsm/solver.py:256',
+                 'lane_step_sweep': 'superdsm_tpu/dsm/solver.py:227'}
 
 
 def _check_step(name, shape):
@@ -1863,6 +1885,176 @@ def _check_tail(shape):
     return rows
 
 
+#: The loop's state the step after the line search's sums writes in place,
+#: and mu.
+SWEEP_STATE = ('params', 's', 'f0', 'it_lane', 'it_dev', 'conv', 'mu')
+
+
+def _sweep_case(B, P, n):
+    """:func:`_tail_case`'s inputs with the scale sweep's labels and weights
+    (10% padding), from a seed: lane 4 of 8 also holds a NaN label (NaN
+    scale candidates: _tail_case's NaN scale candidate), lane 5 a -inf
+    weight (-inf ones)."""
+    import torch
+    a = _tail_case(B, P, n)
+    rng = np.random.RandomState(B + P + n + 1)
+    yv = np.sign(rng.randn(B, P)).astype(np.float32)
+    w = ((rng.rand(B, P) < 0.9) * rng.rand(B, P)).astype(np.float32)
+    for b in range(B):
+        if b % 8 == 4:
+            yv[b, 1] = np.nan
+        elif b % 8 == 5:
+            w[b, 1] = -np.inf
+    a['yv'], a['w'] = (torch.tensor(x, device='cuda') for x in (yv, w))
+    return a
+
+
+def _sweep_call(fn, a, st, lanes=slice(None), scratch=None, **kw):
+    """``fn`` (``lane.step_sweep_kernel``, its plain version or the three
+    launches) on :func:`_sweep_case`'s inputs, writing lanes ``lanes`` of
+    the state ``st`` (:data:`SWEEP_STATE`) in place."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    L = lambda x: None if x is None else x[lanes]
+    state = lane.FreezeState(L(st['params']), L(st['s']), L(st['f0']), L(st['it_lane']),
+                             st['it_dev'], L(st['conv']), *(() if scratch is None else (scratch,)))
+    return fn(L(a['data_cand']), L(a['reg_cand']), L(a['armijo_f']), a['steps'], L(a['delta']),
+              L(a['u']), L(a['yv']), L(a['w']), L(st['mu']), L(a['decrement']), L(a['alpha']),
+              1.0, L(a['kmask']), a['scales'], solver.DEFAULT_TOL, solver.MU_MIN,
+              solver.MU_MAX, state, **kw)
+
+
+def _three_launches_sweep(data_cand, reg_cand, armijo_f, steps, delta, u, yv, w, mu, decrement,
+                          alpha, epsilon, kmask, scales, tol, mu_min, mu_max, state):
+    """The three launches of the loop's step after the line search's sums
+    that ``lane_step_sweep`` replaced (and that a checkout without it
+    launches): ``lane_step_pick``, the scale sweep's ``softplus_energies``,
+    ``lane_step_tail`` given the state."""
+    from superdsm_tpu_torch.dsm import lane
+    _, new_params, new_s, new_f, improved, full_step = lane.step_pick_kernel(
+        data_cand, reg_cand, armijo_f, state.fval, steps, state.params, delta, state.s, u)
+    data_sc = lane.softplus_energies_kernel(new_s, yv, w, scales)
+    lane.step_tail_kernel(data_sc, new_params, new_s, new_f, improved, full_step, mu, state.fval,
+                          decrement, alpha, epsilon, kmask, scales, tol, mu_min, mu_max,
+                          lane.FreezeState(*state[:6]))
+
+
+def _restored_ms(fn, live, saved):
+    """Device ms of ``fn``, which writes the state ``live`` in place: each
+    call restores ``live`` from ``saved`` first (so that every call does
+    the first call's work: the same lanes converged), and the restore's
+    own ms, timed alone, is taken off (:func:`_event_ms`)."""
+    def restore():
+        for k, v in saved.items():
+            live[k].copy_(v)
+
+    def call():
+        restore()
+        fn()
+    return _event_ms(call) - _event_ms(restore)
+
+
+def _check_sweep(shape):
+    """Holds ``lane_step_sweep`` (the loop's pick, scale sweep and tail with
+    the freeze writes in one launch) at ``(B, P, n)`` (:func:`_sweep_case`)
+    to the three launches it replaces and to its plain version on the card,
+    writing each its own copy of the loop's state: bitwise, a NaN against
+    any NaN; a second run; 1, 2 and 4 tiles a lane forced; a lane alone; a
+    captured graph replayed twice in a row against the three launches run
+    twice (the arrival counters at 0 after every launch); converged lanes
+    untouched to the bit. Returns its table row.
+
+    Times: device ms of one launch and of the three launches (captured in
+    one graph), each call on the state restored (the restore's ms taken
+    off, :func:`_restored_ms`). Bound: the larger of the bytes the step
+    must move (s, u, y and w read once, s written once; the pick's
+    candidates, params read and written, the scalars) over the memory rate
+    and its float32 operations over the float32 peak: s + t_step u and (s +
+    t_step u) c three a pixel, a sweep term :data:`SOFTPLUS_OPS` ('scale_sweep')
+    S a pixel, the regularizer's eight a term (S K a lane), some forty a
+    lane. The kernel also loads s, u, y and w once a tile (k tiles a lane);
+    the issue bound of its terms comes from ``--split``. No single PyTorch
+    call computes it, so no library call."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    B, P, n = shape
+    a = _sweep_case(B, P, n)
+    S, SC, K = a['data_cand'].shape[1], a['scales'].shape[0], max(n - 6, 0)
+    dev = a['steps'].device
+    state = lambda: {k: a[k].clone() for k in SWEEP_STATE}
+
+    def same(x, y, lanes=slice(None)):
+        return all(torch.equal(x[k][lanes], y[k][lanes]) if x[k].dtype == torch.bool
+                   else _same_bits(x[k][lanes] if x[k].dim() else x[k],
+                                   y[k][lanes] if y[k].dim() else y[k]) for k in SWEEP_STATE)
+    scratch = lane.sweep_scratch(B, SC, dev)
+    st = state()
+    _sweep_call(lane.step_sweep_kernel, a, st, scratch=scratch)
+    torch.cuda.synchronize()
+    counters = [not bool(scratch.arrivals.any())]
+    three, plain = state(), state()
+    _sweep_call(_three_launches_sweep, a, three)
+    _sweep_call(lane.step_sweep_plain, a, plain)
+    again = state()
+    _sweep_call(lane.step_sweep_kernel, a, again, scratch=scratch)
+    tiles = []
+    for k in (1, 2, 4):
+        forced = state()
+        _sweep_call(lane.step_sweep_kernel, a, forced, scratch=scratch, k_tiles=k)
+        tiles.append(same(forced, st))
+        counters.append(not bool(scratch.arrivals.any()))
+    lanes = sorted({0, B // 2, B - 1})
+    alone = []
+    for b in lanes:
+        one = state()
+        _sweep_call(lane.step_sweep_kernel, a, one, slice(b, b + 1))
+        alone.append(same(one, st, slice(b, b + 1)))
+    replayed, twice = state(), state()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _sweep_call(lane.step_sweep_kernel, a, replayed, scratch=scratch)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        _sweep_call(_three_launches_sweep, a, twice)
+        torch.cuda.synchronize()
+        replays.append(same(replayed, twice))
+        counters.append(not bool(scratch.arrivals.any()))
+    del graph
+    frozen = a['conv']
+    untouched = all(torch.equal(st[k][frozen].view(torch.int32), a[k][frozen].view(torch.int32))
+                    for k in ('params', 's', 'f0', 'mu', 'it_lane'))
+    checks = {'the three launches': same(st, three), 'the plain version': same(st, plain),
+              'a second run': same(again, st), '1, 2 and 4 tiles': all(tiles),
+              'a lane alone': all(alone), 'two graph replays in a row': all(replays),
+              'arrival counters at 0': all(counters), 'frozen lanes as they were': untouched}
+    tag = f'lane_step_sweep {shape}'
+    say(f'[kernel] {tag}: bitwise equal to ' + ', '.join(f'{k} {v}' for k, v in checks.items())
+        + f'; lanes 0-{min(B, 8) - 1} hold the special cases of _tail_case, '
+        f'{int(frozen.sum())} of {B} lanes frozen; converged {int(st["conv"].sum())} of {B} '
+        f'after the step')
+    for what, good in checks.items():
+        if not good:
+            fail(f'{tag}: kernel not bitwise equal to {what}')
+    saved = state()
+    ms = _restored_ms(lambda: _sweep_call(lane.step_sweep_kernel, a, st, scratch=scratch),
+                      st, saved)
+    chain_ms = _restored_ms(lambda: _sweep_call(_three_launches_sweep, a, three), three, saved)
+    plain_ms = _restored_ms(lambda: _sweep_call(lane.step_sweep_plain, a, plain), plain, saved)
+    nbytes = 4.0 * (5 * B * P + B * S * (3 if n > 6 else 2) + S + SC + 3 * B * n + B * K
+                    + 6 * B) + 2 * B
+    ops = B * (P * (3.0 + SC * SOFTPLUS_OPS['scale_sweep']) + 8.0 * SC * K + 3 * S + 2 * n + 40)
+    ops_ms, bytes_ms = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = 'operations' if ops_ms >= bytes_ms else 'bytes'
+    say(f'[kernel] {tag}: kernel {ms:.4f} ms, the three launches {chain_ms:.4f} ms '
+        f'({chain_ms / ms:.2f}x), plain {plain_ms:.4f} ms, library none, bound '
+        f'{bound_ms:.4f} ms by {bound_by}: {bound_ms / ms:.1%} of the bound; max abs err 0')
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                library_ms=None, shape=list(shape))
+
+
 def _check_logaddexp(chunk=1 << 28):
     """The softplus device function of the fused sums (``lane.softplus_kernel``)
     against ``torch.logaddexp(x, 0)`` on the card over all 2^32 float32
@@ -1902,7 +2094,8 @@ def phase_kernels():
     ``lane_lm_system`` at :data:`LM_SHAPES`, ``lane_step_guard`` at
     :data:`GUARD_SHAPES`, the direction launch at :data:`DIRECTION_SHAPES`
     and, the guard alone, at :data:`GUARD_ONLY_SHAPES`, and
-    ``lane_step_pick`` and ``lane_step_tail`` at :data:`TAIL_SHAPES`."""
+    ``lane_step_pick``, ``lane_step_tail`` and ``lane_step_sweep`` at
+    :data:`TAIL_SHAPES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram
     rows = {}
@@ -1950,6 +2143,8 @@ def phase_kernels():
     tail = [_check_tail(shape) for shape in TAIL_SHAPES]
     for name in ('lane_step_pick', 'lane_step_tail'):
         rows[name] = dict(tail[0][name], other_shapes=[t[name] for t in tail[1:]])
+    sweep = [_check_sweep(shape) for shape in TAIL_SHAPES]
+    rows['lane_step_sweep'] = dict(sweep[0], other_shapes=sweep[1:])
     _CHOL_SYSTEMS.clear()
     torch.cuda.empty_cache()
     return rows
@@ -2342,6 +2537,7 @@ KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce')),
                    ('lane_step_guard', ('lane_step_guard',)),
                    ('lane_step_pick', ('lane_step_pick',)),
                    ('lane_step_tail', ('lane_step_tail',)),
+                   ('lane_step_sweep', ('lane_step_sweep',)),
                    ('lane_matvec', ('lane_matvec',)),
                    ('lane_dot', ('dotterm',)),
                    ('softplus_energies', ('lane_softplus',)),
@@ -2360,6 +2556,26 @@ def _kernel_family(name):
         if any(k in low for k in keys):
             return family
     return 'elementwise and reductions'
+
+
+def _short_kernel(name, width=110):
+    """A kernel's name without its arguments' list, cut to ``width``."""
+    name = name.split('(')[0] if not name.startswith('void ') else name[5:].split('(')[0]
+    return name if len(name) <= width else name[:width - 3] + '...'
+
+
+def _by_kernel(spans, iterations, family):
+    """Device ms and activities per Newton iteration of each kernel name of
+    ``family`` (:data:`KERNEL_FAMILIES`) in ``spans``, largest first:
+    ``[(name, ms, count)]``."""
+    import collections
+    ms, count = collections.Counter(), collections.Counter()
+    for name, a, b in spans:
+        if _kernel_family(name) == family:
+            ms[_short_kernel(name)] += (b - a) / 1e3
+            count[_short_kernel(name)] += 1
+    it = max(iterations, 1)
+    return [(k, t / it, count[k] / it) for k, t in ms.most_common()]
 
 
 def _family_split(spans, iterations):
@@ -2621,9 +2837,15 @@ def phase_profile(g):
     for name in LANE_KERNELS:
         say(f'[profile] {name}: {sum(c for (k, _), c in lane_hist.items() if k == name)} '
             f'launches in {len([1 for k, _ in lane_hist if k == name])} shapes')
-    for name in DIRECTION_KERNELS + ('lane_lm_system', 'lane_step_guard', 'softplus_energies'):
+    for name in DIRECTION_KERNELS + STEP_KERNELS + ('lane_lm_system', 'lane_step_guard',
+                                                    'softplus_energies'):
         say(f'[profile] {name} launches by shape: ' + str(
             {shape: c for (k, shape), c in lane_hist.most_common() if k == name}))
+    profile0['elementwise_by_kernel'] = _by_kernel(
+        counts['replay_spans'], profile0['loop']['replays'], 'elementwise and reductions')
+    say('[profile] elementwise and reductions per replayed Newton iteration, by kernel: '
+        + '; '.join(f'{name} {t:.4f} ms ({c:.2f})'
+                    for name, t, c in profile0['elementwise_by_kernel']))
     solver_in_replays = [(f, t, c) for f, t, c in profile0['replay_families']
                          if f == 'cuSOLVER/MAGMA']
     say(f'[profile] cuSOLVER/MAGMA activities per replayed Newton iteration: '
@@ -3469,11 +3691,13 @@ def phase_mesh(bench_seg):
     # the direction and its guard are one lane_chol_step launch per Newton
     # iteration of the row (the guard in the Cholesky kernel's epilogue: no
     # lane_cholesky and no lane_step_guard launch), its pick and tail one
-    # lane_step_pick and one lane_step_tail launch; the sums go through the
+    # lane_step_pick and one lane_step_tail launch (its sweep sums over the
+    # shards between them, so no lane_step_sweep); the sums go through the
     # lane kernels, none through lane_dot, and lane_sum sums the assembly's
     # regularizer value and trace alone, no (B, S, K) candidates
     per_iteration = ('lane_chol_step', 'lane_step_pick', 'lane_step_tail')
-    never = ('lane_dot', 'lane_cholesky', 'lane_step_guard', 'lane_lm_system')
+    never = ('lane_dot', 'lane_cholesky', 'lane_step_guard', 'lane_lm_system',
+             'lane_step_sweep')
     say(f'[mesh] sharded DSM: lane_sum launches by shape {sum_shapes}')
     if any(lane_launches[k] != calls[0] // 2 for k in per_iteration) \
             or not all(lane_launches[k] for k in ('lane_sum', 'softplus_energies')) \
@@ -3904,8 +4128,13 @@ def _ab_lane_ms():
     of ``solver._cholesky_direction`` on the whole batch at
     :data:`CHOL_SHAPES` (one ``lane_cholesky`` launch; in a checkout whose
     direction is cuSOLVER's batched route, which a CUDA graph cannot hold,
-    the turn fails: phase 3 times cuSOLVER's routes) and of one whole
-    ``solver._newton_step`` at :data:`STEP_SHAPES`."""
+    the turn fails: phase 3 times cuSOLVER's routes), of one whole
+    ``solver._newton_step`` at :data:`STEP_SHAPES`, of the loop's step
+    after the line search's sums at :data:`TAIL_SHAPES` as the checkout
+    launches it (``lane_step_sweep``, or ``lane_step_pick``, the sweep's
+    ``softplus_energies`` and ``lane_step_tail``) and of one whole step in
+    the loop (given the loop's state) at :data:`STEP_SHAPES`, each of these
+    two on its state restored before every call (:func:`_restored_ms`)."""
     import torch
     from superdsm_tpu_torch.dsm import lane, solver
     out = {}
@@ -3951,6 +4180,33 @@ def _ab_lane_ms():
         args = _newton_step_args(*shape)
         out[f'_newton_step {shape}'] = _event_ms(lambda: solver._newton_step(*args))
         del args
+    # the loop's step after the line search's sums as the checkout launches
+    # it (one lane_step_sweep, or the pick, the sweep's sums and the tail),
+    # and one whole step in the loop, each call on its state restored
+    sweep = getattr(lane, 'step_sweep_kernel', None) or _three_launches_sweep
+    scratch = getattr(lane, 'sweep_scratch', lambda B, S, dev: None)
+    for shape in TAIL_SHAPES:
+        a = _sweep_case(*shape)
+        live, saved = ({k: a[k].clone() for k in SWEEP_STATE} for _ in range(2))
+        sc = scratch(shape[0], a['scales'].numel(), a['steps'].device)
+        out[f'pick, sweep and tail {shape}'] = _restored_ms(
+            lambda: _sweep_call(sweep, a, live, scratch=sc), live, saved)
+        del a, live, saved
+    for shape in STEP_SHAPES:
+        args = _newton_step_args(*shape)
+        B = shape[0]
+        live = dict(params=args[0].clone(), mu=args[1].clone(), s=args[2].clone(),
+                    f0=args[3].clone(), it_lane=torch.zeros(B, dtype=torch.int32, device='cuda'),
+                    it_dev=torch.ones((), dtype=torch.int32, device='cuda'),
+                    conv=torch.zeros(B, dtype=torch.bool, device='cuda'))
+        saved = {k: v.clone() for k, v in live.items()}
+        sc = scratch(B, len(solver.SCALES), args[0].device)
+        state = lane.FreezeState(live['params'], live['s'], live['f0'], live['it_lane'],
+                                 live['it_dev'], live['conv'], *(() if sc is None else (sc,)))
+        out[f'_newton_step in the loop {shape}'] = _restored_ms(
+            lambda: solver._newton_step(live['params'], live['mu'], live['s'], live['f0'],
+                                        *args[4:], state=state), live, saved)
+        del args, live, saved
     torch.cuda.empty_cache()
     return out
 
@@ -4207,7 +4463,12 @@ SPLIT_PCG = [(2, 512), (8, 1024)]
 #: most frequent line searches and scale sweep.
 SPLIT_SOFTPLUS = [('line_search', 8, 12288), ('scale_sweep', 8, 12288),
                   ('line_search', 2, 16384), ('line_search', 16, 8192),
-                  ('line_search', 32, 16384)]
+                  ('line_search', 32, 16384), ('scale_sweep', 2, 16384),
+                  ('scale_sweep', 16, 8192), ('scale_sweep', 32, 16384)]
+#: ``lane_step_sweep``'s (B, P, n) under ``--split``: the bench field's
+#: n = 256 and banded n = 512 chunks and a c2f chunk (each beside the plain
+#: scale sweep of :data:`SPLIT_SOFTPLUS` at its (B, P)).
+SPLIT_SWEEP = [(8, 12288, 256), (2, 16384, 512), (16, 8192, 256), (32, 16384, 6)]
 #: The k tiles ``--split`` times each softplus shape at, beside its plan's.
 SPLIT_TILES = (1, 2, 3, 4, 6, 12)
 #: ``lane_cholesky``'s (B, n) under ``--split``: the sharded solver's n =
@@ -4248,6 +4509,17 @@ SOFTPLUS_PHASES = ('build group 0', 'block barrier', 'build next group',
                    'trees')
 #: PR 13's softplus kernel's phases (``--split`` times it beside the
 #: kernel that replaced it).
+#: ``lane_step_sweep``'s phases: the sums' (:data:`SOFTPLUS_PHASES`; the
+#: owners' trees with their energies' stores and the counter's atomic),
+#: the pick in its prologue (after its loads: the last phase), the cluster
+#: barrier after the owners' stores, the owners' regularizer sums (before
+#: their slots are pushed) and, in the lane's last cluster, the tail: the
+#: stored energies read and the scale picked, then the writes of s, params
+#: and the scalars.
+SWEEP_PHASES = SOFTPLUS_PHASES[:6] + ('trees, stores, counter', 'pick (prologue)',
+                                      'cluster barrier', 'regularizer sums (owners)',
+                                      'tail: energies, scale pick',
+                                      'tail: s, params, scalars', 'prologue loads')
 SOFTPLUS_PR13_PHASES = ('build group 0', 'block barrier', 'build next group',
                         'slot adds', 'group barrier', 'cluster barrier 1',
                         'trees', 'cluster barrier 2')
@@ -4260,7 +4532,7 @@ SPLIT_ENTRIES = {'split_reset': (0, 0), 'split_read': (1, 0),
                  'split_softplus_info': (1, 4), 'split_softplus_pr13': (6, 4),
                  'split_softplus_tiles': (0, 1), 'split_cholesky': (4, 3),
                  'split_chol_floats': (0, 2), 'split_chol_info': (1, 3),
-                 'split_step_info': (1, 3)}
+                 'split_step_info': (1, 3), 'split_step_sweep_info': (1, 3)}
 
 
 def _split_library():
@@ -4285,7 +4557,8 @@ def _split_library():
     for line in (proc.stdout + proc.stderr).splitlines():
         if 'Compiling entry function' in line:
             keep = any(k in line for k in ('lane_pcg', 'lane_softplus', 'lane_cholesky',
-                                           'lane_lm_system', 'lane_step_guard'))
+                                           'lane_lm_system', 'lane_step_guard',
+                                           'lane_step_sweep'))
         if keep:
             log.append(line.strip())
     return lib, log
@@ -4340,6 +4613,11 @@ def _sass_report(path):
                 kernel = 'lane_cholesky_cluster_kernel' + next(
                     a for a, k in (('<8>', 'ILi8ELb0E'), ('<16>', 'ILi16ELb0E'),
                                    ('<16, global>', 'ILi16ELb1E')) if k in name)
+            report[kernel] = dict(instructions=len(ops), local=local)
+            say(f'[split] sass: {kernel}: {len(ops)} instructions, {local} local-memory '
+                '(LDL/STL)')
+        elif 'lane_step_sweep' in name or 'step_sweep_tail' in name:
+            kernel = 'lane_step_sweep_kernel' if 'lane_step_sweep' in name else 'step_sweep_tail'
             report[kernel] = dict(instructions=len(ops), local=local)
             say(f'[split] sass: {kernel}: {len(ops)} instructions, {local} local-memory '
                 '(LDL/STL)')
@@ -4595,6 +4873,79 @@ def _split_step(lib):
     return result
 
 
+@contextlib.contextmanager
+def _lane_library(lib):
+    """The lane kernels' wrappers launch ``lib``'s kernels (the stamped
+    build) while the block runs."""
+    from superdsm_tpu_torch.dsm import gram
+    main = gram._load(gram.LANE_SRC)
+    gram._libs[gram.LANE_SRC] = lib
+    try:
+        yield
+    finally:
+        gram._libs[gram.LANE_SRC] = main
+
+
+def _split_sweep(lib, sass):
+    """``--split``'s ``lane_step_sweep`` rows at :data:`SPLIT_SWEEP` (no
+    lane converged, the state restored before each launch): the phases
+    (:data:`SWEEP_PHASES`) over all blocks, the tail's in the lanes' last
+    clusters alone, bitwise the main build, beside the plain scale sweep's
+    launch at the same (B, P) (:func:`split`'s ``softplus_energies`` rows),
+    and the issue bound of its terms."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    result = {}
+    for B, P, n in SPLIT_SWEEP:
+        a = _sweep_case(B, P, n)
+        a['conv'] = torch.zeros_like(a['conv'])
+        SC = a['scales'].numel()
+        saved = {k: a[k].clone() for k in SWEEP_STATE}
+        live = {k: v.clone() for k, v in saved.items()}
+        scratch = lane.sweep_scratch(B, SC, a['steps'].device)
+        tag = f'lane_step_sweep {(B, P, n)}'
+
+        def restore():
+            for k, v in saved.items():
+                live[k].copy_(v)
+
+        def main():
+            restore()
+            _sweep_call(lane.step_sweep_kernel, a, live, scratch=scratch)
+
+        def launch():
+            with _lane_library(lib):
+                main()
+        main()
+        ref = {k: v.clone() for k, v in live.items()}
+        launch()
+        if not all(torch.equal(_bits(live[k]) if live[k].dtype != torch.bool else live[k],
+                               _bits(ref[k]) if ref[k].dtype != torch.bool else ref[k])
+                   for k in SWEEP_STATE):
+            fail(f'--split: the stamped {tag} differs from the main build')
+        info = _split_info(lib.sdsm_lane_split_step_sweep_info, B, SC, 0)
+        row = _split_report(f'{tag} (the state restored a launch)', lib, launch,
+                            info['blocks'], SWEEP_PHASES, False, main, info)
+        w = _split_blocks(lib, info['blocks']).astype(np.float64)
+        last = w[:, 11] > 0
+        row['tail_blocks'] = int(last.sum())
+        row['tail'] = {name: float(w[last, 8 + k].mean())
+                       for k, name in enumerate(SWEEP_PHASES[8:12])}
+        say(f'[split] {tag}: cycles (us) in the {int(last.sum())} blocks of the lanes\' last '
+            f'clusters: ' + ', '.join(f'{k} {v:.0f} ({v / row["mhz"]:.3f})'
+                                      for k, v in row['tail'].items()))
+        per_term = sass['term scale_sweep']['instructions']
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row['issue_bound_ms'] = B * P * SC * per_term / (sms * 4 * 32 * row['mhz'] * 1e6) * 1e3
+        say(f'[split] {tag}: issue bound {row["issue_bound_ms"]:.4f} ms ({B * P * SC} terms x '
+            f'{per_term} instructions over {sms} SMs x 4 schedulers x 32 lanes at '
+            f'{row["mhz"]:.0f} MHz)')
+        result[tag] = row
+        del a, saved, live, ref
+        torch.cuda.empty_cache()
+    return result
+
+
 def split():
     """``--split``: the phase split of ``lane_pcg``, ``softplus_energies``
     and ``lane_cholesky`` from the stamped build (see the module's
@@ -4695,6 +5046,7 @@ def split():
             f'schedulers x 32 lanes at {mhz:.0f} MHz)')
     result.update(_split_cholesky(lib))
     result.update(_split_step(lib))
+    result.update(_split_sweep(lib, sass))
     # the issue bound at every phase-3 shape, at the clock of the last run
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue = {}

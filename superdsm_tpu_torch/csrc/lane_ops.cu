@@ -75,7 +75,10 @@
 //     pick and, after the scale sweep's sums, the sweep's regularizer sums
 //     and pick, the new mu, the convergence test and the loop's freeze
 //     writes in place, one launch each (see the comment above
-//     lane_step_pick_kernel).
+//     lane_step_pick_kernel); in the Newton loop the three launches pick,
+//     sweep and tail are one, lane_step_sweep (a mode of the softplus
+//     sums: the pick its prologue, the tail in each lane's last cluster),
+//     which the two kernels are held to.
 //
 // They replace no Pallas kernel: in the JAX package these are XLA's
 // products and reductions inside the jitted Newton loop
@@ -387,12 +390,14 @@ struct DotTerm {  // a[o, i] * b[o, i], (O, L) contiguous
   }
 };
 
-enum SoftplusMode { LINE_SEARCH = 0, SCALE_SWEEP = 1, SINGLE = 2 };
+enum SoftplusMode { LINE_SEARCH = 0, SCALE_SWEEP = 1, SINGLE = 2, STEP_SWEEP = 3 };
 
 // w * softplus(x) with x, per mode (s, u, y, w (O, L) contiguous, c (S,)):
 //   LINE_SEARCH  -(y * (s + u * c[k]))   solver.py's line search
 //   SCALE_SWEEP  (-(y * s)) * c[k]       its scale sweep
 //   SINGLE       -(y * s)                one energy
+//   STEP_SWEEP   the scale sweep's on the surface s + t_step u, formed
+//                as loaded (lane_step_sweep_kernel alone; no operator())
 template <int MODE>
 struct SoftplusTerm {
   const float* __restrict__ s;
@@ -616,14 +621,43 @@ struct SoftplusPixel {
   bool in;  // a pixel of the chain (else its terms are 0)
 };
 
-template <int MODE>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(SP_THREADS, SP_BLOCKS)
-lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int L,
-                           int S, int kb, int k_tiles) {
+// What the start of a launch's sums (softplus_pixel_sums) gives every
+// thread: whether the tile's sums are to be made, and the line search's
+// step t_step (STEP_SWEEP).
+struct SumsStart {
+  bool run;
+  float ts;
+};
+
+// The hooks of softplus_pixel_sums for softplus_energies' launches: the
+// sums made, each stored at out[o S + k].
+struct SumsOut {
+  float* __restrict__ out;
+  __device__ __forceinline__ SumsStart start(Split&) const { return {true, 0.0f}; }
+  __device__ __forceinline__ void before_trees(long long, int, int, int, Split&) const {}
+  __device__ __forceinline__ void store(long long o, int S, int k0, int kl, float sum) const {
+    out[o * S + k0 + kl] = sum;
+  }
+};
+
+// The sums of one tile (lane o, outputs k0 .. k0 + kn - 1): the body of
+// lane_softplus_pixel_kernel (see above), and of lane_step_sweep_kernel
+// (STEP_SWEEP), through `hooks` (SumsOut's, or the fused launch's):
+// start(split) runs in every thread once the first groups' loads are
+// issued and the cluster barrier is arrived at; in STEP_SWEEP it gives
+// t_step (the pixels' surface is then s + t_step u, formed as loaded: s
+// read coherently, the loop's s being written in this launch) or, for a
+// lane already converged, run = false: the tile is left with no sum made
+// and false is returned. before_trees(o, k0, kn, owned, split) runs in
+// every thread once the group buffers are free and its slots are pushed,
+// before the owners' trees; store(o, S, k0, kl, sum) in lane 0 of the warp
+// that owns the tile's output kl, with its sum.
+template <int MODE, class Hooks>
+__device__ __forceinline__ bool softplus_pixel_sums(const SoftplusTerm<MODE>& term, int L, int S,
+                                                    int kb, int k_tiles, Split& split,
+                                                    const Hooks& hooks) {
   extern __shared__ __align__(16) float sp_smem[];
   __shared__ __align__(8) unsigned long long bar;
-  Split split;
-  split.start();
   const int q = (int)cg::this_cluster().block_rank();
   const long long tile = blockIdx.x / CLUSTER;
   const long long o = tile / k_tiles;
@@ -641,21 +675,30 @@ lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int
     SoftplusPixel px{0.0f, 0.0f, 0.0f, 0.0f, c < chain && i < L};
     if (px.in) {
       const long long p = base + i;
-      px.s = __ldg(term.s + p);
+      px.s = MODE == STEP_SWEEP ? __ldcg(term.s + p) : __ldg(term.s + p);
       px.y = __ldg(term.y + p);
       px.w = __ldg(term.w + p);
-      if (MODE == LINE_SEARCH) px.u = __ldg(term.u + p);
+      if (MODE == LINE_SEARCH || MODE == STEP_SWEEP) px.u = __ldg(term.u + p);
     }
     return px;
   };
   SoftplusPixel cur = load(0);
   float* buf = sp_smem;                                // [2][SP_GROUP][kb][32]
   float* slots = sp_smem + 2 * SP_GROUP * kb * SLOT_BLOCK;  // [2][256]
-  if (j == 0) {
+  // the mbarrier's thread (in STEP_SWEEP warp 1: warp 0 picks)
+  const int init = MODE == STEP_SWEEP ? WARP : 0;
+  if (j == init) {
     mbar_init(smem_addr(&bar), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_arrive();
+  SoftplusPixel next = groups > 1 ? load(1) : cur;
+  const SumsStart start = hooks.start(split);
+  if (!start.run) {
+    cluster_wait();
+    return false;
+  }
+  const float ts = start.ts;
   // the terms of pixel px into dst (its chain step w of the group)
   auto build = [&](const SoftplusPixel& px, float* dst) {
     float* d = dst + w * kb * SLOT_BLOCK + l;
@@ -667,8 +710,10 @@ lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int
               -__fmul_rn(px.y, __fadd_rn(px.s, __fmul_rn(px.u, __ldg(term.c + k0 + kl))));
           d[kl * SLOT_BLOCK] = __fmul_rn(px.w, logaddexp0(x));
         }
-      } else if (MODE == SCALE_SWEEP) {
-        const float ys = -__fmul_rn(px.y, px.s);
+      } else if (MODE == SCALE_SWEEP || MODE == STEP_SWEEP) {
+        // the step's new surface as lane_step_pick writes it
+        const float sv = MODE == STEP_SWEEP ? __fadd_rn(px.s, __fmul_rn(ts, px.u)) : px.s;
+        const float ys = -__fmul_rn(px.y, sv);
 #pragma unroll 4
         for (int kl = 0; kl < kn; ++kl)
           d[kl * SLOT_BLOCK] = __fmul_rn(px.w, logaddexp0(__fmul_rn(ys, __ldg(term.c + k0 + kl))));
@@ -679,7 +724,6 @@ lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int
       for (int kl = 0; kl < kn; ++kl) d[kl * SLOT_BLOCK] = 0.0f;  // + 0 leaves acc
     }
   };
-  SoftplusPixel next = groups > 1 ? load(1) : cur;
   build(cur, buf);
   split.mark(0);
   __syncthreads();
@@ -707,7 +751,7 @@ lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int
   }
   // each slot to its output's owner (output kl: block kl % 8, its slots
   // kl / 8), then the owner's trees
-  if (j == 0 && owned > 0)
+  if (j == init && owned > 0)
     mbar_expect(smem_addr(&bar), 4u * ROW_THREADS * (unsigned)owned);
   cluster_wait();
   if (w < kn) {
@@ -715,6 +759,7 @@ lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int
     st_async(cluster_addr(smem_addr(slots + (w / CLUSTER) * ROW_THREADS + t), owner), acc,
              cluster_addr(smem_addr(&bar), owner));
   }
+  hooks.before_trees(o, k0, kn, owned, split);
   if (owned > 0) mbar_wait(smem_addr(&bar), 0);
   split.mark(5);
   if (w < owned) {
@@ -722,9 +767,19 @@ lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int
 #pragma unroll
     for (int r = 0; r < CLUSTER; ++r) v[r] = slots[w * ROW_THREADS + r * WARP + l];
     const float sum = slot_tree(v);
-    if (l == 0) out[o * S + k0 + q + w * CLUSTER] = sum;
+    if (l == 0) hooks.store(o, S, k0, q + w * CLUSTER, sum);
   }
   split.mark(6);
+  return true;
+}
+
+template <int MODE>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(SP_THREADS, SP_BLOCKS)
+lane_softplus_pixel_kernel(SoftplusTerm<MODE> term, float* __restrict__ out, int L,
+                           int S, int kb, int k_tiles) {
+  Split split;
+  split.start();
+  softplus_pixel_sums(term, L, S, kb, k_tiles, split, SumsOut{out});
   split.finish();
 }
 
@@ -835,19 +890,31 @@ __device__ __forceinline__ float lane_slots_sum(int L, const Term& term, float* 
   return slots_total(part, total);
 }
 
+// A row read through the read-only cache, and one read with plain loads
+// (in shared memory, or in device memory that the launch writes).
+struct GlobalRow {
+  const float* __restrict__ p;
+  __device__ __forceinline__ float operator()(int i) const { return __ldg(p + i); }
+};
+struct SharedRow {
+  const float* p;
+  __device__ __forceinline__ float operator()(int i) const { return p[i]; }
+};
+
 // The S regularizer sums of one lane, out[k] = clamp_min(a * lane_sum_K(km
 // * (sqrt(xi(i, k)^2 + eps) - sq_eps)), 0): lane_sum's order over the (B,
 // K, S) terms summed over K (slot s adds i = s, s + 256, ... in turn; then
 // the tree), the S sums over the same 256 slots (thread t runs slots t, t +
 // T, ...; a slot's S chains side by side, each in its own order, so their
 // square roots overlap) and their trees over the block's warps. `part`
-// holds GUARD_MAX_S rows of slots; out[k] is written by lane 0 of one warp,
+// holds GUARD_MAX_S rows of slots; km(i) is kmask[i] (GlobalRow or
+// SharedRow); out[k] is written by lane 0 of one warp,
 // with no barrier after it. The candidates xi(i, k): the line search's
 // (GuardXi) in the guard, the scale sweep's (SweepXi) in lane_step_tail.
 // The block computes the sums k = k0, k0 + dk, ... (k0 < dk) alone: blocks
 // that share a lane's candidates deal its sums, each sum whole.
-template <class Xi>
-__device__ __forceinline__ void reg_sums(const Xi& xi, const float* __restrict__ km, int K,
+template <class Xi, class Km>
+__device__ __forceinline__ void reg_sums(const Xi& xi, const Km& km, int K,
                                          int S, float a, float eps, float sq_eps,
                                          float (*part)[ROW_THREADS], float* out, int k0 = 0,
                                          int dk = 1) {
@@ -858,7 +925,7 @@ __device__ __forceinline__ void reg_sums(const Xi& xi, const float* __restrict__
 #pragma unroll
     for (int k = 0; k < GUARD_MAX_S; ++k) acc[k] = 0.0f;
     for (int i = s; i < K; i += ROW_THREADS) {
-      const float m = __ldg(km + i);
+      const float m = km(i);
 #pragma unroll
       for (int k = 0; k < GUARD_MAX_S; ++k)
         if (mine(k)) acc[k] = __fadd_rn(acc[k], __fmul_rn(m, __fsub_rn(reg_term2(xi(i, k), eps), sq_eps)));
@@ -1055,7 +1122,7 @@ __device__ __noinline__ void step_guard_lane(const StepArgs& sa, long long o, in
   split.mark(11);
   const int K = n - 6;
   if (K <= 0) return;
-  reg_sums(GuardXi{sa.params + o * n + 6, d, sa.steps}, sa.kmask + o * K, K, sa.S,
+  reg_sums(GuardXi{sa.params + o * n + 6, d, sa.steps}, GlobalRow{sa.kmask + o * K}, K, sa.S,
            __ldg(sa.alpha + o), sa.eps, sa.sq_eps, part, sa.reg_cand + o * sa.S, rank, ranks);
   split.mark(12);
 }
@@ -2647,7 +2714,8 @@ lane_step_guard_kernel(StepArgs sa, const float* __restrict__ dir, const float* 
 // are bound by their launch and the sweep's sums at the bench's sizes.
 //
 // A lane takes STEP_BLOCKS blocks: each recomputes the lane's pick from its
-// few candidates (no second launch, no grid barrier) and writes every
+// few candidates in its warp 0 (no second launch, no grid barrier; the
+// code lane_step_sweep's prologue runs too) and writes every
 // STEP_BLOCKS-th run of 256 surface entries; rank 0 also writes the lane's
 // params and scalars. In the loop lane_step_tail writes the state in place
 // (a lane already converged keeps every bit of it), so its blocks are a
@@ -2699,29 +2767,97 @@ struct PickArgs {
 //   improved ? steps[pick] : 0; full_step = improved & (pick == 0);
 //   new_params = params + t_step delta; new_s = s + t_step u; new_f =
 //   improved ? f_cand[pick] : f0.
+struct Pick {
+  float ts, new_f;
+  bool improved, full_step;
+};
+
+// What lane k < S of a warp loads for the pick of lane o (pick_loads):
+// candidate k's data and regularizer energies, Armijo threshold and step;
+// and, in every lane, the lane's f0 (read coherently: the loop's fval,
+// written in the fused launch).
+struct PickLoads {
+  float d, r, thr, step, f0;
+};
+
+__device__ __forceinline__ PickLoads pick_loads(const float* __restrict__ data_cand,
+                                                const float* __restrict__ reg_cand,
+                                                const float* __restrict__ thr, const float* f0,
+                                                const float* __restrict__ steps, long long o,
+                                                int S) {
+  const int l = threadIdx.x % WARP;
+  PickLoads p{0.0f, 0.0f, 0.0f, 0.0f, f0[o]};
+  if (l < S) {
+    p.d = __ldg(data_cand + o * S + l);
+    if (reg_cand) p.r = __ldg(reg_cand + o * S + l);
+    p.thr = __ldg(thr + o * S + l);
+    p.step = __ldg(steps + l);
+  }
+  return p;
+}
+
+// ATen's argmin of the values v of a warp's lanes l < S (S <= 32), which
+// every lane gets: the first NaN, else the first least value (-0 ties
+// +0), as aten_argmin. Its order (a NaN before any number, then the
+// value, then the lane) is total, so a butterfly of shuffles finds its
+// least element in five steps.
+__device__ __forceinline__ int warp_argmin(float v, int S) {
+  int idx = (int)(threadIdx.x % WARP);
+  if (idx >= S) idx = WARP;  // not a candidate: after every one
+#pragma unroll
+  for (int m = WARP / 2; m > 0; m /= 2) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, m);
+    const int oi = __shfl_xor_sync(0xffffffffu, idx, m);
+    bool other;  // whether (ov, oi) comes first
+    if (oi >= WARP || idx >= WARP)
+      other = oi < idx;
+    else if (isnan(ov) != isnan(v))
+      other = isnan(ov);
+    else if (!isnan(v) && ov != v)
+      other = ov < v;
+    else
+      other = oi < idx;
+    if (other) {
+      v = ov;
+      idx = oi;
+    }
+  }
+  return idx;
+}
+
+// The pick from a warp's pick_loads, every lane of which gets it: the
+// candidate's energy d + r (d alone without a regularizer), the Armijo
+// test a ballot (its lowest set bit the first passing step), else
+// warp_argmin; the step and energy picked are shuffled from their lane.
+// Inlined, as pick_loads: lane_step_sweep_kernel issues those loads before
+// its first pixel loads and runs this once they are in.
+__device__ __forceinline__ Pick pick_of(const PickLoads& p, bool reg, int S) {
+  const int l = threadIdx.x % WARP;
+  const float f = reg ? __fadd_rn(p.d, p.r) : p.d;
+  const unsigned pass = __ballot_sync(0xffffffffu, l < S && f <= p.thr);
+  const int pick = pass ? __ffs((int)pass) - 1 : warp_argmin(f, S);  // pass: warp-uniform
+  const float f_pick = __shfl_sync(0xffffffffu, f, pick);
+  const float step = __shfl_sync(0xffffffffu, p.step, pick);
+  const bool improved = f_pick < p.f0;
+  return {improved ? step : 0.0f, improved ? f_pick : p.f0, improved, improved && pick == 0};
+}
+
 __global__ void __launch_bounds__(ROW_THREADS) lane_step_pick_kernel(PickArgs a) {
   __shared__ float t_sh;
   const long long o = blockIdx.x / STEP_BLOCKS;
   const int rank = blockIdx.x % STEP_BLOCKS;
   const int t = threadIdx.x;
-  if (t == 0) {
-    float f[GUARD_MAX_S];
-    int first_ok = -1;
-    for (int k = 0; k < a.S; ++k) {
-      const float d = __ldg(a.data_cand + o * a.S + k);
-      f[k] = a.reg_cand ? __fadd_rn(d, __ldg(a.reg_cand + o * a.S + k)) : d;
-      if (first_ok < 0 && f[k] <= __ldg(a.thr + o * a.S + k)) first_ok = k;
-    }
-    const int pick = first_ok >= 0 ? first_ok : aten_argmin(f, a.S);
-    const float f0 = __ldg(a.f0 + o);
-    const bool improved = f[pick] < f0;
-    const float ts = improved ? __ldg(a.steps + pick) : 0.0f;
-    t_sh = ts;
-    if (rank == 0) {
-      a.t_step[o] = ts;
-      a.new_f[o] = improved ? f[pick] : f0;
-      a.improved[o] = improved;
-      a.full_step[o] = improved && pick == 0;
+  if (t < WARP) {
+    const Pick p = pick_of(pick_loads(a.data_cand, a.reg_cand, a.thr, a.f0, a.steps, o, a.S),
+                           a.reg_cand != nullptr, a.S);
+    if (t == 0) {
+      t_sh = p.ts;
+      if (rank == 0) {
+        a.t_step[o] = p.ts;
+        a.new_f[o] = p.new_f;
+        a.improved[o] = p.improved;
+        a.full_step[o] = p.full_step;
+      }
     }
   }
   __syncthreads();
@@ -2775,19 +2911,51 @@ struct TailArgs {
   float eps, sq_eps, tol, mu_min, mu_max, mu_small;
 };
 
-// The tail of one lane (solver.py's former 333-356, and with `freeze` the
-// loop's 519-525):
-//   reg_sc[k] = clamp_min(alpha lane_sum_K(kmask (sqrt(xi^2 + eps) -
-//     sq_eps)), 0), xi = new_params[6:] scales[k] (n > 6; reg_sums, the
-//     order of lane_sum over the (B, K, S) terms);
-//   f_sc = data_sc + reg_sc; pick = argmin(f_sc); boost = f_sc[pick] < new_f
-//   and finite; c = boost ? scales[pick] : 1; params' = new_params c, s' =
-//   new_s c, f' = boost ? f_sc[pick] : new_f;
+// The tail's scale of one lane from its sweep's candidates f[k] =
+// data_sc[k] + reg_sc[k] (S of them): pick = argmin(f) (aten_argmin in a
+// thread, warp_argmin in a warp); boost = f[pick] < new_f and finite; c =
+// boost ? scales[pick] : 1, f' = boost ? f[pick] : new_f (tail_boost)
+struct TailPick {
+  float c, f_new;
+};
+
+// ... from the least candidate f_pick and its scale.
+__device__ __forceinline__ TailPick tail_boost(float f_pick, float scale, float nf) {
+  const bool boost = f_pick < nf && isfinite(f_pick);
+  return {boost ? scale : 1.0f, boost ? f_pick : nf};
+}
+
+// The tail's new mu and convergence test of one lane (its mu and f0 the
+// step's):
 //   mu' = full_step ? clamp_min(mu 0.25, mu_min) : improved ? mu :
 //     clamp_max(mu 8, mu_max);
 //   tiny_gain = (f0 - f') <= tol (|f0| + 1); converged = (0.5 decrement <=
 //     tol (|f0| + 1) & mu <= mu_small & tiny_gain) | (!improved & mu >=
 //     mu_max & tiny_gain).
+struct TailTest {
+  float mu_new;
+  bool converged;
+};
+
+__device__ __forceinline__ TailTest tail_test_lane(float f_new, bool improved, bool full_step,
+                                                   float mu, float f0, float decrement, float tol,
+                                                   float mu_min, float mu_max, float mu_small) {
+  const float mu_new = full_step ? clamp_min_nan(__fmul_rn(mu, 0.25f), mu_min)
+                       : improved ? mu
+                                  : clamp_max_nan(__fmul_rn(mu, 8.0f), mu_max);
+  const float gain_tol = __fmul_rn(__fadd_rn(fabsf(f0), 1.0f), tol);
+  const bool tiny_gain = __fsub_rn(f0, f_new) <= gain_tol;
+  return {mu_new, (__fmul_rn(decrement, 0.5f) <= gain_tol && mu <= mu_small && tiny_gain) ||
+                      (!improved && mu >= mu_max && tiny_gain)};
+}
+
+// The tail of one lane (solver.py's former 333-356, and with `freeze` the
+// loop's 519-525):
+//   reg_sc[k] = clamp_min(alpha lane_sum_K(kmask (sqrt(xi^2 + eps) -
+//     sq_eps)), 0), xi = new_params[6:] scales[k] (n > 6; reg_sums, the
+//     order of lane_sum over the (B, K, S) terms);
+//   f_sc = data_sc + reg_sc; then its argmin and tail_boost, params' = new_params c,
+//   s' = new_s c, and tail_test_lane.
 // Without `freeze` it writes params', s', f', converged and mu' to its
 // outputs; with it, in a lane whose conv was false it writes them over the
 // loop's params, s, fval, conv and mu, and it_lane = *it_dev; a lane whose
@@ -2806,35 +2974,22 @@ lane_step_tail_kernel(TailArgs a) {
   cluster_arrive();
   const int K = a.n - 6;
   if (K > 0)
-    reg_sums(SweepXi{a.new_params + o * a.n + 6, a.scales}, a.kmask + o * K, K, a.S,
+    reg_sums(SweepXi{a.new_params + o * a.n + 6, a.scales}, GlobalRow{a.kmask + o * K}, K, a.S,
              __ldg(a.alpha + o), a.eps, a.sq_eps, part, reg);
   __syncthreads();
-  float f_new = 0.0f, mu_new = 0.0f;
-  bool converged = false;
+  TailPick tp{};
+  TailTest tt{};
   if (t == 0) {
-    float f[GUARD_MAX_S];
     for (int k = 0; k < a.S; ++k) {
       const float d = __ldg(a.data_sc + o * a.S + k);
-      f[k] = K > 0 ? __fadd_rn(d, reg[k]) : d;
+      reg[k] = K > 0 ? __fadd_rn(d, reg[k]) : d;
     }
-    const int pick = aten_argmin(f, a.S);
-    const float f_pick = f[pick];
-    const float nf = __ldg(a.new_f + o);
-    const bool boost = f_pick < nf && isfinite(f_pick);
-    c_sh = boost ? __ldg(a.scales + pick) : 1.0f;
-    if (rank == 0) {
-      f_new = boost ? f_pick : nf;
-      const float mu = a.mu[o], f0 = a.f0[o];
-      const bool improved = a.improved[o];
-      mu_new = a.full_step[o] ? clamp_min_nan(__fmul_rn(mu, 0.25f), a.mu_min)
-               : improved     ? mu
-                              : clamp_max_nan(__fmul_rn(mu, 8.0f), a.mu_max);
-      const float gain_tol = __fmul_rn(__fadd_rn(fabsf(f0), 1.0f), a.tol);
-      const bool tiny_gain = __fsub_rn(f0, f_new) <= gain_tol;
-      converged = (__fmul_rn(__ldg(a.decrement + o), 0.5f) <= gain_tol && mu <= a.mu_small &&
-                   tiny_gain) ||
-                  (!improved && mu >= a.mu_max && tiny_gain);
-    }
+    const int pick = aten_argmin(reg, a.S);
+    tp = tail_boost(reg[pick], __ldg(a.scales + pick), __ldg(a.new_f + o));
+    c_sh = tp.c;
+    if (rank == 0)
+      tt = tail_test_lane(tp.f_new, a.improved[o], a.full_step[o], a.mu[o], a.f0[o],
+                          __ldg(a.decrement + o), a.tol, a.mu_min, a.mu_max, a.mu_small);
   }
   __syncthreads();
   const float c = c_sh;
@@ -2853,11 +3008,323 @@ lane_step_tail_kernel(TailArgs a) {
   }
   cluster_wait();
   if (rank == 0 && t == 0 && !frozen) {
-    if (a.fval != nullptr) a.fval[o] = f_new;
-    a.mu_out[o] = mu_new;
+    if (a.fval != nullptr) a.fval[o] = tp.f_new;
+    a.mu_out[o] = tt.mu_new;
     if (a.it_lane != nullptr) a.it_lane[o] = *a.it_dev;
-    a.conv[o] = converged;
+    a.conv[o] = tt.converged;
   }
+}
+
+// ---------------------------------------------------------------------------
+// lane_step_sweep: the pick, the scale sweep's sums and the tail of a Newton
+// step in the loop (solver._newton_step given the loop's state) in one
+// launch, bitwise lane_step_pick, softplus_energies (SCALE_SWEEP) and
+// lane_step_tail (freeze) in turn. A STEP_SWEEP launch of the softplus
+// sums (softplus_pixel_sums): O k_tiles clusters of 8 blocks, each a tile
+// of the lane's scale outputs, with
+//   - a prologue: warp 0 of every block loads the lane's pick candidates
+//     (pick_loads, before the first pixel loads) and recomputes the pick
+//     (pick_of) while those load; it reads the lane's conv too: the
+//     clusters of a converged lane leave at once (its state is kept to the
+//     bit, as the freeze keeps it);
+//   - each pixel's surface s + t_step u formed as loaded (new_s is never
+//     written), its sweep terms built from it as SCALE_SWEEP builds them;
+//   - each output's regularizer sum, reg_sums' over (params + t_step
+//     delta)[6:] scales[k], made by the output's owner block once it has
+//     pushed its slots, while its own arrive, and added to the output's
+//     data energy;
+//   - a lane of one tile (k_tiles = 1, the plan's from 8 lanes up: its
+//     cluster is the lane's last) pushes each energy to every block of
+//     its cluster over distributed shared memory; a lane of more tiles
+//     stores it in the solve's scratch sums (B, S), followed by one
+//     acquire-release atomic add to the lane's arrival counter: the owner
+//     that brings it to S sets it back to 0 (for the next launch, a
+//     graph's next replay) and flags every block of its cluster;
+//   - after one cluster barrier, the lane's last cluster runs the tail:
+//     the scale's pick from the S energies, s' = (s + t_step u) c,
+//     params' = (params + t_step delta) c (a one-tile lane's loaded before
+//     the barrier), f', mu', conv and it_lane in place. Nothing waits for
+//     another cluster: the last to arrive finds the others' energies
+//     stored, whatever ran at once.
+// What it saves: two launches a Newton iteration (the pick's and the
+// tail's, each at a graph node's floor) and new_s's write and two reads.
+// What bounds it: the sweep's terms (issue), as softplus_energies.
+// ---------------------------------------------------------------------------
+
+struct SweepArgs {
+  const float* __restrict__ data_cand;  // (B, S) the line search's data energies
+  const float* __restrict__ reg_cand;   // (B, S), null at n <= 6
+  const float* __restrict__ thr;        // (B, S) Armijo thresholds
+  const float* __restrict__ steps;      // (S,)
+  const float* __restrict__ delta;      // (B, n)
+  const float* __restrict__ decrement;  // (B,)
+  const float* __restrict__ alpha;      // (B,), null at n <= 6
+  const float* __restrict__ kmask;      // (B, n - 6)
+  float* params;         // (B, n) the loop's, read and written in place
+  float* s;              // (B, P) the loop's (the sweep's term.s)
+  float* fval;           // (B,) the loop's (the step's f0)
+  float* mu;             // (B,) the loop's
+  unsigned char* conv;   // (B,) the loop's
+  int* it_lane;          // (B,) the loop's (null: none)
+  const int* it_dev;     // () the loop's iteration count, with it_lane
+  int* arrivals;         // (B,) the solve's counters, 0 between launches
+  float* sums;           // (B, SC) the solve's scratch: the sweep's energies f_sc
+  int n, S;              // S: the line search's steps
+  float eps, sq_eps, tol, mu_min, mu_max, mu_small;
+};
+
+// Regularizer dimensions K up to which lane_step_sweep's owner blocks keep
+// the regularizer's operands in shared memory (the DSM buckets up to n =
+// 518; above, they read them from device memory).
+constexpr int SWEEP_REG_CACHE = SP_THREADS;
+
+// A block's view of its lane's step in lane_step_sweep_kernel.
+struct SweepShared {
+  float ts, new_f, c, f0, mu, decrement, alpha;
+  int run, improved, full_step, last;
+  float reg[GUARD_MAX_S];    // the regularizer of the tile's outputs the block owns
+  float f[GUARD_MAX_S];      // the tail's candidates f_sc
+  float scale[GUARD_MAX_S];  // the scales (the tail's pick reads them)
+  // an owner block's regularizer operands params[6 + i], delta[6 + i],
+  // kmask[i] (K <= SWEEP_REG_CACHE), loaded while warp 0 picks
+  float rp[SWEEP_REG_CACHE], rd[SWEEP_REG_CACHE], rk[SWEEP_REG_CACHE];
+};
+
+// The scale sweep's candidates (params[6 + i] + t_step delta[6 + i])
+// scales[k]: new_params as lane_step_pick forms it, from the loop's params
+// (read coherently: the launch writes them) and delta, in device memory
+// or their copies in shared memory (p, d: generic pointers).
+struct StepSweepXi {
+  const float* p;
+  const float* d;
+  float ts;
+  const float* scales;
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    return __fmul_rn(__fadd_rn(p[i], __fmul_rn(ts, d[i])), scales[k]);
+  }
+};
+
+// acquire-release atomic add at the card's scope; returns the old value.
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// The regularizer sums of the tile's outputs k0 + q, k0 + q + 8 (< k0 +
+// kn) that block q owns, into sh.reg[q], sh.reg[q + 8]: reg_sums dealt as
+// the outputs are, its slots in `part` (the free group buffers), its
+// operands from sh's copies (K <= SWEEP_REG_CACHE) or device memory. Not
+// inlined: compiled apart, it leaves the sums' register allocation as it
+// was.
+__device__ __noinline__ void sweep_reg_sums(const SweepArgs& a, long long o, int k0, int kn,
+                                            float* part, SweepShared& sh) {
+  const int n = a.n, K = n - 6;
+  const bool cached = K <= SWEEP_REG_CACHE;
+  const float* p = cached ? sh.rp : a.params + o * n + 6;
+  const float* d = cached ? sh.rd : a.delta + o * n + 6;
+  reg_sums(StepSweepXi{p, d, sh.ts, sh.scale + k0}, SharedRow{cached ? sh.rk : a.kmask + o * K},
+           K, kn, sh.alpha, a.eps, a.sq_eps,
+           reinterpret_cast<float (*)[ROW_THREADS]>(part), sh.reg,
+           (int)cg::this_cluster().block_rank(), CLUSTER);
+}
+
+// softplus_pixel_sums' hooks in lane_step_sweep_kernel (see above).
+struct SweepHooks {
+  const SweepArgs& a;
+  const float* __restrict__ scales;
+  long long o;
+  SweepShared& sh;
+  float* smem;
+  int SC, k_tiles;
+  PickLoads pl;        // warp 0's, with the lane's conv, mu and decrement
+  unsigned char conv;
+  float mu, decrement, alpha;
+  float scale;         // thread t < SC's scale
+  float rp, rd, rk;    // thread t's regularizer operands (i = t < K, K <= SWEEP_REG_CACHE)
+  __device__ __forceinline__ SumsStart start(Split& split) const {
+    const int t = threadIdx.x, K = a.n - 6;
+    if (t < SC) sh.scale[t] = scale;
+    if (K <= SWEEP_REG_CACHE && t < K) {
+      sh.rp[t] = rp;
+      sh.rd[t] = rd;
+      sh.rk[t] = rk;
+    }
+    split.mark(12);
+    if (threadIdx.x < WARP) {
+      const Pick p = pick_of(pl, a.reg_cand != nullptr, a.S);
+      if (threadIdx.x == 0) {
+        sh.ts = p.ts;
+        sh.new_f = p.new_f;
+        sh.run = !conv;
+        sh.improved = p.improved;
+        sh.full_step = p.full_step;
+        sh.f0 = pl.f0;
+        sh.mu = mu;
+        sh.decrement = decrement;
+        sh.alpha = alpha;
+        split.mark(7);
+      }
+    }
+    __syncthreads();
+    return {sh.run != 0, sh.ts};
+  }
+  __device__ __forceinline__ void before_trees(long long, int k0, int kn, int owned,
+                                               Split& split) const {
+    if (owned > 0 && a.n > 6) {
+      sweep_reg_sums(a, o, k0, kn, smem, sh);
+      __syncthreads();
+    }
+    split.mark(9);
+  }
+  __device__ __forceinline__ void store(long long, int, int k0, int kl, float sum) const {
+    const int k = k0 + kl;
+    const float f = a.n > 6 ? __fadd_rn(sum, sh.reg[kl]) : sum;
+    cg::cluster_group cluster = cg::this_cluster();
+    if (k_tiles == 1) {
+      for (int r = 0; r < CLUSTER; ++r) cluster.map_shared_rank(&sh, r)->f[k] = f;
+      return;
+    }
+    a.sums[o * SC + k] = f;
+    if (atom_add_acq_rel(a.arrivals + o, 1) == SC - 1) {
+      a.arrivals[o] = 0;  // every output of the lane is stored
+      for (int r = 0; r < CLUSTER; ++r) cluster.map_shared_rank(&sh, r)->last = 1;
+    }
+  }
+};
+
+// Lanes from which lane_step_sweep's plan takes one tile a lane.
+constexpr int SWEEP_ONE_TILE_LANES = 8;
+
+// Surface and params entries a thread of a one-tile lane's blocks loads
+// before the cluster barrier (the rest, at P > 32768 or n > 1024, after).
+constexpr int SWEEP_PREFETCH_S = 8;
+constexpr int SWEEP_PREFETCH_P = 2;
+
+// The end of lane_step_sweep_kernel after a block's sums (every thread):
+// one cluster barrier, after which the lane's last cluster (a one-tile
+// lane's, or the flagged) runs the tail (see above). Not inlined, as
+// step_guard_lane.
+__device__ __noinline__ void step_sweep_tail(const SoftplusTerm<STEP_SWEEP>& term,
+                                             const SweepArgs& a, long long o, int SC,
+                                             int k_tiles, SweepShared& sh, Split& split) {
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int t = threadIdx.x;
+  const int n = a.n, P = term.L;
+  const float ts = sh.ts;
+  float* s = a.s + o * P;
+  const float* u = term.u + o * P;
+  const int first = rank * SP_THREADS + t, stride = CLUSTER * SP_THREADS;
+  // every owner's energy (pushed, or stored and counted) is done once the
+  // barrier completes; a one-tile lane's new surface and params (new_s,
+  // new_params) load while it waits
+  cluster_arrive();
+  float ns[SWEEP_PREFETCH_S], np[SWEEP_PREFETCH_P];
+  const bool pre = k_tiles == 1;
+  if (pre) {
+#pragma unroll
+    for (int e = 0; e < SWEEP_PREFETCH_S; ++e) {
+      const int i = first + e * stride;
+      ns[e] = i < P ? __fadd_rn(__ldcg(s + i), __fmul_rn(ts, __ldg(u + i))) : 0.0f;
+    }
+    if (rank == 0) {
+#pragma unroll
+      for (int e = 0; e < SWEEP_PREFETCH_P; ++e) {
+        const int i = t + e * SP_THREADS;
+        const long long j = o * n + i;
+        np[e] = i < n ? __fadd_rn(__ldcg(a.params + j), __fmul_rn(ts, __ldg(a.delta + j))) : 0.0f;
+      }
+    }
+  }
+  cluster_wait();
+  split.mark(8);
+  if (!pre && !sh.last) return;
+  TailTest tt{};
+  float f_new = 0.0f;
+  if (t < WARP) {  // the scale's pick in warp 0, lane k holding f_sc[k]
+    float f = 0.0f;
+    if (t < SC) f = pre ? sh.f[t] : __ldcg(a.sums + o * SC + t);
+    const int pick = warp_argmin(f, SC);
+    const float f_pick = __shfl_sync(0xffffffffu, f, pick);
+    if (t == 0) {
+      const TailPick tp = tail_boost(f_pick, sh.scale[pick], sh.new_f);
+      sh.c = tp.c;
+      f_new = tp.f_new;
+      if (rank == 0)
+        tt = tail_test_lane(f_new, sh.improved, sh.full_step, sh.mu, sh.f0, sh.decrement,
+                            a.tol, a.mu_min, a.mu_max, a.mu_small);
+    }
+  }
+  __syncthreads();
+  split.mark(10);
+  const float c = sh.c;
+  const int done_s = pre ? SWEEP_PREFETCH_S : 0, done_p = pre ? SWEEP_PREFETCH_P : 0;
+  if (pre) {
+#pragma unroll
+    for (int e = 0; e < SWEEP_PREFETCH_S; ++e) {
+      const int i = first + e * stride;
+      if (i < P) s[i] = __fmul_rn(ns[e], c);
+    }
+  }
+#pragma unroll 4
+  for (int i = first + done_s * stride; i < P; i += stride)
+    s[i] = __fmul_rn(__fadd_rn(__ldcg(s + i), __fmul_rn(ts, __ldg(u + i))), c);
+  if (rank == 0) {
+    if (pre) {
+#pragma unroll
+      for (int e = 0; e < SWEEP_PREFETCH_P; ++e) {
+        const int i = t + e * SP_THREADS;
+        if (i < n) a.params[o * n + i] = __fmul_rn(np[e], c);
+      }
+    }
+    for (int i = t + done_p * SP_THREADS; i < n; i += SP_THREADS) {
+      const long long j = o * n + i;
+      a.params[j] = __fmul_rn(__fadd_rn(__ldcg(a.params + j), __fmul_rn(ts, __ldg(a.delta + j))),
+                              c);
+    }
+    if (t == 0) {
+      a.fval[o] = f_new;
+      a.mu[o] = tt.mu_new;
+      if (a.it_lane != nullptr) a.it_lane[o] = *a.it_dev;
+      a.conv[o] = tt.converged;
+    }
+  }
+  split.mark(11);
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(SP_THREADS, SP_BLOCKS)
+lane_step_sweep_kernel(SoftplusTerm<STEP_SWEEP> term, SweepArgs a, int S, int kb,
+                       int k_tiles) {
+  extern __shared__ __align__(16) float sp_smem[];
+  __shared__ SweepShared sh;
+  Split split;
+  split.start();
+  const long long o = blockIdx.x / CLUSTER / k_tiles;
+  const int t = threadIdx.x, n = a.n, K = n - 6;
+  const bool w0 = t < WARP;
+  // the prologue's loads, issued before the first pixels' (the compiler
+  // barrier below keeps them first): warp 0's pick, the scales, an owner
+  // block's regularizer operands
+  const bool own = (int)(blockIdx.x % CLUSTER) < min(S, kb) && K > 0 && K <= SWEEP_REG_CACHE &&
+                   t < K;
+  const long long r = o * n + 6 + t;
+  const SweepHooks hooks{a, term.c, o, sh, sp_smem, S, k_tiles,
+                         w0 ? pick_loads(a.data_cand, a.reg_cand, a.thr, a.fval, a.steps, o, a.S)
+                            : PickLoads{},
+                         w0 ? a.conv[o] : (unsigned char)0, w0 ? a.mu[o] : 0.0f,
+                         w0 ? __ldg(a.decrement + o) : 0.0f,
+                         w0 && K > 0 ? __ldg(a.alpha + o) : 0.0f,
+                         t < S ? __ldg(term.c + t) : 0.0f, own ? __ldcg(a.params + r) : 0.0f,
+                         own ? __ldg(a.delta + r) : 0.0f,
+                         own ? __ldg(a.kmask + o * K + t) : 0.0f};
+  asm volatile("" ::: "memory");
+  // before the cluster barrier the sums' body arrives at: peers flag it
+  // only after they wait there
+  if (threadIdx.x == 0) sh.last = 0;
+  const bool ran = softplus_pixel_sums(term, term.L, S, kb, k_tiles, split, hooks);
+  if (ran) step_sweep_tail(term, a, o, S, k_tiles, sh, split);
+  split.finish();
 }
 
 template <class Term, int UNROLL>
@@ -2926,15 +3393,27 @@ constexpr int MAX_DEVICES = 64;
 int g_split_tiles = 0;  // --split's sweep: k tiles forced (0: the plan's)
 #endif
 
+// The kernel of a softplus launch in `MODE` (lane_step_sweep_kernel's
+// owners keep their regularizer sums' slots in the free group buffers:
+// kn <= kb rows of 256, so the same shared memory).
+template <int MODE>
+const void* pixel_kernel() {
+  if constexpr (MODE == STEP_SWEEP)
+    return (const void*)lane_step_sweep_kernel;
+  else
+    return (const void*)lane_softplus_pixel_kernel<MODE>;
+}
+
 // The tiles of a launch: SP_KB outputs a tile, or 2 where that leaves
 // fewer than SP_MIN_BLOCKS blocks (few lanes), and wider tiles where the
 // card cannot hold all O k_tiles clusters at once (cudaOccupancyMaxActiveClusters
-// for lane_softplus_pixel_kernel<MODE> at the tile's shared memory, asked
-// once a device and width). A narrower tile spreads a lane over more
-// blocks but loads each pixel once a tile. Sets the kernel's shared memory
-// maximum once a device. Returns 0 or a CUDA error.
+// for the kernel of MODE at the tile's shared memory, asked once a device
+// and width). A narrower tile spreads a lane over more blocks but loads
+// each pixel once a tile. `tiles` > 0 forces k tiles of ceil(S / k)
+// outputs (the sums' bits do not depend on it). Sets the kernel's shared
+// memory maximum once a device. Returns 0 or a CUDA error.
 template <int MODE>
-int softplus_pixel_plan(long long O, int S, SoftplusPlan* plan) {
+int softplus_pixel_plan(long long O, int S, SoftplusPlan* plan, int tiles = 0) {
   static std::atomic<int> known[MAX_DEVICES][SLOTS_K + 1];  // clusters, 0: not asked
   static std::atomic<bool> ready[MAX_DEVICES];
   int dev = 0;
@@ -2942,17 +3421,25 @@ int softplus_pixel_plan(long long O, int S, SoftplusPlan* plan) {
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (!ready[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(lane_softplus_pixel_kernel<MODE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(pixel_kernel<MODE>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                4 * softplus_smem_floats(SLOTS_K));
     if (err != cudaSuccess) return (int)err;
     ready[dev].store(true, std::memory_order_release);
   }
   int kb = min(S, SP_KB);
   if (O * ((S + kb - 1) / kb) * CLUSTER < SP_MIN_BLOCKS) kb = min(S, 2);
+  // lane_step_sweep: one tile a lane from SWEEP_ONE_TILE_LANES lanes up (no
+  // counter, no energies through device memory; chip_smoke.py --split)
+  if (MODE == STEP_SWEEP && O >= SWEEP_ONE_TILE_LANES) kb = S;
 #ifdef SDSM_SPLIT
-  if (g_split_tiles > 0) kb = (S + g_split_tiles - 1) / g_split_tiles;
+  if (g_split_tiles > 0) tiles = g_split_tiles;
 #endif
+  if (tiles > 0) {
+    kb = (S + tiles - 1) / tiles;
+    const int k_tiles = (S + kb - 1) / kb;
+    *plan = {k_tiles, kb, SP_THREADS, O * k_tiles * CLUSTER};
+    return 0;
+  }
   for (;; ++kb) {
     const int k_tiles = (S + kb - 1) / kb;
     int clusters = known[dev][kb].load(std::memory_order_relaxed);
@@ -2961,7 +3448,7 @@ int softplus_pixel_plan(long long O, int S, SoftplusPlan* plan) {
       cfg.gridDim = dim3(CLUSTER);
       cfg.blockDim = dim3(SP_THREADS);
       cfg.dynamicSmemBytes = 4 * softplus_smem_floats(kb);
-      err = cudaOccupancyMaxActiveClusters(&clusters, lane_softplus_pixel_kernel<MODE>, &cfg);
+      err = cudaOccupancyMaxActiveClusters(&clusters, pixel_kernel<MODE>(), &cfg);
       if (err != cudaSuccess) return (int)err;
       known[dev][kb].store(clusters, std::memory_order_relaxed);
     }
@@ -2984,6 +3471,21 @@ int launch_softplus(const SoftplusTerm<MODE>& term, float* out, long long O,
   lane_softplus_pixel_kernel<MODE><<<(unsigned)plan.blocks, SP_THREADS,
                                      4 * softplus_smem_floats(plan.kb), stream>>>(
       term, out, L, S, plan.kb, plan.k_tiles);
+  return (int)cudaGetLastError();
+}
+
+// lane_step_sweep_kernel's launch: O lanes, SC scales, `tiles` as in
+// softplus_pixel_plan.
+int launch_step_sweep(const SoftplusTerm<STEP_SWEEP>& term, const SweepArgs& a, long long O,
+                      int SC, int tiles, cudaStream_t stream) {
+  if (O == 0) return (int)cudaGetLastError();
+  SoftplusPlan plan;
+  const int err = softplus_pixel_plan<STEP_SWEEP>(O, SC, &plan, tiles);
+  if (err) return err;
+  if (plan.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  lane_step_sweep_kernel<<<(unsigned)plan.blocks, SP_THREADS,
+                           4 * softplus_smem_floats(plan.kb), stream>>>(
+      term, a, SC, plan.kb, plan.k_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -3234,6 +3736,16 @@ int softplus_info(int* out, long long O, int S, bool pr13) {
   const int err = softplus_pixel_plan<MODE>(O, S, &plan);
   if (err) return err;
   return kernel_info(lane_softplus_pixel_kernel<MODE>, plan.blocks, SP_THREADS,
+                     4 * softplus_smem_floats(plan.kb), out);
+}
+
+// lane_step_sweep's launch at B lanes of SC scales (`tiles` as in
+// sdsm_lane_step_sweep).
+extern "C" int sdsm_lane_split_step_sweep_info(int* out, int B, int SC, int tiles, void*) {
+  SoftplusPlan plan;
+  const int err = softplus_pixel_plan<STEP_SWEEP>(B, SC, &plan, tiles);
+  if (err) return err;
+  return kernel_info(lane_step_sweep_kernel, plan.blocks, SP_THREADS,
                      4 * softplus_smem_floats(plan.kb), out);
 }
 
@@ -3723,4 +4235,42 @@ extern "C" int sdsm_lane_step_tail(const float* data_sc, const float* new_params
                kmask, scales, params, s, fval, mu_out, conv, it_lane, it_dev, n, P, S, freeze,
                eps, sq_eps, tol, mu_min, mu_max, mu_small});
   return (int)cudaGetLastError();
+}
+
+// The pick, the scale sweep's data energies and the tail with the loop's
+// freeze writes of solver._newton_step in the loop, for B lanes
+// (lane_step_sweep_kernel): bitwise sdsm_lane_step_pick, then
+// sdsm_lane_softplus_energies in mode 1 on its new_s, then
+// sdsm_lane_step_tail with `freeze`. data_cand, thr (B, S), reg_cand (B, S)
+// (null at n <= 6), steps (S,), delta (B, n), u, y, w (B, P), decrement,
+// alpha (B,) and kmask (B, n - 6) (both null at n <= 6), scales (SC,)
+// float32 contiguous, 1 <= S, SC <= GUARD_MAX_S; the loop's params (B, n),
+// s (B, P), fval and mu (B,) float32 and conv (B,) bool, written in place
+// in the lanes whose conv was false; it_lane (B,) and it_dev () int32, or
+// both null; the solve's arrivals (B,) int32, all 0 (and 0 again after the
+// launch), and sums (B, SC) float32 scratch; tiles 0 (the plan's) or the
+// tiles of each lane's scales forced; eps, sq_eps, tol, mu_min, mu_max,
+// mu_small as sdsm_lane_step_tail's. One launch on `stream`.
+extern "C" int sdsm_lane_step_sweep(
+    const float* data_cand, const float* reg_cand, const float* thr, const float* steps,
+    const float* delta, const float* u, const float* y, const float* w, const float* decrement,
+    const float* alpha, const float* kmask, const float* scales, float* params, float* s,
+    float* fval, float* mu, unsigned char* conv, int* it_lane, const int* it_dev, int* arrivals,
+    float* sums, int B, int n, int P, int S, int SC, int tiles, float eps, float sq_eps,
+    float tol, float mu_min, float mu_max, float mu_small, void* stream) {
+  if (B < 0 || n < 0 || P < 0 || S < 1 || S > GUARD_MAX_S || SC < 1 || SC > GUARD_MAX_S ||
+      tiles < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  if (!data_cand || !thr || !steps || !delta || !decrement || !scales || !params || !fval ||
+      !mu || !conv || !arrivals || !sums || (P > 0 && (!u || !y || !w || !s)) ||
+      (it_lane == nullptr) != (it_dev == nullptr) ||
+      (n > 6 && (reg_cand == nullptr || alpha == nullptr || kmask == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return launch_step_sweep(
+      SoftplusTerm<STEP_SWEEP>{s, u, y, w, scales, P},
+      SweepArgs{data_cand, n > 6 ? reg_cand : nullptr, thr, steps, delta, decrement, alpha,
+                kmask, params, s, fval, mu, conv, it_lane, it_dev, arrivals, sums, n, S, eps,
+                sq_eps, tol, mu_min, mu_max, mu_small},
+      B, SC, tiles, (cudaStream_t)stream);
 }

@@ -153,7 +153,7 @@ _KERNELS = {
                      'chol_check': (0, 0), 'lm_system': (8, 2, 3),
                      'step_guard': (11, 4, 3), 'newton_direction': (13, 6, 7),
                      'step_pick': (15, 4),
-                     'step_tail': (19, 5, 6)},
+                     'step_tail': (19, 5, 6), 'step_sweep': (21, 6, 6)},
                     dict(warp=32, small_n=8, row_threads=256,
                          chol_one_block_max_n=32, chol_cluster_max_n=807,
                          chol_wide_max_n=1063, pcg_reg_max_n=512)),

@@ -43,7 +43,10 @@ bitwise the three launches :func:`lm_system_kernel`, the direction kernel
 and :func:`step_guard_kernel`. :func:`step_pick` and :func:`step_tail`,
 the rest of the step (the line search's pick; the scale sweep's
 regularizer sums and pick, the new mu, the convergence test and, in the
-loop, the freeze writes), are one launch each on the card.
+loop, the freeze writes), are one launch each on the card; in the Newton
+loop :func:`step_sweep` runs the pick, the scale sweep's sums and the tail
+as one launch (the pick its prologue, the tail in each lane's last
+cluster), bitwise those three launches.
 
 Every kernel launch adds one to :data:`LAUNCHES` (through
 :func:`gram._count_launch`, so a captured CUDA graph counts its launches at
@@ -63,7 +66,8 @@ from . import gram
 LAUNCHES = {'lane_matvec': 0, 'lane_sum': 0, 'lane_dot': 0,
             'softplus_energies': 0, 'lane_pcg': 0, 'lane_cholesky': 0,
             'lane_lm_system': 0, 'lane_step_guard': 0, 'lane_chol_step': 0,
-            'lane_pcg_step': 0, 'lane_step_pick': 0, 'lane_step_tail': 0, 'softplus': 0}
+            'lane_pcg_step': 0, 'lane_step_pick': 0, 'lane_step_tail': 0,
+            'lane_step_sweep': 0, 'softplus': 0}
 
 
 def reset_launch_counts():
@@ -75,8 +79,8 @@ def reset_launch_counts():
 #: summed over L, ``lane_dot`` (B, n), ``softplus_energies`` (mode, B, P),
 #: ``lane_pcg``, ``lane_cholesky``, ``lane_lm_system``,
 #: ``lane_step_guard`` and the direction launches ``lane_chol_step`` and
-#: ``lane_pcg_step`` (B, n), ``lane_step_pick`` and ``lane_step_tail`` (B,
-#: P, n), P = 0 without a surface);
+#: ``lane_pcg_step`` (B, n), ``lane_step_pick``, ``lane_step_tail`` and
+#: ``lane_step_sweep`` (B, P, n), P = 0 without a surface);
 #: under a replayed CUDA graph at each replay, as
 #: :func:`gram._count_launch` counts.
 LAUNCH_HOOKS = []
@@ -409,13 +413,31 @@ def step_pick_plain(data_cand, reg_cand, armijo_f, f0, steps, params, delta, s=N
     return t_step, new_params, new_s, new_f, improved, full_step
 
 
-#: The Newton loop's state that :func:`step_tail` writes in place: params
-#: (B, n), s (B, P), fval (B,) float32, it_lane (B,) int32, it_dev () int32
-#: (the iterations run, added to before the step) and conv (B,) bool; s,
-#: fval, it_lane and it_dev may be None (the sharded solver keeps params, mu
-#: and conv). The step's ``mu`` is the loop's own and is written in place
-#: too.
-FreezeState = namedtuple('FreezeState', 'params s fval it_lane it_dev conv')
+#: The Newton loop's state that :func:`step_tail` and :func:`step_sweep`
+#: write in place: params (B, n), s (B, P), fval (B,) float32, it_lane (B,)
+#: int32, it_dev () int32 (the iterations run, added to before the step)
+#: and conv (B,) bool; s, fval, it_lane and it_dev may be None (the sharded
+#: solver keeps params, mu and conv; :func:`step_sweep` needs params, s and
+#: fval). The step's ``mu`` is the loop's own and is written in place too.
+#: ``scratch``: the solve's :func:`sweep_scratch`, which
+#: :func:`step_sweep_kernel` takes (None: a scratch of its own a call).
+FreezeState = namedtuple('FreezeState', 'params s fval it_lane it_dev conv scratch',
+                         defaults=(None,))
+
+#: :func:`step_sweep_kernel`'s scratch for lanes whose scales it splits
+#: over more than one tile: ``arrivals`` (B,) int32, each lane's count of
+#: its scale candidates' energies stored, 0 between launches (each launch
+#: leaves it 0), and ``sums`` (B, S) float32, those energies. A solve
+#: allocates its own with its loop state (:func:`sweep_scratch`), so that
+#: concurrent solves and their CUDA graphs share none.
+SweepScratch = namedtuple('SweepScratch', 'arrivals sums')
+
+
+def sweep_scratch(B, S, device):
+    """A :class:`SweepScratch` for ``B`` lanes of ``S`` scales on
+    ``device``."""
+    return SweepScratch(torch.zeros((B,), dtype=torch.int32, device=device),
+                        torch.empty((B, S), dtype=torch.float32, device=device))
 
 
 def step_tail_plain(data_sc, new_params, new_s, new_f, improved, full_step, mu, f0, decrement,
@@ -472,6 +494,24 @@ def step_tail_plain(data_sc, new_params, new_s, new_f, improved, full_step, mu, 
         state.it_lane.copy_(torch.where(conv, state.it_lane, state.it_dev))
     conv.logical_or_(converged)
     return None
+
+
+def step_sweep_plain(data_cand, reg_cand, armijo_f, steps, delta, u, yv, w, mu, decrement,
+                     alpha, epsilon, kmask, scales, tol, mu_min, mu_max, state):
+    """The rest of a Newton step in the loop after the line search's data
+    energies ``data_cand`` (B, S), op by op as ``solver._newton_step`` ran
+    it: :func:`step_pick_plain` on the loop's ``state`` (its params, s and
+    fval are the step's params, surface and f0), the scale sweep's data
+    energies of ``new_s`` (the terms of :func:`softplus_terms` summed by
+    :func:`lane_sum`: on the CPU :func:`softplus_energies_plain`, on the
+    card the kernels' order), then :func:`step_tail_plain` writing the
+    state in place; returns None."""
+    _, new_params, new_s, new_f, improved, full_step = step_pick_plain(
+        data_cand, reg_cand, armijo_f, state.fval, steps, state.params, delta, state.s, u)
+    data_sc = lane_sum(*softplus_terms(new_s, yv, w, scales))
+    return step_tail_plain(data_sc, new_params, new_s, new_f, improved, full_step, mu,
+                           state.fval, decrement, alpha, epsilon, kmask, scales, tol, mu_min,
+                           mu_max, state)
 
 
 def _launch(name, shape, fn, *args):
@@ -918,7 +958,7 @@ def step_tail_kernel(data_sc, new_params, new_s, new_f, improved, full_step, mu,
         params, s, fval, conv, mu_out = out
         it_lane = it_dev = None
     else:
-        params, s, fval, it_lane, it_dev, conv = state
+        params, s, fval, it_lane, it_dev, conv = state[:6]
         mu_out = mu
         if (s is None) != (new_s is None) or (it_lane is None) != (it_dev is None):
             raise ValueError('step_tail_kernel: the state has s exactly where new_s is given, '
@@ -944,6 +984,74 @@ def step_tail_kernel(data_sc, new_params, new_s, new_f, improved, full_step, mu,
                 _f32(epsilon), _f32(math.sqrt(epsilon)), _f32(tol), _f32(mu_min),
                 _f32(mu_max), _f32(1e-4))
     return out if state is None else None
+
+
+def step_sweep_kernel(data_cand, reg_cand, armijo_f, steps, delta, u, yv, w, mu, decrement,
+                      alpha, epsilon, kmask, scales, tol, mu_min, mu_max, state, k_tiles=None):
+    """The CUDA kernel of :func:`step_sweep` on the current stream: one
+    launch (``lane_step_sweep``, a mode of the softplus sums: each tile's
+    blocks recompute the pick, sum the scale sweep's terms over ``s +
+    t_step u`` and, in a lane's last cluster, run the tail and the freeze
+    writes), bitwise :func:`step_pick_kernel`, the sweep's
+    :func:`softplus_energies_kernel` and :func:`step_tail_kernel` given the
+    state, and :func:`step_sweep_plain`. The state's tensors (and ``mu``,
+    the loop's) must be contiguous; its ``scratch`` (a
+    :func:`sweep_scratch`) is used, else one is allocated. ``k_tiles``
+    forces the tiles of each lane's scales (None: the plan's; the bits do
+    not depend on it). A launch the card refuses raises."""
+    _check_cuda('step_sweep_kernel', data_cand, armijo_f, steps, delta, u, yv, w, mu,
+                decrement, scales)
+    data_cand, armijo_f, steps, delta, u, yv, w, decrement, scales = (
+        t.contiguous() for t in (data_cand, armijo_f, steps, delta, u, yv, w, decrement,
+                                 scales))
+    if delta.dim() != 2 or u.dim() != 2 or steps.dim() != 1 or scales.dim() != 1:
+        raise ValueError('step_sweep_kernel takes delta (B, n), u (B, P), steps (S,) and '
+                         f'scales (S,), got {tuple(delta.shape)}, {tuple(u.shape)}, '
+                         f'{tuple(steps.shape)} and {tuple(scales.shape)}')
+    params, s, fval, it_lane, it_dev, conv, scratch = state
+    if s is None or fval is None or (it_lane is None) != (it_dev is None):
+        raise ValueError('step_sweep_kernel: the state needs s and fval, and it_lane '
+                         'exactly with it_dev')
+    B, n = delta.shape
+    P = u.shape[1]
+    S, SC = steps.shape[0], scales.shape[0]
+    dev = delta.device
+    if scratch is None:
+        scratch = sweep_scratch(B, SC, dev)
+    f32 = torch.float32
+    checks = [('data_cand', data_cand, f32, (B, S)), ('armijo_f', armijo_f, f32, (B, S)),
+              ('yv', yv, f32, (B, P)), ('w', w, f32, (B, P)),
+              ('decrement', decrement, f32, (B,)), ('mu', mu, f32, (B,)),
+              ('params', params, f32, (B, n)), ('s', s, f32, (B, P)),
+              ('fval', fval, f32, (B,)), ('conv', conv, torch.bool, (B,)),
+              ('arrivals', scratch.arrivals, torch.int32, (B,)),
+              ('sums', scratch.sums, f32, (B, SC))]
+    checks += [(name, t, torch.int32, shape) for name, t, shape in (
+        ('it_lane', it_lane, (B,)), ('it_dev', it_dev, ())) if t is not None]
+    ptrs = [None, None, None]
+    if n > 6:
+        _check_cuda('step_sweep_kernel', reg_cand, alpha, kmask)
+        reg_cand, alpha, kmask = reg_cand.contiguous(), alpha.contiguous(), kmask.contiguous()
+        checks += [('reg_cand', reg_cand, f32, (B, S)), ('alpha', alpha, f32, (B,)),
+                   ('kmask', kmask, f32, (B, n - 6))]
+        ptrs = [reg_cand.data_ptr(), alpha.data_ptr(), kmask.data_ptr()]
+    for name, t, dtype, shape in checks:
+        gram._check(name, t, dtype, shape, dev)
+    tiles = 0 if k_tiles is None else int(k_tiles)
+    if not 0 <= tiles <= SC:
+        raise ValueError(f'step_sweep_kernel: k_tiles must be 1 to {SC}, got {k_tiles}')
+    _int32('step_sweep_kernel', B, n, P, S, SC)
+    lib = gram._load(gram.LANE_SRC)
+    with torch.cuda.device(dev):
+        _launch('lane_step_sweep', (B, P, n), lib.sdsm_lane_step_sweep, data_cand.data_ptr(),
+                ptrs[0], armijo_f.data_ptr(), steps.data_ptr(), delta.data_ptr(),
+                u.data_ptr(), yv.data_ptr(), w.data_ptr(), decrement.data_ptr(), ptrs[1],
+                ptrs[2], scales.data_ptr(), params.data_ptr(), s.data_ptr(), fval.data_ptr(),
+                mu.data_ptr(), conv.data_ptr(), _ptr(it_lane), _ptr(it_dev),
+                scratch.arrivals.data_ptr(), scratch.sums.data_ptr(), B, n, P, S, SC, tiles,
+                _f32(epsilon), _f32(math.sqrt(epsilon)), _f32(tol), _f32(mu_min),
+                _f32(mu_max), _f32(1e-4))
+    return None
 
 
 def matvec(A, x):
@@ -1042,3 +1150,17 @@ def step_tail(data_sc, new_params, new_s, new_f, improved, full_step, mu, f0, de
     if new_params.device.type == 'cpu':
         return step_tail_plain(*args)
     return step_tail_kernel(*args)
+
+
+def step_sweep(data_cand, reg_cand, armijo_f, steps, delta, u, yv, w, mu, decrement, alpha,
+               epsilon, kmask, scales, tol, mu_min, mu_max, state):
+    """The rest of a Newton step in the loop after the line search's data
+    energies (see :func:`step_sweep_plain`): the pick, the scale sweep's
+    data energies over the new surface and the tail, written into the
+    loop's ``state``: the plain version on the CPU, one
+    :func:`step_sweep_kernel` launch on the card (bitwise the same)."""
+    args = (data_cand, reg_cand, armijo_f, steps, delta, u, yv, w, mu, decrement, alpha,
+            epsilon, kmask, scales, tol, mu_min, mu_max, state)
+    if delta.device.type == 'cpu':
+        return step_sweep_plain(*args)
+    return step_sweep_kernel(*args)

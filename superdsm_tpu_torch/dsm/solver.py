@@ -27,9 +27,11 @@ at n > :data:`CHOLESKY_MAX_N`, whose lanes each stop when they are done,
 :func:`_cholesky_direction`) and the direction's guard are one launch on
 the card in either loop (``lane_pcg_step`` or ``lane_chol_step``:
 :func:`superdsm_tpu_torch.dsm.lane.newton_direction`), and so are the line
-search's pick and the rest of the step after the scale sweep's sums, the
-loop's freeze writes included (``lane_step_pick``, ``lane_step_tail``); on
-the CPU their plain versions, the op-by-op expressions of
+search's pick, the scale sweep's sums and the rest of the step, the
+loop's freeze writes included (``lane_step_sweep``:
+:func:`superdsm_tpu_torch.dsm.lane.step_sweep`; outside the loop
+``lane_step_pick``, the sweep's sums and ``lane_step_tail``); on the CPU
+their plain versions, the op-by-op expressions of
 :func:`~superdsm_tpu_torch.dsm.lane.newton_direction_plain` (LAPACK's
 Cholesky, the chain the PCG kernel replaces),
 :func:`~superdsm_tpu_torch.dsm.lane.step_pick_plain` and
@@ -313,22 +315,32 @@ def _newton_step(params, mu, s, f0, g, H, Bf, yv, w, alpha, epsilon, kmask, tol,
     # sum_p w softplus(-(y (s + u steps))): one kernel on the card, no
     # (B, P, S) tensor
     data_cand = lane.softplus_energies(s, yv, w, steps, u)         # (B, S)
-    return _step_tail(params, mu, f0, delta, decrement, data_cand, reg_cand, armijo_f, alpha,
-                      epsilon, kmask, tol,
-                      lambda t_step, new_s, scales: lane.softplus_energies(new_s, yv, w, scales),
-                      s, u, state)
+    if state is None:
+        return _step_tail(params, mu, f0, delta, decrement, data_cand, reg_cand, armijo_f,
+                          alpha, epsilon, kmask, tol,
+                          lambda t_step, new_s, scales: lane.softplus_energies(new_s, yv, w,
+                                                                                scales),
+                          s, u)
+    # multiplicative scale sweep in the loop, with the line search's pick
+    # before it and its regularizer and pick, the new mu, the convergence
+    # test and the freeze writes after it (_step_tail's, in place): one
+    # lane_step_sweep launch on the card, which never writes s + t_step u
+    lane.step_sweep(data_cand, reg_cand, armijo_f, steps, delta, u, yv, w, mu, decrement,
+                    alpha, epsilon, kmask, _scales(dt, dev), tol, MU_MIN, MU_MAX, state)
+    return None
 
 
 def _step_tail(params, mu, f0, delta, decrement, data_cand, reg_cand, armijo_f, alpha, epsilon,
                kmask, tol, sweep, s=None, u=None, state=None):
-    """The Newton step after the line search's energies, shared by both
-    solvers (this module's and ``parallel/newton._newton_row``): the line
-    search's pick and the new params (and surface ``s + t_step u``); the
+    """The Newton step after the line search's energies, for the sharded
+    solver (``parallel/newton._newton_row``, whose sweep sums over its pixel
+    shards) and :func:`_newton_step` without a state: the line search's
+    pick and the new params (and surface ``s + t_step u``); the
     multiplicative scale sweep, whose data energies ``sweep(t_step, new_s,
     scales)`` gives (B, S); its pick, the new mu and the convergence test,
-    returned or written into the loop's ``state`` (:func:`_newton_step`).
-    On the card one ``lane_step_pick`` and one ``lane_step_tail`` launch
-    around the sweep's sums."""
+    returned or written into the loop's ``state``. On the card one
+    ``lane_step_pick`` and one ``lane_step_tail`` launch around the sweep's
+    sums (the unsharded loop's step takes ``lane.step_sweep`` instead)."""
     dt, dev = params.dtype, params.device
     t_step, new_params, new_s, new_f, improved, full_step = lane.step_pick(
         data_cand, reg_cand, armijo_f, f0, _steps(dt, dev), params, delta, s, u)
@@ -509,7 +521,8 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
     it_lane = torch.zeros(B, dtype=torch.int32, device=dev)
     it_dev = torch.zeros((), dtype=torch.int32, device=dev)
 
-    freeze = lane.FreezeState(params, s, fval, it_lane, it_dev, conv)
+    freeze = lane.FreezeState(params, s, fval, it_lane, it_dev, conv,
+                              lane.sweep_scratch(B, len(SCALES), dev))
 
     def iteration(cheap):
         # frozen lanes skip the gram work in the kernel; their g/H come back

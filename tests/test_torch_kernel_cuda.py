@@ -72,7 +72,14 @@ writes, are held bitwise to their chains (``lane.step_pick_plain`` and
 NaN, infinite and tied candidates, in both of the tail's modes (a lane
 already converged keeps every bit of its state), a lane alone to the lane
 in the batch; ``solver._newton_step`` launches each once and no
-``lane_sum``. A lane alone is
+``lane_sum``. ``lane_step_sweep``, the pick, the scale sweep's sums and
+the tail with the freeze writes in one launch (the loop's step), writes
+bitwise the state the three launches it replaces write and its plain
+version on the card, at 1, 2 and 4 tiles a lane forced, a lane alone as in
+its batch, over two graph replays in a row (its arrival counters back at
+0) and from two threads each capturing its own graph;
+``solver._newton_step`` given the loop's state launches it once and no
+``lane_step_pick`` or ``lane_step_tail``. A lane alone is
 held bitwise to the lane in its batch for the bf16 kernel (whose plan no
 longer reads B) and for the sharded solvers on a mesh of the card twice.
 """
@@ -1514,3 +1521,213 @@ def test_newton_step_launches_the_tail_kernels(n, monkeypatch):
     monkeypatch.setattr(lane, 'step_tail', lane.step_tail_plain)
     for x, y in zip(out, solver._newton_step(*args)):
         assert _same_bits(x, y) if x.dtype != torch.bool else torch.equal(x, y)
+
+
+def _sweep_case(B, P, n, dev, seed=0):
+    """:func:`_tail_inputs` with the scale sweep's labels and weights (10%
+    padding), lanes b % 6 == 4 holding a NaN label (NaN scale candidates)
+    and b % 6 == 5 a -inf weight (-inf ones)."""
+    a = _tail_inputs(B, P, n, dev, seed)
+    rng = np.random.RandomState(seed + B + P + n + 1)
+    yv = np.sign(rng.randn(B, P)).astype(np.float32)
+    w = ((rng.rand(B, P) < 0.9) * rng.rand(B, P)).astype(np.float32)
+    for b in range(B):
+        if b % 6 == 4:
+            yv[b, 1] = np.nan
+        elif b % 6 == 5:
+            w[b, 1] = -np.inf
+    a['yv'], a['w'] = (torch.as_tensor(x, device=dev) for x in (yv, w))
+    return a
+
+
+#: The loop's state that the step writes in place, and mu.
+_SWEEP_STATE = ('params', 's', 'f0', 'it_lane', 'it_dev', 'conv', 'mu')
+
+
+def _sweep_state(a):
+    return {k: a[k].clone() for k in _SWEEP_STATE}
+
+
+def _sweep(fn, a, st, lanes=slice(None), scratch=None, **kw):
+    """``fn`` (``lane.step_sweep_kernel`` or a chain of the same arguments)
+    on :func:`_sweep_case`'s inputs, writing lanes ``lanes`` of the state
+    ``st`` in place."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    L = lambda x: None if x is None else x[lanes]
+    state = lane.FreezeState(L(st['params']), L(st['s']), L(st['f0']), L(st['it_lane']),
+                             st['it_dev'], L(st['conv']), scratch)
+    return fn(L(a['data_cand']), L(a['reg_cand']), L(a['armijo_f']), a['steps'], L(a['delta']),
+              L(a['u']), L(a['yv']), L(a['w']), L(st['mu']), L(a['decrement']), L(a['alpha']),
+              1.0, L(a['kmask']), a['scales'], solver.DEFAULT_TOL, solver.MU_MIN,
+              solver.MU_MAX, state, **kw)
+
+
+def _three_launches_sweep(data_cand, reg_cand, armijo_f, steps, delta, u, yv, w, mu, decrement,
+                          alpha, epsilon, kmask, scales, tol, mu_min, mu_max, state):
+    """The three launches ``lane_step_sweep`` replaces: ``lane_step_pick``,
+    the sweep's ``softplus_energies`` and ``lane_step_tail`` given the
+    state."""
+    from superdsm_tpu_torch.dsm import lane
+    _, new_params, new_s, new_f, improved, full_step = lane.step_pick_kernel(
+        data_cand, reg_cand, armijo_f, state.fval, steps, state.params, delta, state.s, u)
+    data_sc = lane.softplus_energies_kernel(new_s, yv, w, scales)
+    lane.step_tail_kernel(data_sc, new_params, new_s, new_f, improved, full_step, mu, state.fval,
+                          decrement, alpha, epsilon, kmask, scales, tol, mu_min, mu_max,
+                          lane.FreezeState(*state[:6]))
+
+
+def _same_state(x, y, lanes=slice(None)):
+    return _same_outputs([x[k][lanes] if x[k].dim() else x[k] for k in _SWEEP_STATE],
+                         [y[k][lanes] if y[k].dim() else y[k] for k in _SWEEP_STATE])
+
+
+#: ``lane_step_sweep``'s shapes: :data:`TAIL_SHAPES` with a surface (the
+#: loop's step always has one).
+SWEEP_SHAPES = [shape for shape in TAIL_SHAPES if shape[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P,n', SWEEP_SHAPES)
+def test_lane_step_sweep_equals_the_three_launches(B, P, n):
+    """``lane_step_sweep`` (one launch: the pick, the scale sweep's sums and
+    the tail with the freeze writes) writes bitwise the state the three
+    launches it replaces write, and its plain version on the card, a NaN
+    against any NaN; at 1, 2 and 4 tiles a lane forced; a lane alone
+    bitwise the lane in its batch; converged lanes untouched to the bit;
+    the arrival counters back at 0."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    a = _sweep_case(B, P, n, dev)
+    states = [_sweep_state(a) for _ in range(3)]
+    scratch = lane.sweep_scratch(B, a['scales'].numel(), dev)
+    lane.reset_launch_counts()
+    _sweep(lane.step_sweep_kernel, a, states[0], scratch=scratch)
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_step_sweep'] == 1
+    assert not any(v for k, v in lane.LAUNCHES.items() if k != 'lane_step_sweep')
+    assert not scratch.arrivals.any()
+    _sweep(_three_launches_sweep, a, states[1])
+    _sweep(lane.step_sweep_plain, a, states[2])
+    assert _same_state(states[0], states[1]) and _same_state(states[0], states[2])
+    for tiles in (1, 2, 4):
+        st = _sweep_state(a)
+        _sweep(lane.step_sweep_kernel, a, st, scratch=scratch, k_tiles=tiles)
+        assert _same_state(st, states[0]), tiles
+        assert not scratch.arrivals.any()
+    for b in sorted({0, B // 2, B - 1}):
+        st = _sweep_state(a)
+        _sweep(lane.step_sweep_kernel, a, st, slice(b, b + 1))
+        assert _same_state(st, states[0], slice(b, b + 1)), b
+    frozen = a['conv']
+    for k in ('params', 's', 'f0', 'mu', 'it_lane'):
+        assert torch.equal(states[0][k][frozen].view(torch.int32), a[k][frozen].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P,n', SWEEP_SHAPES[:2] + SWEEP_SHAPES[4:5])
+def test_lane_step_sweep_over_graph_replays(B, P, n):
+    """A CUDA graph of one ``lane_step_sweep`` launch (the solve's scratch
+    kept across replays) replayed twice in a row writes bitwise what the
+    three launches write run twice: the first replay leaves every arrival
+    counter at 0 for the second."""
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    a = _sweep_case(B, P, n, dev, seed=1)
+    scratch = lane.sweep_scratch(B, a['scales'].numel(), dev)
+    _sweep(lane.step_sweep_kernel, a, _sweep_state(a), scratch=scratch)  # loads, plans
+    st, want = _sweep_state(a), _sweep_state(a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _sweep(lane.step_sweep_kernel, a, st, scratch=scratch)
+    for _ in range(2):
+        graph.replay()
+        _sweep(_three_launches_sweep, a, want)
+        torch.cuda.synchronize()
+        assert _same_state(st, want)
+        assert not scratch.arrivals.any()
+
+
+@pytest.mark.cuda
+def test_lane_step_sweep_from_two_threads():
+    """Two threads, each on its own stream with its own state and scratch,
+    each capturing its own graph of ``lane_step_sweep`` and replaying it
+    twice, write bitwise what the three launches write run twice."""
+    import threading
+    from superdsm_tpu_torch.dsm import lane
+    dev = _cuda()
+    B, P, n = 8, 12288, 256
+    a = _sweep_case(B, P, n, dev, seed=2)
+    _sweep(lane.step_sweep_kernel, a, _sweep_state(a))  # loads, plans
+    want = _sweep_state(a)
+    for _ in range(2):
+        _sweep(_three_launches_sweep, a, want)
+    torch.cuda.synchronize()
+    results, errors = [None, None], []
+
+    def run(i):
+        try:
+            stream = torch.cuda.Stream(dev)
+            with torch.cuda.stream(stream):
+                st = _sweep_state(a)
+                scratch = lane.sweep_scratch(B, a['scales'].numel(), dev)
+                stream.synchronize()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(capture_error_mode='thread_local')
+                _sweep(lane.step_sweep_kernel, a, st, scratch=scratch)
+                graph.capture_end()
+                for _ in range(2):
+                    graph.replay()
+                stream.synchronize()
+                results[i] = (st, scratch)
+        except Exception as e:  # reported below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and all(r is not None for r in results), errors
+    for st, scratch in results:
+        assert _same_state(st, want)
+        assert not scratch.arrivals.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [6, 128, 512])
+def test_newton_step_in_the_loop_launches_the_sweep(n, monkeypatch):
+    """``solver._newton_step`` given the loop's state launches
+    ``lane_step_sweep`` once and no ``lane_step_pick``, ``lane_step_tail``
+    or scale-sweep ``softplus_energies``; the state it writes is bitwise
+    that of the same step with its plain version, and with the three
+    launches, in its place."""
+    from superdsm_tpu_torch.dsm import lane, solver
+    dev = _cuda()
+    B, P = 4, 2048
+    params, mu, alpha, kmask, g, H = _step_systems(B, n, dev, seed=4)
+    mu = torch.full_like(mu, 1e-3)
+    rng = np.random.RandomState(n + 2)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    Bf, yv, w = t(rng.randn(B, P, n) * 0.1), t(np.sign(rng.randn(B, P))), t(rng.rand(B, P) < 0.9)
+    s = lane.matvec(Bf, params)
+    f0 = solver._energy_from_surface(s, params[:, 6:], yv, w, alpha, 1.0, kmask)
+    conv = torch.tensor([False, True, False, False], device=dev)
+
+    def step():
+        st = [x.clone() for x in (params, s, f0, mu)]
+        it_lane = torch.zeros(B, dtype=torch.int32, device=dev)
+        it_dev = torch.ones((), dtype=torch.int32, device=dev)
+        c = conv.clone()
+        solver._newton_step(st[0], st[3], st[1], st[2], g, H, Bf, yv, w, alpha, 1.0, kmask, 1e-5,
+                            state=lane.FreezeState(st[0], st[1], st[2], it_lane, it_dev, c,
+                                                   lane.sweep_scratch(B, 8, dev)))
+        return st + [it_lane, c]
+    lane.reset_launch_counts()
+    got = step()
+    torch.cuda.synchronize()
+    assert lane.LAUNCHES['lane_step_sweep'] == 1
+    assert lane.LAUNCHES['lane_step_pick'] == lane.LAUNCHES['lane_step_tail'] == 0
+    assert lane.LAUNCHES['softplus_energies'] == 1  # the line search's
+    for replacement in (lane.step_sweep_plain, _three_launches_sweep):
+        monkeypatch.setattr(lane, 'step_sweep', replacement)
+        assert _same_outputs(got, step())

@@ -137,7 +137,18 @@ result lines):
    replayed Newton iteration by
    kernel family from the graphs' replays alone (their activities carry a
    graph launch's correlation id), where a ``lane_cholesky`` activity must
-   show and no cuSOLVER one may;
+   show and no cuSOLVER one may; then the transfer formats' A/B: seed 0
+   profiled with the card's bit-packed mask transfers, by coordinates
+   (``SDSM_MASK_TRANSFERS=0``) twice, and by masks again: both formats'
+   label maps bitwise phase 4's, every problem that fits sent as
+   ``poly-m`` / ``dsm-m`` and none of them by coordinates
+   (``solver.TRANSFERS``), the packed leaves' bytes, the device's
+   host-to-device copies, host syncs (by mask at most the coordinate
+   runs' plus one a mask chunk, its second leaf's copy), host launches and
+   s/image of each; and the decode (``solver._mask_to_pix``) alone at the
+   (B, P) of :data:`DECODE_SHAPES`: bitwise ``np.argwhere``'s coordinates,
+   no host sync under ``torch.profiler``, its device ms beside the host
+   ms of copying each format's leaves;
 5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` through
    the default entry point with no ``AF_scale``: the estimated scale must be
    the JAX estimator's (30 sqrt 2 = 42.4264...) and all 5 objects must
@@ -201,7 +212,11 @@ result lines):
    missing rows (one per tile), no row excused: not met (ROADMAP section
    C 1), printed NOT met, enforced only under ``--strict``.
    The 2-thread label map must be bitwise equal to the 1-thread one;
-11. meshes on one card: the sharded DSM solver at (B, P, n) = (8, 16384,
+11. meshes on one card (each row's shards on the card: its Newton loop
+   runs as a CUDA graph replayed ``solver.SYNC_EVERY`` iterations per
+   convergence read, which every solve below prints, and each sharded
+   solve is held bitwise against the host loop, ``solver.eager_loop()``,
+   with fewer reads): the sharded DSM solver at (B, P, n) = (8, 16384,
    128) over a (1, 2) mesh of ``[cuda:0, cuda:0]`` (lanes built as phase 3
    builds them): finite energies, one float32 ``dense`` launch per shard per
    Newton iteration and one launch each of ``lane_chol_step`` (the Cholesky
@@ -222,7 +237,7 @@ result lines):
    ``lane_chol_step`` launch per Newton iteration, all on that route
    (printed by route, with its iterations and seconds, and each
    iteration's direction and guard and both shards' local terms in device
-   ms between CUDA events), lanes 0 and 7
+   ms between CUDA events, on the host loop), lanes 0 and 7
    alone bitwise equal to the same lanes in the batch, and the whole solve
    bitwise equal to the same solve with the plain version as its direction
    and guard (``lane.cholesky_chain`` and the guard's op-by-op chain); the
@@ -241,7 +256,13 @@ result lines):
    idle share, captures, replays, graph memory); seconds per image of seeds
    0-3 at each ``SYNC_EVERY`` of :data:`SYNC_CHOICES` (label maps
    unchanged); PCG's kernel against the chain it replaced, run to
-   ``CG_MAX_ITERS`` and with its early exit, at n = 512 and 1024.
+   ``CG_MAX_ITERS`` and with its early exit, at n = 512 and 1024;
+13. warmup and the first image: seed 0 in a fresh process
+   (``chip_smoke.py --first-image``) without ``batching.warmup()`` and
+   then in one with it (``--first-image --warmup``: the shipped shape
+   list, which must give the JAX package's keys and count every shape):
+   ``warmup()``'s seconds, the first and second image's seconds, and every
+   label map bitwise phase 4's.
 
 Every phase prints its wall seconds (``[phase]`` lines).
 
@@ -280,9 +301,11 @@ damped system, the direction and its guard, PCG's steps within it, the
 line search with its pick, the scale sweep's sums, the rest: since
 ``lane_step_tail`` the step's end with it; since ``lane_step_sweep`` the
 pick, the sweep and the step's end are one launch in the scale sweep's
-section); the 2048x2048 mosaic (1 thread) and
-the stall fixtures at B = 1, 2, 4, 16. Every turn's label maps of bench
-seeds 0-3 and the mosaic and its fixtures' params and energies must be
+section); seed 0 by coordinate transfers (``SDSM_MASK_TRANSFERS=0``,
+which a checkout without mask transfers ignores), the 2048x2048 mosaic
+(1 thread) and the stall fixtures at B = 1, 2, 4, 16. Every turn's label
+maps of bench seeds 0-3 (both transfers of seed 0) and the mosaic and its
+fixtures' params and energies must be
 bitwise those of every other turn (each result printed; a difference
 fails the run, after the timings).
 
@@ -2993,7 +3016,134 @@ def phase_main_path():
     say('[main] elementwise and reductions per replayed Newton iteration: '
         + (f'{elementwise[0][0]:.4f} ms in {elementwise[0][1]:.1f} activities'
            if elementwise else 'none'))
+    _transfer_ab(g, seg)
     return launches, seg, hist, lane_hist, profile0
+
+
+#: (B, P) of the packed buckets at which phase 4 times the mask decode
+#: against the copies it changes: the largest poly chunk of a bench image,
+#: a DSM chunk and a large-frame bucket.
+DECODE_SHAPES = [(64, 24576), (16, 16384), (2, 131072)]
+
+
+def _transfer_run(g, coordinates):
+    """Seed 0 under ``torch.profiler`` with the card's default transfer
+    (bit-packed masks) or, with ``coordinates``, ``SDSM_MASK_TRANSFERS=0``:
+    its label map, seconds, host syncs and launches, the device's
+    host-to-device copies (activities and ms), and ``solver.TRANSFERS``
+    (the packed leaves' bytes by kind)."""
+    from superdsm_tpu_torch.dsm import solver
+    saved = os.environ.pop('SDSM_MASK_TRANSFERS', None)
+    if coordinates:
+        os.environ['SDSM_MASK_TRANSFERS'] = '0'
+    solver.reset_transfers()
+    solver.reset_loop_stats()
+    try:
+        (_, seg, _, _, seconds), counts = _profiled(lambda: _segment(g, 12))
+    finally:
+        os.environ.pop('SDSM_MASK_TRANSFERS', None)
+        if saved is not None:
+            os.environ['SDSM_MASK_TRANSFERS'] = saved
+    h2d = [b - a for name, a, b in counts['spans'] if 'HtoD' in name]
+    return dict(seg=seg, seconds=seconds, syncs=counts['syncs'], launches=counts['launches'],
+                h2d=len(h2d), h2d_ms=sum(h2d) / 1e3, reads=solver.LOOP_STATS['syncs'],
+                transfers={k: dict(v) for k, v in solver.TRANSFERS.items()})
+
+
+def _transfer_ab(g, bench_seg):
+    """Phase 4's A/B of the transfer formats: seed 0 profiled with masks,
+    coordinates, coordinates, masks. Both formats' label maps must be
+    phase 4's bitwise; every problem that fits must go as ``poly-m`` /
+    ``dsm-m`` (no coordinate chunk holds one); the mask runs' host syncs
+    at most the coordinate runs' plus one a mask chunk (its second leaf's
+    copy). Then :func:`_decode_cost`."""
+    runs = {'masks': [], 'coordinates': []}
+    for fmt in ('masks', 'coordinates', 'coordinates', 'masks'):
+        runs[fmt].append(_transfer_run(g, fmt == 'coordinates'))
+    for fmt, rs in runs.items():
+        sent = rs[0]['transfers']
+        say(f'[transfer] seed 0 by {fmt}: s/image {[round(r["seconds"], 3) for r in rs]}; '
+            f'packed leaves copied to the card {sum(v["bytes"] for v in sent.values())} '
+            f'bytes in {sum(v["calls"] for v in sent.values())} solve calls (by kind: '
+            f'{sent}); host-to-device copies on the device {[r["h2d"] for r in rs]} '
+            f'({[round(r["h2d_ms"], 3) for r in rs]} ms); host syncs '
+            f'{[r["syncs"] for r in rs]}, host kernel launches {[r["launches"] for r in rs]}, '
+            f'convergence reads {[r["reads"] for r in rs]}')
+    if not all(np.array_equal(r['seg'], bench_seg) for rs in runs.values() for r in rs):
+        fail('the transfer formats\' label maps of seed 0 differ from phase 4\'s')
+    masks = runs['masks'][0]['transfers']
+    coords = runs['coordinates'][0]['transfers']
+    if set(coords) - {'poly', 'dsm'} or not {'poly-m', 'dsm-m'} <= set(masks) \
+            or any(masks.get(k, {}).get('fitting', 0) for k in ('poly', 'dsm')):
+        fail(f'transfer kinds: masks {masks}, coordinates {coords} (every problem that fits '
+             'by mask, none by coordinates, expected)')
+    extra = sum(masks[k]['calls'] for k in ('poly-m', 'dsm-m'))
+    allowed = max(r['syncs'] for r in runs['coordinates']) + extra
+    ratio = sum(v['bytes'] for v in masks.values()) / sum(v['bytes'] for v in coords.values())
+    say(f'[transfer] seed 0: the label maps of both formats bitwise phase 4\'s; the packed '
+        f'leaves\' bytes by mask {ratio:.3f}x those by coordinates; host syncs by mask '
+        f'{[r["syncs"] for r in runs["masks"]]}, at most {allowed} allowed (the coordinate '
+        f'runs\' most plus {extra} copies of the masks\' second leaf)')
+    if any(r['syncs'] > allowed for r in runs['masks']):
+        fail('the mask transfers made more host syncs than their extra leaves\' copies')
+    _decode_cost()
+
+
+def _decode_cost():
+    """At each (B, P) of :data:`DECODE_SHAPES`, random crop masks that
+    fill 90% of the pixel slots: ``solver._mask_to_pix`` bitwise the
+    coordinates ``np.argwhere`` gives, its host syncs under
+    ``torch.profiler`` (none beyond those the profiler shows for a copy on
+    the card, its own), its device ms (10 calls back to
+    back between CUDA events), and the host-clock ms of copying the
+    coordinate leaf (int16 pairs) and the mask leaves (bits, crop widths)
+    from pageable memory as ``_device.to_device`` does (median of 5)."""
+    import torch
+    from superdsm_tpu_torch._device import to_device
+    from superdsm_tpu_torch.dsm import solver
+    rng = np.random.RandomState(0)
+    for B, pb in DECODE_SHAPES:
+        nbits = pb * solver.MASK_BITS_PER_PIXEL
+        width = 4 * int(np.sqrt(pb))
+        bits = np.zeros((B, nbits), bool)
+        PIX = np.zeros((B, pb, 2), np.int16)
+        cnt = int(0.9 * pb)
+        for b in range(B):
+            on = np.sort(rng.choice((nbits // width) * width, cnt, replace=False))
+            bits[b, on] = True
+            PIX[b, :cnt] = np.stack([on // width, on % width], 1)
+        MB = np.packbits(bits, axis=1)
+        WD = np.full(B, width, np.int32)
+        CNT = np.full(B, cnt, np.int32)
+        mb, wd, counts_ = (to_device(MB, torch.uint8), to_device(WD, torch.int32),
+                           to_device(CNT, torch.int32))
+        pix = solver._mask_to_pix(mb, wd, counts_, pb)
+        if not torch.equal(pix.cpu(), torch.from_numpy(PIX.astype(np.int32))):
+            fail(f'_mask_to_pix at ({B}, {pb}) differs from the coordinates')
+        # the profiler's own syncs: those of a copy on the card, which makes none
+        _, base = _profiled(lambda: mb.clone())
+        _, counted = _profiled(lambda: solver._mask_to_pix(mb, wd, counts_, pb))
+        decode_ms = _stream_ms(lambda: solver._mask_to_pix(mb, wd, counts_, pb))
+
+        def copy_ms(fn):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                times.append(1e3 * (time.perf_counter() - t0))
+            return float(np.median(times))
+        coords_ms = copy_ms(lambda: to_device(PIX, torch.int32))
+        mask_ms = copy_ms(lambda: (to_device(MB, torch.uint8), to_device(WD, torch.int32)))
+        say(f'[transfer] decode at (B, P) = ({B}, {pb}): bitwise np.argwhere\'s coordinates, '
+            f'{counted["syncs"]} host syncs under the profiler ({base["syncs"]} for a copy on '
+            f'the card, the profiler\'s own), {decode_ms:.4f} device ms; copies from pageable '
+            f'memory (host clock): coordinates {PIX.nbytes} bytes {coords_ms:.4f} ms, masks '
+            f'{MB.nbytes + WD.nbytes} bytes {mask_ms:.4f} ms; the decode '
+            f'{"costs more" if decode_ms > coords_ms - mask_ms else "costs less"} than the '
+            f'copy time it saves ({coords_ms - mask_ms:.4f} ms)')
+        if counted['syncs'] > base['syncs']:
+            fail(f'_mask_to_pix at ({B}, {pb}) made {counted["syncs"] - base["syncs"]} host '
+                 'syncs')
 
 
 @contextlib.contextmanager
@@ -3519,19 +3669,49 @@ def _mesh_problems(B, P, K):
     return [np.stack(a) for a in zip(*(_lane_arrays(rng, P, K) for _ in range(B)))]
 
 
-def _counting_contribs():
-    """Wraps ``newton._Shard.contribs`` (one call per shard per Newton
-    iteration) with a counter; returns the counter and the original."""
-    from superdsm_tpu_torch.parallel import newton
-    original = newton._Shard.contribs
-    calls = [0]
+def _sharded(solve, args, eager=False):
+    """One sharded solve, its outputs on the host and its Newton loops'
+    counters (``solver.LOOP_STATS``); ``eager`` runs it under
+    ``solver.eager_loop()``, the host loop that reads the convergence flags
+    every iteration."""
+    from superdsm_tpu_torch.dsm import solver
+    solver.reset_loop_stats()
+    with solver.eager_loop() if eager else contextlib.nullcontext():
+        out = [t.cpu().numpy() for t in solve(*args)]
+    return out, dict(solver.LOOP_STATS)
 
-    def counted(self, params, active):
-        calls[0] += 1
-        return original(self, params, active)
 
-    newton._Shard.contribs = counted
-    return calls, original
+def _loop_line(loop):
+    """Which Newton loop ran, and its convergence reads per solve."""
+    kind = f'graph ({loop["graphs"]} captured, {loop["replays"]} replays)' \
+        if loop['graphs'] else 'host loop'
+    return (f'{kind}, {loop["iterations"]} iterations, {loop["syncs"]} convergence reads '
+            f'in {loop["solves"]} solves ({loop["syncs"] / max(loop["solves"], 1):.1f} a solve)')
+
+
+def _graph_against_host(tag, solve, args, out=None):
+    """The sharded solve as graph replays (``out``: its outputs, if run
+    already) bitwise the host loop's, each timed on the host's clock; the
+    graph must run, with one convergence read per ``solver.SYNC_EVERY``
+    iterations (the host loop reads every iteration)."""
+    from superdsm_tpu_torch.dsm import solver
+    t0 = time.time()
+    graphed, loop = _sharded(solve, args)
+    t1 = time.time()
+    host, host_loop = _sharded(solve, args, eager=True)
+    t2 = time.time()
+    same = all(np.array_equal(x, y) for x, y in zip(graphed, host)) and (
+        out is None or all(np.array_equal(x, y) for x, y in zip(graphed, out)))
+    say(f'[mesh] {tag}: {_loop_line(loop)}, {t1 - t0:.3f} s; the host loop: '
+        f'{_loop_line(host_loop)}, {t2 - t1:.3f} s; params, energies and flags bitwise '
+        f'equal: {same}')
+    if not same:
+        fail(f'{tag}: the graph loop differs from the host loop')
+    if not loop['graphs'] or loop['syncs'] > -(-loop['iterations'] // solver.SYNC_EVERY) \
+            + loop['solves'] or loop['syncs'] > host_loop['syncs']:
+        fail(f'{tag}: the graph loop did not run with one convergence read a '
+             f'{solver.SYNC_EVERY} iterations ({loop}; host loop {host_loop})')
+    return graphed
 
 
 def _compare(tag, f, conv, f_ref, conv_ref, rtol):
@@ -3582,14 +3762,15 @@ def _wide_mesh_solve(mesh2):
             return result
         return call
     direction = lane.newton_direction
-    calls, original = _counting_contribs()
-    newton._Shard.contribs = timed(newton._Shard.contribs, 'local terms')
+    original = newton._Shard.contribs
+    newton._Shard.contribs = timed(original, 'local terms')
     lane.newton_direction = timed(direction, 'direction')
     lane.LAUNCH_HOOKS.append(by_route)
     try:
+        # on the host loop, whose wrappers above run every iteration
         lane.reset_launch_counts()
         t0 = time.time()
-        out = [t.cpu().numpy() for t in solve(*args)]
+        out, loop = _sharded(solve, args, eager=True)
         seconds = time.time() - t0
         launches = lane.LAUNCHES['lane_chol_step']
         guards = lane.LAUNCHES['lane_step_guard'] + lane.LAUNCHES['lane_cholesky']
@@ -3598,12 +3779,13 @@ def _wide_mesh_solve(mesh2):
         lane.newton_direction = direction
         lane.LAUNCH_HOOKS.remove(by_route)
     torch.cuda.synchronize()
-    iterations = calls[0] // 2
+    iterations = loop['iterations']
     ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
     local = [sum(ms['local terms'][2 * i:2 * i + 2]) for i in range(iterations)]
     wide = lane.CHOL_ROUTES[lane.cholesky_route(B, n)]
-    say(f'[mesh] sharded DSM {MESH_DSM_WIDE_SHAPE} over {mesh2.shape}: {seconds:.2f} s, '
-        f'{iterations} Newton iterations, lane_chol_step launches by route {routes}, '
+    say(f'[mesh] sharded DSM {MESH_DSM_WIDE_SHAPE} over {mesh2.shape}, the host loop: '
+        f'{seconds:.2f} s, {iterations} Newton iterations, lane_chol_step launches by route '
+        f'{routes}, '
         f'{int(out[2].sum())}/{B} lanes converged; device ms an iteration (CUDA events): '
         f'direction and guard {[round(x, 4) for x in ms["direction"]]}, both shards\' local terms '
         f'(surface, softplus sums, gram) {[round(x, 4) for x in local]}; wall ms an '
@@ -3615,12 +3797,14 @@ def _wide_mesh_solve(mesh2):
         fail(f'sharded DSM {MESH_DSM_WIDE_SHAPE}: lane_chol_step launches by route {routes} '
              f'for {iterations} Newton iterations (one each on a route of 16 blocks expected), '
              f'{guards} lane_step_guard and lane_cholesky launches (none expected)')
+    _graph_against_host(f'sharded DSM {MESH_DSM_WIDE_SHAPE}', solve, args, out)
     alone = all(np.array_equal(x[b:b + 1], x1) for b in (0, B - 1) for x, x1 in zip(
         out, (t.cpu().numpy() for t in solve(*(a[b:b + 1] for a in args)))))
     lane.newton_direction = lane.newton_direction_plain
     try:
+        # the plain chain op by op, on the host loop
         t0 = time.time()
-        chained = [t.cpu().numpy() for t in solve(*args)]
+        chained = _sharded(solve, args, eager=True)[0]
         chain_seconds = time.time() - t0
     finally:
         lane.newton_direction = direction
@@ -3637,7 +3821,8 @@ def _wide_mesh_solve(mesh2):
 def phase_mesh(bench_seg):
     """Phase 11: the sharded DSM and poly solvers over a (1, 2) mesh of the
     card twice, against a 1x1 mesh and the unsharded Newton loop, and the
-    DSM one over a (2, 1) mesh; the bench field under a 1-device pipeline
+    DSM one over a (2, 1) mesh, each as graph replays bitwise its host
+    loop; the bench field under a 1-device pipeline
     mesh and under a 2-device one of the card twice; a spec for more cards
     than there are."""
     import torch
@@ -3657,7 +3842,6 @@ def phase_mesh(bench_seg):
     alpha = np.full(B, MESH_ALPHA, np.float32)
     p0 = np.zeros((B, n), np.float32)
     dsm_args = (p0, coords, pix, sub, km, yv, w, alpha)
-    calls, original = _counting_contribs()
     sum_shapes = {}
 
     def sum_recording(name, shape):
@@ -3668,26 +3852,26 @@ def phase_mesh(bench_seg):
         gram.reset_launch_counts()
         lane.reset_launch_counts()
         t0 = time.time()
-        p2, f2, c2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)(*dsm_args)
-        torch.cuda.synchronize()
+        (p2, f2, c2), loop = _sharded(
+            newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF), dsm_args)
         seconds = time.time() - t0
         launches = dict(gram.LAUNCHES)
         lane_launches = dict(lane.LAUNCHES)
     finally:
-        newton._Shard.contribs = original
         lane.LAUNCH_HOOKS.remove(sum_recording)
-    p2, f2, c2 = p2.cpu().numpy(), f2.cpu().numpy(), c2.cpu().numpy()
+    # the launches a graph replays count at each replay
+    iterations = loop['iterations']
     say(f'[mesh] sharded DSM {MESH_DSM_SHAPE} over {mesh2.shape} on [{dev}, {dev}]: '
-        f'{seconds:.2f} s, {calls[0]} shard iterations, gram launches '
+        f'{seconds:.2f} s, {_loop_line(loop)}, gram launches '
         f'{ {k: v for k, v in launches.items() if v} }, lane kernels '
         f'{ {k: v for k, v in lane_launches.items() if v} }, {int(c2.sum())}/{B} '
         f'lanes converged')
     if not np.isfinite(f2).all():
         fail('sharded DSM: non-finite energy')
-    if calls[0] == 0 or launches['dense'] != calls[0] or calls[0] % 2 or \
+    if iterations == 0 or launches['dense'] != 2 * iterations or \
             sum(launches.values()) != launches['dense']:
-        fail(f'sharded DSM: {launches} float32 launches for {calls[0]} shard '
-             'iterations (one dense launch per shard per iteration expected)')
+        fail(f'sharded DSM: {launches} float32 launches for {iterations} Newton '
+             'iterations of two shards (one dense launch per shard per iteration expected)')
     # the direction and its guard are one lane_chol_step launch per Newton
     # iteration of the row (the guard in the Cholesky kernel's epilogue: no
     # lane_cholesky and no lane_step_guard launch), its pick and tail one
@@ -3699,11 +3883,11 @@ def phase_mesh(bench_seg):
     never = ('lane_dot', 'lane_cholesky', 'lane_step_guard', 'lane_lm_system',
              'lane_step_sweep')
     say(f'[mesh] sharded DSM: lane_sum launches by shape {sum_shapes}')
-    if any(lane_launches[k] != calls[0] // 2 for k in per_iteration) \
+    if any(lane_launches[k] != iterations for k in per_iteration) \
             or not all(lane_launches[k] for k in ('lane_sum', 'softplus_energies')) \
             or any(lane_launches[k] for k in never) or any(len(shape) == 3 for shape in sum_shapes):
         fail(f'sharded DSM: lane kernel launches {lane_launches} (lane_sum by shape '
-             f'{sum_shapes}) for {calls[0] // 2} Newton iterations (one each of '
+             f'{sum_shapes}) for {iterations} Newton iterations (one each of '
              f'{per_iteration}, none of {never} and no lane_sum over (B, S, K) expected)')
     # the epilogue bitwise the former guard: the same solve with the
     # direction and the guard as the two launches they were
@@ -3724,6 +3908,9 @@ def phase_mesh(bench_seg):
         f'lane_step_guard: {same}')
     if not same:
         fail('sharded DSM: the guard epilogue differs from the former lane_step_guard launch')
+    _graph_against_host(f'sharded DSM {MESH_DSM_SHAPE} over {mesh2.shape}',
+                        newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF),
+                        dsm_args, (p2, f2, c2))
     # a lane alone gives its bits in the batch
     solve2 = newton.make_sharded_dsm_solver(mesh2, MESH_SIGMA, MESH_CUTOFF)
     same = True
@@ -3740,11 +3927,12 @@ def phase_mesh(bench_seg):
     # two mesh rows: each row's Newton loop in a thread of its own, on its
     # own stream of the card
     t0 = time.time()
-    _, fr, cr = (t.cpu().numpy() for t in newton.make_sharded_dsm_solver(
-        pm.make_mesh(n_batch=2, n_pixel=1, devices=[dev, dev]),
-        MESH_SIGMA, MESH_CUTOFF)(*dsm_args))
+    rows2 = newton.make_sharded_dsm_solver(
+        pm.make_mesh(n_batch=2, n_pixel=1, devices=[dev, dev]), MESH_SIGMA, MESH_CUTOFF)
+    (_, fr, cr), loop = _sharded(rows2, dsm_args)
     say(f'[mesh] sharded DSM {MESH_DSM_SHAPE} over a (2, 1) mesh on [{dev}, {dev}]: '
-        f'{time.time() - t0:.2f} s')
+        f'{time.time() - t0:.2f} s, {_loop_line(loop)}')
+    _graph_against_host(f'sharded DSM {MESH_DSM_SHAPE} over a (2, 1) mesh', rows2, dsm_args)
     _compare('sharded DSM over two rows vs the 1x1 mesh', fr, cr, f1, c1, 1e-4)
     Q = solver._poly_basis(cuda(coords))
     G = build_smooth_matrix(cuda(pix), cuda(sub), MESH_SIGMA, MESH_CUTOFF, cuda(km))
@@ -3759,10 +3947,12 @@ def phase_mesh(bench_seg):
     coords, _, _, _, yv, w, _ = _mesh_problems(B, P, 0)
     p0 = np.zeros((B, 6), np.float32)
     t0 = time.time()
-    p2, f2, c2 = (t.cpu().numpy() for t in newton.make_sharded_poly_solver(mesh2)(
-        p0, coords, yv, w))
+    (p2, f2, c2), loop = _sharded(newton.make_sharded_poly_solver(mesh2), (p0, coords, yv, w))
     say(f'[mesh] sharded poly {MESH_POLY_SHAPE + (6,)} over {mesh2.shape}: '
-        f'{time.time() - t0:.2f} s, {int(c2.sum())}/{B} lanes converged')
+        f'{time.time() - t0:.2f} s, {_loop_line(loop)}, {int(c2.sum())}/{B} lanes converged')
+    _graph_against_host(f'sharded poly {MESH_POLY_SHAPE + (6,)} over {mesh2.shape}',
+                        newton.make_sharded_poly_solver(mesh2), (p0, coords, yv, w),
+                        (p2, f2, c2))
     if not np.isfinite(f2).all():
         fail('sharded poly: non-finite energy')
     same = all(np.array_equal(x[b:b + 1], x1) for b in (0, B - 1) for x, x1 in zip(
@@ -4213,7 +4403,8 @@ def _ab_lane_ms():
 
 def _ab_results(out_dir, segs):
     """The results ``--ab`` holds bitwise across checkouts, written to
-    ``out_dir``: bench seeds 0-3's label maps (given), the 2048x2048
+    ``out_dir``: bench seeds 0-3's label maps (given), seed 0's by
+    coordinate transfers (``SDSM_MASK_TRANSFERS=0``), the 2048x2048
     mosaic's (1 thread, as phase 10 runs it) and the stall fixtures' params
     and energies at every B of :data:`FIXTURE_BATCHES` (device loop)."""
     import torch
@@ -4223,6 +4414,13 @@ def _ab_results(out_dir, segs):
     from superdsm_tpu_torch.parallel import process_mosaic, rasterize_mosaic_labels
     os.makedirs(out_dir, exist_ok=True)
     arrays = {f'seed{seed}': seg for seed, seg in segs.items()}
+    # seed 0 by coordinate transfers (a checkout without the mask transfer
+    # ignores the switch): phase 4's A/B across the checkouts
+    os.environ['SDSM_MASK_TRANSFERS'] = '0'
+    try:
+        arrays['seed0-coordinates'] = _segment(make_image(0)[0], 12)[1]
+    finally:
+        del os.environ['SDSM_MASK_TRANSFERS']
     g, _ = make_mosaic(MOSAIC_SIZE)
     cfg = T.Config({'AF_scale': 12})
     cfg['c2f-region-analysis/speculate'] = False
@@ -5061,6 +5259,66 @@ def split():
     say(card)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: warmup, and a fresh process's first image
+# ---------------------------------------------------------------------------
+
+def first_image(warm):
+    """Child of phase 13: a fresh process's first bench image (seed 0 at
+    ``AF_scale=12``) and then a second one, after ``batching.warmup()`` (the
+    shipped shape list) if ``warm``; prints one JSON line."""
+    import hashlib
+    sys.path.insert(0, REPO)
+    import superdsm_tpu_torch as T
+    from superdsm_tpu_torch.dsm import batching
+    T.set_device('cuda')
+    g, _ = make_image(0)
+    stats = batching.warmup() if warm else None
+    data, seg, _, _, first = _segment(g, 12)
+    _, seg2, _, _, second = _segment(g, 12)
+    print(json.dumps(dict(warm=warm, warmup=stats, first=first, second=second,
+                          objects=len(data['postprocessed_objects']),
+                          same=bool(np.array_equal(seg, seg2)),
+                          sha1=hashlib.sha1(seg.tobytes()).hexdigest())), flush=True)
+
+
+#: ``warmup()``'s keys, the JAX package's.
+WARMUP_KEYS = {'wall_s', 'compile_s', 'load_s', 'n_programs', 'compile_thread_s',
+               'aot_deserialize_thread_s'}
+
+
+def phase_warmup(bench_seg):
+    """Phase 13: the first image of a fresh process without ``warmup()``
+    and with it (one process each, in that order): ``warmup()``'s keys and
+    seconds, and the first and second image's seconds; every label map
+    bitwise phase 4's."""
+    import hashlib
+    from superdsm_tpu_torch.dsm import batching
+    sha1 = hashlib.sha1(bench_seg.tobytes()).hexdigest()
+    shapes = len(batching._warmup_shapes())
+    for warm in (False, True):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--first-image']
+                              + (['--warmup'] if warm else []),
+                              capture_output=True, text=True, timeout=600)
+        tag = 'with warmup()' if warm else 'without warmup()'
+        if proc.returncode != 0:
+            fail(f'first image {tag} exited {proc.returncode}:\n'
+                 f'{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}')
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        if warm:
+            stats = out['warmup']
+            say(f'[warmup] warmup() of the shipped list in a fresh process: '
+                f'{ {k: round(v, 3) for k, v in stats.items()} }')
+            if set(stats) != WARMUP_KEYS or stats['n_programs'] != shapes:
+                fail(f'warmup() returned {stats} ({shapes} programs and the keys '
+                     f'{sorted(WARMUP_KEYS)} expected)')
+        say(f'[warmup] a fresh process {tag}: first image {out["first"]:.3f} s, second '
+            f'{out["second"]:.3f} s, {out["objects"]} objects; label maps bitwise phase '
+            f'4\'s: {out["sha1"] == sha1 and out["same"]}')
+        if out['sha1'] != sha1 or not out['same']:
+            fail(f'first image {tag}: a label map differs from phase 4\'s')
+
+
 def _timed(number, fn, *args):
     """Runs phase ``number`` and prints its wall seconds."""
     t0 = time.time()
@@ -5107,6 +5365,7 @@ def main():
     _timed(10, phase_mosaic)
     _timed(11, phase_mesh, bench_seg)
     _timed(12, phase_device_loop, profile0)
+    _timed(13, phase_warmup, bench_seg)
     say(f'[phase] all phases: {time.time() - T0:.2f} s wall')
     table = [dict(name=f'{os.path.basename(_source(route))[:-3]}/{route}',
                   route='cuda', source=_source(route), replaces=REPLACES[route],
@@ -5138,6 +5397,8 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:] == ['--knob-run']:
         knob_run()
+    elif sys.argv[1:2] == ['--first-image'] and sys.argv[2:] in ([], ['--warmup']):
+        first_image(sys.argv[2:] == ['--warmup'])
     elif sys.argv[1:2] == ['--ab-run'] and len(sys.argv) == 4:
         ab_run(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ['--ab'] and len(sys.argv) == 4:

@@ -12,10 +12,12 @@ them ported), on the bench image, 2026-08-20:
 
 * same config, two runs: bitwise identical (the pipeline is deterministic);
 * the JAX package's ``SDSM_GRAM_BANDED`` / ``SDSM_MASK_TRANSFERS`` A/B:
-  bitwise identical (those paths are exact by construction). The port has
-  neither knob: its gram takes the banded mode whenever it is given a band
-  table, and the card tests hold that mode bitwise equal to the unbanded
-  one; the bit-packed mask transfers have no port;
+  bitwise identical (those paths are exact by construction). The port
+  reads ``SDSM_MASK_TRANSFERS`` too (its mask transfers are bitwise its
+  coordinate transfers: ``tests/test_torch_mask_transfer.py``, and on the
+  card ``chip_smoke.py`` phase 4); its gram takes the banded mode whenever
+  it is given a band table, and the card tests hold that mode bitwise
+  equal to the unbanded one;
 * a forced bucket-ladder change (``SDSM_DROP_BUCKETS``, which the port
   reads too): converged-class
   energies drift ~1e-3 relative, while truncated (LM-stalling) solves are
@@ -54,8 +56,8 @@ tools above, bench seed 0 + BBBC033, 2026-08-20):
 
 * Same configuration, repeated runs: bitwise identical (incl. label maps).
 * The JAX package's ``SDSM_GRAM_BANDED`` / ``SDSM_MASK_TRANSFERS`` /
-  quantization-knob A/B (of these the port reads only
-  ``SDSM_DECISION_QUANT_BITS``): identical decisions on both images; label
+  quantization-knob A/B (of these the port reads
+  ``SDSM_MASK_TRANSFERS`` and ``SDSM_DECISION_QUANT_BITS``): identical decisions on both images; label
   maps bitwise on the bench image, one object's boundary +-0.5% area on
   BBBC033 (kernel rounding).
 * Bucket-ladder / batch-shape changes (``SDSM_DROP_BUCKETS``; the JAX

@@ -32,10 +32,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._device import on_cpu, scoped_device, thread_device
-from .solver import (_pack_poly_group, _solve_dsm_packed, solve_on_devices,
-                     unpack_fg, evaluate_foreground, DEFAULT_MAXITER,
-                     DEFAULT_TOL)
+from .._device import get_device, on_cpu, scoped_device, thread_device
+from .solver import (_pack_poly_group, _solve_poly_packed, _solve_poly_packed_mask,
+                     _solve_dsm_packed, _solve_dsm_packed_mask, _count_transfer, _load_linalg,
+                     solve_on_devices, unpack_fg, evaluate_foreground, DEFAULT_MAXITER,
+                     DEFAULT_TOL, MASK_BITS_PER_PIXEL)
 from .smooth import prepare_deformation, smooth_matrix_params
 from . import gram
 
@@ -107,13 +108,14 @@ def _estimate_chunk_flops(kind, pb, kb, lane_iters):
     1 for the float32 kernel and the 1-pass bf16 gram, 3 for the 3-pass
     split (:data:`gram.GRAM_PASSES`).
     """
-    n = 6 if kind == 'poly' else kb + 6
+    poly = kind.startswith('poly')
+    n = 6 if poly else kb + 6
     iters = float(np.sum(lane_iters))
     gram_flops = 2.0 * pb * n * n * iters
     direction = (n ** 3 / 3.0) * iters
     per_lane = 10.0 * pb * kb * len(lane_iters)
     logical = gram_flops + direction + per_lane
-    passes = 3.0 if kind != 'poly' and gram.GRAM_PASSES == 3 else 1.0
+    passes = 3.0 if not poly and gram.GRAM_PASSES == 3 else 1.0
     return logical, passes * gram_flops + direction + per_lane
 
 #: Pixel-count buckets (every value a multiple of 2048, so the gram kernel's
@@ -321,6 +323,10 @@ class Problem:
         initialization pass when their whole batch is warm.
     :ivar alpha_scale: multiplier on the deformation weight alpha (the
         pixel-subsampled solve of oversized regions).
+    :ivar crop_shape: the crop (bounding box) shape of the region mask,
+        the frame of the bit-packed mask transfer
+        (``solver._mask_to_pix``); derived from the coordinates' extent
+        when not given.
     """
     pts: np.ndarray
     offset: np.ndarray
@@ -330,10 +336,60 @@ class Problem:
     tag: object = None
     init_params: Optional[np.ndarray] = None
     alpha_scale: float = 1.0
+    crop_shape: Optional[tuple] = None
 
     @property
     def n_pixels(self):
         return len(self.pts)
+
+    def _crop_shape(self):
+        if self.crop_shape is None:
+            # make_problem crops to the mask's box, so the extent is the
+            # crop; a looser hand-built crop only makes fits_mask stricter
+            self.crop_shape = (int(self.pts[:, 0].max()) + 1,
+                               int(self.pts[:, 1].max()) + 1)
+        return self.crop_shape
+
+    @property
+    def crop_area(self):
+        h, w = self._crop_shape()
+        return h * w
+
+    @property
+    def packed_mask(self):
+        """The region mask over the crop, row-major, bit-packed (cached):
+        ``np.unpackbits`` of it at the crop width gives ``pts`` back
+        (``solver._mask_to_pix`` is its inverse on the device)."""
+        pm = getattr(self, '_packed_mask', None)
+        if pm is None:
+            h, w = self._crop_shape()
+            m = np.zeros(h * w, bool)
+            m[self.pts[:, 0].astype(np.int64) * w + self.pts[:, 1]] = True
+            pm = np.packbits(m)
+            self._packed_mask = pm
+        return pm
+
+    def fits_mask(self, pb):
+        """Whether the bit-packed mask transfer carries this problem at pixel
+        bucket ``pb``: the crop's bits within ``pb * MASK_BITS_PER_PIXEL``,
+        and ``pts`` strictly increasing in row-major order inside the crop.
+        The decode rebuilds the coordinates in that order while ``yv`` and
+        ``init_params`` keep the given one, so unsorted or repeated points
+        would pair pixels with other pixels' intensities; such problems go
+        by coordinates (the same results, a larger transfer)."""
+        if self.crop_area > pb * MASK_BITS_PER_PIXEL:
+            return False
+        ok = getattr(self, '_pts_rowmajor', None)
+        if ok is None:
+            h, w = self._crop_shape()
+            r, c = self.pts[:, 0].astype(np.int64), self.pts[:, 1].astype(np.int64)
+            lin = r * w + c
+            ok = bool((len(lin) == 0)
+                      or (np.all(lin[1:] > lin[:-1])
+                          and r[0] >= 0 and c.min() >= 0
+                          and r[-1] < h and c.max() < w))
+            self._pts_rowmajor = ok
+        return ok
 
     @property
     def n_deform(self):
@@ -408,7 +464,7 @@ def make_problem(region, img_shape=None, smooth_amount=np.inf,
         sub = prepare_deformation(mask_crop, smooth_amount,
                                   gaussian_shape_multiplier, stride)
     return Problem(pts=pts, offset=offset, img_shape=tuple(img_shape), yv=yv,
-                   sub=sub, tag=tag)
+                   sub=sub, tag=tag, crop_shape=tuple(mask_crop.shape))
 
 
 def _group_problems(problems, smooth_amount):
@@ -619,6 +675,129 @@ def _mark_warm(shapes):
         _WARM_SHAPES.update(shapes)
 
 
+def _warmup_shapes(include_large=False):
+    """The shipped shape list (``warmup_shapes.json``: the solve shapes of
+    bench-like fields) and, with ``include_large``, the large buckets a
+    1024x1344 microscopy frame takes (``warmup_shapes_large.json``): the
+    JAX package's lists. Entries are ``(kind, P, K, B)`` with the statics
+    ``(tol,)`` of a poly solve or ``(tol, sigma, cutoff)`` of a DSM one."""
+    import json
+    here = os.path.dirname(__file__)
+    names = ['warmup_shapes.json'] + (['warmup_shapes_large.json'] if include_large else [])
+    shapes = set()
+    for name in names:
+        with open(os.path.join(here, name)) as fp:
+            shapes |= {tuple(e) for e in json.load(fp)}
+    return shapes
+
+
+def _warmup_job(kind, pb, kb, Bp, maxiter, tol, sigma, cutoff):
+    """``(solve, args)`` of one warmup shape on dummy inputs: ``kind``
+    ``poly``/``dsm`` take int16 coordinate pairs, ``poly-m``/``dsm-m`` the
+    bit-packed crop masks (the format the card takes for every problem
+    whose crop fits)."""
+    rng = np.random.RandomState(0)
+    OFF = np.zeros((Bp, 2), np.int32)
+    CNT = np.full(Bp, pb, np.int32)
+    YQ = rng.randint(-32767, 32767, (Bp, pb)).astype(np.int16)
+    YS = np.ones(Bp, np.float32)
+    denom = np.array([63.0, 63.0], np.float32)
+    if kind.endswith('-m'):
+        nbits = pb * MASK_BITS_PER_PIXEL
+        bits = np.zeros((Bp, nbits), np.uint8)
+        bits[:, rng.choice(nbits, pb, replace=False)] = 1
+        head = (np.packbits(bits, axis=1), np.full(Bp, 64, np.int32))
+    else:
+        head = (rng.randint(0, 50, (Bp, pb, 2)).astype(np.int16),)
+    if kind.startswith('poly'):
+        fn = _solve_poly_packed_mask if kind.endswith('-m') else _solve_poly_packed
+        return fn, (*head, OFF, CNT, YQ, YS, denom, np.zeros((Bp, 6), np.float32),
+                    int(maxiter), float(tol))
+    fn = _DSM_SOLVES[kind]
+    return fn, (*head, OFF, CNT, YQ, YS, denom,
+                rng.randint(0, 50, (Bp, kb, 2)).astype(np.int16),
+                np.ones((Bp, kb), np.float32), np.zeros((Bp, 6 + kb), np.float32),
+                np.zeros(Bp, bool), np.full(Bp, 0.1, np.float32), 1.0,
+                int(maxiter), float(tol), float(sigma), int(cutoff))
+
+
+def warmup(shapes=None, maxiter=DEFAULT_MAXITER, tol=DEFAULT_TOL, sigma=4.0,
+           cutoff=16, threads=8, compile_only=False, include_large=False):
+    """Pays the solver's first-use costs before the first image: ``shapes``
+    is an iterable of ``(kind, P, K, B)`` tuples, optionally followed by
+    their statics (``tol``; DSM kinds ``tol, sigma, cutoff``), by default
+    the shipped list (:func:`_warmup_shapes`). A 4-tuple takes this call's
+    ``tol``, ``sigma`` and ``cutoff``, as in the JAX package.
+
+    Two phases, timed apart. The compile phase builds every CUDA library
+    the solver calls (the gram, the bf16 gram and the lane kernels; one
+    ``nvcc`` each, together, where a library is missing or older than its
+    source), loads them and makes the process's first CUDA linear-algebra
+    call (``solver._load_linalg``); on the CPU it has nothing to do. The
+    load phase (skipped with ``compile_only``) runs each shape's packed
+    solve once at ``maxiter=1`` on dummy inputs, ``threads`` at a time,
+    each worker thread on its own stream (``parallel.worker_stream``):
+    CUDA library handles, the caching allocator's pools, a graph capture
+    and the first launch of each kernel. A CUDA program has no trace to
+    specialise, so ``maxiter`` does not change what is warmed; it is kept
+    for the JAX package's signature. A shape that ran arms the solve
+    deadline for its rounds (``_WARM_SHAPES``).
+
+    :return: the JAX package's keys ``{'wall_s', 'compile_s', 'load_s',
+        'n_programs', 'compile_thread_s', 'aot_deserialize_thread_s'}``:
+        ``compile_thread_s`` is the ``nvcc`` build's seconds (0.0 when
+        every library was up to date), ``aot_deserialize_thread_s`` is
+        always 0.0 (the port keeps no ahead-of-time sidecars).
+    """
+    from concurrent.futures import ThreadPoolExecutor
+    from ..parallel.pipelined import worker_stream
+    if shapes is None:
+        shapes = _warmup_shapes(include_large=include_large)
+
+    def _normalize(shape):
+        shape = tuple(shape)
+        if len(shape) > 4:
+            return shape
+        return shape + ((float(tol),) if shape[0].startswith('poly')
+                        else (float(tol), float(sigma), int(cutoff)))
+
+    shapes = sorted({_normalize(s) for s in shapes})
+    device = get_device()
+    t_start = time.perf_counter()
+    build_s = 0.0
+    if device.type == 'cuda':
+        if any(gram.stale(src) for src in gram._KERNELS):
+            build_s = gram.build()
+        for src in gram._KERNELS:
+            gram._load(src)
+        _load_linalg(device)
+    t_compiled = time.perf_counter()
+
+    def run_one(shape):
+        kind, pb, kb, Bp = shape[:4]
+        statics = shape[4:] if kind.startswith('dsm') else shape[4:] + (sigma, cutoff)
+        fn, args = _warmup_job(kind, pb, kb, Bp, 1, *statics)
+        with thread_device(device), worker_stream():
+            _to_host(fn(*args)[1][:1])  # waits for the solve
+        _mark_warm([shape])
+
+    if not compile_only and shapes:
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            list(pool.map(run_one, shapes))
+    t_done = time.perf_counter()
+    return {'wall_s': t_done - t_start,
+            'compile_s': t_compiled - t_start,
+            'load_s': 0.0 if compile_only else t_done - t_compiled,
+            'aot_deserialize_thread_s': 0.0,
+            'compile_thread_s': build_s,
+            'n_programs': len(shapes)}
+
+
+#: The packed DSM solve of each transfer kind, and the position of its
+#: USE_WARM argument.
+_DSM_SOLVES = {'dsm': _solve_dsm_packed, 'dsm-m': _solve_dsm_packed_mask}
+_USE_WARM_AT = {'dsm': 9, 'dsm-m': 10}
+
 #: output layouts: poly (params, f, conv, bad, fg, it_lane);
 #:                 dsm (params, f, f_ell, conv, bad, fg, it_lane)
 _IDX = {'poly': dict(params=0, f=1, conv=2, bad=3, fg=4, it=5),
@@ -626,8 +805,9 @@ _IDX = {'poly': dict(params=0, f=1, conv=2, bad=3, fg=4, it=5),
 
 
 def _selection(kind, outs, fetch):
-    """The outputs of one chunk the host needs."""
-    ix = _IDX[kind]
+    """The outputs of one chunk (of either transfer format) the host
+    needs."""
+    ix = _IDX[kind.split('-')[0]]
     keys = ('f', 'bad', 'conv', 'it') if fetch == 'energy' else \
         ('f', 'bad', 'conv', 'it', 'fg', 'params')
     return {k: outs[ix[k]] for k in keys}
@@ -705,23 +885,45 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
     devices = _batch_devices()
     min_b = 1 if devices is None else len(devices)
 
+    # The transfer format, as the JAX package routes it: on the card the
+    # problems whose crop fits the bit-packed mask (nearly all) go as masks
+    # (0.5 bytes a pixel against 4 for int16 coordinate pairs), the rest by
+    # coordinates; on the CPU by coordinates. The decoded coordinates are
+    # the same, so the results are bitwise unchanged. SDSM_MASK_TRANSFERS=0
+    # forces coordinates everywhere, =1 masks on the CPU too.
+    mask_env = os.environ.get('SDSM_MASK_TRANSFERS')
+    mask_capable = mask_env == '1' if mask_env is not None else not on_cpu()
+
+    def _fitting(chunk, pb, use_mask):
+        return len(chunk) if use_mask else sum(problems[i].fits_mask(pb) for i in chunk)
+
+    def _variants(idxs, pb):
+        if not mask_capable:
+            return ((idxs, False),) if idxs else ()
+        fit = [i for i in idxs if problems[i].fits_mask(pb)]
+        nofit = [i for i in idxs if not problems[i].fits_mask(pb)]
+        return tuple((lst, um) for lst, um in ((fit, True), (nofit, False)) if lst)
+
     # launch every bucket group, then copy all results to the host
     pending = []  # (kind, chunk, shape, device outputs)
     for pb, idxs in sorted(poly_groups.items()):
         bmax = _b_cap(pb, 'poly')
-        for chunk_start in range(0, len(idxs), bmax):
-            chunk = idxs[chunk_start: chunk_start + bmax]
-            Bp = max(_batch_shape(len(chunk), pb, 'poly'), min_b)
-            inits = [problems[i].init_params for i in chunk]
-            outs = _pack_poly_group([problems[i] for i in chunk], img_shape,
-                                    params0=inits, maxiter=maxiter, tol=tol,
-                                    pb=pb, Bp=Bp, devices=devices)
-            pending.append(('poly', chunk, ('poly', pb, 0, Bp, float(tol)),
-                            outs))
+        for vidxs, use_mask in _variants(idxs, pb):
+            kind = 'poly-m' if use_mask else 'poly'
+            for chunk_start in range(0, len(vidxs), bmax):
+                chunk = vidxs[chunk_start: chunk_start + bmax]
+                Bp = max(_batch_shape(len(chunk), pb, 'poly'), min_b)
+                inits = [problems[i].init_params for i in chunk]
+                outs = _pack_poly_group([problems[i] for i in chunk], img_shape,
+                                        params0=inits, maxiter=maxiter, tol=tol,
+                                        pb=pb, Bp=Bp, devices=devices, use_mask=use_mask)
+                _count_transfer(kind, problems=len(chunk), fitting=_fitting(chunk, pb, use_mask))
+                pending.append((kind, chunk, (kind, pb, 0, Bp, float(tol)), outs))
 
-    def _dsm_chunk_arrays(chunk, pb, kb, Bp, warm_tail_all):
+    def _dsm_chunk_arrays(chunk, pb, kb, Bp, use_mask, warm_tail_all):
         """Packs one dsm chunk (ONE construction for the production solve
-        and the canonical re-solve).
+        and the canonical re-solve) in the transfer format ``use_mask``
+        selects.
 
         ``warm_tail_all`` sets only the padding rows' USE_WARM: True gives
         them the all-of-real value (production: an all-warm chunk keeps
@@ -733,7 +935,6 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         chunk at B > 1 holding warm lanes would need USE_WARM forced to
         False to stay independent of how the lanes are grouped.
         """
-        PIXa = np.zeros((Bp, pb, 2), np.int16)
         OFF = np.zeros((Bp, 2), np.int32)
         CNT = np.zeros((Bp,), np.int32)
         YQ = np.zeros((Bp, pb), np.int16)
@@ -742,10 +943,20 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         KM = np.zeros((Bp, kb), np.float32)
         WARM = np.zeros((Bp, 6 + kb), np.float32)
         USE_WARM = np.zeros((Bp,), bool)
+        if use_mask:
+            MB = np.zeros((Bp, (pb * MASK_BITS_PER_PIXEL) // 8), np.uint8)
+            WDT = np.ones((Bp,), np.int32)
+        else:
+            PIXa = np.zeros((Bp, pb, 2), np.int16)
         for j, i in enumerate(chunk):
             p = problems[i]
             npix, k = p.n_pixels, p.n_deform
-            PIXa[j, :npix] = p.pts
+            if use_mask:
+                pm = p.packed_mask
+                MB[j, :len(pm)] = pm
+                WDT[j] = p.crop_shape[1]
+            else:
+                PIXa[j, :npix] = p.pts
             OFF[j] = p.offset
             CNT[j] = npix
             YQ[j, :npix] = p.yq
@@ -760,29 +971,34 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         ALPHA = np.full(Bp, alpha, np.float32)
         for j, i in enumerate(chunk):
             ALPHA[j] *= problems[i].alpha_scale
-        return (PIXa, OFF, CNT, YQ, YS, denom, SUB, KM, WARM, USE_WARM, ALPHA,
-                float(epsilon), int(maxiter)) + statics
+        head = (MB, WDT) if use_mask else (PIXa,)
+        return head + (OFF, CNT, YQ, YS, denom, SUB, KM, WARM, USE_WARM, ALPHA,
+                       float(epsilon), int(maxiter)) + statics
 
     for (pb, kb), idxs in sorted(dsm_groups.items()):
         # cold problems first: warm-started lanes converge in far fewer
         # iterations, so sorting packs them into their own tail chunk(s)
         idxs.sort(key=lambda i: (problems[i].init_params is not None,
                                  problems[i].n_pixels))
-        chunk_start = 0
-        for size in _dsm_chunk_sizes(len(idxs), _b_cap(pb), pb, kb,
-                                     min_b=min_b):
-            chunk = idxs[chunk_start: chunk_start + size]
-            chunk_start += size
-            Bp = max(_batch_shape(len(chunk), pb), min_b)
-            arrays = _dsm_chunk_arrays(chunk, pb, kb, Bp, warm_tail_all=True)
-            # a split keeps the whole chunk's elliptical skip (USE_WARM.all())
-            split = {} if devices is None else {'all_warm': bool(arrays[9].all())}
-            outs = solve_on_devices(_solve_dsm_packed, arrays, devices, **split)
-            pending.append(('dsm', chunk, ('dsm', pb, kb, Bp) + statics, outs))
-            if out is not None:
-                out.intermediate(
-                    f'{progress_line}... dispatched '
-                    f'{sum(len(c) for _, c, _, _ in pending)} / {len(problems)}')
+        for vidxs, use_mask in _variants(idxs, pb):
+            kind = 'dsm-m' if use_mask else 'dsm'
+            chunk_start = 0
+            for size in _dsm_chunk_sizes(len(vidxs), _b_cap(pb), pb, kb,
+                                         min_b=min_b):
+                chunk = vidxs[chunk_start: chunk_start + size]
+                chunk_start += size
+                Bp = max(_batch_shape(len(chunk), pb), min_b)
+                arrays = _dsm_chunk_arrays(chunk, pb, kb, Bp, use_mask, warm_tail_all=True)
+                # a split keeps the whole chunk's elliptical skip (USE_WARM.all())
+                split = {} if devices is None else \
+                    {'all_warm': bool(arrays[_USE_WARM_AT[kind]].all())}
+                outs = solve_on_devices(_DSM_SOLVES[kind], arrays, devices, **split)
+                _count_transfer(kind, problems=len(chunk), fitting=_fitting(chunk, pb, use_mask))
+                pending.append((kind, chunk, (kind, pb, kb, Bp) + statics, outs))
+                if out is not None:
+                    out.intermediate(
+                        f'{progress_line}... dispatched '
+                        f'{sum(len(c) for _, c, _, _ in pending)} / {len(problems)}')
 
     shapes = [shape for _, _, shape, _ in pending]
     t_fetch = time.perf_counter()
@@ -820,7 +1036,7 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
     # canonical re-solve of non-converged DSM lanes (see _CANONICAL_P_LADDER)
     flagged, resolve = [], []
     for (kind, chunk, shape, _), row in zip(pending, fetched):
-        if kind != 'dsm' or not _CANONICAL_RESOLVE:
+        if not kind.startswith('dsm') or not _CANONICAL_RESOLVE:
             continue  # truncated poly lanes are batch-shape invariant
         lanes = [i for j, i in enumerate(chunk)
                  if not row['conv'][j] and i not in oversized]
@@ -835,14 +1051,18 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         t_canon = time.perf_counter()
         groups = {}
         for i in resolve:
-            groups.setdefault(_canonical_buckets(problems[i]), []).append(i)
+            pc, kc = _canonical_buckets(problems[i])
+            use_mask = mask_capable and problems[i].fits_mask(pc)
+            groups.setdefault((pc, kc, use_mask), []).append(i)
         canon = []  # (chunk, shape, device outputs)
-        for (pc, kc), idxs in sorted(groups.items()):
+        for (pc, kc, use_mask), idxs in sorted(groups.items()):
+            kind = 'dsm-m' if use_mask else 'dsm'
             for cs in range(0, len(idxs), _CANONICAL_B):
                 chunk = idxs[cs:cs + _CANONICAL_B]
-                outs = _solve_dsm_packed(*_dsm_chunk_arrays(
-                    chunk, pc, kc, _CANONICAL_B, warm_tail_all=False))
-                canon.append((chunk, ('dsm', pc, kc, _CANONICAL_B) + statics,
+                outs = _DSM_SOLVES[kind](*_dsm_chunk_arrays(
+                    chunk, pc, kc, _CANONICAL_B, use_mask, warm_tail_all=False))
+                _count_transfer(kind, problems=len(chunk), fitting=_fitting(chunk, pc, use_mask))
+                canon.append((chunk, (kind, pc, kc, _CANONICAL_B) + statics,
                               outs))
         canon_shapes = [shape for _, shape, _ in canon]
         try:
@@ -865,7 +1085,7 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
             if _TELEMETRY:
                 print(f'[canonical] n={len(resolve)} of {len(flagged)} flagged '
                       f'calls={len(canon)} '
-                      f'groups={sorted((pc, kc, len(v)) for (pc, kc), v in groups.items())} '
+                      f'groups={sorted((pc, kc, len(v)) for (pc, kc, _), v in groups.items())} '
                       f'wall={time.perf_counter() - t_canon:.3f}s',
                       file=sys.stderr, flush=True)
 
@@ -907,7 +1127,7 @@ def _store_results(results, problems, kind, chunk, row, fetch):
                                        tag=p.tag)
             continue
         params = row['params'][j]
-        if kind == 'dsm':
+        if kind.startswith('dsm'):
             params = np.concatenate([params[:6], params[6:6 + p.n_deform]])
         results[i] = ProblemResult(
             params=params, energy=float(f[j]), status=status, surface=None,

@@ -465,6 +465,14 @@ def bind(lib, prefix, entries):
         fn.restype = ctypes.c_int
 
 
+def stale(src):
+    """Whether the library of kernel source ``src`` is missing or older
+    than its source."""
+    path = _lib_path(src)
+    return (not os.path.exists(path)
+            or os.path.getmtime(path) < os.path.getmtime(os.path.join(_CSRC, src)))
+
+
 def _load(src=_F32_SRC):
     """Builds (if missing or stale) and loads one kernel library."""
     lib = _libs.get(src)
@@ -474,8 +482,7 @@ def _load(src=_F32_SRC):
         if src in _libs:
             return _libs[src]
         path = _lib_path(src)
-        if (not os.path.exists(path) or os.path.getmtime(path)
-                < os.path.getmtime(os.path.join(_CSRC, src))):
+        if stale(src):
             build()
         lib = ctypes.CDLL(path)
         _, prefix, entries, constants = _KERNELS[src]

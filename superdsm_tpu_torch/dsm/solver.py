@@ -604,12 +604,38 @@ def solve_polynomial_batch(coords, yv, w, params0=None, alpha=0.0,
     return SolverResult(_host(params), _host(f), _host(conv), int(it), _host(s))
 
 
+def solve_dsm_batch(coords, pix, sub, kmask, yv, w, params0, alpha, epsilon,
+                    sigma, cutoff, maxiter=DEFAULT_MAXITER, tol=DEFAULT_TOL):
+    """Solves a batch of full DSM problems (6 + K parameters).
+
+    :param coords: (B, P, 2) normalized pixel coordinates.
+    :param pix: (B, P, 2) crop-local integer pixel coordinates (for G).
+    :param sub: (B, K, 2) crop-local subsample-point coordinates.
+    :param kmask: (B, K) 1 for valid subsample points.
+    :param params0: (B, 6+K) initialization.
+    :param sigma/cutoff: Gaussian smoothing parameters (shared per call).
+    """
+    from .smooth import build_smooth_matrix
+    coords = to_device(coords, _F32)
+    pix = to_device(pix, _F32)
+    sub = to_device(sub, _F32)
+    kmask = to_device(kmask, _F32)
+    B = coords.shape[0]
+    alpha = to_device(np.array(np.broadcast_to(np.asarray(alpha, np.float32), (B,))), _F32)
+    Q = _poly_basis(coords)
+    G = build_smooth_matrix(pix, sub, float(sigma), int(cutoff), kmask)
+    params, f, conv, it, s, _ = _solve_batch_impl(
+        to_device(params0, _F32), Q, G, to_device(yv, _F32), to_device(w, _F32), alpha,
+        float(epsilon), kmask, int(maxiter), float(tol), banded=True)
+    return SolverResult(_host(params), _host(f), _host(conv), int(it), _host(s))
+
+
 # ---------------------------------------------------------------------------
-# Packed entry points: int16 crop-local pixel coordinates and int16-quantized
-# intensities come in; normalized coordinates, the pixel-validity mask and
-# the polynomial basis are rebuilt on the device; the foreground comes back
-# bit-packed. The elliptical initialization and the full DSM solve run in one
-# call.
+# Packed entry points: crop-local pixels (int16 coordinate pairs, or the
+# crop's bit-packed mask) and int16-quantized intensities come in;
+# normalized coordinates, the pixel-validity mask and the polynomial basis
+# are rebuilt on the device; the foreground comes back bit-packed. The
+# elliptical initialization and the full DSM solve run in one call.
 # ---------------------------------------------------------------------------
 
 def _unpack_inputs(pix, off, cnt, yq, yscale, denom):
@@ -643,6 +669,78 @@ def unpack_fg(fg_packed, n_pixels):
     return np.unpackbits(np.asarray(fg_packed), count=n_pixels).astype(bool)
 
 
+#: Bit capacity of the packed-mask transfer, as a multiple of the pixel
+#: bucket: 4 bits of bounding-box area per pixel (the JAX package's
+#: choice; region masks fill 27-52% of their box on nuclei data), so the
+#: mask leaf is pb / 2 bytes where the int16 coordinate pairs are 4 pb.
+#: Problems whose box exceeds it keep the coordinate transfer.
+MASK_BITS_PER_PIXEL = 4
+
+#: Host-to-device transfers of the packed solves since
+#: :func:`reset_transfers`: per transfer kind (``poly``, ``dsm``, ``poly-m``,
+#: ``dsm-m``) the calls, the bytes of the numpy leaves copied to the device
+#: and, counted by ``batching.solve_problems``, the real problems and those
+#: of them whose crop would fit the mask transfer (``fitting``).
+TRANSFERS = {}
+_transfer_lock = threading.Lock()
+
+
+def reset_transfers():
+    with _transfer_lock:
+        TRANSFERS.clear()
+
+
+def _count_transfer(kind, arrays=(), problems=0, fitting=0):
+    nbytes = sum(a.nbytes for a in arrays if isinstance(a, np.ndarray))
+    with _transfer_lock:
+        row = TRANSFERS.setdefault(kind, dict(calls=0, bytes=0, problems=0, fitting=0))
+        row['calls'] += bool(arrays)
+        row['bytes'] += nbytes
+        row['problems'] += problems
+        row['fitting'] += fitting
+
+
+def _mask_to_pix(mb, wd, cnt, pb):
+    """(B, pb // 2) uint8 row-major bit-packed crop masks -> (B, pb, 2) int32
+    crop-local pixel coordinates in ``np.argwhere`` order, on the masks'
+    device.
+
+    The inverse of the host's ``np.packbits`` (MSB first). Slots at or
+    beyond a problem's pixel count ``cnt`` decode to (0, 0), as the
+    coordinate transfer pads them, so both formats give the solver the same
+    inputs bit for bit. The compaction is one sort along the row of each
+    bit's position (``nbits`` for an unset bit, which sorts last): no
+    ``nonzero``, boolean indexing or host read, so the decode makes no host
+    sync and a CUDA graph could hold it."""
+    B, nbytes = mb.shape
+    nbits = nbytes * 8
+    dev = mb.device
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=dev)
+    bits = ((mb.to(torch.int32)[:, :, None] >> shifts) & 1).reshape(B, nbits)
+    iota = torch.arange(nbits, dtype=torch.int32, device=dev)
+    keyed = torch.where(bits != 0, iota, torch.full((), nbits, dtype=torch.int32,
+                                                     device=dev))
+    idx = torch.sort(keyed, dim=1).values[:, :pb]
+    slot = torch.arange(pb, dtype=torch.int32, device=dev)
+    idx = torch.where(slot < cnt[:, None], idx, torch.zeros((), dtype=torch.int32,
+                                                             device=dev))
+    r = torch.div(idx, wd[:, None], rounding_mode='floor')
+    c = idx - r * wd[:, None]
+    return torch.stack([r, c], dim=-1)
+
+
+def _unpack_inputs_mask(mb, wd, off, cnt, yq, yscale, denom):
+    """Mask-transfer variant of :func:`_unpack_inputs` (the same outputs)."""
+    return _unpack_inputs(_mask_to_pix(mb, wd, cnt, yq.shape[1]), off, cnt, yq, yscale,
+                          denom)
+
+
+def _device_leaves(off, cnt, yq, yscale, denom):
+    """The packed leaves both transfer formats share, on the device."""
+    return (to_device(off, torch.int32), to_device(cnt, torch.int32),
+            to_device(yq, torch.int32), to_device(yscale, _F32), to_device(denom, _F32))
+
+
 def _solve_poly_core(coords, yv, w, params0, maxiter, tol):
     """Shared body of the packed 6-parameter solve; returns (params, energy,
     conv, bad, fg uint8, per-lane convergence iterations).
@@ -670,11 +768,23 @@ def _solve_poly_core(coords, yv, w, params0, maxiter, tol):
 
 
 def _solve_poly_packed(pix, off, cnt, yq, yscale, denom, params0, maxiter, tol):
-    """Packed 6-parameter solve (numpy in, device tensors out)."""
-    _, coords, yv, w = _unpack_inputs(
-        to_device(pix, torch.int32), to_device(off, torch.int32),
-        to_device(cnt, torch.int32), to_device(yq, torch.int32),
-        to_device(yscale, _F32), to_device(denom, _F32))
+    """Packed 6-parameter solve over int16 coordinate pairs (numpy in,
+    device tensors out)."""
+    _count_transfer('poly', (pix, off, cnt, yq, yscale, denom, params0))
+    _, coords, yv, w = _unpack_inputs(to_device(pix, torch.int32),
+                                      *_device_leaves(off, cnt, yq, yscale, denom))
+    return _solve_poly_core(coords, yv, w, to_device(params0, _F32),
+                            int(maxiter), float(tol))
+
+
+def _solve_poly_packed_mask(mb, wd, off, cnt, yq, yscale, denom, params0, maxiter, tol):
+    """Packed 6-parameter solve over bit-packed crop masks
+    (:func:`_mask_to_pix`); bitwise the outputs of
+    :func:`_solve_poly_packed`, since the decoded coordinates are the
+    same."""
+    _count_transfer('poly-m', (mb, wd, off, cnt, yq, yscale, denom, params0))
+    _, coords, yv, w = _unpack_inputs_mask(to_device(mb, torch.uint8), to_device(wd, torch.int32),
+                                           *_device_leaves(off, cnt, yq, yscale, denom))
     return _solve_poly_core(coords, yv, w, to_device(params0, _F32),
                             int(maxiter), float(tol))
 
@@ -732,14 +842,8 @@ def _solve_dsm_core(pixf, coords, yv, w, sub, kmask, warm, use_warm,
     return params, f, f_ell, conv, bad, fg, it_lane
 
 
-def _solve_dsm_packed(pix, off, cnt, yq, yscale, denom, sub, kmask, warm, use_warm,
-                      alpha, epsilon, maxiter, tol, sigma, cutoff, all_warm=None):
-    """Packed combined elliptical + DSM solve (numpy in, device tensors
-    out); see :func:`_solve_dsm_core`."""
-    pixf, coords, yv, w = _unpack_inputs(
-        to_device(pix, torch.int32), to_device(off, torch.int32),
-        to_device(cnt, torch.int32), to_device(yq, torch.int32),
-        to_device(yscale, _F32), to_device(denom, _F32))
+def _dsm_core_on_device(pixf, coords, yv, w, sub, kmask, warm, use_warm, alpha, epsilon,
+                        maxiter, tol, sigma, cutoff, all_warm):
     return _solve_dsm_core(
         pixf, coords, yv, w, to_device(sub, torch.int32), to_device(kmask, _F32),
         to_device(warm, _F32), to_device(use_warm, torch.bool),
@@ -747,17 +851,51 @@ def _solve_dsm_packed(pix, off, cnt, yq, yscale, denom, sub, kmask, warm, use_wa
         float(sigma), int(cutoff), all_warm)
 
 
+def _solve_dsm_packed(pix, off, cnt, yq, yscale, denom, sub, kmask, warm, use_warm,
+                      alpha, epsilon, maxiter, tol, sigma, cutoff, all_warm=None):
+    """Packed combined elliptical + DSM solve over int16 coordinate pairs
+    (numpy in, device tensors out); see :func:`_solve_dsm_core`."""
+    _count_transfer('dsm', (pix, off, cnt, yq, yscale, denom, sub, kmask, warm, use_warm,
+                            alpha))
+    pixf, coords, yv, w = _unpack_inputs(to_device(pix, torch.int32),
+                                         *_device_leaves(off, cnt, yq, yscale, denom))
+    return _dsm_core_on_device(pixf, coords, yv, w, sub, kmask, warm, use_warm, alpha,
+                               epsilon, maxiter, tol, sigma, cutoff, all_warm)
+
+
+def _solve_dsm_packed_mask(mb, wd, off, cnt, yq, yscale, denom, sub, kmask, warm, use_warm,
+                           alpha, epsilon, maxiter, tol, sigma, cutoff, all_warm=None):
+    """Packed combined elliptical + DSM solve over bit-packed crop masks
+    (:func:`_mask_to_pix`); bitwise the outputs of
+    :func:`_solve_dsm_packed`, since the decoded coordinates are the
+    same."""
+    _count_transfer('dsm-m', (mb, wd, off, cnt, yq, yscale, denom, sub, kmask, warm,
+                              use_warm, alpha))
+    pixf, coords, yv, w = _unpack_inputs_mask(
+        to_device(mb, torch.uint8), to_device(wd, torch.int32),
+        *_device_leaves(off, cnt, yq, yscale, denom))
+    return _dsm_core_on_device(pixf, coords, yv, w, sub, kmask, warm, use_warm, alpha,
+                               epsilon, maxiter, tol, sigma, cutoff, all_warm)
+
+
+#: Each packed solve's position of ``denom``, its one argument without a
+#: lane axis.
+_DENOM_AT = {_solve_poly_packed: 5, _solve_dsm_packed: 5,
+             _solve_poly_packed_mask: 6, _solve_dsm_packed_mask: 6}
+
+
 def solve_on_devices(solve, args, devices, **kwargs):
     """Runs a packed solve (:func:`_solve_poly_packed`,
-    :func:`_solve_dsm_packed`) with its lanes split over ``devices``: each
+    :func:`_solve_dsm_packed` or their mask-transfer variants) with its
+    lanes split over ``devices``: each
     device solves its contiguous share of the lanes (``np.array_split``
     order) in a thread of its own, on that thread's stream of the device
     (:func:`superdsm_tpu_torch.parallel.worker_stream`), so the shares'
     Newton loops, which each wait on the host every few iterations, run at
     the same time; the outputs come back concatenated in lane order on the
     first device. ``None`` solves on the selected device in this thread.
-    Every array argument but ``denom`` (position 5) has the lane axis
-    first; the rest are scalars. Lanes freeze one by one in the Newton
+    Every array argument but ``denom`` (:data:`_DENOM_AT`) has the lane
+    axis first; the rest are scalars. Lanes freeze one by one in the Newton
     loop, so a lane's iterates do not depend on which others share its
     batch."""
     from ..parallel.pipelined import worker_stream
@@ -766,10 +904,11 @@ def solve_on_devices(solve, args, devices, **kwargs):
     B = len(args[0])
     if B < len(devices):
         raise ValueError(f'{B} lanes cannot be split over {len(devices)} devices')
+    denom_at = _DENOM_AT[solve]
 
     def share(device, lanes):
         sub = tuple(a[lanes[0]:lanes[-1] + 1]
-                    if i != 5 and isinstance(a, np.ndarray) else a
+                    if i != denom_at and isinstance(a, np.ndarray) else a
                     for i, a in enumerate(args))
         with thread_device(device), worker_stream() as stream:
             outs = solve(*sub, **kwargs)
@@ -790,19 +929,30 @@ def solve_on_devices(solve, args, devices, **kwargs):
 
 def _pack_poly_group(problems, img_shape, params0=None,
                      maxiter=DEFAULT_MAXITER, tol=DEFAULT_TOL, pb=None, Bp=None,
-                     devices=None):
+                     devices=None, use_mask=False):
     """Packs one bucket batch and runs the packed 6-parameter solve, its
     lanes split over ``devices`` (:func:`solve_on_devices`); returns the
-    device outputs (the caller copies them to the host)."""
-    PIX = np.zeros((Bp, pb, 2), np.int16)
+    device outputs (the caller copies them to the host). ``use_mask``
+    sends bit-packed crop masks (the caller guarantees that every
+    problem's box fits: ``Problem.fits_mask``) instead of coordinates."""
     OFF = np.zeros((Bp, 2), np.int32)
     CNT = np.zeros((Bp,), np.int32)
     YQ = np.zeros((Bp, pb), np.int16)
     YS = np.zeros((Bp,), np.float32)
     P0 = np.zeros((Bp, 6), np.float32)
+    if use_mask:
+        MB = np.zeros((Bp, (pb * MASK_BITS_PER_PIXEL) // 8), np.uint8)
+        WD = np.ones((Bp,), np.int32)
+    else:
+        PIX = np.zeros((Bp, pb, 2), np.int16)
     for j, p in enumerate(problems):
         npix = p.n_pixels
-        PIX[j, :npix] = p.pts
+        if use_mask:
+            pm = p.packed_mask
+            MB[j, :len(pm)] = pm
+            WD[j] = p.crop_shape[1]
+        else:
+            PIX[j, :npix] = p.pts
         OFF[j] = p.offset
         CNT[j] = npix
         YQ[j, :npix] = p.yq
@@ -810,6 +960,9 @@ def _pack_poly_group(problems, img_shape, params0=None,
         if params0 is not None and params0[j] is not None:
             P0[j] = params0[j][:6]
     denom = np.maximum(np.asarray(img_shape, np.float32) - 1.0, 1.0)
+    if use_mask:
+        return solve_on_devices(_solve_poly_packed_mask,
+                                (MB, WD, OFF, CNT, YQ, YS, denom, P0, maxiter, tol), devices)
     return solve_on_devices(_solve_poly_packed,
                             (PIX, OFF, CNT, YQ, YS, denom, P0, maxiter, tol),
                             devices)

@@ -7,10 +7,12 @@ computes its local surface, energy, gradient and Gauss-Newton Hessian on its
 own device; the shards' sums (the JAX package's ``psum``) are reduced in a
 fixed order, in float64, on the row's first device, and the small Newton
 system is solved there. The rows run at the same time, each in a thread
-of its own. The parameters and the step are copied back to
-every shard, so all shards of a problem step with the same parameters. The
-line search and the scale sweep reduce their candidate energies the same
-way.
+of its own; a row whose shards share its card runs its loop as a CUDA
+graph replayed a few iterations per convergence read, as the unsharded
+solver does (:func:`_newton_row`). The parameters and the step are
+copied back to every shard, so all shards of a problem step with the same
+parameters. The line search and the scale sweep reduce their candidate
+energies the same way.
 
 The local ``g`` and ``H`` come from the port's gram path
 (:func:`superdsm_tpu_torch.dsm.gram.fused_grad_hess_batched`, the float32
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from .._device import thread_device
-from ..dsm import gram, lane
+from ..dsm import gram, lane, solver
 from ..dsm.smooth import build_smooth_matrix
 from ..dsm.solver import (_poly_basis, _reg_terms, _bmv, _step_tail, _steps, ARMIJO_C,
                           DEFAULT_MAXITER, DEFAULT_TOL)
@@ -103,7 +105,19 @@ def _reduce(parts, home):
 def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
     """Newton iteration for the problems of one batch row whose pixels are
     split over ``shards``; every reduction and the replicated arithmetic run
-    on the first shard's device. Returns ``(params, energy, conv)``."""
+    on the first shard's device. Returns ``(params, energy, conv)``.
+
+    The loop runs as ``solver._solve_batch_impl``'s does: where every shard
+    lies on the row's home device, which is a card, its first iteration
+    runs eagerly, the next is captured as a CUDA graph on this thread's
+    stream and replayed :data:`solver.SYNC_EVERY` iterations per read of
+    the convergence flags, never past ``maxiter``, the iteration count kept
+    on the card. Lanes freeze one by one (the tail's freeze writes keep
+    every bit of a converged lane's params, mu and flag), so the iterations
+    after the last lane converged change nothing: the result is bitwise
+    the loop that reads the flags every iteration. On the CPU the same
+    chunks run eagerly; a row whose shards span devices, or one under
+    ``solver.eager_loop()``, reads the flags every iteration."""
     home = shards[0].device
     B, n = params0.shape
     dt = params0.dtype
@@ -119,9 +133,11 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
     params = params0.clone()
     conv = torch.zeros(B, dtype=torch.bool, device=home)
     mu = torch.full((B,), 1e-6, dtype=dt, device=home)
-    freeze = lane.FreezeState(params, None, None, None, None, conv)
-    it = 0
-    while it < maxiter and not bool(conv.all()):
+    it_lane = torch.zeros(B, dtype=torch.int32, device=home)
+    it_dev = torch.zeros((), dtype=torch.int32, device=home)
+    freeze = lane.FreezeState(params, None, None, it_lane, it_dev, conv)
+
+    def iteration():
         active = (~conv).to(torch.int32)
         local = [sh.contribs(params, active) for sh in shards]
         f0 = _reduce([c[1] for c in local], home)
@@ -154,10 +170,30 @@ def _newton_row(params0, shards, alpha, epsilon, kmask, maxiter, tol):
 
         # the picks, mu and the convergence test, as dsm.solver's step (one
         # lane_step_pick and one lane_step_tail launch on the card); the
-        # freeze writes params, mu and conv in place
+        # freeze writes params, mu, conv and the lanes' iterations in place
+        it_dev.add_(1)
         _step_tail(params, mu, f0, delta, decrement, data_cand, reg_cand, armijo_f, alpha,
                    epsilon, kmask, tol, sweep, state=freeze)
-        it += 1
+
+    one_device = all(sh.device == home for sh in shards)
+    graphed = home.type == 'cuda' and one_device and solver._eager['depth'] == 0
+    chunk = solver.SYNC_EVERY if graphed or home.type != 'cuda' else 1
+    graph = None
+    it = 0
+    while it < maxiter and B > 0:
+        count = min(chunk, maxiter - it)
+        for _ in range(count):
+            if graph is not None:
+                graph()
+                continue
+            iteration()
+            if graphed:
+                graph = solver._Graph(iteration, home)
+        it += count
+        solver._note(iterations=count, syncs=1)
+        if bool(conv.all()):
+            break
+    solver._note(solves=1)
     return params, energy(params), conv
 
 
@@ -165,9 +201,9 @@ def _run(mesh, params0, make_shard, alpha, epsilon, kmask, maxiter, tol):
     """Splits the problems over the mesh rows and their pixels over the
     row's devices (``make_shard(rows, cols, device)``), solves each row in a
     thread of its own on that thread's stream of the row's first device
-    (the rows' Newton loops each wait on the host every iteration, so they
-    run at the same time) and returns the rows' results in problem order on
-    the mesh's first device."""
+    (the rows' Newton loops each wait on the host at every convergence
+    read, so they run at the same time) and returns the rows' results in
+    problem order on the mesh's first device."""
     n_batch, n_pixel = mesh.devices.shape
     B, P = params0.shape[0], make_shard.n_pixels
 

@@ -14,6 +14,9 @@ the JAX package's, on the CPU.
   the JAX package's, two Newton iterations: energies to rtol 1e-4.
 - The sharded solvers' direction and sums go through the lane ops (the
   kernels on the card), and a lane alone gives its bits in a batch.
+- The sharded loop that reads its convergence flags every few iterations
+  is bitwise the loop that reads them every iteration, over (1, 2) and
+  (2, 1) meshes.
 - ``parse_mesh_spec``, ``apply_env_mesh`` and the batch CLI's ``--mesh``
   on the cases of ``tests/test_parallel.py``, with the port's device
   enumeration monkeypatched to 8 CPU devices.
@@ -188,6 +191,43 @@ def test_sharded_lane_alone_equals_lane_in_batch(kind):
         alone = _host(*solve(*(a[b:b + 1] for a in args)))
         for x, x1 in zip(batch, alone):
             assert np.array_equal(x[b:b + 1], x1)
+
+
+@pytest.mark.parametrize('maxiter', [50, 3])
+@pytest.mark.parametrize('shape', [(1, 2), (2, 1)])
+def test_sharded_loop_reads_convergence_in_chunks(monkeypatch, shape, maxiter):
+    """The sharded loop that reads its convergence flags every
+    ``solver.SYNC_EVERY`` iterations (4 and 3) is bitwise the loop that
+    reads them every iteration (``SYNC_EVERY = 1``, the oracle), poly then
+    DSM from the poly solve's params: at ``maxiter`` 50 every lane
+    converges and the iterations after the last one change no bit; at 3
+    the poly lanes have not, and no chunk runs past ``maxiter``."""
+    from superdsm_tpu_torch.dsm import solver
+    C, Y, Wt, pix, sub, km = _dsm_inputs()
+    mesh = pm.make_mesh(*shape, CPUS)
+    runs = {}
+    for every in (1, 4, 3):
+        monkeypatch.setattr(solver, 'SYNC_EVERY', every)
+        solver.reset_loop_stats()
+        poly = _host(*make_sharded_poly_solver(mesh, maxiter=maxiter)(
+            np.zeros((8, 6), np.float32), C, Y, Wt))
+        p0 = np.concatenate([poly[0], np.zeros((8, 8), np.float32)], axis=1)
+        dsm = _host(*make_sharded_dsm_solver(mesh, sigma=3.0, cutoff=12, maxiter=maxiter)(
+            p0, C, pix, sub, km, Y, Wt, np.full(8, 0.1, np.float32)))
+        stats = dict(solver.LOOP_STATS)
+        rows = 2 * shape[0]  # two solves of each mesh row
+        assert stats['solves'] == rows
+        assert stats['iterations'] <= rows * maxiter
+        assert stats['syncs'] <= -(-stats['iterations'] // every) + rows
+        runs[every] = (poly, dsm, stats)
+    oracle = runs[1]
+    assert oracle[0][2].all() == oracle[1][2].all() == (maxiter == 50)
+    for every in (4, 3):
+        for got, want in zip(runs[every][:2], oracle[:2]):
+            for x, y in zip(got, want):
+                assert np.array_equal(x, y)
+        assert runs[every][2]['syncs'] < oracle[2]['syncs']
+
 
 def _three_blobs():
     rng = np.random.RandomState(0)

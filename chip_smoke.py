@@ -85,11 +85,15 @@ result lines):
    converged lane's state untouched to the bit), each with the kernel's,
    the chain's and the bound's ms, and ``lane_step_sweep`` (the loop's
    pick, scale sweep and tail with the freeze writes in one launch) at the
-   same shapes, with NaN and -inf scale candidates besides: bitwise the
-   three launches it replaces and its plain version, a second run, 1, 2
-   and 4 tiles a lane forced, a lane alone, a captured graph replayed
-   twice in a row (its arrival counters at 0 after every launch), each
-   launch's and the three launches' ms on the state restored; then the
+   same shapes and 64 lanes (:data:`SWEEP_SHAPES`), with NaN and -inf
+   scale candidates besides: bitwise the three launches it replaces and
+   its plain version, a second run, 1, 2 and 4 tiles a lane forced, a
+   lane alone, a captured graph replayed twice in a row (its arrival
+   counters at 0 after every launch), each launch's and the three
+   launches' ms on the state restored; then the mask decode
+   (``mask_to_pix``, ``csrc/mask_ops.cu``) at :data:`DECODE_SHAPES` on
+   random rows and the edge masks: bitwise ``solver._mask_to_pix``, a row
+   alone, each one's ms and the bound; then the
    direction launch
    (``lane.newton_direction_kernel``: the damped system, the direction and
    its guard in one launch of the direction kernel's step variant,
@@ -145,10 +149,12 @@ result lines):
    (``solver.TRANSFERS``), the packed leaves' bytes, the device's
    host-to-device copies, host syncs (by mask at most the coordinate
    runs' plus one a mask chunk, its second leaf's copy), host launches and
-   s/image of each; and the decode (``solver._mask_to_pix``) alone at the
-   (B, P) of :data:`DECODE_SHAPES`: bitwise ``np.argwhere``'s coordinates,
-   no host sync under ``torch.profiler``, its device ms beside the host
-   ms of copying each format's leaves;
+   s/image of each (``mask_to_pix`` must launch on the main path); and
+   the decode (``solver._decode_mask``: the ``mask_to_pix`` kernel) alone
+   at the (B, P) of :data:`DECODE_SHAPES`: bitwise ``np.argwhere``'s
+   coordinates, no host sync and at most 2 host launches under
+   ``torch.profiler``, its device ms and the plain version's beside the
+   host ms of copying each format's leaves, less than the copy it saves;
 5. the real NIH3T3 crop ``tests/regression/data/nih3t3-glare.png`` through
    the default entry point with no ``AF_scale``: the estimated scale must be
    the JAX estimator's (30 sqrt 2 = 42.4264...) and all 5 objects must
@@ -342,7 +348,9 @@ blocks 0, beside the direction kernel's plain variant on the damped
 system); then ``lane_step_sweep`` at :data:`SPLIT_SWEEP` (its sums'
 phases, the pick in its prologue, the arrival and the tail in the lanes'
 last clusters, beside the plain scale sweep's launch at the same (B, P)
-in :data:`SPLIT_SOFTPLUS`, and its terms' issue bound);
+in :data:`SPLIT_SOFTPLUS`, and its terms' issue bound; the same phases
+with the state's restore copies synchronized before the launch, alone
+and after the line search's launch);
 ``chiprun_out/split.json`` holds the same.
 
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
@@ -1713,6 +1721,8 @@ def _check_direction(shape, damped=True):
 #: line's row), its n = 256 and n = 128 chunks and a c2f chunk (n = 6).
 TAIL_SHAPES = [(2, 16384, 512), (8, 12288, 256), (16, 8192, 256), (16, 6144, 128),
                (32, 16384, 6)]
+#: ``lane_step_sweep``'s (B, P, n) in phase 3: the table's, and 64 lanes.
+SWEEP_SHAPES = TAIL_SHAPES + [(64, 8192, 256)]
 
 
 def _tail_case(B, P, n):
@@ -2048,7 +2058,8 @@ def _check_sweep(shape):
     untouched = all(torch.equal(st[k][frozen].view(torch.int32), a[k][frozen].view(torch.int32))
                     for k in ('params', 's', 'f0', 'mu', 'it_lane'))
     checks = {'the three launches': same(st, three), 'the plain version': same(st, plain),
-              'a second run': same(again, st), '1, 2 and 4 tiles': all(tiles),
+              'a second run': same(again, st),
+              '1, 2 and 4 tiles': all(tiles),
               'a lane alone': all(alone), 'two graph replays in a row': all(replays),
               'arrival counters at 0': all(counters), 'frozen lanes as they were': untouched}
     tag = f'lane_step_sweep {shape}'
@@ -2076,6 +2087,81 @@ def _check_sweep(shape):
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, chain_ms=chain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
                 library_ms=None, shape=list(shape))
+
+
+#: The mask decode's source, and the JAX package's decode it stands for
+#: (XLA's ops around one ``lax.sort``; no Pallas kernel).
+MASK_SOURCE = 'superdsm_tpu_torch/csrc/mask_ops.cu'
+MASK_REPLACES = 'superdsm_tpu/dsm/solver.py:505'
+
+
+def _decode_case(B, pb, seed=0):
+    """(mb, wd, cnt) on the card: (B, pb // 2) MSB-first crop masks. The
+    first rows hold the edge masks of ``tests/test_torch_mask_transfer.py``
+    (a diagonal, a single pixel, a full rectangle, random sets; each packed
+    at its crop width), then an empty row with ``cnt`` > 0, ``cnt`` below
+    and above a row's set bits, more set bits than ``pb`` and a row whose
+    bits end in its last byte; the rest are random rows of 1-40% density
+    whose ``cnt`` is their set bits (at most ``pb``)."""
+    import torch
+    rng = np.random.RandomState(seed + B + pb)
+    nbits = pb * 4
+    single = np.zeros((5, 9), bool)
+    single[3, 7] = True
+    masks = [np.eye(30, 40, dtype=bool), single, np.ones((12, 20), bool)] + \
+        [rng.rand(25, 31) < rng.uniform(0.05, 0.9) for _ in range(4)]
+    bits = rng.rand(B, nbits) < rng.uniform(0.01, 0.4, (B, 1))
+    wd = rng.randint(1, 400, B).astype(np.int32)
+    cnt = np.minimum(bits.sum(1), pb).astype(np.int32)
+    rows = []
+    for m in masks:
+        row = np.zeros(nbits, bool)
+        row[:m.size] = m.ravel()
+        rows.append((row, m.shape[1], int(m.sum())))
+    few = rng.rand(nbits) < 0.02
+    rows += [(np.zeros(nbits, bool), 7, 5), (few, 13, max(int(few.sum()) - 5, 0)),
+             (few, 29, min(int(few.sum()) + 9, pb)), (rng.rand(nbits) < 0.6, 40, pb),
+             (np.arange(nbits) >= nbits - 3, 64, 3)]
+    for j, (row, width, count) in enumerate(rows[:B]):
+        bits[j], wd[j], cnt[j] = row, width, count
+    t = lambda a, dtype: torch.as_tensor(a, dtype=dtype, device='cuda')
+    return (t(np.packbits(bits, axis=1), torch.uint8), t(wd, torch.int32),
+            t(cnt, torch.int32))
+
+
+def _check_decode(shape):
+    """The mask decode kernel (``mask.mask_to_pix_kernel``) at ``(B, pb)``
+    (:func:`_decode_case`, two seeds) against its plain version
+    ``solver._mask_to_pix`` on the card: bitwise; a row alone bitwise the
+    row in its batch. Times: device ms of each (a graph replayed, as every
+    kernel here). Bound: the masks read once and the (B, pb) int32 pairs
+    written once over the memory rate. No single PyTorch call compacts a
+    row's set bits without a host sync (``nonzero``), so no library call.
+    Returns its table row."""
+    import torch
+    from superdsm_tpu_torch.dsm import mask, solver
+    B, pb = shape
+    same = []
+    for seed in (0, 1):
+        mb, wd, cnt = _decode_case(B, pb, seed)
+        got = mask.mask_to_pix_kernel(mb, wd, cnt, pb)
+        same.append(torch.equal(got, solver._mask_to_pix(mb, wd, cnt, pb)))
+    alone = all(torch.equal(mask.mask_to_pix_kernel(mb[b:b + 1], wd[b:b + 1], cnt[b:b + 1], pb),
+                            got[b:b + 1]) for b in sorted({0, B // 2, B - 1}))
+    tag = f'mask_to_pix {shape}'
+    say(f'[kernel] {tag}: bitwise equal to the plain version {all(same)} (random rows, the '
+        f'edge masks and rows), a row alone {alone}')
+    if not all(same) or not alone:
+        fail(f'{tag}: kernel not bitwise equal to _mask_to_pix')
+    ms = _event_ms(lambda: mask.mask_to_pix_kernel(mb, wd, cnt, pb))
+    plain_ms = _event_ms(lambda: solver._mask_to_pix(mb, wd, cnt, pb))
+    nbytes = B * mb.shape[1] + 8.0 * B * pb + 8.0 * B
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    say(f'[kernel] {tag}: kernel {ms:.4f} ms, plain (torch.sort) {plain_ms:.4f} ms '
+        f'({plain_ms / ms:.1f}x), library none, bound {bound_ms:.4f} ms by bytes: '
+        f'{bound_ms / ms:.1%} of the bound; max abs err 0')
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by='bytes',
+                bound_share=bound_ms / ms, library_ms=None, shape=list(shape))
 
 
 def _check_logaddexp(chunk=1 << 28):
@@ -2166,8 +2252,10 @@ def phase_kernels():
     tail = [_check_tail(shape) for shape in TAIL_SHAPES]
     for name in ('lane_step_pick', 'lane_step_tail'):
         rows[name] = dict(tail[0][name], other_shapes=[t[name] for t in tail[1:]])
-    sweep = [_check_sweep(shape) for shape in TAIL_SHAPES]
+    sweep = [_check_sweep(shape) for shape in SWEEP_SHAPES]
     rows['lane_step_sweep'] = dict(sweep[0], other_shapes=sweep[1:])
+    decode = [_check_decode(shape) for shape in DECODE_SHAPES]
+    rows['mask_to_pix'] = dict(decode[0], other_shapes=decode[1:])
     _CHOL_SYSTEMS.clear()
     torch.cuda.empty_cache()
     return rows
@@ -2896,6 +2984,8 @@ def _profiled_launches(rows, hist, lane_hist):
                 say(f'[profile] {route} {tuple(one["shape"])}: '
                     f'{one["launches_at_shape"]} launches in the profiled bench image')
             continue
+        if route not in REPLACES:  # the mask decode: no launch histogram
+            continue
         for other in row['other_shapes']:
             B, P, n = other['shape']
             other['launches'] = sum(
@@ -2937,16 +3027,23 @@ def phase_main_path():
     """Phase 4; returns the timed run's launches (the gram routes' and the
     lane kernels'), seed 0's label map, the profile's launch histograms
     (gram, lane kernels) and the profiled image's counts."""
-    from superdsm_tpu_torch.dsm import gram, lane, solver
+    from superdsm_tpu_torch.dsm import gram, lane, mask, solver
     g, n = make_image(0)
     _, _, _, timings, seconds = _segment(g, 12)
     say(f'[main] cold run: {seconds:.2f} s '
         f'({ {k: round(v, 3) for k, v in timings.items()} })')
     gram.reset_launch_counts()
     lane.reset_launch_counts()
+    mask.reset_launch_counts()
     solver.reset_loop_stats()
+    solver.reset_transfers()
     data, seg, _, timings, seconds = _segment(g, 12)
-    launches = dict(gram.LAUNCHES, **lane.LAUNCHES)
+    launches = dict(gram.LAUNCHES, **lane.LAUNCHES, **mask.LAUNCHES)
+    mask_calls = sum(v['calls'] for k, v in solver.TRANSFERS.items() if k.endswith('-m'))
+    say(f'[main] mask_to_pix launches {launches["mask_to_pix"]}, mask-transfer solve calls '
+        f'{mask_calls}')
+    if launches['mask_to_pix'] == 0:
+        fail('the main path left mask_to_pix unlaunched')
     iterations = solver.LOOP_STATS['iterations']
     n_obj = len(data['postprocessed_objects'])
     say(f'[main] timed run: {seconds:.2f} s, {n_obj} objects '
@@ -3091,13 +3188,16 @@ def _transfer_ab(g, bench_seg):
 
 def _decode_cost():
     """At each (B, P) of :data:`DECODE_SHAPES`, random crop masks that
-    fill 90% of the pixel slots: ``solver._mask_to_pix`` bitwise the
-    coordinates ``np.argwhere`` gives, its host syncs under
-    ``torch.profiler`` (none beyond those the profiler shows for a copy on
-    the card, its own), its device ms (10 calls back to
-    back between CUDA events), and the host-clock ms of copying the
-    coordinate leaf (int16 pairs) and the mask leaves (bits, crop widths)
-    from pageable memory as ``_device.to_device`` does (median of 5)."""
+    fill 90% of the pixel slots: the card's decode (``solver._decode_mask``,
+    the ``mask_to_pix`` kernel) bitwise the coordinates ``np.argwhere``
+    gives, its host syncs and launches under ``torch.profiler`` (no sync
+    beyond those the profiler shows for a copy on the card, its own; at
+    most 2 launches), its device ms and the plain version's
+    (``_mask_to_pix``; 10 calls back to back between CUDA events), and the
+    host-clock ms of copying the coordinate leaf (int16 pairs) and the
+    mask leaves (bits, crop widths) from pageable memory as
+    ``_device.to_device`` does (median of 5). Fails where the decode costs
+    the device more than the copy time it saves."""
     import torch
     from superdsm_tpu_torch._device import to_device
     from superdsm_tpu_torch.dsm import solver
@@ -3117,13 +3217,15 @@ def _decode_cost():
         CNT = np.full(B, cnt, np.int32)
         mb, wd, counts_ = (to_device(MB, torch.uint8), to_device(WD, torch.int32),
                            to_device(CNT, torch.int32))
-        pix = solver._mask_to_pix(mb, wd, counts_, pb)
+        pix = solver._decode_mask(mb, wd, counts_, pb)
         if not torch.equal(pix.cpu(), torch.from_numpy(PIX.astype(np.int32))):
-            fail(f'_mask_to_pix at ({B}, {pb}) differs from the coordinates')
+            fail(f'the decode at ({B}, {pb}) differs from the coordinates')
         # the profiler's own syncs: those of a copy on the card, which makes none
         _, base = _profiled(lambda: mb.clone())
-        _, counted = _profiled(lambda: solver._mask_to_pix(mb, wd, counts_, pb))
-        decode_ms = _stream_ms(lambda: solver._mask_to_pix(mb, wd, counts_, pb))
+        _, counted = _profiled(lambda: solver._decode_mask(mb, wd, counts_, pb))
+        _, sorted_ = _profiled(lambda: solver._mask_to_pix(mb, wd, counts_, pb))
+        decode_ms = _stream_ms(lambda: solver._decode_mask(mb, wd, counts_, pb))
+        plain_ms = _stream_ms(lambda: solver._mask_to_pix(mb, wd, counts_, pb))
 
         def copy_ms(fn):
             times = []
@@ -3134,16 +3236,24 @@ def _decode_cost():
             return float(np.median(times))
         coords_ms = copy_ms(lambda: to_device(PIX, torch.int32))
         mask_ms = copy_ms(lambda: (to_device(MB, torch.uint8), to_device(WD, torch.int32)))
+        saved = coords_ms - mask_ms
         say(f'[transfer] decode at (B, P) = ({B}, {pb}): bitwise np.argwhere\'s coordinates, '
-            f'{counted["syncs"]} host syncs under the profiler ({base["syncs"]} for a copy on '
-            f'the card, the profiler\'s own), {decode_ms:.4f} device ms; copies from pageable '
-            f'memory (host clock): coordinates {PIX.nbytes} bytes {coords_ms:.4f} ms, masks '
+            f'{counted["syncs"]} host syncs and {counted["launches"]} host launches under the '
+            f'profiler ({base["syncs"]} syncs for a copy on the card, the profiler\'s own; the '
+            f'plain version\'s sort {sorted_["launches"]} launches), kernel {decode_ms:.4f} '
+            f'device ms, plain {plain_ms:.4f}; copies from pageable memory (host clock): '
+            f'coordinates {PIX.nbytes} bytes {coords_ms:.4f} ms, masks '
             f'{MB.nbytes + WD.nbytes} bytes {mask_ms:.4f} ms; the decode '
-            f'{"costs more" if decode_ms > coords_ms - mask_ms else "costs less"} than the '
-            f'copy time it saves ({coords_ms - mask_ms:.4f} ms)')
+            f'{"costs more" if decode_ms > saved else "costs less"} than the copy time it '
+            f'saves ({saved:.4f} ms)')
         if counted['syncs'] > base['syncs']:
-            fail(f'_mask_to_pix at ({B}, {pb}) made {counted["syncs"] - base["syncs"]} host '
+            fail(f'the decode at ({B}, {pb}) made {counted["syncs"] - base["syncs"]} host '
                  'syncs')
+        if counted['launches'] > 2:
+            fail(f'the decode at ({B}, {pb}) made {counted["launches"]} host launches')
+        if decode_ms >= saved:
+            fail(f'the decode at ({B}, {pb}) costs {decode_ms:.4f} device ms, not less than '
+                 f'the {saved:.4f} ms of copy it saves')
 
 
 @contextlib.contextmanager
@@ -4322,9 +4432,12 @@ def _ab_lane_ms():
     ``solver._newton_step`` at :data:`STEP_SHAPES`, of the loop's step
     after the line search's sums at :data:`TAIL_SHAPES` as the checkout
     launches it (``lane_step_sweep``, or ``lane_step_pick``, the sweep's
-    ``softplus_energies`` and ``lane_step_tail``) and of one whole step in
-    the loop (given the loop's state) at :data:`STEP_SHAPES`, each of these
-    two on its state restored before every call (:func:`_restored_ms`)."""
+    ``softplus_energies`` and ``lane_step_tail``; at :data:`SWEEP_SHAPES`)
+    and of one whole step in the loop (given the loop's state) at
+    :data:`STEP_SHAPES`, each of these two on its state restored before
+    every call (:func:`_restored_ms`), and of the mask decode at
+    :data:`DECODE_SHAPES` as the checkout runs it (``solver._decode_mask``,
+    or ``solver._mask_to_pix``)."""
     import torch
     from superdsm_tpu_torch.dsm import lane, solver
     out = {}
@@ -4375,7 +4488,7 @@ def _ab_lane_ms():
     # and one whole step in the loop, each call on its state restored
     sweep = getattr(lane, 'step_sweep_kernel', None) or _three_launches_sweep
     scratch = getattr(lane, 'sweep_scratch', lambda B, S, dev: None)
-    for shape in TAIL_SHAPES:
+    for shape in SWEEP_SHAPES:
         a = _sweep_case(*shape)
         live, saved = ({k: a[k].clone() for k in SWEEP_STATE} for _ in range(2))
         sc = scratch(shape[0], a['scales'].numel(), a['steps'].device)
@@ -4397,6 +4510,12 @@ def _ab_lane_ms():
             lambda: solver._newton_step(live['params'], live['mu'], live['s'], live['f0'],
                                         *args[4:], state=state), live, saved)
         del args, live, saved
+    # the mask decode as the checkout's solver runs it (one mask_to_pix
+    # launch, or the plain version's sort)
+    decode = getattr(solver, '_decode_mask', solver._mask_to_pix)
+    for B, pb in DECODE_SHAPES:
+        mb, wd, cnt = _decode_case(B, pb)
+        out[f'mask decode {(B, pb)}'] = _event_ms(lambda: decode(mb, wd, cnt, pb))
     torch.cuda.empty_cache()
     return out
 
@@ -4708,14 +4827,15 @@ SOFTPLUS_PHASES = ('build group 0', 'block barrier', 'build next group',
 #: PR 13's softplus kernel's phases (``--split`` times it beside the
 #: kernel that replaced it).
 #: ``lane_step_sweep``'s phases: the sums' (:data:`SOFTPLUS_PHASES`; the
-#: owners' trees with their energies' stores and the counter's atomic),
-#: the pick in its prologue (after its loads: the last phase), the cluster
-#: barrier after the owners' stores, the owners' regularizer sums (before
-#: their slots are pushed) and, in the lane's last cluster, the tail: the
-#: stored energies read and the scale picked, then the writes of s, params
-#: and the scalars.
+#: owners' trees with their energies' pushes or stores and the counter's
+#: atomic), the pick in its prologue (after its loads: the last phase), the
+#: wait for the energies (a one-tile lane's on its mbarrier, a lane of more
+#: tiles' at the cluster barrier), the owners' slots pushed and their
+#: regularizer sums and, in the lane's last cluster, the tail: the
+#: energies read and the scale picked, then the writes of s, params and
+#: the scalars.
 SWEEP_PHASES = SOFTPLUS_PHASES[:6] + ('trees, stores, counter', 'pick (prologue)',
-                                      'cluster barrier', 'regularizer sums (owners)',
+                                      'energies wait', 'regularizer sums (owners)',
                                       'tail: energies, scale pick',
                                       'tail: s, params, scalars', 'prologue loads')
 SOFTPLUS_PR13_PHASES = ('build group 0', 'block barrier', 'build next group',
@@ -4815,7 +4935,9 @@ def _sass_report(path):
             say(f'[split] sass: {kernel}: {len(ops)} instructions, {local} local-memory '
                 '(LDL/STL)')
         elif 'lane_step_sweep' in name or 'step_sweep_tail' in name:
-            kernel = 'lane_step_sweep_kernel' if 'lane_step_sweep' in name else 'step_sweep_tail'
+            kernel = 'step_sweep_tail' if 'step_sweep_tail' in name else \
+                'lane_step_sweep_kernel' + next((f'<{t}>' for t in (512, 256)
+                                                 if f'ILi{t}E' in name), '')
             report[kernel] = dict(instructions=len(ops), local=local)
             say(f'[split] sass: {kernel}: {len(ops)} instructions, {local} local-memory '
                 '(LDL/STL)')
@@ -5084,6 +5206,47 @@ def _lane_library(lib):
         gram._libs[gram.LANE_SRC] = main
 
 
+def _sweep_apart(lib, a, live, restore, scratch, blocks, tag, runs=5):
+    """The stamps of ``lane_step_sweep`` apart from the state's restore
+    copies: after the restore (and the stamps' reset) the card is
+    synchronized, then (``alone``) the launch runs on an idle card or
+    (``after the line search``) it follows the launch that precedes it in
+    the Newton loop, the line search's ``softplus_energies``. Prints and
+    returns each one's block-start spread, span and phases (µs)."""
+    import torch
+    from superdsm_tpu_torch.dsm import lane
+    stream = torch.cuda.current_stream().cuda_stream
+    B, P = a['u'].shape
+    ls = _softplus_case('line_search', B, P)
+    P_ = lib.sdsm_lane_split_phases()
+    out = {}
+    for label, before in (('alone', lambda: None),
+                          ('after the line search',
+                           lambda: lane.softplus_energies_kernel(*ls))):
+        w = []
+        for _ in range(runs + 1):
+            restore()
+            lib.sdsm_lane_split_reset(stream)
+            torch.cuda.synchronize()
+            with _lane_library(lib):
+                before()
+                _sweep_call(lane.step_sweep_kernel, a, live, scratch=scratch)
+            w.append(_split_blocks(lib, blocks).astype(np.float64))
+        w = np.stack(w[1:])
+        ns0, ns1, c0, c1 = (w[..., P_ + k] for k in (1, 2, 3, 4))
+        mhz = float(np.mean((c1 - c0) / (ns1 - ns0)) * 1e3)
+        row = dict(spread_us=float(np.mean(ns0.max(1) - ns0.min(1)) / 1e3),
+                   span_us=float(np.mean(ns1.max(1) - ns0.min(1)) / 1e3), mhz=mhz,
+                   phases_us={name: float(w[..., k].mean()) / mhz
+                              for k, name in enumerate(SWEEP_PHASES)})
+        say(f'[split] {tag} ({label}, the restore synchronized before it): block starts '
+            f'spread {row["spread_us"]:.2f} us, span {row["span_us"]:.2f} us at {mhz:.0f} '
+            f'MHz; us a block: ' + ', '.join(f'{k} {v:.3f}' for k, v in
+                                            row['phases_us'].items()))
+        out[label] = row
+    return out
+
+
 def _split_sweep(lib, sass):
     """``--split``'s ``lane_step_sweep`` rows at :data:`SPLIT_SWEEP` (no
     lane converged, the state restored before each launch): the phases
@@ -5132,6 +5295,7 @@ def _split_sweep(lib, sass):
         say(f'[split] {tag}: cycles (us) in the {int(last.sum())} blocks of the lanes\' last '
             f'clusters: ' + ', '.join(f'{k} {v:.0f} ({v / row["mhz"]:.3f})'
                                       for k, v in row['tail'].items()))
+        row['apart'] = _sweep_apart(lib, a, live, restore, scratch, info['blocks'], tag)
         per_term = sass['term scale_sweep']['instructions']
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         row['issue_bound_ms'] = B * P * SC * per_term / (sms * 4 * 32 * row['mhz'] * 1e6) * 1e3
@@ -5387,6 +5551,9 @@ def main():
     table += [dict(name=f'lane_ops/{name}', route='cuda', source=LANE_SOURCE,
                    replaces=DIRECTION_REPLACES[name], launches=launches[name], **kernels[name])
               for name in DIRECTION_KERNELS]
+    table.append(dict(name='mask_ops/mask_to_pix', route='cuda', source=MASK_SOURCE,
+                      replaces=MASK_REPLACES, launches=launches['mask_to_pix'],
+                      **kernels['mask_to_pix']))
     say(card)  # the card's name and power limit, as nvidia-smi gives them
     say(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

@@ -634,7 +634,7 @@ struct SumsStart {
 struct SumsOut {
   float* __restrict__ out;
   __device__ __forceinline__ SumsStart start(Split&) const { return {true, 0.0f}; }
-  __device__ __forceinline__ void before_trees(long long, int, int, int, Split&) const {}
+  __device__ __forceinline__ void before_trees(long long, int, int, int, float*, Split&) const {}
   __device__ __forceinline__ void store(long long o, int S, int k0, int kl, float sum) const {
     out[o * S + k0 + kl] = sum;
   }
@@ -648,10 +648,11 @@ struct SumsOut {
 // t_step (the pixels' surface is then s + t_step u, formed as loaded: s
 // read coherently, the loop's s being written in this launch) or, for a
 // lane already converged, run = false: the tile is left with no sum made
-// and false is returned. before_trees(o, k0, kn, owned, split) runs in
-// every thread once the group buffers are free and its slots are pushed,
-// before the owners' trees; store(o, S, k0, kl, sum) in lane 0 of the warp
-// that owns the tile's output kl, with its sum.
+// and false is returned. before_trees(o, k0, kn, owned, free, split) runs
+// in every thread once its slots are pushed, before the owners' trees
+// (`free`: the group buffers, kb rows of 256 floats at least);
+// store(o, S, k0, kl, sum) in lane 0 of the warp that owns the tile's
+// output kl, with its sum.
 template <int MODE, class Hooks>
 __device__ __forceinline__ bool softplus_pixel_sums(const SoftplusTerm<MODE>& term, int L, int S,
                                                     int kb, int k_tiles, Split& split,
@@ -759,7 +760,7 @@ __device__ __forceinline__ bool softplus_pixel_sums(const SoftplusTerm<MODE>& te
     st_async(cluster_addr(smem_addr(slots + (w / CLUSTER) * ROW_THREADS + t), owner), acc,
              cluster_addr(smem_addr(&bar), owner));
   }
-  hooks.before_trees(o, k0, kn, owned, split);
+  hooks.before_trees(o, k0, kn, owned, buf, split);
   if (owned > 0) mbar_wait(smem_addr(&bar), 0);
   split.mark(5);
   if (w < owned) {
@@ -919,7 +920,9 @@ __device__ __forceinline__ void reg_sums(const Xi& xi, const Km& km, int K,
                                          float (*part)[ROW_THREADS], float* out, int k0 = 0,
                                          int dk = 1) {
   const int t = threadIdx.x, T = blockDim.x;
-  auto mine = [&](int k) { return k < S && k % dk == k0; };
+  unsigned sums = 0;  // bit k: the block makes sum k (no modulo in the unrolled loops)
+  for (int k = k0; k < S; k += dk) sums |= 1u << k;
+  auto mine = [&](int k) { return (sums >> k) & 1u; };
   for (int s = t; s < ROW_THREADS; s += T) {
     float acc[GUARD_MAX_S];
 #pragma unroll
@@ -3031,21 +3034,26 @@ lane_step_tail_kernel(TailArgs a) {
 //     written), its sweep terms built from it as SCALE_SWEEP builds them;
 //   - each output's regularizer sum, reg_sums' over (params + t_step
 //     delta)[6:] scales[k], made by the output's owner block once it has
-//     pushed its slots, while its own arrive, and added to the output's
+//     pushed its slots, while its peers' arrive (the pick's t_step is
+//     known only after the prologue's loads, so made there it would delay
+//     the first build: chip_smoke.py --split), and added to the output's
 //     data energy;
 //   - a lane of one tile (k_tiles = 1, the plan's from 8 lanes up: its
 //     cluster is the lane's last) pushes each energy to every block of
-//     its cluster over distributed shared memory; a lane of more tiles
-//     stores it in the solve's scratch sums (B, S), followed by one
-//     acquire-release atomic add to the lane's arrival counter: the owner
-//     that brings it to S sets it back to 0 (for the next launch, a
-//     graph's next replay) and flags every block of its cluster;
-//   - after one cluster barrier, the lane's last cluster runs the tail:
-//     the scale's pick from the S energies, s' = (s + t_step u) c,
-//     params' = (params + t_step delta) c (a one-tile lane's loaded before
-//     the barrier), f', mu', conv and it_lane in place. Nothing waits for
-//     another cluster: the last to arrive finds the others' energies
-//     stored, whatever ran at once.
+//     its cluster with st.async, completing on that block's mbarrier,
+//     which expects the S energies: each block waits for them alone, with
+//     no cluster barrier (every write into a block is one it waits for, so
+//     none leaves while a peer may still write to it); a lane of more
+//     tiles stores each energy in the solve's scratch sums (B, S),
+//     followed by one acquire-release atomic add to the lane's arrival
+//     counter: the owner that brings it to S sets it back to 0 (for the
+//     next launch, a graph's next replay) and flags every block of its
+//     cluster, which then passes one cluster barrier;
+//   - the lane's last cluster runs the tail: the scale's pick from the S
+//     energies, s' = (s + t_step u) c, params' = (params + t_step delta) c
+//     (a one-tile lane's loaded while its energies arrive), f', mu', conv
+//     and it_lane in place. Nothing waits for another cluster: the last to
+//     arrive finds the others' energies stored, whatever ran at once.
 // What it saves: two launches a Newton iteration (the pick's and the
 // tail's, each at a graph node's floor) and new_s's write and two reads.
 // What bounds it: the sweep's terms (issue), as softplus_energies.
@@ -3080,6 +3088,7 @@ constexpr int SWEEP_REG_CACHE = SP_THREADS;
 
 // A block's view of its lane's step in lane_step_sweep_kernel.
 struct SweepShared {
+  unsigned long long ebar;  // a one-tile lane's energies arrive on it
   float ts, new_f, c, f0, mu, decrement, alpha;
   int run, improved, full_step, last;
   float reg[GUARD_MAX_S];    // the regularizer of the tile's outputs the block owns
@@ -3113,21 +3122,47 @@ __device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
 }
 
 // The regularizer sums of the tile's outputs k0 + q, k0 + q + 8 (< k0 +
-// kn) that block q owns, into sh.reg[q], sh.reg[q + 8]: reg_sums dealt as
-// the outputs are, its slots in `part` (the free group buffers), its
-// operands from sh's copies (K <= SWEEP_REG_CACHE) or device memory. Not
-// inlined: compiled apart, it leaves the sums' register allocation as it
-// was.
+// kn) that block q owns, into sh.reg[q], sh.reg[q + 8]: reg_sums' order
+// and terms (slot s adds i = s, s + 256, ... in turn, then the tree), its
+// two sums side by side in registers (reg_sums, for any outputs a block
+// may own, runs an unrolled, predicated chain for each of GUARD_MAX_S;
+// that took ~1.5 us here on an NVIDIA H100 80GB HBM3 at 700 W:
+// chip_smoke.py --split), its slots in `part`
+// (two rows of 256 floats), its operands from sh's copies (K <=
+// SWEEP_REG_CACHE) or device memory. Not inlined: compiled apart, it leaves the sums'
+// register allocation as it was.
 __device__ __noinline__ void sweep_reg_sums(const SweepArgs& a, long long o, int k0, int kn,
                                             float* part, SweepShared& sh) {
-  const int n = a.n, K = n - 6;
+  const int n = a.n, K = n - 6, t = threadIdx.x, T = blockDim.x;
   const bool cached = K <= SWEEP_REG_CACHE;
+  const int q = (int)cg::this_cluster().block_rank();
   const float* p = cached ? sh.rp : a.params + o * n + 6;
   const float* d = cached ? sh.rd : a.delta + o * n + 6;
-  reg_sums(StepSweepXi{p, d, sh.ts, sh.scale + k0}, SharedRow{cached ? sh.rk : a.kmask + o * K},
-           K, kn, sh.alpha, a.eps, a.sq_eps,
-           reinterpret_cast<float (*)[ROW_THREADS]>(part), sh.reg,
-           (int)cg::this_cluster().block_rank(), CLUSTER);
+  const float* km = cached ? sh.rk : a.kmask + o * K;
+  const bool two = q + CLUSTER < kn;
+  const float ts = sh.ts, eps = a.eps, sq_eps = a.sq_eps;
+  const float c0 = sh.scale[k0 + q], c1 = two ? sh.scale[k0 + q + CLUSTER] : 0.0f;
+  for (int s = t; s < ROW_THREADS; s += T) {
+    float acc0 = 0.0f, acc1 = 0.0f;
+    for (int i = s; i < K; i += ROW_THREADS) {
+      const float m = km[i];
+      const float np = __fadd_rn(p[i], __fmul_rn(ts, d[i]));
+      acc0 = __fadd_rn(acc0, __fmul_rn(m, __fsub_rn(reg_term2(__fmul_rn(np, c0), eps), sq_eps)));
+      if (two)
+        acc1 = __fadd_rn(acc1, __fmul_rn(m, __fsub_rn(reg_term2(__fmul_rn(np, c1), eps), sq_eps)));
+    }
+    part[s] = acc0;
+    if (two) part[ROW_THREADS + s] = acc1;
+  }
+  __syncthreads();
+  const int w = t / WARP, lane = t % WARP;
+  if (w < 1 + two) {
+    float v[CLUSTER];
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) v[r] = part[w * ROW_THREADS + r * WARP + lane];
+    const float sum = slot_tree(v);
+    if (lane == 0) sh.reg[q + w * CLUSTER] = clamp_min0(__fmul_rn(sh.alpha, sum));
+  }
 }
 
 // softplus_pixel_sums' hooks in lane_step_sweep_kernel (see above).
@@ -3136,7 +3171,6 @@ struct SweepHooks {
   const float* __restrict__ scales;
   long long o;
   SweepShared& sh;
-  float* smem;
   int SC, k_tiles;
   PickLoads pl;        // warp 0's, with the lane's conv, mu and decrement
   unsigned char conv;
@@ -3170,10 +3204,12 @@ struct SweepHooks {
     __syncthreads();
     return {sh.run != 0, sh.ts};
   }
-  __device__ __forceinline__ void before_trees(long long, int k0, int kn, int owned,
+  // an owner's regularizer sums, while its peers' slots arrive (`part`:
+  // the free group buffers)
+  __device__ __forceinline__ void before_trees(long long, int k0, int kn, int owned, float* part,
                                                Split& split) const {
-    if (owned > 0 && a.n > 6) {
-      sweep_reg_sums(a, o, k0, kn, smem, sh);
+    if (owned > 0 && a.n > 6) {  // block-uniform
+      sweep_reg_sums(a, o, k0, kn, part, sh);
       __syncthreads();
     }
     split.mark(9);
@@ -3181,14 +3217,15 @@ struct SweepHooks {
   __device__ __forceinline__ void store(long long, int, int k0, int kl, float sum) const {
     const int k = k0 + kl;
     const float f = a.n > 6 ? __fadd_rn(sum, sh.reg[kl]) : sum;
-    cg::cluster_group cluster = cg::this_cluster();
     if (k_tiles == 1) {
-      for (int r = 0; r < CLUSTER; ++r) cluster.map_shared_rank(&sh, r)->f[k] = f;
+      for (int r = 0; r < CLUSTER; ++r)
+        st_async(cluster_addr(smem_addr(&sh.f[k]), r), f, cluster_addr(smem_addr(&sh.ebar), r));
       return;
     }
     a.sums[o * SC + k] = f;
     if (atom_add_acq_rel(a.arrivals + o, 1) == SC - 1) {
       a.arrivals[o] = 0;  // every output of the lane is stored
+      cg::cluster_group cluster = cg::this_cluster();
       for (int r = 0; r < CLUSTER; ++r) cluster.map_shared_rank(&sh, r)->last = 1;
     }
   }
@@ -3198,14 +3235,14 @@ struct SweepHooks {
 constexpr int SWEEP_ONE_TILE_LANES = 8;
 
 // Surface and params entries a thread of a one-tile lane's blocks loads
-// before the cluster barrier (the rest, at P > 32768 or n > 1024, after).
+// while the energies arrive (the rest, at P > 32768 or n > 1024, after).
 constexpr int SWEEP_PREFETCH_S = 8;
 constexpr int SWEEP_PREFETCH_P = 2;
 
-// The end of lane_step_sweep_kernel after a block's sums (every thread):
-// one cluster barrier, after which the lane's last cluster (a one-tile
-// lane's, or the flagged) runs the tail (see above). Not inlined, as
-// step_guard_lane.
+// The end of lane_step_sweep_kernel after a block's sums (every thread): a
+// one-tile lane's blocks wait for the S energies on their mbarrier, a lane
+// of more tiles passes one cluster barrier, after which its last cluster
+// (the flagged) runs the tail (see above). Not inlined, as step_guard_lane.
 __device__ __noinline__ void step_sweep_tail(const SoftplusTerm<STEP_SWEEP>& term,
                                              const SweepArgs& a, long long o, int SC,
                                              int k_tiles, SweepShared& sh, Split& split) {
@@ -3216,12 +3253,13 @@ __device__ __noinline__ void step_sweep_tail(const SoftplusTerm<STEP_SWEEP>& ter
   float* s = a.s + o * P;
   const float* u = term.u + o * P;
   const int first = rank * SP_THREADS + t, stride = CLUSTER * SP_THREADS;
-  // every owner's energy (pushed, or stored and counted) is done once the
-  // barrier completes; a one-tile lane's new surface and params (new_s,
-  // new_params) load while it waits
-  cluster_arrive();
-  float ns[SWEEP_PREFETCH_S], np[SWEEP_PREFETCH_P];
   const bool pre = k_tiles == 1;
+  // a lane of more tiles: every owner's energy is stored and counted once
+  // the barrier completes
+  if (!pre) cluster_arrive();
+  // a one-tile lane's new surface and params (new_s, new_params) load while
+  // its energies arrive
+  float ns[SWEEP_PREFETCH_S], np[SWEEP_PREFETCH_P];
   if (pre) {
 #pragma unroll
     for (int e = 0; e < SWEEP_PREFETCH_S; ++e) {
@@ -3236,8 +3274,10 @@ __device__ __noinline__ void step_sweep_tail(const SoftplusTerm<STEP_SWEEP>& ter
         np[e] = i < n ? __fadd_rn(__ldcg(a.params + j), __fmul_rn(ts, __ldg(a.delta + j))) : 0.0f;
       }
     }
+    mbar_wait(smem_addr(&sh.ebar), 0);
+  } else {
+    cluster_wait();
   }
-  cluster_wait();
   split.mark(8);
   if (!pre && !sh.last) return;
   TailTest tt{};
@@ -3293,9 +3333,11 @@ __device__ __noinline__ void step_sweep_tail(const SoftplusTerm<STEP_SWEEP>& ter
   split.mark(11);
 }
 
+// The arguments are __grid_constant__: the device functions below take them
+// by reference with no copy in local memory.
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(SP_THREADS, SP_BLOCKS)
-lane_step_sweep_kernel(SoftplusTerm<STEP_SWEEP> term, SweepArgs a, int S, int kb,
-                       int k_tiles) {
+lane_step_sweep_kernel(const __grid_constant__ SoftplusTerm<STEP_SWEEP> term,
+                       const __grid_constant__ SweepArgs a, int S, int kb, int k_tiles) {
   extern __shared__ __align__(16) float sp_smem[];
   __shared__ SweepShared sh;
   Split split;
@@ -3309,7 +3351,7 @@ lane_step_sweep_kernel(SoftplusTerm<STEP_SWEEP> term, SweepArgs a, int S, int kb
   const bool own = (int)(blockIdx.x % CLUSTER) < min(S, kb) && K > 0 && K <= SWEEP_REG_CACHE &&
                    t < K;
   const long long r = o * n + 6 + t;
-  const SweepHooks hooks{a, term.c, o, sh, sp_smem, S, k_tiles,
+  const SweepHooks hooks{a, term.c, o, sh, S, k_tiles,
                          w0 ? pick_loads(a.data_cand, a.reg_cand, a.thr, a.fval, a.steps, o, a.S)
                             : PickLoads{},
                          w0 ? a.conv[o] : (unsigned char)0, w0 ? a.mu[o] : 0.0f,
@@ -3319,9 +3361,13 @@ lane_step_sweep_kernel(SoftplusTerm<STEP_SWEEP> term, SweepArgs a, int S, int kb
                          own ? __ldg(a.delta + r) : 0.0f,
                          own ? __ldg(a.kmask + o * K + t) : 0.0f};
   asm volatile("" ::: "memory");
-  // before the cluster barrier the sums' body arrives at: peers flag it
-  // only after they wait there
-  if (threadIdx.x == 0) sh.last = 0;
+  // before the cluster barrier the sums' body arrives at: peers flag it, or
+  // push the energies to its mbarrier, only after they wait there
+  if (t == 0) sh.last = 0;
+  if (t == WARP && k_tiles == 1) {  // the sums' body: this thread's fence covers the init
+    mbar_init(smem_addr(&sh.ebar), 1);
+    mbar_expect(smem_addr(&sh.ebar), 4u * (unsigned)S);
+  }
   const bool ran = softplus_pixel_sums(term, term.L, S, kb, k_tiles, split, hooks);
   if (ran) step_sweep_tail(term, a, o, S, k_tiles, sh, split);
   split.finish();

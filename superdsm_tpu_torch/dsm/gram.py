@@ -157,8 +157,11 @@ _KERNELS = {
                     dict(warp=32, small_n=8, row_threads=256,
                          chol_one_block_max_n=32, chol_cluster_max_n=807,
                          chol_wide_max_n=1063, pcg_reg_max_n=512)),
+    # the bit-packed crop masks' decode (superdsm_tpu_torch.dsm.mask)
+    'mask_ops.cu': ('libsdsm_mask.so', 'sdsm_mask', {'to_pix': (4, 3)},
+                    dict(cluster=8, threads=256)),
 }
-_F32_SRC, _BF16_SRC, LANE_SRC = _KERNELS
+_F32_SRC, _BF16_SRC, LANE_SRC, MASK_SRC = _KERNELS
 LANE_CONSTANTS = _KERNELS[LANE_SRC][3]
 
 _lock = threading.Lock()

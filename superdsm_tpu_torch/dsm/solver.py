@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from .._device import thread_device, to_device
-from . import gram, lane
+from . import gram, lane, mask
 
 #: Hard iteration caps (the reference instead relies on a 300 s SIGALRM
 #: timeout per solve, ``superdsm/dsm.py:478-490``).
@@ -729,9 +729,18 @@ def _mask_to_pix(mb, wd, cnt, pb):
     return torch.stack([r, c], dim=-1)
 
 
+def _decode_mask(mb, wd, cnt, pb):
+    """:func:`_mask_to_pix` on the masks' device: the plain version on the
+    CPU, one ``mask.mask_to_pix_kernel`` launch on the card (bitwise the
+    same, no host sync)."""
+    if mb.device.type == 'cpu':
+        return _mask_to_pix(mb, wd, cnt, pb)
+    return mask.mask_to_pix_kernel(mb, wd, cnt, pb)
+
+
 def _unpack_inputs_mask(mb, wd, off, cnt, yq, yscale, denom):
     """Mask-transfer variant of :func:`_unpack_inputs` (the same outputs)."""
-    return _unpack_inputs(_mask_to_pix(mb, wd, cnt, yq.shape[1]), off, cnt, yq, yscale,
+    return _unpack_inputs(_decode_mask(mb, wd, cnt, yq.shape[1]), off, cnt, yq, yscale,
                           denom)
 
 

@@ -1731,3 +1731,59 @@ def test_newton_step_in_the_loop_launches_the_sweep(n, monkeypatch):
     for replacement in (lane.step_sweep_plain, _three_launches_sweep):
         monkeypatch.setattr(lane, 'step_sweep', replacement)
         assert _same_outputs(got, step())
+
+
+def _decode_rows(B, pb, seed):
+    """(B, pb // 2) MSB-first masks from a seed: random densities, and in
+    the first rows an empty row, ``cnt`` below and above the set bits, more
+    set bits than ``pb`` and a row whose bits end in its last byte."""
+    rng = np.random.RandomState(seed)
+    nbits = pb * 4
+    bits = rng.rand(B, nbits) < rng.uniform(0.01, 0.3, (B, 1))
+    cnt = np.minimum(bits.sum(1), pb).astype(np.int32)
+    edges = [np.zeros(nbits, bool), rng.rand(nbits) < 0.1, rng.rand(nbits) < 0.1,
+             rng.rand(nbits) < 0.6, np.arange(nbits) >= nbits - 3]
+    for j, row in enumerate(edges[:B]):
+        bits[j] = row
+        cnt[j] = min(int(row.sum()), pb)
+    if B > 2:
+        cnt[0], cnt[1], cnt[2] = 4, max(cnt[1] - 5, 0), min(cnt[2] + 9, pb)
+    wd = rng.randint(1, 200, B).astype(np.int32)
+    return np.packbits(bits, axis=1), wd, cnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,pb', [(5, 128), (7, 24), (64, 24576), (16, 16384), (2, 131072)])
+def test_mask_decode_kernel_is_mask_to_pix(B, pb):
+    """The decode kernel (``csrc/mask_ops.cu``, one launch) gives
+    ``solver._mask_to_pix``'s coordinates bitwise on the card, on random
+    rows and the edge rows of :func:`_decode_rows`, and ``_decode_mask``
+    launches it once for CUDA tensors."""
+    from superdsm_tpu_torch.dsm import mask, solver
+    dev = _cuda()
+    mb, wd, cnt = (torch.as_tensor(a, device=dev) for a in _decode_rows(B, pb, B + pb))
+    want = solver._mask_to_pix(mb, wd, cnt, pb)
+    mask.reset_launch_counts()
+    got = solver._decode_mask(mb, wd, cnt, pb)
+    torch.cuda.synchronize()
+    assert mask.LAUNCHES['mask_to_pix'] == 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    # a row length that is no multiple of 16 bytes, and a misaligned row
+    odd = mb[:, 1:].contiguous()
+    assert torch.equal(mask.mask_to_pix_kernel(odd, wd, cnt, pb // 2),
+                       solver._mask_to_pix(odd, wd, cnt, pb // 2))
+
+
+@pytest.mark.cuda
+def test_mask_decode_kernel_raises_on_what_it_does_not_take():
+    """The decode kernel's wrapper raises on CPU tensors and bad shapes; it
+    never takes the plain version."""
+    from superdsm_tpu_torch.dsm import mask
+    dev = _cuda()
+    mb = torch.zeros((3, 64), dtype=torch.uint8, device=dev)
+    wd, cnt = torch.ones(3, dtype=torch.int32, device=dev), torch.zeros(3, dtype=torch.int32,
+                                                                         device=dev)
+    for args in ((mb.cpu(), wd, cnt, 128), (mb, wd[:2], cnt, 128), (mb, wd.long(), cnt, 128),
+                 (mb[0], wd, cnt, 128), (mb, wd, cnt, -1)):
+        with pytest.raises(ValueError):
+            mask.mask_to_pix_kernel(*args)

@@ -29,6 +29,7 @@ from superdsm_tpu.image import Image as JImage
 
 import superdsm_tpu_torch as T
 from superdsm_tpu_torch.dsm import batching, solver
+from superdsm_tpu_torch.dsm import mask as mask_mod
 from superdsm_tpu_torch.image import Image
 from superdsm_tpu_torch.parallel import mesh as pm
 
@@ -106,6 +107,162 @@ def test_mask_to_pix_random_batches_match_jax(pb, B):
     for j, m in enumerate(masks):
         if m is not None:
             assert np.array_equal(mine[j, :CNT[j]], np.argwhere(m))
+
+
+def _brev32(x):
+    """``__brev`` of uint32 values."""
+    out = np.zeros_like(x)
+    for i in range(32):
+        out |= ((x >> np.uint32(i)) & np.uint32(1)) << np.uint32(31 - i)
+    return out
+
+
+def _kernel_decode(MB, WD, CNT, pb, cluster=8, threads=256):
+    """``mask_to_pix_kernel``'s schedule in numpy (``csrc/mask_ops.cu``):
+    a cluster of ``cluster`` blocks a row, block q an equal share of the
+    row's 16-byte chunks; a chunk's four little-endian words with their
+    bits reversed and their bytes swapped (``__brev``, ``__byte_perm``),
+    so that bit i of word j is position 128 c + 32 j + i; pass 1 the
+    block's ``__popc`` sum, the blocks' totals giving each its offset and
+    the row's total; pass 2 in tiles of ``threads`` chunks, each chunk's
+    exclusive offset in its tile, each set bit written at its rank while
+    the rank is below ``pb``, its (r, c) carried from the chunk's first
+    position (``RowCol``: one division, then c += the step, and while c
+    >= wd, c -= wd and r += 1); the slots from the total to ``pb`` in
+    strided shares. Returns the output and how often each slot was
+    written."""
+    B, nbytes = MB.shape
+    chunks = -(-nbytes // 16)
+    padded = np.zeros((B, chunks * 16), np.uint8)
+    padded[:, :nbytes] = MB
+    words = padded.view('<u4').reshape(B, chunks, 4)
+    words = _brev32(words.astype(np.uint32)).byteswap()
+    counts = np.array([[sum(bin(int(v)).count('1') for v in c) for c in row] for row in words])
+    out = np.full((B, pb, 2), -7, np.int32)
+    writes = np.zeros((B, pb), np.int32)
+    per = -(-chunks // cluster)
+
+    def put(o, slot, rc):
+        out[o, slot] = (0, 0) if slot >= CNT[o] else rc
+        writes[o, slot] += 1
+
+    def move(rc, p, q, wd):  # RowCol.move_to
+        r, col = rc
+        col += q - p
+        while col >= wd:
+            col -= wd
+            r += 1
+        return (r, col)
+    for o in range(B):
+        ranges = [(min(chunks, q * per), min(chunks, min(chunks, q * per) + per))
+                  for q in range(cluster)]
+        block_bits = [int(counts[o, b:e].sum()) for b, e in ranges]
+        total = sum(block_bits)
+        for q, (begin, end) in enumerate(ranges):
+            offset = sum(block_bits[:q])
+            for base in range(begin, end, threads):
+                tile = counts[o, base:min(end, base + threads)]
+                first = offset + np.concatenate([[0], np.cumsum(tile)[:-1]])
+                for c, slot in zip(range(base, min(end, base + threads)), first):
+                    p = c * 128
+                    rc = (p // WD[o], p - (p // WD[o]) * WD[o])
+                    for j in range(4):
+                        v = int(words[o, c, j])
+                        while v and slot < pb:
+                            pos = c * 128 + 32 * j + (v & -v).bit_length() - 1
+                            rc, p = move(rc, p, pos, WD[o]), pos
+                            v &= v - 1
+                            put(o, slot, rc)
+                            slot += 1
+                offset += int(tile.sum())
+            nbits = nbytes * 8
+            for t in range(threads):  # thread t's share
+                for s in range(total + q * threads + t, pb, cluster * threads):
+                    put(o, s, (nbits // WD[o], nbits - (nbits // WD[o]) * WD[o]))
+    return out, writes
+
+
+def _decode_cases():
+    """(label, MB, WD, CNT, pb): random rows and the edge cases of the
+    decode (an empty row, ``cnt`` below and above the set bits, more set
+    bits than ``pb``, a row whose bits end in its last byte, a row length
+    that is no multiple of 16 bytes)."""
+    rng = np.random.RandomState(11)
+    cases = []
+    for pb, B in ((256, 3), (1024, 4), (24, 2)):
+        nbytes = pb * solver.MASK_BITS_PER_PIXEL // 8
+        MB = np.zeros((B, nbytes), np.uint8)
+        WD, CNT = np.ones(B, np.int32), np.zeros(B, np.int32)
+        for j in range(B):
+            bits = rng.rand(nbytes * 8) < rng.uniform(0.02, 0.25)
+            MB[j] = np.packbits(bits)
+            WD[j] = rng.randint(1, 60)
+            CNT[j] = min(int(bits.sum()), pb)
+        cases.append((f'random pb={pb}', MB, WD, CNT, pb))
+    pb = 128
+    nbytes = pb * solver.MASK_BITS_PER_PIXEL // 8
+    bits = np.zeros((6, nbytes * 8), bool)
+    bits[1, rng.rand(nbytes * 8) < 0.1] = True  # cnt below its set bits
+    bits[2, rng.rand(nbytes * 8) < 0.1] = True  # cnt above them
+    bits[3, rng.rand(nbytes * 8) < 0.6] = True  # more set bits than pb
+    bits[4, -3:] = True                         # ends in the last byte
+    bits[5, ::5] = True                         # every fifth bit, cnt = pb
+    n_set = bits.sum(1)
+    CNT = np.array([0, n_set[1] - 5, n_set[2] + 9, pb, n_set[4], pb], np.int32)
+    WD = np.array([1, 7, 13, 40, 64, 1], np.int32)
+    cases.append(('edges', np.packbits(bits, axis=1), WD, CNT, pb))
+    cases.append(('empty row, cnt > 0', np.zeros((1, nbytes), np.uint8), np.array([5], np.int32),
+                  np.array([4], np.int32), pb))
+    return cases
+
+
+@pytest.mark.parametrize('cluster,threads', [(8, 256), (3, 2)])
+@pytest.mark.parametrize('case', range(len(_decode_cases())),
+                         ids=[c[0] for c in _decode_cases()])
+def test_kernel_decode_schedule_is_mask_to_pix(case, cluster, threads):
+    """The decode kernel's chunked schedule (its own geometry, and 3 blocks
+    of 2 threads: many tiles a block) writes every slot once and gives
+    ``_mask_to_pix``'s coordinates bit for bit."""
+    _, MB, WD, CNT, pb = _decode_cases()[case]
+    want = solver._mask_to_pix(torch.from_numpy(MB), torch.from_numpy(WD),
+                               torch.from_numpy(CNT), pb).numpy()
+    got, writes = _kernel_decode(MB, WD, CNT, pb, cluster, threads)
+    assert np.all(writes == 1)
+    assert np.array_equal(got, want)
+
+
+def test_decode_takes_the_plain_version_on_the_cpu(monkeypatch):
+    """``solver._decode_mask`` on CPU tensors is ``_mask_to_pix``; the
+    kernel is never asked."""
+    def refuse(*args):
+        raise AssertionError('the kernel was launched for CPU tensors')
+    monkeypatch.setattr(mask_mod, 'mask_to_pix_kernel', refuse)
+    _, MB, WD, CNT, pb = _decode_cases()[0]
+    args = (torch.from_numpy(MB), torch.from_numpy(WD), torch.from_numpy(CNT), pb)
+    assert torch.equal(solver._decode_mask(*args), solver._mask_to_pix(*args))
+
+
+@pytest.mark.parametrize('bad', ['cpu', '1-D mb', 'int8 mb', 'wd int64', 'cnt short',
+                                 'pb < 0'])
+def test_decode_kernel_raises_instead_of_falling_back(bad):
+    """The kernel's wrapper raises on CPU tensors and on dtypes or shapes it
+    does not take: there is no other route."""
+    mb = torch.zeros((3, 64), dtype=torch.uint8)
+    wd, cnt = torch.ones(3, dtype=torch.int32), torch.zeros(3, dtype=torch.int32)
+    pb = 128
+    if bad == '1-D mb':
+        mb = mb[0]
+    elif bad == 'int8 mb':
+        mb = mb.to(torch.int8)
+    elif bad == 'wd int64':
+        wd = wd.long()
+    elif bad == 'cnt short':
+        cnt = cnt[:2]
+    elif bad == 'pb < 0':
+        pb = -1
+    with pytest.raises(ValueError):
+        mask_mod.mask_to_pix_kernel(mb, wd, cnt, pb)
+    assert mask_mod.LAUNCHES['mask_to_pix'] == 0
 
 
 def _grid_pts(h, w):

@@ -32,8 +32,10 @@ bitwise what it was. Here:
 - (d) the kernel's schedule replayed in numpy with its own index
   arithmetic (each block's pick in warp 0: the Armijo ballot, ATen's
   argmin over shuffled candidates; tiles of ceil(S / k) scales at 1, 2 and
-  4 tiles a lane; each output's regularizer sum in its owner block beside
-  its data sum; the outputs arriving in order, reversed and shuffled; the
+  4 tiles a lane; blocks of 512 threads, their chain steps in groups of
+  16, at B = 5, 16, 32 and 64; each output's regularizer sum in
+  its owner block beside its data sum; the outputs arriving in order,
+  reversed and shuffled; the
   tail in the cluster whose owner counted the lane's last output; the
   arrival counters back at 0): bitwise the chain replayed with float32
   numpy ops and :func:`lane.lane_sum_in_kernel_order`.
@@ -61,7 +63,7 @@ from tests.test_torch_step_tail import (EPSILON, F32, KINDS, PCG_CUTOVER, TOL,
                                         _field, _former_freeze, _former_newton_step,
                                         _former_pick, _former_solve_batch_impl,
                                         _former_tail, _inputs, _np_equal, _scales,
-                                        _slot_sum, _steps, _tail_chain_replay)
+                                        _slot_sum, _steps, _tail_chain_replay, SLOTS, WARP)
 
 torch.set_num_threads(1)
 
@@ -86,14 +88,14 @@ def _kind(monkeypatch):
     monkeypatch.setattr(jsolver, 'CHOLESKY_MAX_N', PCG_CUTOVER)
 
 
-def _sweep_inputs(kind, B, variant, seed=0):
+def _sweep_inputs(kind, B, variant, seed=0, P=256):
     """One loop step's inputs after the line search's sums (the solver's
-    own up to there), the variant in the last lane, and the loop's state:
-    conv set in lane 0 of B >= 2 (and in the last lane for 'converged
-    lane'), whose params and surface hold a NaN of its own payload and a
-    -0; it_dev 7."""
+    own up to there) at P pixels a lane, the variant in the last lane, and
+    the loop's state: conv set in lane 0 of B >= 2 (and in the last lane
+    for 'converged lane'), whose params and surface hold a NaN of its own
+    payload and a -0; it_dev 7."""
     n, _ = KINDS[kind]
-    a = {k: torch.from_numpy(np.array(v)) for k, v in _inputs(n, B, seed).items()}
+    a = {k: torch.from_numpy(np.array(v)) for k, v in _inputs(n, B, seed, P).items()}
     g, Hd = lane.lm_system(a['params'], a['mu'], a['alpha'], EPSILON, a['kmask'], a['g'],
                            a['H'])
     direction, negate = _direction(kind, g, Hd)
@@ -327,8 +329,8 @@ def _softplus(x):
         return np.logaddexp(x, F32(0)).astype(F32)
 
 
-def _np_inputs(kind, B, variant):
-    a = _sweep_inputs(kind, B, variant)
+def _np_inputs(kind, B, variant, P=256):
+    a = _sweep_inputs(kind, B, variant, P=P)
     return {k: (v.numpy().copy() if isinstance(v, torch.Tensor) else v) for k, v in a.items()}
 
 
@@ -406,19 +408,57 @@ def _warp_pick(a, o):
             improved, improved and pick == 0)
 
 
+def _layout_sum(terms):
+    """One output's data sum as a cluster of 8 blocks of 512 threads
+    makes it (``softplus_pixel_sums``): block q holds slots 32 q .. 32 q +
+    31; group g of its chain steps is 16 steps, warp w building chain step
+    16 g + w (the pixel (16 g + w) 256 + 32 q + l, or 0 past the chain or
+    P) into the group buffer, the
+    output's warp adding the group's steps in turn into each slot; each
+    slot pushed to the owner, whose warp runs the tree: slots t + 128, +
+    64, + 32, then shuffles down by 16, ..., 1."""
+    group = SP_THREADS // WARP
+    P = len(terms)
+    chain = -(-P // SLOTS)
+    groups = -(-chain // group)
+    padded = np.zeros(groups * group * SLOTS, F32)
+    padded[:P] = terms
+    slots = np.zeros(SLOTS, F32)
+    for q in range(CLUSTER):
+        lanes = slice(WARP * q, WARP * (q + 1))
+        acc = np.zeros(WARP, F32)
+        for g in range(groups):
+            buf = [padded[(g * group + w) * SLOTS:][lanes] for w in range(group)]
+            for w in range(group):
+                acc = (acc + buf[w]).astype(F32)
+        slots[lanes] = acc  # pushed to the owner
+    v = slots.reshape(CLUSTER, WARP)
+    for m in (4, 2, 1):
+        v = (v[:m] + v[m:2 * m]).astype(F32)
+    x = v[0]
+    for m in (16, 8, 4, 2, 1):
+        x = (x + np.concatenate([x[m:], np.zeros(m, F32)])).astype(F32)
+    return x[0]
+
+
 def _sweep_kernel_replay(a, tiles, order):
     """``lane_step_sweep_kernel`` cluster by cluster, in ``order`` ('in
     order', 'reversed', 'shuffled'; within a cluster its owners' outputs
-    in order, reversed or shuffled too): tiles of kb = ceil(S / tiles)
-    scales (k_tiles = ceil(S / kb) clusters a lane); each cluster's blocks
-    recompute the pick and read conv (a converged lane's clusters leave);
-    output k0 + kl's sum and its regularizer sum in its owner, block kl %
-    8, their sum into the scratch and an arrival counted (at one tile a
-    lane, into the cluster's blocks, no count: the cluster is the lane's
-    last); the owner that brings the lane's count to S sets it back to 0
-    and flags its cluster, which runs the tail: every block's scale pick from the stored energies,
-    block r's runs of 512 surface entries, block 0's params and scalars.
-    Returns the state, the counters and the tails run a lane."""
+    in order, reversed or shuffled too), its blocks' data sums as
+    :func:`_layout_sum` makes them:
+    tiles of kb = ceil(S / tiles) scales (k_tiles = ceil(S / kb) clusters a
+    lane); each cluster's blocks recompute the pick and read conv (a
+    converged lane's clusters leave); then the blocks' data sums, each
+    output's tree in its owner (block kl % 8), which makes the output's
+    regularizer sum after pushing its own slots and adds it; at one tile
+    a lane each energy is pushed into the
+    cluster's blocks (their mbarriers, no count: the cluster is the lane's
+    last), else stored in the scratch and an arrival counted, and the owner
+    that brings the lane's count to S sets it back to 0 and flags its
+    cluster, which runs the tail: every block's scale pick from the
+    energies, block r's runs of 512 surface entries, block 0's
+    params and scalars. Returns the state, the counters and the tails run
+    a lane."""
     st = {k: a[k].copy() for k in ('params', 's', 'f0', 'mu', 'it_lane', 'conv')}
     B, n = st['params'].shape
     P, K = st['s'].shape[1], n - 6
@@ -426,6 +466,7 @@ def _sweep_kernel_replay(a, tiles, order):
     SC = len(scales)
     kb = -(-SC // tiles)
     k_tiles = -(-SC // kb)
+    assert kb <= SP_THREADS // WARP  # a warp adds one output's slots
     eps, sq_eps = F32(EPSILON), F32(math.sqrt(EPSILON))
     tol, mu_min, mu_max, mu_small = (F32(v) for v in (TOL, solver.MU_MIN, solver.MU_MAX, 1e-4))
     arrivals, tails = np.zeros(B, np.int32), np.zeros(B, np.int32)
@@ -440,18 +481,21 @@ def _sweep_kernel_replay(a, tiles, order):
         if st['conv'][o]:  # every block reads it beside its pick
             continue
         ts, new_f, improved, full_step = _warp_pick(a, o)
-        ns = st['s'][o] + F32(ts) * a['u'][o]
-        ys = -(a['yv'][o] * ns)
         k0 = tile * kb
         outputs = list(range(min(kb, SC - k0)))
+        data = {}  # the blocks' slots, pushed to the owners
+        ns = st['s'][o] + F32(ts) * a['u'][o]
+        ys = -(a['yv'][o] * ns)
         if order == 'reversed':
             outputs = outputs[::-1]
         elif order == 'shuffled':
             outputs = [outputs[i] for i in rng.permutation(len(outputs))]
+        for kl in outputs:
+            data[kl] = _layout_sum(a['w'][o] * _softplus(ys * scales[k0 + kl]))
         last = False
-        for kl in outputs:  # in block kl % 8
+        for kl in outputs:  # in block kl % 8, its regularizer sum while the slots arrive
             k = k0 + kl
-            f = _slot_sum(a['w'][o] * _softplus(ys * scales[k]))
+            f = data[kl]
             if K > 0:
                 xi = (st['params'][o, 6:] + F32(ts) * a['delta'][o, 6:]) * scales[k]
                 terms = a['kmask'][o] * (np.sqrt(xi * xi + eps) - sq_eps)
@@ -490,6 +534,22 @@ def _sweep_kernel_replay(a, tiles, order):
     return st, arrivals, tails
 
 
+def _check_schedule(a, tiles, orders):
+    """:func:`_sweep_kernel_replay` bitwise the chain of the three launches
+    (:func:`_sweep_chain_replay`) in each order; each lane that was not
+    converged runs its tail once and its counter ends at 0; a converged
+    lane's state stays to the bit."""
+    want = _sweep_chain_replay(a)
+    for order in orders:
+        got, arrivals, tails = _sweep_kernel_replay(a, tiles, order)
+        assert not arrivals.any()
+        assert np.array_equal(tails, (~a['conv']).astype(np.int32))
+        for k in ('params', 's', 'f0', 'mu', 'it_lane', 'conv'):
+            assert _np_equal(got[k], want[k]), (order, k)
+    for k in ('params', 's', 'f0', 'mu', 'it_lane'):
+        assert _np_equal(want[k][a['conv']], a[k][a['conv']])
+
+
 @pytest.mark.parametrize('variant', ['as is', 'no passing step', 'NaN scale candidates',
                                      'full step at MU_MIN', 'converging lane'])
 @pytest.mark.parametrize('tiles', [1, 2, 4])
@@ -501,15 +561,20 @@ def test_fused_schedule_keeps_every_bit(kind, tiles, variant, _kind):
     runs its tail once and its counter ends at 0; a converged lane's state
     stays to the bit."""
     a = _np_inputs(kind, 5, variant)
-    want = _sweep_chain_replay(a)
-    for order in ('in order', 'reversed', 'shuffled'):
-        got, arrivals, tails = _sweep_kernel_replay(a, tiles, order)
-        assert not arrivals.any()
-        assert np.array_equal(tails, (~a['conv']).astype(np.int32))
-        for k in ('params', 's', 'f0', 'mu', 'it_lane', 'conv'):
-            assert _np_equal(got[k], want[k]), (order, k)
-    for k in ('params', 's', 'f0', 'mu', 'it_lane'):
-        assert _np_equal(want[k][a['conv']], a[k][a['conv']])
+    _check_schedule(a, tiles, ('in order', 'reversed', 'shuffled'))
+
+
+@pytest.mark.parametrize('B', [16, 32, 64])
+@pytest.mark.parametrize('tiles', [1, 2, 4])
+@pytest.mark.parametrize('kind', list(KINDS))
+def test_fused_schedule_at_many_lanes_keeps_every_bit(kind, tiles, B, _kind):
+    """(d) The layout of 16, 32 and 64 lanes (one tile a lane by the
+    plan, and 2 and 4 forced) over P = 20 chain steps and a ragged end (2
+    groups of a block's chain steps): bitwise the chain of the three
+    launches."""
+    a = _np_inputs(kind, B, 'full step at MU_MIN' if B == 32 else 'NaN scale candidates',
+                   P=20 * SLOTS + 37)
+    _check_schedule(a, tiles, ('in order', 'shuffled'))
 
 
 @pytest.mark.parametrize('seed', range(4))

@@ -88,13 +88,13 @@ def _bits_equal(a, b):
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def _inputs(n, B, seed=0):
+def _inputs(n, B, seed=0, P=256):
     """One Newton step's inputs at n = 6 + K as numpy float32: features Bf
     (B, P, n), params, labels, weights, kmask with some padded dimensions,
     alpha, the surface, f0 and the plain gram's g and H, mu of 1e-6 to
     1e-1 across the lanes."""
     rng = np.random.RandomState(seed + 10 * n + B)
-    K, P = n - 6, 256
+    K = n - 6
     t = torch.from_numpy
     Bf = (rng.randn(B, P, n) * 0.3).astype(np.float32)
     params = (rng.randn(B, n) * 0.5).astype(np.float32)

@@ -13,6 +13,7 @@ import math
 
 import numpy as np
 
+from . import trace
 from .image import normalize_image
 from .ops.blob import blob_doh
 
@@ -108,5 +109,6 @@ def process_image(pipeline, base_cfg, g_raw, **kwargs):
     :param g_raw: The raw image.
     :return: Same tuple as :meth:`~superdsm_tpu_torch.pipeline.Pipeline.process_image`.
     """
-    cfg, _ = create_config(pipeline, base_cfg, g_raw)
-    return pipeline.process_image(g_raw, cfg=cfg, **kwargs)
+    with trace.span(trace.IMAGE):
+        cfg, _ = create_config(pipeline, base_cfg, g_raw)
+        return pipeline.process_image(g_raw, cfg=cfg, **kwargs)

@@ -552,17 +552,21 @@ class Task:
             not np.isinf(pipeline.find(self.last_stage)), f'unknown stage "{self.last_stage}"'
         # --debug mirrors the reference's serial diagnostics mode
         # (superdsm/batch.py:291): files process serially and the solver
-        # prints per-round telemetry. The override covers the whole task and
-        # is restored in the finally below, however the task ends: in
-        # --no-fork multi-task runs a debug task must not leak telemetry into
-        # the tasks after it.
+        # prints per-round telemetry from the span recorder, which it turns
+        # on, keeping no span. The override covers the whole task and is
+        # restored in the finally below, however the task ends: in --no-fork
+        # multi-task runs a debug task must not leak telemetry into the tasks
+        # after it.
         telemetry_prior = None
         if debug:
+            from . import trace as _trace
             from .dsm import batching as _batching
             telemetry_prior = (os.environ.get('SDSM_SOLVE_TELEMETRY'),
-                               _batching._TELEMETRY)
+                               _batching._TELEMETRY, _trace.enabled())
             os.environ['SDSM_SOLVE_TELEMETRY'] = '1'
             _batching._TELEMETRY = True  # the module reads the env at import
+            if not _trace.enabled():
+                _trace.enable(True, keep=False)
         try:
             first_stage, data = self.find_first_stage_name(pipeline, dry, pickup, out=out2)
             out3 = out2.derive(margin=2, muted=(verbosity <= -int(not dry)))
@@ -755,7 +759,9 @@ class Task:
             raise
         finally:
             if telemetry_prior is not None:
-                env, _batching._TELEMETRY = telemetry_prior
+                env, _batching._TELEMETRY, recording = telemetry_prior
+                if not recording:
+                    _trace.enable(False)
                 if env is None:
                     os.environ.pop('SDSM_SOLVE_TELEMETRY', None)
                 else:

@@ -19,11 +19,13 @@ import hashlib
 import math
 import os as _os
 import queue
+import sys
 import threading
 
 import numpy as np
 import scipy.ndimage as ndi
 
+from . import trace
 from .pipeline import Stage
 from ._aux import copy_dict
 from ._stability import dq
@@ -34,6 +36,7 @@ from .ops.watershed import watershed
 from .ops.edt import edt
 from .ops.morphology import disk, binary_erosion, max_filter3
 from ._device import on_cpu
+from .dsm import batching as _batching
 from .dsm.batching import make_problem, solve_problems
 
 
@@ -553,13 +556,14 @@ def _advance_workers(pool, workers, payloads, results, waiting):
     def advance(item):
         label, payload = item
         gen = workers[label]
-        try:
-            value = next(gen) if payload is _FIRST else gen.send(payload)
-            return label, value, None, False
-        except StopIteration as stop:
-            return label, None, stop.value, True
+        with trace.span('sdsm.c2f.cluster'):
+            try:
+                value = next(gen) if payload is _FIRST else gen.send(payload)
+                return label, value, None, False
+            except StopIteration as stop:
+                return label, None, stop.value, True
     items = sorted(payloads.items())
-    outcomes = pool.map(advance, items) if pool is not None and len(items) > 1 \
+    outcomes = pool.map(trace.carry(advance), items) if pool is not None and len(items) > 1 \
         else map(advance, items)
     for label, value, result, done in outcomes:
         if done:
@@ -593,52 +597,51 @@ def _drive_cluster_workers(workers, clusters_by_label, img_shape, out,
     results = {}
     waiting = {}
     pool = ThreadPoolExecutor(max_workers=8) if len(workers) > 1 else None
-    _telemetry = _os.environ.get('SDSM_SOLVE_TELEMETRY') == '1'
-    _marks = []
+    rounds = []  # (advance, pack) spans of each round, for the telemetry line
     try:
-        import time as _time
-        _t = _time.time()
-        _advance_workers(pool, workers, {label: _FIRST for label in workers},
-                         results, waiting)
-        _marks.append(('advance0', _time.time() - _t))
+        with trace.span('sdsm.c2f.advance', round=0) as advance:
+            _advance_workers(pool, workers, {label: _FIRST for label in workers},
+                             results, waiting)
+        rounds.append((advance, None))
         round_no = 0
         while waiting:
             round_no += 1
-            _t = _time.time()
-            problems = []
-            for label, (kind, cp_masks) in sorted(waiting.items()):
-                assert kind == 'solve'
-                cluster = clusters_by_label[label]
-                for idx, cp_mask in enumerate(cp_masks):
-                    region = Image(model=cluster.model, mask=cp_mask, offset=cluster.offset)
-                    problems.append(make_problem(region, img_shape=img_shape,
-                                                 smooth_amount=np.inf, tag=(label, idx)))
-            _marks.append((f'pack{round_no}', _time.time() - _t))
+            with trace.span('sdsm.c2f.pack', round=round_no) as pack:
+                problems = []
+                for label, (kind, cp_masks) in sorted(waiting.items()):
+                    assert kind == 'solve'
+                    cluster = clusters_by_label[label]
+                    for idx, cp_mask in enumerate(cp_masks):
+                        region = Image(model=cluster.model, mask=cp_mask, offset=cluster.offset)
+                        problems.append(make_problem(region, img_shape=img_shape,
+                                                     smooth_amount=np.inf, tag=(label, idx)))
             out.intermediate(f'{status_line}... round {round_no}: '
                              f'{len(problems)} solves, {len(results)} / '
                              f'{len(results) + len(waiting)} clusters done')
-            _t = _time.time()
             solved = solve_problems(problems, out=out, fetch='energy',
                                     maxiter=newton_maxiter, timeout=timeout)
-            _marks.append((f'solve{round_no}', _time.time() - _t))
-            _t = _time.time()
-            energies_by_label = {}
-            for res in solved:
-                label, idx = res.tag
-                energies_by_label.setdefault(label, {})[idx] = res.energy
-            payloads = {
-                label: [energies_by_label[label][idx] for idx in range(len(cp_masks))]
-                for label, (kind, cp_masks) in waiting.items()}
-            waiting = {}
-            _advance_workers(pool, workers, payloads, results, waiting)
-            _marks.append((f'advance{round_no}', _time.time() - _t))
+            with trace.span('sdsm.c2f.advance', round=round_no) as advance:
+                energies_by_label = {}
+                for res in solved:
+                    label, idx = res.tag
+                    energies_by_label.setdefault(label, {})[idx] = res.energy
+                payloads = {
+                    label: [energies_by_label[label][idx] for idx in range(len(cp_masks))]
+                    for label, (kind, cp_masks) in waiting.items()}
+                waiting = {}
+                _advance_workers(pool, workers, payloads, results, waiting)
+            rounds.append((advance, pack))
     finally:
         if pool is not None:
             pool.shutdown(wait=False)
-    if _telemetry:
-        import sys as _sys
-        print('[c2f-drive] ' + ' '.join(f'{k}={v:.3f}' for k, v in _marks),
-              file=_sys.stderr, flush=True)
+    if _batching._TELEMETRY:
+        # a round's solve: from its pack's end to its advance's start
+        marks = [f'advance0={rounds[0][0].end - rounds[0][0].start:.3f}']
+        for n, (advance, pack) in enumerate(rounds[1:], start=1):
+            marks += [f'pack{n}={pack.end - pack.start:.3f}',
+                      f'solve{n}={advance.start - pack.end:.3f}',
+                      f'advance{n}={advance.end - advance.start:.3f}']
+        print('[c2f-drive] ' + ' '.join(marks), file=sys.stderr, flush=True)
     return results
 
 
@@ -679,107 +682,101 @@ class C2F_RegionAnalysis(Stage):
         dsm_cfg = copy_dict(input_data['dsm_cfg'])
         background_margin = dsm_cfg.get('background_margin', 20)
 
-        import time as _time
-        _phase_t = [_time.time()]          # telemetry phase boundaries
-        _phase = lambda: _phase_t.append(_time.time())
+        with trace.span('sdsm.c2f.markers') as markers:
+            out.intermediate('Analyzing cluster markers...')
+            y = Image.create_from_array(input_data['y'], normalize=False)
+            fg_mask = (y.model > 0)
+            fg_bd = np.logical_xor(fg_mask, binary_erosion(fg_mask, disk(1)))
+            y_mask = np.ones(y.model.shape, bool)
+            cluster_markers = ndi.label(fg_mask)[0]
+            # irregularity = boundary pixels / marker size, per label in one pass
+            n_markers = int(cluster_markers.max())
+            if n_markers:
+                sizes = np.bincount(cluster_markers.ravel(), minlength=n_markers + 1)
+                bd_counts = np.bincount(cluster_markers[fg_bd], minlength=n_markers + 1)
+                with np.errstate(divide='ignore', invalid='ignore'):
+                    irregular = (bd_counts / np.maximum(sizes, 1)) > max_cluster_marker_irregularity
+                irregular[0] = False
+                if irregular.any():
+                    y_mask[irregular[cluster_markers]] = False
 
-        out.intermediate('Analyzing cluster markers...')
-        y = Image.create_from_array(input_data['y'], normalize=False)
-        fg_mask = (y.model > 0)
-        fg_bd = np.logical_xor(fg_mask, binary_erosion(fg_mask, disk(1)))
-        y_mask = np.ones(y.model.shape, bool)
-        cluster_markers = ndi.label(fg_mask)[0]
-        # irregularity = boundary pixels / marker size, per label in one pass
-        n_markers = int(cluster_markers.max())
-        if n_markers:
-            sizes = np.bincount(cluster_markers.ravel(), minlength=n_markers + 1)
-            bd_counts = np.bincount(cluster_markers[fg_bd], minlength=n_markers + 1)
-            with np.errstate(divide='ignore', invalid='ignore'):
-                irregular = (bd_counts / np.maximum(sizes, 1)) > max_cluster_marker_irregularity
-            irregular[0] = False
-            if irregular.any():
-                y_mask[irregular[cluster_markers]] = False
+            cluster_markers[~y_mask] = 0
+            cluster_markers = _normalize_labels_map(cluster_markers, first_label=0)[0]
+            out.write(f'Extracted {cluster_markers.max()} cluster markers')
 
-        cluster_markers[~y_mask] = 0
-        cluster_markers = _normalize_labels_map(cluster_markers, first_label=0)[0]
-        out.write(f'Extracted {cluster_markers.max()} cluster markers')
+            clusters = watershed(edt(cluster_markers == 0),
+                                 cluster_markers)
+            atoms_map = np.full(y.model.shape, 0)
+            atom_candidate_by_label = {}
 
-        clusters = watershed(edt(cluster_markers == 0),
-                             cluster_markers)
-        atoms_map = np.full(y.model.shape, 0)
-        atom_candidate_by_label = {}
+        with trace.span('sdsm.c2f.workers_init') as workers_init:
+            cluster_labels = [int(l) for l in np.flatnonzero(
+                np.bincount(clusters.reshape(-1), minlength=1)) if l != 0]
+            workers = {}
+            clusters_by_label = {}
+            spec_stats = SpecStats()
+            # bbox-local crops: `clusters == label` / bbox scans over the full
+            # frame cost O(n_clusters * H * W) on dense fields (110-cluster 4K
+            # tiles spent ~0.3 s here); find_objects gives every bbox in one pass
+            cluster_slices = ndi.find_objects(clusters)
+            for cluster_label in cluster_labels:
+                sl = cluster_slices[cluster_label - 1]
+                cluster = Image(y.model[sl], clusters[sl] == cluster_label,
+                                offset=(sl[0].start, sl[1].start))
+                masked_cluster = cluster.get_region(cluster.shrink_mask(y_mask))
+                clusters_by_label[cluster_label] = cluster
+                workers[cluster_label] = _cluster_worker(
+                    cluster, masked_cluster, max_atom_norm_energy, min_atom_radius,
+                    min_norm_energy_improvement, background_margin, seed_connectivity,
+                    speculate=speculate, stats=spec_stats)
 
-        _phase()  # markers: fg labeling + irregularity + cluster watershed
-        cluster_labels = [int(l) for l in np.flatnonzero(
-            np.bincount(clusters.reshape(-1), minlength=1)) if l != 0]
-        workers = {}
-        clusters_by_label = {}
-        spec_stats = SpecStats()
-        # bbox-local crops: `clusters == label` / bbox scans over the full
-        # frame cost O(n_clusters * H * W) on dense fields (110-cluster 4K
-        # tiles spent ~0.3 s here); find_objects gives every bbox in one pass
-        cluster_slices = ndi.find_objects(clusters)
-        for cluster_label in cluster_labels:
-            sl = cluster_slices[cluster_label - 1]
-            cluster = Image(y.model[sl], clusters[sl] == cluster_label,
-                            offset=(sl[0].start, sl[1].start))
-            masked_cluster = cluster.get_region(cluster.shrink_mask(y_mask))
-            clusters_by_label[cluster_label] = cluster
-            workers[cluster_label] = _cluster_worker(
-                cluster, masked_cluster, max_atom_norm_energy, min_atom_radius,
-                min_norm_energy_improvement, background_margin, seed_connectivity,
-                speculate=speculate, stats=spec_stats)
+        with trace.span('sdsm.c2f.drive') as drive:
+            results = _drive_cluster_workers(
+                workers, clusters_by_label, y.model.shape, out,
+                newton_maxiter=newton_maxiter,
+                # wedged-card guard, CUDA only (see objects.compute_objects)
+                timeout=None if on_cpu() else dsm_cfg.get('cp_timeout', 300))
 
-        _phase()  # workers_init: per-cluster region crops + generator setup
-        results = _drive_cluster_workers(
-            workers, clusters_by_label, y.model.shape, out,
-            newton_maxiter=newton_maxiter,
-            # wedged-card guard, CUDA only (see objects.compute_objects)
-            timeout=None if on_cpu() else dsm_cfg.get('cp_timeout', 300))
-        _phase()  # drive: lockstep worker rounds incl. device solves
+        with trace.span('sdsm.c2f.finalize') as finalize:
+            max_normalized_energy = -np.inf
+            # running label high-water mark (atoms_map.max() is a full-frame scan
+            # per cluster); assignments below are disjoint, so the max after each
+            # cluster is offset + that cluster's local max
+            next_label_offset = 0
+            for cluster_label in cluster_labels:
+                root_candidate, cluster_atoms, cluster_atoms_map, cluster_max_ne = results[cluster_label]
+                cluster = clusters_by_label[cluster_label]
+                cluster_label_offset = next_label_offset
+                next_label_offset = cluster_label_offset + int(cluster_atoms_map.max())
+                max_normalized_energy = max(cluster_max_ne, max_normalized_energy)
+                view = atoms_map[cluster.offset[0]: cluster.offset[0] + cluster.mask.shape[0],
+                                 cluster.offset[1]: cluster.offset[1] + cluster.mask.shape[1]]
+                view[cluster.mask] = cluster_label_offset + cluster_atoms_map[cluster.mask]
+                for atom_candidate in cluster_atoms:
+                    label = cluster_label_offset + next(iter(atom_candidate.footprint))
+                    atom_candidate_by_label[label] = atom_candidate
+                    # centroid of a bool mask = mean of its True coordinates
+                    # (identical to ndi.center_of_mass, which profiled 0.13 s
+                    # per call via scipy's labeled-stats machinery)
+                    mask = atom_candidate.seed if atom_candidate.seed is not None \
+                        else cluster.mask
+                    seed = np.array([c.mean() for c in np.nonzero(mask)]).round().astype(int)
+                    atom_candidate.seed = seed + cluster.offset
 
-        max_normalized_energy = -np.inf
-        # running label high-water mark (atoms_map.max() is a full-frame scan
-        # per cluster); assignments below are disjoint, so the max after each
-        # cluster is offset + that cluster's local max
-        next_label_offset = 0
-        for cluster_label in cluster_labels:
-            root_candidate, cluster_atoms, cluster_atoms_map, cluster_max_ne = results[cluster_label]
-            cluster = clusters_by_label[cluster_label]
-            cluster_label_offset = next_label_offset
-            next_label_offset = cluster_label_offset + int(cluster_atoms_map.max())
-            max_normalized_energy = max(cluster_max_ne, max_normalized_energy)
-            view = atoms_map[cluster.offset[0]: cluster.offset[0] + cluster.mask.shape[0],
-                             cluster.offset[1]: cluster.offset[1] + cluster.mask.shape[1]]
-            view[cluster.mask] = cluster_label_offset + cluster_atoms_map[cluster.mask]
-            for atom_candidate in cluster_atoms:
-                label = cluster_label_offset + next(iter(atom_candidate.footprint))
-                atom_candidate_by_label[label] = atom_candidate
-                # centroid of a bool mask = mean of its True coordinates
-                # (identical to ndi.center_of_mass, which profiled 0.13 s
-                # per call via scipy's labeled-stats machinery)
-                mask = atom_candidate.seed if atom_candidate.seed is not None \
-                    else cluster.mask
-                seed = np.array([c.mean() for c in np.nonzero(mask)]).round().astype(int)
-                atom_candidate.seed = seed + cluster.offset
+            atoms_map, label_translation = _normalize_labels_map(atoms_map, first_label=1, skip_labels=[0])
+            for old_label, atom_candidate in dict(atom_candidate_by_label).items():
+                atom_candidate_by_label[label_translation[old_label]] = atom_candidate
+            out.write(f'Extracted {atoms_map.max()} atoms (max energy rate: {max_normalized_energy:g})')
 
-        atoms_map, label_translation = _normalize_labels_map(atoms_map, first_label=1, skip_labels=[0])
-        for old_label, atom_candidate in dict(atom_candidate_by_label).items():
-            atom_candidate_by_label[label_translation[old_label]] = atom_candidate
-        out.write(f'Extracted {atoms_map.max()} atoms (max energy rate: {max_normalized_energy:g})')
-        _phase()  # finalize: atoms_map assembly + seeds + renumbering
-
-        atom_nodes = [atom_candidate_by_label[atom_label].seed
-                      for atom_label in sorted(label_translation.values())]
-        adjacencies = AtomAdjacencyGraph(atoms_map, clusters, fg_mask, atom_nodes, out)
-        _phase()  # adjacency
-        if _os.environ.get('SDSM_SOLVE_TELEMETRY') == '1':
-            import sys as _sys
-            names = ('markers', 'workers_init', 'drive', 'finalize', 'adjacency')
-            split = ' '.join(f'{n}={b - a:.3f}' for n, a, b in
-                             zip(names, _phase_t, _phase_t[1:]))
-            print(f'[c2f] {spec_stats.line()} | {split}',
-                  file=_sys.stderr, flush=True)
+        with trace.span('sdsm.c2f.adjacency') as adjacency:
+            atom_nodes = [atom_candidate_by_label[atom_label].seed
+                          for atom_label in sorted(label_translation.values())]
+            adjacencies = AtomAdjacencyGraph(atoms_map, clusters, fg_mask, atom_nodes, out)
+        if _batching._TELEMETRY:
+            phases = dict(markers=markers, workers_init=workers_init, drive=drive,
+                          finalize=finalize, adjacency=adjacency)
+            split = ' '.join(f'{n}={sp.end - sp.start:.3f}' for n, sp in phases.items())
+            print(f'[c2f] {spec_stats.line()} | {split}', file=sys.stderr, flush=True)
 
         return {
             'y_mask': y_mask,

@@ -39,19 +39,22 @@ from .solver import (_pack_poly_group, _solve_poly_packed, _solve_poly_packed_ma
                      DEFAULT_TOL, MASK_BITS_PER_PIXEL)
 from .smooth import prepare_deformation, smooth_matrix_params
 from . import gram
+from .. import trace
 
-#: Set SDSM_SOLVE_TELEMETRY=1 to print per-round launch/fetch timings to
-#: stderr (read at import; the batch CLI's ``--debug`` sets the attribute).
+#: Set SDSM_SOLVE_TELEMETRY=1 to print each round's and stage phase's
+#: seconds to stderr from the span recorder's spans (read at import, which
+#: turns the recorder on, keeping no span; the batch CLI's ``--debug`` sets
+#: the attribute and the recorder together).
 _TELEMETRY = os.environ.get('SDSM_SOLVE_TELEMETRY') == '1'
+if _TELEMETRY:
+    trace.enable(True, keep=False)
 
 #: Cumulative device-path accounting of :func:`solve_problems`: the wall
 #: time during which at least one solve round was in flight (the union of
 #: the concurrent rounds' intervals, so threads that overlap are not counted
-#: twice), the per-lane Newton iterations executed, an analytic FLOP
-#: estimate (:func:`_estimate_chunk_flops`), the calls and the lanes
+#: twice), the per-lane Newton iterations executed, the calls and the lanes
 #: re-solved canonically. Snapshot with :func:`device_accounting`.
-_DEVICE_ACCT = {'wall_s': 0.0, 'flop_logical': 0.0, 'flop_hw': 0.0,
-                'lane_iters': 0, 'calls': 0, 'canonical_lanes': 0}
+_DEVICE_ACCT = {'wall_s': 0.0, 'lane_iters': 0, 'calls': 0, 'canonical_lanes': 0}
 _DEVICE_ACCT_LOCK = threading.Lock()
 #: solve rounds in flight, and the start of the current busy interval
 _IN_FLIGHT = {'rounds': 0, 'since': 0.0}
@@ -81,42 +84,14 @@ def _round_ended():
             _DEVICE_ACCT['wall_s'] += time.perf_counter() - _IN_FLIGHT['since']
 
 
-def _account(kind_shapes_iters, canonical_lanes=0):
-    """Adds the FLOPs and iterations of solved chunks: ``(kind, P, K, lane
-    iterations)`` each."""
-    logical = hw = 0.0
-    iters = 0
-    for kind, pb, kb, lane_iters in kind_shapes_iters:
-        fl, fh = _estimate_chunk_flops(kind, pb, kb, lane_iters)
-        logical += fl
-        hw += fh
-        iters += int(np.sum(lane_iters))
+def _account(lane_iters, canonical_lanes=0):
+    """Adds the Newton iterations of solved chunks (the real lanes' rows of
+    each) and the lanes re-solved canonically."""
+    iters = sum(int(np.sum(it)) for it in lane_iters)
     with _DEVICE_ACCT_LOCK:
-        _DEVICE_ACCT['flop_logical'] += logical
-        _DEVICE_ACCT['flop_hw'] += hw
         _DEVICE_ACCT['lane_iters'] += iters
         _DEVICE_ACCT['canonical_lanes'] += canonical_lanes
 
-
-def _estimate_chunk_flops(kind, pb, kb, lane_iters):
-    """(logical, hardware) FLOP estimates for one solved chunk.
-
-    Per lane-iteration the gram dominates — ``2 * P * n^2`` logical FLOPs
-    with ``n = K + 6`` — plus the Newton direction solve ``n^3 / 3``; per
-    lane the deformation-basis build ``~10 * P * K``. The hardware count
-    scales the DSM gram by the products the card executes per logical one:
-    1 for the float32 kernel and the 1-pass bf16 gram, 3 for the 3-pass
-    split (:data:`gram.GRAM_PASSES`).
-    """
-    poly = kind.startswith('poly')
-    n = 6 if poly else kb + 6
-    iters = float(np.sum(lane_iters))
-    gram_flops = 2.0 * pb * n * n * iters
-    direction = (n ** 3 / 3.0) * iters
-    per_lane = 10.0 * pb * kb * len(lane_iters)
-    logical = gram_flops + direction + per_lane
-    passes = 3.0 if not poly and gram.GRAM_PASSES == 3 else 1.0
-    return logical, passes * gram_flops + direction + per_lane
 
 #: Pixel-count buckets (every value a multiple of 2048, so the gram kernel's
 #: row chunking and the 8-bit foreground packing divide every bucket).
@@ -841,17 +816,17 @@ def solve_problems(problems, alpha=0.5, epsilon=1.0, smooth_amount=10,
         return []
     _round_started()
     try:
-        return _solve_problems(problems, alpha, epsilon, smooth_amount,
-                               gaussian_shape_multiplier, maxiter, tol, out,
-                               progress_line, fetch, timeout)
+        with trace.span('sdsm.solve', problems=len(problems)) as whole:
+            return _solve_problems(problems, alpha, epsilon, smooth_amount,
+                                   gaussian_shape_multiplier, maxiter, tol, out,
+                                   progress_line, fetch, timeout, whole)
     finally:
         _round_ended()
 
 
 def _solve_problems(problems, alpha, epsilon, smooth_amount,
                     gaussian_shape_multiplier, maxiter, tol, out,
-                    progress_line, fetch, timeout):
-    t_start = time.perf_counter()
+                    progress_line, fetch, timeout, whole):
     results = [None] * len(problems)
     _, cutoff = smooth_matrix_params(smooth_amount, gaussian_shape_multiplier)
     img_shape = problems[0].img_shape
@@ -988,11 +963,13 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
                 chunk = vidxs[chunk_start: chunk_start + size]
                 chunk_start += size
                 Bp = max(_batch_shape(len(chunk), pb), min_b)
-                arrays = _dsm_chunk_arrays(chunk, pb, kb, Bp, use_mask, warm_tail_all=True)
+                with trace.span('sdsm.solve.pack', kind=kind, lanes=len(chunk)):
+                    arrays = _dsm_chunk_arrays(chunk, pb, kb, Bp, use_mask, warm_tail_all=True)
                 # a split keeps the whole chunk's elliptical skip (USE_WARM.all())
                 split = {} if devices is None else \
                     {'all_warm': bool(arrays[_USE_WARM_AT[kind]].all())}
-                outs = solve_on_devices(_DSM_SOLVES[kind], arrays, devices, **split)
+                with trace.span('sdsm.solve.dispatch', kind=kind, lanes=len(chunk)):
+                    outs = solve_on_devices(_DSM_SOLVES[kind], arrays, devices, **split)
                 _count_transfer(kind, problems=len(chunk), fitting=_fitting(chunk, pb, use_mask))
                 pending.append((kind, chunk, (kind, pb, kb, Bp) + statics, outs))
                 if out is not None:
@@ -1001,11 +978,11 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
                         f'{sum(len(c) for _, c, _, _ in pending)} / {len(problems)}')
 
     shapes = [shape for _, _, shape, _ in pending]
-    t_fetch = time.perf_counter()
     try:
-        fetched = _fetch_with_deadline(
-            [_selection(kind, outs, fetch) for kind, _, _, outs in pending],
-            timeout if _all_warm(shapes) else None)
+        with trace.span('sdsm.solve.fetch') as fetch_span:
+            fetched = _fetch_with_deadline(
+                [_selection(kind, outs, fetch) for kind, _, _, outs in pending],
+                timeout if _all_warm(shapes) else None)
     except SolveTimeout:
         if out is not None:
             out.write(f'{progress_line}: deadline ({timeout:.0f}s) expired — '
@@ -1013,9 +990,7 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
         return _fallback_results_after_timeout(
             problems, oversized, alpha, epsilon, smooth_amount, cutoff, fetch)
     _mark_warm(shapes)
-    t_done = time.perf_counter()
-    _account([(kind, shape[1], shape[2], row['it'][:len(chunk)])
-              for (kind, chunk, shape, _), row in zip(pending, fetched)])
+    _account([row['it'][:len(chunk)] for (_, chunk, _, _), row in zip(pending, fetched)])
     with _DEVICE_ACCT_LOCK:
         _DEVICE_ACCT['calls'] += 1
     if _TELEMETRY:
@@ -1024,14 +999,16 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
                    round(float(np.mean(row['it'][:len(chunk)])), 1))
                   for (kind, chunk, _, _), row in zip(pending, fetched)]
         print(f'[solve_problems] n={len(problems)} calls={len(pending)} '
-              f'dispatch={t_fetch - t_start:.3f}s fetch={t_done - t_fetch:.3f}s '
+              f'dispatch={fetch_span.start - whole.start:.3f}s '
+              f'fetch={fetch_span.end - fetch_span.start:.3f}s '
               f'groups(kind,n,itmax,itmean)={groups} '
               f'poly={sorted((pb, len(v)) for pb, v in poly_groups.items())} '
               f'dsm={sorted((k, len(v)) for k, v in dsm_groups.items())}',
               file=sys.stderr, flush=True)
 
-    for (kind, chunk, _, _), row in zip(pending, fetched):
-        _store_results(results, problems, kind, chunk, row, fetch)
+    with trace.span('sdsm.solve.store'):
+        for (kind, chunk, _, _), row in zip(pending, fetched):
+            _store_results(results, problems, kind, chunk, row, fetch)
 
     # canonical re-solve of non-converged DSM lanes (see _CANONICAL_P_LADDER)
     flagged, resolve = [], []
@@ -1048,46 +1025,49 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
     _LAST_FLAGGED = [problems[i].tag for i in flagged]
     if resolve:
         resolve.sort()
-        t_canon = time.perf_counter()
-        groups = {}
-        for i in resolve:
-            pc, kc = _canonical_buckets(problems[i])
-            use_mask = mask_capable and problems[i].fits_mask(pc)
-            groups.setdefault((pc, kc, use_mask), []).append(i)
-        canon = []  # (chunk, shape, device outputs)
-        for (pc, kc, use_mask), idxs in sorted(groups.items()):
-            kind = 'dsm-m' if use_mask else 'dsm'
-            for cs in range(0, len(idxs), _CANONICAL_B):
-                chunk = idxs[cs:cs + _CANONICAL_B]
-                outs = _DSM_SOLVES[kind](*_dsm_chunk_arrays(
-                    chunk, pc, kc, _CANONICAL_B, use_mask, warm_tail_all=False))
-                _count_transfer(kind, problems=len(chunk), fitting=_fitting(chunk, pc, use_mask))
-                canon.append((chunk, (kind, pc, kc, _CANONICAL_B) + statics,
-                              outs))
-        canon_shapes = [shape for _, shape, _ in canon]
-        try:
-            fetched2 = _fetch_with_deadline(
-                [_selection('dsm', outs, fetch) for _, _, outs in canon],
-                timeout if _all_warm(canon_shapes) else None)
-        except SolveTimeout:
-            fetched2 = None
-            if out is not None:
-                out.write(f'{progress_line}: canonical re-solve deadline '
-                          f'expired — {len(resolve)} lane(s) keep their '
-                          f'batch-shape energies this round')
-        if fetched2 is not None:
-            _mark_warm(canon_shapes)
-            for (chunk, _, _), row in zip(canon, fetched2):
-                _store_results(results, problems, 'dsm', chunk, row, fetch)
-            _account([('dsm', shape[1], shape[2], row['it'][:len(chunk)])
-                      for (chunk, shape, _), row in zip(canon, fetched2)],
-                     canonical_lanes=len(resolve))
-            if _TELEMETRY:
-                print(f'[canonical] n={len(resolve)} of {len(flagged)} flagged '
-                      f'calls={len(canon)} '
-                      f'groups={sorted((pc, kc, len(v)) for (pc, kc, _), v in groups.items())} '
-                      f'wall={time.perf_counter() - t_canon:.3f}s',
-                      file=sys.stderr, flush=True)
+        with trace.span('sdsm.solve.canonical', lanes=len(resolve)) as canonical:
+            trace.count('dsm.canonical', len(resolve))
+            groups = {}
+            for i in resolve:
+                pc, kc = _canonical_buckets(problems[i])
+                use_mask = mask_capable and problems[i].fits_mask(pc)
+                groups.setdefault((pc, kc, use_mask), []).append(i)
+            canon = []  # (chunk, shape, device outputs)
+            for (pc, kc, use_mask), idxs in sorted(groups.items()):
+                kind = 'dsm-m' if use_mask else 'dsm'
+                for cs in range(0, len(idxs), _CANONICAL_B):
+                    chunk = idxs[cs:cs + _CANONICAL_B]
+                    outs = _DSM_SOLVES[kind](*_dsm_chunk_arrays(
+                        chunk, pc, kc, _CANONICAL_B, use_mask, warm_tail_all=False))
+                    _count_transfer(kind, problems=len(chunk),
+                                    fitting=_fitting(chunk, pc, use_mask))
+                    canon.append((chunk, (kind, pc, kc, _CANONICAL_B) + statics,
+                                  outs))
+            canon_shapes = [shape for _, shape, _ in canon]
+            try:
+                with trace.span('sdsm.solve.fetch'):
+                    fetched2 = _fetch_with_deadline(
+                        [_selection('dsm', outs, fetch) for _, _, outs in canon],
+                        timeout if _all_warm(canon_shapes) else None)
+            except SolveTimeout:
+                fetched2 = None
+                if out is not None:
+                    out.write(f'{progress_line}: canonical re-solve deadline '
+                              f'expired — {len(resolve)} lane(s) keep their '
+                              f'batch-shape energies this round')
+            if fetched2 is not None:
+                _mark_warm(canon_shapes)
+                with trace.span('sdsm.solve.store'):
+                    for (chunk, _, _), row in zip(canon, fetched2):
+                        _store_results(results, problems, 'dsm', chunk, row, fetch)
+                _account([row['it'][:len(chunk)] for (chunk, _, _), row in zip(canon, fetched2)],
+                         canonical_lanes=len(resolve))
+        if _TELEMETRY and fetched2 is not None:
+            print(f'[canonical] n={len(resolve)} of {len(flagged)} flagged '
+                  f'calls={len(canon)} '
+                  f'groups={sorted((pc, kc, len(v)) for (pc, kc, _), v in groups.items())} '
+                  f'wall={canonical.end - canonical.start:.3f}s',
+                  file=sys.stderr, flush=True)
 
     for i, (factor, orig) in oversized.items():
         res = results[i]
@@ -1115,8 +1095,29 @@ def _batch_was_canonical(p, pb, kb, all_warm):
             and (p.init_params is None or all_warm))
 
 
+def _count_lanes(kind, row, n):
+    """Counts how the Newton loop of each of a solved chunk's ``n`` real
+    lanes ended, on the recorder's innermost span (:mod:`..trace`), from the
+    rows already on the host: ``<kind>.fallback`` (flagged ``bad``),
+    ``<kind>.converged`` (frozen by the loop's test, whose clause for a lane
+    that gains nothing at the damping cap sets the same ``conv``: a stalled
+    lane counts here) or ``<kind>.capped`` (not frozen when the iteration
+    cap ended the loop), kind ``poly`` or ``dsm``; the three sum to ``n``."""
+    bad = np.asarray(row['bad'][:n], bool)
+    conv = np.asarray(row['conv'][:n], bool)
+    kind = kind.split('-')[0]
+    n_bad = int(bad.sum())
+    n_conv = int((conv & ~bad).sum())
+    trace.count(f'{kind}.fallback', n_bad)
+    trace.count(f'{kind}.converged', n_conv)
+    trace.count(f'{kind}.capped', n - n_bad - n_conv)
+
+
 def _store_results(results, problems, kind, chunk, row, fetch):
-    """Writes the host rows of one solved chunk into ``results``."""
+    """Writes the host rows of one solved chunk into ``results`` (and, with
+    the span recorder on, counts how its lanes ended: :func:`_count_lanes`)."""
+    if trace.enabled():
+        _count_lanes(kind, row, len(chunk))
     f, bad = row['f'], row['bad']
     for j, i in enumerate(chunk):
         p = problems[i]

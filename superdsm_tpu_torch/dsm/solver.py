@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from .._device import thread_device, to_device
+from .. import trace
 from . import gram, lane, mask
 
 #: Hard iteration caps (the reference instead relies on a 300 s SIGALRM
@@ -444,18 +445,20 @@ class _Graph:
         side.wait_stream(cur)
         self.graph = torch.cuda.CUDAGraph()
         mem0 = torch.cuda.memory_reserved(device)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side), gram.recording_launches() as records:
-            # thread_local: other threads' streams run on while this one
-            # captures (the batch CLI's and the mosaic's worker threads)
-            self.graph.capture_begin(pool=ctx['pool'],
-                                     capture_error_mode='thread_local')
-            try:
-                iteration()
-            finally:
-                t1 = time.perf_counter()
-                self.graph.capture_end()
-        t2 = time.perf_counter()
+        with trace.span('sdsm.loop.capture') as span:
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side), gram.recording_launches() as records:
+                # thread_local: other threads' streams run on while this one
+                # captures (the batch CLI's and the mosaic's worker threads)
+                self.graph.capture_begin(pool=ctx['pool'],
+                                         capture_error_mode='thread_local')
+                try:
+                    iteration()
+                finally:
+                    t1 = time.perf_counter()
+                    self.graph.capture_end()
+            t2 = time.perf_counter()
+            span.times(t0, t2)
         ctx['last'] = self.graph
         cur.wait_stream(side)
         self.records = records
@@ -944,37 +947,41 @@ def _pack_poly_group(problems, img_shape, params0=None,
     device outputs (the caller copies them to the host). ``use_mask``
     sends bit-packed crop masks (the caller guarantees that every
     problem's box fits: ``Problem.fits_mask``) instead of coordinates."""
-    OFF = np.zeros((Bp, 2), np.int32)
-    CNT = np.zeros((Bp,), np.int32)
-    YQ = np.zeros((Bp, pb), np.int16)
-    YS = np.zeros((Bp,), np.float32)
-    P0 = np.zeros((Bp, 6), np.float32)
-    if use_mask:
-        MB = np.zeros((Bp, (pb * MASK_BITS_PER_PIXEL) // 8), np.uint8)
-        WD = np.ones((Bp,), np.int32)
-    else:
-        PIX = np.zeros((Bp, pb, 2), np.int16)
-    for j, p in enumerate(problems):
-        npix = p.n_pixels
+    kind = 'poly-m' if use_mask else 'poly'
+    with trace.span('sdsm.solve.pack', kind=kind, lanes=len(problems)):
+        OFF = np.zeros((Bp, 2), np.int32)
+        CNT = np.zeros((Bp,), np.int32)
+        YQ = np.zeros((Bp, pb), np.int16)
+        YS = np.zeros((Bp,), np.float32)
+        P0 = np.zeros((Bp, 6), np.float32)
         if use_mask:
-            pm = p.packed_mask
-            MB[j, :len(pm)] = pm
-            WD[j] = p.crop_shape[1]
+            MB = np.zeros((Bp, (pb * MASK_BITS_PER_PIXEL) // 8), np.uint8)
+            WD = np.ones((Bp,), np.int32)
         else:
-            PIX[j, :npix] = p.pts
-        OFF[j] = p.offset
-        CNT[j] = npix
-        YQ[j, :npix] = p.yq
-        YS[j] = p.yscale
-        if params0 is not None and params0[j] is not None:
-            P0[j] = params0[j][:6]
-    denom = np.maximum(np.asarray(img_shape, np.float32) - 1.0, 1.0)
-    if use_mask:
-        return solve_on_devices(_solve_poly_packed_mask,
-                                (MB, WD, OFF, CNT, YQ, YS, denom, P0, maxiter, tol), devices)
-    return solve_on_devices(_solve_poly_packed,
-                            (PIX, OFF, CNT, YQ, YS, denom, P0, maxiter, tol),
-                            devices)
+            PIX = np.zeros((Bp, pb, 2), np.int16)
+        for j, p in enumerate(problems):
+            npix = p.n_pixels
+            if use_mask:
+                pm = p.packed_mask
+                MB[j, :len(pm)] = pm
+                WD[j] = p.crop_shape[1]
+            else:
+                PIX[j, :npix] = p.pts
+            OFF[j] = p.offset
+            CNT[j] = npix
+            YQ[j, :npix] = p.yq
+            YS[j] = p.yscale
+            if params0 is not None and params0[j] is not None:
+                P0[j] = params0[j][:6]
+        denom = np.maximum(np.asarray(img_shape, np.float32) - 1.0, 1.0)
+    with trace.span('sdsm.solve.dispatch', kind=kind, lanes=len(problems)):
+        if use_mask:
+            return solve_on_devices(_solve_poly_packed_mask,
+                                    (MB, WD, OFF, CNT, YQ, YS, denom, P0, maxiter, tol),
+                                    devices)
+        return solve_on_devices(_solve_poly_packed,
+                                (PIX, OFF, CNT, YQ, YS, denom, P0, maxiter, tol),
+                                devices)
 
 
 def pack_and_solve_poly(problems, img_shape, params0=None,

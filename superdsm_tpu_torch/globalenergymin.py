@@ -15,6 +15,7 @@ workers one object at a time.
 
 import numpy as np
 
+from . import trace
 from .pipeline import Stage
 from ._aux import join_path, mkdir, copy_dict
 from .output import get_output, Text
@@ -168,33 +169,35 @@ def _compute_generations(adjacencies, y_img, atoms_map, log_root_dir, pruning,
     atoms = [_candidate({label}) for label in sorted(adjacencies.atom_labels)]
     out.write('\nIteration 1:')
 
-    cluster_labels = sorted(adjacencies.cluster_labels)
-    universes = [_candidate(adjacencies.get_atoms_in_cluster(label))
-                 for label in cluster_labels]
-    # atoms and universes are solved in ONE batched pass (the reference runs
-    # two separate Ray fan-outs, globalenergymin.py:186-199)
-    compute_objects(atoms + universes, y_img, atoms_map, dsm_cfg,
-                    _get_generation_log_dir(log_root_dir, 1),
-                    ('Computing atom and universe costs',
-                     'Atom and universe costs computed'), out=out)
+    with trace.span('sdsm.gem.generation', number=1):
+        cluster_labels = sorted(adjacencies.cluster_labels)
+        universes = [_candidate(adjacencies.get_atoms_in_cluster(label))
+                     for label in cluster_labels]
+        # atoms and universes are solved in ONE batched pass (the reference runs
+        # two separate Ray fan-outs, globalenergymin.py:186-199)
+        compute_objects(atoms + universes, y_img, atoms_map, dsm_cfg,
+                        _get_generation_log_dir(log_root_dir, 1),
+                        ('Computing atom and universe costs',
+                         'Atom and universe costs computed'), out=out)
 
-    atom_by_label = {next(iter(c.footprint)): c for c in atoms}
-    directly_solved_cluster_labels = set()  # solved via Criterion 2
-    trivial_cluster_labels = set()          # universe cardinality 1 or 2
-    for cluster_label, universe in zip(cluster_labels, universes):
-        if len(universe.footprint) <= 2:
-            trivial_cluster_labels |= {cluster_label}
-        atoms_in_cluster = [atom_by_label[atom_label]
-                            for atom_label in adjacencies.get_atoms_in_cluster(cluster_label)]
-        if not all(atom.is_optimal for atom in atoms_in_cluster):
-            continue
-        atom_energies_sum = sum(atom.energy for atom in atoms_in_cluster)
-        # decision-quantized Criterion 2 (recompile stability, _stability.py)
-        if dq(universe.energy) <= dq(beta + atom_energies_sum):
-            directly_solved_cluster_labels |= {cluster_label}
+        atom_by_label = {next(iter(c.footprint)): c for c in atoms}
+        directly_solved_cluster_labels = set()  # solved via Criterion 2
+        trivial_cluster_labels = set()          # universe cardinality 1 or 2
+        for cluster_label, universe in zip(cluster_labels, universes):
+            if len(universe.footprint) <= 2:
+                trivial_cluster_labels |= {cluster_label}
+            atoms_in_cluster = [atom_by_label[atom_label]
+                                for atom_label in adjacencies.get_atoms_in_cluster(cluster_label)]
+            if not all(atom.is_optimal for atom in atoms_in_cluster):
+                continue
+            atom_energies_sum = sum(atom.energy for atom in atoms_in_cluster)
+            # decision-quantized Criterion 2 (recompile stability, _stability.py)
+            if dq(universe.energy) <= dq(beta + atom_energies_sum):
+                directly_solved_cluster_labels |= {cluster_label}
 
-    cover = MinSetCover(atoms, beta, adjacencies, max_iter=max_iter, gamma=gamma)
-    cover.update(universes, get_output(None).derive(muted=True))
+    with trace.span('sdsm.gem.setcover'):
+        cover = MinSetCover(atoms, beta, adjacencies, max_iter=max_iter, gamma=gamma)
+        cover.update(universes, get_output(None).derive(muted=True))
     costs = [cover.costs]
     out.write(f'Solution costs: {costs[-1]:,g}')
     out.write(f'Clusters solved directly: {len(directly_solved_cluster_labels)} / '
@@ -232,11 +235,12 @@ def _compute_generations(adjacencies, y_img, atoms_map, log_root_dir, pruning,
                                   f'or more)')
             out.write(f'{generation_label}: {Text.style(progress_text, Text.BOLD)}')
 
-            new_generation, new_objects = _process_generation(
-                cover, objects, generations[-1], y_img, atoms_map, adjacencies,
-                dsm_cfg, max_seed_distance,
-                _get_generation_log_dir(log_root_dir, generation_number),
-                pruning, directly_solved_cluster_labels, out)
+            with trace.span('sdsm.gem.generation', number=generation_number):
+                new_generation, new_objects = _process_generation(
+                    cover, objects, generations[-1], y_img, atoms_map, adjacencies,
+                    dsm_cfg, max_seed_distance,
+                    _get_generation_log_dir(log_root_dir, generation_number),
+                    pruning, directly_solved_cluster_labels, out)
             objects += new_objects
             performance.iterative_computed_object_count += len(new_objects)
 
@@ -244,7 +248,8 @@ def _compute_generations(adjacencies, y_img, atoms_map, log_root_dir, pruning,
                 break
             generations.append(new_generation)
 
-            cover.update(new_generation, get_output(None).derive(muted=True))
+            with trace.span('sdsm.gem.setcover'):
+                cover.update(new_generation, get_output(None).derive(muted=True))
             costs.append(cover.costs)
             out.write(f'Solution costs: {costs[-1]:,g}')
 

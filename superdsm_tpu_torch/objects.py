@@ -18,7 +18,9 @@ from .output import get_output
 from ._aux import copy_dict
 from .image import bbox as _bbox
 from .dsm.model import DeformableShapeModel, polynomial_basis
+from . import trace
 from ._device import on_cpu
+from .dsm import batching
 from .dsm.batching import make_problem, solve_problems
 
 
@@ -200,94 +202,94 @@ def compute_objects(objects, y, atoms, dsm_cfg, log_root_dir=None,
     dsm_cfg = copy_dict(dsm_cfg)
     dsm_cfg.pop('smooth_mat_max_allocations', None)
     objects = list(objects)
-    t0 = time.time()
+    t0 = time.perf_counter()
+    with trace.span('sdsm.objects.pack') as pack:
+        margin = dsm_cfg.get('background_margin', 20)
+        smooth_amount = dsm_cfg.get('smooth_amount', 10)
+        ring = _border_ring_coords(y.model.shape)
+        ring_basis = polynomial_basis(ring)
 
-    margin = dsm_cfg.get('background_margin', 20)
-    smooth_amount = dsm_cfg.get('smooth_amount', 10)
-    ring = _border_ring_coords(y.model.shape)
-    ring_basis = polynomial_basis(ring)
+        # crop-first region construction: the union-of-atoms bbox comes from
+        # per-atom bounding boxes, so each candidate costs O(crop) instead of a
+        # full-frame isin + EDT pass (semantics of Object.get_cvxprog_region)
+        from .image import Image as _Image
+        adm = y.mask & (_background_distance(y) <= margin)
+        atom_slices = ndi.find_objects(atoms)
 
-    # crop-first region construction: the union-of-atoms bbox comes from
-    # per-atom bounding boxes, so each candidate costs O(crop) instead of a
-    # full-frame isin + EDT pass (semantics of Object.get_cvxprog_region)
-    from .image import Image as _Image
-    adm = y.mask & (_background_distance(y) <= margin)
-    atom_slices = ndi.find_objects(atoms)
+        def _candidate_region(obj):
+            labels = list(obj.footprint)
+            boxes = [atom_slices[l - 1] for l in labels
+                     if 0 < l <= len(atom_slices) and atom_slices[l - 1] is not None]
+            if not boxes:
+                return None
+            r0 = min(b[0].start for b in boxes)
+            r1 = max(b[0].stop for b in boxes)
+            c0 = min(b[1].start for b in boxes)
+            c1 = max(b[1].stop for b in boxes)
+            sel = np.s_[r0:r1, c0:c1]
+            mask_crop = np.isin(atoms[sel], labels) & adm[sel]
+            return _Image(model=y.model[sel], mask=mask_crop, offset=(r0, c0))
 
-    def _candidate_region(obj):
-        labels = list(obj.footprint)
-        boxes = [atom_slices[l - 1] for l in labels
-                 if 0 < l <= len(atom_slices) and atom_slices[l - 1] is not None]
-        if not boxes:
-            return None
-        r0 = min(b[0].start for b in boxes)
-        r1 = max(b[0].stop for b in boxes)
-        c0 = min(b[1].start for b in boxes)
-        c1 = max(b[1].stop for b in boxes)
-        sel = np.s_[r0:r1, c0:c1]
-        mask_crop = np.isin(atoms[sel], labels) & adm[sel]
-        return _Image(model=y.model[sel], mask=mask_crop, offset=(r0, c0))
+        def _build_problem(idx, obj):
+            with trace.span('sdsm.objects.build'):
+                region = _candidate_region(obj)
+                if region is None or not region.mask.any() \
+                        or (region.model[region.mask] > 0).sum() == 1:
+                    # single-pixel foreground is just noise
+                    # (superdsm/objects.py:184-191)
+                    return None
+                problem = make_problem(
+                    region, img_shape=y.model.shape,
+                    smooth_amount=smooth_amount,
+                    gaussian_shape_multiplier=dsm_cfg.get('gaussian_shape_multiplier', 2),
+                    smooth_subsample=dsm_cfg.get('smooth_subsample', 20), tag=idx)
+                problem.init_params = _warm_start_params(obj, problem)
+                return problem
 
-    def _build_problem(idx, obj):
-        region = _candidate_region(obj)
-        if region is None or not region.mask.any() \
-                or (region.model[region.mask] > 0).sum() == 1:
-            # single-pixel foreground is just noise
-            # (superdsm/objects.py:184-191)
-            return None
-        problem = make_problem(
-            region, img_shape=y.model.shape,
-            smooth_amount=smooth_amount,
-            gaussian_shape_multiplier=dsm_cfg.get('gaussian_shape_multiplier', 2),
-            smooth_subsample=dsm_cfg.get('smooth_subsample', 20), tag=idx)
-        problem.init_params = _warm_start_params(obj, problem)
-        return problem
+        # problem construction is independent per object over shared read-only
+        # arrays, and its hot parts (argwhere/isin, the native subsample grid)
+        # release the GIL — threading cuts the pack phase ~2-3x (telemetry:
+        # pack= in [compute_objects])
+        if len(objects) > 3:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                built = list(pool.map(trace.carry(lambda io: _build_problem(*io)),
+                                      enumerate(objects)))
+        else:
+            built = [_build_problem(idx, obj) for idx, obj in enumerate(objects)]
 
-    # problem construction is independent per object over shared read-only
-    # arrays, and its hot parts (argwhere/isin, the native subsample grid)
-    # release the GIL — threading cuts the pack phase ~2-3x (telemetry:
-    # pack= in [compute_objects])
-    if len(objects) > 3:
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(max_workers=8) as pool:
-            built = list(pool.map(lambda io: _build_problem(*io),
-                                  enumerate(objects)))
-    else:
-        built = [_build_problem(idx, obj) for idx, obj in enumerate(objects)]
-
-    # Identical-footprint dedup: the first gem batch solves every singleton
-    # atom AND every cluster universe, and a single-atom cluster's universe
-    # is the SAME region as its atom — on a dense mosaic tile that halved
-    # the batch (392 -> 196 solves). Only cold problems dedup (warm starts
-    # differ by parent); results are copied to every aliased object, which
-    # also makes Criterion 2 exactly consistent for trivial clusters
-    # (previously the two solves of the same region could land on different
-    # creep plateaus — see _stability.py).
-    problems = []
-    alias = {}        # problems index -> [object index, ...]
-    canon_by_fp = {}  # footprint -> problems index (cold inits only)
-    trivial = []
-    for idx, (obj, problem) in enumerate(zip(objects, built)):
-        if problem is None:
-            trivial.append(idx)
-            obj.fg_offset = np.zeros(2, int)
-            obj.fg_fragment = np.zeros((1, 1), bool)
-            obj.energy = 0.
-            obj.on_boundary = False
-            obj.is_optimal = False
-            obj.processing_time = 0
-            continue
-        if problem.init_params is None:
-            fp = frozenset(obj.footprint)
-            j = canon_by_fp.get(fp)
-            if j is not None:
-                alias[j].append(idx)
+        # Identical-footprint dedup: the first gem batch solves every singleton
+        # atom AND every cluster universe, and a single-atom cluster's universe
+        # is the SAME region as its atom — on a dense mosaic tile that halved
+        # the batch (392 -> 196 solves). Only cold problems dedup (warm starts
+        # differ by parent); results are copied to every aliased object, which
+        # also makes Criterion 2 exactly consistent for trivial clusters
+        # (previously the two solves of the same region could land on different
+        # creep plateaus — see _stability.py).
+        problems = []
+        alias = {}        # problems index -> [object index, ...]
+        canon_by_fp = {}  # footprint -> problems index (cold inits only)
+        trivial = []
+        for idx, (obj, problem) in enumerate(zip(objects, built)):
+            if problem is None:
+                trivial.append(idx)
+                obj.fg_offset = np.zeros(2, int)
+                obj.fg_fragment = np.zeros((1, 1), bool)
+                obj.energy = 0.
+                obj.on_boundary = False
+                obj.is_optimal = False
+                obj.processing_time = 0
                 continue
-            canon_by_fp[fp] = len(problems)
-        alias[len(problems)] = [idx]
-        problems.append(problem)
+            if problem.init_params is None:
+                fp = frozenset(obj.footprint)
+                j = canon_by_fp.get(fp)
+                if j is not None:
+                    alias[j].append(idx)
+                    continue
+                canon_by_fp[fp] = len(problems)
+            alias[len(problems)] = [idx]
+            problems.append(problem)
 
-    _t_packed = time.time()
     results = solve_problems(
         problems,
         alpha=dsm_cfg.get('alpha', 0.5), epsilon=dsm_cfg.get('epsilon', 1.0),
@@ -301,45 +303,44 @@ def compute_objects(objects, y, atoms, dsm_cfg, log_root_dir=None,
         # on the CPU big rounds legitimately take minutes, so it is off
         timeout=None if on_cpu() else dsm_cfg.get('cp_timeout', 300))
 
-    dt = time.time() - t0
-    _t_solved = time.time()
-    fallbacks = 0
-    per_obj_time = dt / max(1, len(problems))
-    for p_idx, (prob, res) in enumerate(zip(problems, results)):
-        fg_local = res.fg if res.fg is not None else (res.surface > 0)
-        crop_shape = tuple(prob.pts.max(axis=0) + 1) if prob.n_pixels else (1, 1)
-        fg_crop = np.zeros(crop_shape, bool)
-        fg_crop[prob.pts[:, 0], prob.pts[:, 1]] = fg_local
-        if fg_crop.any():
-            fg_offset, fg_fragment = extract_foreground_fragment(fg_crop)
-            fg_offset = fg_offset + np.asarray(prob.offset)
-        else:
-            fg_offset = np.zeros(2, int)
-            fg_fragment = np.zeros((1, 1), bool)
-        theta = res.params[:6]
-        on_boundary = bool((ring_basis @ theta > 0).any())
-        sub_abs = prob.sub + np.asarray(prob.offset)[None, :] \
-            if prob.n_deform else np.zeros((0, 2), np.int32)
-        for n_shared, obj_idx in enumerate(alias[p_idx]):
-            obj = objects[obj_idx]
-            obj.fg_offset = fg_offset.copy() if n_shared else fg_offset
-            obj.fg_fragment = fg_fragment.copy() if n_shared else fg_fragment
-            obj.on_boundary = on_boundary
-            obj.energy = res.energy
-            obj.is_optimal = (res.status == 'optimal')
-            obj.processing_time = per_obj_time
-            # retain the solution for warm-starting objects grown from this
-            # one (footprint + one atom); theta transfers directly, xi by
-            # absolute subsample-point coordinates
-            obj._dsm_params = res.params
-            obj._dsm_sub_abs = sub_abs
-        if res.status == 'fallback':
-            fallbacks += 1
+    per_obj_time = (time.perf_counter() - t0) / max(1, len(problems))
+    with trace.span('sdsm.objects.unpack') as unpack:
+        fallbacks = 0
+        for p_idx, (prob, res) in enumerate(zip(problems, results)):
+            fg_local = res.fg if res.fg is not None else (res.surface > 0)
+            crop_shape = tuple(prob.pts.max(axis=0) + 1) if prob.n_pixels else (1, 1)
+            fg_crop = np.zeros(crop_shape, bool)
+            fg_crop[prob.pts[:, 0], prob.pts[:, 1]] = fg_local
+            if fg_crop.any():
+                fg_offset, fg_fragment = extract_foreground_fragment(fg_crop)
+                fg_offset = fg_offset + np.asarray(prob.offset)
+            else:
+                fg_offset = np.zeros(2, int)
+                fg_fragment = np.zeros((1, 1), bool)
+            theta = res.params[:6]
+            on_boundary = bool((ring_basis @ theta > 0).any())
+            sub_abs = prob.sub + np.asarray(prob.offset)[None, :] \
+                if prob.n_deform else np.zeros((0, 2), np.int32)
+            for n_shared, obj_idx in enumerate(alias[p_idx]):
+                obj = objects[obj_idx]
+                obj.fg_offset = fg_offset.copy() if n_shared else fg_offset
+                obj.fg_fragment = fg_fragment.copy() if n_shared else fg_fragment
+                obj.on_boundary = on_boundary
+                obj.energy = res.energy
+                obj.is_optimal = (res.status == 'optimal')
+                obj.processing_time = per_obj_time
+                # retain the solution for warm-starting objects grown from this
+                # one (footprint + one atom); theta transfers directly, xi by
+                # absolute subsample-point coordinates
+                obj._dsm_params = res.params
+                obj._dsm_sub_abs = sub_abs
+            if res.status == 'fallback':
+                fallbacks += 1
 
-    if os.environ.get('SDSM_SOLVE_TELEMETRY') == '1':
+    if batching._TELEMETRY:
         print(f'[compute_objects] n={len(objects)} problems={len(problems)} '
-              f'pack={_t_packed - t0:.3f}s solve={_t_solved - _t_packed:.3f}s '
-              f'unpack={time.time() - _t_solved:.3f}s',
+              f'pack={pack.end - pack.start:.3f}s solve={unpack.start - pack.end:.3f}s '
+              f'unpack={unpack.end - unpack.start:.3f}s',
               file=sys.stderr, flush=True)
 
     # per-object debug dump: SDSM_DEBUG_FOOTPRINT="3" (or "2,7") re-solves

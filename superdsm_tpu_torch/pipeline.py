@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 
+from . import trace
 from .output import get_output
 from .image import normalize_image
 from ._aux import mkdir
@@ -81,10 +82,13 @@ class Stage(object):
         out.intermediate(f'Starting stage "{self.name}"')
         self._callback('start', data)
         taken = {alias: data[key] for key, alias in self.inputs.items()}
-        t0 = time.time()
-        produced = self.process(taken, cfg=stage_cfg, out=out,
-                                log_root_dir=log_root_dir)
-        elapsed = time.time() - t0
+        with trace.span(f'sdsm.stage.{self.name}') as span:
+            t0 = time.perf_counter()
+            produced = self.process(taken, cfg=stage_cfg, out=out,
+                                    log_root_dir=log_root_dir)
+            t1 = time.perf_counter()
+            span.times(t0, t1)
+        elapsed = t1 - t0
         assert produced.keys() == self.outputs.keys(), \
             f'stage "{self.name}" generated unexpected output'
         for key, alias in self.outputs.items():
@@ -139,7 +143,8 @@ class Pipeline:
 
         :return: ``(data, cfg, timings)`` — the pipeline data object with all
             intermediate and final results, the hyperparameters used, and the
-            per-stage wall-clock timings in seconds.
+            per-stage wall-clock timings in seconds (the ``sdsm.stage.<name>``
+            spans' own clock reads, :mod:`.trace`).
 
         With ``first_stage`` set, ``data`` from a previous run must be passed
         and earlier stages are skipped (the batch pickup mechanism).
@@ -153,15 +158,17 @@ class Pipeline:
         lo, hi = self._stage_window(first_stage, last_stage)
         if first_stage is not None and last_stage is not None and lo > hi:
             return data, cfg, {}
-        if lo == 0:
-            data = self.init(g_raw, cfg)
-        else:
-            assert data is not None, 'data argument must be provided if first_stage is used'
-        timings = {}
-        for index, stage in enumerate(self.stages, start=1):
-            if lo <= index <= hi:
-                timings[stage.name] = stage(data, cfg, out=out,
-                                            log_root_dir=log_root_dir)
+        # a new image id, unless the caller (automation) opened the image
+        with trace.span(trace.IMAGE):
+            if lo == 0:
+                data = self.init(g_raw, cfg)
+            else:
+                assert data is not None, 'data argument must be provided if first_stage is used'
+            timings = {}
+            for index, stage in enumerate(self.stages, start=1):
+                if lo <= index <= hi:
+                    timings[stage.name] = stage(data, cfg, out=out,
+                                                log_root_dir=log_root_dir)
         return data, cfg, timings
 
     def init(self, g_raw, cfg):

@@ -213,17 +213,23 @@ def test_debug_restores_telemetry_after_early_failure(trees, monkeypatch):
 
 
 def test_debug_prints_telemetry(trees, tmp_path, monkeypatch, capsys):
+    """The lines come from the span recorder, which the task turns off
+    again and which holds none of the task's spans."""
+    from superdsm_tpu_torch import trace
     from superdsm_tpu_torch.dsm import batching
     root = tmp_path / 'root'
     shutil.copytree(trees['port'], root)
     monkeypatch.delenv('SDSM_SOLVE_TELEMETRY', raising=False)
     monkeypatch.setattr(batching, '_TELEMETRY', False)
+    trace.enable(False)
+    trace.drain()
     B.run_cli([str(root), '--run', '--no-fork', '--force', '--fresh', '--debug',
                '--task', 'taskA', '--last-stage', 'c2f-region-analysis',
                '--oneshot'])
     assert '[solve_problems]' in capsys.readouterr().err
     assert batching._TELEMETRY is False
     assert 'SDSM_SOLVE_TELEMETRY' not in os.environ
+    assert not trace.enabled() and trace.drain()['spans'] == []
 
 
 def test_mesh_is_refused(trees, capsys):

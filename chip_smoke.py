@@ -778,6 +778,141 @@ def _active(B, n_active):
     return active.cuda()
 
 
+#: Phase 3's shapes of the narrow gram (B, P, n): the cells' poly chunks
+#: (32 lanes of 16384 pixels, 64 of the shared bucket 24576, most of it
+#: zero-weight padding), DSM chunks at the K buckets 26 and 58, and the
+#: canonical re-solves at B = 1 and 2.
+NARROW_SHAPES = [(32, 16384, 6), (64, 24576, 6), (64, 2048, 32), (16, 8192, 64),
+                 (1, 2048, 32), (2, 6144, 64)]
+NARROW_SOURCE = 'superdsm_tpu_torch/csrc/gram_narrow.cu'
+#: The JAX package's XLA twin that the narrow kernel replaces (no Pallas
+#: kernel serves these sizes).
+NARROW_REPLACES = 'superdsm_tpu/dsm/solver.py:165'
+#: Published peak of one H100 SXM's float64 tensor cores (dense, 700 W).
+PEAK_FP64 = 67e12
+#: A narrow lane's g and H against the plain version: at most this many
+#: float32 ulps of the lane's largest entry of each.
+NARROW_ULPS = 2
+
+
+def _narrow_inputs(B, P, n, seed):
+    """``(Bf, s, yv, w, active)`` of a narrow shape on the card: at n = 6
+    poly lanes of 2% to 98% of the bucket (zero-weight padding after), else
+    :func:`_lane_features`' DSM lanes; every fourth lane frozen from B = 4."""
+    import torch
+    from superdsm_tpu_torch.dsm.solver import _poly_basis
+    rng = np.random.RandomState(seed)
+    dev = torch.device('cuda')
+    lanes = []
+    for _ in range(B):
+        if n == 6:
+            coords, _, _, _, yv, W, s = _lane_arrays(rng, P, 0)
+            keep = int(P * rng.uniform(0.02, 0.98))
+            yv[keep:] = 0.0
+            W[keep:] = 0.0
+            lanes.append((_poly_basis(torch.from_numpy(coords).to(dev)),
+                          *(torch.from_numpy(a).to(dev) for a in (s, yv, W))))
+        else:
+            lanes.append(_lane_features(rng, P, n - 6))
+    Bf, s, yv, w = (torch.stack(x).contiguous() for x in zip(*lanes))
+    active = _active(B, B - (B + 3) // 4) if B >= 4 else _active(B, B)
+    torch.cuda.synchronize()
+    return Bf, s, yv, w, active
+
+
+def _ulps(x, ref):
+    """Per lane: the largest ``|x - ref|`` in float32 ulps of the lane's
+    largest ``|ref|``."""
+    import torch
+    top = ref.abs().flatten(1).amax(dim=1).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(top.double())) - 23)
+    return ((x - ref).abs().flatten(1).amax(dim=1).double() / ulp)
+
+
+def _check_narrow(shape):
+    """The narrow gram at one shape: reproducible, frozen lanes zero, within
+    :data:`NARROW_ULPS` of the plain version, each checked lane bitwise the
+    same alone, in a batch of 2, in a batch of 64 and with every other lane
+    frozen; its ms beside the plain chain's, ``torch.bmm`` in float64 (the
+    library yardstick) and the bound."""
+    import torch
+    from superdsm_tpu_torch.dsm import gram
+    B, P, n = shape
+    Bf, s, yv, w, active = _narrow_inputs(B, P, n, seed=B + P + n)
+    kernel = lambda: gram.narrow_kernel(Bf, s, yv, w, active)
+    act = int((active != 0).sum())
+    tag = f'narrow ({B}, {P}, {n}), {act} active'
+    g, H = kernel()
+    g2, H2 = kernel()
+    torch.cuda.synchronize()
+    if not (torch.equal(g, g2) and torch.equal(H, H2)):
+        fail(f'{tag}: two runs differ (not reproducible)')
+    if not (torch.isfinite(g).all() and torch.isfinite(H).all()):
+        fail(f'{tag}: non-finite output')
+    frozen = active == 0
+    if g[frozen].any() or H[frozen].any():
+        fail(f'{tag}: frozen lanes are not exactly zero')
+    if not torch.equal(H, H.transpose(1, 2)):
+        fail(f'{tag}: H is not symmetric')
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active)
+    on = active != 0
+    ulps_h = float(_ulps(H[on], H_ref[on]).max())
+    ulps_g = float(_ulps(g[on], g_ref[on]).max())
+    err = max(float((g - g_ref).abs().max()), float((H - H_ref).abs().max()))
+    say(f'[kernel] {tag}: worst lane {ulps_h:.2f} ulps of its largest H entry, '
+        f'{ulps_g:.2f} of its largest g entry (<= {NARROW_ULPS}); max_abs_err {err:.3e}')
+    if ulps_h > NARROW_ULPS or ulps_g > NARROW_ULPS:
+        fail(f'{tag}: kernel disagrees with the plain version')
+    one = torch.ones(1, dtype=torch.int32, device=active.device)
+    reps = -(-64 // B)
+    big = [torch.cat([x] * reps)[:64].contiguous() for x in (Bf, s, yv, w, active)]
+    g64, H64 = gram.narrow_kernel(*big)
+    for b in sorted({int(i) for i in on.nonzero()[[0, -1], 0]}):
+        lane = [x[b:b + 1] for x in (Bf, s, yv, w)]
+        g1, H1 = gram.narrow_kernel(*lane, one)
+        pair = [torch.cat([x, x]) for x in lane]
+        gp, Hp = gram.narrow_kernel(*pair, torch.cat([one, one]))
+        alone_active = torch.zeros_like(active)
+        alone_active[b] = 1
+        gf, Hf = gram.narrow_kernel(Bf, s, yv, w, alone_active)
+        torch.cuda.synchronize()
+        same = [torch.equal(g1[0], g[b]) and torch.equal(H1[0], H[b]),
+                torch.equal(gp[1], g[b]) and torch.equal(Hp[1], H[b]),
+                torch.equal(g64[b], g[b]) and torch.equal(H64[b], H[b]),
+                torch.equal(gf[b], g[b]) and torch.equal(Hf[b], H[b])]
+        say(f'[kernel] {tag}: lane {b} bitwise the same alone, in a batch of 2, in '
+            f'a batch of 64, with every other lane frozen: {same}')
+        if not all(same):
+            fail(f'{tag}: lane {b} depends on its batch')
+    del g64, H64, big
+    ms = _event_ms(kernel)
+    call_ms = _call_ms(kernel)
+    plain_ms = _event_ms(lambda: gram.grad_hess_plain(Bf, s, yv, w, active))
+    keep = on.nonzero()[:, 0]
+    A = Bf[keep].double()
+    _, kappa = gram._logistic_weights(s[keep], yv[keep], w[keep])
+    Ak = (A * kappa.double()[..., None]).transpose(1, 2)
+    library_ms = _event_ms(lambda: torch.bmm(Ak, A))
+    del A, Ak
+    # least time: the active lanes' weighted pixels read once, H and g
+    # written once; H's triangle and g in float64 at the tensor cores' peak
+    pix = float((w[keep] != 0).sum())
+    ops = 2.0 * pix * (n * (n + 1) / 2 + n)
+    nbytes = 4.0 * (pix * (n + 3) + B + B * (n + n * n))
+    t_ops, t_bytes = ops / PEAK_FP64, nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = 'operations' if t_ops >= t_bytes else 'bytes'
+    segments = gram.narrow_plan(P, n)[1]
+    say(f'[kernel] {tag}: kernel {ms:.4f} ms ({segments} pixel segment'
+        f'{"s" if segments > 1 else ""}; {call_ms:.4f} ms a single call with its host '
+        f'overhead), plain {plain_ms:.4f} ms, library (float64 bmm) {library_ms:.4f} ms, '
+        f'bound {bound_ms:.4f} ms by {bound_by}: {bound_ms / ms:.1%} of the bound')
+    return dict(max_abs_err=err, ulps_h=ulps_h, ulps_g=ulps_g, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                library_ms=library_ms, call_ms=call_ms, shape=[B, P, n], active=act,
+                segments=segments)
+
+
 #: Main-path shapes of the lane kernels (``csrc/lane_ops.cu``), the table's
 #: row first: ``lane_matvec`` (B, P, n) at the banded table chunk's line
 #: search (u = Bf delta), a poly chunk, a B = 1 re-solve, the smallest DSM
@@ -2197,8 +2332,8 @@ def _check_logaddexp(chunk=1 << 28):
 def phase_kernels():
     """Phase 3: every launch of :func:`_cases`; a route's row is its table
     shape's, and its launches at the other shapes are listed under it as
-    ``other_shapes``; then the softplus device function over all 2^32
-    inputs, the lane kernels at :data:`LANE_SHAPES`, ``lane_pcg`` at
+    ``other_shapes``; then the narrow gram at :data:`NARROW_SHAPES`, the
+    softplus device function over all 2^32 inputs, the lane kernels at :data:`LANE_SHAPES`, ``lane_pcg`` at
     :data:`PCG_SHAPES`, ``lane_cholesky`` at :data:`CHOL_SHAPES`,
     ``lane_lm_system`` at :data:`LM_SHAPES`, ``lane_step_guard`` at
     :data:`GUARD_SHAPES`, the direction launch at :data:`DIRECTION_SHAPES`
@@ -2224,6 +2359,9 @@ def phase_kernels():
                 rows[route]['other_shapes'].append(row)
         del Bf, s, yv, w, active, band
         torch.cuda.empty_cache()
+    narrow = [_check_narrow(shape) for shape in NARROW_SHAPES]
+    rows['narrow'] = dict(narrow[0], other_shapes=narrow[1:])
+    torch.cuda.empty_cache()
     _check_logaddexp()
     for name, shapes in LANE_SHAPES.items():
         row = _check_lane(name, shapes[0])
@@ -2641,7 +2779,7 @@ def _profiled(fn):
 
 #: Kernel families of a profile, by substrings of the kernels' names (the
 #: first that matches; else 'elementwise and reductions').
-KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce')),
+KERNEL_FAMILIES = (('gram kernel', ('gram_grad_hess', 'gram_reduce', 'gram_narrow')),
                    ('lane_pcg', ('lane_pcg',)),
                    ('lane_cholesky', ('lane_cholesky',)),
                    ('lane_lm_system', ('lane_lm_system',)),
@@ -2929,8 +3067,11 @@ def phase_profile(g):
         f'launches), {gram_ms / busy_ms:.1%} of the device busy time')
     hist = collections.Counter()
     for (B, P, n), active, banded, passes, full in records:
-        route = gram.route_for(n, banded, passes, full)
-        segments = gram.split_plan(B, P, n, passes, full)[1]
+        if n in gram.NARROW_N:
+            route, segments = 'narrow', gram.narrow_plan(P, n)[1]
+        else:
+            route = gram.route_for(n, banded, passes, full)
+            segments = gram.split_plan(B, P, n, passes, full)[1]
         hist[(B, int((active != 0).sum()), P, n, route, segments)] += 1
     say('[profile] gram launches by (B, active lanes, P, n, route, pixel '
         'segments), most frequent first:')
@@ -2984,7 +3125,7 @@ def _profiled_launches(rows, hist, lane_hist):
                 say(f'[profile] {route} {tuple(one["shape"])}: '
                     f'{one["launches_at_shape"]} launches in the profiled bench image')
             continue
-        if route not in REPLACES:  # the mask decode: no launch histogram
+        if route not in REPLACES and route != 'narrow':  # the mask decode: no histogram
             continue
         for other in row['other_shapes']:
             B, P, n = other['shape']
@@ -3037,8 +3178,16 @@ def phase_main_path():
     mask.reset_launch_counts()
     solver.reset_loop_stats()
     solver.reset_transfers()
-    data, seg, _, timings, seconds = _segment(g, 12)
+    with _plain_calls() as plain_calls:
+        data, seg, _, timings, seconds = _segment(g, 12)
     launches = dict(gram.LAUNCHES, **lane.LAUNCHES, **mask.LAUNCHES)
+    say(f'[main] narrow gram launches {launches["narrow"]}; grams on the card that took '
+        f'the plain version at n in {gram.NARROW_N} with 6 passes: {plain_calls}')
+    if launches['narrow'] == 0:
+        fail('the main path left the narrow gram unlaunched')
+    if plain_calls:
+        fail(f'the main path took the plain gram on the card at n in {gram.NARROW_N}: '
+             f'{plain_calls}')
     mask_calls = sum(v['calls'] for k, v in solver.TRANSFERS.items() if k.endswith('-m'))
     say(f'[main] mask_to_pix launches {launches["mask_to_pix"]}, mask-transfer solve calls '
         f'{mask_calls}')
@@ -3257,21 +3406,42 @@ def _decode_cost():
 
 
 @contextlib.contextmanager
+def _plain_calls():
+    """Counts, by shape, the enclosed block's calls of the plain gram on
+    CUDA tensors at the narrow kernel's sizes with 6 passes (the main path
+    makes none: the narrow kernel serves them); yields the counter."""
+    import collections
+    from superdsm_tpu_torch.dsm import gram
+    plain = gram.grad_hess_plain
+    calls = collections.Counter()
+
+    def counted(Bf, s, yv, w, active=None, passes=6, mirror=False):
+        if Bf.is_cuda and Bf.shape[-1] in gram.NARROW_N and passes == 6:
+            calls[tuple(Bf.shape)] += 1
+        return plain(Bf, s, yv, w, active, passes=passes, mirror=mirror)
+    gram.grad_hess_plain = counted
+    try:
+        yield calls
+    finally:
+        gram.grad_hess_plain = plain
+
+
+@contextlib.contextmanager
 def _plain_gram():
     """Routes every gram of the enclosed block through the plain version
     (:func:`superdsm_tpu_torch.dsm.gram.grad_hess_plain`, float64 pixel
-    sums) instead of a kernel."""
+    sums) instead of a kernel, the narrow one included."""
     from superdsm_tpu_torch.dsm import gram
-    kernel = gram.grad_hess_kernel
+    kernels = gram.grad_hess_kernel, gram.narrow_kernel
 
     def plain(Bf, s, yv, w, active, band=None, passes=6, full=False):
         return gram.grad_hess_plain(Bf, s, yv, w, active, passes=passes,
                                     mirror=passes != 6 and not full)
-    gram.grad_hess_kernel = plain
+    gram.grad_hess_kernel = gram.narrow_kernel = plain
     try:
         yield
     finally:
-        gram.grad_hess_kernel = kernel
+        gram.grad_hess_kernel, gram.narrow_kernel = kernels
 
 
 def _leaves(entries, prefix=''):
@@ -4056,10 +4226,17 @@ def phase_mesh(bench_seg):
     B, P = MESH_POLY_SHAPE
     coords, _, _, _, yv, w, _ = _mesh_problems(B, P, 0)
     p0 = np.zeros((B, 6), np.float32)
+    gram.reset_launch_counts()
     t0 = time.time()
     (p2, f2, c2), loop = _sharded(newton.make_sharded_poly_solver(mesh2), (p0, coords, yv, w))
+    launches = {k: v for k, v in gram.LAUNCHES.items() if v}
     say(f'[mesh] sharded poly {MESH_POLY_SHAPE + (6,)} over {mesh2.shape}: '
-        f'{time.time() - t0:.2f} s, {_loop_line(loop)}, {int(c2.sum())}/{B} lanes converged')
+        f'{time.time() - t0:.2f} s, {_loop_line(loop)}, gram launches {launches}, '
+        f'{int(c2.sum())}/{B} lanes converged')
+    # the shards' n = 6 grams are narrow launches, one a shard an iteration
+    if loop['iterations'] == 0 or launches != {'narrow': 2 * loop['iterations']}:
+        fail(f'sharded poly: gram launches {launches} for {loop["iterations"]} Newton '
+             'iterations of two shards (one narrow launch per shard per iteration expected)')
     _graph_against_host(f'sharded poly {MESH_POLY_SHAPE + (6,)} over {mesh2.shape}',
                         newton.make_sharded_poly_solver(mesh2), (p0, coords, yv, w),
                         (p2, f2, c2))
@@ -4202,9 +4379,12 @@ LIBRARY_ROUTE_CASES = [(2048, (2, 3, 5, 64, 256)), (32768, (2, 5, 64, 256)),
 
 def _library_routes_across_batches():
     """The calls that the solver makes on the card for a whole batch (a
-    batch of one as the same lane twice): the n = 6 float64 gram of
-    ``gram.grad_hess_plain`` and ``solver._lsq_init``'s float64 products and
-    6x6 ``solve_ex``. Every lane of a batch bitwise equal to that lane
+    batch of one as the same lane twice): ``solver._lsq_init``'s float64
+    products and 6x6 ``solve_ex``, and the n = 6 float64 gram of
+    ``gram.grad_hess_plain``, which no solve on the card takes at 6 passes
+    since the narrow kernel: it is the oracle that ``_plain_gram()`` swaps
+    in (phase 4's seed 3 and ``card_labels.py``), whose lanes must not
+    depend on their batch either. Every lane of a batch bitwise equal to that lane
     alone, at each of :data:`LIBRARY_ROUTE_CASES`."""
     import torch
     from superdsm_tpu_torch.dsm import gram, solver
@@ -5551,6 +5731,9 @@ def main():
     table += [dict(name=f'lane_ops/{name}', route='cuda', source=LANE_SOURCE,
                    replaces=DIRECTION_REPLACES[name], launches=launches[name], **kernels[name])
               for name in DIRECTION_KERNELS]
+    table.append(dict(name='gram_narrow/narrow', route='cuda', source=NARROW_SOURCE,
+                      replaces=NARROW_REPLACES, launches=launches['narrow'],
+                      **kernels['narrow']))
     table.append(dict(name='mask_ops/mask_to_pix', route='cuda', source=MASK_SOURCE,
                       replaces=MASK_REPLACES, launches=launches['mask_to_pix'],
                       **kernels['mask_to_pix']))

@@ -10,22 +10,28 @@ feature matrix ``Bf (P, n)``, the carried surface ``s`` and data ``yv, w``::
 
 Two implementations of the same function live here:
 
-- :func:`grad_hess_kernel`, the hand-written CUDA kernels, compiled with
-  ``nvcc`` for ``sm_90a`` into the build directory on first use and bound
-  with ``ctypes``: ``csrc/gram_grad_hess.cu`` (float32 products) and
-  ``csrc/gram_grad_hess_bf16.cu`` (bf16 tensor-core products, 1 or 3
-  passes);
+- :func:`grad_hess_kernel` and :func:`narrow_kernel`, the hand-written CUDA
+  kernels, compiled with ``nvcc`` for ``sm_90a`` into the build directory on
+  first use and bound with ``ctypes``: ``csrc/gram_grad_hess.cu`` (float32
+  products, n % 128 == 0), ``csrc/gram_grad_hess_bf16.cu`` (bf16
+  tensor-core products, 1 or 3 passes) and ``csrc/gram_narrow.cu`` (float64
+  products, the sizes n = 6, 32 and 64 of :data:`NARROW_N`);
 - :func:`grad_hess_plain`, the plain PyTorch version (batched matmuls with
-  float64 sums), which the solver also uses for the sizes the kernels do
-  not serve (n = 6, 32, 64).
+  float64 sums): the CPU path, the kernels' oracle, and on the card the
+  gram at the sizes of :data:`NARROW_N` under the reduced-precision knobs.
 
-:func:`fused_grad_hess_batched` dispatches: a CPU tensor takes the plain
-version; a CUDA tensor launches a kernel or raises — there is no fallback.
-It keeps the JAX package's selection rule (``pallas_kernels.py``): the
-kernels serve n % 128 == 0, in banded mode for n in {512, 1024} when a band
-table is given, in triangle mode for 256 <= n <= 1024 otherwise and in
-dense mode at n = 128 and 2048; ``cheap`` (the early iterations of the
-hybrid schedule) takes the 1-pass dense gram at every n.
+:func:`fused_grad_hess_batched` dispatches, and owns the choice of route
+(:func:`serves` says which shapes the Newton loops send it): a CPU tensor
+takes the plain version; a CUDA tensor launches a kernel or raises — there
+is no fallback — except at n in :data:`NARROW_N` under the
+reduced-precision knobs, where the plain version is the route, as the JAX
+package's XLA path is there. At n % 128 == 0 it keeps the JAX package's selection rule
+(``pallas_kernels.py``): the kernels serve n % 128 == 0, in banded mode for
+n in {512, 1024} when a band table is given, in triangle mode for
+256 <= n <= 1024 otherwise and in dense mode at n = 128 and 2048; ``cheap``
+(the early iterations of the hybrid schedule) takes the 1-pass dense gram
+at every n. At n in :data:`NARROW_N` with 6 passes it launches the narrow
+kernel, which replaces the JAX package's XLA twin ``_data_grad_hess`` there.
 
 Precision knobs, read from the environment at import as in the JAX package
 and at every call from these module attributes (tests set them):
@@ -36,7 +42,7 @@ and at every call from these module attributes (tests set them):
 - :data:`HYBRID_ITERS` (``SDSM_GRAM_HYBRID_ITERS``): the solver's first
   this many Newton iterations take ``cheap=True``.
 
-Both kernels split the pixel loop across blocks when a launch has too
+Both tiled kernels split the pixel loop across blocks when a launch has too
 few (lane, tile pair) work items to fill the card (split-P,
 :func:`split_plan`). Each pixel segment sums its float64 partial into
 scratch that :func:`grad_hess_kernel` allocates, and a second kernel sums
@@ -46,7 +52,9 @@ kernel takes that path at one segment too; the bf16 kernel writes ``H`` and
 take twice the bytes of ``H``). Both kernels' plans depend on ``(P, n)``
 only, so a lane's sums are the same in every batch; their lanes launch in
 groups when the scratch would pass its cap. Neither plan depends on how
-many lanes are active.
+many lanes are active. The narrow kernel splits by its own plan
+(:func:`narrow_plan`, from ``(P, n)`` too) and sums the segments in the
+same launch: the last block of a lane to finish sums them in order.
 
 Every launch adds one to :data:`LAUNCHES` under the route it stands for
 (:func:`count_replayed` adds a captured CUDA graph's launches at each
@@ -54,7 +62,7 @@ replay):
 ``'dense'`` (the full dense Pallas kernel, n = 128 and n = 2048),
 ``'triangle'`` (the triangle-blocked one, 256 <= n <= 1024 without a band)
 and ``'banded'``, each with a ``-3pass`` or ``-1pass`` suffix for the
-reduced-precision bodies.
+reduced-precision bodies, and ``'narrow'`` (n in :data:`NARROW_N`).
 """
 
 import contextlib
@@ -124,10 +132,55 @@ HYBRID_ITERS = int(os.environ.get('SDSM_GRAM_HYBRID_ITERS', '0'))
 
 _ROUTES = ('dense', 'triangle', 'banded')
 
-#: Kernel launches per route; only :func:`grad_hess_kernel` adds to them,
-#: through :func:`_count_launch` (worker threads launch concurrently).
+#: Problem sizes n = 6 + K that the narrow kernel serves: the 6-parameter
+#: solves and the DSM lanes of the two smallest K buckets (26, 58).
+NARROW_N = (6, 32, 64)
+#: Pixel rows of the narrow kernel's chunk (one stage of its copy ring) by n:
+#: a row a thread at n = 6, two 4-row k-steps a warp at n = 32 and 64
+#: (checked against the compiled library on load).
+NARROW_ROWS = {6: 256, 32: 64, 64: 64}
+#: Pixels of a narrow segment (:func:`narrow_plan`), a block's share of a
+#: lane: 48, 64 and 128 KB of features at n = 6, 32 and 64, so that a
+#: bucket's batch fills the card and a B = 1 or 2 re-solve still runs on
+#: several SMs ...
+NARROW_SEG_PIXELS = {6: 2048, 32: 512, 64: 512}
+#: ... and at most this many segments a lane (a longer lane takes longer
+#: segments), so that the block summing a lane's segments stays short ...
+NARROW_MAX_SEGMENTS = 64
+#: ... and at most this many chunks a segment (the kernel's live-chunk
+#: flags; P up to 2^21 at every n).
+NARROW_MAX_SEG_CHUNKS = 1024
+
+
+def narrow_entries(n):
+    """float64 entries of one narrow segment's partial: at n = 6 the upper
+    triangle of H, else every 8 x 8 tile of its upper triangle of tiles
+    whole; then g."""
+    if n == 6:
+        return n * (n + 1) // 2 + n
+    nt = n // 8
+    return nt * (nt + 1) // 2 * 64 + n
+
+
+def narrow_plan(P, n):
+    """The narrow kernel's split of a lane's pixels: ``(seg_chunks,
+    n_segments)`` from ``(P, n)`` alone (P padded up to whole chunks).
+
+    Segments of :data:`NARROW_SEG_PIXELS` pixels, longer where the lane
+    would otherwise take more than :data:`NARROW_MAX_SEGMENTS`. No batch
+    size and no count of active lanes enters: a lane's float64 partials are
+    summed over the same segments in the same order in every batch."""
+    rows = NARROW_ROWS[n]
+    nchunks = -(-P // rows)
+    seg = max(NARROW_SEG_PIXELS[n] // rows, -(-nchunks // NARROW_MAX_SEGMENTS))
+    return seg, -(-nchunks // seg)
+
+#: Kernel launches per route; only :func:`grad_hess_kernel` and
+#: :func:`narrow_kernel` add to them, through :func:`_count_launch` (worker
+#: threads launch concurrently).
 LAUNCHES = {f'{route}{suffix}': 0 for suffix in ('', '-3pass', '-1pass')
             for route in _ROUTES}
+LAUNCHES['narrow'] = 0
 
 #: The last ``nvcc`` build's output per source (``-Xptxas -v``: registers,
 #: shared memory, spills).
@@ -160,8 +213,14 @@ _KERNELS = {
     # the bit-packed crop masks' decode (superdsm_tpu_torch.dsm.mask)
     'mask_ops.cu': ('libsdsm_mask.so', 'sdsm_mask', {'to_pix': (4, 3)},
                     dict(cluster=8, threads=256)),
+    # the gram at n in NARROW_N: pointers Bf, s, yv, w, active, g, H,
+    # scratch, arrivals; ints B, P, n, seg_chunks
+    'gram_narrow.cu': ('libsdsm_gram_narrow.so', 'sdsm_gram_narrow', {'grad_hess': (9, 4)},
+                       dict(max_seg_chunks=NARROW_MAX_SEG_CHUNKS,
+                            **{f'rows_{n}': NARROW_ROWS[n] for n in NARROW_N},
+                            **{f'entries_{n}': narrow_entries(n) for n in NARROW_N})),
 }
-_F32_SRC, _BF16_SRC, LANE_SRC, MASK_SRC = _KERNELS
+_F32_SRC, _BF16_SRC, LANE_SRC, MASK_SRC, NARROW_SRC = _KERNELS
 LANE_CONSTANTS = _KERNELS[LANE_SRC][3]
 
 _lock = threading.Lock()
@@ -579,10 +638,68 @@ def grad_hess_kernel(Bf, s, yv, w, active, band=None, passes=6, full=False):
     return g, H
 
 
+def narrow_kernel(Bf, s, yv, w, active):
+    """Launches the narrow CUDA kernel (n in :data:`NARROW_N`, float64
+    products and sums) on the current stream; returns ``(g, H)``.
+
+    A lane's pixels are padded with zero-weight rows up to whole chunks of
+    :data:`NARROW_ROWS` (no bucket needs it); they add exact zeros."""
+    B, P, n = Bf.shape
+    dev = Bf.device
+    if dev.type != 'cuda':
+        raise ValueError(f'narrow_kernel needs CUDA tensors, got {dev}')
+    if n not in NARROW_N:
+        raise ValueError(f'the narrow kernel serves n in {NARROW_N}, got n={n}')
+    f32 = torch.float32
+    _check('Bf', Bf, f32, (B, P, n), dev)
+    for name, t in (('s', s), ('yv', yv), ('w', w)):
+        _check(name, t, f32, (B, P), dev)
+    _check('active', active, torch.int32, (B,), dev)
+    pad = -P % NARROW_ROWS[n]
+    if pad:
+        pad2 = torch.nn.functional.pad
+        Bf = pad2(Bf, (0, 0, 0, pad))
+        s, yv, w = (pad2(t, (0, pad)) for t in (s, yv, w))
+        P += pad
+    for name, t in (('Bf', Bf), ('s', s), ('yv', yv), ('w', w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned')
+    lib = _load(NARROW_SRC)
+    g = torch.empty((B, n), dtype=f32, device=dev)
+    H = torch.empty((B, n, n), dtype=f32, device=dev)
+    seg_chunks, nsegs = narrow_plan(P, n)
+    part = arrivals = None
+    if nsegs > 1:
+        part = torch.empty((B * nsegs * narrow_entries(n),), dtype=torch.float64, device=dev)
+        arrivals = torch.empty((B,), dtype=torch.int32, device=dev)  # zeroed by the library
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sdsm_gram_narrow_grad_hess(
+            *(t.data_ptr() for t in (Bf, s, yv, w, active, g, H)),
+            None if part is None else part.data_ptr(),
+            None if arrivals is None else arrivals.data_ptr(),
+            B, P, n, seg_chunks, stream)
+    if err != 0:
+        raise RuntimeError(f'narrow gram kernel launch failed: CUDA error {err}')
+    _count_launch('narrow', ((B, P, n), active, False, 6, False))
+    return g, H
+
+
+def serves(n, P):
+    """Whether :func:`fused_grad_hess_batched` takes the gram of ``P``
+    pixels at size ``n``: at n % 128 == 0 with P % 256 == 0 (the JAX
+    package's Pallas condition) and at every P for n in :data:`NARROW_N`
+    (the narrow kernel pads P). The Newton loops take the plain version
+    for any other shape."""
+    return n in NARROW_N or (n % 128 == 0 and P % 256 == 0)
+
+
 def fused_grad_hess_batched(Bf, s, yv, w, active=None, band=None, cheap=False):
     """Fused logistic gradient and Gauss-Newton Hessian, batched.
 
-    :param Bf: (B, P, n) float32 feature matrices, n a multiple of 128.
+    :param Bf: (B, P, n) float32 feature matrices, n a multiple of 128 or
+        in :data:`NARROW_N` (the narrow kernel on the card at 6 passes, the
+        plain version under the reduced-precision knobs and ``cheap``).
     :param s, yv, w: (B, P) float32 surface, intensities, pixel weights.
     :param active: optional (B,) per-lane activity flag (1 = compute);
         frozen lanes return zeros (the Newton driver discards their g/H).
@@ -602,11 +719,17 @@ def fused_grad_hess_batched(Bf, s, yv, w, active=None, band=None, cheap=False):
     # B1's reduced-precision bodies compute every block pair straight; B2
     # and B3 mirror the lower blocks
     full = cheap or (passes != 6 and route_for(n, False) == 'dense')
-    if Bf.device.type == 'cpu':
+    # the CPU, and the reduced-precision knobs at the narrow sizes (the JAX
+    # package's XLA path there): the plain version
+    if Bf.device.type == 'cpu' or (n in NARROW_N and passes != 6):
         return grad_hess_plain(Bf, s, yv, w, active, passes=passes,
                                mirror=passes != 6 and not full)
+    if n in NARROW_N:
+        return narrow_kernel(Bf.contiguous(), s.contiguous(), yv.contiguous(),
+                             w.contiguous(), active.contiguous())
     if n % 128:
-        raise ValueError(f'the gram kernel serves n % 128 == 0, got n={n}')
+        raise ValueError(f'the gram kernels serve n % 128 == 0 and n in {NARROW_N}, '
+                         f'got n={n}')
     use_band = band if n in BANDED_N and not full else None
     return grad_hess_kernel(Bf.contiguous(), s.contiguous(), yv.contiguous(),
                             w.contiguous(), active.contiguous(), use_band,

@@ -41,9 +41,8 @@ Every product, sum and factorization of a lane goes through
 :mod:`superdsm_tpu_torch.dsm.lane` (fixed order) or a library call whose
 batched route gives each lane its own bits, so a lane's result does not
 depend on its batch. The Newton
-gram at n % 128 == 0 goes through
-:func:`superdsm_tpu_torch.dsm.gram.fused_grad_hess_batched` (the CUDA kernel
-on the card).
+gram goes through :func:`superdsm_tpu_torch.dsm.gram.fused_grad_hess_batched`
+(a CUDA kernel on the card) at every shape that ``gram.serves``.
 """
 
 import contextlib
@@ -504,14 +503,14 @@ def _solve_batch_impl(params0, Q, G, yv, w, alpha, epsilon, kmask, maxiter, tol,
         band = gram.band_ranges(Bf, w)
 
     def grad_hess_b(s, active, cheap):
-        if use_kernel:
+        if gram.serves(n_total, P):
             return gram.fused_grad_hess_batched(Bf, s, yv, w, active=active,
                                                 band=band, cheap=cheap)
         # the JAX package's XLA path at GRAM_PRECISION (a straight product)
         return gram.grad_hess_plain(Bf, s, yv, w, passes=gram.GRAM_PASSES)
 
     # the first HYBRID_ITERS iterations take the 1-pass dense gram, where
-    # the kernel serves the shape (the JAX package's Pallas condition)
+    # the tiled kernels serve the shape (the JAX package's Pallas condition)
     hybrid_iters = gram.HYBRID_ITERS if use_kernel else 0
     graphed = Bf.is_cuda and _eager['depth'] == 0
 

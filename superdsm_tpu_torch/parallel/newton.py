@@ -15,8 +15,8 @@ parameters. The line search and the scale sweep reduce their candidate
 energies the same way.
 
 The local ``g`` and ``H`` come from the port's gram path
-(:func:`superdsm_tpu_torch.dsm.gram.fused_grad_hess_batched`, the float32
-CUDA kernel on the card where the shard's ``(P, n)`` serve it, otherwise
+(:func:`superdsm_tpu_torch.dsm.gram.fused_grad_hess_batched`, a CUDA
+kernel on the card where the shard's ``(P, n)`` serve it, otherwise
 :func:`~superdsm_tpu_torch.dsm.gram.grad_hess_plain` with float64 pixel
 sums), as in :func:`superdsm_tpu_torch.dsm.solver._solve_batch_impl`:
 float32 pixel sums stall the Levenberg-Marquardt loop. The step keeps the
@@ -64,8 +64,8 @@ class _Shard:
     def __init__(self, device, Bf, yv, w):
         self.device, self.Bf, self.yv, self.w = device, Bf, yv, w
         B, P, n = Bf.shape
-        self.use_kernel = n % 128 == 0 and P % 256 == 0
-        self.band = (gram.band_ranges(Bf, w) if self.use_kernel and Bf.is_cuda
+        self.dispatched = gram.serves(n, P)
+        self.band = (gram.band_ranges(Bf, w) if self.dispatched and Bf.is_cuda
                      and n in gram.BANDED_N else None)
 
     def surface(self, params):
@@ -75,7 +75,7 @@ class _Shard:
         """Local surface, data energy, g and H of the shard's pixels."""
         s = self.surface(params)
         data = lane.softplus_energies(s, self.yv, self.w)
-        if self.use_kernel:
+        if self.dispatched:
             g, H = gram.fused_grad_hess_batched(
                 self.Bf, s, self.yv, self.w, active=active.to(self.device),
                 band=self.band)

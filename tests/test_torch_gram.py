@@ -323,8 +323,8 @@ def test_knobs_read_from_environment():
     passes, hybrid, routes = proc.stdout.split(' ', 2)
     assert (passes, hybrid) == ('3', '16')
     assert routes.strip() == str(sorted(
-        f'{r}{p}' for r in ('dense', 'triangle', 'banded')
-        for p in ('', '-3pass', '-1pass')))
+        [f'{r}{p}' for r in ('dense', 'triangle', 'banded')
+         for p in ('', '-3pass', '-1pass')] + ['narrow']))
     proc = run(SDSM_GRAM_PASSES='2')
     assert proc.returncode != 0 and 'SDSM_GRAM_PASSES' in proc.stderr
 
@@ -529,3 +529,296 @@ def test_split_plan_does_not_read_the_batch(B, P, n, splits, passes, full):
     batch."""
     plans = {gram.split_plan(b, P, n, passes, full) for b in (1, 2, 16, 64)}
     assert len(plans) == 1, plans
+
+
+# ---------------------------------------------------------------------------
+# The narrow kernel (n = 6, 32, 64): its plan and the order of its float64
+# sums. The kernel runs only on the card (tests/test_torch_kernel_cuda.py
+# holds it to the plain version, tests its skip of zero-weight chunks on
+# NaN and its lanes bitwise alone and in batches); here a plain-torch model
+# of its segments, chunks, warps and lanes. The cases on the model check
+# the plan and the model only: nothing here runs the kernel, and the model
+# departs from it where the docstring of _narrow_emulation says.
+# ---------------------------------------------------------------------------
+
+#: (B, P, n): one lane at the largest shared poly bucket and at the smallest
+#: DSM bucket, the canonical re-solves' pairs, and a bucket's full batch.
+NARROW_CASES = [(1, 32768, 6), (2, 6144, 6), (64, 2048, 6),
+                (1, 2048, 32), (2, 8192, 32), (64, 2048, 32),
+                (1, 32768, 64), (2, 6144, 64), (64, 2048, 64)]
+
+
+def _narrow_problem(seed, B, P, n):
+    """B lanes of a narrow gram: random features, weights 1 on the first
+    10% to 95% of the pixels and 0 on the padded tail (where the solver's
+    intensities are 0 too), the last lane frozen from B = 2."""
+    rng = np.random.RandomState(seed)
+    Bf = (rng.rand(B, P, n) - 0.5).astype(np.float32)
+    s = (rng.randn(B, P) * 2.0).astype(np.float32)
+    yv = (np.sign(rng.randn(B, P)) * rng.uniform(0.05, 1.0, (B, P))).astype(np.float32)
+    w = np.zeros((B, P), np.float32)
+    for b in range(B):
+        w[b, :int(P * rng.uniform(0.1, 0.95))] = 1.0
+    yv *= w
+    active = np.ones(B, np.int32)
+    active[-1] = 0 if B > 1 else 1
+    return tuple(torch.from_numpy(a) for a in (Bf, s, yv, w, active))
+
+
+def _shuffle_tree(x, lanes):
+    """``v += __shfl_down_sync(v, off)`` for off = lanes / 2, ..., 1 along
+    axis 2 of ``x``: lane 0's sum."""
+    while lanes > 1:
+        lanes //= 2
+        x = x[:, :, :lanes] + x[:, :, lanes:2 * lanes]
+    return x[:, :, 0]
+
+
+def _narrow_emulation(Bf, s, yv, w, active, skip=True):
+    """The narrow kernel's float64 sums in its order: per lane and pixel
+    segment (``gram.narrow_plan``), the chunks in pixel order, skipping
+    (``skip``) a lane's chunks whose weights are all 0. At n = 6 a thread
+    per row of a chunk, a warp's 32 threads in the kernel's shuffle tree;
+    at n = 32, 64 warp w takes the 4-row k-steps w and w + 8 of a chunk,
+    in that order, each k-step's 4 products summed in pixel order (the
+    tensor core's own order inside a k-step is not emulated), g by rows of
+    the k-steps, then (r0 + r2) + (r1 + r3). Then the 8 warps in order and
+    the segments in order. H's upper triangle mirrored. Each product is
+    rounded on its own (the kernel's fused multiply-adds round product and
+    sum once)."""
+    B, P, n = Bf.shape
+    rows = gram.NARROW_ROWS[n]
+    pad = -P % rows
+    if pad:
+        Bf = torch.nn.functional.pad(Bf, (0, 0, 0, pad))
+        s, yv, w = (torch.nn.functional.pad(t, (0, pad)) for t in (s, yv, w))
+        P += pad
+    seg_chunks, nsegs = gram.narrow_plan(P, n)
+    term1, kappa = gram._logistic_weights(s, yv, w)
+    Bd = Bf.double()
+    A = Bd * kappa.double()[..., None]
+    T = term1.double()
+    nchunks = P // rows
+    live = (w.view(B, nchunks, rows) != 0).any(dim=2) if skip else \
+        torch.ones((B, nchunks), dtype=torch.bool)
+    H = torch.zeros((B, n, n), dtype=torch.float64)
+    g = torch.zeros((B, n), dtype=torch.float64)
+    for seg in range(nsegs):
+        chunks = range(seg * seg_chunks, min((seg + 1) * seg_chunks, nchunks))
+        if n == 6:
+            accH, accg = torch.zeros((B, rows, n, n), dtype=torch.float64), \
+                torch.zeros((B, rows, n), dtype=torch.float64)
+        else:
+            accH, accg = torch.zeros((B, 8, n, n), dtype=torch.float64), \
+                torch.zeros((B, 8, 4, n), dtype=torch.float64)
+        for c in chunks:
+            a, b, t = (x[:, c * rows:(c + 1) * rows] for x in (A, Bd, T))
+            on = live[:, c]
+            if n == 6:
+                steps = [(a[..., :, None] * b[..., None, :], b * t[..., None])]
+            else:
+                a, b, t = (x.reshape(B, rows // 32, 8, 4, *x.shape[2:]) for x in (a, b, t))
+                steps = []
+                for ks in range(rows // 32):
+                    ak, bk, tk = a[:, ks], b[:, ks], t[:, ks]
+                    dH = ak[:, :, 0, :, None] * bk[:, :, 0, None, :]
+                    for k in range(1, 4):
+                        dH = dH + ak[:, :, k, :, None] * bk[:, :, k, None, :]
+                    steps.append((dH, bk * tk[..., None]))
+            for dH, dg in steps:
+                accH = torch.where(on.view(B, *[1] * (accH.dim() - 1)), accH + dH, accH)
+                accg = torch.where(on.view(B, *[1] * (accg.dim() - 1)), accg + dg, accg)
+        if n == 6:
+            wH = _shuffle_tree(accH.view(B, 8, 32, n, n), 32)
+            wg = _shuffle_tree(accg.view(B, 8, 32, n), 32)
+        else:
+            wH = accH
+            wg = (accg[:, :, 0] + accg[:, :, 2]) + (accg[:, :, 1] + accg[:, :, 3])
+        segH, segg = torch.zeros_like(H), torch.zeros_like(g)
+        for wp in range(8):
+            segH, segg = segH + wH[:, wp], segg + wg[:, wp]
+        H, g = H + segH, g + segg
+    H = torch.triu(H) + torch.triu(H, 1).transpose(1, 2)
+    keep = (active != 0).double()
+    return (g * keep[:, None]).float(), (H * keep[:, None, None]).float()
+
+
+_NARROW_RUNS = {}
+
+
+def _narrow_run(B, P, n):
+    """The problem of a case, the emulation and the plain version (once a
+    case per process)."""
+    key = (B, P, n)
+    if key not in _NARROW_RUNS:
+        Bf, s, yv, w, active = _narrow_problem(B * P + n, B, P, n)
+        _NARROW_RUNS[key] = ((Bf, s, yv, w, active), _narrow_emulation(Bf, s, yv, w, active),
+                             gram.grad_hess_plain(Bf, s, yv, w, active))
+    return _NARROW_RUNS[key]
+
+
+def _ulps(x, ref):
+    """Per lane: the largest ``|x - ref|`` in float32 ulps of the lane's
+    largest ``|ref|``."""
+    top = ref.abs().flatten(1).amax(dim=1).double().clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 23)
+    return (x - ref).abs().flatten(1).amax(dim=1).double() / ulp
+
+
+@pytest.mark.parametrize('B,P,n', NARROW_CASES)
+def test_narrow_emulation_agrees_with_plain(B, P, n):
+    """The model's order of float64 sums changes g and H by at most 2
+    float32 ulps of each lane's largest entry against the plain version
+    (the limit the card holds the kernel to; the model, not the kernel)."""
+    (_, _, _, _, active), (g, H), (g_ref, H_ref) = _narrow_run(B, P, n)
+    on = active != 0
+    assert float(_ulps(H[on], H_ref[on]).max()) <= 2.0
+    assert float(_ulps(g[on], g_ref[on]).max()) <= 2.0
+    assert H_ref[on].abs().max() > 0 and torch.equal(H, H.transpose(1, 2))
+
+
+@pytest.mark.parametrize('B,P,n', [c for c in NARROW_CASES if c[0] > 1])
+def test_narrow_frozen_lanes_give_zeros(B, P, n):
+    """A frozen lane's g and H are exact zeros in the model, as in the plain
+    version."""
+    (_, _, _, _, active), (g, H), (g_ref, H_ref) = _narrow_run(B, P, n)
+    off = active == 0
+    assert off.any()
+    assert not g[off].any() and not H[off].any()
+    assert not g_ref[off].any() and not H_ref[off].any()
+
+
+@pytest.mark.parametrize('n', gram.NARROW_N)
+def test_narrow_skipping_zero_weight_chunks_keeps_the_bits(n):
+    """Chunks whose weights are all 0 add exact zeros to sums that start at
+    +0: in the model, skipping them, as the kernel does, gives the same bits
+    as summing them (the kernel's skip itself is tested on the card)."""
+    Bf, s, yv, w, active = _narrow_problem(n, 3, 6144, n)
+    rows = gram.NARROW_ROWS[n]
+    dead = ~(w.view(3, -1, rows) != 0).any(dim=2)
+    assert dead.any() and not dead.all()
+    skipped = _narrow_emulation(Bf, s, yv, w, active)
+    summed = _narrow_emulation(Bf, s, yv, w, active, skip=False)
+    assert all(torch.equal(x, y) for x, y in zip(skipped, summed))
+
+
+@pytest.mark.parametrize('n', gram.NARROW_N)
+def test_narrow_lane_sums_do_not_depend_on_the_batch(n):
+    """Each lane of a batch of 3, emulated alone and in batches of 2 with
+    another lane, gets the same bits: the model's order of sums reads
+    nothing of the lanes beside it (the kernel's lanes are held alone and in
+    batches on the card)."""
+    Bf, s, yv, w, _ = _narrow_problem(n + 1, 3, 2048 if n == 6 else 6144, n)
+    active = torch.ones(3, dtype=torch.int32)
+    g, H = _narrow_emulation(Bf, s, yv, w, active)
+    for b in range(3):
+        for others in ([], [(b + 1) % 3]):
+            idx = [b] + others
+            g1, H1 = _narrow_emulation(*(x[idx] for x in (Bf, s, yv, w)), active[idx])
+            assert torch.equal(g1[0], g[b]) and torch.equal(H1[0], H[b])
+
+
+@pytest.mark.parametrize('n', gram.NARROW_N)
+@pytest.mark.parametrize('P', sorted(set(batching.P_BUCKETS) | {2080, 6000}))
+def test_narrow_plan_reads_only_p_and_n(P, n):
+    """The narrow plan takes (P, n) alone (no batch, no active lanes: a
+    lane's segments are the same in every batch); its segments tile P
+    (padded up to whole chunks) in pixel order, none empty, at most
+    NARROW_MAX_SEGMENTS of at most NARROW_MAX_SEG_CHUNKS chunks, none
+    shorter than NARROW_SEG_PIXELS unless there is one."""
+    import inspect
+    assert list(inspect.signature(gram.narrow_plan).parameters) == ['P', 'n']
+    seg_chunks, nsegs = gram.narrow_plan(P, n)
+    rows = gram.NARROW_ROWS[n]
+    nchunks = -(-P // rows)
+    assert nsegs == -(-nchunks // seg_chunks) and (nsegs - 1) * seg_chunks < nchunks
+    assert nsegs <= gram.NARROW_MAX_SEGMENTS
+    assert seg_chunks <= gram.NARROW_MAX_SEG_CHUNKS
+    assert nsegs == 1 or seg_chunks * rows >= gram.NARROW_SEG_PIXELS[n]
+    chunks = [c for seg in range(nsegs)
+              for c in range(seg * seg_chunks, min((seg + 1) * seg_chunks, nchunks))]
+    assert chunks == list(range(nchunks))
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: the dispatcher's route
+    of a CUDA tensor, with the kernels replaced by spies."""
+
+    @property
+    def device(self):
+        return torch.device('cuda', 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize('n', gram.NARROW_N)
+def test_dispatcher_routes_narrow_sizes(monkeypatch, n):
+    """At n = 6, 32, 64 a CUDA tensor takes the narrow kernel at 6 passes
+    and the plain version, unmirrored, under the reduced-precision knobs
+    and ``cheap`` (the JAX package's XLA path there), and a CPU tensor the
+    plain version; n = 128 on the card keeps the tiled kernel."""
+    calls = []
+    plain = gram.grad_hess_plain
+    monkeypatch.setattr(gram, 'narrow_kernel', lambda *a: calls.append(('narrow', a[0].shape)))
+    monkeypatch.setattr(gram, 'grad_hess_kernel',
+                        lambda *a, **k: calls.append(('tiled', a[0].shape)))
+    Bf, s, yv, w, active = _narrow_problem(n, 2, 2048, n)
+    g, H = gram.fused_grad_hess_batched(Bf, s, yv, w, active)
+    assert calls == []
+    g_ref, H_ref = plain(Bf, s, yv, w, active)
+    assert torch.equal(g, g_ref) and torch.equal(H, H_ref)
+    card = [x.as_subclass(_OnCard) for x in (Bf, s, yv, w)]
+    gram.fused_grad_hess_batched(*card, active)
+    assert calls == [('narrow', (2, 2048, n))]
+    monkeypatch.setattr(gram, 'grad_hess_plain', lambda *a, **k: calls.append(
+        ('plain', a[0].shape, k['passes'], k['mirror'])))
+    for passes, cheap in ((3, False), (1, False), (6, True)):
+        monkeypatch.setattr(gram, 'GRAM_PASSES', passes)
+        gram.fused_grad_hess_batched(*card, active, cheap=cheap)
+        assert calls[-1] == ('plain', (2, 2048, n), 1 if cheap else passes, False)
+    monkeypatch.setattr(gram, 'GRAM_PASSES', 6)
+    del calls[1:]
+    Bf128, s128, yv128, w128 = (torch.from_numpy(a) for a in _dense_problem(0, 2, 2048, 128))
+    gram.fused_grad_hess_batched(*(x.as_subclass(_OnCard) for x in (Bf128, s128, yv128, w128)),
+                                 active)
+    assert calls[1:] == [('tiled', (2, 2048, 128))]
+
+
+def test_narrow_kernel_refuses_cpu_tensors():
+    Bf, s, yv, w, active = _narrow_problem(0, 1, 2048, 6)
+    with pytest.raises(ValueError):
+        gram.narrow_kernel(Bf, s, yv, w, active)
+
+
+def test_cpu_solver_keeps_the_plain_gram_at_narrow_sizes(monkeypatch):
+    """On the CPU the Newton loop at n = 6 asks the dispatcher, which takes
+    the plain version at 6 passes; the narrow kernel is never called."""
+    from superdsm_tpu_torch.dsm import solver
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('the narrow kernel was called for a CPU gram')
+    plain, calls = gram.grad_hess_plain, []
+
+    def counted(Bf, *args, **kwargs):
+        calls.append((tuple(Bf.shape), kwargs['passes']))
+        return plain(Bf, *args, **kwargs)
+    monkeypatch.setattr(gram, 'narrow_kernel', refuse)
+    monkeypatch.setattr(gram, 'grad_hess_plain', counted)
+    Bf, s, yv, w, _ = _narrow_problem(5, 2, 2048, 6)
+    B = 2
+    out = solver._solve_batch_impl(torch.zeros((B, 6)), Bf, None, yv, w, torch.zeros(B), 1.0,
+                                   torch.zeros((B, 0)), 3, 1e-5)
+    assert torch.isfinite(out[1]).all()
+    assert calls and set(calls) == {((B, 2048, 6), 6)}
+
+
+@pytest.mark.parametrize('n,P,served', [(6, 2080, True), (32, 6000, True), (64, 2048, True),
+                                        (128, 2048, True), (1024, 6144, True),
+                                        (128, 2080, False), (26, 2048, False)])
+def test_serves_names_the_dispatched_shapes(n, P, served):
+    """The Newton loops send the dispatcher every shape of n in NARROW_N
+    (the narrow kernel pads P) and n % 128 == 0 at P % 256 == 0, and keep
+    the plain version for any other."""
+    assert gram.serves(n, P) is served

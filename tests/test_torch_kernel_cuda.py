@@ -82,6 +82,15 @@ its batch, over two graph replays in a row (its arrival counters back at
 ``lane_step_pick`` or ``lane_step_tail``. A lane alone is
 held bitwise to the lane in its batch for the bf16 kernel (whose plan no
 longer reads B) and for the sharded solvers on a mesh of the card twice.
+
+The narrow kernel (``csrc/gram_narrow.cu``, n = 6, 32, 64, float64 products
+and sums) is held to the plain version within 2 float32 ulps of each
+lane's largest entry of g and of H, its frozen lanes to exact zeros, a lane
+alone, in a batch of 2 and with the other lanes frozen bitwise to the lane
+in its batch, a captured graph's replay to the eager launch, and NaN in its
+chunks of zero weight to the finite values there (they are skipped); it
+raises on what it does not take, and pads a P that is no whole number of
+its chunks.
 """
 
 import numpy as np
@@ -1787,3 +1796,121 @@ def test_mask_decode_kernel_raises_on_what_it_does_not_take():
                  (mb[0], wd, cnt, 128), (mb, wd, cnt, -1)):
         with pytest.raises(ValueError):
             mask.mask_to_pix_kernel(*args)
+
+
+def _narrow_problem(seed, B, P, n, dev):
+    """Random features, weights 1 on the first 10% to 95% of each lane's
+    pixels (0 after, with intensity 0), every fourth lane frozen."""
+    rng = np.random.RandomState(seed)
+    Bf = rng.rand(B, P, n) - 0.5
+    s = rng.randn(B, P) * 2.0
+    w = np.zeros((B, P))
+    for b in range(B):
+        w[b, :int(P * rng.uniform(0.1, 0.95))] = 1.0
+    yv = np.sign(rng.randn(B, P)) * rng.uniform(0.05, 1.0, (B, P)) * w
+    active = np.ones(B, np.int32)
+    active[::4] = 0 if B > 1 else 1
+    return tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in (Bf, s, yv, w)) \
+        + (torch.as_tensor(active, device=dev),)
+
+
+def _ulps(x, ref):
+    top = ref.abs().flatten(1).amax(dim=1).double().clamp_min(1e-30)
+    return (x - ref).abs().flatten(1).amax(dim=1).double() / \
+        torch.exp2(torch.floor(torch.log2(top)) - 23)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,P,n', [(32, 16384, 6), (64, 2048, 32), (16, 8192, 64),
+                                   (1, 2048, 32), (2, 6144, 64), (3, 2080, 6)])
+def test_narrow_kernel_matches_plain(B, P, n):
+    dev = _cuda()
+    Bf, s, yv, w, active = _narrow_problem(B + n, B, P, n, dev)
+    g, H = gram.narrow_kernel(Bf, s, yv, w, active)
+    g2, H2 = gram.narrow_kernel(Bf, s, yv, w, active)
+    g_ref, H_ref = gram.grad_hess_plain(Bf, s, yv, w, active)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2) and torch.equal(H, H2)
+    on = active != 0
+    assert not g[~on].any() and not H[~on].any()
+    assert float(_ulps(H[on], H_ref[on]).max()) <= 2.0
+    assert float(_ulps(g[on], g_ref[on]).max()) <= 2.0
+    assert torch.equal(H, H.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [6, 32, 64])
+def test_narrow_lane_alone_as_in_its_batch(n):
+    """A lane's bits alone, in a batch of 2, with the other lanes frozen and
+    in a captured graph's replay are those of the lane in its batch of 8."""
+    dev = _cuda()
+    Bf, s, yv, w, active = _narrow_problem(n, 8, 6144, n, dev)
+    g, H = gram.narrow_kernel(Bf, s, yv, w, active)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    for b in (1, 7):
+        lane = [x[b:b + 1] for x in (Bf, s, yv, w)]
+        g1, H1 = gram.narrow_kernel(*lane, one)
+        gp, Hp = gram.narrow_kernel(*[torch.cat([x, x]) for x in lane], torch.cat([one, one]))
+        alone = torch.zeros_like(active)
+        alone[b] = 1
+        gf, Hf = gram.narrow_kernel(Bf, s, yv, w, alone)
+        for gx, Hx, i in ((g1, H1, 0), (gp, Hp, 1), (gf, Hf, b)):
+            assert torch.equal(gx[i], g[b]) and torch.equal(Hx[i], H[b])
+    graph = torch.cuda.CUDAGraph()
+    gram.narrow_kernel(Bf, s, yv, w, active)
+    torch.cuda.synchronize()
+    gram.reset_launch_counts()
+    with gram.recording_launches() as records, torch.cuda.graph(graph):
+        out = gram.narrow_kernel(Bf, s, yv, w, active)
+    for _ in range(2):
+        graph.replay()
+        gram.count_replayed(records)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], g) and torch.equal(out[1], H)
+    assert gram.LAUNCHES['narrow'] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [6, 32, 64])
+def test_narrow_kernel_skips_zero_weight_chunks(n):
+    """The kernel neither reads nor sums a chunk whose weights are all 0
+    (whole segments of them included): NaN in such chunks' features,
+    surface and intensities leaves every lane's g and H bitwise those of the
+    finite values there."""
+    dev = _cuda()
+    B, P = 8, 6144
+    Bf, s, yv, w, active = _narrow_problem(n + 3, B, P, n, dev)
+    rows = gram.NARROW_ROWS[n]
+    dead = ~(w.view(B, -1, rows) != 0).any(dim=2)
+    seg_chunks = gram.narrow_plan(P, n)[0]
+    assert dead.any() and not dead.all()
+    assert dead.view(B, -1, seg_chunks).all(dim=2).any()
+    pix = dead.repeat_interleave(rows, dim=1)
+    nan = float('nan')
+    g, H = gram.narrow_kernel(Bf, s, yv, w, active)
+    gn, Hn = gram.narrow_kernel(Bf.masked_fill(pix[..., None], nan), s.masked_fill(pix, nan),
+                                yv.masked_fill(pix, nan), w, active)
+    torch.cuda.synchronize()
+    assert torch.isfinite(gn).all() and torch.isfinite(Hn).all()
+    assert torch.equal(gn, g) and torch.equal(Hn, H)
+
+
+@pytest.mark.cuda
+def test_narrow_library_refuses_bad_arguments():
+    dev = _cuda()
+    Bf, s, yv, w, active = _narrow_problem(0, 1, 2048, 32, dev)
+    lib = gram._load(gram.NARROW_SRC)
+    g = torch.empty((1, 32), device=dev)
+    H = torch.empty((1, 32, 32), device=dev)
+    ptrs = [t.data_ptr() for t in (Bf, s, yv, w, active, g, H)]
+    stream = torch.cuda.current_stream().cuda_stream
+    # several segments need scratch and counters; n outside {6, 32, 64},
+    # P no whole number of chunks and too long a segment are refused
+    assert lib.sdsm_gram_narrow_grad_hess(*ptrs, None, None, 1, 2048, 32, 16, stream) != 0
+    assert lib.sdsm_gram_narrow_grad_hess(*ptrs, None, None, 1, 2048, 16, 64, stream) != 0
+    assert lib.sdsm_gram_narrow_grad_hess(*ptrs, None, None, 1, 2040, 32, 64, stream) != 0
+    assert lib.sdsm_gram_narrow_grad_hess(*ptrs, None, None, 1, 2048, 32, 2048, stream) != 0
+    with pytest.raises(ValueError):
+        gram.narrow_kernel(Bf[..., :16].contiguous(), s, yv, w, active)
+    with pytest.raises(ValueError):
+        gram.narrow_kernel(Bf, s, yv, w, active.long())

@@ -356,6 +356,21 @@ and after the line search's launch);
 ``python3 chip_smoke.py --strict`` is the run above with the float64-sum
 gate enforced on every image (:data:`F64_NOT_MET` included): it fails
 today, at bench seed 3 in phase 4.
+
+``python3 chip_smoke.py --gem-reference [SEED]`` runs the global energy
+minimization's phase alone (:func:`phase_gem_reference`): one timed run of
+the benchmark's ``gowt1-batch`` cell (a window of
+:data:`GEM_REF_SECONDS`), then each of its window images once more through
+``automation.process_image`` in one thread (its label map bitwise the timed
+run's, else the phase fails), and, for at least :data:`GEM_REF_CLUSTERS`
+clusters of 3 to 12 atoms with at most :data:`GEM_REF_FOOTPRINTS` connected
+footprints and a defined optimum (every footprint's minimum exists), the
+port's cover, each footprint's energy the plain reference's
+(``portbench/reference/gem.py``, float64 on the card), against the
+reference's exhaustive optimum: the share within the reference's
+``TOLERANCE`` and the largest gap, and the gaps of the clusters left out
+for a footprint without a minimum, in its lines and in
+``chiprun_out/gem_reference.json``.
 """
 
 import contextlib
@@ -5663,6 +5678,90 @@ def phase_warmup(bench_seg):
             fail(f'first image {tag}: a label map differs from phase 4\'s')
 
 
+# ---------------------------------------------------------------------------
+# --gem-reference: the global energy minimization against its exhaustive optimum
+# ---------------------------------------------------------------------------
+
+#: The timed run's window (s), the least number of clusters compared, and
+#: the most connected footprints a compared cluster may have (each is
+#: minimized in float64 by the reference).
+GEM_REF_SECONDS = 40
+GEM_REF_CLUSTERS = 30
+GEM_REF_FOOTPRINTS = 64
+
+
+def phase_gem_reference(seed=3200000001):
+    """The gem of ``gowt1-batch``'s window images against the exhaustive
+    optimum of each cluster of 3 to 12 atoms (at most
+    :data:`GEM_REF_FOOTPRINTS` footprints), until at least
+    :data:`GEM_REF_CLUSTERS` clusters."""
+    import torch
+    import superdsm_tpu_torch as T
+    from portbench import harness
+    from portbench.reference import gem as ref
+    from superdsm_tpu_torch import automation
+    from superdsm_tpu_torch.output import get_output
+    from superdsm_tpu_torch.render import rasterize_labels
+    result, run, _ = harness.run_cell('gowt1-batch', seed, GEM_REF_SECONDS, False)
+    say(f'[gem-ref] timed run: correct {result["correct"]}, {result["attempted"]} images, '
+        f'check {result["check"]}')
+    done = sorted(i for i, r in run.records.items() if r.get('error') is None)
+    pipeline = T.create_default_pipeline()
+    rows = []
+    for k in done:
+        data, _, _ = automation.process_image(pipeline, run.base_config(), run.image(k),
+                                              out=get_output(None).derive(muted=True))
+        if not np.array_equal(rasterize_labels(data), run.records[k]['labels']):
+            fail(f'--gem-reference: window image {k} gives another label map alone')
+        adj, cover = data['adjacencies'], data['cover']
+        dsm_cfg = data['dsm_cfg']
+        settings = dict(alpha=dsm_cfg.get('alpha', 0.5), epsilon=dsm_cfg.get('epsilon', 1.0),
+                        smooth_amount=dsm_cfg.get('smooth_amount', 10),
+                        gaussian_shape_multiplier=dsm_cfg.get('gaussian_shape_multiplier', 2),
+                        smooth_subsample=dsm_cfg.get('smooth_subsample', 20),
+                        background_margin=dsm_cfg.get('background_margin', 20))
+        for label in sorted(adj.cluster_labels):
+            labels = adj.get_atoms_in_cluster(label)
+            sub = {a: adj[a] for a in labels}
+            if not 3 <= len(labels) <= 12 or \
+                    len(ref.connected_footprints(labels, sub)) > GEM_REF_FOOTPRINTS:
+                continue
+            t0 = time.time()
+            nu, opt, best = ref.cluster_optimum(data['y'], data['y_mask'], data['atoms'],
+                                                labels, sub, cover.beta, settings, 'cuda')
+            mine = [c.footprint for c in cover.solution_by_cluster[label]]
+            cost = ref.cover_cost(nu, mine, cover.beta)
+            rows.append(dict(image=k, cluster=int(label), atoms=len(labels), footprints=len(nu),
+                             defined=ref.defined(nu), cost=cost, optimum=opt,
+                             gap=ref.gap(cost, opt),
+                             port_cost=sum(c.energy + cover.beta
+                                           for c in cover.solution_by_cluster[label]),
+                             cover=[sorted(fp) for fp in mine],
+                             best=[sorted(fp) for fp in best], seconds=time.time() - t0))
+            say(f'[gem-ref] image {k} cluster {label}: {len(labels)} atoms, {len(nu)} '
+                f'footprints, gap {rows[-1]["gap"]:.3g}'
+                + ('' if rows[-1]['defined'] else ' (a footprint without a minimum)'))
+        torch.cuda.empty_cache()
+        if sum(r['defined'] for r in rows) >= GEM_REF_CLUSTERS:
+            break
+    judged = [r for r in rows if r['defined']]
+    if len(judged) < GEM_REF_CLUSTERS:
+        fail(f'--gem-reference: {len(judged)} clusters with a defined optimum, '
+             f'fewer than {GEM_REF_CLUSTERS}')
+    gaps = [r['gap'] for r in judged]
+    summary = dict(clusters=len(judged), images=len({r['image'] for r in judged}),
+                   equal_share=sum(g <= ref.TOLERANCE for g in gaps) / len(gaps),
+                   largest_gap=max(gaps), tolerance=ref.TOLERANCE,
+                   by_atoms={n: sum(r['atoms'] == n for r in judged) for n in range(3, 13)},
+                   undefined=len(rows) - len(judged),
+                   undefined_gaps=[r['gap'] for r in rows if not r['defined']])
+    say(f'[gem-ref] {json.dumps(summary)}')
+    os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
+    with open(os.path.join(REPO, 'chiprun_out', 'gem_reference.json'), 'w') as f:
+        json.dump(dict(summary=summary, timed=result, rows=rows), f)
+    return summary
+
+
 def _timed(number, fn, *args):
     """Runs phase ``number`` and prints its wall seconds."""
     t0 = time.time()
@@ -5757,6 +5856,11 @@ if __name__ == '__main__':
         ab(sys.argv[2:4], report=True)
     elif sys.argv[1:] == ['--split']:
         split()
+    elif sys.argv[1:2] == ['--gem-reference'] and len(sys.argv) <= 3:
+        phase_environment()
+        from portbench import run as _runmod
+        _runmod.environment()
+        _timed('gem-reference', phase_gem_reference, *(int(a) for a in sys.argv[2:]))
     elif sys.argv[1:] == ['--strict']:
         STRICT = True
         main()

@@ -19,6 +19,25 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+
+def _expandable_segments():
+    """Lets the caching allocator grow and shrink its segments by pages.
+
+    Worker threads on their own streams each cache the large transient
+    tensors of their chunks (a smooth matrix at (4, 131072, 1024) is 2 GB);
+    with fixed segments a small live tensor pins a whole cached segment: on
+    1024x1024 GOWT1 fields three workers left 74 GB of an 80 GB H100
+    reserved but unallocated, and a 1 GB request failed; with expandable
+    segments, whose pages are returned when freed, a run reserved at most
+    38 GB. A setting the user made in ``PYTORCH_CUDA_ALLOC_CONF`` is left
+    as it is."""
+    import os
+    if 'PYTORCH_CUDA_ALLOC_CONF' not in os.environ:
+        torch._C._accelerator_setAllocatorSettings('expandable_segments:True')
+
+
+_expandable_segments()
+
 from .version import VERSION as __version__  # noqa: E402,F401
 from ._device import get_device, set_device, use_device  # noqa: E402,F401
 from .pipeline import (Pipeline, Stage, create_pipeline,  # noqa: E402,F401

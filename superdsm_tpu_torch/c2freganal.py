@@ -366,6 +366,9 @@ def _cluster_worker(cluster, masked_cluster, max_atom_norm_energy, min_atom_radi
 
     Yields solve requests; the driver sends raw energies back. Returns
     ``(root_candidate, leaf_candidates, atoms_map, max_normalized_energy)``.
+    Counts on the recorder's ``sdsm.c2f.cluster`` span of the advance that
+    makes them (:mod:`.trace`): ``splits_tried``, each watershed split of a
+    region, and ``splits_kept``, each split accepted.
     """
     min_atom_size = math.pi * (min_atom_radius ** 2)
     if speculate is None:
@@ -488,6 +491,7 @@ def _cluster_worker(cluster, masked_cluster, max_atom_norm_energy, min_atom_radi
         c1_mask, c2_mask = memo.split(c0_mask_key, c0_mask,
                                       c1.seed, c1._seed_key,
                                       c2.seed, c2._seed_key)
+        trace.count('splits_tried')
 
         if c1_mask.sum() < min_atom_size:
             c0.seed = c2.seed    # change the seed for current region...
@@ -535,6 +539,7 @@ def _cluster_worker(cluster, masked_cluster, max_atom_norm_energy, min_atom_radi
             split_queue.put(c0)  # try again with different seed
             atoms_map = atoms_map_previous
         else:
+            trace.count('splits_kept')
             for c in (c1, c2):
                 if dq(c.normalized_energy) > dq(max_atom_norm_energy):
                     split_queue.put(c)

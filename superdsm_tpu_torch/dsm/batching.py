@@ -968,7 +968,8 @@ def _solve_problems(problems, alpha, epsilon, smooth_amount,
                 # a split keeps the whole chunk's elliptical skip (USE_WARM.all())
                 split = {} if devices is None else \
                     {'all_warm': bool(arrays[_USE_WARM_AT[kind]].all())}
-                with trace.span('sdsm.solve.dispatch', kind=kind, lanes=len(chunk)):
+                with trace.span('sdsm.solve.dispatch', kind=kind, lanes=len(chunk),
+                                P=pb, n=6 + kb, B=Bp):
                     outs = solve_on_devices(_DSM_SOLVES[kind], arrays, devices, **split)
                 _count_transfer(kind, problems=len(chunk), fitting=_fitting(chunk, pb, use_mask))
                 pending.append((kind, chunk, (kind, pb, kb, Bp) + statics, outs))

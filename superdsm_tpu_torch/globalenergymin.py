@@ -194,6 +194,12 @@ def _compute_generations(adjacencies, y_img, atoms_map, log_root_dir, pruning,
             # decision-quantized Criterion 2 (recompile stability, _stability.py)
             if dq(universe.energy) <= dq(beta + atom_energies_sum):
                 directly_solved_cluster_labels |= {cluster_label}
+        if trace.enabled():
+            trace.count('clusters', len(cluster_labels))
+            trace.count('atoms', len(atoms))
+            trace.count('direct', len(directly_solved_cluster_labels))
+            trace.count('largest_cluster',
+                        max((len(u.footprint) for u in universes), default=0))
 
     with trace.span('sdsm.gem.setcover'):
         cover = MinSetCover(atoms, beta, adjacencies, max_iter=max_iter, gamma=gamma)
@@ -207,8 +213,9 @@ def _compute_generations(adjacencies, y_img, atoms_map, log_root_dir, pruning,
         direct_solution_success_count=len(directly_solved_cluster_labels))
 
     def __estimate_progress(**kwargs):
-        return _estimate_progress(generations, adjacencies, max_seed_distance,
-                                  max_amount=max_work_amount, skip_last=True, **kwargs)
+        with trace.span('sdsm.gem.estimate'):
+            return _estimate_progress(generations, adjacencies, max_seed_distance,
+                                      max_amount=max_work_amount, skip_last=True, **kwargs)
 
     generations = [atoms]
     objects = atoms + universes
@@ -389,36 +396,42 @@ def _process_generation(cover, objects, previous_generation, y, atoms_map,
     ('exact': Algorithm 1 bounds; 'isbi24': greedy threshold), batch-solves
     the survivors on device in ONE :func:`compute_objects` call, and applies
     the post-solve survival threshold. Returns ``(next_generation,
-    new_objects)`` where the former feeds the following iteration."""
+    new_objects)`` where the former feeds the following iteration.
+
+    Counts on the recorder's generation span (:mod:`.trace`): ``grown``
+    candidates, ``pruned`` by the bounds before any solve, ``solved`` (the
+    rest, each a warm-started solve) and ``kept`` for the next generation."""
     expansion = _FootprintExpansion(adjacencies, max_seed_distance,
                                     ignored_cluster_labels, skip_last=True)
     candidates, thresholds = [], []
     discarded = 0
     cluster_costs = {}
-    for parent in previous_generation:
-        for footprint, added_label in expansion.grow(parent.footprint):
-            candidate = Object()
-            candidate.footprint = footprint
-            candidate.init_from = parent  # warm-start from the parent's solution
-            if pruning == 'exact':
-                lower, upper = _exact_candidate_bounds(
-                    cover, objects, adjacencies, parent, added_label,
-                    footprint, cluster_costs)
-                # decision-quantized pruning bound (recompile stability):
-                # discarding is conservative, so a stable-near-tie keeps the
-                # candidate (it is then pruned or kept by its own solved
-                # energy)
-                if dq(upper) < dq(lower):
-                    discarded += 1
-                    continue
-                thresholds.append(upper - cover.beta)
-            elif pruning == 'isbi24':
-                thresholds.append(parent.energy
-                                  + cover.get_atom(added_label).energy
-                                  + cover.beta)
-            else:
-                raise ValueError(f'Unknown pruning mode "{pruning}"')
-            candidates.append(candidate)
+    with trace.span('sdsm.gem.bounds'):
+        for parent in previous_generation:
+            for footprint, added_label in expansion.grow(parent.footprint):
+                candidate = Object()
+                candidate.footprint = footprint
+                candidate.init_from = parent  # warm-start from the parent's solution
+                if pruning == 'exact':
+                    lower, upper = _exact_candidate_bounds(
+                        cover, objects, adjacencies, parent, added_label,
+                        footprint, cluster_costs)
+                    # decision-quantized pruning bound (recompile stability):
+                    # discarding is conservative, so a stable-near-tie keeps
+                    # the candidate (it is then pruned or kept by its own
+                    # solved energy)
+                    if dq(upper) < dq(lower):
+                        discarded += 1
+                        continue
+                    thresholds.append(upper - cover.beta)
+                elif pruning == 'isbi24':
+                    thresholds.append(parent.energy
+                                      + cover.get_atom(added_label).energy
+                                      + cover.beta)
+                else:
+                    raise ValueError(f'Unknown pruning mode "{pruning}"')
+                candidates.append(candidate)
+    pruned = discarded
 
     compute_objects(candidates, y, atoms_map, dsm_cfg, log_root_dir, out=out)
 
@@ -433,4 +446,9 @@ def _process_generation(cover, objects, previous_generation, y, atoms_map,
             candidate.fg_fragment = None  # only footprint + energy still needed
     out.write(f'Next iteration: {len(next_generation)} '
               f'({discarded} discarded, {pruning} pruning)')
+    if trace.enabled():
+        trace.count('grown', pruned + len(candidates))
+        trace.count('pruned', pruned)
+        trace.count('solved', len(candidates))
+        trace.count('kept', len(next_generation))
     return next_generation, candidates
